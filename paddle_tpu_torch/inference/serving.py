@@ -1,0 +1,431 @@
+"""Continuous-batching serving engine for the Llama family (port of
+``paddle_tpu/inference/serving.py``, greedy rope-fused path).
+
+Every engine step is ONE mixed dispatch over a token-packed batch:
+prefill chunks of at most ``chunk_block`` tokens and single-token
+decode rows share a ``chunk_budget``-token step (decode rows first,
+then prompt chunks FIFO by admission; a long prompt may take several
+chunk rows of one dispatch). Per layer the dispatch makes ONE call of
+:func:`~paddle_tpu_torch.ops.ragged_paged_attention.fused_ragged_paged_attention`:
+rope on the packed pre-rope q/k, the write of the step's K/V into the
+shared page pools and ragged paged attention. Everything around it
+(embedding, RMSNorm, projections, SwiGLU, the lm head at each row's last
+token and the greedy argmax) is plain PyTorch.
+
+The row metadata is built on the host in numpy and copied to the device
+once per dispatch. The scheduler and its geometry (``chunk_block``
+rounding, ``chunk_budget``, ``rows_cap``, the trash page) match the
+reference engine, so both schedule the same rows.
+
+Not in this slice (ROADMAP queue A, in order): sampling, the prefix
+cache, the request lifecycle (deadlines, cancel, drain, the degradation
+ladder, the watchdog), speculative decoding, int8 KV pages, CUDA-graph
+decode. Admission therefore reserves each request's worst-case pages up
+front and raises :class:`AdmissionError` when they do not fit, and the
+engine is driven from one thread.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from ..ops.ragged_paged_attention import (fused_ragged_paged_attention,
+                                          rope_tables)
+from .paged_cache import PageAllocator
+
+__all__ = ["LlamaServingEngine", "Request", "AdmissionError"]
+
+
+class AdmissionError(MemoryError):
+    """Typed admission rejection carrying queue/pool stats so callers
+    can shed load or retry once capacity frees up."""
+
+    def __init__(self, reason, live, max_batch, free_pages, num_pages,
+                 retries=0, retry_after=None):
+        msg = (f"{reason} (live={live}/{max_batch}, "
+               f"free_pages={free_pages}/{num_pages}, retries={retries})")
+        super().__init__(msg)
+        self.reason = reason
+        self.live = live
+        self.max_batch = max_batch
+        self.free_pages = free_pages
+        self.num_pages = num_pages
+        self.retries = retries
+        self.retry_after = retry_after
+
+    def __reduce__(self):
+        return (type(self), (self.reason, self.live, self.max_batch,
+                             self.free_pages, self.num_pages, self.retries,
+                             self.retry_after))
+
+
+class Request:
+    """One generation request (``seq_id`` is assigned by the engine).
+
+    Args:
+        prompt_ids: non-empty 1-D sequence of prompt token ids.
+        max_new_tokens: generation budget, >= 1.
+        eos_token_id: optional early-stop token (kept in the output).
+        temperature: 0 (greedy) only; sampling is a later slice.
+        stop: token ids that end generation before being appended.
+    """
+
+    def __init__(self, prompt_ids, max_new_tokens=16, eos_token_id=None,
+                 temperature=0.0, stop=()):
+        self.prompt_ids = np.asarray(prompt_ids, np.int64).reshape(-1)
+        if self.prompt_ids.size == 0:
+            raise ValueError(
+                "prompt_ids is empty: a request needs at least one "
+                "prompt token")
+        if int(max_new_tokens) <= 0:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if temperature:
+            raise NotImplementedError(
+                "sampled decoding (temperature > 0) is not ported yet "
+                "(ROADMAP queue A); this engine decodes greedily")
+        self.max_new_tokens = int(max_new_tokens)
+        self.eos_token_id = eos_token_id
+        self.stop_set = frozenset(int(t) for t in stop)
+        self.output_ids: list[int] = []
+        self.seq_id = None
+        self.done = False
+        self.status = "pending"
+        self.ttft = None              # seconds from admission to 1st token
+        self._t_admit = None
+        self._prefilled = 0           # prompt tokens written to pages
+
+
+class LlamaServingEngine:
+    """Greedy continuous-batching engine over a
+    :class:`~paddle_tpu_torch.models.llama.LlamaForCausalLM`; it runs on
+    the model's device, with page pools in the model's dtype. The
+    geometry arguments mean what they mean in the reference engine;
+    ``prefix_cache``, ``spec_k``, ``kv_dtype``, ``weight_dtype`` and
+    ``kv_tier`` are accepted only at their off values (later slices)."""
+
+    #: decode steps between admission checks while prompts are pending
+    DECODE_TICKS = 16
+
+    def __init__(self, model, max_batch=16, page_size=16, num_pages=None,
+                 max_pages_per_seq=None, chunk_budget=None,
+                 chunk_block=None, decode_ticks=None, prefix_cache=False,
+                 spec_k=0, kv_dtype=None, weight_dtype=None, kv_tier=False):
+        later = {"prefix_cache": prefix_cache, "spec_k": spec_k,
+                 "kv_dtype": kv_dtype,
+                 "weight_dtype": weight_dtype not in (None, "bf16"),
+                 "kv_tier": kv_tier}
+        asked = [k for k, v in later.items() if v]
+        if asked:
+            raise NotImplementedError(
+                f"{', '.join(asked)}: not ported yet (ROADMAP queue A)")
+        if num_pages is None:
+            num_pages = max_batch * 24 + 8
+        self.model = model
+        cfg = model.config
+        self.max_batch = max_batch
+        self.page_size = page_size
+        # the reference rounds chunk_block so its [QB*group] query tile
+        # stays sublane-aligned on the TPU; kept so both engines
+        # schedule the same rows
+        group = max(1, cfg.num_attention_heads
+                    // max(1, cfg.num_key_value_heads))
+        align = 8 // math.gcd(group, 8)
+        qb = int(chunk_block) if chunk_block else min(
+            32, max(8, 2 * page_size))
+        self.chunk_block = -(-qb // align) * align
+        budget = int(chunk_budget) if chunk_budget \
+            else max(64, 4 * max_batch)
+        self.chunk_budget = max(budget, 2 * max_batch, self.chunk_block)
+        self.decode_ticks = int(decode_ticks) if decode_ticks \
+            else self.DECODE_TICKS
+        # every live sequence may hold one decode row; the remaining
+        # budget splits into chunk rows
+        self.rows_cap = max_batch + -(-self.chunk_budget
+                                      // self.chunk_block)
+        # page num_pages-1 is the trash page no table references
+        self.alloc = PageAllocator(num_pages - 1, page_size,
+                                   max_pages_per_seq)
+        self.width = self.alloc.max_pages_per_seq
+        self.trash_page = num_pages - 1
+        param = next(model.parameters())
+        self.device = param.device
+        shape = (num_pages, cfg.num_key_value_heads, page_size, cfg.head_dim)
+        self.k_pools = [torch.zeros(shape, dtype=param.dtype,
+                                    device=self.device)
+                        for _ in range(cfg.num_hidden_layers)]
+        self.v_pools = [torch.zeros_like(k) for k in self.k_pools]
+        self._live: dict[int, Request] = {}
+        self._next_id = 0
+        self._dispatch_count = 0
+
+    # ------------------------------------------------------------------
+    # the mixed step: prefill chunks + decode rows, one dispatch
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _mixed_forward(self, tokens, pos, flat_idx, last_idx, tables,
+                       kv_lens, q_starts, q_lens, w_starts, w_flats,
+                       w_ends, qb):
+        """ONE token-packed model step over ``T`` real tokens (prefill
+        chunks and decode tokens back to back) and ``R`` rows; returns
+        the greedy next token of each row ``[R]`` (argmax at the row's
+        last position). tokens/pos/flat_idx [T]; tables [R, W];
+        last_idx and the row metadata [R]."""
+        m = self.model.model
+        cfg = self.model.config
+        t, r_rows = tokens.shape[0], tables.shape[0]
+        x = m.embed_tokens(tokens.long())                  # [T, hidden]
+        # rotary tables computed once per dispatch, shared by all layers
+        rsin, rcos = rope_tables(pos, cfg.head_dim, float(cfg.rope_theta))
+        flat = flat_idx.long()
+        for li, layer in enumerate(m.layers):
+            h = layer.input_layernorm(x)
+            att = layer.self_attn
+            q = att.q_proj(h).reshape(t, att.num_heads, att.head_dim)
+            k = att.k_proj(h).reshape(t, att.num_kv_heads, att.head_dim)
+            v = att.v_proj(h).reshape(t, att.num_kv_heads, att.head_dim)
+            attn4 = fused_ragged_paged_attention(
+                q, k, v, self.k_pools[li], self.v_pools[li], tables,
+                kv_lens, q_starts, q_lens, w_starts, w_flats, w_ends,
+                self.trash_page, rsin, rcos, qb)
+            attn = attn4.reshape(r_rows * qb, att.num_heads,
+                                 att.head_dim)[flat]
+            x = x + att.o_proj(attn.reshape(t, -1))
+            x = x + layer.mlp(layer.post_attention_layernorm(x))
+        x = m.norm(x)
+        logits = self.model._logits(x[last_idx.long()])    # [R, V]
+        return logits.argmax(dim=-1)
+
+    def _schedule_rows(self):
+        """One mixed step's rows: a decode row for every fully
+        prefilled live sequence, then prompt chunks of at most
+        ``chunk_block`` tokens FIFO by admission until the
+        ``chunk_budget`` (or ``rows_cap``) is spent. Each row is
+        ``(req, sid, start, n, toks, is_decode)``."""
+        live = [r for r in self._live.values() if not r.done]
+        decode = [r for r in live if r._prefilled >= len(r.prompt_ids)]
+        prefill = [r for r in live if r._prefilled < len(r.prompt_ids)]
+        rows = []
+        budget = self.chunk_budget
+        for r in decode:
+            # admission reserved this token's page (see _admit)
+            prev = self.alloc.extend(r.seq_id, 1)
+            tok = r.output_ids[-1] if r.output_ids \
+                else int(r.prompt_ids[-1])
+            rows.append((r, r.seq_id, prev, 1, (tok,), True))
+            budget -= 1
+        for r in prefill:
+            if budget <= 0 or len(rows) >= self.rows_cap:
+                break
+            off = int(r._prefilled)
+            n_total = len(r.prompt_ids)
+            while off < n_total and budget > 0 \
+                    and len(rows) < self.rows_cap:
+                n = min(self.chunk_block, n_total - off, budget)
+                toks = tuple(int(x) for x in r.prompt_ids[off:off + n])
+                rows.append((r, r.seq_id, off, n, toks, False))
+                off += n
+                budget -= n
+        return rows
+
+    def _dispatch_rows(self, rows):
+        """Dispatch ONE mixed step over a scheduled row list and apply
+        the results: prefill progress and emitted tokens. Returns tokens
+        emitted."""
+        needs_mixed = any(n > 1 or not is_dec
+                          for _, _, _, n, _, is_dec in rows)
+        qb = self.chunk_block if needs_mixed else 1
+        r_n = len(rows)
+        t_n = sum(n for _, _, _, n, _, _ in rows)
+        tokens = np.zeros((t_n,), np.int32)
+        pos = np.zeros((t_n,), np.int32)
+        flat_idx = np.zeros((t_n,), np.int32)
+        last_idx = np.zeros((r_n,), np.int32)
+        tables = np.full((r_n, self.width), self.trash_page, np.int32)
+        # kv_lens, q_starts, q_lens, w_starts, w_flats, w_ends
+        meta = np.zeros((6, r_n), np.int32)
+        # per sequence: the first position this dispatch writes and its
+        # packed index, and the final kv_len (rows of one sequence are
+        # consecutive)
+        seq_first: dict[int, tuple] = {}
+        seq_last: dict[int, int] = {}
+        t = 0
+        for i, (r, sid, start, n, toks, is_dec) in enumerate(rows):
+            tb = self.alloc._tables[sid]
+            tables[i, :len(tb)] = tb
+            meta[0:3, i] = (start + n, start, n)
+            tokens[t:t + n] = toks
+            pos[t:t + n] = start + np.arange(n)
+            flat_idx[t:t + n] = i * qb + np.arange(n)
+            seq_first.setdefault(sid, (start, t))
+            seq_last[sid] = start + n
+            t += n
+            last_idx[i] = t - 1
+        for i, (_, sid, *_) in enumerate(rows):
+            meta[3:5, i] = seq_first[sid]
+            meta[5, i] = seq_last[sid]
+        host = np.concatenate([tokens, pos, flat_idx, last_idx,
+                               tables.reshape(-1), meta.reshape(-1)])
+        dev = torch.from_numpy(host).to(self.device)   # one copy
+        o = 3 * t_n + r_n
+        tok_d, pos_d, flat_d, last_d = dev[:o].split([t_n, t_n, t_n, r_n])
+        tables_d = dev[o:o + r_n * self.width].view(r_n, self.width)
+        kv_d, qs_d, ql_d, ws_d, wf_d, we_d = \
+            dev[o + r_n * self.width:].view(6, r_n).unbind(0)
+        nxt = self._mixed_forward(tok_d, pos_d, flat_d, last_d, tables_d,
+                                  kv_d, qs_d, ql_d, ws_d, wf_d, we_d, qb)
+        out = nxt.tolist()
+        for r, sid, start, n, _, is_dec in rows:
+            if not is_dec and r.seq_id == sid:
+                r._prefilled = max(r._prefilled, start + n)
+        emitted = 0
+        for i, (r, sid, start, n, _, is_dec) in enumerate(rows):
+            if r.done or r.seq_id != sid:
+                continue
+            # decode rows emit; a prompt's FINAL chunk emits its first
+            # token; a mid-prompt chunk's argmax is discarded
+            if is_dec or start + n >= len(r.prompt_ids):
+                self._emit(r, int(out[i]))
+                emitted += 1
+        return emitted
+
+    # ------------------------------------------------------------------
+    # admission, emission, driving
+    # ------------------------------------------------------------------
+    def _pages_needed(self, req):
+        """Worst-case pages of a request: its prompt plus every decode
+        token it may write (the last emitted token is never written)."""
+        n = len(req.prompt_ids) + req.max_new_tokens - 1
+        return max(1, -(-n // self.page_size))
+
+    def _admit(self, req):
+        """Admit one request, reserving its worst-case pages against
+        what the live set may still draw. Raises :class:`ValueError`
+        for a request that can never fit and :class:`AdmissionError`
+        when it does not fit now."""
+        if req.done:
+            return req.seq_id
+        need = self._pages_needed(req)
+        cap = min(self.alloc.max_pages_per_seq, self.alloc.num_pages)
+        if need > cap:
+            raise ValueError(
+                f"prompt of {len(req.prompt_ids)} tokens + "
+                f"{req.max_new_tokens} new tokens needs {need} pages, "
+                f"beyond this engine's {cap} pages per sequence; size "
+                f"the pool up (num_pages/max_pages_per_seq)")
+        live = [r for r in self._live.values() if not r.done]
+        owed = sum(self._pages_needed(r)
+                   - len(self.alloc._tables[r.seq_id]) for r in live)
+        reason = None
+        if len(live) >= self.max_batch:
+            reason = "engine full"
+        elif need + owed > self.alloc.free_pages:
+            reason = "KV page pool exhausted"
+        if reason:
+            raise AdmissionError(reason, live=len(live),
+                                 max_batch=self.max_batch,
+                                 free_pages=self.alloc.free_pages,
+                                 num_pages=self.alloc.num_pages)
+        req.seq_id = self._next_id
+        self._next_id += 1
+        self.alloc.admit(req.seq_id, len(req.prompt_ids))
+        req._prefilled = 0
+        req.status = "live"
+        req._t_admit = time.perf_counter()
+        self._live[req.seq_id] = req
+        return req.seq_id
+
+    def _retire(self, req, status):
+        if req.done:
+            return
+        req.done = True
+        req.status = status
+        if self._live.pop(req.seq_id, None) is not None:
+            self.alloc.release(req.seq_id)
+
+    def add_request(self, req):
+        """Admit a request and drive its chunked prefill through to its
+        first emitted token (live decodes ride along in the same
+        dispatches). Returns its seq_id."""
+        sid = self._admit(req)
+        while not req.done and req._prefilled < len(req.prompt_ids):
+            if self.step() == 0:
+                break
+        return sid
+
+    def _emit(self, req, token):
+        if not req.output_ids and req._t_admit is not None:
+            req.ttft = time.perf_counter() - req._t_admit
+        # stop tokens end generation before they are appended; eos is
+        # appended, then ends it
+        if token in req.stop_set:
+            self._retire(req, "completed")
+            return
+        req.output_ids.append(token)
+        if (req.eos_token_id is not None and token == req.eos_token_id) \
+                or len(req.output_ids) >= req.max_new_tokens:
+            self._retire(req, "completed")
+
+    def step(self):
+        """Advance the engine by ONE mixed dispatch. Returns the number
+        of rows dispatched (0 = nothing live)."""
+        return self._mixed_step()[0]
+
+    def _mixed_step(self):
+        if not any(not r.done for r in self._live.values()):
+            return 0, 0
+        self._dispatch_count += 1
+        rows = self._schedule_rows()
+        if not rows:
+            return 0, 0
+        return len(rows), self._dispatch_rows(rows)
+
+    def decode_many(self, n):
+        """``n`` mixed steps for the current live set (chunks of
+        still-prefilling prompts ride along). Returns tokens emitted."""
+        served = 0
+        while n > 0:
+            rows, emitted = self._mixed_step()
+            if rows == 0:
+                break
+            served += emitted
+            n -= 1
+        return served
+
+    def generate(self, prompts, max_new_tokens=16, eos_token_id=None):
+        """Admit all prompts (continuous batching handles ragged finish
+        times), run to completion, return output id lists in order. A
+        prompt that does not fit yet waits for live requests to retire;
+        one that does not fit an idle engine raises. An entry of
+        ``prompts`` may also be a :class:`Request` (its own budget
+        applies), so the caller can read its ``ttft`` afterwards."""
+        reqs = [p if isinstance(p, Request)
+                else Request(p, max_new_tokens, eos_token_id)
+                for p in prompts]
+        pending = list(reqs)
+        while pending or any(not r.done for r in reqs):
+            while pending and len(self._live) < self.max_batch:
+                try:
+                    self._admit(pending[0])
+                except AdmissionError:
+                    if not self._live:
+                        raise
+                    break
+                pending.pop(0)
+            live = [r for r in self._live.values() if not r.done]
+            if not live:
+                continue
+            if any(r._prefilled < len(r.prompt_ids) for r in live):
+                self.step()
+                continue
+            # decode until the earliest possible retirement; with EOS or
+            # pending admissions, re-check admission every decode_ticks
+            run = min(r.max_new_tokens - len(r.output_ids) for r in live)
+            if pending or eos_token_id is not None:
+                run = min(run, self.decode_ticks)
+            self.decode_many(max(1, run))
+        return [r.output_ids for r in reqs]

@@ -1,0 +1,92 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
+library with a plain C interface, loaded with :mod:`ctypes`. Builds
+happen at first use, all sources at once (one ``nvcc`` process each),
+into ``paddle_tpu_torch/build/<hash>/``, keyed by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one
+is reused. A missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+__all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "load"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+#: library name -> source file under csrc/
+SOURCES = {"ragged_paged_attention": "ragged_paged_attention.cu"}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc():
+    cands = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cands.append(os.path.join(root, "bin", "nvcc"))
+    for c in cands:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, in $CUDA_HOME/bin and "
+        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
+
+
+def _lib_path(name):
+    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
+        src = f.read()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD, h[:16], f"lib{name}.so")
+
+
+def build_all(names=None):
+    """Compile every library in ``names`` (default: all) that is not
+    built yet, one ``nvcc`` each, all started together. Returns
+    ``{name: path}``; raises :class:`RuntimeError` naming the source
+    and the compiler's output if any build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    paths = {n: _lib_path(n) for n in names}
+    todo = [n for n in names if not os.path.exists(paths[n])]
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        os.makedirs(os.path.dirname(paths[n]), exist_ok=True)
+        tmp = f"{paths[n]}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT), tmp)
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[n]} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, paths[n])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: "
+                           + "\n".join(failed))
+    return paths
+
+
+def load(name):
+    """The loaded :class:`ctypes.CDLL` of library ``name``, building it
+    first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(build_all([name])[name])
+        return lib

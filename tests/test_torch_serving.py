@@ -1,0 +1,149 @@
+"""The port's serving engine against the reference engine.
+
+A tiny model is fitted first (``quant.quality.fit_on_prompts``): a
+random-init model's logits are near-ties, and greedy matching on it
+would measure tie-breaking noise. Its weights are carried into the port
+with ``load_numpy_state``. The reference engine is the two-op path
+(``fused_kv=False``) with the prefix cache and sampling off: the greedy
+tokens of both engines must be identical for ragged prompts longer than
+one ``chunk_budget``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.inference.serving import LlamaServingEngine as JaxEngine
+from paddle_tpu.inference.serving import Request as JaxRequest
+from paddle_tpu.models import LlamaForCausalLM as JaxLlama
+from paddle_tpu.models import tiny_llama_config as jax_tiny
+from paddle_tpu.quant import quality
+
+from paddle_tpu_torch.inference.serving import (AdmissionError,
+                                                LlamaServingEngine, Request)
+from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
+                                     tiny_llama_config)
+
+GEOM = dict(max_batch=4, page_size=8, num_pages=64, chunk_block=8,
+            chunk_budget=16)
+
+
+@pytest.fixture(scope="module")
+def models():
+    paddle.seed(0)
+    jm = JaxLlama(jax_tiny())
+    quality.fit_on_prompts(jm, steps=20)
+    jm.eval()
+    arrays = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
+    tm = LlamaForCausalLM(tiny_llama_config(), device="cpu")
+    return jm, load_numpy_state(tm, arrays)
+
+
+def _prompts(seed, lens):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 128, (n,)).tolist() for n in lens]
+
+
+@pytest.mark.parametrize("lens,new", [
+    ((37, 5, 20, 12, 29), 8),       # 5 prompts > max_batch: one waits
+    ((17, 40), 12)])
+def test_generate_matches_reference_engine(models, lens, new):
+    jm, tm = models
+    prompts = _prompts(len(lens), lens)
+    je = JaxEngine(jm, fused_kv=False, prefix_cache=False, sampling=False,
+                   **GEOM)
+    want = je.generate(prompts, max_new_tokens=new)
+    je.close()
+    te = LlamaServingEngine(tm, **GEOM)
+    assert (te.chunk_block, te.chunk_budget, te.rows_cap,
+            te.trash_page) == (je.chunk_block, je.chunk_budget,
+                               je.rows_cap, je.trash_page)
+    got = te.generate(prompts, max_new_tokens=new)
+    assert got == want
+    assert not te._live
+    assert te.alloc.free_pages == te.alloc.num_pages
+
+
+def test_schedule_matches_reference(models):
+    """Both schedulers pack the same rows for the same live set."""
+    jm, tm = models
+    prompts = _prompts(3, (30, 3, 19))
+    je = JaxEngine(jm, fused_kv=False, prefix_cache=False, sampling=False,
+                   **GEOM)
+    te = LlamaServingEngine(tm, **GEOM)
+    for p in prompts:
+        je._admit(JaxRequest(p, 4))
+        te._admit(Request(p, 4))
+    for _ in range(3):
+        with je._lock:
+            jrows, _ = je._schedule_rows()
+        trows = te._schedule_rows()
+        strip = [[row[1:] for row in rows] for rows in (jrows, trows)]
+        assert strip[0] == strip[1]
+        je._dispatch_rows(jrows, [])
+        te._dispatch_rows(trows)
+    je.close()
+
+
+def test_decode_many_equals_repeated_step(models):
+    _, tm = models
+    prompts = _prompts(5, (23, 9, 14))
+    outs = []
+    for use_many in (True, False):
+        te = LlamaServingEngine(tm, **GEOM)
+        reqs = [Request(p, max_new_tokens=10) for p in prompts]
+        for r in reqs:
+            te.add_request(r)
+        if use_many:
+            served = te.decode_many(6)
+            assert served > 0
+        else:
+            for _ in range(6):
+                te.step()
+        outs.append([list(r.output_ids) for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def test_add_request_prefills_to_first_token(models):
+    _, tm = models
+    te = LlamaServingEngine(tm, **GEOM)
+    r = Request(_prompts(6, (41,))[0], max_new_tokens=3)
+    te.add_request(r)
+    assert r._prefilled == 41 and len(r.output_ids) == 1
+    assert r.status == "live" and r.ttft is not None
+    while not r.done:
+        te.step()
+    assert r.status == "completed" and len(r.output_ids) == 3
+
+
+def test_admission_and_unported_options(models):
+    _, tm = models
+    te = LlamaServingEngine(tm, max_batch=2, page_size=8, num_pages=9)
+    te._admit(Request([1] * 30, max_new_tokens=10))     # 5 pages
+    with pytest.raises(AdmissionError, match="KV page pool exhausted"):
+        te._admit(Request([1] * 20, max_new_tokens=10))  # 4 more: 9 > 8
+    with pytest.raises(ValueError, match="pages per sequence"):
+        te._admit(Request([1] * 100, max_new_tokens=10))
+    with pytest.raises(NotImplementedError):
+        Request([1, 2], temperature=0.7)
+    for kw in ({"prefix_cache": True}, {"spec_k": 2},
+               {"kv_dtype": "int8"}, {"weight_dtype": "int8"},
+               {"kv_tier": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            LlamaServingEngine(tm, **kw)
+
+
+def test_eos_and_stop_tokens(models):
+    _, tm = models
+    te = LlamaServingEngine(tm, **GEOM)
+    p = _prompts(9, (12,))[0]
+    free = te.generate([p], max_new_tokens=6)[0]
+    eos = te.generate([p], max_new_tokens=6, eos_token_id=free[2])[0]
+    assert eos == free[:free.index(free[2]) + 1]
+    r = Request(p, max_new_tokens=6, stop=(free[2],))
+    te.add_request(r)
+    while not r.done:
+        te.step()
+    assert r.output_ids == free[:free.index(free[2])]
+    assert torch.is_tensor(te.k_pools[0])
