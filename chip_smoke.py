@@ -14,16 +14,34 @@ package is not beside it, and when any phase fails:
    heads, 8 kv heads, head_dim 128, page 16; a mixed dispatch at qblock
    32 and a decode-only one at qblock 1), with its time, the plain
    version's time, a PyTorch library call's time and the card's bound;
+3b. the training kernels against their plain versions on the card:
+   flash attention forward, dQ and dK/dV at Llama-3-8B training shapes
+   (batch 2 x seq 2048, 32 q / 8 kv heads, head_dim 128, bf16, causal;
+   also a non-causal and a shorter-query causal case), and the fused
+   linear cross-entropy forward at N = D = 4096, V = 128256, f32, 5% of
+   rows ignored; each with its time, the plain version's, a PyTorch
+   library call's and the card's bound;
 4. serving Llama-3-8B at full width and depth (random bf16 weights from
    a seeded generator on the card) through
    ``LlamaServingEngine.generate``: 8 prompts of 64-512 tokens, 32 new
    tokens each, with every launch of the kernels counted and the plain
    attention never called; every served token is checked against the
    model's own plain forward;
-5. a JSON line of kernel results, then the final result line.
+5. training at Llama-3-8B width cut to 8 layers (random f32 weights from
+   a seeded generator on the card) through
+   ``examples.llama_pretrain.train``: bf16 ``auto_cast``, AdamW, batch 2
+   x seq 2048, 10 steps on one fixed seeded batch, every kernel launch
+   counted (one of each flash kernel per layer per step, one loss kernel
+   per step) and no plain version called, finite and falling losses;
+   then one step of a 2-layer model with the kernels against the same
+   step with the plain versions (loss and gradients);
+6. a JSON line of kernel results, then the final result line.
 """
 
+import contextlib
+import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -33,10 +51,32 @@ H, HK, D, PAGE, QB = 32, 8, 128, 16, 32     # Llama-3-8B serving shapes
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM device memory
 BF16_FLOPS = 989e12                          # H100 SXM dense bf16
 OUT_VEC = 2 ** -10  # out slack beyond 1 ulp, x the head vector's max
+# gradient rows can cancel to f32 rounding noise (the first causal query:
+# one key, P = 1, dP - delta = 0); that noise scales with the terms, so a
+# gradient's head-vector max is taken at least GRAD_FLOOR x the tensor max
+GRAD_FLOOR = 2 ** -6
 NEW = 32            # new tokens per served request
 EXACT_FLOOR = 0.75  # share of served tokens equal to the plain argmax
 TIE_TOL = 0.5       # logit gap allowed to the plain forward's argmax
 REPLACES = "paddle_tpu/ops/ragged_paged_attention.py:1060"
+F32_FLOPS = 67e12   # H100 SXM f32 outside the tensor cores
+TRAIN_B, TRAIN_S = 2, 2048               # Llama-3-8B training batch
+TRAIN_LAYERS, TRAIN_STEPS = 8, 10        # depth cut to fit one card
+CE_N, CE_D, CE_V = 4096, 4096, 128256    # the loss at those shapes
+CE_IGNORED = 0.05   # share of loss rows at ignore_index
+LSE_ABS = 1e-3      # flash lse tolerance
+CE_REL = 1e-4       # loss kernel lse/pick, relative to max(|x|, 1)
+LOSS_REL = 1e-5     # loss through the kernel vs through the plain version
+GRAD_REL = 1e-4     # CE grads vs the plain path, x the grad's max
+STEP_LOSS_REL = 1e-2   # whole-model step, kernels vs plain versions
+GRAD_COS, GRAD_NORM = 0.999, 0.01
+FA_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+FA_REPLACES = {"forward": "paddle_tpu/ops/flash_attention.py:155",
+               "dq": "paddle_tpu/ops/flash_attention.py:279",
+               "dkv": "paddle_tpu/ops/flash_attention.py:299"}
+FA_NAMES = {"forward": "flash_attention_forward",
+            "dq": "flash_attention_backward_dq",
+            "dkv": "flash_attention_backward_dkv"}
 
 
 def fail(msg):
@@ -161,6 +201,26 @@ def ulp_bf16(x):
     return torch.where(x == 0, torch.zeros_like(ulp), ulp)
 
 
+def check_close(label, got, ref, floor=0.0):
+    """Each element of ``got`` within 1 bf16 ulp of ``ref`` plus OUT_VEC
+    of its head vector's (last axis) largest value, that largest value
+    taken at least ``floor`` x the tensor's largest; returns the largest
+    absolute difference."""
+    import torch
+    ref, got = ref.float(), got.float()
+    if not torch.isfinite(got).all():
+        fail(f"{label}: non-finite values")
+    diff = (got - ref).abs()
+    vec_max = ref.abs().amax(dim=-1, keepdim=True).clamp_min(
+        floor * float(ref.abs().max()))
+    over = diff - (ulp_bf16(ref) + OUT_VEC * vec_max)
+    if bool((over > 0).any()):
+        idx = tuple(int(x) for x in (over > 0).nonzero()[0])
+        fail(f"{label}: differs at {idx}: {float(got[idx])} vs "
+             f"{float(ref[idx])}")
+    return float(diff.max())
+
+
 def check_kernel(dev, label, qb, ctx, chunks, inactive):
     """Phase 3: the rope-fused ragged paged attention kernel against
     its plain version on one dispatch; returns its numbers."""
@@ -177,22 +237,12 @@ def check_kernel(dev, label, qb, ctx, chunks, inactive):
         torch.cuda.synchronize()
         run[name] = (out, a)
     (out_k, a_k), (out_r, a_r) = run["kernel"], run["plain"]
-    if not torch.isfinite(out_k.float()).all():
-        fail(f"{label}: kernel output has non-finite values")
-    # each output element within 1 bf16 ulp of the plain version's plus
-    # OUT_VEC of its head vector's largest value (f32 summation order);
-    # zeros (padding, inactive rows) must be exact
-    ref, got = out_r.float(), out_k.float()
-    diff = (got - ref).abs()
-    vec_max = ref.abs().amax(dim=-1, keepdim=True)
-    over = diff - (ulp_bf16(ref) + OUT_VEC * vec_max)
-    if bool((over > 0).any()):
-        r_i, q_i, h_i, d_i = [int(x) for x in (over > 0).nonzero()[0]]
-        fail(f"{label}: kernel out differs at row {r_i} query {q_i} head "
-             f"{h_i} col {d_i}: {float(got[r_i, q_i, h_i, d_i])} vs "
-             f"{float(ref[r_i, q_i, h_i, d_i])}")
-    err = float(diff.max())
-    rel = float((diff / vec_max.clamp_min(1e-30)).max())
+    # zeros (padding, inactive rows) must be exact: their bound is 0
+    err = check_close(f"{label}: kernel out (row, query, head, col)",
+                      out_k, out_r)
+    ref = out_r.float()
+    rel = float(((out_k.float() - ref).abs() / ref.abs().amax(
+        dim=-1, keepdim=True).clamp_min(1e-30)).max())
     live = torch.arange(info["num_pages"], device=dev) != info["dump"]
     wr = info["written"][:, None, :, None].expand_as(k0) \
         & live[:, None, None, None]
@@ -334,12 +384,16 @@ def serve(dev):
     # cache, plain attention) fed the same tokens: most must be its
     # argmax, the rest bf16 near-ties of it
     gaps = []
+    from paddle_tpu_torch.models import llama
+    model_attention = llama.causal_attention
+    llama.causal_attention = llama.plain_attention
     for p, o in zip(prompts, outs):
         ids = torch.tensor([p + o[:-1]], device=dev)
         with torch.no_grad():
             lg = model(ids)[0, len(p) - 1:].float()
         picked = lg.gather(1, torch.tensor(o, device=dev)[:, None])[:, 0]
         gaps.append(lg.max(dim=1).values - picked)
+    llama.causal_attention = model_attention
     gaps = torch.cat(gaps)
     exact, worst = int((gaps == 0).sum()), float(gaps.max())
     n_tok = len(prompts) * NEW
@@ -358,6 +412,340 @@ def serve(dev):
     if worst > TIE_TOL:
         fail(f"served token {worst:.3f} below the plain forward's argmax")
     return launches
+
+def attention_pairs(b, h, sq, sk, causal):
+    """Unmasked (query, key) pairs of one attention call."""
+    if not causal:
+        return b * h * sq * sk
+    off = sk - sq
+    return b * h * sum(min(sk, i + off + 1) for i in range(sq))
+
+
+def roofline(nbytes, ops, peak):
+    """(bound ms, what bounds it): the larger of the bytes over the
+    memory rate and the operations over ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_bounds(b, sq, sk, causal):
+    """Bound of each flash kernel: q/k/v (and dO, lse, delta) read once,
+    outputs written once, bf16; 4/6/8 x D flops per unmasked pair."""
+    pairs = attention_pairs(b, H, sq, sk, causal)
+    q_b, kv_b, rows = b * sq * H * D * 2, b * sk * HK * D * 2, b * H * sq * 4
+    return {"forward": roofline(2 * q_b + 2 * kv_b + rows, 4 * D * pairs,
+                                BF16_FLOPS),
+            "dq": roofline(3 * q_b + 2 * kv_b + 2 * rows, 6 * D * pairs,
+                           BF16_FLOPS),
+            "dkv": roofline(2 * q_b + 4 * kv_b + 2 * rows, 8 * D * pairs,
+                            BF16_FLOPS)}
+
+
+def flash_case(dev, label, b, sq, sk, causal, seed, timed):
+    """The three flash kernels against the plain versions on one bf16
+    batch at the Llama-3-8B head shapes; the backward kernels get the
+    plain forward's lse and delta, so each kernel is checked alone.
+    Returns ({kernel: max abs err}, {kernel: timings} if ``timed``)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as FT
+    g = torch.Generator(dev).manual_seed(seed)
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    q, do = torch.randn(b, sq, H, D, **bf), torch.randn(b, sq, H, D, **bf)
+    k, v = torch.randn(b, sk, HK, D, **bf), torch.randn(b, sk, HK, D, **bf)
+    scale = 1.0 / math.sqrt(D)
+    args = (q, k, v, causal, scale)
+    out, lse = FT._launch_forward(*args)
+    out_r, lse_r = FT.flash_attention_fwd_ref(*args)
+    delta = FT.attention_delta(out_r, do)
+    bargs = (q, k, v, do, lse_r, delta, causal, scale)
+    dq = FT._launch_dq(*bargs)
+    dk, dv = FT._launch_dkv(*bargs)
+    dq_r, dk_r, dv_r = FT.flash_attention_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    err = {"forward": check_close(f"flash {label} out", out, out_r),
+           "dq": check_close(f"flash {label} dq", dq, dq_r, GRAD_FLOOR),
+           "dkv": max(check_close(f"flash {label} dk", dk, dk_r, GRAD_FLOOR),
+                      check_close(f"flash {label} dv", dv, dv_r,
+                                  GRAD_FLOOR))}
+    lse_err = float((lse - lse_r).abs().max())
+    if not lse_err <= LSE_ABS:
+        fail(f"flash {label}: lse differs by {lse_err} > {LSE_ABS}")
+    print(f"flash check ({label}): B={b} Sq={sq} Sk={sk} causal={causal} "
+          f"out_err={err['forward']:.3e} lse_err={lse_err:.3e} "
+          f"dq_err={err['dq']:.3e} dkv_err={err['dkv']:.3e}", flush=True)
+    if not timed:
+        return err, None
+    t = {"forward": time_ms(lambda: FT._launch_forward(*args)),
+         "dq": time_ms(lambda: FT._launch_dq(*bargs)),
+         "dkv": time_ms(lambda: FT._launch_dkv(*bargs))}
+    plain_fwd = time_ms(lambda: FT.flash_attention_fwd_ref(*args), iters=3,
+                        warmup=1)
+    plain_bwd = time_ms(lambda: FT.flash_attention_bwd_ref(*bargs), iters=3,
+                        warmup=1)
+    # library yardstick (never called by the port): SDPA with GQA on the
+    # head-major views, forward alone and forward + backward
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=causal, enable_gqa=True))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
+
+    def lib_step():
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                       enable_gqa=True).backward(doh)
+    lib_both = time_ms(lib_step)
+    bounds = flash_bounds(b, sq, sk, causal)
+    timing = {}
+    for name in ("forward", "dq", "dkv"):
+        bound_ms, bound_by = bounds[name]
+        timing[name] = dict(
+            ms=t[name], plain_ms=plain_fwd if name == "forward" else plain_bwd,
+            library_ms=lib_fwd if name == "forward" else lib_both - lib_fwd,
+            bound_ms=bound_ms, bound_by=bound_by)
+        print(f"flash {name}: ms={t[name]:.4f} plain_ms="
+              f"{timing[name]['plain_ms']:.3f} library_ms="
+              f"{timing[name]['library_ms']:.4f} bound_ms={bound_ms:.5f} "
+              f"({bound_by})", flush=True)
+    print(f"flash library: sdpa_fwd_ms={lib_fwd:.4f} sdpa_fwd_bwd_ms="
+          f"{lib_both:.4f}", flush=True)
+    return err, timing
+
+
+def check_flash(dev):
+    """Phase 3b, flash attention: the Llama-3-8B training batch (timed),
+    a non-causal batch and a causal one with fewer queries than keys.
+    Returns the three kernels' JSON entries (without ``launches``)."""
+    err, timing = flash_case(dev, "train", TRAIN_B, TRAIN_S, TRAIN_S, True,
+                             seed=1, timed=True)
+    for label, args in (("non-causal", (1, 512, 512, False)),
+                        ("short-q", (1, 256, 768, True))):
+        e, _ = flash_case(dev, label, *args, seed=2, timed=False)
+        err = {k: max(err[k], e[k]) for k in err}
+    return [dict(name=FA_NAMES[k], route="cuda", source=FA_SOURCE,
+                 replaces=FA_REPLACES[k], max_abs_err=err[k], **timing[k])
+            for k in ("forward", "dq", "dkv")]
+
+
+def check_ce(dev):
+    """Phase 3b, the loss: the fused linear cross-entropy kernel against
+    the plain chunked version at N = D = 4096, V = 128256 in f32, 5% of
+    rows at ignore_index; then the loss and its gradients through the
+    kernel path against the plain path. Returns the JSON entry (without
+    ``launches``)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+    g = torch.Generator(dev).manual_seed(3)
+    h = torch.randn(CE_N, CE_D, device=dev, generator=g)
+    w = torch.randn(CE_V, CE_D, device=dev, generator=g) * 0.02
+    lab = torch.randint(0, CE_V, (CE_N,), device=dev, generator=g)
+    lab[torch.rand(CE_N, device=dev, generator=g) < CE_IGNORED] = -100
+    chunk = FC.default_chunk()
+    lse, pick = FC._launch(h, w, lab)
+    lse_r, pick_r = FC.fused_linear_cross_entropy_ref(h, w, lab, chunk)
+    torch.cuda.synchronize()
+    errs = []
+    for name, got, ref in (("lse", lse, lse_r), ("pick", pick, pick_r)):
+        if not torch.isfinite(got).all():
+            fail(f"loss kernel: non-finite {name}")
+        rel = float(((got - ref).abs() / ref.abs().clamp_min(1.0)).max())
+        if not rel <= CE_REL:
+            fail(f"loss kernel: {name} differs by {rel:.3e} (relative) > "
+                 f"{CE_REL}")
+        errs.append(float((got - ref).abs().max()))
+
+    def loss_and_grads():
+        hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
+        loss = FC.fused_linear_cross_entropy(hg, wg, lab)
+        loss.backward()
+        return loss.detach(), hg.grad, wg.grad
+    loss_k, dh_k, dw_k = loss_and_grads()
+    # the backward is the plain chunked code: fed the kernel's lse it
+    # gives the same gradients bit for bit
+    valid = (lab != -100).float().sum()
+    gn = torch.ones(CE_N, device=dev) / valid
+    dh_b, dw_b = FC.linear_cross_entropy_backward(h, w, lab, lse, gn, chunk,
+                                                  -100)
+    if not (torch.equal(dh_k, dh_b) and torch.equal(dw_k, dw_b)):
+        fail("loss kernel path: gradients differ from the chunked backward")
+    with plain_paths():
+        loss_p, dh_p, dw_p = loss_and_grads()
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not rel <= LOSS_REL:
+        fail(f"loss {float(loss_k)} vs plain {float(loss_p)}: {rel:.3e}")
+    for name, a, b in (("dh", dh_k, dh_p), ("dW", dw_k, dw_p)):
+        e = float((a - b).abs().max()) / float(b.abs().max())
+        if not e <= GRAD_REL:
+            fail(f"loss {name} differs from the plain path by {e:.3e} of "
+                 f"its max")
+    del dh_k, dw_k, dh_b, dw_b, dh_p, dw_p
+    ms = time_ms(lambda: FC._launch(h, w, lab), iters=3, warmup=1)
+    plain_ms = time_ms(lambda: FC.fused_linear_cross_entropy_ref(
+        h, w, lab, chunk), iters=3, warmup=1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    library_ms = time_ms(lambda: F.cross_entropy(F.linear(h, w), lab,
+                                                 ignore_index=-100),
+                         iters=3, warmup=1)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    nbytes = 4 * CE_N * CE_D + 4 * CE_V * CE_D + 8 * CE_N + 8 * CE_N
+    bound_ms, bound_by = roofline(nbytes, 2 * CE_N * CE_D * CE_V, F32_FLOPS)
+    print(f"loss kernel check: N={CE_N} D={CE_D} V={CE_V} "
+          f"ignored={int(CE_N - valid)} lse_err={errs[0]:.3e} "
+          f"pick_err={errs[1]:.3e} loss={float(loss_k):.6f} plain_loss="
+          f"{float(loss_p):.6f} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+          f"library_ms={library_ms:.3f} bound_ms={bound_ms:.3f} "
+          f"({bound_by})", flush=True)
+    return dict(name="fused_linear_cross_entropy_forward", route="cuda",
+                source="paddle_tpu_torch/csrc/fused_linear_cross_entropy.cu",
+                replaces="paddle_tpu/ops/fused_linear_cross_entropy.py:220",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+@contextlib.contextmanager
+def plain_paths():
+    """Route flash attention and the loss to their plain versions on the
+    card (the comparison runs only)."""
+    from paddle_tpu_torch.ops import flash_attention as FT
+    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+    saved = FT._launch_forward, FT._launch_backward, FC._launch
+    FT._launch_forward = FT.flash_attention_fwd_ref
+    FT._launch_backward = FT.flash_attention_bwd_ref
+    FC._launch = lambda h, w, lab: FC.fused_linear_cross_entropy_ref(
+        h, w, lab, FC.default_chunk())
+    try:
+        yield
+    finally:
+        FT._launch_forward, FT._launch_backward, FC._launch = saved
+
+
+@contextlib.contextmanager
+def counted_plain_versions():
+    """Count every call of the training path's plain versions (flash
+    forward/backward, the loss, the plain attention composition)."""
+    from paddle_tpu_torch.nn.functional import attention as FA
+    from paddle_tpu_torch.ops import flash_attention as FT
+    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+    targets = [(FT, "flash_attention_fwd_ref"), (FT, "flash_attention_bwd_ref"),
+               (FC, "fused_linear_cross_entropy_ref"),
+               (FA, "_naive_attention")]
+    calls = []
+    saved = [getattr(m, n) for m, n in targets]
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return wrapper
+    for (m, n), fn in zip(targets, saved):
+        setattr(m, n, counted(n, fn))
+    try:
+        yield calls
+    finally:
+        for (m, n), fn in zip(targets, saved):
+            setattr(m, n, fn)
+
+
+def training_model(dev, layers):
+    """Llama-3-8B width cut to ``layers`` layers, f32 weights drawn from
+    a seeded generator on the card, and one fixed seeded batch of
+    ``[TRAIN_B, TRAIN_S + 1]`` token ids."""
+    import numpy as np
+    from paddle_tpu_torch.examples.llama_pretrain import build_model
+    model = build_model("8b", layers, dev, seed=0)
+    ids = np.random.RandomState(0).randint(
+        0, model.config.vocab_size, (TRAIN_B, TRAIN_S + 1)).astype(np.int64)
+    return model, ids
+
+
+def train(dev):
+    """Phase 5: train the 8-layer model through the recipe's entry
+    point; returns the launches of each kernel in that run."""
+    import torch
+    from paddle_tpu_torch.examples import llama_pretrain
+    from paddle_tpu_torch.ops import flash_attention as FT
+    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+    t0 = time.perf_counter()
+    model, ids = training_model(dev, TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    print(f"model: llama3_8b width, layers={TRAIN_LAYERS} params="
+          f"{model.num_params()} init_s={time.perf_counter() - t0:.1f}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    with counted_plain_versions() as plain_calls:
+        for key in FT.launches:
+            FT.launches[key] = 0
+        FC.launches = 0
+        res = llama_pretrain.train(
+            model, TRAIN_STEPS, TRAIN_B, TRAIN_S, lr=3e-4, weight_decay=0.1,
+            use_amp=True, source=itertools.repeat(ids),
+            log=lambda line: print("train: " + line, flush=True))
+        torch.cuda.synchronize()
+        launches = dict(FT.launches, ce=FC.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if plain_calls:
+        fail(f"plain versions ran on the card: {sorted(set(plain_calls))}")
+    want = dict(forward=TRAIN_STEPS * TRAIN_LAYERS,
+                dq=TRAIN_STEPS * TRAIN_LAYERS,
+                dkv=TRAIN_STEPS * TRAIN_LAYERS, ce=TRAIN_STEPS)
+    if launches != want:
+        fail(f"kernel launches {launches} != {want}")
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"loss did not fall: {losses}")
+    steady = res["step_s"][2:]
+    step_s = sum(steady) / len(steady)
+    tokens = TRAIN_B * TRAIN_S
+    tflops = model.flops_per_token(TRAIN_S) * tokens / step_s / 1e12
+    print(f"train: layers={TRAIN_LAYERS} batch={TRAIN_B} seq={TRAIN_S} "
+          f"steps={TRAIN_STEPS} loss_first={losses[0]:.4f} loss_last="
+          f"{losses[-1]:.4f} step_ms={step_s * 1e3:.1f} (mean of steps "
+          f"3-{TRAIN_STEPS}) tokens_per_s={tokens / step_s:.0f} "
+          f"tflops={tflops:.1f} peak_mem_gb={peak:.2f} launches={launches}",
+          flush=True)
+    return launches
+
+
+def compare_step(dev):
+    """Phase 5b: one step (loss and gradients, no update) of a 2-layer
+    model at full width through the kernels, against the same step
+    through the plain versions, on the same weights and batch."""
+    import torch
+    from paddle_tpu_torch import amp
+    model, ids = training_model(dev, 2)
+    x = torch.from_numpy(ids[:, :-1]).to(dev)
+    y = torch.from_numpy(ids[:, 1:]).to(dev)
+    names = ["lm_head.weight", "model.layers.0.self_attn.q_proj.weight",
+             "model.embed_tokens.weight"]
+    params = dict(model.named_parameters())
+
+    def step():
+        with amp.auto_cast(dtype="bfloat16"):
+            loss, _ = model(x, y)
+        loss.backward()
+        grads = [params[n].grad.clone() for n in names]
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+    loss_k, g_k = step()
+    with plain_paths():
+        loss_p, g_p = step()
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    line = [f"loss={loss_k:.5f} plain_loss={loss_p:.5f} rel={rel:.2e}"]
+    if not rel <= STEP_LOSS_REL:
+        fail(f"2-layer step: loss {loss_k} vs plain {loss_p}")
+    for n, a, b in zip(names, g_k, g_p):
+        cos = float(torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0))
+        ratio = float(a.double().norm() / b.double().norm())
+        line.append(f"{n}: cos={cos:.6f} norm_ratio={ratio:.5f}")
+        if not (cos >= GRAD_COS and abs(ratio - 1) <= GRAD_NORM):
+            fail(f"2-layer step: grad of {n} cos {cos} norm ratio {ratio}")
+    print("compare step (2 layers, kernels vs plain): " + " ".join(line),
+          flush=True)
 
 
 def main():
@@ -380,9 +768,16 @@ def main():
     _build.build_all()
     print(f"build_s={time.perf_counter() - t0:.1f}", flush=True)
     entry = check_kernels(dev)
+    training_entries = check_flash(dev) + [check_ce(dev)]
     torch.cuda.empty_cache()
     entry["launches"] = serve(dev)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    torch.cuda.empty_cache()
+    launches = train(dev)
+    torch.cuda.empty_cache()
+    compare_step(dev)
+    for e, key in zip(training_entries, ("forward", "dq", "dkv", "ce")):
+        e["launches"] = launches[key]
+    print(json.dumps({"kernels": [entry] + training_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

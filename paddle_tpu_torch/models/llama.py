@@ -5,23 +5,28 @@ embeddings -> RMSNorm -> SwiGLU MLP, as ``nn.Module``s whose parameter
 names match the reference package's state dict, so one checkpoint
 dictionary fills either (see :mod:`paddle_tpu_torch.models.convert`).
 
-This slice ports the dense model and its logits. The attention of the
-plain (no-cache) forward is plain PyTorch math (matmul, causal mask,
-softmax in f32): the serving engine never runs it, it is the model's
-own reference. Training losses and the mixture-of-experts FFN are
-later slices (ROADMAP queue A, items 7 and 8).
+The no-cache forward is the training path: its attention is
+:func:`nn.functional.scaled_dot_product_attention` (the flash kernels
+where their preconditions hold), and ``forward(input_ids, labels)``
+returns the loss, by default through the fused linear cross-entropy.
+The serving engine never runs this forward; :func:`plain_attention`
+stays beside it as the model's own plain reference. The
+mixture-of-experts FFN is a later slice (ROADMAP queue A, item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
+import os
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed.recompute import recompute
 from ..incubate.nn import functional as FI
+from ..nn import functional as F
+from ..ops.fused_linear_cross_entropy import fused_linear_cross_entropy
 
 __all__ = ["LlamaConfig", "LlamaMLP", "LlamaAttention", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "RMSNorm", "llama3_8b_config",
@@ -41,7 +46,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     initializer_range: float = 0.02
-    recompute: bool = False
+    #: True checkpoints every decoder layer; "dots" is not ported yet
+    recompute: bool | str = False
     #: > 0 selects the mixture-of-experts FFN, not ported yet
     moe_num_experts: int = 0
     moe_top_k: int = 2
@@ -104,18 +110,13 @@ def plain_attention(q, k, v):
     """Causal GQA attention on ``[B, S, H(k), D]`` in plain PyTorch:
     f32 scores and softmax, probabilities cast back to ``q.dtype``
     before the product with V."""
-    group = q.shape[2] // k.shape[2]
-    qh = q.transpose(1, 2)
-    kh = k.repeat_interleave(group, dim=2).transpose(1, 2)
-    vh = v.repeat_interleave(group, dim=2).transpose(1, 2)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
-    s_q, s_k = scores.shape[-2], scores.shape[-1]
-    causal = torch.ones(s_q, s_k, dtype=torch.bool,
-                        device=q.device).tril(s_k - s_q)
-    scores = scores.masked_fill(~causal, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.matmul(probs, vh).transpose(1, 2)
+    return F.attention._naive_attention(q, k, v, None, is_causal=True)
+
+
+def causal_attention(q, k, v):
+    """The no-cache forward's attention: the port's
+    ``scaled_dot_product_attention`` (flash kernels where supported)."""
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
 
 class LlamaAttention(nn.Module):
@@ -144,7 +145,7 @@ class LlamaAttention(nn.Module):
         q, k, v = FI.fused_rotary_position_embedding(
             q, k, v, position_ids=position_ids,
             rotary_emb_base=self.config.rope_theta)
-        out = plain_attention(q, k, v)
+        out = causal_attention(q, k, v)
         return self.o_proj(out.reshape(b, s, h * d))
 
 
@@ -181,13 +182,24 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, position_ids=None):
         x = self.embed_tokens(input_ids)
+        remat = self.config.recompute and torch.is_grad_enabled() \
+            and x.requires_grad
+        policy = "dots" if self.config.recompute == "dots" else None
         for layer in self.layers:
-            x = layer(x, position_ids)
+            if remat:
+                x = recompute(layer, x, position_ids, policy=policy)
+            else:
+                x = layer(x, position_ids)
         return self.norm(x)
 
 
 class LlamaForCausalLM(nn.Module):
-    """Decoder LM; ``forward(input_ids)`` returns logits ``[B, S, V]``.
+    """Decoder LM. ``forward(input_ids)`` returns logits ``[B, S, V]``;
+    with next-token ``labels`` (the input shifted by the caller,
+    ignore_index -100) it returns ``(loss, None)`` on the default fused
+    cross-entropy path, where the logits are never built, or ``(loss,
+    logits)`` under ``PADDLE_TPU_FUSED_CE=0`` or tied embeddings (the
+    materialized path).
 
     The parameters are allocated on ``device`` (default ``cuda``; the
     CPU only when asked for by name) in ``dtype`` and initialised once:
@@ -223,12 +235,39 @@ class LlamaForCausalLM(nn.Module):
             return self.lm_head(hidden)
         return torch.matmul(hidden, self.model.embed_tokens.weight.t())
 
+    def _fused_ce_enabled(self):
+        """The fused linear cross-entropy is the default loss path;
+        ``PADDLE_TPU_FUSED_CE=0`` restores the materialized one, which
+        the tied-embedding model always takes."""
+        if self.lm_head is None:
+            return False
+        return os.environ.get("PADDLE_TPU_FUSED_CE", "1") != "0"
+
     def forward(self, input_ids, labels=None, position_ids=None):
-        if labels is not None:
-            raise NotImplementedError(
-                "training losses are not ported yet (ROADMAP queue A, "
-                "item 7); call forward(input_ids) for logits")
-        return self._logits(self.model(input_ids, position_ids))
+        hidden = self.model(input_ids, position_ids)
+        if labels is not None and self._fused_ce_enabled():
+            loss = fused_linear_cross_entropy(
+                hidden, self.lm_head.weight, labels, ignore_index=-100)
+            return loss, None
+        logits = self._logits(hidden)
+        if labels is None:
+            return logits
+        v = self.config.vocab_size
+        loss = F.cross_entropy(logits.reshape(-1, v).float(),
+                               labels.reshape(-1), ignore_index=-100)
+        return loss, logits
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len):
+        """Approximate training FLOPs per token: 6 x the matmul
+        parameters plus the attention term (the usual MFU accounting).
+        The embedding lookup is a gather, so its table counts only when
+        it is tied and doubles as the output projection."""
+        cfg = self.config
+        n = self.num_params()
+        if not cfg.tie_word_embeddings:
+            n -= cfg.vocab_size * cfg.hidden_size
+        attn = 12 * cfg.num_hidden_layers * cfg.hidden_size * seq_len
+        return 6 * n + attn

@@ -1,3 +1,4 @@
-from . import ragged_paged_attention
+from . import flash_attention, fused_linear_cross_entropy, ragged_paged_attention
 
-__all__ = ["ragged_paged_attention"]
+__all__ = ["flash_attention", "fused_linear_cross_entropy",
+           "ragged_paged_attention"]

@@ -25,7 +25,9 @@ BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 #: library name -> source file under csrc/
-SOURCES = {"ragged_paged_attention": "ragged_paged_attention.cu"}
+SOURCES = {"ragged_paged_attention": "ragged_paged_attention.cu",
+           "flash_attention": "flash_attention.cu",
+           "fused_linear_cross_entropy": "fused_linear_cross_entropy.cu"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

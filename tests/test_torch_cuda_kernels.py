@@ -1,0 +1,135 @@
+"""The training kernels against their plain versions on the card, at
+small shapes and edge cases that ``chip_smoke.py`` does not reach: head
+dim 64, GQA groups 1 and 4, non-causal and shorter-query batches, the
+autograd path end to end; the loss kernel on ragged row tiles, a ragged
+vocab tail and labels outside ``[0, V)`` (in the padded tail too).
+
+Every test needs an NVIDIA card and ``nvcc`` and skips without one; on
+the card this file runs on its own, without the jax-importing conftest:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
+
+Tolerances are ``chip_smoke.py``'s: bf16 outputs within 1 bf16 ulp plus
+2^-10 of the head vector's largest value (for gradients, that largest
+value taken at least 2^-6 of the tensor's), f32 lse within 1e-3; the
+loss kernel's lse and pick within 1e-5 of max(|x|, 1).
+"""
+
+import math
+
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import flash_attention as FT
+from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (kernels build with nvcc there)")
+    return torch.device("cuda")
+
+
+def _ulp(x):
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, torch.zeros_like(x),
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def _close(got, ref, floor=0.0):
+    ref, got = ref.float(), got.float()
+    vec = ref.abs().amax(dim=-1, keepdim=True).clamp_min(
+        floor * float(ref.abs().max()))
+    bad = (got - ref).abs() > _ulp(ref) + 2 ** -10 * vec
+    assert torch.isfinite(got).all() and not bool(bad.any())
+
+
+FLASH = [  # b, sq, sk, h, hk, d, causal
+    (1, 128, 128, 4, 1, 64, True),
+    (2, 256, 256, 8, 2, 128, False),
+    (1, 128, 384, 4, 4, 128, True),
+    (1, 192, 192, 2, 1, 64, True),
+    (2, 128, 256, 8, 8, 64, False),
+]
+
+
+@pytest.mark.parametrize("case", FLASH)
+def test_flash_kernels_match_plain(dev, case):
+    b, sq, sk, h, hk, d, causal = case
+    g = torch.Generator(dev).manual_seed(sum(case))
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    q, do = torch.randn(b, sq, h, d, **bf), torch.randn(b, sq, h, d, **bf)
+    k, v = torch.randn(b, sk, hk, d, **bf), torch.randn(b, sk, hk, d, **bf)
+    scale = 1.0 / math.sqrt(d)
+    before = dict(FT.launches)
+    out, lse = FT._launch_forward(q, k, v, causal, scale)
+    out_r, lse_r = FT.flash_attention_fwd_ref(q, k, v, causal, scale)
+    _close(out, out_r)
+    assert float((lse - lse_r).abs().max()) <= 1e-3
+    delta = FT.attention_delta(out_r, do)
+    grads = FT._launch_backward(q, k, v, do, lse_r, delta, causal, scale)
+    refs = FT.flash_attention_bwd_ref(q, k, v, do, lse_r, delta, causal,
+                                      scale)
+    for got, ref in zip(grads, refs):
+        _close(got, ref, 2 ** -6)
+    assert FT.launches == {k_: n + 1 for k_, n in before.items()}
+
+
+def test_flash_autograd_on_the_card(dev):
+    g = torch.Generator(dev).manual_seed(5)
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    q = torch.randn(2, 128, 8, 128, **bf).requires_grad_()
+    k = torch.randn(2, 128, 2, 128, **bf).requires_grad_()
+    v = torch.randn(2, 128, 2, 128, **bf).requires_grad_()
+    do = torch.randn(2, 128, 8, 128, **bf)
+    FT.flash_attention(q, k, v, causal=True).backward(do)
+    out_r, lse_r = FT.flash_attention_fwd_ref(q.detach(), k.detach(),
+                                              v.detach(), True)
+    refs = FT.flash_attention_bwd_ref(
+        q.detach(), k.detach(), v.detach(), do, lse_r,
+        FT.attention_delta(out_r, do), True)
+    for t, ref in zip((q, k, v), refs):
+        _close(t.grad, ref, 2 ** -6)
+    with pytest.raises(ValueError, match="bfloat16"):
+        FT.flash_attention(q.detach().float(), k.detach().float(),
+                           v.detach().float(), causal=True)
+
+
+@pytest.mark.parametrize("n,d,v", [(1, 64, 7), (45, 136, 1000),
+                                   (128, 64, 513), (70, 32, 2048)])
+def test_loss_kernel_matches_plain(dev, n, d, v):
+    g = torch.Generator(dev).manual_seed(n + d + v)
+    h = torch.randn(n, d, device=dev, generator=g)
+    w = torch.randn(v, d, device=dev, generator=g) * 0.2
+    lab = torch.randint(0, v, (n,), device=dev, generator=g)
+    if n > 4:
+        # ignored, past V, and past V inside the last tile's padding
+        lab[:4] = torch.tensor([-100, v, v + 3, 1 << 20], device=dev)
+    before = FC.launches
+    lse, pick = FC._launch(h, w, lab)
+    lse_r, pick_r = FC.fused_linear_cross_entropy_ref(h, w, lab, 64)
+    assert FC.launches == before + 1
+    for got, ref in ((lse, lse_r), (pick, pick_r)):
+        assert float(((got - ref).abs() / ref.abs().clamp_min(1)).max()) \
+            <= 1e-5
+    if n > 4:
+        assert not pick[:4].any()
+
+
+def test_loss_autograd_on_the_card(dev):
+    g = torch.Generator(dev).manual_seed(9)
+    h = torch.randn(96, 64, device=dev, generator=g, requires_grad=True)
+    w = (torch.randn(300, 64, device=dev, generator=g) * 0.2) \
+        .requires_grad_()
+    lab = torch.randint(0, 300, (96,), device=dev, generator=g)
+    lab[::7] = -100
+    loss = FC.fused_linear_cross_entropy(h, w, lab, vocab_chunk=128)
+    loss.backward()
+    lse, _ = FC.fused_linear_cross_entropy_ref(h.detach(), w.detach(), lab,
+                                               128)
+    gn = torch.ones(96, device=dev) / (lab != -100).float().sum()
+    dh, dw = FC.linear_cross_entropy_backward(h.detach(), w.detach(), lab,
+                                              lse, gn, 128, -100)
+    torch.testing.assert_close(h.grad, dh, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(w.grad, dw, rtol=1e-5, atol=1e-6)

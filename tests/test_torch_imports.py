@@ -17,7 +17,13 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.inference.paged_cache",
            "paddle_tpu_torch.inference.serving",
            "paddle_tpu_torch.ops.ragged_paged_attention",
-           "paddle_tpu_torch.ops._build"]
+           "paddle_tpu_torch.ops._build",
+           "paddle_tpu_torch.ops.flash_attention",
+           "paddle_tpu_torch.ops.fused_linear_cross_entropy",
+           "paddle_tpu_torch.nn.functional", "paddle_tpu_torch.amp",
+           "paddle_tpu_torch.distributed.recompute",
+           "paddle_tpu_torch.optimizer", "paddle_tpu_torch.io",
+           "paddle_tpu_torch.examples.llama_pretrain"]
 
 
 def test_import_leaves_jax_unloaded():
