@@ -35,10 +35,31 @@ package is not beside it, and when any phase fails:
    per step) and no plain version called, finite and falling losses;
    then one step of a 2-layer model with the kernels against the same
    step with the plain versions (loss and gradients);
-6. a JSON line of kernel results, then the final result line.
+3c. (run after 3b) the mixture-of-experts and int8 kernels against their
+   plain versions at Mixtral-8x7B serving shapes (hidden 4096, expert
+   FFN 14336, 8 experts, top 2, block 128) for the two token counts of
+   the serving run (8, a decode-only dispatch; 64, a full mixed one):
+   the dequant matmul (q/o N = 4096, k/v N = 1024), the int8 and the
+   bf16 grouped GEMMs (gate/up and down shapes, routed by
+   ``top_k_routing``, plus an empty expert and group sizes past the
+   stride), the grouped GEMM's dx through its backward; then tokens
+   through a Mixtral-width ``LlamaMoEMLP`` alone and packed among 7 and
+   among 63 others, bitwise equal, float and int8;
+6. serving Mixtral-8x7B at full width and depth with int8 weights (built
+   layer by layer from a seeded generator on the card, each layer
+   quantized as it is made: 93 GB of bf16 never exist at once) through
+   ``LlamaServingEngine(weight_dtype="int8")``: phase 4's prompts, every
+   launch counted (per dispatch: the attention kernel's two launches,
+   four dequant matmuls and three int8 grouped GEMMs per layer), no
+   plain version called, every served token checked against the model's
+   own forward through the plain versions of all kernels;
+7. the same for the bf16 MoE FFN at 4 layers (32 need two cards) with
+   ``weight_dtype=None``: three float grouped GEMMs per layer;
+8. a JSON line of kernel results, then the final result line.
 """
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -77,6 +98,21 @@ FA_REPLACES = {"forward": "paddle_tpu/ops/flash_attention.py:155",
 FA_NAMES = {"forward": "flash_attention_forward",
             "dq": "flash_attention_backward_dq",
             "dkv": "flash_attention_backward_dkv"}
+# Mixtral-8x7B-v0.1 (Jiang et al., arXiv 2401.04088): the published
+# config of mistralai/Mixtral-8x7B-v0.1, its eleven numbers as they are
+MIXTRAL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+               num_hidden_layers=32, num_attention_heads=32,
+               num_key_value_heads=8, max_position_embeddings=32768,
+               rms_norm_eps=1e-5, rope_theta=1e6, moe_num_experts=8,
+               moe_top_k=2)
+MOE_TOKENS = (8, 64)     # decode-only and full mixed dispatch, max_batch 8
+WEIGHT_BLOCK = 128       # the int8 format's default block
+FLOAT_MOE_LAYERS = 4     # bf16 Mixtral: 4 layers fit one card, 32 do not
+# layer 0: an engine route may sit this far below the plain router's
+# k-th logit (random router logits have std ~1.3; rounding moves them
+# by ~0.01)
+ROUTE_TOL = 0.1
+GG_SOURCE = "paddle_tpu_torch/csrc/grouped_gemm.cu"
 
 
 def fail(msg):
@@ -331,11 +367,18 @@ def serving_workload(dev):
           f"{model.num_params()} init_s={time.perf_counter() - t0:.1f}",
           flush=True)
     engine = LlamaServingEngine(model, max_batch=8, page_size=16)
-    rng = np.random.RandomState(0)
-    lens = np.linspace(64, 512, 8).astype(int)
-    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in lens]
+    prompts = serving_prompts(cfg.vocab_size)
     engine.generate([prompts[0][:16]], max_new_tokens=2)   # warm-up
     return cfg, model, engine, prompts
+
+
+def serving_prompts(vocab):
+    """The serving workload: 8 seeded prompts of 64, 128, ..., 512
+    tokens."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    lens = np.linspace(64, 512, 8).astype(int)
+    return [rng.randint(0, vocab, n).tolist() for n in lens]
 
 
 def serve(dev):
@@ -628,9 +671,17 @@ def counted_plain_versions():
     from paddle_tpu_torch.nn.functional import attention as FA
     from paddle_tpu_torch.ops import flash_attention as FT
     from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
-    targets = [(FT, "flash_attention_fwd_ref"), (FT, "flash_attention_bwd_ref"),
-               (FC, "fused_linear_cross_entropy_ref"),
-               (FA, "_naive_attention")]
+    with count_calls([(FT, "flash_attention_fwd_ref"),
+                      (FT, "flash_attention_bwd_ref"),
+                      (FC, "fused_linear_cross_entropy_ref"),
+                      (FA, "_naive_attention")]) as calls:
+        yield calls
+
+
+@contextlib.contextmanager
+def count_calls(targets):
+    """Count every call of the functions ``(module, name)`` in
+    ``targets`` (looked up as module globals by their callers)."""
     calls = []
     saved = [getattr(m, n) for m, n in targets]
 
@@ -748,6 +799,546 @@ def compare_step(dev):
           flush=True)
 
 
+def moe_bound(gs, c, k, n, w_bytes, scale_rows=0):
+    """Bound of one grouped GEMM: the weights of experts with rows (and
+    their scale rows) read once, the real x rows read and the whole out
+    written once in bf16; 2 x real rows x K x N operations at the bf16
+    rate."""
+    live = gs.clamp(0, c)
+    rows, experts = int(live.sum()), int((live > 0).sum())
+    nbytes = experts * (k * n * w_bytes + scale_rows * n * 4) \
+        + rows * k * 2 + gs.numel() * c * n * 2 + gs.numel() * 4
+    return roofline(nbytes, 2 * rows * k * n, BF16_FLOPS)
+
+
+def masked_rows(x, gs):
+    """``x [E*C, K]`` as ``[E, C, K]`` with rows past each expert's size
+    zeroed (the library yardstick's input)."""
+    import torch
+    e = gs.numel()
+    c = x.shape[0] // e
+    keep = torch.arange(c, device=x.device)[None, :] < gs.clamp(0, c)[:, None]
+    return (x.reshape(e, c, -1) * keep[..., None]).to(x.dtype)
+
+
+def grouped_case(label, kind, x, w, gs, scales=None, w_lib=None,
+                 timed=True):
+    """One grouped GEMM launch (``kind`` "float" or "q8") against its
+    plain version; with ``timed``, its time, the plain version's, the
+    library's (``torch.bmm`` on the masked rows against ``w_lib``, the
+    bf16 weight) and the bound. Returns the numbers."""
+    import torch
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    e, k, n = w.shape
+    c = x.shape[0] // e
+    if kind == "q8":
+        def run():
+            return GG._launch_q8(x, w, scales, gs, WEIGHT_BLOCK)
+
+        def plain():
+            return GG.grouped_gemm_q8_ref(x, w, scales, gs, WEIGHT_BLOCK)
+        bound_ms, bound_by = moe_bound(gs, c, k, n, 1, k // WEIGHT_BLOCK)
+    else:
+        def run():
+            return GG._launch_float(x, w, gs)
+
+        def plain():
+            return GG.grouped_gemm_ref(x, w, gs)
+        bound_ms, bound_by = moe_bound(gs, c, k, n, 2)
+    y, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = check_close(f"{label}: out (row, column)", y, ref)
+    out = dict(max_abs_err=err)
+    line = f"moe kernel check ({label}): E={e} C={c} K={k} N={n} " \
+        f"gs={gs.tolist()} out_err={err:.3e}"
+    if timed:
+        xm = masked_rows(x, gs)
+        out.update(ms=time_ms(run), plain_ms=time_ms(plain, iters=3,
+                                                     warmup=1),
+                   library_ms=time_ms(lambda: torch.bmm(xm, w_lib)),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        line += (f" ms={out['ms']:.4f} plain_ms={out['plain_ms']:.3f} "
+                 f"library_ms={out['library_ms']:.4f} bound_ms="
+                 f"{bound_ms:.5f} ({bound_by})")
+    print(line, flush=True)
+    return out
+
+
+def dequant_case(label, x, q, scales, w_lib):
+    """The dequant matmul kernel against its plain version on ``x [M,
+    K]``, timed, with ``F.linear`` on the bf16 weight ``w_lib [N, K]``
+    as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.quant import kernels as QK
+    (m, k), n = x.shape, q.shape[1]
+    y = QK._launch(x, q, scales, WEIGHT_BLOCK)
+    ref = QK.dequant_matmul_ref(x, q, scales, WEIGHT_BLOCK)
+    torch.cuda.synchronize()
+    err = check_close(f"{label}: out (row, column)", y, ref)
+    nbytes = k * n + (k // WEIGHT_BLOCK) * n * 4 + m * k * 2 + m * n * 2
+    bound_ms, bound_by = roofline(nbytes, 2 * m * k * n, BF16_FLOPS)
+    out = dict(max_abs_err=err,
+               ms=time_ms(lambda: QK._launch(x, q, scales, WEIGHT_BLOCK)),
+               plain_ms=time_ms(lambda: QK.dequant_matmul_ref(
+                   x, q, scales, WEIGHT_BLOCK), iters=5, warmup=1),
+               library_ms=time_ms(lambda: F.linear(x, w_lib)),
+               bound_ms=bound_ms, bound_by=bound_by)
+    print(f"dequant kernel check ({label}): M={m} K={k} N={n} "
+          f"B={WEIGHT_BLOCK} out_err={err:.3e} ms={out['ms']:.4f} plain_ms="
+          f"{out['plain_ms']:.3f} library_ms={out['library_ms']:.4f} "
+          f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+    return out
+
+
+def check_packing(mlp, x, label):
+    """Tokens 0, 5 and 37 of ``x [64, D]`` through ``mlp`` alone, and
+    packed in the first 8 (a decode-only dispatch) and in all 64 (a full
+    mixed one): bitwise equal outputs."""
+    import torch
+    with torch.no_grad():
+        alone = {i: mlp(x[i:i + 1])[0] for i in (0, 5, 37)}
+        for t in MOE_TOKENS:
+            packed = mlp(x[:t])
+            for i, y in alone.items():
+                if i < t and not torch.equal(y, packed[i]):
+                    fail(f"{label} MoE FFN: token {i} alone differs from "
+                         f"the same token packed among {t - 1} others")
+    print(f"moe packing check ({label}): tokens 0, 5 and 37 alone == packed "
+          "among 7 and 63 others, bitwise", flush=True)
+
+
+def check_moe_kernels(dev):
+    """Phase 3c: the grouped GEMMs (bf16 and int8 weights, the bf16 one's
+    dx too) and the dequant matmul against their plain versions at
+    Mixtral-8x7B serving shapes, on the weights of one Mixtral-width
+    ``LlamaMoEMLP`` and the rows its router gives; the packing check.
+    Returns the three kernels' JSON entries (without ``launches``),
+    their times those of the full mixed dispatch (64 tokens; gate/up
+    shape for the grouped GEMMs, q/o shape for the dequant matmul)."""
+    import torch
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaMoEMLP,
+                                               router_logits)
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    from paddle_tpu_torch.quant.format import dequant_blocks, quantize_weight
+    cfg = LlamaConfig(**MIXTRAL)
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    bf = torch.bfloat16
+    g = torch.Generator(dev).manual_seed(5)
+    mlp = LlamaMoEMLP(cfg, device=dev, dtype=bf)
+    mlp.reset_parameters(cfg.initializer_range, g)
+    xs = {t: torch.randn(t, d, device=dev, dtype=bf, generator=g)
+          for t in MOE_TOKENS}
+    hs = {t: torch.randn(8 * t, f, device=dev, dtype=bf, generator=g)
+          for t in MOE_TOKENS}
+    routed = {}
+    for t in MOE_TOKENS:
+        slot, *_, gs = mlp.route(xs[t])
+        routed[t] = (xs[t][slot.clamp_min(0)], gs)
+    edge = {"empty experts": torch.tensor([3, 0, 5, 0, 2, 1, 4, 1],
+                                          device=dev),
+            "gs > C": torch.tensor([12, 8, 0, 9, 1, 0, 30, 2], device=dev)}
+    res = {"float": {}, "q8": {}}
+
+    def shapes(kind, wu, wd, su=None, sd=None, lu=None, ld=None):
+        errs = []
+        for t in MOE_TOKENS:
+            xg, gs = routed[t]
+            for name, x, w, s, lib in (("gate/up", xg, wu, su, lu),
+                                       ("down", hs[t], wd, sd, ld)):
+                r = grouped_case(f"{kind} {name} T={t}", kind, x, w, gs, s,
+                                 lib)
+                res[kind][(name, t)] = r
+                errs.append(r["max_abs_err"])
+        for label, gs in edge.items():
+            r = grouped_case(f"{kind} gate/up T=8 {label}", kind,
+                             routed[8][0], wu, gs, su, timed=False)
+            errs.append(r["max_abs_err"])
+        return max(errs)
+
+    err_f = shapes("float", mlp.gate_proj.detach(), mlp.down_proj.detach(),
+                   lu=mlp.gate_proj.detach(), ld=mlp.down_proj.detach())
+    # dx through the Function's backward (the kernel on w transposed,
+    # read in place), dw the plain masked product by construction
+    xg, gs = routed[64]
+    xg = xg.detach().requires_grad_()
+    w = mlp.gate_proj.detach().clone().requires_grad_()
+    gy = torch.randn(xg.shape[0], f, device=dev, dtype=bf, generator=g)
+    with torch.enable_grad():
+        GG.grouped_gemm(xg, w, gs).backward(gy)
+    wt = w.detach().transpose(1, 2)
+    dx_ref = GG.grouped_gemm_ref(gy, wt, gs)
+    torch.cuda.synchronize()
+    err_dx = check_close("float dx T=64: (row, column)", xg.grad, dx_ref)
+    if not torch.equal(w.grad, GG.grouped_gemm_dw(xg.detach(), gy, gs, bf)):
+        fail("grouped GEMM dw differs from the plain masked product")
+    dx_ms = time_ms(lambda: GG._launch_float(gy, wt, gs))
+    dx_bound, dx_by = moe_bound(gs, 64, f, d, 2)
+    print(f"moe kernel check (float dx T=64): out_err={err_dx:.3e} "
+          f"dw_bitwise=True ms={dx_ms:.4f} bound_ms={dx_bound:.5f} "
+          f"({dx_by})", flush=True)
+    del xg, w, gy, wt, dx_ref
+    check_packing(mlp.eval(), xs[64], "bf16")
+    # what the router's fixed order costs against one library product
+    for t in MOE_TOKENS:
+        x2d = xs[t].float()
+        fixed = time_ms(lambda: router_logits(x2d, mlp.gate))
+        lib = time_ms(lambda: (x2d.double() @ mlp.gate.double()).float())
+        print(f"moe router (T={t}): fixed-order ms={fixed:.4f} library f64 "
+              f"product ms={lib:.4f}", flush=True)
+
+    mlp.quantize_weights(WEIGHT_BLOCK)
+    lib_u = dequant_blocks(mlp.gate_proj, mlp.gate_proj_scale,
+                          WEIGHT_BLOCK).to(bf)
+    lib_d = dequant_blocks(mlp.down_proj, mlp.down_proj_scale,
+                          WEIGHT_BLOCK).to(bf)
+    err_q = shapes("q8", mlp.gate_proj, mlp.down_proj, mlp.gate_proj_scale,
+                   mlp.down_proj_scale, lib_u, lib_d)
+    del lib_u, lib_d
+    check_packing(mlp, xs[64], "int8")
+
+    dq, err_dq = {}, 0.0
+    for n in (4096, 1024):            # q and o; k and v
+        w = torch.randn(d, n, device=dev, generator=g) * 0.02
+        q, s = quantize_weight(w, WEIGHT_BLOCK)
+        w_lib = dequant_blocks(q, s, WEIGHT_BLOCK).t().contiguous().to(bf)
+        for t in MOE_TOKENS:
+            dq[(n, t)] = dequant_case(f"N={n} T={t}", xs[t], q, s, w_lib)
+            err_dq = max(err_dq, dq[(n, t)]["max_abs_err"])
+    timing = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    return [dict(name="grouped_gemm", route="cuda", source=GG_SOURCE,
+                 replaces="paddle_tpu/ops/grouped_gemm.py:175",
+                 max_abs_err=max(err_f, err_dx),
+                 **{k: res["float"][("gate/up", 64)][k] for k in timing}),
+            dict(name="grouped_gemm_q8", route="cuda", source=GG_SOURCE,
+                 replaces="paddle_tpu/ops/grouped_gemm.py:405",
+                 max_abs_err=err_q,
+                 **{k: res["q8"][("gate/up", 64)][k] for k in timing}),
+            dict(name="dequant_matmul", route="cuda",
+                 source="paddle_tpu_torch/csrc/dequant_matmul.cu",
+                 replaces="paddle_tpu/quant/kernels.py:132",
+                 max_abs_err=err_dq,
+                 **{k: dq[(4096, 64)][k] for k in timing})]
+
+
+def mixtral_int8(dev):
+    """Mixtral-8x7B at full width and depth with int8 weights: a 0-layer
+    model on the card, then each of the 32 layers made on ``meta``,
+    moved to the card, initialised from one seeded generator and
+    quantized before the next exists (a bf16 layer is ~2.9 GB; the whole
+    bf16 model, 93 GB, would not fit)."""
+    import torch
+    from torch import nn
+    from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                               LlamaDecoderLayer,
+                                               LlamaForCausalLM, LlamaMoEMLP,
+                                               RMSNorm)
+    from paddle_tpu_torch.quant import quantize_model
+    cfg = LlamaConfig(**MIXTRAL)
+    std = cfg.initializer_range
+    gen = torch.Generator(dev).manual_seed(0)
+    model = LlamaForCausalLM(dataclasses.replace(cfg, num_hidden_layers=0),
+                             device=dev, dtype=torch.bfloat16, generator=gen)
+    with torch.no_grad():
+        for _ in range(cfg.num_hidden_layers):
+            layer = LlamaDecoderLayer(cfg, device="meta",
+                                      dtype=torch.bfloat16)
+            layer.to_empty(device=dev)
+            for mod in layer.modules():
+                if isinstance(mod, nn.Linear):
+                    mod.weight.normal_(0.0, std, generator=gen)
+                elif isinstance(mod, RMSNorm):
+                    mod.weight.fill_(1.0)
+                elif isinstance(mod, LlamaMoEMLP):
+                    mod.reset_parameters(std, gen)
+            model.model.layers.append(quantize_model(layer))
+    model.config = model.model.config = cfg
+    return model.eval()
+
+
+@contextlib.contextmanager
+def plain_serving_paths():
+    """Route the grouped GEMMs, the dequant matmul and the no-cache
+    forward's attention to their plain versions (the token check)."""
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    from paddle_tpu_torch.quant import kernels as QK
+    saved = (GG._launch_float, GG._launch_q8, QK._launch,
+             llama.causal_attention)
+    GG._launch_float, GG._launch_q8 = GG.grouped_gemm_ref, \
+        GG.grouped_gemm_q8_ref
+    QK._launch = QK.dequant_matmul_ref
+    llama.causal_attention = llama.plain_attention
+    try:
+        yield
+    finally:
+        (GG._launch_float, GG._launch_q8, QK._launch,
+         llama.causal_attention) = saved
+
+
+def kernel_launches():
+    """The launch counters of the serving path's kernels."""
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.quant import kernels as QK
+    return dict(attention=rpa.launches, dequant_matmul=QK.launches,
+                **GG.launches)
+
+
+@contextlib.contextmanager
+def recorded_routes(engine, layers):
+    """Record, for every dispatch of ``engine``, its rows and each MoE
+    layer's expert choices; yields ``choices(req, n)``, the ``[L, n, k]``
+    experts the engine chose at positions ``0..n-1`` of ``req``."""
+    from paddle_tpu_torch.models.llama import LlamaMoEMLP
+    route, dispatch = LlamaMoEMLP.route, engine._dispatch_rows
+    picks, rows_of = [], []
+
+    def recording_route(self, x2d):
+        out = route(self, x2d)
+        picks.append(out[1])
+        return out
+
+    def recording_dispatch(rows):
+        rows_of.append([(r, start, n) for r, _, start, n, _, _ in rows])
+        return dispatch(rows)
+
+    def choices(req, n):
+        import torch
+        out = torch.full((layers, n, picks[0].shape[1]), -1,
+                         dtype=torch.long, device=picks[0].device)
+        for d, rows in enumerate(rows_of):
+            t = 0
+            for r, start, m in rows:
+                if r is req:
+                    for li in range(layers):
+                        out[li, start:start + m] = \
+                            picks[d * layers + li][t:t + m]
+                t += m
+        if bool((out < 0).any()):
+            fail("a position of a served request was never routed")
+        return out
+    LlamaMoEMLP.route = recording_route
+    engine._dispatch_rows = recording_dispatch
+    try:
+        yield choices
+    finally:
+        LlamaMoEMLP.route = route
+        del engine._dispatch_rows
+
+
+@contextlib.contextmanager
+def replayed_routes(model, stats):
+    """Make every ``LlamaMoEMLP`` of ``model`` take the experts in
+    ``stats["choices"]`` (``[L, n, k]``, set per forward) instead of its
+    own top-k, with the weights its own softmax gives them; record in
+    ``stats`` how far each replayed choice is from the plain router's
+    own top-k (router logit of its k-th choice minus the smallest
+    replayed one's, per route) and, per layer, how many routes there
+    were and how many differ."""
+    import torch
+    from paddle_tpu_torch.incubate.moe import top_k_routing
+    from paddle_tpu_torch.models.llama import LlamaMoEMLP, router_logits
+    layer_of = {id(layer.mlp): i for i, layer in enumerate(model.model.layers)}
+    route = LlamaMoEMLP.route
+
+    def replay(self, x2d):
+        n, e, k = x2d.shape[0], self.num_experts, self.top_k
+        chosen = stats["choices"][layer_of[id(self)]]
+        logits = router_logits(x2d, self.gate)
+        probs = torch.softmax(logits, dim=-1)
+        keep = torch.zeros_like(logits, dtype=torch.bool).scatter_(
+            1, chosen, True)
+        out = list(top_k_routing(logits.masked_fill(~keep, float("-inf")),
+                                 k, n))
+        picked = probs.gather(1, out[1])
+        out[4] = picked / (picked.sum(dim=-1, keepdim=True) + 1e-9)
+        own = torch.sort(logits, dim=-1, descending=True, stable=True)
+        deficit = own.values[:, k - 1] - logits.gather(1, out[1]).min(-1).values
+        li = layer_of[id(self)]
+        stats["deficits"][li].append(deficit)
+        stats["flips"][li] += int((own.indices[:, :k].sort(dim=-1).values
+                                   != out[1].sort(dim=-1).values).any(-1).sum())
+        stats["routes"][li] += n
+        gs = ((out[1].reshape(-1, 1) == torch.arange(e, device=x2d.device))
+              & out[3].reshape(-1, 1)).sum(dim=0, dtype=torch.int32)
+        return tuple(out) + (gs,)
+    LlamaMoEMLP.route = replay
+    try:
+        yield
+    finally:
+        LlamaMoEMLP.route = route
+
+
+def serve_moe(dev, label, model, weight_dtype, per_layer):
+    """Phases 6 and 7: serve phase 4's prompts through
+    ``LlamaServingEngine(max_batch=8, page_size=16, weight_dtype=...)``
+    with every kernel launch counted (``per_layer``: launches of each
+    kernel per layer per dispatch; the attention kernel's two always) and
+    no plain version called; then every served token against the
+    model's own forward through the plain versions.
+
+    Routing is discontinuous: two paths whose sums round differently
+    pick different experts where the router's top-k is a near-tie, and
+    on random weights at full depth those flips cascade (the first chip
+    run matched 36/256 tokens this way). So the plain forward replays
+    the experts the engine chose at every (position, layer), with the
+    weights its own router gives them. The paths drift apart with depth
+    as the dense model's do (phase 4's logits), and the replayed choices
+    drift from the plain router's own top-k with them: the line prints
+    how often and how far, per quarter of the layers. At layer 0 the
+    two paths' router inputs differ only by the rounding of the
+    attention and projection kernels, so there every replayed choice
+    must be within ROUTE_TOL router logits of the plain top-k: an
+    engine that routed wrongly would fail there, or in the token check.
+    Returns the launches."""
+    import torch
+    from paddle_tpu_torch.inference import LlamaServingEngine, Request
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.quant import kernels as QK
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    engine = LlamaServingEngine(model, max_batch=8, page_size=16,
+                                weight_dtype=weight_dtype)
+    prompts = serving_prompts(cfg.vocab_size)
+    engine.generate([prompts[0][:16]], max_new_tokens=2)   # warm-up
+    finite, steps = [], []
+    hook = model.lm_head.register_forward_hook(
+        lambda mod, inp, out: finite.append(torch.isfinite(out).all()))
+    forward = engine._mixed_forward
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        out = forward(*a)
+        torch.cuda.synchronize()
+        steps.append((a[-1], time.perf_counter() - t0))
+        return out
+    engine._mixed_forward = timed
+    reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
+    rpa.launches = QK.launches = 0
+    for key in GG.launches:
+        GG.launches[key] = 0
+    plain = [(rpa, "fused_ragged_paged_attention_ref"),
+             (GG, "grouped_gemm_ref"), (GG, "grouped_gemm_q8_ref"),
+             (QK, "dequant_matmul_ref")]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    d0 = engine._dispatch_count
+    with count_calls(plain) as plain_calls, \
+            recorded_routes(engine, layers) as choices:
+        t0 = time.perf_counter()
+        outs = engine.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        replay = [choices(r, len(p) + NEW - 1) for r, p in zip(reqs, prompts)]
+    dispatches = engine._dispatch_count - d0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del engine._mixed_forward
+    hook.remove()
+    if plain_calls:
+        fail(f"{label}: plain versions ran on the card: "
+             f"{sorted(set(plain_calls))}")
+    want = {k: per_layer.get(k, 0) * layers * dispatches for k in launches}
+    want["attention"] = 2 * layers * dispatches
+    if launches != want or not dispatches:
+        fail(f"{label}: kernel launches {launches} != {want} "
+             f"({dispatches} dispatches)")
+    if not all(bool(f) for f in finite):
+        fail(f"{label}: non-finite logits in the serving run")
+    for o in outs:
+        if len(o) != NEW or not all(0 <= t < cfg.vocab_size for t in o):
+            fail(f"{label}: bad output {o}")
+    gaps = []
+    stats = dict(deficits=[[] for _ in range(layers)], flips=[0] * layers,
+                 routes=[0] * layers)
+    with plain_serving_paths(), replayed_routes(model, stats):
+        before = kernel_launches()
+        for p, o, chosen in zip(prompts, outs, replay):
+            stats["choices"] = chosen
+            ids = torch.tensor([p + o[:-1]], device=dev)
+            with torch.no_grad():
+                lg = model(ids)[0, len(p) - 1:].float()
+            picked = lg.gather(1, torch.tensor(o, device=dev)[:, None])[:, 0]
+            gaps.append(lg.max(dim=1).values - picked)
+        torch.cuda.synchronize()
+        if kernel_launches() != before:
+            fail(f"{label}: the plain check launched a kernel")
+    gaps = torch.cat(gaps)
+    exact, worst = int((gaps == 0).sum()), float(gaps.max())
+    deficits = [float(torch.cat(d).max()) for d in stats["deficits"]]
+    quarter = max(1, layers // 4)
+    flips = [f"{sum(stats['flips'][i:i + quarter])}/"
+             f"{sum(stats['routes'][i:i + quarter])}"
+             for i in range(0, layers, quarter)]
+    worst_route = [round(max(deficits[i:i + quarter]), 4)
+                   for i in range(0, layers, quarter)]
+    n_tok = len(prompts) * NEW
+    ttft = sorted(r.ttft for r in reqs)
+    dec = [s for qb, s in steps if qb == 1]
+    mixed = [s for qb, s in steps if qb != 1]
+    print(f"serve {label}: layers={layers} requests={len(prompts)} "
+          f"prompt_tokens={sum(map(len, prompts))} new_tokens={n_tok} "
+          f"dispatches={dispatches} launches={launches} wall_s={wall:.3f} "
+          f"tokens_per_s={n_tok / wall:.1f} ttft_ms_p50="
+          f"{1e3 * ttft[len(ttft) // 2]:.1f} ttft_ms_max={1e3 * ttft[-1]:.1f}"
+          f" decode_dispatch_ms={1e3 * sum(dec) / max(len(dec), 1):.2f} "
+          f"(n={len(dec)}) mixed_dispatch_ms="
+          f"{1e3 * sum(mixed) / max(len(mixed), 1):.2f} (n={len(mixed)}) "
+          f"peak_mem_gb={peak:.2f} plain_forward_exact={exact}/{n_tok} "
+          f"worst_gap={worst:.4f} gap_p90={float(gaps.quantile(0.9)):.4f} "
+          f"route_flips_by_layer_quarter={flips} route_deficit_max_by_"
+          f"layer_quarter={worst_route} layer0_route_flips="
+          f"{stats['flips'][0]}/{stats['routes'][0]} layer0_route_deficit="
+          f"{deficits[0]:.4f}", flush=True)
+    if deficits[0] > ROUTE_TOL:
+        fail(f"{label}: at layer 0 an expert the engine chose is "
+             f"{deficits[0]:.3f} router logits below the plain router's "
+             f"top-{cfg.moe_top_k} (tol {ROUTE_TOL})")
+    if exact < EXACT_FLOOR * n_tok:
+        fail(f"{label}: only {exact}/{n_tok} served tokens are the plain "
+             f"forward's argmax (floor {EXACT_FLOOR})")
+    if worst > TIE_TOL:
+        fail(f"{label}: served token {worst:.3f} below the plain forward's "
+             "argmax")
+    return launches
+
+
+def serve_mixtral_int8(dev):
+    """Phase 6: Mixtral-8x7B, int8 weights, 32 layers, one card."""
+    import torch
+    from paddle_tpu_torch.quant import serving_weight_bytes
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = mixtral_int8(dev)
+    torch.cuda.synchronize()
+    actual, baseline, _ = serving_weight_bytes(model)
+    print(f"model: mixtral_8x7b int8 layers={model.config.num_hidden_layers}"
+          f" init_s={time.perf_counter() - t0:.1f} weight_bytes="
+          f"{actual} bf16_baseline_bytes={baseline} build_peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}", flush=True)
+    return serve_moe(dev, "mixtral int8", model, "int8",
+                     {"dequant_matmul": 4, "grouped_gemm_q8": 3})
+
+
+def serve_mixtral_bf16(dev):
+    """Phase 7: the bf16 MoE FFN, Mixtral-8x7B width, 4 layers."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = dataclasses.replace(LlamaConfig(**MIXTRAL),
+                              num_hidden_layers=FLOAT_MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                             generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"model: mixtral_8x7b bf16 layers={FLOAT_MOE_LAYERS} params="
+          f"{model.num_params()} init_s={time.perf_counter() - t0:.1f}",
+          flush=True)
+    return serve_moe(dev, "mixtral bf16", model.eval(), None,
+                     {"grouped_gemm": 3})
+
+
 def main():
     try:
         import torch
@@ -770,6 +1361,8 @@ def main():
     entry = check_kernels(dev)
     training_entries = check_flash(dev) + [check_ce(dev)]
     torch.cuda.empty_cache()
+    moe_entries = check_moe_kernels(dev)
+    torch.cuda.empty_cache()
     entry["launches"] = serve(dev)
     torch.cuda.empty_cache()
     launches = train(dev)
@@ -777,7 +1370,15 @@ def main():
     compare_step(dev)
     for e, key in zip(training_entries, ("forward", "dq", "dkv", "ce")):
         e["launches"] = launches[key]
-    print(json.dumps({"kernels": [entry] + training_entries}), flush=True)
+    torch.cuda.empty_cache()
+    int8_launches = serve_mixtral_int8(dev)
+    torch.cuda.empty_cache()
+    float_launches = serve_mixtral_bf16(dev)
+    for e, counts in zip(moe_entries, (float_launches, int8_launches,
+                                       int8_launches)):
+        e["launches"] = counts[e["name"]]
+    print(json.dumps({"kernels": [entry] + training_entries + moe_entries}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,6 +17,13 @@ once per dispatch. The scheduler and its geometry (``chunk_block``
 rounding, ``chunk_budget``, ``rows_cap``, the trash page) match the
 reference engine, so both schedule the same rows.
 
+Weight-only int8 serving: ``weight_dtype="int8"`` (or
+``PADDLE_TPU_WEIGHT_DTYPE=int8``) quantizes the model in place with
+:func:`~paddle_tpu_torch.quant.format.quantize_model` unless it is
+quantized already; the mixed step calls the projections and the MLP as
+modules, so the int8 layers and the mixture-of-experts FFN need nothing
+else from the engine.
+
 Not in this slice (ROADMAP queue A, in order): sampling, the prefix
 cache, the request lifecycle (deadlines, cancel, drain, the degradation
 ladder, the watchdog), speculative decoding, int8 KV pages, CUDA-graph
@@ -28,6 +35,7 @@ engine is driven from one thread.
 from __future__ import annotations
 
 import math
+import os
 import time
 
 import numpy as np
@@ -35,6 +43,8 @@ import torch
 
 from ..ops.ragged_paged_attention import (fused_ragged_paged_attention,
                                           rope_tables)
+from ..quant.format import (is_quantized, model_weight_block,
+                            quantize_model, serving_weight_bytes)
 from .paged_cache import PageAllocator
 
 __all__ = ["LlamaServingEngine", "Request", "AdmissionError"]
@@ -104,9 +114,11 @@ class LlamaServingEngine:
     """Greedy continuous-batching engine over a
     :class:`~paddle_tpu_torch.models.llama.LlamaForCausalLM`; it runs on
     the model's device, with page pools in the model's dtype. The
-    geometry arguments mean what they mean in the reference engine;
-    ``prefix_cache``, ``spec_k``, ``kv_dtype``, ``weight_dtype`` and
-    ``kv_tier`` are accepted only at their off values (later slices)."""
+    geometry arguments, ``weight_dtype`` (None/"bf16": the model as it
+    is; "int8": weight-only int8) and ``weight_block`` mean what they
+    mean in the reference engine; ``prefix_cache``, ``spec_k``,
+    ``kv_dtype`` and ``kv_tier`` are accepted only at their off values
+    (later slices)."""
 
     #: decode steps between admission checks while prompts are pending
     DECODE_TICKS = 16
@@ -114,15 +126,30 @@ class LlamaServingEngine:
     def __init__(self, model, max_batch=16, page_size=16, num_pages=None,
                  max_pages_per_seq=None, chunk_budget=None,
                  chunk_block=None, decode_ticks=None, prefix_cache=False,
-                 spec_k=0, kv_dtype=None, weight_dtype=None, kv_tier=False):
+                 spec_k=0, kv_dtype=None, weight_dtype=None,
+                 weight_block=None, kv_tier=False):
         later = {"prefix_cache": prefix_cache, "spec_k": spec_k,
-                 "kv_dtype": kv_dtype,
-                 "weight_dtype": weight_dtype not in (None, "bf16"),
-                 "kv_tier": kv_tier}
+                 "kv_dtype": kv_dtype, "kv_tier": kv_tier}
         asked = [k for k, v in later.items() if v]
         if asked:
             raise NotImplementedError(
                 f"{', '.join(asked)}: not ported yet (ROADMAP queue A)")
+        if weight_dtype is None:
+            weight_dtype = os.environ.get("PADDLE_TPU_WEIGHT_DTYPE",
+                                          "") or None
+        if weight_dtype == "bf16":
+            weight_dtype = None
+        if weight_dtype not in (None, "int8"):
+            raise ValueError(f"weight_dtype must be 'bf16' (model dtype) or "
+                             f"'int8', got {weight_dtype!r}")
+        # in place; a model quantized already is served as it is
+        if weight_dtype == "int8" and not is_quantized(model):
+            quantize_model(model, block=weight_block)
+        self.weight_quant = bool(weight_dtype == "int8"
+                                 or is_quantized(model))
+        self.weight_block = model_weight_block(model) or 0
+        wbytes, _, welems = serving_weight_bytes(model)
+        self.weight_bytes_per_param = wbytes / max(welems, 1)
         if num_pages is None:
             num_pages = max_batch * 24 + 8
         self.model = model

@@ -1,8 +1,12 @@
-"""Fill a port model from the reference package's parameters.
+"""Fill a port model from the reference package's state.
 
 The reference stores a linear layer's weight as ``[in, out]``; a
-``torch.nn.Linear`` weight is ``[out, in]``. Everything else (embedding
-tables, norm weights) keeps its layout.
+``torch.nn.Linear`` weight is ``[out, in]``. Everything else keeps its
+layout: embedding tables, norm weights, the router ``gate [D, E]`` and
+stacked expert weights ``[E, K, N]`` (parameters, not linear layers),
+and the int8 serving buffers (``weight_int8``/``weight_scale`` of a
+``WeightOnlyLinear``, ``*_proj``/``*_proj_scale`` of a quantized MoE
+FFN), which are stored in the reference layout already.
 """
 
 from __future__ import annotations
@@ -17,25 +21,27 @@ __all__ = ["load_numpy_state"]
 @torch.no_grad()
 def load_numpy_state(model, arrays):
     """Copy ``arrays`` (``{state_dict name: np.ndarray}`` in the
-    reference layout) into ``model``'s parameters, transposing linear
-    weights and casting to each parameter's dtype and device. Raises
-    :class:`ValueError` on any missing, extra or misshapen key."""
+    reference layout) into ``model``'s parameters and buffers,
+    transposing linear weights and casting to each tensor's dtype (int8
+    buffers stay int8) and device. Raises :class:`ValueError` on any
+    missing, extra or misshapen key. A quantized reference state needs
+    a port model quantized with the same block first."""
     linear = {name + ".weight" for name, mod in model.named_modules()
               if isinstance(mod, nn.Linear)}
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(arrays))
-    extra = sorted(set(arrays) - set(params))
+    targets = model.state_dict(keep_vars=True)
+    missing = sorted(set(targets) - set(arrays))
+    extra = sorted(set(arrays) - set(targets))
     if missing or extra:
         raise ValueError(f"state mismatch: missing {missing}, "
                          f"unexpected {extra}")
-    for name, p in params.items():
+    for name, t in targets.items():
         a = np.asarray(arrays[name])
         if name in linear:
             a = a.T
-        if tuple(a.shape) != tuple(p.shape):
-            want = tuple(p.shape)[::-1] if name in linear else tuple(p.shape)
+        if tuple(a.shape) != tuple(t.shape):
+            want = tuple(t.shape)[::-1] if name in linear else tuple(t.shape)
             raise ValueError(
                 f"{name}: got shape {tuple(np.asarray(arrays[name]).shape)}"
                 f", expected {want}")
-        p.copy_(torch.from_numpy(np.array(a)).to(p.dtype))
+        t.copy_(torch.from_numpy(np.array(a)).to(t.dtype))
     return model

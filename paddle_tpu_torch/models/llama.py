@@ -10,8 +10,12 @@ The no-cache forward is the training path: its attention is
 where their preconditions hold), and ``forward(input_ids, labels)``
 returns the loss, by default through the fused linear cross-entropy.
 The serving engine never runs this forward; :func:`plain_attention`
-stays beside it as the model's own plain reference. The
-mixture-of-experts FFN is a later slice (ROADMAP queue A, item 8).
+stays beside it as the model's own plain reference.
+
+``moe_num_experts > 0`` selects the mixture-of-experts FFN
+(:class:`LlamaMoEMLP`, Mixtral-style): dropless top-k routing and three
+grouped GEMMs over the stacked expert weights, float or, after
+``quantize_weights``, int8 with per-block scales.
 """
 
 from __future__ import annotations
@@ -24,11 +28,16 @@ from torch import nn
 
 from ..device import resolve_device
 from ..distributed.recompute import recompute
+from ..incubate.moe import top_k_routing
 from ..incubate.nn import functional as FI
 from ..nn import functional as F
 from ..ops.fused_linear_cross_entropy import fused_linear_cross_entropy
+from ..ops.grouped_gemm import grouped_gemm, grouped_gemm_q8
+from ..quant.format import effective_block, quantize_weight
+from ..quant.layers import keep_f32
 
-__all__ = ["LlamaConfig", "LlamaMLP", "LlamaAttention", "LlamaDecoderLayer",
+__all__ = ["LlamaConfig", "LlamaMLP", "LlamaMoEMLP", "LlamaAttention",
+           "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "RMSNorm", "llama3_8b_config",
            "tiny_llama_config"]
 
@@ -48,7 +57,7 @@ class LlamaConfig:
     initializer_range: float = 0.02
     #: True checkpoints every decoder layer; "dots" is not ported yet
     recompute: bool | str = False
-    #: > 0 selects the mixture-of-experts FFN, not ported yet
+    #: > 0 selects the mixture-of-experts FFN (LlamaMoEMLP)
     moe_num_experts: int = 0
     moe_top_k: int = 2
     moe_intermediate_size: int | None = None
@@ -106,6 +115,146 @@ class LlamaMLP(nn.Module):
         return self.down_proj(FI.swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
+_ROUTER_ROWS = 512      # rows per [rows, E, D] f64 temporary of the router
+
+
+def router_logits(x2d, gate):
+    """The f32 router logits ``x2d [n, D] @ gate [D, E]``, each a sum over
+    D in one fixed order whatever the token count: the f64 products
+    (exact for f32 inputs) are halved by elementwise adds, the last half
+    onto the first, until one term is left, then rounded to f32 once. A
+    library product picks its order of sums by the shape, which would
+    let one token's routing depend on how many others are packed beside
+    it."""
+    g = gate.double().t()[None]                              # [1, E, D]
+    out = []
+    for x in x2d.split(_ROUTER_ROWS):
+        t = x.double()[:, None, :] * g
+        while t.shape[-1] > 1:
+            if t.shape[-1] % 2:
+                t = nn.functional.pad(t, (0, 1))
+            h = t.shape[-1] // 2
+            t = t[..., :h] + t[..., h:]
+        out.append(t[..., 0].float())
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+class LlamaMoEMLP(nn.Module):
+    """Mixture-of-experts SwiGLU FFN (Mixtral-style), selected by
+    ``config.moe_num_experts > 0``.
+
+    Per token: a softmax router over E experts, top-k with renormalized
+    weights, each expert a bias-free SwiGLU MLP with stacked weights
+    ``gate_proj``/``up_proj [E, D, F]`` and ``down_proj [E, F, D]`` (the
+    reference layout), router ``gate [D, E]`` in f32. Routing is
+    dropless (capacity = the token count), so a token's output is a
+    function of its own hidden state only: on the card, bit for bit
+    whatever else is packed beside it, which is what lets the serving
+    engine pack any rows into one dispatch. The three products are the
+    grouped GEMM kernels; ``quantize_weights`` turns the stacked weights
+    into int8 buffers (same names) plus f32 ``*_scale`` buffers, and the
+    products into the int8 grouped GEMM. ``l_aux`` keeps the last
+    forward's load-balancing loss (the model's loss never adds it)."""
+
+    _WEIGHTS = ("gate_proj", "up_proj", "down_proj")
+
+    def __init__(self, config: LlamaConfig, **factory):
+        super().__init__()
+        e = int(config.moe_num_experts)
+        if e <= 0:
+            raise ValueError("LlamaMoEMLP needs config.moe_num_experts "
+                             f"> 0, got {e}")
+        self.num_experts = e
+        self.top_k = max(1, min(int(config.moe_top_k), e))
+        self.d_model = d = config.hidden_size
+        self.d_ff = f = config.moe_intermediate_size \
+            or config.intermediate_size
+        self.gate = nn.Parameter(torch.empty(
+            d, e, device=factory.get("device"), dtype=torch.float32))
+        self.gate_proj = nn.Parameter(torch.empty(e, d, f, **factory))
+        self.up_proj = nn.Parameter(torch.empty(e, d, f, **factory))
+        self.down_proj = nn.Parameter(torch.empty(e, f, d, **factory))
+        self.l_aux = None
+        #: the int8 weights' block size once quantized (None: float)
+        self.weight_block = None
+
+    @torch.no_grad()
+    def reset_parameters(self, std, generator=None):
+        for p in self.parameters():
+            p.normal_(0.0, std, generator=generator)
+
+    @torch.no_grad()
+    def quantize_weights(self, block=None):
+        """Swap the stacked expert weights (in place) for int8 buffers
+        of the same names and shapes plus ``[E, ceil(K/B), N]`` f32
+        ``<name>_scale`` buffers, one expert at a time (the f32
+        temporaries of one expert, not of the stack). The router gate
+        stays float."""
+        if self.weight_block:
+            return
+        # one nominal block; each weight clamps it to its own K
+        block = effective_block(max(self.d_model, self.d_ff), block)
+        for name in self._WEIGHTS:
+            p = getattr(self, name)
+            e, k, n = p.shape
+            b = min(block, k)
+            q = torch.empty((e, k, n), dtype=torch.int8, device=p.device)
+            s = torch.empty((e, -(-k // b), n), dtype=torch.float32,
+                            device=p.device)
+            for i in range(e):
+                q[i], s[i] = quantize_weight(p[i], b)
+            delattr(self, name)
+            self.register_buffer(name, q)
+            self.register_buffer(name + "_scale", s)
+        self.weight_block = int(block)
+
+    def _apply(self, fn, recurse=True):
+        if not self.weight_block:
+            return super()._apply(fn, recurse)
+        return keep_f32(self, fn, recurse,
+                        tuple(n + "_scale" for n in self._WEIGHTS))
+
+    def _products(self, x, gs):
+        """The three grouped GEMMs with SwiGLU between them."""
+        if not self.weight_block:
+            g = grouped_gemm(x, self.gate_proj, gs)
+            u = grouped_gemm(x, self.up_proj, gs)
+            return grouped_gemm(FI.swiglu(g, u), self.down_proj, gs)
+        bg = min(self.weight_block, self.d_model)   # gate/up: K = d_model
+        bd = min(self.weight_block, self.d_ff)      # down: K = d_ff
+        g = grouped_gemm_q8(x, self.gate_proj, self.gate_proj_scale, gs, bg)
+        u = grouped_gemm_q8(x, self.up_proj, self.up_proj_scale, gs, bg)
+        return grouped_gemm_q8(FI.swiglu(g, u), self.down_proj,
+                               self.down_proj_scale, gs, bd)
+
+    def route(self, x2d):
+        """Dropless top-k routing of ``x2d [n, D]``: the outputs of
+        :func:`top_k_routing` (capacity n) and the real rows of each
+        expert ``[E]`` int32, all on x's device."""
+        n, e = x2d.shape[0], self.num_experts
+        logits = router_logits(x2d, self.gate)
+        routing = top_k_routing(logits, self.top_k, n, normalize=True)
+        expert_of, keep = routing[1], routing[3]
+        gs = ((expert_of.reshape(-1, 1) == torch.arange(e, device=x2d.device))
+              & keep.reshape(-1, 1)).sum(dim=0, dtype=torch.int32)
+        return routing + (gs,)
+
+    def forward(self, x):
+        shape = x.shape
+        x2d = x.reshape(-1, shape[-1])
+        n, k = x2d.shape[0], self.top_k
+        slot_token, expert_of, pos_of, keep, weights, self.l_aux, gs = \
+            self.route(x2d)
+        y = self._products(x2d[slot_token.clamp_min(0)], gs)   # [E*n, D]
+        picked = y[expert_of * n + pos_of.clamp(0, n - 1)]     # [n, k, D]
+        wk = (weights * keep).to(x2d.dtype).float()
+        # the combine, one fixed order per token
+        out = wk[:, 0, None] * picked[:, 0].float()
+        for j in range(1, k):
+            out = out + wk[:, j, None] * picked[:, j].float()
+        return out.to(x2d.dtype).reshape(shape)
+
+
 def plain_attention(q, k, v):
     """Causal GQA attention on ``[B, S, H(k), D]`` in plain PyTorch:
     f32 scores and softmax, probabilities cast back to ``q.dtype``
@@ -152,16 +301,13 @@ class LlamaAttention(nn.Module):
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
-        if config.moe_num_experts:
-            raise NotImplementedError(
-                "moe_num_experts > 0: the mixture-of-experts FFN is not "
-                "ported yet (ROADMAP queue A, item 8)")
         self.input_layernorm = RMSNorm(config.hidden_size,
                                        config.rms_norm_eps, **factory)
         self.self_attn = LlamaAttention(config, **factory)
         self.post_attention_layernorm = RMSNorm(
             config.hidden_size, config.rms_norm_eps, **factory)
-        self.mlp = LlamaMLP(config, **factory)
+        self.mlp = LlamaMoEMLP(config, **factory) if config.moe_num_experts \
+            else LlamaMLP(config, **factory)
 
     def forward(self, x, position_ids=None):
         x = x + self.self_attn(self.input_layernorm(x), position_ids)
@@ -203,9 +349,9 @@ class LlamaForCausalLM(nn.Module):
 
     The parameters are allocated on ``device`` (default ``cuda``; the
     CPU only when asked for by name) in ``dtype`` and initialised once:
-    linear and embedding weights from ``N(0, initializer_range)`` drawn
-    from ``generator`` (a :class:`torch.Generator` on that device),
-    RMSNorm weights to ones."""
+    linear, embedding, router and expert weights from ``N(0,
+    initializer_range)`` drawn from ``generator`` (a
+    :class:`torch.Generator` on that device), RMSNorm weights to ones."""
 
     def __init__(self, config: LlamaConfig, device=None,
                  dtype=torch.float32, generator=None):
@@ -229,6 +375,8 @@ class LlamaForCausalLM(nn.Module):
                 mod.weight.normal_(0.0, std, generator=generator)
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
+            elif isinstance(mod, LlamaMoEMLP):
+                mod.reset_parameters(std, generator)
 
     def _logits(self, hidden):
         if self.lm_head is not None:

@@ -1,4 +1,5 @@
-from . import flash_attention, fused_linear_cross_entropy, ragged_paged_attention
+from . import (flash_attention, fused_linear_cross_entropy, grouped_gemm,
+               ragged_paged_attention)
 
-__all__ = ["flash_attention", "fused_linear_cross_entropy",
+__all__ = ["flash_attention", "fused_linear_cross_entropy", "grouped_gemm",
            "ragged_paged_attention"]

@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with :mod:`ctypes`. Builds
 happen at first use, all sources at once (one ``nvcc`` process each),
 into ``paddle_tpu_torch/build/<hash>/``, keyed by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one
-is reused. A missing ``nvcc`` or a failed build raises.
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source rebuilds and an unchanged one is reused. A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "load"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "data_ptr", "load"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -27,7 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: library name -> source file under csrc/
 SOURCES = {"ragged_paged_attention": "ragged_paged_attention.cu",
            "flash_attention": "flash_attention.cu",
-           "fused_linear_cross_entropy": "fused_linear_cross_entropy.cu"}
+           "fused_linear_cross_entropy": "fused_linear_cross_entropy.cu",
+           "grouped_gemm": "grouped_gemm.cu",
+           "dequant_matmul": "dequant_matmul.cu"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -47,9 +49,14 @@ def _nvcc():
 
 
 def _lib_path(name):
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        src = f.read()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # the key covers the source and every shared header beside it
+    parts = [SOURCES[name]] + sorted(f for f in os.listdir(CSRC)
+                                     if f.endswith(".cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for part in parts:
+        with open(os.path.join(CSRC, part), "rb") as f:
+            h.update(f.read())
+    h = h.hexdigest()
     return os.path.join(BUILD, h[:16], f"lib{name}.so")
 
 
@@ -82,6 +89,11 @@ def build_all(names=None):
         raise RuntimeError("CUDA kernel build failed: "
                            + "\n".join(failed))
     return paths
+
+
+def data_ptr(t):
+    """A tensor's device address for a C entry, None for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def load(name):

@@ -1,0 +1,240 @@
+"""Grouped GEMM over expert-contiguous ragged row blocks (port of
+``paddle_tpu/ops/grouped_gemm.py``), float and int8 weights.
+
+Shapes (E experts, stride C rows per expert, M = E * C rows):
+
+  x            [M, K]     expert ``e`` owns rows ``[e*C, (e+1)*C)``; only
+                          the first ``clip(group_sizes[e], 0, C)`` are real
+  w            [E, K, N]  stacked per-expert weights
+  group_sizes  [E] int    real rows per expert, on x's device
+  -> y         [M, N]     y[e*C + i] = x[e*C + i] @ w[e] for i < the
+                          expert's real rows, else 0
+
+f32 accumulation, out in x's dtype. The int8 variant takes ``w_q [E, K,
+N]`` int8 and ``scales [E, ceil(K/B), N]`` f32 and computes the same
+against ``w_q * scales[e, k // B, n]``.
+
+On CUDA tensors :func:`grouped_gemm` and :func:`grouped_gemm_q8` launch
+the hand-written kernels of ``csrc/grouped_gemm.cu``, which read the
+group sizes on the device (no host sync) and skip dead tiles; on CPU
+tensors they run the plain versions :func:`grouped_gemm_ref` and
+:func:`grouped_gemm_q8_ref`. Each out row depends only on its own x row,
+bit for bit, on the card. :func:`grouped_gemm` is differentiable: dx is
+the same grouped product against ``w`` transposed (read through its
+strides, never copied), dw the masked f32 batched product
+:func:`grouped_gemm_dw`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..quant.format import dequant_blocks
+from . import _build
+from ._tile_gemm import TILE_K, split_count, split_scratch
+
+__all__ = ["grouped_gemm", "grouped_gemm_ref", "grouped_gemm_dw",
+           "grouped_gemm_q8", "grouped_gemm_q8_ref"]
+
+#: kernel launches on the CUDA path, per kernel
+launches = {"grouped_gemm": 0, "grouped_gemm_q8": 0}
+
+def _geometry(x, w, group_sizes):
+    if x.dim() != 2 or w.dim() != 3 or group_sizes.dim() != 1:
+        raise ValueError("expected x [M, K], w [E, K, N] and group_sizes "
+                         f"[E]; got {tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(group_sizes.shape)}")
+    m, k = x.shape
+    e, kw, n = w.shape
+    if e == 0 or group_sizes.shape[0] != e or kw != k or m % e:
+        raise ValueError(f"inconsistent shapes: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, group_sizes "
+                         f"{tuple(group_sizes.shape)} (M must be E * C)")
+    if len({x.device, w.device, group_sizes.device}) != 1:
+        raise ValueError("x, w and group_sizes must share one device")
+    return e, m // e, k, n
+
+
+def _masked(x, e, c, gs):
+    """``x`` as ``[E, C, K]`` f32 with rows at or past each expert's
+    (clamped) size set to zero."""
+    gs = gs.long().clamp(0, c)
+    mask = torch.arange(c, device=x.device)[None, :] < gs[:, None]
+    return torch.where(mask[..., None], x.reshape(e, c, -1).float(),
+                       torch.zeros((), device=x.device))
+
+
+def grouped_gemm_ref(x, w, group_sizes):
+    """The plain version: mask each expert's padding rows, one f32
+    batched product against the stacked weights, cast to x's dtype."""
+    e, c, k, n = _geometry(x, w, group_sizes)
+    y = torch.bmm(_masked(x, e, c, group_sizes), w.float())
+    return y.to(x.dtype).reshape(e * c, n)
+
+
+def grouped_gemm_q8_ref(x, w_q, scales, group_sizes, block):
+    """The plain int8 version: dequantize the stacked weights to f32
+    (the reference's expression), then :func:`grouped_gemm_ref`'s
+    masked f32 product."""
+    e, c, k, n = _geometry(x, w_q, group_sizes)
+    w = dequant_blocks(w_q, scales, int(block))
+    y = torch.bmm(_masked(x, e, c, group_sizes), w)
+    return y.to(x.dtype).reshape(e * c, n)
+
+
+def grouped_gemm_dw(x, g, group_sizes, dtype):
+    """The weight gradient of :func:`grouped_gemm`: ``dw[e] = x[e]^T @
+    g[e]`` over each expert's real rows, in f32, cast to ``dtype``. A
+    plain batched product on either device (the reference leaves it
+    outside its kernel too)."""
+    e = group_sizes.shape[0]
+    c = x.shape[0] // e
+    return torch.bmm(_masked(x, e, c, group_sizes).transpose(1, 2),
+                     _masked(g, e, c, group_sizes)).to(dtype)
+
+
+def _lib():
+    lib = _build.load("grouped_gemm")
+    if not getattr(lib, "_gg_typed", False):
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.gg_forward.argtypes = [vp] * 4 + [i32] * 4 + [i64] * 3 \
+            + [i32, vp, vp, i32, vp]
+        lib.gg_forward.restype = i32
+        lib.gg_q8_forward.argtypes = [vp] * 5 + [i32] * 6 + [vp, vp, i32, vp]
+        lib.gg_q8_forward.restype = i32
+        lib.gg_error_string.argtypes = [i32]
+        lib.gg_error_string.restype = ctypes.c_char_p
+        lib._gg_typed = True
+    return lib
+
+
+def _raise_on(lib, rc, what):
+    if rc:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
+                           f"({lib.gg_error_string(rc).decode()})")
+
+
+def _operands(x, group_sizes, k, n):
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA grouped GEMM takes bf16 or f32 x, got "
+                         f"{x.dtype}")
+    if k % 8 or n % 8:
+        raise ValueError(f"the CUDA grouped GEMM needs K % 8 == 0 and N % 8 "
+                         f"== 0; got K {k}, N {n}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("the CUDA grouped GEMM takes 16-byte aligned x")
+    return x, group_sizes.to(torch.int32).contiguous()
+
+
+def _launch_float(x, w, group_sizes):
+    e, c, k, n = _geometry(x, w, group_sizes)
+    x, gs = _operands(x, group_sizes, k, n)
+    if w.dtype != x.dtype:
+        raise ValueError(f"the CUDA grouped GEMM takes w in x's dtype; got "
+                         f"{w.dtype} for {x.dtype} x")
+    se, sk, sn = w.stride()
+    # 16-byte vectors along the unit-stride axis of w: N (the stored
+    # weight) or K (its transpose, the backward's dx)
+    if (sn != 1 and sk != 1) or any(s % 8 for s in (se, sk, sn) if s != 1) \
+            or w.data_ptr() % 16:
+        raise ValueError(
+            "the CUDA grouped GEMM reads w with a unit stride along K or N, "
+            f"the other strides multiples of 8 and 16-byte alignment; got "
+            f"strides {w.stride()}")
+    y = torch.empty((e * c, n), dtype=x.dtype, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    splits = split_count(x.device, e, k, n, TILE_K) if bf16 else 1
+    partial, tickets = split_scratch(x, splits, e, c, n)
+    lib = _lib()
+    rc = lib.gg_forward(x.data_ptr(), w.data_ptr(), gs.data_ptr(),
+                        y.data_ptr(), e, c, k, n, se, sk, sn, splits,
+                        _build.data_ptr(partial), _build.data_ptr(tickets),
+                        int(bf16),
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(lib, rc, "grouped_gemm")
+    launches["grouped_gemm"] += 1
+    return y
+
+
+def _launch_q8(x, w_q, scales, group_sizes, block):
+    e, c, k, n = _geometry(x, w_q, group_sizes)
+    x, gs = _operands(x, group_sizes, k, n)
+    if w_q.dtype != torch.int8 or scales.dtype != torch.float32 \
+            or tuple(scales.shape) != (e, -(-k // block), n):
+        raise ValueError(
+            "the CUDA int8 grouped GEMM takes int8 w [E, K, N] and f32 "
+            f"scales [E, ceil(K/B), N]; got {w_q.dtype} {tuple(w_q.shape)}, "
+            f"{scales.dtype} {tuple(scales.shape)}, block {block}")
+    if block % TILE_K or n % 16:
+        raise ValueError(f"the CUDA int8 grouped GEMM needs a block that is "
+                         f"a multiple of {TILE_K} and N % 16 == 0; got "
+                         f"block {block}, N {n}")
+    if not (w_q.is_contiguous() and scales.is_contiguous()) \
+            or w_q.data_ptr() % 16 or scales.data_ptr() % 16:
+        raise ValueError("the CUDA int8 grouped GEMM takes contiguous, "
+                         "16-byte aligned weights and scales")
+    y = torch.empty((e * c, n), dtype=x.dtype, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    splits = split_count(x.device, e, k, n, block) if bf16 else 1
+    partial, tickets = split_scratch(x, splits, e, c, n)
+    lib = _lib()
+    rc = lib.gg_q8_forward(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
+                           gs.data_ptr(), y.data_ptr(), e, c, k, n, block,
+                           splits, _build.data_ptr(partial),
+                           _build.data_ptr(tickets), int(bf16),
+                           torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(lib, rc, "grouped_gemm_q8")
+    launches["grouped_gemm_q8"] += 1
+    return y
+
+
+def _grouped(x, w, group_sizes):
+    if x.device.type == "cpu":
+        return grouped_gemm_ref(x, w, group_sizes)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _launch_float(x, w, group_sizes)
+
+
+class _GroupedGemm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w, group_sizes)
+        return _grouped(x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, gs = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # rows past each expert's size get zeros, as they must: those
+            # x rows never reached the output
+            dx = _grouped(g, w.transpose(1, 2), gs)
+        if ctx.needs_input_grad[1]:
+            dw = grouped_gemm_dw(x, g, gs, w.dtype)
+        return dx, dw, None
+
+
+def grouped_gemm(x, w, group_sizes):
+    """``y[e*C + i] = x[e*C + i] @ w[e]`` for ``i < group_sizes[e]``,
+    zeros past each expert's rows (see the module docstring).
+    Differentiable in ``x`` and ``w``."""
+    return _GroupedGemm.apply(x, w, group_sizes)
+
+
+def grouped_gemm_q8(x, w_q, scales, group_sizes, block):
+    """The int8-weight grouped GEMM: ``y[e*C + i] = x[e*C + i] @ (w_q[e]
+    * scales[e])`` for ``i < group_sizes[e]``, zeros elsewhere (a
+    ragged last scale block included). Not differentiable (quantized
+    weights are frozen)."""
+    _geometry(x, w_q, group_sizes)
+    block = int(block)
+    if x.device.type == "cpu":
+        return grouped_gemm_q8_ref(x, w_q, scales, group_sizes, block)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _launch_q8(x, w_q, scales, group_sizes, block)

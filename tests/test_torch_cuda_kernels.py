@@ -1,8 +1,12 @@
-"""The training kernels against their plain versions on the card, at
-small shapes and edge cases that ``chip_smoke.py`` does not reach: head
-dim 64, GQA groups 1 and 4, non-causal and shorter-query batches, the
-autograd path end to end; the loss kernel on ragged row tiles, a ragged
-vocab tail and labels outside ``[0, V)`` (in the padded tail too).
+"""The training and MoE/int8 kernels against their plain versions on
+the card, at small shapes and edge cases that ``chip_smoke.py`` does not
+reach: head dim 64, GQA groups 1 and 4, non-causal and shorter-query
+batches, the autograd path end to end; the loss kernel on ragged row
+tiles, a ragged vocab tail and labels outside ``[0, V)`` (in the padded
+tail too); the grouped GEMMs (float and int8) on empty experts, ragged
+row, K and N tails, group sizes past the stride, f32 and bf16, and the
+backward's dx on the transposed weight; the dequant matmul at decode
+and prefill row counts; a ragged last scale block in both int8 kernels.
 
 Every test needs an NVIDIA card and ``nvcc`` and skips without one; on
 the card this file runs on its own, without the jax-importing conftest:
@@ -12,7 +16,8 @@ the card this file runs on its own, without the jax-importing conftest:
 Tolerances are ``chip_smoke.py``'s: bf16 outputs within 1 bf16 ulp plus
 2^-10 of the head vector's largest value (for gradients, that largest
 value taken at least 2^-6 of the tensor's), f32 lse within 1e-3; the
-loss kernel's lse and pick within 1e-5 of max(|x|, 1).
+loss kernel's lse and pick within 1e-5 of max(|x|, 1). The f32
+grouped/dequant products: within 1e-5 of the out row's largest value.
 """
 
 import math
@@ -22,6 +27,11 @@ import torch
 
 from paddle_tpu_torch.ops import flash_attention as FT
 from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+from paddle_tpu_torch.ops import grouped_gemm as GG
+from paddle_tpu_torch.quant import kernels as QK
+from paddle_tpu_torch.quant.format import quantize_weight
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -43,6 +53,16 @@ def _close(got, ref, floor=0.0):
         floor * float(ref.abs().max()))
     bad = (got - ref).abs() > _ulp(ref) + 2 ** -10 * vec
     assert torch.isfinite(got).all() and not bool(bad.any())
+
+
+def _close_any(got, ref):
+    """bf16 outs by :func:`_close`; f32 outs within 1e-5 of the row's
+    largest value."""
+    if ref.dtype == torch.bfloat16:
+        return _close(got, ref)
+    vec = ref.abs().amax(dim=-1, keepdim=True)
+    assert torch.isfinite(got).all()
+    assert not bool(((got - ref).abs() > 1e-5 * vec).any())
 
 
 FLASH = [  # b, sq, sk, h, hk, d, causal
@@ -133,3 +153,98 @@ def test_loss_autograd_on_the_card(dev):
                                               lse, gn, 128, -100)
     torch.testing.assert_close(h.grad, dh, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(w.grad, dw, rtol=1e-5, atol=1e-6)
+
+
+GROUPED = [  # e, c, k, n, group sizes
+    (4, 40, 64, 128, [3, 0, 40, 17]),
+    (4, 10, 72, 136, [12, 0, 1, 10]),      # gs > C, ragged K and N tiles
+    (3, 5, 256, 64, [0, 0, 0]),             # every expert empty
+    (2, 70, 32, 256, [70, 33]),             # three row tiles
+]
+
+
+def _grouped_inputs(dev, dtype, e, c, k, n, gs, seed=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(e * c, k, device=dev, generator=g).to(dtype)
+    w = (torch.randn(e, k, n, device=dev, generator=g) * 0.1).to(dtype)
+    return x, w, torch.tensor(gs, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", GROUPED)
+def test_grouped_gemm_kernel_matches_plain(dev, dtype, case):
+    x, w, gs = _grouped_inputs(dev, dtype, *case)
+    before = GG.launches["grouped_gemm"]
+    y = GG.grouped_gemm(x, w, gs)
+    assert GG.launches["grouped_gemm"] == before + 1
+    ref = GG.grouped_gemm_ref(x, w, gs)
+    _close_any(y, ref)
+    e, c = case[0], case[1]
+    y3 = y.reshape(e, c, -1)
+    for ei, m in enumerate(case[4]):
+        assert not y3[ei, min(m, c):].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grouped_gemm_backward_on_the_card(dev, dtype):
+    e, c, k, n, gs = GROUPED[1]
+    x, w, gs_t = _grouped_inputs(dev, dtype, e, c, k, n, gs, seed=1)
+    x.requires_grad_()
+    w.requires_grad_()
+    g = torch.randn(e * c, n, device=dev, dtype=dtype)
+    before = GG.launches["grouped_gemm"]
+    GG.grouped_gemm(x, w, gs_t).backward(g)
+    assert GG.launches["grouped_gemm"] == before + 2     # y, then dx
+    _close_any(x.grad, GG.grouped_gemm_ref(g, w.detach().transpose(1, 2),
+                                           gs_t))
+    assert torch.equal(w.grad, GG.grouped_gemm_dw(x.detach(), g, gs_t,
+                                                  w.dtype))
+
+
+def test_grouped_gemm_rows_are_independent(dev):
+    """A row's out is bit for bit the same whatever the other rows."""
+    g = torch.Generator(dev).manual_seed(4)
+    w = torch.randn(2, 256, 128, device=dev, generator=g).bfloat16()
+    rows = torch.randn(33, 256, device=dev, generator=g).bfloat16()
+    alone = GG.grouped_gemm(torch.cat([rows[:1], rows[:1]]), w,
+                            torch.tensor([1, 0], device=dev))[0]
+    x = torch.zeros(66, 256, device=dev, dtype=torch.bfloat16)
+    x[:33] = rows
+    packed = GG.grouped_gemm(x, w, torch.tensor([33, 0], device=dev))[0]
+    assert torch.equal(alone, packed)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e,c,k,n,block,gs", [
+    (4, 40, 128, 144, 32, [3, 0, 40, 17]),
+    (4, 8, 256, 128, 128, [9, 0, 2, 8]),
+    (2, 70, 64, 256, 64, [70, 1]),
+    (3, 16, 200, 128, 64, [16, 5, 0])])     # K % B != 0: a ragged block
+def test_grouped_gemm_q8_kernel_matches_plain(dev, dtype, e, c, k, n, block,
+                                              gs):
+    x, w, gs_t = _grouped_inputs(dev, dtype, e, c, k, n, gs, seed=2)
+    q, s = quantize_weight(w, block)
+    before = GG.launches["grouped_gemm_q8"]
+    y = GG.grouped_gemm_q8(x, q, s, gs_t, block)
+    assert GG.launches["grouped_gemm_q8"] == before + 1
+    _close_any(y, GG.grouped_gemm_q8_ref(x, q, s, gs_t, block))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,block", [(1, 256, 1024, 128),
+                                         (8, 512, 48, 64),
+                                         (45, 128, 256, 32)])
+def test_dequant_matmul_kernel_matches_plain(dev, dtype, m, k, n, block):
+    g = torch.Generator(dev).manual_seed(m + k + n)
+    x = torch.randn(m, k, device=dev, generator=g).to(dtype)
+    q, s = quantize_weight(torch.randn(k, n, device=dev, generator=g), block)
+    before = QK.launches
+    y = QK.dequant_matmul(x, q, s, block)
+    assert QK.launches == before + 1
+    _close_any(y, QK.dequant_matmul_ref(x, q, s, block))
+    # a ragged last scale block (K % B != 0) launches the kernel too
+    q2, s2 = quantize_weight(torch.randn(k - 8, n, device=dev, generator=g),
+                             block)
+    y2 = QK.dequant_matmul(x[:, :k - 8], q2, s2, block)
+    assert QK.launches == before + 2
+    _close_any(y2, QK.dequant_matmul_ref(x[:, :k - 8], q2, s2, block))

@@ -23,7 +23,11 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.nn.functional", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.distributed.recompute",
            "paddle_tpu_torch.optimizer", "paddle_tpu_torch.io",
-           "paddle_tpu_torch.examples.llama_pretrain"]
+           "paddle_tpu_torch.examples.llama_pretrain",
+           "paddle_tpu_torch.incubate.moe", "paddle_tpu_torch.ops.grouped_gemm",
+           "paddle_tpu_torch.ops._tile_gemm",
+           "paddle_tpu_torch.quant", "paddle_tpu_torch.quant.format",
+           "paddle_tpu_torch.quant.kernels", "paddle_tpu_torch.quant.layers"]
 
 
 def test_import_leaves_jax_unloaded():

@@ -128,8 +128,7 @@ def test_admission_and_unported_options(models):
     with pytest.raises(NotImplementedError):
         Request([1, 2], temperature=0.7)
     for kw in ({"prefix_cache": True}, {"spec_k": 2},
-               {"kv_dtype": "int8"}, {"weight_dtype": "int8"},
-               {"kv_tier": True}):
+               {"kv_dtype": "int8"}, {"kv_tier": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LlamaServingEngine(tm, **kw)
 

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time goes when ``paddle_tpu_torch`` serves Llama-3-8B.
+"""Where the time goes when ``paddle_tpu_torch`` serves a model.
 
-    python3 tools/torch_serving_profile.py [--out PATH]
+    python3 tools/torch_serving_profile.py [--model llama3-8b|mixtral-int8]
+                                           [--out PATH]
 
-Runs the workload of ``chip_smoke.py`` phase 4, taken from its
-``serving_workload`` (random bf16 Llama-3-8B weights from a seeded
-generator on the card, 8 prompts of 64-512 tokens, 32 new tokens each,
-``max_batch=8``, ``page_size=16``) once to warm up, then twice: once
-timing every dispatch on the host clock (with a device synchronise
-after each, split into mixed prefill+decode dispatches and decode-only
-ones), once under ``torch.profiler`` for the device time by
-kernel and the share of wall time with no kernel running. Prints one
-JSON object; ``--out`` also writes it to a file. Needs one card.
+``llama3-8b`` (the default) is the workload of ``chip_smoke.py`` phase
+4, taken from its ``serving_workload``: random bf16 Llama-3-8B weights
+from a seeded generator on the card. ``mixtral-int8`` is phase 6's:
+Mixtral-8x7B at full width and depth with int8 weights, built layer by
+layer by ``chip_smoke.mixtral_int8``, behind
+``LlamaServingEngine(weight_dtype="int8")``. Both serve 8 prompts of
+64-512 tokens, 32 new tokens each, ``max_batch=8``, ``page_size=16``:
+once to warm up, then twice: once timing every dispatch on the host
+clock (with a device synchronise after each, split into mixed
+prefill+decode dispatches and decode-only ones), once under
+``torch.profiler`` for the device time by kernel and by kernel family,
+and the share of wall time with no kernel running (only kernels and
+copies count as device time). Prints one JSON object; ``--out`` also
+writes it to a file. Needs one card.
 """
 
 import argparse
@@ -22,11 +28,50 @@ import sys
 import time
 
 
-def workload():
+# kernel families by a fragment of the kernel's name, first match wins;
+# the tile kernels are named by their library's namespace and by their
+# weight kind (template argument 1: int8)
+FAMILIES = [
+    ("rope_kv_write", "ragged attention #12"),
+    ("ragged_attention_rope", "ragged attention #12"),
+    ("dequant_matmul::", "dequant matmul #8"),
+    ("gemm", "GEMM (cuBLAS)"),
+    ("xmma", "GEMM (cuBLAS)"),
+    ("cutlass", "GEMM (cuBLAS)"),
+    ("nvjet", "GEMM (cuBLAS)"),
+    ("sort", "sort (routing)"),
+    ("Memcpy", "copies"),
+    ("Memset", "copies"),
+]
+
+
+def family(name):
+    if "grouped_gemm::" in name:
+        return "int8 grouped GEMM #7" if "_kernel<1>" in name \
+            else "float grouped GEMM #6"
+    for frag, fam in FAMILIES:
+        if frag.lower() in name.lower():
+            return fam
+    return "other (elementwise, reductions, indexing)"
+
+
+def moe_workload(dev):
+    from chip_smoke import mixtral_int8, serving_prompts
+    from paddle_tpu_torch.inference import LlamaServingEngine
+    model = mixtral_int8(dev)
+    engine = LlamaServingEngine(model, max_batch=8, page_size=16,
+                                weight_dtype="int8")
+    prompts = serving_prompts(model.config.vocab_size)
+    engine.generate([prompts[0][:16]], max_new_tokens=2)   # warm-up
+    return model.config, model, engine, prompts
+
+
+def workload(name):
     import torch
     from chip_smoke import NEW, serving_workload
     from paddle_tpu_torch.inference import Request
-    cfg, _, engine, prompts = serving_workload(torch.device("cuda"))
+    build = moe_workload if name == "mixtral-int8" else serving_workload
+    cfg, _, engine, prompts = build(torch.device("cuda"))
 
     def run():
         reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
@@ -72,7 +117,10 @@ def profile(run):
     by_name = collections.Counter()
     spans = []
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # kernels and copies only: an annotation's device span covers
+        # kernels counted on their own
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
             continue
         tr = e.time_range
         if tr.end <= tr.start:
@@ -96,6 +144,8 @@ def profile(run):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=("llama3-8b", "mixtral-int8"),
+                    default="llama3-8b")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     import torch
@@ -105,14 +155,17 @@ def main():
         os.path.abspath(__file__))))
     from chip_smoke import card_line
     card = card_line()
-    cfg, engine, run = workload()
+    cfg, engine, run = workload(args.model)
     times, wall, reqs = dispatch_times(engine, run)
     by_name, busy_us, window_us, prof_wall = profile(run)
     total = sum(by_name.values()) or 1.0
-    attn = sum(v for k, v in by_name.items()
-               if "rope_kv_write" in k or "ragged_attention_rope" in k)
+    by_family = collections.Counter()
+    for k, v in by_name.items():
+        by_family[family(k)] += v
+    n_disp = sum(len(v) for v in times.values()) or 1
     res = {
-        "card": card, "layers": cfg.num_hidden_layers,
+        "card": card, "model": args.model,
+        "layers": cfg.num_hidden_layers,
         "wall_s": wall, "generated_tokens": sum(len(r.output_ids)
                                                 for r in reqs),
         "tokens_per_s": sum(len(r.output_ids) for r in reqs) / wall,
@@ -125,8 +178,15 @@ def main():
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": (1 - busy_us / (prof_wall * 1e6))
         if busy_us else None,
-        "attention_kernel_share_of_device_time": attn / total,
-        "top_kernels_ms": {k: v / 1e3 for k, v in by_name.most_common(12)},
+        "attention_kernel_share_of_device_time":
+            by_family["ragged attention #12"] / total,
+        "device_ms_by_family": {k: v / 1e3
+                                for k, v in by_family.most_common()},
+        "device_share_by_family": {k: v / total
+                                   for k, v in by_family.most_common()},
+        "device_ms_per_dispatch_by_family": {
+            k: v / 1e3 / n_disp for k, v in by_family.most_common()},
+        "top_kernels_ms": {k: v / 1e3 for k, v in by_name.most_common(15)},
     }
     text = json.dumps(res, indent=1)
     print(text)
