@@ -14,6 +14,17 @@ package is not beside it, and when any phase fails:
    heads, 8 kv heads, head_dim 128, page 16; a mixed dispatch at qblock
    32 and a decode-only one at qblock 1), with its time, the plain
    version's time, a PyTorch library call's time and the card's bound;
+   (phases 3 and 3d also print each kernel's device time from the
+   profiler, which leaves out the host's time between launches);
+3d. the rest of the ragged paged attention family at phase 3's shapes
+   and dispatches: the rope-fused call over int8 pools (#13), the
+   post-rope fused call over bf16 and int8 pools (#11a, #11b) and the
+   read-only call over pools written before (#10, #9); written int8
+   slots and their scales bit for bit ``quantize_kv_int8`` in PyTorch on
+   the card, written bf16 slots as phase 3, untouched slots and the dump
+   page unchanged, outputs within phase 3's bound; each with the same
+   four times (the library call: SDPA over the gathered K/V, dequantized
+   to bf16 for int8);
 3b. the training kernels against their plain versions on the card:
    flash attention forward, dQ and dK/dV at Llama-3-8B training shapes
    (batch 2 x seq 2048, 32 q / 8 kv heads, head_dim 128, bf16, causal;
@@ -55,7 +66,22 @@ package is not beside it, and when any phase fails:
    own forward through the plain versions of all kernels;
 7. the same for the bf16 MoE FFN at 4 layers (32 need two cards) with
    ``weight_dtype=None``: three float grouped GEMMs per layer;
-8. a JSON line of kernel results, then the final result line.
+8. (run after 4) Llama-3-8B at full width and depth with int8 KV pages,
+   ``LlamaServingEngine(kv_dtype="int8")``, phase 4's prompts: every
+   launch of #13 counted (2 a layer a dispatch), no plain version
+   called, the KV pool's bytes beside phase 4's, every served token
+   checked against the model's own plain forward with K and V through
+   ``quantize_kv_int8`` and back (phase 4's floors), and the share of
+   tokens equal to phase 4's printed;
+9. (run after 8) the engine's three attention paths at Llama-3-8B width
+   cut to 4 layers, both KV dtypes, phase 4's prompts: rope-fused (#12 /
+   #13), ``fused_rope=False`` (#11a / #11b) and ``fused_kv=False`` (the
+   PyTorch scatter, then #10 / #9): identical greedy tokens; pools,
+   sidecars and attention outputs bitwise equal after the first (mixed)
+   dispatch, pools after the whole run; launches counted per path (2 a
+   layer a dispatch fused, 1 two-op), no plain version called;
+
+then a JSON line of kernel results and the final result line.
 """
 
 import contextlib
@@ -79,7 +105,21 @@ GRAD_FLOOR = 2 ** -6
 NEW = 32            # new tokens per served request
 EXACT_FLOOR = 0.75  # share of served tokens equal to the plain argmax
 TIE_TOL = 0.5       # logit gap allowed to the plain forward's argmax
-REPLACES = "paddle_tpu/ops/ragged_paged_attention.py:1060"
+RPA_SOURCE = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
+# the ragged paged attention family: launch-count key -> (JSON name, line
+# of the TPU kernel's pallas_call in paddle_tpu/ops/ragged_paged_attention
+# .py, rope inside the call, int8 pools, read-only)
+VARIANTS = {
+    "fused_rope": ("fused_ragged_paged_attention_rope", 1060, True, False,
+                   False),                                        # 12
+    "fused_rope_q8": ("fused_ragged_paged_attention_rope_q8", 1133, True,
+                      True, False),                               # 13
+    "fused": ("fused_ragged_paged_attention", 921, False, False, False),
+    "fused_q8": ("fused_ragged_paged_attention_q8", 990, False, True,
+                 False),                                          # 11b
+    "ragged": ("ragged_paged_attention", 368, False, False, True),  # 10
+    "ragged_q8": ("ragged_paged_attention_q8", 328, False, True, True),
+}
 F32_FLOPS = 67e12   # H100 SXM f32 outside the tensor cores
 TRAIN_B, TRAIN_S = 2, 2048               # Llama-3-8B training batch
 TRAIN_LAYERS, TRAIN_STEPS = 8, 10        # depth cut to fit one card
@@ -108,6 +148,9 @@ MIXTRAL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
 MOE_TOKENS = (8, 64)     # decode-only and full mixed dispatch, max_batch 8
 WEIGHT_BLOCK = 128       # the int8 format's default block
 FLOAT_MOE_LAYERS = 4     # bf16 Mixtral: 4 layers fit one card, 32 do not
+LADDER_LAYERS = 4        # phase 9: Llama-3-8B width cut to 4 layers
+# phase 3d: #13, #11a, #11b, #10, #9 (keys of VARIANTS)
+FAMILY = ("fused_rope_q8", "fused", "fused_q8", "ragged", "ragged_q8")
 # layer 0: an engine route may sit this far below the plain router's
 # k-th logit (random router logits have std ~1.3; rounding moves them
 # by ~0.01)
@@ -143,6 +186,25 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20):
+    """Mean device time of the kernels ``fn`` launches, per call, from
+    ``torch.profiler`` (kernels and copies only): unlike :func:`time_ms`
+    it leaves out the host's time between launches, which is longer than
+    the kernels' at small shapes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    return total / iters / 1e3
 
 
 def attention_batch(dev, qb, ctx, chunks, inactive, seed=0):
@@ -208,24 +270,34 @@ def attention_batch(dev, qb, ctx, chunks, inactive, seed=0):
     return args, info
 
 
-def bound(args, info):
-    """Least time the card could take: every input byte read once and
-    every output byte written once over the memory rate, or the
-    attention's operations over the bf16 rate; the larger wins."""
+def bound(args, info, variant="fused_rope"):
+    """Least time the card could take for one call of ``variant``: every
+    input byte read once and every output byte written once over the
+    memory rate, or the attention's operations over the bf16 rate; the
+    larger wins. Pools are bf16, or int8 with one f32 scale per (token,
+    kv head); the read-only calls read the whole context from the pools,
+    the others read the fresh K/V from ``new_k``/``new_v`` and write
+    them (quantized where the pools are int8)."""
+    _, _, rope, q8, read_only = VARIANTS[variant]
     t = info["tokens"]
     el = 2                                      # bf16 bytes
-    nbytes = (2 * info["prior_tokens"] * HK * D * el     # live K/V read
-              + t * H * D * el + 2 * t * HK * D * el     # q, new K/V
-              + 2 * t * D * 4                            # sin/cos
+    slot = HK * (D * (1 if q8 else el) + (4 if q8 else 0))   # a pool token
+    kv_read = info["prior_tokens"] + (t if read_only else 0)
+    # q: the valid query rows only, whatever its layout (a row-blocked
+    # q's padding is never read)
+    q_rows = int(args["q_lens"].sum())
+    nbytes = (2 * kv_read * slot                         # live K/V read
+              + q_rows * H * D * el                      # q
               + sum(args[k].numel() * 4 for k in (
                   "block_tables", "kv_lens", "q_starts", "q_lens",
-                  "w_starts", "w_flats", "w_ends"))
-              + info["rows"] * args["qblock"] * H * D * el   # out
-              + 2 * t * HK * D * el)                     # fresh K/V
+                  "w_starts", "w_flats", "w_ends") if k in args)
+              + info["rows"] * info["qblock"] * H * D * el)  # out
+    if not read_only:
+        nbytes += 2 * t * HK * D * el + 2 * t * slot     # fresh in, written
+    if rope:
+        nbytes += 2 * t * D * 4                          # sin/cos
     ops = 4 * D * H * info["pairs"]              # QK^T and PV
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return roofline(nbytes, ops, BF16_FLOPS)
 
 
 def ulp_bf16(x):
@@ -257,63 +329,112 @@ def check_close(label, got, ref, floor=0.0):
     return float(diff.max())
 
 
-def check_kernel(dev, label, qb, ctx, chunks, inactive):
-    """Phase 3: the rope-fused ragged paged attention kernel against
-    its plain version on one dispatch; returns its numbers."""
+def variant_args(args, variant, q8_pools):
+    """The keyword arguments of one call of ``variant`` on phase 3's
+    dispatch ``args`` (packed pre-rope q and fresh K/V, bf16 pools):
+    fresh copies of the pools, or of their int8 twins ``q8_pools`` and
+    sidecars; q gathered into ``[R, qblock]`` row blocks where the call
+    takes it post-rope; the write operands dropped for the read-only
+    call."""
+    import torch
+    _, _, rope, q8, read_only = VARIANTS[variant]
+    a = dict(args)
+    if q8:
+        kq, vq, ks, vs = (x.clone() for x in q8_pools)
+        a.update(k_pages=kq, v_pages=vq, k_scale=ks, v_scale=vs)
+    else:
+        a.update(k_pages=a["k_pages"].clone(), v_pages=a["v_pages"].clone())
+    if not rope:
+        qb = a.pop("qblock")
+        del a["rope_sin"], a["rope_cos"]
+        q = torch.zeros((a["block_tables"].shape[0], qb)
+                        + tuple(a["q"].shape[1:]), dtype=a["q"].dtype,
+                        device=a["q"].device)
+        meta = [a[k].tolist() for k in ("q_starts", "q_lens", "w_starts",
+                                        "w_flats")]
+        for i, (qs, ql, ws, wf) in enumerate(zip(*meta)):
+            q[i, :ql] = a["q"][wf + qs - ws:wf + qs - ws + ql]
+        a["q"] = q
+    if read_only:
+        for k in ("new_k", "new_v", "w_starts", "w_flats", "w_ends",
+                  "dump_page"):
+            del a[k]
+    return a
+
+
+def check_kernel(dev, label, qb, ctx, chunks, inactive,
+                 variant="fused_rope"):
+    """Phases 3 and 3d: one instance of the ragged paged attention family
+    against its plain version on one dispatch; returns its numbers.
+    Written int8 slots and their scales, V slots and unroped K slots must
+    equal the plain version's bit for bit (the plain int8 write is
+    ``quantize_kv_int8`` in PyTorch on the card), roped bf16 K slots lie
+    within 1 ulp, and no other slot (the dump page included) changes."""
     import torch
     import torch.nn.functional as F
+    from paddle_tpu_torch.inference.paged_cache import quantize_kv_int8
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    _, _, rope, q8, read_only = VARIANTS[variant]
     args, info = attention_batch(dev, qb, ctx, chunks, inactive)
-    k0, v0 = args["k_pages"], args["v_pages"]
-    run = {}
-    for name, fn in (("kernel", rpa.fused_ragged_paged_attention),
-                     ("plain", rpa.fused_ragged_paged_attention_ref)):
-        a = dict(args, k_pages=k0.clone(), v_pages=v0.clone())
-        out = fn(**a)
-        torch.cuda.synchronize()
-        run[name] = (out, a)
-    (out_k, a_k), (out_r, a_r) = run["kernel"], run["plain"]
+    info["qblock"] = qb
+    q8_pools = None
+    if q8:
+        kq, ks = quantize_kv_int8(args["k_pages"])
+        vq, vs = quantize_kv_int8(args["v_pages"])
+        q8_pools = (kq, vq, ks[..., None], vs[..., None])
+    fn, plain = (rpa.ragged_paged_attention, rpa.ragged_paged_attention_ref) \
+        if read_only else (rpa.fused_ragged_paged_attention,
+                           rpa.fused_ragged_paged_attention_ref)
+    orig = variant_args(args, variant, q8_pools)
+    a_k = variant_args(args, variant, q8_pools)
+    a_r = variant_args(args, variant, q8_pools)
+    out_k = fn(**a_k)
+    out_r = plain(**a_r)
+    torch.cuda.synchronize()
     # zeros (padding, inactive rows) must be exact: their bound is 0
     err = check_close(f"{label}: kernel out (row, query, head, col)",
                       out_k, out_r)
     ref = out_r.float()
     rel = float(((out_k.float() - ref).abs() / ref.abs().amax(
         dim=-1, keepdim=True).clamp_min(1e-30)).max())
-    live = torch.arange(info["num_pages"], device=dev) != info["dump"]
-    wr = info["written"][:, None, :, None].expand_as(k0) \
-        & live[:, None, None, None]
-    keep = ~info["written"][:, None, :, None].expand_as(k0) \
-        & live[:, None, None, None]
-    kk, kr = a_k["k_pages"][wr].float(), a_r["k_pages"][wr].float()
-    if not bool(((kk - kr).abs() <= ulp_bf16(kr)).all()):
-        fail(f"{label}: written K slots differ from the plain version by "
-             "> 1 ulp")
-    if not torch.equal(a_k["v_pages"][wr], a_r["v_pages"][wr]):
-        fail(f"{label}: written V slots differ from the plain version")
-    for pool, orig in ((a_k["k_pages"], k0), (a_k["v_pages"], v0)):
-        if not torch.equal(pool[keep], orig[keep]):
-            fail(f"{label}: the kernel changed slots no row writes")
-    k_bits = int(torch.equal(kk, kr))
-    # timing: the kernel rewrites the same slots each call (idempotent)
-    ms = time_ms(lambda: rpa.fused_ragged_paged_attention(**a_k))
-    plain_ms = time_ms(lambda: rpa.fused_ragged_paged_attention_ref(**a_r),
-                       iters=5, warmup=1)
-    # library yardstick: SDPA over the gathered pages with the same
-    # mask (attention only; the port never calls it)
+    written = info["written"][:, None, :]               # [P, 1, page]
+    pools = ("k_pages", "v_pages") + (("k_scale", "v_scale") if q8 else ())
+    k_bits = True
+    for name in pools:
+        wr = written.expand(a_k[name].shape[:3])
+        if not torch.equal(a_k[name][~wr], orig[name][~wr]):
+            fail(f"{label}: the kernel changed {name} slots no row writes")
+        if read_only:
+            continue
+        got, want = a_k[name][wr], a_r[name][wr]
+        if name == "k_pages" and rope and not q8:
+            got, want = got.float(), want.float()
+            if not bool(((got - want).abs() <= ulp_bf16(want)).all()):
+                fail(f"{label}: written K slots differ from the plain "
+                     "version by > 1 ulp")
+            k_bits = torch.equal(got, want)
+        elif not torch.equal(got, want):
+            fail(f"{label}: written {name} slots differ from the plain "
+                 "version")
+    # timing: a fused call rewrites the same slots each time (idempotent)
+    ms = time_ms(lambda: fn(**a_k))
+    dev_ms = device_ms(lambda: fn(**a_k))
+    plain_ms = time_ms(lambda: plain(**a_r), iters=5, warmup=1)
+    # library yardstick: SDPA over the gathered pages (dequantized to
+    # bf16 from int8) with the same mask; the port never calls it
     tables = args["block_tables"].long().clamp(0, info["num_pages"] - 1)
     r = tables.shape[0]
     group = H // HK
 
-    def gathered(pool):
-        x = pool[tables].transpose(2, 3).reshape(r, -1, HK, D)
+    def gathered(pool, sc):
+        x = pool[tables]
+        if sc is not None:
+            x = (x.float() * sc[tables]).to(torch.bfloat16)
+        x = x.transpose(2, 3).reshape(r, -1, HK, D)
         return x.repeat_interleave(group, dim=2).transpose(1, 2)
-    kg, vg = gathered(a_k["k_pages"]), gathered(a_k["v_pages"])
-    qr = torch.zeros(r, qb, H, D, device=dev, dtype=torch.bfloat16)
-    meta = [args[k].tolist() for k in ("q_starts", "q_lens", "w_starts",
-                                       "w_flats")]
-    for i, (qs, ql, ws, wf) in enumerate(zip(*meta)):
-        qr[i, :ql] = args["q"][wf + qs - ws:wf + qs - ws + ql]
-    qr = qr.transpose(1, 2)
+    kg = gathered(a_k["k_pages"], a_k.get("k_scale"))
+    vg = gathered(a_k["v_pages"], a_k.get("v_scale"))
+    qr = variant_args(args, "fused", None)["q"].transpose(1, 2)
     kpos = torch.arange(kg.shape[2], device=dev)
     qpos = args["q_starts"].long()[:, None] + torch.arange(qb, device=dev)
     mask = (kpos[None, None] <= qpos[:, :, None]) \
@@ -323,41 +444,48 @@ def check_kernel(dev, label, qb, ctx, chunks, inactive):
     mask = mask[:, None]
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qr, kg, vg, attn_mask=mask))
-    bound_ms, bound_by = bound(args, info)
-    print(f"kernel check ({label}): qblock={qb} rows={info['rows']} "
-          f"tokens={info['tokens']} pages={info['num_pages']} "
-          f"out_err={err:.3e} (max err / head-vector max {rel:.3e}; tol "
-          f"1 ulp + {OUT_VEC} x head-vector max) "
-          f"written_K_bitwise={bool(k_bits)} ms={ms:.4f} "
-          f"plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} "
-          f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+    bound_ms, bound_by = bound(a_k, info, variant)
+    print(f"kernel check ({VARIANTS[variant][0]}, {label}): qblock={qb} "
+          f"rows={info['rows']} tokens={info['tokens']} "
+          f"pages={info['num_pages']} out_err={err:.3e} (max err / "
+          f"head-vector max {rel:.3e}; tol 1 ulp + {OUT_VEC} x head-vector "
+          f"max) written_K_bitwise={bool(k_bits) and not read_only} "
+          f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.3f} "
+          f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
+          f"({bound_by})", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def check_kernels(dev):
-    """Phase 3 at both shapes the serving path launches the kernel with:
-    a mixed dispatch (qblock = chunk_block) and a decode-only one
-    (qblock 1, contexts of the served requests). Returns the kernel's
-    JSON entry (without ``launches``) with the mixed dispatch's times."""
-    mixed = check_kernel(dev, "mixed", QB, (100, 2001), [QB, QB], True)
-    decode = check_kernel(dev, "decode", 1, (64, 545), [], False)
-    return dict(name="fused_ragged_paged_attention_rope", route="cuda",
-                source="paddle_tpu_torch/csrc/ragged_paged_attention.cu",
-                replaces=REPLACES, **dict(mixed, max_abs_err=max(
-                    mixed["max_abs_err"], decode["max_abs_err"])))
+def check_kernels(dev, variants=("fused_rope",)):
+    """Phases 3 and 3d at both shapes the serving path launches the
+    family with: a mixed dispatch (qblock = chunk_block) and a
+    decode-only one (qblock 1, contexts of the served requests). Returns
+    each instance's JSON entry (without ``launches``) with the mixed
+    dispatch's times, in the order of ``variants``."""
+    entries = []
+    for variant in variants:
+        mixed = check_kernel(dev, "mixed", QB, (100, 2001), [QB, QB], True,
+                             variant)
+        decode = check_kernel(dev, "decode", 1, (64, 545), [], False,
+                              variant)
+        name, line = VARIANTS[variant][:2]
+        entries.append(dict(
+            name=name, route="cuda", source=RPA_SOURCE,
+            replaces=f"paddle_tpu/ops/ragged_paged_attention.py:{line}",
+            **dict(mixed, max_abs_err=max(mixed["max_abs_err"],
+                                          decode["max_abs_err"]))))
+    return entries
 
 
-def serving_workload(dev):
-    """Llama-3-8B at full width and depth (random bf16 weights from a
-    seeded generator on the card) behind ``LlamaServingEngine(max_batch
-    =8, page_size=16)``, warmed up, and 8 prompts of 64-512 tokens.
-    Returns (cfg, model, engine, prompts)."""
-    import numpy as np
+def llama_model(dev, layers=None):
+    """Llama-3-8B at full width (``layers`` cut, else full depth) with
+    random bf16 weights from a seeded generator on the card."""
     import torch
-    from paddle_tpu_torch.inference import LlamaServingEngine
     from paddle_tpu_torch.models import LlamaForCausalLM, llama3_8b_config
     cfg = llama3_8b_config()
+    if layers:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
     t0 = time.perf_counter()
     gen = torch.Generator(dev).manual_seed(0)
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
@@ -366,7 +494,18 @@ def serving_workload(dev):
     print(f"model: llama3_8b layers={cfg.num_hidden_layers} params="
           f"{model.num_params()} init_s={time.perf_counter() - t0:.1f}",
           flush=True)
-    engine = LlamaServingEngine(model, max_batch=8, page_size=16)
+    return cfg, model
+
+
+def serving_workload(dev, kv_dtype=None):
+    """Llama-3-8B at full width and depth (random bf16 weights from a
+    seeded generator on the card) behind ``LlamaServingEngine(max_batch
+    =8, page_size=16, kv_dtype=kv_dtype)``, warmed up, and 8 prompts of
+    64-512 tokens. Returns (cfg, model, engine, prompts)."""
+    from paddle_tpu_torch.inference import LlamaServingEngine
+    cfg, model = llama_model(dev)
+    engine = LlamaServingEngine(model, max_batch=8, page_size=16,
+                                kv_dtype=kv_dtype)
     prompts = serving_prompts(cfg.vocab_size)
     engine.generate([prompts[0][:16]], max_new_tokens=2)   # warm-up
     return cfg, model, engine, prompts
@@ -381,55 +520,94 @@ def serving_prompts(vocab):
     return [rng.randint(0, vocab, n).tolist() for n in lens]
 
 
-def serve(dev):
-    """Phase 4: serve Llama-3-8B through the engine's entry point;
-    returns the number of kernel launches the run made."""
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    from paddle_tpu_torch.ops import flash_attention as FT
+    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.quant import kernels as QK
+    for counts in (rpa.launches, GG.launches, FT.launches):
+        for key in counts:
+            counts[key] = 0
+    QK.launches = FC.launches = 0
+
+
+def serving_plain_versions():
+    """The serving path's plain versions, as ``count_calls`` targets."""
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.quant import kernels as QK
+    return [(rpa, "fused_ragged_paged_attention_ref"),
+            (rpa, "ragged_paged_attention_ref"),
+            (GG, "grouped_gemm_ref"), (GG, "grouped_gemm_q8_ref"),
+            (QK, "dequant_matmul_ref")]
+
+
+def kv8_attention(q, k, v):
+    """The no-cache forward's attention as the int8-KV engine computes
+    it: K and V through ``quantize_kv_int8`` and back (``int8 * scale``
+    per token and kv head), f32 scores, softmax and product."""
+    from paddle_tpu_torch.inference.paged_cache import quantize_kv_int8
+    from paddle_tpu_torch.models import llama
+    (kq, ks), (vq, vs) = quantize_kv_int8(k), quantize_kv_int8(v)
+    kd, vd = kq.float() * ks[..., None], vq.float() * vs[..., None]
+    return llama.plain_attention(q.float(), kd, vd).to(q.dtype)
+
+
+def serve(dev, kv_dtype=None, bf16_outs=None):
+    """Phase 4 (``kv_dtype=None``) and phase 8 (``"int8"``): serve
+    Llama-3-8B at full depth through the engine's entry point, every
+    launch of the rope-fused attention (#12, or #13 on int8 pools)
+    counted and no plain version called; every served token checked
+    against the model's own plain forward (its K and V through the int8
+    quantizer and back for phase 8). Returns (launches, outputs)."""
     import torch
     from paddle_tpu_torch.inference import Request
+    from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
-    cfg, model, engine, prompts = serving_workload(dev)
+    label = "serve int8-kv" if kv_dtype else "serve"
+    key = "fused_rope_q8" if kv_dtype else "fused_rope"
+    cfg, model, engine, prompts = serving_workload(dev, kv_dtype)
     finite = []
     hook = model.lm_head.register_forward_hook(
         lambda mod, inp, out: finite.append(torch.isfinite(out).all()))
-    plain_calls = []
-    plain = rpa.fused_ragged_paged_attention_ref
-
-    def counted_plain(*a, **k):
-        plain_calls.append(1)
-        return plain(*a, **k)
-    rpa.fused_ragged_paged_attention_ref = counted_plain
     reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    rpa.launches = 0
-    d0 = engine._dispatch_count
-    t0 = time.perf_counter()
-    outs = engine.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = rpa.launches
+    with count_calls(serving_plain_versions()) as plain_calls:
+        reset_launches()
+        d0 = engine._dispatch_count
+        t0 = time.perf_counter()
+        outs = engine.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(rpa.launches)
     dispatches = engine._dispatch_count - d0
-    rpa.fused_ragged_paged_attention_ref = plain
     hook.remove()
     if plain_calls:
-        fail(f"the plain attention ran {len(plain_calls)} times on the "
-             "card")
-    want = 2 * cfg.num_hidden_layers * dispatches
-    if launches != want or launches == 0:
-        fail(f"kernel launches {launches} != 2 x layers x dispatches "
-             f"= {want}")
+        fail(f"{label}: plain versions ran on the card: "
+             f"{sorted(set(plain_calls))}")
+    want = {k: 0 for k in launches}
+    want[key] = 2 * cfg.num_hidden_layers * dispatches
+    if launches != want or not dispatches:
+        fail(f"{label}: kernel launches {launches} != {want} (2 x layers x "
+             f"dispatches of {key})")
     if not all(bool(f) for f in finite):
-        fail("non-finite logits in the serving run")
+        fail(f"{label}: non-finite logits in the serving run")
     for o in outs:
         if len(o) != NEW or not all(0 <= t < cfg.vocab_size for t in o):
-            fail(f"bad output {o}")
+            fail(f"{label}: bad output {o}")
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in engine.k_pools + engine.v_pools
+                   + engine.k_scales + engine.v_scales)
     # every served token against the model's own plain forward (no
     # cache, plain attention) fed the same tokens: most must be its
-    # argmax, the rest bf16 near-ties of it
+    # argmax, the rest near-ties of it
     gaps = []
-    from paddle_tpu_torch.models import llama
     model_attention = llama.causal_attention
-    llama.causal_attention = llama.plain_attention
+    llama.causal_attention = kv8_attention if kv_dtype \
+        else llama.plain_attention
     for p, o in zip(prompts, outs):
         ids = torch.tensor([p + o[:-1]], device=dev)
         with torch.no_grad():
@@ -441,20 +619,146 @@ def serve(dev):
     exact, worst = int((gaps == 0).sum()), float(gaps.max())
     n_tok = len(prompts) * NEW
     ttft = sorted(r.ttft for r in reqs)
-    print(f"serve: requests={len(prompts)} prompt_tokens="
+    same = ""
+    if bf16_outs is not None:
+        eq = sum(a == b for o, ob in zip(outs, bf16_outs)
+                 for a, b in zip(o, ob))
+        same = f" same_as_bf16_kv={eq}/{n_tok}"
+    print(f"{label}: requests={len(prompts)} prompt_tokens="
           f"{sum(map(len, prompts))} new_tokens={n_tok} dispatches="
-          f"{dispatches} launches={launches} wall_s={wall:.3f} "
+          f"{dispatches} launches={launches[key]} wall_s={wall:.3f} "
           f"tokens_per_s={n_tok / wall:.1f} ttft_ms_p50="
           f"{1e3 * ttft[len(ttft) // 2]:.1f} ttft_ms_max={1e3 * ttft[-1]:.1f}"
           f" peak_mem_gb={torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
-          f" plain_forward_exact={exact}/{n_tok} worst_gap={worst:.4f} "
-          f"gap_p90={float(gaps.quantile(0.9)):.4f}", flush=True)
+          f" kv_pool_bytes={kv_bytes} kv_bytes_per_token="
+          f"{engine.kv_bytes_per_token} plain_forward_exact={exact}/{n_tok} "
+          f"worst_gap={worst:.4f} gap_p90={float(gaps.quantile(0.9)):.4f}"
+          f"{same}", flush=True)
     if exact < EXACT_FLOOR * n_tok:
-        fail(f"only {exact}/{n_tok} served tokens are the plain forward's "
-             f"argmax (floor {EXACT_FLOOR})")
+        fail(f"{label}: only {exact}/{n_tok} served tokens are the plain "
+             f"forward's argmax (floor {EXACT_FLOOR})")
     if worst > TIE_TOL:
-        fail(f"served token {worst:.3f} below the plain forward's argmax")
-    return launches
+        fail(f"{label}: served token {worst:.3f} below the plain forward's "
+             "argmax")
+    return launches[key], outs
+
+
+# phase 9's engine paths: keyword arguments, launches per layer per
+# dispatch, and the launch-count key (+ "_q8" on int8 pools)
+LADDER = {"rope-fused": ({}, 2, "fused_rope"),
+          "fused-kv": ({"fused_rope": False}, 2, "fused"),
+          "two-op": ({"fused_kv": False}, 1, "ragged")}
+
+
+@contextlib.contextmanager
+def recorded_attention(engine, store):
+    """While the first dispatch of ``engine`` runs, append to ``store``
+    a copy of each layer's attention output; after it, a copy of every
+    pool and sidecar."""
+    from paddle_tpu_torch.inference import serving
+    names = ("fused_ragged_paged_attention", "ragged_paged_attention")
+    saved = [getattr(serving, n) for n in names]
+    dispatch = engine._dispatch_rows
+
+    def recording(fn):
+        def wrapper(*a, **k):
+            out = fn(*a, **k)
+            if "pools" not in store:
+                store.setdefault("attn", []).append(out.clone())
+            return out
+        return wrapper
+
+    def first_dispatch(rows):
+        out = dispatch(rows)
+        if "pools" not in store:
+            store["mixed"] = any(n > 1 for _, _, _, n, _, _ in rows)
+            store["pools"] = [t.clone() for t in engine.k_pools
+                              + engine.v_pools + engine.k_scales
+                              + engine.v_scales]
+        return out
+    for n, fn in zip(names, saved):
+        setattr(serving, n, recording(fn))
+    engine._dispatch_rows = first_dispatch
+    try:
+        yield store
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(serving, n, fn)
+        del engine._dispatch_rows
+
+
+def serve_ladder(dev):
+    """Phase 9: Llama-3-8B width at LADDER_LAYERS layers serves phase 4's
+    prompts through the engine's three attention paths (rope-fused #12 /
+    #13, ``fused_rope=False`` #11a / #11b, ``fused_kv=False`` #10 / #9
+    after the PyTorch scatter) for both KV dtypes. Per dtype the greedy
+    tokens must be identical, and the pools, the sidecars and every
+    layer's attention output after the first (mixed) dispatch, and the
+    pools after the whole run, bitwise equal; every launch counted (2 a
+    layer a dispatch fused, 1 two-op) and no plain version called.
+    Returns the launches of each path by its launch-count key."""
+    import torch
+    from paddle_tpu_torch.inference import LlamaServingEngine, Request
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    cfg, model = llama_model(dev, LADDER_LAYERS)
+    prompts = serving_prompts(cfg.vocab_size)
+    counts = {}
+    for kv_dtype in (None, "int8"):
+        runs = {}
+        for path, (kw, per_layer, key) in LADDER.items():
+            key += "_q8" if kv_dtype else ""
+            engine = LlamaServingEngine(model, max_batch=8, page_size=16,
+                                        kv_dtype=kv_dtype, **kw)
+            reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
+            with count_calls(serving_plain_versions()) as plain_calls, \
+                    recorded_attention(engine, {}) as first:
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = engine.generate(reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(rpa.launches)
+            dispatches = engine._dispatch_count
+            label = f"ladder {kv_dtype or 'bf16'} {path}"
+            if plain_calls:
+                fail(f"{label}: plain versions ran on the card: "
+                     f"{sorted(set(plain_calls))}")
+            want = {k: 0 for k in launches}
+            want[key] = per_layer * LADDER_LAYERS * dispatches
+            if launches != want or not first.get("mixed"):
+                fail(f"{label}: kernel launches {launches} != {want}, or "
+                     "the first dispatch was not a mixed one")
+            counts[key] = launches[key]
+            pools = engine.k_pools + engine.v_pools + engine.k_scales \
+                + engine.v_scales
+            runs[path] = (outs, first, pools)
+            print(f"{label}: dispatches={dispatches} launches="
+                  f"{launches[key]} wall_s={wall:.3f} tokens_per_s="
+                  f"{len(prompts) * NEW / wall:.1f}", flush=True)
+        outs0, first0, pools0 = runs["rope-fused"]
+        for path in ("fused-kv", "two-op"):
+            outs, first, pools = runs[path]
+            label = f"ladder {kv_dtype or 'bf16'} {path}"
+            if outs != outs0:
+                fail(f"{label}: greedy tokens differ from the rope-fused "
+                     "path's")
+            for what, a, b in (("first-dispatch attention", first["attn"],
+                                first0["attn"]),
+                               ("first-dispatch pools", first["pools"],
+                                first0["pools"]),
+                               ("final pools", pools, pools0)):
+                if len(a) != len(b) or not all(torch.equal(x, y)
+                                               for x, y in zip(a, b)):
+                    fail(f"{label}: {what} differ from the rope-fused "
+                         "path's bit for bit")
+        n_attn = len(first0["attn"])
+        print(f"ladder {kv_dtype or 'bf16'}: greedy tokens identical, "
+              f"first mixed dispatch's attention outputs ({n_attn} layers) "
+              f"and pools ({len(pools0)} tensors) bitwise equal across the "
+              "three paths; final pools bitwise equal", flush=True)
+    return counts
+
 
 def attention_pairs(b, h, sq, sk, causal):
     """Unmasked (query, key) pairs of one attention call."""
@@ -1081,8 +1385,8 @@ def kernel_launches():
     from paddle_tpu_torch.ops import grouped_gemm as GG
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.quant import kernels as QK
-    return dict(attention=rpa.launches, dequant_matmul=QK.launches,
-                **GG.launches)
+    return dict(**{f"attention {k}": n for k, n in rpa.launches.items()},
+                dequant_matmul=QK.launches, **GG.launches)
 
 
 @contextlib.contextmanager
@@ -1194,9 +1498,6 @@ def serve_moe(dev, label, model, weight_dtype, per_layer):
     Returns the launches."""
     import torch
     from paddle_tpu_torch.inference import LlamaServingEngine, Request
-    from paddle_tpu_torch.ops import grouped_gemm as GG
-    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
-    from paddle_tpu_torch.quant import kernels as QK
     cfg = model.config
     layers = cfg.num_hidden_layers
     engine = LlamaServingEngine(model, max_batch=8, page_size=16,
@@ -1216,16 +1517,11 @@ def serve_moe(dev, label, model, weight_dtype, per_layer):
         return out
     engine._mixed_forward = timed
     reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
-    rpa.launches = QK.launches = 0
-    for key in GG.launches:
-        GG.launches[key] = 0
-    plain = [(rpa, "fused_ragged_paged_attention_ref"),
-             (GG, "grouped_gemm_ref"), (GG, "grouped_gemm_q8_ref"),
-             (QK, "dequant_matmul_ref")]
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     d0 = engine._dispatch_count
-    with count_calls(plain) as plain_calls, \
+    with count_calls(serving_plain_versions()) as plain_calls, \
             recorded_routes(engine, layers) as choices:
         t0 = time.perf_counter()
         outs = engine.generate(reqs)
@@ -1241,7 +1537,7 @@ def serve_moe(dev, label, model, weight_dtype, per_layer):
         fail(f"{label}: plain versions ran on the card: "
              f"{sorted(set(plain_calls))}")
     want = {k: per_layer.get(k, 0) * layers * dispatches for k in launches}
-    want["attention"] = 2 * layers * dispatches
+    want["attention fused_rope"] = 2 * layers * dispatches
     if launches != want or not dispatches:
         fail(f"{label}: kernel launches {launches} != {want} "
              f"({dispatches} dispatches)")
@@ -1358,12 +1654,21 @@ def main():
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build_s={time.perf_counter() - t0:.1f}", flush=True)
-    entry = check_kernels(dev)
+    entry, = check_kernels(dev)                     # phase 3: #12
+    family = check_kernels(dev, FAMILY)             # phase 3d
+    torch.cuda.empty_cache()
     training_entries = check_flash(dev) + [check_ce(dev)]
     torch.cuda.empty_cache()
     moe_entries = check_moe_kernels(dev)
     torch.cuda.empty_cache()
-    entry["launches"] = serve(dev)
+    entry["launches"], bf16_outs = serve(dev)      # phase 4
+    torch.cuda.empty_cache()
+    kv8_launches, _ = serve(dev, "int8", bf16_outs)   # phase 8
+    torch.cuda.empty_cache()
+    ladder = serve_ladder(dev)                      # phase 9
+    for e, key in zip(family, FAMILY):
+        e["launches"] = kv8_launches if key == "fused_rope_q8" \
+            else ladder[key]
     torch.cuda.empty_cache()
     launches = train(dev)
     torch.cuda.empty_cache()
@@ -1377,8 +1682,8 @@ def main():
     for e, counts in zip(moe_entries, (float_launches, int8_launches,
                                        int8_launches)):
         e["launches"] = counts[e["name"]]
-    print(json.dumps({"kernels": [entry] + training_entries + moe_entries}),
-          flush=True)
+    print(json.dumps({"kernels": [entry] + family + training_entries
+                      + moe_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,41 +1,62 @@
-// Rope-fused ragged paged attention for Hopper (sm_90a).
+// The ragged paged attention family for Hopper (sm_90a): two kernels, each
+// templated on rope and on the pools' type, whose instances replace six TPU
+// kernels of paddle_tpu/ops/ragged_paged_attention.py:
 //
-// Replaces the TPU kernel `_fused_rope_kernel`
-// (paddle_tpu/ops/ragged_paged_attention.py:732, built by `_make_fused_rope`,
-// pallas_call at :1060): rope on the packed pre-rope q/k from per-dispatch
-// sin/cos tables, the write of the dispatch's fresh K/V into their pages, and
-// ragged causal GQA attention with an f32 online softmax over the page table.
+//   TPU kernel (pallas_call at)           | write launch       | attention launch
+//   #12 _fused_rope_kernel    (:1060)     | kv_write<1, 0>     | attention<1, 0>
+//   #13 _fused_rope_kernel_q8 (:1133)     | kv_write<1, 1>     | attention<1, 1>
+//   #11a _fused_kernel        (:921)      | kv_write<0, 0>     | attention<0, 0>
+//   #11b _fused_kernel_q8     (:990)      | kv_write<0, 1>     | attention<0, 1>
+//   #10 _ragged_kernel        (:368)      | -                  | attention<0, 0>
+//   #9  _ragged_kernel_q8     (:328)      | -                  | attention<0, 1>
 //
-// Design. The TPU kernel replays the dispatch's fresh K/V from the packed rows
-// on every read, because a Pallas grid cannot order a page write before
-// another grid step's read. Here the work is two launches on one stream, which
-// gives that order for free:
-//   (a) rope_kv_write_kernel, one block per (row, kv-head): positions
+// The TPU kernels compute rope on the packed pre-rope q/k from per-dispatch
+// sin/cos tables (#12, #13; the others take q and K post-rope), the write of
+// the dispatch's fresh K/V into their pages (#9 and #10 only read), and ragged
+// causal GQA attention with an f32 online softmax over the page table, all in
+// one body (`_softmax_accumulate`). The int8 instances store pages as int8
+// with one f32 scale per (page, head, slot) in `[P, Hk, page, 1]` sidecars.
+//
+// Design. The TPU kernels replay a dispatch's fresh K/V on every read, because
+// a Pallas grid cannot order a page write before another grid step's read.
+// Here the work is two launches on one stream, which gives that order for
+// free:
+//   (a) kv_write_kernel, one block per (row, kv-head): positions
 //       [q_start, q_start + q_len) of each active row, packed index
-//       w_flat + p - w_start; K is roped in f32, cast to the model dtype and
-//       stored, V is stored as is. Each fresh position belongs to exactly one
-//       row, so no slot is written twice; the dump page is never touched.
-//   (b) ragged_attention_rope_kernel, one block per (row, kv-head, tile of 16
-//       flattened (query token, group head) rows): ropes its q rows (f32, cast
-//       through the model dtype, times scale), then walks the row's live pages
-//       up to the tile's causal horizon with the reference softmax update:
-//       mask kpos <= qpos & kpos < kv_len & qrow < q_len, finite -1e30 running
-//       max, masked lanes contribute 0, rows with l == 0 (padding, inactive
-//       rows with kv_len 0) emit zeros. Table entries are clamped into [0, P).
-// The rope products and sum are rounded separately (__fmul_rn/__fadd_rn), the
-// same operations the plain PyTorch version performs, so the written K slots
-// agree with it bit for bit.
+//       w_flat + p - w_start. With rope, K is roped in f32 and cast to the
+//       model dtype; the bf16 instances store K and V as they are then, the
+//       int8 ones quantize each (token, kv-head) vector of D values (one warp
+//       each: absmax by shuffles, scale max(amax, 1e-8) * f32(1/127),
+//       rint(x / scale) clipped to +-127) and store the int8 slot and its
+//       scale. Each fresh position belongs to exactly one row, so no slot is
+//       written twice; the dump page is never touched.
+//   (b) ragged_attention_kernel, one block per (row, kv-head, tile of 16
+//       flattened (query token, group head) rows): loads its q rows (packed
+//       pre-rope and roped here in f32, cast through the model dtype, or
+//       row-blocked [R, QB, H, D] post-rope), times scale, then walks the
+//       row's live pages up to the tile's causal horizon with the reference
+//       softmax update: mask kpos <= qpos & kpos < kv_len & qrow < q_len,
+//       finite -1e30 running max, masked lanes contribute 0, rows with l == 0
+//       (padding, inactive rows with kv_len 0) emit zeros. Table entries are
+//       clamped into [0, P). int8 pages are dequantized as
+//       __fmul_rn(float(q8), scale) into shared memory before any product.
+// Rope products and sums are rounded separately (__fmul_rn/__fadd_rn), the
+// quantizer divides with __fdiv_rn: the same operations PyTorch performs
+// elementwise, so written slots and scales agree with the plain version bit
+// for bit, and the engine's three paths (rope-fused, fused-KV, two-op with a
+// PyTorch rope and scatter) feed the one attention body the same values.
 //
-// Bound. At decode the kernel is memory-bound: the least time is the bytes of
-// the live K/V pages + q + out + the fresh K/V it writes, over 3.35 TB/s (H100
-// SXM). The arithmetic (2 * 2 * D flops per unmasked (query, key) pair) is far
-// below the tensor cores' rate at these shapes.
+// Bound. At decode the kernels are memory-bound: the least time is the bytes
+// of the live K/V pages (+ scales) + q + out + the fresh K/V written, over
+// 3.35 TB/s (H100 SXM). The arithmetic (2 * 2 * D flops per unmasked
+// (query, key) pair) is far below the tensor cores' rate at these shapes.
 //
-// Each page of K and V is fetched as 16-byte vectors into registers one page
-// ahead of its use, so one page's loads are in flight while the previous
-// page computes; q . k runs one thread per (query row, key slot) pair over
-// padded shared-memory rows (no bank conflicts); P.V keeps each thread's
-// output column of the tile's rows in registers (head_dim <= 128).
+// Each page of K and V is fetched as 16-byte vectors (8 bf16 or 16 int8
+// values, with their slot's scale) into registers one page ahead of its use,
+// so one page's loads are in flight while the previous page computes; q . k
+// runs one thread per (query row, key slot) pair over padded shared-memory
+// rows (no bank conflicts); P.V keeps each thread's output column of the
+// tile's rows in registers (head_dim <= 128).
 //
 // What the simple design leaves on the table: the dot products and the P.V
 // update run on CUDA cores in f32 (no mma.sync / wgmma); the prefetch is one
@@ -49,6 +70,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -58,8 +80,12 @@ constexpr int kThreads = 128;
 // 16-byte vectors of one page's K (and of its V) per thread: pages of up
 // to kThreads * kVecPerThread * 16 bytes = 8 KB per head
 constexpr int kVecPerThread = 4;
+constexpr int kMaxLaneVals = 4;  // head_dim <= 32 * 4 for the quantizer
+// the quantizer's constants as the reference rounds them: doubles cast to f32
+constexpr float kMinAmax = static_cast<float>(1e-8);
+constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
 
-using bf16 = __nv_bfloat16;  // the pools' and the model's dtype
+using bf16 = __nv_bfloat16;  // the model's dtype (and the float pools')
 
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ bf16 to_bf16(float x) {
@@ -82,37 +108,105 @@ __device__ __forceinline__ int clamp_page(int p, int num_pages) {
   return p < 0 ? 0 : (p >= num_pages ? num_pages - 1 : p);
 }
 
+// One warp quantizes one (token, kv-head) vector of D <= 128 values: the f32
+// widening of `src` (roped and cast through bf16 first when ROPE), absmax over
+// D, scale, rint(x / scale) clipped to +-127. Every lane ends with the same
+// absmax whatever the order of the shuffles (max of finite values).
+template <bool ROPE>
+__device__ __forceinline__ void quantize_row(const bf16* src, int D,
+                                             const float* sin_row,
+                                             const float* cos_row,
+                                             int8_t* dst, float* scale_dst,
+                                             int lane) {
+  float x[kMaxLaneVals];
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxLaneVals; ++j) {
+    const int d = lane + 32 * j;
+    float v = 0.f;
+    if (d < D) {
+      if constexpr (ROPE) {
+        v = to_f32(to_bf16(rope_elem(src, d, D, sin_row, cos_row)));
+      } else {
+        v = to_f32(src[d]);
+      }
+    }
+    x[j] = v;
+    amax = fmaxf(amax, fabsf(v));
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float sc = __fmul_rn(fmaxf(amax, kMinAmax), kInv127);
+#pragma unroll
+  for (int j = 0; j < kMaxLaneVals; ++j) {
+    const int d = lane + 32 * j;
+    if (d < D) {
+      const float r = rintf(__fdiv_rn(x[j], sc));
+      dst[d] = (int8_t)fminf(fmaxf(r, -127.f), 127.f);
+    }
+  }
+  if (lane == 0) *scale_dst = sc;
+}
+
+template <bool ROPE, bool Q8>
 __global__ void __launch_bounds__(kThreads)
-    rope_kv_write_kernel(const bf16* __restrict__ new_k,
-                         const bf16* __restrict__ new_v,
-                         bf16* __restrict__ k_pages,
-                         bf16* __restrict__ v_pages,
-                         const float* __restrict__ sin_tab,
-                         const float* __restrict__ cos_tab,
-                         const int* __restrict__ tables,
-                         const int* __restrict__ kv_lens,
-                         const int* __restrict__ q_starts,
-                         const int* __restrict__ q_lens,
-                         const int* __restrict__ w_starts,
-                         const int* __restrict__ w_flats, int n_tok, int Hk,
-                         int D, int P, int page, int W) {
+    kv_write_kernel(const bf16* __restrict__ new_k,
+                    const bf16* __restrict__ new_v, void* __restrict__ k_out,
+                    void* __restrict__ v_out, float* __restrict__ k_scale,
+                    float* __restrict__ v_scale,
+                    const float* __restrict__ sin_tab,
+                    const float* __restrict__ cos_tab,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ kv_lens,
+                    const int* __restrict__ q_starts,
+                    const int* __restrict__ q_lens,
+                    const int* __restrict__ w_starts,
+                    const int* __restrict__ w_flats, int n_tok, int Hk, int D,
+                    int P, int page, int W) {
   const int r = blockIdx.x, hk = blockIdx.y;
   const int qlen = q_lens[r];
   if (qlen <= 0 || kv_lens[r] <= 0) return;
   const int qstart = q_starts[r];
   const int f_base = w_flats[r] + qstart - w_starts[r];
-  for (int idx = threadIdx.x; idx < qlen * D; idx += blockDim.x) {
-    const int t = idx / D, d = idx - t * D;
-    const int pos = qstart + t, f = f_base + t, pi = pos / page;
-    if (f < 0 || f >= n_tok || pi >= W) continue;
-    const int pid = clamp_page(tables[(size_t)r * W + pi], P);
-    const size_t src = ((size_t)f * Hk + hk) * D;
-    const size_t dst =
-        (((size_t)pid * Hk + hk) * page + (pos - pi * page)) * D + d;
-    k_pages[dst] = to_bf16(rope_elem(new_k + src, d, D,
-                                     sin_tab + (size_t)f * D,
-                                     cos_tab + (size_t)f * D));
-    v_pages[dst] = new_v[src + d];
+  if constexpr (!Q8) {
+    bf16* k_pages = static_cast<bf16*>(k_out);
+    bf16* v_pages = static_cast<bf16*>(v_out);
+    for (int idx = threadIdx.x; idx < qlen * D; idx += blockDim.x) {
+      const int t = idx / D, d = idx - t * D;
+      const int pos = qstart + t, f = f_base + t, pi = pos / page;
+      if (f < 0 || f >= n_tok || pi >= W) continue;
+      const int pid = clamp_page(tables[(size_t)r * W + pi], P);
+      const size_t src = ((size_t)f * Hk + hk) * D;
+      const size_t dst =
+          (((size_t)pid * Hk + hk) * page + (pos - pi * page)) * D + d;
+      if constexpr (ROPE) {
+        k_pages[dst] = to_bf16(rope_elem(new_k + src, d, D,
+                                         sin_tab + (size_t)f * D,
+                                         cos_tab + (size_t)f * D));
+      } else {
+        k_pages[dst] = new_k[src + d];
+      }
+      v_pages[dst] = new_v[src + d];
+    }
+  } else {
+    int8_t* k_pages = static_cast<int8_t*>(k_out);
+    int8_t* v_pages = static_cast<int8_t*>(v_out);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    // one warp per fresh token; the skip below is uniform across a warp
+    for (int t = warp; t < qlen; t += nwarps) {
+      const int pos = qstart + t, f = f_base + t, pi = pos / page;
+      if (f < 0 || f >= n_tok || pi >= W) continue;
+      const int pid = clamp_page(tables[(size_t)r * W + pi], P);
+      const size_t src = ((size_t)f * Hk + hk) * D;
+      const size_t slot = ((size_t)pid * Hk + hk) * page + (pos - pi * page);
+      const float* sin_row = ROPE ? sin_tab + (size_t)f * D : nullptr;
+      const float* cos_row = ROPE ? cos_tab + (size_t)f * D : nullptr;
+      quantize_row<ROPE>(new_k + src, D, sin_row, cos_row,
+                         k_pages + slot * D, k_scale + slot, lane);
+      quantize_row<false>(new_v + src, D, nullptr, nullptr,
+                          v_pages + slot * D, v_scale + slot, lane);
+    }
   }
 }
 
@@ -127,18 +221,29 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float* dst) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) ragged_attention_rope_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
-    const bf16* __restrict__ v_pages, const float* __restrict__ sin_tab,
+// 16 bytes of int8 dequantized to 16 f32 values: q * scale, one rounding
+__device__ __forceinline__ void unpack16_q8(const uint4& raw, float scale,
+                                            float* dst) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) dst[k] = __fmul_rn((float)b[k], scale);
+}
+
+template <bool ROPE, bool Q8>
+__global__ void __launch_bounds__(kThreads) ragged_attention_kernel(
+    const bf16* __restrict__ q, const void* __restrict__ k_pages,
+    const void* __restrict__ v_pages, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const float* __restrict__ sin_tab,
     const float* __restrict__ cos_tab, const int* __restrict__ tables,
     const int* __restrict__ kv_lens, const int* __restrict__ q_starts,
     const int* __restrict__ q_lens, const int* __restrict__ w_starts,
     const int* __restrict__ w_flats, bf16* __restrict__ out, int n_tok, int H,
     int Hk, int D, int P, int page, int W, int QB, float scale) {
-  constexpr int E = 16 / sizeof(bf16);  // elements per 16-byte vector
-  const int KS = D + 1;                 // padded row stride of q_s and k_s
+  constexpr int E = Q8 ? 16 : 8;   // elements per 16-byte vector
+  constexpr int EB = Q8 ? 1 : 2;   // bytes per element
+  const int KS = D + 1;            // padded row stride of q_s and k_s
   extern __shared__ float smem[];
-  float* q_s = smem;                  // [kQTile, KS] roped, scaled q
+  float* q_s = smem;                  // [kQTile, KS] (roped) scaled q
   float* k_s = q_s + kQTile * KS;     // [page, KS]
   float* v_s = k_s + page * KS;       // [page, D]
   float* p_s = v_s + page * D;        // [kQTile, page] scores, then probs
@@ -154,19 +259,24 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_rope_kernel(
   const int tile_rows = min(kQTile, QB * G - row0);
   const int n_valid =
       (ctx > 0 && qlen > 0) ? max(0, min(tile_rows, qlen * G - row0)) : 0;
-  const int f0q = w_flats[r] + qstart - w_starts[r];
 
 #pragma unroll 4
   for (int idx = tid; idx < n_valid * D; idx += kThreads) {
     const int i = idx / D, d = idx - i * D;
     const int flat = row0 + i, qi = flat / G, h = hk * G + flat % G;
-    const int f = f0q + qi;
     float v = 0.f;
-    if (f >= 0 && f < n_tok) {
-      const float rot =
-          rope_elem(q + ((size_t)f * H + h) * D, d, D,
-                    sin_tab + (size_t)f * D, cos_tab + (size_t)f * D);
-      v = to_f32(to_bf16(rot)) * scale;
+    if constexpr (ROPE) {
+      // packed pre-rope q: the row's tokens sit at w_flat + q_start - w_start
+      const int f = w_flats[r] + qstart - w_starts[r] + qi;
+      if (f >= 0 && f < n_tok) {
+        const float rot =
+            rope_elem(q + ((size_t)f * H + h) * D, d, D,
+                      sin_tab + (size_t)f * D, cos_tab + (size_t)f * D);
+        v = to_f32(to_bf16(rot)) * scale;
+      }
+    } else {
+      // row-blocked post-rope q [R, QB, H, D]
+      v = to_f32(q[(((size_t)r * QB + qi) * H + h) * D + d]) * scale;
     }
     q_s[i * KS + d] = v;
   }
@@ -184,21 +294,30 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_rope_kernel(
       n_valid > 0 ? min(ctx, qstart + (row0 + n_valid - 1) / G + 1) : 0;
   const int n_pages = (kv_end + page - 1) / page;
 
-  // a page's K and V as 16-byte vectors, fetched into registers one page
-  // ahead so the loads of page pg+1 are in flight while page pg computes
+  // a page's K and V as 16-byte vectors (and, for int8, the scale of each
+  // vector's slot), fetched into registers one page ahead so the loads of
+  // page pg+1 are in flight while page pg computes
   const int nvec = page * D / E;
   uint4 kreg[kVecPerThread], vreg[kVecPerThread];
+  float ksr[kVecPerThread], vsr[kVecPerThread];
   auto fetch = [&](int pg) {
     const int pid = clamp_page(tables[(size_t)r * W + pg], P);
-    const size_t base = ((size_t)pid * Hk + hk) * page * D;
-    const uint4* kb = reinterpret_cast<const uint4*>(k_pages + base);
-    const uint4* vb = reinterpret_cast<const uint4*>(v_pages + base);
+    const size_t slot0 = ((size_t)pid * Hk + hk) * page;
+    const uint4* kb = reinterpret_cast<const uint4*>(
+        static_cast<const char*>(k_pages) + slot0 * D * EB);
+    const uint4* vb = reinterpret_cast<const uint4*>(
+        static_cast<const char*>(v_pages) + slot0 * D * EB);
 #pragma unroll
     for (int u = 0; u < kVecPerThread; ++u) {
       const int v = tid + u * kThreads;
       if (v < nvec) {
         kreg[u] = kb[v];
         vreg[u] = vb[v];
+        if constexpr (Q8) {
+          const int j = v * E / D;
+          ksr[u] = k_scale[slot0 + j];
+          vsr[u] = v_scale[slot0 + j];
+        }
       }
     }
   };
@@ -212,10 +331,15 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_rope_kernel(
       if (v < nvec) {
         const int e0 = v * E, j = e0 / D, d0 = e0 - j * D;
         float tmp[E];
-        unpack16(kreg[u], tmp);
+        if constexpr (Q8) {
+          unpack16_q8(kreg[u], ksr[u], tmp);
+          unpack16_q8(vreg[u], vsr[u], v_s + e0);
+        } else {
+          unpack16(kreg[u], tmp);
+          unpack16(vreg[u], v_s + e0);
+        }
 #pragma unroll
         for (int e = 0; e < E; ++e) k_s[j * KS + d0 + e] = tmp[e];
-        unpack16(vreg[u], v_s + e0);
       }
     }
     __syncthreads();
@@ -286,42 +410,36 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_rope_kernel(
   }
 }
 
-}  // namespace
+struct Meta {
+  const float* sin_tab;
+  const float* cos_tab;
+  const int* tables;
+  const int* kv_lens;
+  const int* q_starts;
+  const int* q_lens;
+  const int* w_starts;
+  const int* w_flats;
+};
 
-// C interface, loaded with ctypes; every tensor is bf16 except the f32 rope
-// tables and the int32 metadata. Each entry launches on `stream`, does not
-// synchronise, and returns the cudaGetLastError() code of its launch (0 on
-// success).
-extern "C" {
-
-const char* rpa_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
-int rpa_rope_kv_write(const void* new_k, const void* new_v, void* k_pages,
-                      void* v_pages, const void* sin_tab, const void* cos_tab,
-                      const void* tables, const void* kv_lens,
-                      const void* q_starts, const void* q_lens,
-                      const void* w_starts, const void* w_flats, int R,
-                      int n_tok, int Hk, int D, int P, int page, int W,
-                      void* stream) {
-  (void)cudaGetLastError();  // report this launch's error, not a stale one
-  rope_kv_write_kernel<<<dim3(R, Hk), kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)new_k, (const bf16*)new_v, (bf16*)k_pages, (bf16*)v_pages,
-      (const float*)sin_tab, (const float*)cos_tab, (const int*)tables,
-      (const int*)kv_lens, (const int*)q_starts, (const int*)q_lens,
-      (const int*)w_starts, (const int*)w_flats, n_tok, Hk, D, P, page, W);
+template <bool ROPE, bool Q8>
+int launch_write(const void* new_k, const void* new_v, void* k_pages,
+                 void* v_pages, void* k_scale, void* v_scale, const Meta& m,
+                 int R, int n_tok, int Hk, int D, int P, int page, int W,
+                 cudaStream_t stream) {
+  kv_write_kernel<ROPE, Q8><<<dim3(R, Hk), kThreads, 0, stream>>>(
+      (const bf16*)new_k, (const bf16*)new_v, k_pages, v_pages,
+      (float*)k_scale, (float*)v_scale, m.sin_tab, m.cos_tab, m.tables,
+      m.kv_lens, m.q_starts, m.q_lens, m.w_starts, m.w_flats, n_tok, Hk, D, P,
+      page, W);
   return (int)cudaGetLastError();
 }
 
-int rpa_rope_attention(const void* q, const void* k_pages, const void* v_pages,
-                       const void* sin_tab, const void* cos_tab,
-                       const void* tables, const void* kv_lens,
-                       const void* q_starts, const void* q_lens,
-                       const void* w_starts, const void* w_flats, void* out,
-                       int R, int n_tok, int H, int Hk, int D, int P, int page,
-                       int W, int QB, float scale, void* stream) {
-  (void)cudaGetLastError();
+template <bool ROPE, bool Q8>
+int launch_attention(const void* q, const void* k_pages, const void* v_pages,
+                     const void* k_scale, const void* v_scale, const Meta& m,
+                     void* out, int R, int n_tok, int H, int Hk, int D, int P,
+                     int page, int W, int QB, float scale,
+                     cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((kQTile + page) * (D + 1) + page * D + kQTile * page +
                        3 * kQTile);
@@ -329,19 +447,91 @@ int rpa_rope_attention(const void* q, const void* k_pages, const void* v_pages,
     // above 48 KB only after an explicit opt-in; a refused launch never
     // runs and is reported only by cudaGetLastError
     const cudaError_t e = cudaFuncSetAttribute(
-        ragged_attention_rope_kernel,
+        ragged_attention_kernel<ROPE, Q8>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int tiles = (QB * (H / Hk) + kQTile - 1) / kQTile;
-  ragged_attention_rope_kernel<<<dim3(R, Hk, tiles), kThreads, smem,
-                                 (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k_pages, (const bf16*)v_pages,
-      (const float*)sin_tab, (const float*)cos_tab, (const int*)tables,
-      (const int*)kv_lens, (const int*)q_starts, (const int*)q_lens,
-      (const int*)w_starts, (const int*)w_flats, (bf16*)out, n_tok, H, Hk, D,
-      P, page, W, QB, scale);
+  ragged_attention_kernel<ROPE, Q8>
+      <<<dim3(R, Hk, tiles), kThreads, smem, stream>>>(
+          (const bf16*)q, k_pages, v_pages, (const float*)k_scale,
+          (const float*)v_scale, m.sin_tab, m.cos_tab, m.tables, m.kv_lens,
+          m.q_starts, m.q_lens, m.w_starts, m.w_flats, (bf16*)out, n_tok, H,
+          Hk, D, P, page, W, QB, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes. q, new_k, new_v and out are bf16; the
+// pools are bf16 (q8 = 0) or int8 with f32 [P, Hk, page, 1] scale sidecars
+// (q8 = 1; null otherwise); the rope tables f32 [T, D] (rope = 1; null
+// otherwise); the metadata int32. With rope = 0 the attention takes q
+// row-blocked [R, QB, H, D] and needs no w_starts/w_flats. Each entry
+// launches on `stream`, does not synchronise, and returns the
+// cudaGetLastError() code of its launch (0 on success).
+extern "C" {
+
+const char* rpa_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+int rpa_kv_write(int rope, int q8, const void* new_k, const void* new_v,
+                 void* k_pages, void* v_pages, void* k_scale, void* v_scale,
+                 const void* sin_tab, const void* cos_tab, const void* tables,
+                 const void* kv_lens, const void* q_starts, const void* q_lens,
+                 const void* w_starts, const void* w_flats, int R, int n_tok,
+                 int Hk, int D, int P, int page, int W, void* stream) {
+  (void)cudaGetLastError();  // report this launch's error, not a stale one
+  const Meta m{(const float*)sin_tab, (const float*)cos_tab,
+               (const int*)tables,    (const int*)kv_lens,
+               (const int*)q_starts,  (const int*)q_lens,
+               (const int*)w_starts,  (const int*)w_flats};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (rope && q8)
+    return launch_write<true, true>(new_k, new_v, k_pages, v_pages, k_scale,
+                                    v_scale, m, R, n_tok, Hk, D, P, page, W, s);
+  if (rope)
+    return launch_write<true, false>(new_k, new_v, k_pages, v_pages, k_scale,
+                                     v_scale, m, R, n_tok, Hk, D, P, page, W,
+                                     s);
+  if (q8)
+    return launch_write<false, true>(new_k, new_v, k_pages, v_pages, k_scale,
+                                     v_scale, m, R, n_tok, Hk, D, P, page, W,
+                                     s);
+  return launch_write<false, false>(new_k, new_v, k_pages, v_pages, k_scale,
+                                    v_scale, m, R, n_tok, Hk, D, P, page, W, s);
+}
+
+int rpa_attention(int rope, int q8, const void* q, const void* k_pages,
+                  const void* v_pages, const void* k_scale,
+                  const void* v_scale, const void* sin_tab,
+                  const void* cos_tab, const void* tables, const void* kv_lens,
+                  const void* q_starts, const void* q_lens,
+                  const void* w_starts, const void* w_flats, void* out, int R,
+                  int n_tok, int H, int Hk, int D, int P, int page, int W,
+                  int QB, float scale, void* stream) {
+  (void)cudaGetLastError();
+  const Meta m{(const float*)sin_tab, (const float*)cos_tab,
+               (const int*)tables,    (const int*)kv_lens,
+               (const int*)q_starts,  (const int*)q_lens,
+               (const int*)w_starts,  (const int*)w_flats};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (rope && q8)
+    return launch_attention<true, true>(q, k_pages, v_pages, k_scale, v_scale,
+                                        m, out, R, n_tok, H, Hk, D, P, page,
+                                        W, QB, scale, s);
+  if (rope)
+    return launch_attention<true, false>(q, k_pages, v_pages, k_scale,
+                                         v_scale, m, out, R, n_tok, H, Hk, D,
+                                         P, page, W, QB, scale, s);
+  if (q8)
+    return launch_attention<false, true>(q, k_pages, v_pages, k_scale,
+                                         v_scale, m, out, R, n_tok, H, Hk, D,
+                                         P, page, W, QB, scale, s);
+  return launch_attention<false, false>(q, k_pages, v_pages, k_scale, v_scale,
+                                        m, out, R, n_tok, H, Hk, D, P, page, W,
+                                        QB, scale, s);
 }
 
 }  // extern "C"

@@ -7,8 +7,9 @@ device side is the per-layer page pools ``[P, Hk, page, D]`` that the
 serving engine owns and the ragged paged attention kernel reads and
 writes through these tables.
 
-The int8 page quantiser (``quantize_kv_int8``) belongs to the int8-KV
-slice (ROADMAP queue A) and is not here yet.
+:func:`quantize_kv_int8` is the int8 page quantiser: the serving
+engine's two-op path stores its output in int8 pools with f32 scale
+sidecars, and the CUDA write kernel computes the same bits.
 """
 
 from __future__ import annotations
@@ -22,7 +23,26 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["PageAllocator"]
+__all__ = ["PageAllocator", "quantize_kv_int8"]
+
+#: the f32 rounding of the double 1/127: the scale multiplies by it
+#: (no divide), bit for bit the reference quantiser's constant
+INV_127 = float(np.float32(1.0 / 127.0))
+
+
+def quantize_kv_int8(x):
+    """Symmetric per-head int8 quantization of K/V over the last
+    (head_dim) axis: ``x [..., D]`` float -> ``(q, scale)``, ``q`` int8
+    of ``x``'s shape and ``scale`` f32 of ``x.shape[:-1]``, one scale
+    per (token, head). In f32: ``scale = max(absmax, 1e-8) * f32(1/127)``
+    (a multiply by the rounded reciprocal, not a divide), then
+    ``round(x / scale)`` half to even, clipped to +-127. Dequantization
+    is ``q.float() * scale[..., None]``."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = amax.clamp_min(1e-8) * INV_127
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
 
 
 class PageAllocator:

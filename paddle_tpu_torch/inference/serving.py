@@ -1,16 +1,36 @@
 """Continuous-batching serving engine for the Llama family (port of
-``paddle_tpu/inference/serving.py``, greedy rope-fused path).
+``paddle_tpu/inference/serving.py``, greedy).
 
 Every engine step is ONE mixed dispatch over a token-packed batch:
 prefill chunks of at most ``chunk_block`` tokens and single-token
 decode rows share a ``chunk_budget``-token step (decode rows first,
 then prompt chunks FIFO by admission; a long prompt may take several
-chunk rows of one dispatch). Per layer the dispatch makes ONE call of
-:func:`~paddle_tpu_torch.ops.ragged_paged_attention.fused_ragged_paged_attention`:
-rope on the packed pre-rope q/k, the write of the step's K/V into the
-shared page pools and ragged paged attention. Everything around it
+chunk rows of one dispatch). Per layer the dispatch runs the attention
+of :mod:`~paddle_tpu_torch.ops.ragged_paged_attention` by one of three
+paths, which give bitwise the same pools and greedy tokens:
+
+- rope-fused (the default): ONE call of ``fused_ragged_paged_attention``
+  with the rope tables: rope on the packed pre-rope q/k, the write of
+  the step's K/V into the shared page pools, and ragged paged attention;
+- ``fused_rope=False`` (``PADDLE_TPU_FUSED_ROPE=0``): rope as its own
+  op (``fused_rotary_position_embedding`` from the shared per-dispatch
+  tables), q gathered into row blocks, then ``fused_ragged_paged_attention``
+  on post-rope q and K (write + attention);
+- ``fused_kv=False`` (``PADDLE_TPU_FUSED_KV=0``): the two-op path, rope
+  as above, a scatter of the step's K/V into the pools (plain PyTorch
+  indexing, :func:`_page_write` / :func:`_page_write_q8`), then the
+  read-only ``ragged_paged_attention``.
+
+``fused_rope`` needs ``fused_kv`` and an even head_dim; otherwise it is
+demoted to the fused-KV path. Everything around the attention
 (embedding, RMSNorm, projections, SwiGLU, the lm head at each row's last
 token and the greedy argmax) is plain PyTorch.
+
+Int8 KV pages: ``kv_dtype="int8"`` (or ``PADDLE_TPU_KV_DTYPE=int8``)
+stores the pools as int8 with one f32 scale per (page, head, slot) in
+``[P, Hk, page, 1]`` sidecars (:func:`.paged_cache.quantize_kv_int8` on
+write, ``int8 * scale`` on read): a cached token costs about half its
+bf16 bytes, so the same pool holds about twice the batch or context.
 
 The row metadata is built on the host in numpy and copied to the device
 once per dispatch. The scheduler and its geometry (``chunk_block``
@@ -26,10 +46,10 @@ else from the engine.
 
 Not in this slice (ROADMAP queue A, in order): sampling, the prefix
 cache, the request lifecycle (deadlines, cancel, drain, the degradation
-ladder, the watchdog), speculative decoding, int8 KV pages, CUDA-graph
-decode. Admission therefore reserves each request's worst-case pages up
-front and raises :class:`AdmissionError` when they do not fit, and the
-engine is driven from one thread.
+ladder, the watchdog), speculative decoding, CUDA-graph decode, the host
+KV tier. Admission therefore reserves each request's worst-case pages
+up front and raises :class:`AdmissionError` when they do not fit, and
+the engine is driven from one thread.
 """
 
 from __future__ import annotations
@@ -41,13 +61,68 @@ import time
 import numpy as np
 import torch
 
+from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..ops.ragged_paged_attention import (fused_ragged_paged_attention,
-                                          rope_tables)
+                                          fused_rope_geometry_ok,
+                                          ragged_paged_attention, rope_tables)
 from ..quant.format import (is_quantized, model_weight_block,
                             quantize_model, serving_weight_bytes)
-from .paged_cache import PageAllocator
+from .paged_cache import PageAllocator, quantize_kv_int8
 
 __all__ = ["LlamaServingEngine", "Request", "AdmissionError"]
+
+
+def _env_flag(name, default):
+    """A boolean knob from the environment: anything but 0/false/off
+    (any case) is on."""
+    return os.environ.get(name, default).lower() not in ("0", "false", "off")
+
+
+def _last_writer_index(page_ids, offs, page_slots):
+    """For a scatter whose (page, slot) targets may repeat within one
+    dispatch: each packed token's last writer, the greatest index with
+    the same target. O(T^2) integer compares on the packed token axis."""
+    t = page_ids.shape[0]
+    key = page_ids.long() * page_slots + offs.long()
+    eq = key[:, None] == key[None, :]
+    ar = torch.arange(t, device=page_ids.device)
+    return torch.where(eq, ar[None, :], -1).argmax(dim=1)
+
+
+def _last_writer_values(new, page_ids, offs, page_slots):
+    """Last-writer-wins: every duplicate's value is replaced by the last
+    writer's, so the scatter's order among duplicates cannot matter."""
+    return new[_last_writer_index(page_ids, offs, page_slots)]
+
+
+def _page_write(pages, new, page_ids, offs, last=None):
+    """Scatter ``new [T, Hk, D]`` into head-major ``pages [P, Hk, page,
+    D]`` at ``(page_ids[t], h, offs[t])``, IN PLACE, cast to the pool
+    dtype; duplicate targets resolve last-writer-wins (``last``: their
+    :func:`_last_writer_index`, if the caller has it)."""
+    if last is None:
+        last = _last_writer_index(page_ids, offs, pages.shape[2])
+    hidx = torch.arange(pages.shape[1], device=pages.device)[None, :]
+    pages[page_ids.long()[:, None], hidx, offs.long()[:, None]] = \
+        new[last].to(pages.dtype)
+    return pages
+
+
+def _page_write_q8(pages, scales, new, page_ids, offs, last=None):
+    """Quantizing scatter for int8 pools, IN PLACE: ``new [T, Hk, D]``
+    float goes through :func:`quantize_kv_int8`; the int8 values land in
+    ``pages [P, Hk, page, D]`` and the per-(token, head) scale in
+    ``scales [P, Hk, page, 1]`` at the same (page, head, slot). A slot's
+    (int8, scale) pair is always one writer's (last-writer-wins, as in
+    :func:`_page_write`)."""
+    if last is None:
+        last = _last_writer_index(page_ids, offs, pages.shape[2])
+    q, sc = quantize_kv_int8(new[last])              # [T, Hk, D], [T, Hk]
+    hidx = torch.arange(pages.shape[1], device=pages.device)[None, :]
+    pi, oi = page_ids.long()[:, None], offs.long()[:, None]
+    pages[pi, hidx, oi] = q
+    scales[pi, hidx, oi, 0] = sc
+    return pages, scales
 
 
 class AdmissionError(MemoryError):
@@ -113,12 +188,14 @@ class Request:
 class LlamaServingEngine:
     """Greedy continuous-batching engine over a
     :class:`~paddle_tpu_torch.models.llama.LlamaForCausalLM`; it runs on
-    the model's device, with page pools in the model's dtype. The
-    geometry arguments, ``weight_dtype`` (None/"bf16": the model as it
-    is; "int8": weight-only int8) and ``weight_block`` mean what they
-    mean in the reference engine; ``prefix_cache``, ``spec_k``,
-    ``kv_dtype`` and ``kv_tier`` are accepted only at their off values
-    (later slices)."""
+    the model's device, with page pools in the model's dtype, or int8
+    with f32 scale sidecars. The geometry arguments, ``weight_dtype``
+    (None/"bf16": the model as it is; "int8": weight-only int8),
+    ``weight_block``, ``kv_dtype`` (None: the model's dtype; "int8"),
+    ``fused_kv`` and ``fused_rope`` (see the module docstring) mean what
+    they mean in the reference engine, environment knobs included;
+    ``prefix_cache``, ``spec_k`` and ``kv_tier`` are accepted only at
+    their off values (later slices)."""
 
     #: decode steps between admission checks while prompts are pending
     DECODE_TICKS = 16
@@ -127,9 +204,10 @@ class LlamaServingEngine:
                  max_pages_per_seq=None, chunk_budget=None,
                  chunk_block=None, decode_ticks=None, prefix_cache=False,
                  spec_k=0, kv_dtype=None, weight_dtype=None,
-                 weight_block=None, kv_tier=False):
+                 weight_block=None, kv_tier=False, fused_kv=None,
+                 fused_rope=None):
         later = {"prefix_cache": prefix_cache, "spec_k": spec_k,
-                 "kv_dtype": kv_dtype, "kv_tier": kv_tier}
+                 "kv_tier": kv_tier}
         asked = [k for k, v in later.items() if v]
         if asked:
             raise NotImplementedError(
@@ -181,11 +259,41 @@ class LlamaServingEngine:
         self.trash_page = num_pages - 1
         param = next(model.parameters())
         self.device = param.device
-        shape = (num_pages, cfg.num_key_value_heads, page_size, cfg.head_dim)
-        self.k_pools = [torch.zeros(shape, dtype=param.dtype,
-                                    device=self.device)
-                        for _ in range(cfg.num_hidden_layers)]
+        # int8 KV pages: quantize on write, dequantize in the attention's
+        # page loop; the engine argument wins over PADDLE_TPU_KV_DTYPE
+        if kv_dtype is None:
+            kv_dtype = os.environ.get("PADDLE_TPU_KV_DTYPE", "") or None
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype must be None (model dtype) or "
+                             f"'int8', got {kv_dtype!r}")
+        self.kv_quant = kv_dtype == "int8"
+        # the fallback paths (module docstring); the rope-fused path
+        # rides the fused KV write and needs an even head_dim
+        if fused_kv is None:
+            fused_kv = _env_flag("PADDLE_TPU_FUSED_KV", "1")
+        self.fused_kv = bool(fused_kv)
+        if fused_rope is None:
+            fused_rope = _env_flag("PADDLE_TPU_FUSED_ROPE", "1")
+        self.fused_rope = bool(fused_rope) and self.fused_kv \
+            and fused_rope_geometry_ok(cfg.head_dim)
+        hk, n_layers = cfg.num_key_value_heads, cfg.num_hidden_layers
+        shape = (num_pages, hk, page_size, cfg.head_dim)
+        pool_dt = torch.int8 if self.kv_quant else param.dtype
+        self.k_pools = [torch.zeros(shape, dtype=pool_dt, device=self.device)
+                        for _ in range(n_layers)]
         self.v_pools = [torch.zeros_like(k) for k in self.k_pools]
+        # one f32 scale per (page, head, slot), indexed by the same page
+        # ids as the pools
+        sshape = (num_pages, hk, page_size, 1)
+        self.k_scales = [torch.zeros(sshape, dtype=torch.float32,
+                                     device=self.device)
+                         for _ in range(n_layers)] if self.kv_quant else []
+        self.v_scales = [torch.zeros_like(s) for s in self.k_scales]
+        itemsize = torch.tensor([], dtype=pool_dt).element_size()
+        tok_bytes = 2 * hk * cfg.head_dim * itemsize * n_layers
+        if self.kv_quant:
+            tok_bytes += 2 * hk * 4 * n_layers       # the scale sidecars
+        self.kv_bytes_per_token = tok_bytes
         self._live: dict[int, Request] = {}
         self._next_id = 0
         self._dispatch_count = 0
@@ -196,12 +304,14 @@ class LlamaServingEngine:
     @torch.no_grad()
     def _mixed_forward(self, tokens, pos, flat_idx, last_idx, tables,
                        kv_lens, q_starts, q_lens, w_starts, w_flats,
-                       w_ends, qb):
+                       w_ends, page_ids, offs, row_tok, qb):
         """ONE token-packed model step over ``T`` real tokens (prefill
         chunks and decode tokens back to back) and ``R`` rows; returns
         the greedy next token of each row ``[R]`` (argmax at the row's
         last position). tokens/pos/flat_idx [T]; tables [R, W];
-        last_idx and the row metadata [R]."""
+        last_idx and the row metadata [R]; page_ids/offs [T] (the
+        two-op scatter's targets) and row_tok [R, qb] (each row-block
+        entry's packed token), which the rope-fused path leaves empty."""
         m = self.model.model
         cfg = self.model.config
         t, r_rows = tokens.shape[0], tables.shape[0]
@@ -209,16 +319,48 @@ class LlamaServingEngine:
         # rotary tables computed once per dispatch, shared by all layers
         rsin, rcos = rope_tables(pos, cfg.head_dim, float(cfg.rope_theta))
         flat = flat_idx.long()
+        # the two-op scatter's last writers, the same in every layer
+        last = None if self.fused_kv else _last_writer_index(
+            page_ids, offs, self.page_size)
         for li, layer in enumerate(m.layers):
             h = layer.input_layernorm(x)
             att = layer.self_attn
             q = att.q_proj(h).reshape(t, att.num_heads, att.head_dim)
             k = att.k_proj(h).reshape(t, att.num_kv_heads, att.head_dim)
             v = att.v_proj(h).reshape(t, att.num_kv_heads, att.head_dim)
-            attn4 = fused_ragged_paged_attention(
-                q, k, v, self.k_pools[li], self.v_pools[li], tables,
-                kv_lens, q_starts, q_lens, w_starts, w_flats, w_ends,
-                self.trash_page, rsin, rcos, qb)
+            kp, vp = self.k_pools[li], self.v_pools[li]
+            sc = dict(k_scale=self.k_scales[li],
+                      v_scale=self.v_scales[li]) if self.kv_quant else {}
+            if self.fused_rope:
+                attn4 = fused_ragged_paged_attention(
+                    q, k, v, kp, vp, tables, kv_lens, q_starts, q_lens,
+                    w_starts, w_flats, w_ends, self.trash_page,
+                    rope_sin=rsin, rope_cos=rcos, qblock=qb, **sc)
+            else:
+                # rope as its own op, from the shared tables, then q
+                # packed into the [R, qb] row blocks
+                q, k, _ = fused_rotary_position_embedding(
+                    q[None], k[None], sin=rsin, cos=rcos)
+                q, k = q[0], k[0]
+                q4 = q[row_tok]
+                if self.fused_kv:
+                    attn4 = fused_ragged_paged_attention(
+                        q4, k, v, kp, vp, tables, kv_lens, q_starts,
+                        q_lens, w_starts, w_flats, w_ends, self.trash_page,
+                        **sc)
+                else:
+                    # two ops: scatter every row's K/V, then attend (a
+                    # later chunk of a sequence reads what this wrote)
+                    if self.kv_quant:
+                        _page_write_q8(kp, sc["k_scale"], k, page_ids, offs,
+                                       last)
+                        _page_write_q8(vp, sc["v_scale"], v, page_ids, offs,
+                                       last)
+                    else:
+                        _page_write(kp, k, page_ids, offs, last)
+                        _page_write(vp, v, page_ids, offs, last)
+                    attn4 = ragged_paged_attention(
+                        q4, kp, vp, tables, kv_lens, q_starts, q_lens, **sc)
             attn = attn4.reshape(r_rows * qb, att.num_heads,
                                  att.head_dim)[flat]
             x = x + att.o_proj(attn.reshape(t, -1))
@@ -280,6 +422,12 @@ class LlamaServingEngine:
         # consecutive)
         seq_first: dict[int, tuple] = {}
         seq_last: dict[int, int] = {}
+        # the fallback paths' metadata: each token's page and slot, each
+        # row-block entry's packed token (padding: token 0)
+        fallback = not self.fused_rope
+        page_ids = np.zeros((t_n if fallback else 0,), np.int32)
+        offs = np.zeros_like(page_ids)
+        row_tok = np.zeros((r_n if fallback else 0, qb), np.int32)
         t = 0
         for i, (r, sid, start, n, toks, is_dec) in enumerate(rows):
             tb = self.alloc._tables[sid]
@@ -288,6 +436,10 @@ class LlamaServingEngine:
             tokens[t:t + n] = toks
             pos[t:t + n] = start + np.arange(n)
             flat_idx[t:t + n] = i * qb + np.arange(n)
+            if fallback:
+                page_ids[t:t + n], offs[t:t + n] = \
+                    self.alloc.page_positions(sid, start, n)
+                row_tok[i, :n] = np.arange(t, t + n)
             seq_first.setdefault(sid, (start, t))
             seq_last[sid] = start + n
             t += n
@@ -295,16 +447,17 @@ class LlamaServingEngine:
         for i, (_, sid, *_) in enumerate(rows):
             meta[3:5, i] = seq_first[sid]
             meta[5, i] = seq_last[sid]
-        host = np.concatenate([tokens, pos, flat_idx, last_idx,
-                               tables.reshape(-1), meta.reshape(-1)])
-        dev = torch.from_numpy(host).to(self.device)   # one copy
-        o = 3 * t_n + r_n
-        tok_d, pos_d, flat_d, last_d = dev[:o].split([t_n, t_n, t_n, r_n])
-        tables_d = dev[o:o + r_n * self.width].view(r_n, self.width)
-        kv_d, qs_d, ql_d, ws_d, wf_d, we_d = \
-            dev[o + r_n * self.width:].view(6, r_n).unbind(0)
+        parts = [tokens, pos, flat_idx, last_idx, tables.reshape(-1),
+                 meta.reshape(-1), page_ids, offs, row_tok.reshape(-1)]
+        dev = torch.from_numpy(np.concatenate(parts)).to(self.device)
+        (tok_d, pos_d, flat_d, last_d, tables_d, meta_d, pid_d, off_d,
+         rt_d) = dev.split([p.size for p in parts])
+        tables_d = tables_d.view(r_n, self.width)
+        kv_d, qs_d, ql_d, ws_d, wf_d, we_d = meta_d.view(6, r_n).unbind(0)
+        rt_d = rt_d.view(-1, qb).long()
         nxt = self._mixed_forward(tok_d, pos_d, flat_d, last_d, tables_d,
-                                  kv_d, qs_d, ql_d, ws_d, wf_d, we_d, qb)
+                                  kv_d, qs_d, ql_d, ws_d, wf_d, we_d, pid_d,
+                                  off_d, rt_d, qb)
         out = nxt.tolist()
         for r, sid, start, n, _, is_dec in rows:
             if not is_dec and r.seq_id == sid:

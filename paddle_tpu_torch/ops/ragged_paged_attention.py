@@ -1,34 +1,48 @@
-"""Ragged paged attention with fused rope and KV page write (port of
-``paddle_tpu/ops/ragged_paged_attention.py``, rope-fused variant).
+"""Ragged paged attention: one call serves a mixed batch of prefill chunks
+and decode rows over a shared paged KV pool (port of
+``paddle_tpu/ops/ragged_paged_attention.py``).
 
-One call serves a mixed batch of prefill chunks and decode rows over a
-shared paged KV pool. Shapes (T packed tokens, R rows, QB = ``qblock``):
+Shapes (T packed tokens, R rows, QB the row-block width):
 
-  q             [T, H, D]        packed PRE-rope queries (model dtype)
-  new_k, new_v  [T, Hk, D]       packed pre-rope K and V of the dispatch
-  k/v_pages     [P, Hk, page, D] the pools, head-major; updated IN PLACE
+  q             [R, QB, H, D]    row-blocked post-rope queries; entries at
+                                 qi >= q_lens[r] are padding (zeros out)
+  k/v_pages     [P, Hk, page, D] the pools, head-major (model dtype, or
+                                 int8 with scale sidecars)
+  k/v_scale     [P, Hk, page, 1] f32 per-(page, head, slot) scales of int8
+                                 pools (``quantize_kv_int8``); attention
+                                 reads ``int8.float() * scale``
   block_tables  [R, W] int32     page ids of each row's sequence (tail
                                  entries are clamped into [0, P))
   kv_lens       [R] int32        context of the row incl. its queries
                                  (0 marks an inactive row: zeros out)
   q_starts      [R] int32        absolute position of the row's 1st query
   q_lens        [R] int32        valid query tokens of the row
-  w_starts      [R] int32        first position of the row's sequence
-                                 written by this dispatch
-  w_flats       [R] int32        that position's packed index
-  w_ends        [R] int32        the sequence's final kv_len here
-  rope_sin/cos  [T, D] f32       per-token rotary tables (:func:`rope_tables`)
   -> out        [R, QB, H, D]
 
-Row r's token qi sits at packed index ``w_flats[r] + q_starts[r] -
-w_starts[r] + qi`` and attends kv positions ``[0, q_start + qi]`` clipped
-to ``[0, kv_len)``. For every active row ``kv_len == q_start + q_len``.
+Row r's query qi attends kv positions ``[0, q_start + qi]`` clipped to
+``[0, kv_len)``.
 
-On a CUDA tensor :func:`fused_ragged_paged_attention` launches the
-hand-written kernels in ``csrc/ragged_paged_attention.cu`` (a write
-launch, then the attention launch, on one stream); on a CPU tensor it
-runs the plain version :func:`fused_ragged_paged_attention_ref`. There
-is no fallback from one to the other.
+:func:`ragged_paged_attention` only reads the pools (the engine's two-op
+path scatters the step's K/V first). :func:`fused_ragged_paged_attention`
+also writes the step's K/V: it takes the packed fresh rows
+``new_k/new_v [T, Hk, D]`` and per-row write metadata (``w_starts``: the
+first position of the row's sequence this dispatch writes, ``w_flats``:
+its packed index, ``w_ends``: the sequence's final kv_len), so row r's
+token at position p sits at packed index ``w_flats[r] + p - w_starts[r]``.
+With ``rope_sin``/``rope_cos`` (``[T, D]`` f32, :func:`rope_tables`) q and
+new K arrive PRE-rope, q packed ``[T, H, D]``, and ``qblock`` names the
+row-block width; the rotation happens inside the call. Int8 pools are
+written as ``quantize_kv_int8`` of the fresh rows (roped and cast to the
+model dtype first) into the pool and its sidecars. Pools and sidecars are
+updated IN PLACE; the dump page is never written.
+
+On a CUDA tensor the wrappers launch the hand-written kernels in
+``csrc/ragged_paged_attention.cu`` (a write launch, then the attention
+launch, on one stream; the read-only call launches the attention alone).
+On a CPU tensor they run the plain versions
+(:func:`ragged_paged_attention_ref`,
+:func:`fused_ragged_paged_attention_ref`). There is no fallback from one
+to the other.
 """
 
 from __future__ import annotations
@@ -40,13 +54,17 @@ import torch
 
 from . import _build
 
-__all__ = ["rope_tables", "ragged_paged_attention_ref",
-           "fused_ragged_paged_attention_ref", "fused_ragged_paged_attention"]
+__all__ = ["rope_tables", "supported", "fused_supported",
+           "fused_rope_geometry_ok", "ragged_paged_attention_ref",
+           "fused_ragged_paged_attention_ref", "ragged_paged_attention",
+           "fused_ragged_paged_attention"]
 
 NEG_INF = -1e30
 
-#: kernel launches on the CUDA path (two per call: write, then attention)
-launches = 0
+#: kernel launches on the CUDA path, by the TPU kernel each call replaces:
+#: two per fused call (write, then attention), one per read-only call
+launches = {"fused_rope": 0, "fused_rope_q8": 0, "fused": 0, "fused_q8": 0,
+            "ragged": 0, "ragged_q8": 0}
 
 _MAX_PAGE = 32        # the softmax step holds one key slot per lane of a warp
 _MAX_HEAD_DIM = 128   # one thread per output column of a block
@@ -64,6 +82,13 @@ def rope_tables(pos, head_dim, base):
     return emb.sin(), emb.cos()
 
 
+def fused_rope_geometry_ok(head_dim):
+    """Whether the rope-fused call can take this head_dim: the neox
+    rotation splits it in half, so it must be even. The serving engine
+    demotes ``fused_rope`` to the fused-KV path where it is not."""
+    return head_dim % 2 == 0 and head_dim >= 2
+
+
 def _rot_half(x):
     h = x.shape[-1] // 2
     return torch.cat([-x[..., h:], x[..., :h]], dim=-1)
@@ -77,20 +102,31 @@ def _rope(x, sin, cos):
     return out.to(x.dtype)
 
 
+def _gather_pages(pages, scales, tables):
+    """Every row's pages as one window ``[R, S, Hk, D]``, dequantized
+    (``int8.float() * scale``) where ``scales`` is given."""
+    x = pages[tables]                                  # [R, W, Hk, page, D]
+    if scales is not None:
+        x = x.float() * scales[tables].float()
+    r, _, hk, _, d = x.shape
+    return x.transpose(2, 3).reshape(r, -1, hk, d)
+
+
 def ragged_paged_attention_ref(q, k_pages, v_pages, block_tables, kv_lens,
-                               q_starts, q_lens, scale=None):
+                               q_starts, q_lens, scale=None, k_scale=None,
+                               v_scale=None):
     """Plain ragged paged attention on row-blocked ``q [R, QB, H, D]``:
-    gather every row's pages into a contiguous window, mask, softmax in
-    f32. Padded query rows and inactive rows come back as zeros."""
+    gather every row's pages into a contiguous window (dequantized for
+    int8 pools), mask, softmax in f32. Padded query rows and inactive rows
+    come back as zeros."""
     r, qb, h, d = q.shape
     p, hk, page_size, _ = k_pages.shape
     group = h // hk
     s = scale if scale is not None else 1.0 / math.sqrt(d)
     dev = q.device
     tables = block_tables.long().clamp(0, p - 1)
-    # [R, W, Hk, page, D] -> [R, S, Hk, D]
-    k = k_pages[tables].transpose(2, 3).reshape(r, -1, hk, d)
-    v = v_pages[tables].transpose(2, 3).reshape(r, -1, hk, d)
+    k = _gather_pages(k_pages, k_scale, tables)
+    v = _gather_pages(v_pages, v_scale, tables)
     kq = k.repeat_interleave(group, dim=2).float()
     vq = v.repeat_interleave(group, dim=2).float()
     logits = torch.einsum("rqhd,rshd->rhqs", q.float(), kq) * s
@@ -112,75 +148,238 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, block_tables, kv_lens,
 def fused_ragged_paged_attention_ref(q, new_k, new_v, k_pages, v_pages,
                                      block_tables, kv_lens, q_starts, q_lens,
                                      w_starts, w_flats, w_ends, dump_page,
-                                     rope_sin, rope_cos, qblock, scale=None):
-    """The plain version: rope the packed q and new K, write every
-    active row's fresh K/V into its pages (in place), gather q into
-    ``[R, qblock]`` row blocks, then :func:`ragged_paged_attention_ref`
-    over the updated pools. ``w_ends`` and ``dump_page`` are accepted
-    for signature parity; the dump page is never touched."""
+                                     scale=None, k_scale=None, v_scale=None,
+                                     rope_sin=None, rope_cos=None,
+                                     qblock=None):
+    """The plain version: with rope tables, rope the packed q and new K
+    and gather q into ``[R, qblock]`` row blocks; write every active
+    row's fresh K/V into its pages (in place; int8 pools get
+    ``quantize_kv_int8`` of them and their scales), then
+    :func:`ragged_paged_attention_ref` over the updated pools.
+    ``w_ends`` and ``dump_page`` are accepted for signature parity; the
+    dump page is never touched."""
+    # the inference package imports this module
+    from ..inference.paged_cache import quantize_kv_int8
     del w_ends, dump_page
-    sin, cos = rope_sin.float(), rope_cos.float()
-    q_rot = _rope(q, sin, cos)
-    k_rot = _rope(new_k, sin, cos)
-    r = block_tables.shape[0]
+    if rope_sin is not None:
+        sin, cos = rope_sin.float(), rope_cos.float()
+        q_rows = _rope(q, sin, cos)
+        new_k = _rope(new_k, sin, cos)
+        qr = q_rows.new_zeros((block_tables.shape[0], int(qblock))
+                              + tuple(q_rows.shape[1:]))
+    else:
+        qr = q
+    quant = k_scale is not None
+    if quant:
+        new_k, k_sc = quantize_kv_int8(new_k)
+        new_v, v_sc = quantize_kv_int8(new_v)
     page_size = k_pages.shape[2]
     tables = block_tables.long().clamp(0, k_pages.shape[0] - 1)
     meta = torch.stack([m.long() for m in (kv_lens, q_starts, q_lens,
                                            w_starts, w_flats)]).tolist()
-    qr = q_rot.new_zeros((r, int(qblock)) + tuple(q_rot.shape[1:]))
     hidx = torch.arange(k_pages.shape[1], device=q.device)[None, :]
     for i, (kv, qs, n, ws, wf) in enumerate(zip(*meta)):
         if n <= 0:
             continue
         f0 = wf + qs - ws
-        qr[i, :n] = q_rot[f0:f0 + n]
+        if rope_sin is not None:
+            qr[i, :n] = q_rows[f0:f0 + n]
         if kv <= 0:
             continue
         pos = torch.arange(qs, qs + n, device=q.device)
         pages = tables[i, pos // page_size][:, None]
         offs = (pos % page_size)[:, None]
-        k_pages[pages, hidx, offs] = k_rot[f0:f0 + n].to(k_pages.dtype)
+        k_pages[pages, hidx, offs] = new_k[f0:f0 + n].to(k_pages.dtype)
         v_pages[pages, hidx, offs] = new_v[f0:f0 + n].to(v_pages.dtype)
+        if quant:
+            k_scale[pages, hidx, offs, 0] = k_sc[f0:f0 + n]
+            v_scale[pages, hidx, offs, 0] = v_sc[f0:f0 + n]
     return ragged_paged_attention_ref(qr, k_pages, v_pages, tables, kv_lens,
-                                      q_starts, q_lens, scale)
+                                      q_starts, q_lens, scale, k_scale,
+                                      v_scale)
 
 
-def _check(q, new_k, new_v, k_pages, v_pages, block_tables, meta, rope_sin,
-           rope_cos, qblock):
-    if q.dim() != 3 or new_k.dim() != 3 or k_pages.dim() != 4:
-        raise ValueError("expected q [T,H,D], new_k/new_v [T,Hk,D] and "
-                         "pools [P,Hk,page,D]")
-    t, h, d = q.shape
-    p, hk, _, dk = k_pages.shape
-    r = block_tables.shape[0]
-    if new_k.shape != (t, hk, d) or new_v.shape != (t, hk, d) \
-            or v_pages.shape != k_pages.shape or dk != d or h % hk \
-            or d % 2 or t < 1 or int(qblock) < 1:
+# ----------------------------------------------------------------------
+# shape contract: one checker per call; `supported` / `fused_supported`
+# are the same checks returning a bool
+# ----------------------------------------------------------------------
+
+def _check_pools(k_pages, v_pages, k_scale, v_scale):
+    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError("pools must be [P, Hk, page, D], K and V alike; "
+                         f"got {tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
+    p, hk, page_size, d = k_pages.shape
+    if hk == 0 or d % 8 or d > 256 or page_size % 8:
+        raise ValueError(f"pools need page % 8 == 0, D % 8 == 0, D <= 256; "
+                         f"got page {page_size}, D {d}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 pools need both k_scale and v_scale")
+    if v_pages.dtype != k_pages.dtype \
+            or (k_pages.dtype == torch.int8) != (k_scale is not None):
         raise ValueError(
-            f"inconsistent shapes: q {tuple(q.shape)}, new_k "
-            f"{tuple(new_k.shape)}, new_v {tuple(new_v.shape)}, pools "
-            f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, qblock "
-            f"{qblock}")
-    if block_tables.dim() != 2 or any(m.shape != (r,) for m in meta):
+            "pools are float without sidecars, or int8 pools with scales "
+            f"(k_scale, v_scale); got {k_pages.dtype}/{v_pages.dtype} pools "
+            + ("with" if k_scale is not None else "without") + " scales")
+    if k_scale is not None:
+        want = (p, hk, page_size, 1)
+        if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+            raise ValueError(f"scale sidecars must be [P, Hk, page, 1] = "
+                             f"{want}")
+
+
+def _check_rows(r, block_tables, meta, tensors):
+    if block_tables.dim() != 2 or block_tables.shape[0] != r \
+            or any(tuple(m.shape) != (r,) for m in meta):
         raise ValueError("block_tables must be [R, W] and the per-row "
                          "metadata [R]")
-    if rope_sin.shape != (t, d) or rope_cos.shape != (t, d):
-        raise ValueError(f"rope tables must be [T, D] = {(t, d)}")
-    devs = {a.device for a in (q, new_k, new_v, k_pages, v_pages,
-                               block_tables, rope_sin, rope_cos, *meta)}
+    devs = {a.device for a in tensors if a is not None}
     if len(devs) != 1:
         raise ValueError(f"all operands must share one device, got {devs}")
 
+
+def _check_ragged(q, k_pages, v_pages, block_tables, meta, k_scale, v_scale):
+    _check_pools(k_pages, v_pages, k_scale, v_scale)
+    if q.dim() != 4:
+        raise ValueError(f"q must be [R, QB, H, D], got {tuple(q.shape)}")
+    r, qb, h, d = q.shape
+    hk = k_pages.shape[1]
+    if d != k_pages.shape[3] or h % hk or qb < 1:
+        raise ValueError(f"inconsistent shapes: q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pages.shape)}")
+    _check_rows(r, block_tables, meta, (q, k_pages, v_pages, block_tables,
+                                        k_scale, v_scale, *meta))
+    if not _on_cpu(q):
+        _check_kernel(q, k_pages, v_pages, k_scale, v_scale,
+                      (block_tables, *meta))
+
+
+def _check_fused(q, new_k, new_v, k_pages, v_pages, block_tables, meta,
+                 dump_page, k_scale, v_scale, rope_sin, rope_cos, qblock):
+    _check_pools(k_pages, v_pages, k_scale, v_scale)
+    p, hk, _, d = k_pages.shape
+    r = block_tables.shape[0] if block_tables.dim() == 2 else -1
+    if new_k.dim() != 3 or new_v.shape != new_k.shape \
+            or tuple(new_k.shape[1:]) != (hk, d) or new_k.shape[0] < 1:
+        raise ValueError(f"new_k/new_v must be [T, Hk, D] = [T, {hk}, {d}] "
+                         f"with T >= 1; got {tuple(new_k.shape)}/"
+                         f"{tuple(new_v.shape)}")
+    t = new_k.shape[0]
+    if (rope_sin is None) != (rope_cos is None):
+        raise ValueError("pass both rope tables or neither")
+    if rope_sin is not None:
+        if q.dim() != 3 or q.shape[0] != t or q.shape[2] != d \
+                or q.shape[1] % hk or qblock is None or int(qblock) < 1 \
+                or not fused_rope_geometry_ok(d):
+            raise ValueError(
+                f"the rope-fused call takes packed q [T, H, D] = [{t}, H, "
+                f"{d}] (H % Hk == 0, D even) and qblock >= 1; got q "
+                f"{tuple(q.shape)}, qblock {qblock}")
+        if tuple(rope_sin.shape) != (t, d) \
+                or tuple(rope_cos.shape) != (t, d):
+            raise ValueError(f"rope tables must be [T, D] = {(t, d)}")
+    elif q.dim() != 4 or q.shape[0] != r or q.shape[3] != d \
+            or q.shape[2] % hk or q.shape[1] < 1:
+        raise ValueError(f"q must be [R, QB, H, D] with R = {r}, D = {d}, "
+                         f"H % Hk == 0; got {tuple(q.shape)}")
+    try:
+        dp = int(dump_page)
+    except (TypeError, ValueError):
+        dp = -1
+    if not 0 <= dp < p:
+        raise ValueError(f"dump_page must be a page id in [0, {p}), got "
+                         f"{dump_page!r}")
+    _check_rows(r, block_tables, meta,
+                (q, new_k, new_v, k_pages, v_pages, block_tables, k_scale,
+                 v_scale, rope_sin, rope_cos, *meta))
+    if not _on_cpu(q):
+        # the kernels read every row operand but w_ends
+        _check_kernel(q, k_pages, v_pages, k_scale, v_scale,
+                      (block_tables, *meta[:5]), (new_k, new_v),
+                      (rope_sin, rope_cos) if rope_sin is not None else ())
+
+
+def _check_kernel(q, k_pages, v_pages, k_scale, v_scale, rows, fresh=(),
+                  tables=()):
+    """The kernels' own limits on CUDA operands, past the contract
+    (:func:`_check_pools` ties int8 pools to their sidecars): bf16 q,
+    fresh rows and float pools, f32 sidecars, int32 rows, f32 rope
+    tables, contiguous, pages of at most 32 slots of head_dim <= 128
+    fetched as 16-byte vectors from 16-byte aligned pools."""
+    q8 = k_scale is not None
+    if q.dtype != torch.bfloat16 or any(a.dtype != torch.bfloat16
+                                        for a in fresh) \
+            or not (q8 or k_pages.dtype == torch.bfloat16):
+        raise ValueError(
+            "the CUDA kernel takes bfloat16 q and fresh K/V and bfloat16 "
+            f"pools, or int8 pools with scales; got q {q.dtype}, pools "
+            f"{k_pages.dtype}/{v_pages.dtype}"
+            + (f", fresh {fresh[0].dtype}" if fresh else "")
+            + (" with scales" if q8 else ""))
+    if q8 and (k_scale.dtype != torch.float32
+               or v_scale.dtype != torch.float32):
+        raise ValueError("the CUDA kernel takes float32 scale sidecars")
+    if any(a.dtype != torch.int32 for a in rows) \
+            or any(a.dtype != torch.float32 for a in tables):
+        raise ValueError("block tables and row metadata must be int32, "
+                         "rope tables float32")
+    ops = (q, k_pages, v_pages, *rows, *fresh, *tables) \
+        + ((k_scale, v_scale) if q8 else ())
+    if not all(a.is_contiguous() for a in ops):
+        raise ValueError("the CUDA kernel takes contiguous operands")
+    p, hk, page_size, d = k_pages.shape
+    vec = 16 if q8 else 8          # elements per 16-byte vector
+    if page_size > _MAX_PAGE or d > _MAX_HEAD_DIM or d % vec \
+            or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(
+            f"the CUDA kernel takes pages of at most {_MAX_PAGE} slots, "
+            f"16-byte aligned pools and head_dim <= {_MAX_HEAD_DIM}, a "
+            f"multiple of {vec}; got page_size {page_size}, head_dim {d}")
+
+
+def _passes(check, *args):
+    try:
+        check(*args)
+    except ValueError:
+        return False
+    return True
+
+
+def supported(q, k_pages, v_pages, block_tables, kv_lens, q_starts, q_lens,
+              k_scale=None, v_scale=None):
+    """Whether :func:`ragged_paged_attention` takes these operands (the
+    reference's shape contract; CUDA tensors must also fit the kernel's
+    own limits, :func:`_check_kernel`)."""
+    return _passes(_check_ragged, q, k_pages, v_pages, block_tables,
+                   (kv_lens, q_starts, q_lens), k_scale, v_scale)
+
+
+def fused_supported(q, new_k, new_v, k_pages, v_pages, block_tables,
+                    kv_lens, q_starts, q_lens, w_starts, w_flats, w_ends,
+                    dump_page, k_scale=None, v_scale=None, rope_sin=None,
+                    rope_cos=None, qblock=None):
+    """Whether :func:`fused_ragged_paged_attention` takes these operands:
+    :func:`supported`'s contract, packed ``new_k/new_v [T, Hk, D]`` (T >=
+    1), write metadata ``[R]`` and a dump page inside the pool; with rope
+    tables, packed q ``[T, H, D]``, tables ``[T, D]`` and ``qblock``."""
+    return _passes(_check_fused, q, new_k, new_v, k_pages, v_pages,
+                   block_tables, (kv_lens, q_starts, q_lens, w_starts,
+                                  w_flats, w_ends), dump_page, k_scale,
+                   v_scale, rope_sin, rope_cos, qblock)
+
+
+# ----------------------------------------------------------------------
+# the CUDA launches
+# ----------------------------------------------------------------------
 
 def _lib():
     lib = _build.load("ragged_paged_attention")
     if not getattr(lib, "_rpa_typed", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rpa_rope_kv_write.argtypes = [vp] * 12 + [i32] * 7 + [vp]
-        lib.rpa_rope_kv_write.restype = i32
-        lib.rpa_rope_attention.argtypes = [vp] * 12 + [i32] * 9 \
+        lib.rpa_kv_write.argtypes = [i32] * 2 + [vp] * 14 + [i32] * 7 + [vp]
+        lib.rpa_kv_write.restype = i32
+        lib.rpa_attention.argtypes = [i32] * 2 + [vp] * 14 + [i32] * 9 \
             + [ctypes.c_float, vp]
-        lib.rpa_rope_attention.restype = i32
+        lib.rpa_attention.restype = i32
         lib.rpa_error_string.argtypes = [i32]
         lib.rpa_error_string.restype = ctypes.c_char_p
         lib._rpa_typed = True
@@ -193,80 +392,118 @@ def _raise_on(lib, rc, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def _launch(q, new_k, new_v, k_pages, v_pages, block_tables, meta,
-            rope_sin, rope_cos, qblock, scale):
-    global launches
-    kv_lens, q_starts, q_lens, w_starts, w_flats = meta
-    if any(a.dtype != torch.bfloat16
-           for a in (q, new_k, new_v, k_pages, v_pages)):
-        raise ValueError(
-            "the CUDA kernel takes q, new_k, new_v and both pools in "
-            f"bfloat16; got {q.dtype}, {new_k.dtype}, {new_v.dtype}, "
-            f"{k_pages.dtype}, {v_pages.dtype}")
-    if any(a.dtype != torch.int32 for a in (block_tables, *meta)) \
-            or rope_sin.dtype != torch.float32 \
-            or rope_cos.dtype != torch.float32:
-        raise ValueError("block tables and row metadata must be int32, "
-                         "rope tables float32")
-    ops = (q, new_k, new_v, k_pages, v_pages, block_tables, rope_sin,
-           rope_cos, *meta)
-    if not all(a.is_contiguous() for a in ops):
-        raise ValueError("the CUDA kernel takes contiguous operands")
-    t, h, d = q.shape
-    p, hk, page_size, _ = k_pages.shape
+def _attend(lib, rope, q, k_pages, v_pages, k_scale, v_scale, sin, cos,
+            block_tables, meta, n_tok, qb, scale, what):
+    """The attention launch; ``meta`` is (kv_lens, q_starts, q_lens,
+    w_starts, w_flats), the last two None without rope."""
     r, w = block_tables.shape
-    # pages of at most 32 x 128 bf16 = 8 KB per head, fetched as 16-byte
-    # vectors
-    if page_size > _MAX_PAGE or d > _MAX_HEAD_DIM or d % 8 \
-            or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError(
-            f"the CUDA kernel takes pages of at most {_MAX_PAGE} slots, "
-            f"16-byte aligned pools and head_dim <= {_MAX_HEAD_DIM}, a "
-            f"multiple of 8; got page_size {page_size}, head_dim {d}")
-    lib = _lib()
-    qb = int(qblock)
+    h, d = q.shape[-2:]
+    p, hk, page_size, _ = k_pages.shape
     out = torch.empty((r, qb, h, d), dtype=q.dtype, device=q.device)
     if r == 0:
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptr = [a.data_ptr() for a in (rope_sin, rope_cos, block_tables,
-                                  kv_lens, q_starts, q_lens, w_starts,
-                                  w_flats)]
-    rc = lib.rpa_rope_kv_write(new_k.data_ptr(), new_v.data_ptr(),
-                               k_pages.data_ptr(), v_pages.data_ptr(), *ptr,
-                               r, t, hk, d, p, page_size, w, stream)
-    _raise_on(lib, rc, "rope_kv_write")
-    launches += 1
-    rc = lib.rpa_rope_attention(q.data_ptr(), k_pages.data_ptr(),
-                                v_pages.data_ptr(), *ptr, out.data_ptr(),
-                                r, t, h, hk, d, p, page_size, w, qb,
-                                float(scale), stream)
-    _raise_on(lib, rc, "ragged_attention_rope")
-    launches += 1
+    ptrs = (q, k_pages, v_pages, k_scale, v_scale, sin, cos, block_tables,
+            *meta, out)
+    rc = lib.rpa_attention(int(rope), int(k_scale is not None),
+                           *map(_build.data_ptr, ptrs), r, n_tok, h, hk, d,
+                           p, page_size, w, qb, float(scale), stream)
+    _raise_on(lib, rc, what)
+    launches[what] += 1
     return out
+
+
+def _launch_ragged(q, k_pages, v_pages, block_tables, meta, scale, k_scale,
+                   v_scale):
+    what = "ragged_q8" if k_scale is not None else "ragged"
+    return _attend(_lib(), False, q, k_pages, v_pages, k_scale, v_scale,
+                   None, None, block_tables, tuple(meta) + (None, None), 0,
+                   q.shape[1], scale, what)
+
+
+def _launch_fused(q, new_k, new_v, k_pages, v_pages, block_tables, meta,
+                  scale, k_scale, v_scale, rope_sin, rope_cos, qblock):
+    rope = rope_sin is not None
+    what = ("fused_rope" if rope else "fused") \
+        + ("_q8" if k_scale is not None else "")
+    lib = _lib()
+    r, w = block_tables.shape
+    t = new_k.shape[0]
+    p, hk, page_size, d = k_pages.shape
+    qb = int(qblock) if rope else q.shape[1]
+    if r:
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        ptrs = (new_k, new_v, k_pages, v_pages, k_scale, v_scale, rope_sin,
+                rope_cos, block_tables, *meta)
+        rc = lib.rpa_kv_write(int(rope), int(k_scale is not None),
+                              *map(_build.data_ptr, ptrs), r, t, hk, d, p,
+                              page_size, w, stream)
+        _raise_on(lib, rc, what + " write")
+        launches[what] += 1
+    # the attention reads the written pools, so it needs no fresh rows
+    return _attend(lib, rope, q, k_pages, v_pages, k_scale, v_scale,
+                   rope_sin, rope_cos, block_tables,
+                   meta if rope else tuple(meta[:3]) + (None, None), t, qb,
+                   scale, what)
+
+
+def _scale(scale, d):
+    return scale if scale is not None else 1.0 / math.sqrt(d)
+
+
+def _on_cpu(t):
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def ragged_paged_attention(q, k_pages, v_pages, block_tables, kv_lens,
+                           q_starts, q_lens, scale=None, k_scale=None,
+                           v_scale=None):
+    """Ragged paged attention over the pools, read only (see the module
+    docstring for shapes). Pass ``k_scale``/``v_scale`` sidecars with
+    int8 pools. Returns ``out [R, QB, H, D]``.
+
+    CUDA tensors launch the hand-written attention kernel (bf16 q; bf16
+    pools, or int8 pools with f32 sidecars) and raise if they cannot;
+    CPU tensors run :func:`ragged_paged_attention_ref`."""
+    meta = (kv_lens, q_starts, q_lens)
+    _check_ragged(q, k_pages, v_pages, block_tables, meta, k_scale, v_scale)
+    s = _scale(scale, q.shape[-1])
+    if _on_cpu(q):
+        return ragged_paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                          kv_lens, q_starts, q_lens, s,
+                                          k_scale, v_scale)
+    return _launch_ragged(q, k_pages, v_pages, block_tables, meta, s,
+                          k_scale, v_scale)
 
 
 def fused_ragged_paged_attention(q, new_k, new_v, k_pages, v_pages,
                                  block_tables, kv_lens, q_starts, q_lens,
                                  w_starts, w_flats, w_ends, dump_page,
-                                 rope_sin, rope_cos, qblock, scale=None):
-    """Rope + KV page write + ragged paged attention in one call (see
-    the module docstring for shapes). Returns ``out [R, qblock, H,
-    D]``. The fresh K (roped) and V are written into ``k_pages`` /
-    ``v_pages`` IN PLACE; the dump page is never written.
+                                 scale=None, k_scale=None, v_scale=None,
+                                 rope_sin=None, rope_cos=None, qblock=None):
+    """KV page write + ragged paged attention in one call (see the
+    module docstring for shapes): with rope tables, q and new K are
+    pre-rope and packed, else q is row-blocked post-rope. Returns ``out
+    [R, QB, H, D]``; the fresh K/V (quantized for int8 pools, with their
+    scales) land in the pools IN PLACE; the dump page is never written.
 
-    CUDA tensors launch the hand-written kernels, bf16 only (and raise
-    if they cannot); CPU tensors, of any float dtype, run :func:`fused_ragged_paged_attention_ref`."""
+    CUDA tensors launch the hand-written write and attention kernels,
+    bf16 only besides int8 pools (and raise if they cannot); CPU tensors,
+    of any float dtype, run :func:`fused_ragged_paged_attention_ref`."""
     meta = (kv_lens, q_starts, q_lens, w_starts, w_flats)
-    _check(q, new_k, new_v, k_pages, v_pages, block_tables,
-           meta + (w_ends,), rope_sin, rope_cos, qblock)
-    s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
+    _check_fused(q, new_k, new_v, k_pages, v_pages, block_tables,
+                 meta + (w_ends,), dump_page, k_scale, v_scale, rope_sin,
+                 rope_cos, qblock)
+    s = _scale(scale, q.shape[-1])
+    if _on_cpu(q):
         return fused_ragged_paged_attention_ref(
             q, new_k, new_v, k_pages, v_pages, block_tables, kv_lens,
-            q_starts, q_lens, w_starts, w_flats, w_ends, dump_page,
-            rope_sin, rope_cos, qblock, s)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    return _launch(q, new_k, new_v, k_pages, v_pages, block_tables, meta,
-                   rope_sin, rope_cos, qblock, s)
+            q_starts, q_lens, w_starts, w_flats, w_ends, dump_page, s,
+            k_scale, v_scale, rope_sin, rope_cos, qblock)
+    return _launch_fused(q, new_k, new_v, k_pages, v_pages, block_tables,
+                         meta, s, k_scale, v_scale, rope_sin, rope_cos,
+                         qblock)

@@ -6,7 +6,11 @@ tiles, a ragged vocab tail and labels outside ``[0, V)`` (in the padded
 tail too); the grouped GEMMs (float and int8) on empty experts, ragged
 row, K and N tails, group sizes past the stride, f32 and bf16, and the
 backward's dx on the transposed weight; the dequant matmul at decode
-and prefill row counts; a ragged last scale block in both int8 kernels.
+and prefill row counts; a ragged last scale block in both int8 kernels;
+every instance of the ragged paged attention family (rope-fused,
+post-rope fused and read-only, over bf16 and int8 pools) at head dims
+64 and 128 and pages of 16 and 32 slots, with multi-chunk rows, an
+inactive row and poisoned table tails.
 
 Every test needs an NVIDIA card and ``nvcc`` and skips without one; on
 the card this file runs on its own, without the jax-importing conftest:
@@ -18,16 +22,21 @@ Tolerances are ``chip_smoke.py``'s: bf16 outputs within 1 bf16 ulp plus
 value taken at least 2^-6 of the tensor's), f32 lse within 1e-3; the
 loss kernel's lse and pick within 1e-5 of max(|x|, 1). The f32
 grouped/dequant products: within 1e-5 of the out row's largest value.
+Attention: written int8 slots, their scales and V slots bit for bit the
+plain version's, roped bf16 K slots within 1 bf16 ulp, untouched slots
+unchanged.
 """
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as FT
 from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
 from paddle_tpu_torch.ops import grouped_gemm as GG
+from paddle_tpu_torch.ops import ragged_paged_attention as RP
 from paddle_tpu_torch.quant import kernels as QK
 from paddle_tpu_torch.quant.format import quantize_weight
 
@@ -248,3 +257,144 @@ def test_dequant_matmul_kernel_matches_plain(dev, dtype, m, k, n, block):
     y2 = QK.dequant_matmul(x[:, :k - 8], q2, s2, block)
     assert QK.launches == before + 2
     _close_any(y2, QK.dequant_matmul_ref(x[:, :k - 8], q2, s2, block))
+
+
+RPA = [  # hk, group, d, page, qblock, (prior context, [chunks]) per seq
+    (2, 4, 128, 16, 16, [(5, [16, 7]), (40, [1]), (0, [3])]),
+    (2, 4, 128, 16, 1, [(9, [1]), (63, [1]), (0, [1]), (200, [1])]),
+    (1, 8, 64, 32, 8, [(30, [8, 8, 2]), (17, [1])]),
+    (4, 2, 64, 16, 8, [(0, [8]), (100, [1]), (3, [5])]),
+]
+
+
+def _rpa_case(dev, hk, group, d, page, qb, seqs, seed):
+    """One dispatch on the card: each sequence's chunks as consecutive
+    rows and packed tokens, an inactive row last, table tails poisoned,
+    bf16 pools (and their int8 twins with scales). Returns (kw, written
+    [P, page] bool, num_pages)."""
+    from paddle_tpu_torch.inference.paged_cache import quantize_kv_int8
+    rng = np.random.RandomState(seed)
+    n_pages = [-(-(p + sum(c)) // page) for p, c in seqs]
+    num_pages = sum(n_pages) + 5
+    perm = rng.permutation(num_pages - 1)
+    rows, used, t = [], 0, 0
+    for (prior, chunks), npg in zip(seqs, n_pages):
+        pages = perm[used:used + npg]
+        used += npg
+        start = prior
+        for c in chunks:
+            rows.append((pages, start + c, start, c, prior, t,
+                         prior + sum(chunks)))
+            start += c
+        t += sum(chunks)
+    rows.append(((), 0, 0, 0, 0, 0, 0))
+    width = max(n_pages) + 2
+    tables = np.empty((len(rows), width), np.int32)
+    written = np.zeros((num_pages, page), bool)
+    for i, row in enumerate(rows):
+        tables[i] = rng.choice([-3, 10 ** 6, num_pages + 2], width)
+        tables[i, :len(row[0])] = row[0]
+        for p in range(row[2], row[2] + row[3]):
+            written[row[0][p // page], p % page] = True
+    meta = np.asarray([r[1:] for r in rows], np.int32).T
+    pos = np.concatenate([np.arange(s, s + n) for _, _, s, n, *_ in rows
+                          if n > 0])
+    g = torch.Generator(dev).manual_seed(seed)
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    i32 = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in (tables, *meta)]
+    sin, cos = RP.rope_tables(torch.from_numpy(pos).to(dev), d, 10000.0)
+    k_pages = torch.randn(num_pages, hk, page, d, **bf)
+    v_pages = torch.randn(num_pages, hk, page, d, **bf)
+    kq, ks = quantize_kv_int8(k_pages)
+    vq, vs = quantize_kv_int8(v_pages)
+    kw = dict(q=torch.randn(t, hk * group, d, **bf),
+              new_k=torch.randn(t, hk, d, **bf),
+              new_v=torch.randn(t, hk, d, **bf), k_pages=k_pages,
+              v_pages=v_pages, block_tables=i32[0], kv_lens=i32[1],
+              q_starts=i32[2], q_lens=i32[3], w_starts=i32[4],
+              w_flats=i32[5], w_ends=i32[6], dump_page=num_pages - 1,
+              rope_sin=sin, rope_cos=cos, qblock=qb,
+              q8=(kq, vq, ks[..., None], vs[..., None]))
+    return kw, torch.from_numpy(written).to(dev), num_pages
+
+
+def _variant_args(kw, variant):
+    """The case's keyword arguments for one call of the family, with
+    fresh copies of the pools (and sidecars)."""
+    a = {k: v for k, v in kw.items() if k != "q8"}
+    if variant.endswith("q8"):
+        kq, vq, ks, vs = (x.clone() for x in kw["q8"])
+        a.update(k_pages=kq, v_pages=vq, k_scale=ks, v_scale=vs)
+    else:
+        a.update(k_pages=a["k_pages"].clone(), v_pages=a["v_pages"].clone())
+    if not variant.startswith("fused_rope"):
+        # post-rope q in row blocks, as the fallback paths hand it over
+        q = torch.zeros((a["block_tables"].shape[0], a["qblock"])
+                        + tuple(a["q"].shape[1:]), dtype=a["q"].dtype,
+                        device=a["q"].device)
+        meta = [a[k].tolist() for k in ("q_starts", "q_lens", "w_starts",
+                                        "w_flats")]
+        for i, (qs, ql, ws, wf) in enumerate(zip(*meta)):
+            q[i, :ql] = a["q"][wf + qs - ws:wf + qs - ws + ql]
+        a["q"] = q
+        for k in ("rope_sin", "rope_cos", "qblock"):
+            del a[k]
+    if variant.startswith("ragged"):
+        for k in ("new_k", "new_v", "w_starts", "w_flats", "w_ends",
+                  "dump_page"):
+            del a[k]
+    return a
+
+
+@pytest.mark.parametrize("variant", ["fused_rope", "fused_rope_q8", "fused",
+                                     "fused_q8", "ragged", "ragged_q8"])
+@pytest.mark.parametrize("case", RPA)
+def test_ragged_attention_family_matches_plain(dev, case, variant):
+    kw, written, num_pages = _rpa_case(dev, *case, seed=len(case[-1]))
+    read_only = variant.startswith("ragged")
+    fn, ref = (RP.ragged_paged_attention, RP.ragged_paged_attention_ref) \
+        if read_only else (RP.fused_ragged_paged_attention,
+                           RP.fused_ragged_paged_attention_ref)
+    a_k, a_r = _variant_args(kw, variant), _variant_args(kw, variant)
+    before = RP.launches[variant]
+    out = fn(**a_k)
+    assert RP.launches[variant] == before + (1 if read_only else 2)
+    out_r = ref(**a_r)
+    torch.cuda.synchronize()
+    _close(out, out_r)
+    # padded query rows and the inactive row are exact zeros
+    assert not out[-1].any()
+    for i, n in enumerate(kw["q_lens"].tolist()):
+        assert not out[i, n:].any()
+    hk, page = kw["k_pages"].shape[1:3]
+    # [P, Hk, page] masks; the dump page is never written
+    wr = written[:, None, :].expand(num_pages, hk, page)
+    keep = ~wr
+    names = ("k_pages", "v_pages") + (("k_scale", "v_scale")
+                                      if variant.endswith("q8") else ())
+    for name in names:
+        got, want, orig = a_k[name], a_r[name], _variant_args(kw, variant)[
+            name]
+        assert torch.equal(got[keep], orig[keep]), name
+        if read_only:
+            assert torch.equal(got, orig), name
+        elif name == "k_pages" and variant == "fused_rope":
+            g, w = got[wr].float(), want[wr].float()
+            assert bool(((g - w).abs() <= _ulp(w)).all())
+        else:
+            assert torch.equal(got[wr], want[wr]), name
+
+
+def test_ragged_attention_rejects_what_it_cannot_take(dev):
+    kw, _, _ = _rpa_case(dev, *RPA[0], seed=1)
+    a = _variant_args(kw, "fused_q8")
+    with pytest.raises(ValueError, match="int8 pools with scales"):
+        RP.fused_ragged_paged_attention(**dict(a, k_scale=None,
+                                               v_scale=None))
+    with pytest.raises(ValueError, match="bfloat16"):
+        RP.fused_ragged_paged_attention(**dict(a, q=a["q"].float()))
+    b = _variant_args(kw, "ragged")
+    with pytest.raises(ValueError, match="contiguous"):
+        RP.ragged_paged_attention(**dict(b, q=b["q"].transpose(1, 2)
+                                         .contiguous().transpose(1, 2)))

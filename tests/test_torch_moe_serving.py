@@ -94,8 +94,11 @@ def test_weight_dtype_knobs(fitted, monkeypatch):
     assert all(torch.equal(state[k], v) for k, v in before.items())
     with pytest.raises(ValueError, match="weight_dtype"):
         LlamaServingEngine(tm, weight_dtype="fp8", **GEOM)
-    with pytest.raises(NotImplementedError, match="kv_dtype"):
-        LlamaServingEngine(tm, kv_dtype="int8", **GEOM)
+    # int8 KV pages combine with either weight dtype; other KV dtypes
+    # are refused
+    assert LlamaServingEngine(tm, kv_dtype="int8", **GEOM).kv_quant
+    with pytest.raises(ValueError, match="kv_dtype"):
+        LlamaServingEngine(tm, kv_dtype="fp8", **GEOM)
     # the fleet knob quantizes in place; a quantized model is served as
     # it is
     monkeypatch.setenv("PADDLE_TPU_WEIGHT_DTYPE", "int8")

@@ -1,13 +1,20 @@
-"""The port's plain rope-fused ragged paged attention against both
-reference formulations: the Pallas kernel (interpret mode on the CPU)
-and the rope-then-write-then-read ``fused_ragged_paged_attention_xla``.
+"""The port's plain ragged paged attention family against both
+reference formulations: the Pallas kernels (interpret mode on the CPU)
+and the write-then-read ``*_xla`` compositions.
 
-The same numpy inputs (pools, packed q/k/v, rope tables, row metadata)
-go to all three. Outputs must agree at the 1e-5-of-scale bar of
-``tests/test_ragged_attention.py``; the written pool slots at the same
-bar (the reference jits its rope, where XLA may contract the multiply-
-add into an FMA, while PyTorch on the CPU rounds each operation); every
-page no row writes must come back bitwise unchanged.
+The same numpy inputs (pools, packed or row-blocked q, new k/v, rope
+tables, row metadata, int8 pools with their scale sidecars) go to all
+three. Outputs must agree at the 1e-5-of-scale bar of
+``tests/test_ragged_attention.py``; written bf16-or-f32 K slots at the
+same bar (the reference jits its rope, where XLA may contract the
+multiply-add into an FMA, while PyTorch on the CPU rounds each
+operation); written V slots, int8 slots and their scales bit for bit;
+every slot no row writes must come back bitwise unchanged. The dump page
+is excluded: the Pallas kernels leave it undefined.
+
+The variants, by the TPU kernel each plain path stands for: #12
+rope-fused, #13 rope-fused int8, #11a fused post-rope, #11b fused
+post-rope int8, #10 read-only, #9 read-only int8.
 """
 
 import numpy as np
@@ -78,19 +85,55 @@ CASES = {
 }
 
 
-def _run_torch(c, fn=RT.fused_ragged_paged_attention_ref):
+def _run_torch(c, fn=RT.fused_ragged_paged_attention_ref, rope=True):
+    """``fn`` on torch copies of the case's arrays; returns numpy (out,
+    k_pages, v_pages[, k_scale, v_scale])."""
     t = {k: torch.from_numpy(np.array(v)) for k, v in c.items()
          if isinstance(v, np.ndarray)}
-    out = fn(*(t[k] for k in ORDER), DUMP, t["rope_sin"], t["rope_cos"],
-             c["qblock"])
-    return out.numpy(), t["k_pages"].numpy(), t["v_pages"].numpy()
+    kw = dict(rope_sin=t["rope_sin"], rope_cos=t["rope_cos"],
+              qblock=c["qblock"]) if rope else {}
+    if "k_scale" in t:
+        kw.update(k_scale=t["k_scale"], v_scale=t["v_scale"])
+    out = fn(*(t[k] for k in ORDER), DUMP, **kw)
+    pools = ("k_pages", "v_pages") + (("k_scale", "v_scale")
+                                      if "k_scale" in t else ())
+    return (out.numpy(),) + tuple(t[k].numpy() for k in pools)
 
 
-def _run_ref(c, fn):
+def _run_ref(c, fn, rope=True):
     args = [jnp.asarray(c[k]) for k in ORDER]
-    res = fn(*args, DUMP, rope_sin=jnp.asarray(c["rope_sin"]),
-             rope_cos=jnp.asarray(c["rope_cos"]), qblock=c["qblock"])
+    kw = dict(rope_sin=jnp.asarray(c["rope_sin"]),
+              rope_cos=jnp.asarray(c["rope_cos"]),
+              qblock=c["qblock"]) if rope else {}
+    if "k_scale" in c:
+        kw.update(k_scale=jnp.asarray(c["k_scale"]),
+                  v_scale=jnp.asarray(c["v_scale"]))
+    res = fn(*args, DUMP, **kw)
     return [np.asarray(getattr(a, "_data", a)) for a in res]
+
+
+def _row_blocked(c):
+    """The case with q gathered from the packed ``[T, H, D]`` layout into
+    ``[R, qblock, H, D]`` row blocks (post-rope q for #11a/#11b, #9/#10)."""
+    c = dict(c)
+    qr = np.zeros((len(c["kv_lens"]), c["qblock"]) + c["q"].shape[1:],
+                  np.float32)
+    for i, n in enumerate(c["q_lens"]):
+        f0 = c["w_flats"][i] + c["q_starts"][i] - c["w_starts"][i]
+        qr[i, :n] = c["q"][f0:f0 + n]
+    c["q"] = qr
+    return c
+
+
+def _int8_pools(c, rng):
+    """The case with int8 pools and positive f32 scale sidecars."""
+    c = dict(c)
+    shape = c["k_pages"].shape
+    for name in ("k", "v"):
+        c[f"{name}_pages"] = rng.randint(-127, 128, shape).astype(np.int8)
+        c[f"{name}_scale"] = (rng.rand(*shape[:3], 1) * 0.05
+                              + 1e-3).astype(np.float32)
+    return c
 
 
 def _close(got, want, tol=1e-5):
@@ -139,7 +182,7 @@ def test_plain_matches_reference(name, ref):
 
 def test_cpu_wrapper_is_the_plain_version():
     c = _case(np.random.RandomState(7), *CASES["mixed"])
-    before = RT.launches
+    before = dict(RT.launches)
     got = _run_torch(c, RT.fused_ragged_paged_attention)
     want = _run_torch(c)
     for g, w in zip(got, want):
@@ -162,3 +205,167 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build, "BUILD", "/nonexistent/build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("ragged_paged_attention")
+
+
+def _unchanged(c, got, keep):
+    """Slots no row writes (and every sidecar entry of them) come back
+    bitwise the input."""
+    for name, arr in zip(("k_pages", "v_pages", "k_scale", "v_scale"),
+                         got[1:]):
+        k = np.broadcast_to(keep[..., :arr.shape[-1]], arr.shape)
+        assert np.array_equal(arr[k], c[name][k]), name
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("ref", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("variant", ["fused_rope_q8", "fused", "fused_q8"])
+def test_fused_variants_match_reference(name, ref, variant):
+    """#13, #11a and #11b: out at 1e-5 of scale; written V slots, int8
+    slots and scales bit for bit, except after rope: float K slots at
+    1e-5 and, for #13, K scales within one f32 ulp (the reference's rope
+    may contract into an FMA, so the f32 absmax of a roped row can move
+    by an ulp); unwritten slots and sidecars unchanged."""
+    seqs, qb = CASES[name]
+    rng = np.random.RandomState(len(name) + len(variant))
+    c = _case(rng, seqs, qb, poison=name == "poisoned_tails")
+    rope = variant.startswith("fused_rope")
+    if not rope:
+        c = _row_blocked(c)
+    if variant.endswith("q8"):
+        c = _int8_pools(c, rng)
+    got = _run_torch(c, rope=rope)
+    fn = RJ.fused_ragged_paged_attention if ref == "pallas_interpret" \
+        else RJ.fused_ragged_paged_attention_xla
+    want = _run_ref(c, fn, rope=rope)
+    assert len(got) == len(want)
+    assert got[0].shape == want[0].shape == (len(c["kv_lens"]), qb, HK * G,
+                                             D)
+    _close(got[0], want[0])
+    live = np.arange(NUM_PAGES) != DUMP
+    if variant.endswith("q8"):
+        for i, (g, w) in enumerate(zip(got[1:], want[1:])):
+            assert g.dtype == w.dtype
+            g, w = g[live], w[live]
+            if rope and i == 2:                   # K scales after rope
+                assert (np.abs(g - w) <= np.spacing(w)).all()
+            else:
+                assert np.array_equal(g, w)
+    else:
+        _close(got[1][live], want[1][live])
+        assert np.array_equal(got[2][live], want[2][live])
+    keep = ~_written(c)[:, None, :, None] & live[:, None, None, None]
+    _unchanged(c, got, keep)
+    assert not np.abs(got[0][-1]).any()
+    for i, n in enumerate(c["q_lens"]):
+        assert not np.abs(got[0][i, n:]).any()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("ref", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16_pools",
+                                                   "int8_pools"])
+def test_read_only_matches_reference(name, ref, q8):
+    """#10 and #9: the read-only call over pools written before, with and
+    without sidecars, at 1e-5 of scale; nothing is written."""
+    seqs, qb = CASES[name]
+    rng = np.random.RandomState(3 * len(name) + q8)
+    c = _row_blocked(_case(rng, seqs, qb, poison=name == "poisoned_tails"))
+    if q8:
+        c = _int8_pools(c, rng)
+    t = {k: torch.from_numpy(np.array(v)) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    args = ("q", "k_pages", "v_pages", "block_tables", "kv_lens",
+            "q_starts", "q_lens")
+    kw = dict(k_scale=t["k_scale"], v_scale=t["v_scale"]) if q8 else {}
+    before = dict(RT.launches)
+    got = RT.ragged_paged_attention(*(t[k] for k in args), **kw).numpy()
+    assert RT.launches == before
+    plain = RT.ragged_paged_attention_ref(*(t[k] for k in args), **kw)
+    assert np.array_equal(got, plain.numpy())
+    fn = RJ.ragged_paged_attention if ref == "pallas_interpret" \
+        else RJ.ragged_paged_attention_xla
+    jkw = {k: jnp.asarray(c[k]) for k in ("k_scale", "v_scale")} if q8 \
+        else {}
+    want = np.asarray(getattr(r := fn(*(jnp.asarray(c[k]) for k in args),
+                                      **jkw), "_data", r))
+    _close(got, want)
+    for k in ("k_pages", "v_pages") + (("k_scale", "v_scale") if q8
+                                        else ()):
+        assert np.array_equal(t[k].numpy(), c[k])
+    assert not np.abs(got[-1]).any()
+
+
+def test_int8_dequant_is_scale_times_value():
+    """The plain read of an int8 pool is ``int8.float() * scale``: the
+    same attention as over the pools dequantized first."""
+    rng = np.random.RandomState(11)
+    c = _int8_pools(_row_blocked(_case(rng, *CASES["mixed"])), rng)
+    t = {k: torch.from_numpy(np.array(v)) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    args = [t[k] for k in ("block_tables", "kv_lens", "q_starts", "q_lens")]
+    q8 = RT.ragged_paged_attention_ref(t["q"], t["k_pages"], t["v_pages"],
+                                       *args, k_scale=t["k_scale"],
+                                       v_scale=t["v_scale"])
+    kf = t["k_pages"].float() * t["k_scale"]
+    vf = t["v_pages"].float() * t["v_scale"]
+    assert torch.equal(q8, RT.ragged_paged_attention_ref(t["q"], kf, vf,
+                                                         *args))
+
+
+def test_supported_states_the_contract():
+    c = _case(np.random.RandomState(12), *CASES["mixed"])
+    t = {k: torch.from_numpy(np.array(v)) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    fused = [t[k] for k in ORDER] + [DUMP]
+    rope = dict(rope_sin=t["rope_sin"], rope_cos=t["rope_cos"], qblock=8)
+    assert RT.fused_supported(*fused, **rope)
+    assert not RT.fused_supported(*fused)            # packed q, no tables
+    assert not RT.fused_supported(*fused[:-1], NUM_PAGES, **rope)
+    sc = torch.ones(NUM_PAGES, HK, PAGE, 1)
+    q8 = [a.to(torch.int8) for a in fused[3:5]]
+    fused8 = fused[:3] + q8 + fused[5:]
+    assert RT.fused_supported(*fused8, k_scale=sc, v_scale=sc, **rope)
+    assert not RT.fused_supported(*fused8, k_scale=sc, **rope)
+    assert not RT.fused_supported(*fused8, k_scale=sc[..., 0],
+                                  v_scale=sc[..., 0], **rope)
+    rb = _row_blocked(c)
+    q4 = torch.from_numpy(rb["q"])
+    rows = [t[k] for k in ("block_tables", "kv_lens", "q_starts", "q_lens")]
+    assert RT.supported(q4, t["k_pages"], t["v_pages"], *rows)
+    assert not RT.supported(q4[..., :8], t["k_pages"], t["v_pages"], *rows)
+    assert RT.fused_supported(q4, *fused[1:])
+    assert RT.fused_rope_geometry_ok(D) and not RT.fused_rope_geometry_ok(15)
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        RT.ragged_paged_attention(q4, t["k_pages"], t["v_pages"], *rows,
+                                  k_scale=sc)
+
+
+def test_pool_dtype_goes_with_the_sidecars():
+    """Int8 pools without sidecars, or float pools with them, raise on the
+    CPU too: the plain version would truncate the fresh rows into an
+    int8 pool and attend over undequantized values."""
+    c = _case(np.random.RandomState(13), *CASES["mixed"])
+    t = {k: torch.from_numpy(np.array(v)) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    fused = [t[k] for k in ORDER] + [DUMP]
+    rope = dict(rope_sin=t["rope_sin"], rope_cos=t["rope_cos"], qblock=8)
+    sc = torch.ones(NUM_PAGES, HK, PAGE, 1)
+    q8 = [a.to(torch.int8) for a in fused[3:5]]
+    fused8 = fused[:3] + q8 + fused[5:]
+    rb = _row_blocked(c)
+    q4 = torch.from_numpy(rb["q"])
+    rows = [t[k] for k in ("block_tables", "kv_lens", "q_starts", "q_lens")]
+    for args, kw in ((fused8, {}), (fused, dict(k_scale=sc, v_scale=sc)),
+                     (fused[:3] + [q8[0], fused[4]] + fused[5:],
+                      dict(k_scale=sc, v_scale=sc))):
+        assert not RT.fused_supported(*args, **kw, **rope)
+        before = [a.clone() for a in args[3:5]]
+        with pytest.raises(ValueError, match="int8 pools with scales"):
+            RT.fused_ragged_paged_attention(*args, **kw, **rope)
+        assert all(torch.equal(a, b) for a, b in zip(args[3:5], before))
+    with pytest.raises(ValueError, match="int8 pools with scales"):
+        RT.ragged_paged_attention(q4, *q8, *rows)
+    with pytest.raises(ValueError, match="int8 pools with scales"):
+        RT.ragged_paged_attention(q4, t["k_pages"], t["v_pages"], *rows,
+                                  k_scale=sc, v_scale=sc)
+    assert RT.supported(q4, *q8, *rows, k_scale=sc, v_scale=sc)

@@ -6,7 +6,10 @@ would measure tie-breaking noise. Its weights are carried into the port
 with ``load_numpy_state``. The reference engine is the two-op path
 (``fused_kv=False``) with the prefix cache and sampling off: the greedy
 tokens of both engines must be identical for ragged prompts longer than
-one ``chunk_budget``.
+one ``chunk_budget``. With ``kv_dtype="int8"`` the oracle is the
+reference engine's int8 two-op path. Across the port's own three paths
+(rope-fused, ``fused_rope=False``, ``fused_kv=False``) the tokens and
+the pools (and scale sidecars) must be bitwise equal.
 """
 
 import numpy as np
@@ -127,8 +130,7 @@ def test_admission_and_unported_options(models):
         te._admit(Request([1] * 100, max_new_tokens=10))
     with pytest.raises(NotImplementedError):
         Request([1, 2], temperature=0.7)
-    for kw in ({"prefix_cache": True}, {"spec_k": 2},
-               {"kv_dtype": "int8"}, {"kv_tier": True}):
+    for kw in ({"prefix_cache": True}, {"spec_k": 2}, {"kv_tier": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LlamaServingEngine(tm, **kw)
 
@@ -146,3 +148,76 @@ def test_eos_and_stop_tokens(models):
         te.step()
     assert r.output_ids == free[:free.index(free[2])]
     assert torch.is_tensor(te.k_pools[0])
+
+
+@pytest.mark.parametrize("lens,new", [
+    ((37, 5, 20, 12, 29), 8),
+    ((17, 40), 12)])
+def test_int8_kv_matches_reference_engine(models, lens, new):
+    jm, tm = models
+    prompts = _prompts(len(lens) + 100, lens)
+    je = JaxEngine(jm, kv_dtype="int8", fused_kv=False, prefix_cache=False,
+                   sampling=False, **GEOM)
+    want = je.generate(prompts, max_new_tokens=new)
+    je.close()
+    te = LlamaServingEngine(tm, kv_dtype="int8", **GEOM)
+    assert te.kv_quant and te.fused_rope
+    assert te.k_pools[0].dtype == torch.int8
+    assert te.k_scales[0].shape == te.k_pools[0].shape[:3] + (1,)
+    assert te.kv_bytes_per_token == je.kv_bytes_per_token
+    got = te.generate(prompts, max_new_tokens=new)
+    assert got == want
+    assert te.alloc.free_pages == te.alloc.num_pages
+
+
+PATHS = {"rope_fused": dict(), "fused_kv": dict(fused_rope=False),
+         "two_op": dict(fused_kv=False)}
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_engine_paths_agree_bitwise(models, kv_dtype):
+    """The three attention paths: identical tokens, bitwise equal pools
+    and sidecars after the same requests."""
+    _, tm = models
+    prompts = _prompts(21, (26, 9, 33))
+    runs = {}
+    for name, kw in PATHS.items():
+        te = LlamaServingEngine(tm, kv_dtype=kv_dtype, **kw, **GEOM)
+        assert (te.fused_kv, te.fused_rope) == (
+            kw.get("fused_kv", True), name == "rope_fused")
+        out = te.generate(prompts, max_new_tokens=10)
+        runs[name] = (out, te.k_pools + te.v_pools + te.k_scales
+                      + te.v_scales)
+    out0, pools0 = runs["rope_fused"]
+    assert len(pools0) == (8 if kv_dtype else 4)
+    for name in ("fused_kv", "two_op"):
+        out, pools = runs[name]
+        assert out == out0, name
+        assert all(torch.equal(a, b) for a, b in zip(pools, pools0)), name
+
+
+@pytest.mark.parametrize("env,kw", [
+    ({"PADDLE_TPU_KV_DTYPE": "int8"}, {}),
+    ({"PADDLE_TPU_KV_DTYPE": "int8"}, {"kv_dtype": None}),
+    ({"PADDLE_TPU_FUSED_KV": "0"}, {}),
+    ({"PADDLE_TPU_FUSED_KV": "OFF", "PADDLE_TPU_FUSED_ROPE": "1"}, {}),
+    ({"PADDLE_TPU_FUSED_ROPE": "false"}, {}),
+    ({"PADDLE_TPU_FUSED_ROPE": "no"}, {}),
+    ({"PADDLE_TPU_FUSED_KV": "0"}, {"fused_kv": True}),
+    ({}, {"fused_kv": False, "fused_rope": True}),
+])
+def test_env_knobs_parse_as_reference(models, monkeypatch, env, kw):
+    jm, tm = models
+    for name in ("PADDLE_TPU_KV_DTYPE", "PADDLE_TPU_FUSED_KV",
+                 "PADDLE_TPU_FUSED_ROPE"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    je = JaxEngine(jm, prefix_cache=False, sampling=False, **kw, **GEOM)
+    te = LlamaServingEngine(tm, **kw, **GEOM)
+    assert (te.kv_quant, te.fused_kv, te.fused_rope) == (
+        je.kv_quant, je.fused_kv, je.fused_rope)
+    je.close()
+    monkeypatch.setenv("PADDLE_TPU_KV_DTYPE", "fp8")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        LlamaServingEngine(tm, **GEOM)

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes when ``paddle_tpu_torch`` serves a model.
 
-    python3 tools/torch_serving_profile.py [--model llama3-8b|mixtral-int8]
-                                           [--out PATH]
+    python3 tools/torch_serving_profile.py
+        [--model llama3-8b|llama3-8b-kv8|mixtral-int8] [--out PATH]
 
 ``llama3-8b`` (the default) is the workload of ``chip_smoke.py`` phase
 4, taken from its ``serving_workload``: random bf16 Llama-3-8B weights
-from a seeded generator on the card. ``mixtral-int8`` is phase 6's:
+from a seeded generator on the card. ``llama3-8b-kv8`` is phase 8's: the
+same model behind ``LlamaServingEngine(kv_dtype="int8")``, int8 KV pages
+with f32 scale sidecars. ``mixtral-int8`` is phase 6's:
 Mixtral-8x7B at full width and depth with int8 weights, built layer by
 layer by ``chip_smoke.mixtral_int8``, behind
 ``LlamaServingEngine(weight_dtype="int8")``. Both serve 8 prompts of
@@ -30,10 +32,12 @@ import time
 
 # kernel families by a fragment of the kernel's name, first match wins;
 # the tile kernels are named by their library's namespace and by their
-# weight kind (template argument 1: int8)
+# weight kind (template argument 1: int8); the ragged attention kernels
+# (a write and an attention launch) by their instance's template
+# arguments <rope, int8 pools>
+ATTENTION = {"<true, false>": "#12", "<true, true>": "#13",
+             "<false, false>": "#11a/#10", "<false, true>": "#11b/#9"}
 FAMILIES = [
-    ("rope_kv_write", "ragged attention #12"),
-    ("ragged_attention_rope", "ragged attention #12"),
     ("dequant_matmul::", "dequant matmul #8"),
     ("gemm", "GEMM (cuBLAS)"),
     ("xmma", "GEMM (cuBLAS)"),
@@ -46,6 +50,10 @@ FAMILIES = [
 
 
 def family(name):
+    if "kv_write_kernel" in name or "ragged_attention_kernel" in name:
+        for args, rows in ATTENTION.items():
+            if args in name:
+                return f"ragged attention {rows}"
     if "grouped_gemm::" in name:
         return "int8 grouped GEMM #7" if "_kernel<1>" in name \
             else "float grouped GEMM #6"
@@ -70,8 +78,12 @@ def workload(name):
     import torch
     from chip_smoke import NEW, serving_workload
     from paddle_tpu_torch.inference import Request
-    build = moe_workload if name == "mixtral-int8" else serving_workload
-    cfg, _, engine, prompts = build(torch.device("cuda"))
+    dev = torch.device("cuda")
+    if name == "mixtral-int8":
+        cfg, _, engine, prompts = moe_workload(dev)
+    else:
+        cfg, _, engine, prompts = serving_workload(
+            dev, "int8" if name == "llama3-8b-kv8" else None)
 
     def run():
         reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
@@ -144,7 +156,8 @@ def profile(run):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("llama3-8b", "mixtral-int8"),
+    ap.add_argument("--model", choices=("llama3-8b", "llama3-8b-kv8",
+                                        "mixtral-int8"),
                     default="llama3-8b")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
@@ -179,7 +192,8 @@ def main():
         "device_idle_share": (1 - busy_us / (prof_wall * 1e6))
         if busy_us else None,
         "attention_kernel_share_of_device_time":
-            by_family["ragged attention #12"] / total,
+            sum(v for k, v in by_family.items()
+                if k.startswith("ragged attention")) / total,
         "device_ms_by_family": {k: v / 1e3
                                 for k, v in by_family.most_common()},
         "device_share_by_family": {k: v / total
