@@ -25,6 +25,14 @@ package is not beside it, and when any phase fails:
    page unchanged, outputs within phase 3's bound; each with the same
    four times (the library call: SDPA over the gathered K/V, dequantized
    to bf16 for int8);
+3e. the decode paged attention kernel (#4, the ``PagedKVCache`` path)
+   against its plain version: at phase 3's decode-only shape (8 rows,
+   contexts 64-544, 32/8 heads, head_dim 128, page 16) over bf16 and f32
+   pools, the bf16 pools also through #10's decode-only launch, and at
+   Llama-3-8B's full context (32 bf16 rows over 1-8192 tokens, an
+   inactive row among them); table tails poisoned; outputs within phase
+   3's bound; the same four times (the library call: SDPA over the
+   gathered K/V, kv heads repeated, with a length mask);
 3b. the training kernels against their plain versions on the card:
    flash attention forward, dQ and dK/dV at Llama-3-8B training shapes
    (batch 2 x seq 2048, 32 q / 8 kv heads, head_dim 128, bf16, causal;
@@ -80,6 +88,15 @@ package is not beside it, and when any phase fails:
    sidecars and attention outputs bitwise equal after the first (mixed)
    dispatch, pools after the whole run; launches counted per path (2 a
    layer a dispatch fused, 1 two-op), no plain version called;
+10. (run after 9) ``PagedKVCache`` at Llama-3-8B attention width on the
+   card (12288 pages of 16 tokens, bf16): 32 sequences admitted with
+   seeded prompts of 1-8160 tokens and their K/V written, 32 decode
+   steps of ``extend`` + ``write`` + ``attend``, then half of them
+   released and 16 new ones admitted on the recycled pages, 8 more
+   steps; one #4 launch per ``attend`` and no plain version called; the
+   first and last step of each stretch held against the plain version on
+   the same pools within phase 3's bound; mean ``attend`` time (host
+   clock, synchronised), device time, pool bytes and peak memory;
 
 then a JSON line of kernel results and the final result line.
 """
@@ -156,6 +173,13 @@ FAMILY = ("fused_rope_q8", "fused", "fused_q8", "ragged", "ragged_q8")
 # by ~0.01)
 ROUTE_TOL = 0.1
 GG_SOURCE = "paddle_tpu_torch/csrc/grouped_gemm.cu"
+PA_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
+PA_REPLACES = "paddle_tpu/ops/paged_attention.py:153"
+FULL_CTX = 8192          # Llama-3-8B's context (max_position_embeddings)
+# phase 10: one PagedKVCache on the card (12288 pages of 16 tokens, bf16:
+# 768 MiB of pools), 32 sequences, then half of them replaced
+CACHE_PAGES, CACHE_ROWS, CACHE_PROMPT = 12288, 32, 8160
+CACHE_STEPS, CACHE_REFILL_STEPS = 32, 8
 
 
 def fail(msg):
@@ -525,9 +549,10 @@ def reset_launches():
     from paddle_tpu_torch.ops import flash_attention as FT
     from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
     from paddle_tpu_torch.ops import grouped_gemm as GG
+    from paddle_tpu_torch.ops import paged_attention as PA
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.quant import kernels as QK
-    for counts in (rpa.launches, GG.launches, FT.launches):
+    for counts in (rpa.launches, GG.launches, FT.launches, PA.launches):
         for key in counts:
             counts[key] = 0
     QK.launches = FC.launches = 0
@@ -758,6 +783,245 @@ def serve_ladder(dev):
               f"and pools ({len(pools0)} tensors) bitwise equal across the "
               "three paths; final pools bitwise equal", flush=True)
     return counts
+
+
+def paged_batch(dev, ctxs, dtype, seed=0, spare=16):
+    """Decode rows at Llama-3-8B attention width (32 q / 8 kv heads,
+    head_dim 128, page 16): row i attends ``ctxs[i]`` keys over pages
+    drawn from a seeded permutation of the pool, its table's tail
+    poisoned with ids outside ``[0, P)``; q and pools random in
+    ``dtype`` from a seeded generator on the card. Returns the
+    wrapper's keyword arguments."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    n_pages = [-(-c // PAGE) for c in ctxs]
+    num_pages = sum(n_pages) + spare
+    perm = rng.permutation(num_pages)
+    width = max(n_pages) + 2
+    tables = np.empty((len(ctxs), width), np.int32)
+    used = 0
+    for i, n in enumerate(n_pages):
+        tables[i] = rng.choice([-5, 10 ** 7, num_pages + 11], width)
+        tables[i, :n] = perm[used:used + n]
+        used += n
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, dtype=dtype, generator=g)
+    return dict(q=rand(len(ctxs), H, D), k_pages=rand(num_pages, HK, PAGE, D),
+                v_pages=rand(num_pages, HK, PAGE, D),
+                block_tables=torch.from_numpy(tables).to(dev),
+                context_lens=torch.tensor(ctxs, dtype=torch.int32,
+                                          device=dev))
+
+
+def paged_bound(args):
+    """Least time the card could take for one decode call: the keys each
+    row attends (K and V, once), q and out, the live table entries and
+    the lens over the memory rate, or 4 x D flops per (query head, key)
+    pair over the rate of the pools' type; the larger wins."""
+    import torch
+    q, kp, lens = args["q"], args["k_pages"], args["context_lens"]
+    page = kp.shape[2]
+    n = lens.long().clamp(0, args["block_tables"].shape[1] * page)
+    keys = int(n.sum())
+    entries = int(((n + page - 1) // page).sum())
+    nbytes = (2 * keys * HK * D * kp.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * (entries + len(n)))
+    peak = BF16_FLOPS if kp.dtype == torch.bfloat16 else F32_FLOPS
+    return roofline(nbytes, 4 * D * H * keys, peak)
+
+
+def check_paged(dev, label, ctxs, dtype, against_ragged=False):
+    """Phase 3e: the decode paged attention kernel (#4) against its
+    plain version on one batch of ``paged_batch`` rows, and, with
+    ``against_ragged``, against #10's decode-only launch over the same
+    pools (q at position ctx - 1, one query a row); returns its numbers
+    and an inactive row's output must be exact zeros."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import paged_attention as PA
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    args = paged_batch(dev, ctxs, dtype)
+    before = PA.launches["paged"]
+    out = PA.paged_attention(**args)
+    if PA.launches["paged"] != before + 1:
+        fail(f"paged attention {label}: the wrapper did not launch the "
+             "kernel once")
+    ref = PA.paged_attention_ref(**args)
+    torch.cuda.synchronize()
+    if out.dtype != args["q"].dtype or out.shape != args["q"].shape:
+        fail(f"paged attention {label}: out {out.dtype} {tuple(out.shape)}")
+    err = check_close(f"paged attention {label}: kernel out (row, head, "
+                      "col)", out, ref)
+    vs_ragged = ""
+    if against_ragged:
+        lens = args["context_lens"]
+        out10 = rpa.ragged_paged_attention(
+            args["q"][:, None], args["k_pages"], args["v_pages"],
+            args["block_tables"], lens, (lens - 1).clamp_min(0),
+            (lens > 0).int())[:, 0]
+        torch.cuda.synchronize()
+        e10 = check_close(f"paged attention {label}: #4 against #10 "
+                          "(row, head, col)", out, out10)
+        vs_ragged = f" vs_ragged_err={e10:.3e}"
+    ms = time_ms(lambda: PA.paged_attention(**args))
+    dev_ms = device_ms(lambda: PA.paged_attention(**args))
+    plain_ms = time_ms(lambda: PA.paged_attention_ref(**args), iters=5,
+                       warmup=1)
+    # library yardstick: SDPA over the gathered K/V (kv heads repeated to
+    # H) with a length mask; the port never calls it
+    p = args["k_pages"].shape[0]
+    tables = args["block_tables"].long().clamp(0, p - 1)
+    b = tables.shape[0]
+
+    def gathered(pool):
+        x = pool[tables].transpose(2, 3).reshape(b, -1, HK, D)
+        return x.repeat_interleave(H // HK, dim=2).transpose(1, 2)
+    kg, vg = gathered(args["k_pages"]), gathered(args["v_pages"])
+    mask = (torch.arange(kg.shape[2], device=dev)[None, :]
+            < args["context_lens"].long()[:, None])[:, None, None, :]
+    qs = args["q"][:, :, None]
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=mask))
+    del kg, vg
+    bound_ms, bound_by = paged_bound(args)
+    print(f"kernel check (paged_attention, {label}): rows={b} dtype="
+          f"{str(dtype).replace('torch.', '')} keys="
+          f"{int(args['context_lens'].sum())} pages={p} out_err={err:.3e} "
+          f"(tol 1 ulp + {OUT_VEC} x head-vector max){vs_ragged} "
+          f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.3f} "
+          f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
+          f"({bound_by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def check_paged_kernel(dev):
+    """Phase 3e: #4 at phase 3's decode-only shape (8 rows, contexts
+    64-544, bf16 and f32; the bf16 pools through #10 too) and at
+    Llama-3-8B's full context (32 rows, bf16, contexts over 1-8192 and
+    an inactive row). Returns #4's JSON entry (without ``launches``),
+    with the full-context times, the shape phase 10 runs."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(0)
+    ctxs = rng.randint(64, 545, 8).tolist()
+    # 1, a page multiple, the whole context, an inactive row, the rest
+    # uniform over 1..FULL_CTX
+    full_ctxs = [1, FULL_CTX // 2, FULL_CTX, 0] \
+        + rng.randint(1, FULL_CTX + 1, 28).tolist()
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        r = check_paged(dev, f"decode {str(dtype).replace('torch.', '')}",
+                        ctxs, dtype, against_ragged=dtype == torch.bfloat16)
+        errs.append(r["max_abs_err"])
+    full = check_paged(dev, "full context", full_ctxs, torch.bfloat16)
+    full.pop("device_ms")
+    torch.cuda.empty_cache()
+    return dict(name="paged_attention", route="cuda", source=PA_SOURCE,
+                replaces=PA_REPLACES,
+                **dict(full, max_abs_err=max(errs + [full["max_abs_err"]])))
+
+
+def decode_cache(dev):
+    """Phase 10: the slice's path. One ``PagedKVCache`` at Llama-3-8B's
+    attention width on the card; 32 sequences admitted with seeded
+    prompts of 1-8160 tokens and their K/V written; 32 decode steps of
+    ``extend`` + ``write`` + ``attend``; half the sequences released and
+    16 new ones admitted on the recycled pages, 8 more steps. Every
+    ``attend`` must launch #4 once and never the plain version; the
+    first and last step of each stretch are held against the plain
+    version on the same pools. Returns #4's launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference import PagedKVCache
+    from paddle_tpu_torch.ops import paged_attention as PA
+    rng = np.random.RandomState(10)
+    g = torch.Generator(dev).manual_seed(10)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, dtype=torch.bfloat16,
+                           generator=g)
+    torch.cuda.reset_peak_memory_stats()
+    cache = PagedKVCache(CACHE_PAGES, PAGE, HK, D, dtype=torch.bfloat16,
+                         device=dev)
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in (cache.k_pages, cache.v_pages))
+
+    def admit(sids):
+        lens = rng.randint(1, CACHE_PROMPT + 1, len(sids))
+        for sid, n in zip(sids, lens.tolist()):
+            cache.admit(sid, n)
+            cache.write(sid, rand(n, HK, D), rand(n, HK, D))
+        return int(lens.sum())
+
+    live = list(range(CACHE_ROWS))
+    prompt_tokens = admit(live)
+    plain_calls, times, checked = [], [], 0
+    launched = []
+
+    def stretch(steps):
+        nonlocal checked
+        for step in range(steps):
+            for sid in live:
+                cache.extend(sid, 1)
+                cache.write(sid, rand(1, HK, D), rand(1, HK, D))
+            q = rand(len(live), H, D)
+            before = PA.launches["paged"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with count_calls([(PA, "paged_attention_ref")]) as calls:
+                out = cache.attend(live, q)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            plain_calls.extend(calls)
+            launched.append(PA.launches["paged"] - before)
+            if tuple(out.shape) != (len(live), H, D) \
+                    or not bool(torch.isfinite(out).all()):
+                fail(f"decode cache: bad attend output at step {step}")
+            if step in (0, steps - 1):
+                ref = cache.attend(live, q, use_kernel=False)
+                check_close(f"decode cache step {step}: attend (row, head, "
+                            "col)", out, ref)
+                checked += 1
+
+    reset_launches()
+    stretch(CACHE_STEPS)
+    released = set()
+    for sid in live[:CACHE_ROWS // 2]:
+        released.update(cache.export_table(sid)[0])
+        cache.release(sid)
+    new = list(range(CACHE_ROWS, CACHE_ROWS + CACHE_ROWS // 2))
+    live = live[CACHE_ROWS // 2:] + new
+    refill_tokens = admit(new)
+    reused = len(released & {p for s in new
+                             for p in cache.export_table(s)[0]})
+    if not reused:
+        fail("decode cache: the new sequences got none of the released "
+             "pages")
+    stretch(CACHE_REFILL_STEPS)
+    launches = PA.launches["paged"]
+    attends = CACHE_STEPS + CACHE_REFILL_STEPS
+    if plain_calls:
+        fail(f"decode cache: the plain version ran on the card "
+             f"({len(plain_calls)} calls)")
+    if launched != [1] * attends or launches != attends:
+        fail(f"decode cache: #4 launches per attend {launched} (want one "
+             "each)")
+    dev_ms = device_ms(lambda: cache.attend(live, rand(len(live), H, D)),
+                       iters=5)
+    keys = sum(cache.context_len(s) for s in live)
+    print(f"decode cache: pages={CACHE_PAGES} pool_bytes={pool_bytes} "
+          f"rows={len(live)} prompt_tokens={prompt_tokens} "
+          f"refill_prompt_tokens={refill_tokens} recycled_pages={reused} "
+          f"attends={attends} launches={launches} "
+          f"checked_steps={checked} final_keys={keys} attend_ms_mean="
+          f"{1e3 * sum(times) / len(times):.4f} attend_ms_max="
+          f"{1e3 * max(times):.4f} device_ms={dev_ms:.4f} peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}", flush=True)
+    return launches
 
 
 def attention_pairs(b, h, sq, sk, causal):
@@ -1656,6 +1920,7 @@ def main():
     print(f"build_s={time.perf_counter() - t0:.1f}", flush=True)
     entry, = check_kernels(dev)                     # phase 3: #12
     family = check_kernels(dev, FAMILY)             # phase 3d
+    paged = check_paged_kernel(dev)                 # phase 3e: #4
     torch.cuda.empty_cache()
     training_entries = check_flash(dev) + [check_ce(dev)]
     torch.cuda.empty_cache()
@@ -1670,6 +1935,8 @@ def main():
         e["launches"] = kv8_launches if key == "fused_rope_q8" \
             else ladder[key]
     torch.cuda.empty_cache()
+    paged["launches"] = decode_cache(dev)           # phase 10
+    torch.cuda.empty_cache()
     launches = train(dev)
     torch.cuda.empty_cache()
     compare_step(dev)
@@ -1682,8 +1949,8 @@ def main():
     for e, counts in zip(moe_entries, (float_launches, int8_launches,
                                        int8_launches)):
         e["launches"] = counts[e["name"]]
-    print(json.dumps({"kernels": [entry] + family + training_entries
-                      + moe_entries}), flush=True)
+    print(json.dumps({"kernels": [entry] + family + [paged]
+                      + training_entries + moe_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
-from .paged_cache import PageAllocator
+from .paged_cache import PageAllocator, PagedKVCache
 from .serving import AdmissionError, LlamaServingEngine, Request
 
-__all__ = ["PageAllocator", "AdmissionError", "LlamaServingEngine",
-           "Request"]
+__all__ = ["PageAllocator", "PagedKVCache", "AdmissionError",
+           "LlamaServingEngine", "Request"]

@@ -7,6 +7,11 @@ device side is the per-layer page pools ``[P, Hk, page, D]`` that the
 serving engine owns and the ragged paged attention kernel reads and
 writes through these tables.
 
+:class:`PagedKVCache` is one layer's K/V pool bundled with its own
+allocator, for decoders written around a paged decode cache: one
+sequence per row, ``write`` scatters K/V into the pools, ``attend``
+runs the decode-step paged attention kernel over them.
+
 :func:`quantize_kv_int8` is the int8 page quantiser: the serving
 engine's two-op path stores its output in int8 pools with f32 scale
 sidecars, and the CUDA write kernel computes the same bits.
@@ -22,8 +27,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import paged_attention as _pa
 
-__all__ = ["PageAllocator", "quantize_kv_int8"]
+__all__ = ["PageAllocator", "PagedKVCache", "quantize_kv_int8"]
 
 #: the f32 rounding of the double 1/127: the scale multiplies by it
 #: (no divide), bit for bit the reference quantiser's constant
@@ -295,3 +301,52 @@ class PageAllocator:
         dev = resolve_device(device)
         return (torch.from_numpy(tables).to(dev),
                 torch.from_numpy(lens).to(dev))
+
+
+class PagedKVCache(PageAllocator):
+    """One layer's K/V pool bundled with its own allocator.
+
+    The pools ``k_pages``/``v_pages`` are ``[P, Hk, page, D]`` of
+    ``dtype``, zeros, on ``device`` (default ``cuda``; raises without a
+    card unless the caller passes ``device="cpu"``). ``write`` updates
+    them in place, where the reference builds new arrays."""
+
+    def __init__(self, num_pages, page_size, num_kv_heads, head_dim,
+                 dtype=torch.bfloat16, max_pages_per_seq=None, device=None):
+        super().__init__(num_pages, page_size, max_pages_per_seq)
+        dev = resolve_device(device)
+        # head-major [P, Hk, page, D]: the layout the kernel reads
+        shape = (num_pages, num_kv_heads, page_size, head_dim)
+        self.k_pages = torch.zeros(shape, dtype=dtype, device=dev)
+        self.v_pages = torch.zeros(shape, dtype=dtype, device=dev)
+
+    def write(self, seq_id, k, v, start=None):
+        """Scatter ``[S, Hk, D]`` new K/V (tensors or arrays, cast to the
+        pool's dtype) at position ``start`` (default: end of
+        already-written context minus the new tokens — i.e. the tokens
+        just accounted by admit/extend)."""
+        pool = self.k_pages
+        k = torch.as_tensor(k).to(device=pool.device, dtype=pool.dtype)
+        v = torch.as_tensor(v).to(device=pool.device, dtype=pool.dtype)
+        s = k.shape[0]
+        if start is None:
+            start = self._lens[seq_id] - s
+        page_ids, offs = self.page_positions(seq_id, start, s)
+        # target (page_ids[s], h, offs[s], :): [S, 1] / [1, Hk] index
+        # tensors broadcast to [S, Hk] scatter sites
+        pid = torch.as_tensor(page_ids, dtype=torch.long,
+                              device=pool.device)[:, None]
+        off = torch.as_tensor(offs, dtype=torch.long,
+                              device=pool.device)[:, None]
+        hidx = torch.arange(pool.shape[1], device=pool.device)[None, :]
+        self.k_pages[pid, hidx, off] = k
+        self.v_pages[pid, hidx, off] = v
+
+    def attend(self, seq_ids, q, scale=None, use_kernel=True):
+        """Decode-step attention for ``q [B, H, D]`` over the batch's
+        pages; rows of ``q`` correspond to ``seq_ids``. On the card
+        ``use_kernel=False`` runs the plain version instead of the
+        kernel; on the CPU both run the plain version."""
+        tables, lens = self.batch_views(seq_ids, device=self.k_pages.device)
+        fn = _pa.paged_attention if use_kernel else _pa.paged_attention_ref
+        return fn(q, self.k_pages, self.v_pages, tables, lens, scale=scale)

@@ -10,7 +10,12 @@ and prefill row counts; a ragged last scale block in both int8 kernels;
 every instance of the ragged paged attention family (rope-fused,
 post-rope fused and read-only, over bf16 and int8 pools) at head dims
 64 and 128 and pages of 16 and 32 slots, with multi-chunk rows, an
-inactive row and poisoned table tails.
+inactive row and poisoned table tails; the decode paged attention
+kernel over bf16, f16 and f32 pools (q in the pools' dtype or f32) at
+GQA groups 1, 4, 6 and 32, head dims 16 to 256 and pages of 8, 16 and
+32 slots, with inactive and one-token rows, poisoned table tails and
+contexts past the table, rows bitwise the same alone and in a batch,
+and ``PagedKVCache`` on the card.
 
 Every test needs an NVIDIA card and ``nvcc`` and skips without one; on
 the card this file runs on its own, without the jax-importing conftest:
@@ -24,7 +29,9 @@ loss kernel's lse and pick within 1e-5 of max(|x|, 1). The f32
 grouped/dequant products: within 1e-5 of the out row's largest value.
 Attention: written int8 slots, their scales and V slots bit for bit the
 plain version's, roped bf16 K slots within 1 bf16 ulp, untouched slots
-unchanged.
+unchanged. Decode paged attention: outputs in f16 within 1 f16 ulp plus
+2^-10 of the head vector's largest value, bf16 as above, f32 as the f32
+products.
 """
 
 import math
@@ -36,6 +43,7 @@ import torch
 from paddle_tpu_torch.ops import flash_attention as FT
 from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
 from paddle_tpu_torch.ops import grouped_gemm as GG
+from paddle_tpu_torch.ops import paged_attention as PA
 from paddle_tpu_torch.ops import ragged_paged_attention as RP
 from paddle_tpu_torch.quant import kernels as QK
 from paddle_tpu_torch.quant.format import quantize_weight
@@ -398,3 +406,146 @@ def test_ragged_attention_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         RP.ragged_paged_attention(**dict(b, q=b["q"].transpose(1, 2)
                                          .contiguous().transpose(1, 2)))
+
+
+PAGED = [  # h, hk, d, page, pool dtype, q in f32
+    (32, 8, 128, 16, torch.bfloat16, False),   # Llama-3-8B
+    (32, 8, 128, 16, torch.bfloat16, True),
+    (6, 1, 16, 8, torch.float32, False),       # the reference test's 6/1
+    (4, 4, 64, 32, torch.float16, False),      # group 1
+    (32, 1, 128, 16, torch.bfloat16, False),   # MQA, group 32
+    (12, 2, 256, 8, torch.float16, True),      # group 6, head_dim 256
+    (8, 2, 24, 16, torch.float32, False),
+    (64, 2, 256, 32, torch.float32, False),    # the most shared memory
+]
+
+
+def _paged_case(dev, h, hk, d, page, dtype, q_f32, seed, ctxs=None,
+                width=6):
+    """Decode rows over a pool with seeded, distinct live pages and
+    table tails poisoned with ids outside [0, P): by default an inactive
+    row, one token, a page, a ragged context, the whole table and a
+    context past it."""
+    rng = np.random.RandomState(seed)
+    if ctxs is None:
+        ctxs = [0, 1, page, 3 * page + 5, width * page, width * page + 9,
+                2 * page - 1]
+    n_pages = [min(-(-c // page), width) for c in ctxs]
+    num_pages = sum(n_pages) + 3
+    perm = rng.permutation(num_pages)
+    tables = np.empty((len(ctxs), width), np.int32)
+    used = 0
+    for i, n in enumerate(n_pages):
+        tables[i] = rng.choice([-5, 10 ** 7, num_pages + 11], width)
+        tables[i, :n] = perm[used:used + n]
+        used += n
+    g = torch.Generator(dev).manual_seed(seed)
+    qd = torch.float32 if q_f32 else dtype
+    return dict(
+        q=torch.randn(len(ctxs), h, d, device=dev, generator=g).to(qd),
+        k_pages=torch.randn(num_pages, hk, page, d, device=dev,
+                            generator=g).to(dtype),
+        v_pages=torch.randn(num_pages, hk, page, d, device=dev,
+                            generator=g).to(dtype),
+        block_tables=torch.from_numpy(tables).to(dev),
+        context_lens=torch.tensor(ctxs, dtype=torch.int32, device=dev))
+
+
+def _close_paged(got, ref):
+    if ref.dtype == torch.float16:
+        ref, got = ref.float(), got.float()
+        _, e = torch.frexp(ref)
+        ulp = torch.where(ref == 0, torch.zeros_like(ref),
+                          torch.ldexp(torch.ones_like(ref), e - 11))
+        vec = ref.abs().amax(dim=-1, keepdim=True)
+        assert torch.isfinite(got).all()
+        assert not bool(((got - ref).abs() > ulp + 2 ** -10 * vec).any())
+    else:
+        _close_any(got, ref)
+
+
+@pytest.mark.parametrize("case", PAGED)
+def test_paged_attention_matches_plain(dev, case):
+    a = _paged_case(dev, *case, seed=case[0] + case[2])
+    before = PA.launches["paged"]
+    out = PA.paged_attention(**a)
+    assert PA.launches["paged"] == before + 1
+    ref = PA.paged_attention_ref(**a)
+    torch.cuda.synchronize()
+    assert out.dtype == a["q"].dtype and out.shape == a["q"].shape
+    _close_paged(out, ref)
+    assert not out[0].any()                 # the inactive row
+    # a context past the table attends the whole table
+    capped = dict(a, context_lens=a["context_lens"].clamp_max(
+        a["block_tables"].shape[1] * a["k_pages"].shape[2]))
+    assert torch.equal(PA.paged_attention(**capped), out)
+    # custom scale
+    _close_paged(PA.paged_attention(**a, scale=0.05),
+                 PA.paged_attention_ref(**a, scale=0.05))
+
+
+def test_paged_attention_rows_are_independent(dev):
+    """A row's output is bit for bit the same alone and inside a batch
+    of 32, and from call to call."""
+    rng = np.random.RandomState(3)
+    ctxs = [0, 1] + rng.randint(1, 700, 30).tolist()
+    a = _paged_case(dev, 32, 8, 128, 16, torch.bfloat16, False, 3, ctxs,
+                    width=44)
+    out = PA.paged_attention(**a)
+    assert torch.equal(PA.paged_attention(**a), out)
+    for i in (0, 1, 7, 31):
+        alone = PA.paged_attention(
+            a["q"][i:i + 1], a["k_pages"], a["v_pages"],
+            a["block_tables"][i:i + 1], a["context_lens"][i:i + 1])
+        assert torch.equal(alone[0], out[i]), i
+    _close(out, PA.paged_attention_ref(**a))
+
+
+def test_paged_attention_rejects_what_it_cannot_take(dev):
+    a = _paged_case(dev, 32, 8, 128, 16, torch.bfloat16, False, 1)
+    before = PA.launches["paged"]
+    with pytest.raises(ValueError, match="preconditions not met"):
+        PA.paged_attention(**dict(a, q=a["q"][:, :31]))
+    with pytest.raises(ValueError, match="float32 pools"):
+        PA.paged_attention(**dict(a, q=a["q"].half()))
+    with pytest.raises(ValueError, match="float32 pools"):
+        q8 = a["k_pages"].to(torch.int8)
+        PA.paged_attention(**dict(a, k_pages=q8, v_pages=q8))
+    with pytest.raises(ValueError, match="int32"):
+        PA.paged_attention(**dict(a, block_tables=a["block_tables"].long()))
+    with pytest.raises(ValueError, match="contiguous"):
+        PA.paged_attention(**dict(a, q=a["q"].transpose(1, 2).contiguous()
+                                  .transpose(1, 2)))
+    big = torch.zeros(2, 1024, 256, device=dev)
+    pool = torch.zeros(4, 2, 8, 256, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        PA.paged_attention(big, pool, pool, a["block_tables"][:2],
+                           a["context_lens"][:2])
+    assert not PA.supported(big, pool, pool, a["block_tables"][:2],
+                            a["context_lens"][:2])
+    assert PA.launches["paged"] == before
+
+
+def test_paged_kv_cache_on_the_card(dev):
+    from paddle_tpu_torch.inference import PagedKVCache
+    cache = PagedKVCache(64, 16, 8, 128)
+    assert cache.k_pages.is_cuda and cache.k_pages.dtype == torch.bfloat16
+    g = torch.Generator(dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=g).bfloat16()
+    for sid, n in enumerate((40, 1, 130)):
+        cache.admit(sid, n)
+        cache.write(sid, rand(n, 8, 128), rand(n, 8, 128))
+    for _ in range(3):
+        for sid in range(3):
+            cache.extend(sid, 1)
+            cache.write(sid, rand(1, 8, 128), rand(1, 8, 128))
+        q = rand(3, 32, 128)
+        before = PA.launches["paged"]
+        out = cache.attend([0, 1, 2], q)
+        assert PA.launches["paged"] == before + 1
+        ref = cache.attend([0, 1, 2], q, use_kernel=False)
+        assert PA.launches["paged"] == before + 1
+        torch.cuda.synchronize()
+        _close(out, ref)

@@ -17,6 +17,7 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.inference.paged_cache",
            "paddle_tpu_torch.inference.serving",
            "paddle_tpu_torch.ops.ragged_paged_attention",
+           "paddle_tpu_torch.ops.paged_attention",
            "paddle_tpu_torch.ops._build",
            "paddle_tpu_torch.ops.flash_attention",
            "paddle_tpu_torch.ops.fused_linear_cross_entropy",
