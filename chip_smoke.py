@@ -24,7 +24,10 @@ package is not beside it, and when any phase fails:
    the card, written bf16 slots as phase 3, untouched slots and the dump
    page unchanged, outputs within phase 3's bound; each with the same
    four times (the library call: SDPA over the gathered K/V, dequantized
-   to bf16 for int8);
+   to bf16 for int8); then every call form of the family at the
+   reference's domain past phase 3's geometry (``DOMAIN``: pages of 64
+   and 48 slots, f32 and f16 models, head_dim 256 and 72, int8 pools
+   too), untimed, within phase 3's bound;
 3e. the decode paged attention kernel (#4, the ``PagedKVCache`` path)
    against its plain version: at phase 3's decode-only shape (8 rows,
    contexts 64-544, 32/8 heads, head_dim 128, page 16) over bf16 and f32
@@ -38,8 +41,13 @@ package is not beside it, and when any phase fails:
    (batch 2 x seq 2048, 32 q / 8 kv heads, head_dim 128, bf16, causal;
    also a non-causal and a shorter-query causal case), and the fused
    linear cross-entropy forward at N = D = 4096, V = 128256, f32, 5% of
-   rows ignored; each with its time, the plain version's, a PyTorch
-   library call's and the card's bound;
+   rows ignored; each with its time (CUDA events and the profiler's
+   device time), the plain version's, a PyTorch library call's and the
+   card's bound, and the instance each flash kernel ran (the forward's
+   wgmma instance at the training batch); then the flash kernels' general
+   instance at ``FLASH_DOMAIN``'s points (f32 head_dim 128, bf16 96 and
+   256, f16 64); the registers and spills of every flash instance
+   (``ptxas -v``) are printed after the build;
 4. serving Llama-3-8B at full width and depth (random bf16 weights from
    a seeded generator on the card) through
    ``LlamaServingEngine.generate``: 8 prompts of 64-512 tokens, 32 new
@@ -53,7 +61,8 @@ package is not beside it, and when any phase fails:
    counted (one of each flash kernel per layer per step, one loss kernel
    per step) and no plain version called, finite and falling losses;
    then one step of a 2-layer model with the kernels against the same
-   step with the plain versions (loss and gradients);
+   step with the plain versions (loss and gradients), under bf16
+   ``auto_cast`` and again in f32 (the flash kernels' general instance);
 3c. (run after 3b) the mixture-of-experts and int8 kernels against their
    plain versions at Mixtral-8x7B serving shapes (hidden 4096, expert
    FFN 14336, 8 experts, top 2, block 128) for the two token counts of
@@ -88,7 +97,11 @@ package is not beside it, and when any phase fails:
    sidecars and attention outputs bitwise equal after the first (mixed)
    dispatch, pools after the whole run; launches counted per path (2 a
    layer a dispatch fused, 1 two-op), no plain version called;
-10. (run after 9) ``PagedKVCache`` at Llama-3-8B attention width on the
+9b. (run after 9) the engine at Llama-3-8B width cut to 4 layers,
+   phase 4's prompts, at 64-slot pages (bf16) and as an f32 model: every
+   #12 launch counted, no plain version called, tokens held against the
+   plain forward at phase 4's floors;
+10. (run after 9b) ``PagedKVCache`` at Llama-3-8B attention width on the
    card (12288 pages of 16 tokens, bf16): 32 sequences admitted with
    seeded prompts of 1-8160 tokens and their K/V written, 32 decode
    steps of ``extend`` + ``write`` + ``attend``, then half of them
@@ -231,14 +244,17 @@ def device_ms(fn, iters=20):
     return total / iters / 1e3
 
 
-def attention_batch(dev, qb, ctx, chunks, inactive, seed=0):
-    """One dispatch at serving shapes: 8 decode rows with contexts drawn
+def attention_batch(dev, qb, ctx, chunks, inactive, seed=0, page=PAGE,
+                    d=D, dtype="bfloat16"):
+    """One dispatch at serving shapes (pages of ``page`` slots, head_dim
+    ``d``, model dtype ``dtype``): 8 decode rows with contexts drawn
     from ``range(*ctx)``, then the ``chunks`` of one prompt as rows of
     the same dispatch, then (if ``inactive``) an inactive row; table
     tails past the live pages are poisoned with out-of-range ids.
     Returns (args, info)."""
     import numpy as np
     import torch
+    PAGE, D = page, d   # phase 3's names, at this geometry
     rng = np.random.RandomState(seed)
     dec = rng.randint(*ctx, size=8)
     seqs = [(int(n) - 1, [1]) for n in dec] + ([(0, chunks)] if chunks
@@ -268,7 +284,7 @@ def attention_batch(dev, qb, ctx, chunks, inactive, seed=0):
     pos = np.concatenate([np.arange(s, s + n)
                           for _, _, s, n, *_ in rows if n > 0])
     g = torch.Generator(dev).manual_seed(seed)
-    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    bf = dict(device=dev, dtype=getattr(torch, dtype), generator=g)
     from paddle_tpu_torch.ops.ragged_paged_attention import rope_tables
     sin, cos = rope_tables(torch.from_numpy(pos).to(dev), D, 500000.0)
     i32 = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -387,9 +403,11 @@ def variant_args(args, variant, q8_pools):
 
 
 def check_kernel(dev, label, qb, ctx, chunks, inactive,
-                 variant="fused_rope"):
+                 variant="fused_rope", geom=None):
     """Phases 3 and 3d: one instance of the ragged paged attention family
     against its plain version on one dispatch; returns its numbers.
+    With ``geom`` (``attention_batch``'s page, d, dtype) the dispatch
+    takes that geometry and the check runs untimed.
     Written int8 slots and their scales, V slots and unroped K slots must
     equal the plain version's bit for bit (the plain int8 write is
     ``quantize_kv_int8`` in PyTorch on the card), roped bf16 K slots lie
@@ -399,7 +417,8 @@ def check_kernel(dev, label, qb, ctx, chunks, inactive,
     from paddle_tpu_torch.inference.paged_cache import quantize_kv_int8
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     _, _, rope, q8, read_only = VARIANTS[variant]
-    args, info = attention_batch(dev, qb, ctx, chunks, inactive)
+    args, info = attention_batch(dev, qb, ctx, chunks, inactive,
+                                 **(geom or {}))
     info["qblock"] = qb
     q8_pools = None
     if q8:
@@ -440,6 +459,8 @@ def check_kernel(dev, label, qb, ctx, chunks, inactive,
         elif not torch.equal(got, want):
             fail(f"{label}: written {name} slots differ from the plain "
                  "version")
+    if geom:
+        return dict(max_abs_err=err, rel=rel)
     # timing: a fused call rewrites the same slots each time (idempotent)
     ms = time_ms(lambda: fn(**a_k))
     dev_ms = device_ms(lambda: fn(**a_k))
@@ -502,9 +523,38 @@ def check_kernels(dev, variants=("fused_rope",)):
     return entries
 
 
-def llama_model(dev, layers=None):
+# phase 3d: the reference's domain past phase 3's geometry, each point
+# through all six call forms of the family at the mixed dispatch
+DOMAIN = {"page 64": dict(page=64), "f32": dict(dtype="float32"),
+          "head_dim 256": dict(d=256), "head_dim 72": dict(d=72),
+          "f16 page 48": dict(page=48, dtype="float16")}
+
+
+def check_kernel_domain(dev):
+    """Phase 3d's widened points: every instance of the family against
+    its plain version at pages of 64 and 48 slots, f32 and f16 models,
+    head_dim 256 and 72 (int8 pools too), within phase 3's bound, with
+    the instance's launches counted. Returns {variant: max abs err}."""
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    errs = {}
+    for label, geom in DOMAIN.items():
+        line = []
+        for variant in VARIANTS:
+            before = rpa.launches[variant]
+            r = check_kernel(dev, label, QB, (100, 2001), [QB, QB], True,
+                             variant, geom)
+            if rpa.launches[variant] == before:
+                fail(f"{label} {variant}: no kernel launch counted")
+            errs[variant] = max(errs.get(variant, 0.0), r["max_abs_err"])
+            line.append(f"{variant}={r['max_abs_err']:.3e}")
+        print(f"kernel check (domain, {label}: {geom}): out_err "
+              + " ".join(line), flush=True)
+    return errs
+
+
+def llama_model(dev, layers=None, dtype="bfloat16"):
     """Llama-3-8B at full width (``layers`` cut, else full depth) with
-    random bf16 weights from a seeded generator on the card."""
+    random weights in ``dtype`` from a seeded generator on the card."""
     import torch
     from paddle_tpu_torch.models import LlamaForCausalLM, llama3_8b_config
     cfg = llama3_8b_config()
@@ -512,23 +562,25 @@ def llama_model(dev, layers=None):
         cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
     t0 = time.perf_counter()
     gen = torch.Generator(dev).manual_seed(0)
-    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+    model = LlamaForCausalLM(cfg, device=dev, dtype=getattr(torch, dtype),
                              generator=gen).eval()
     torch.cuda.synchronize()
-    print(f"model: llama3_8b layers={cfg.num_hidden_layers} params="
+    print(f"model: llama3_8b layers={cfg.num_hidden_layers} {dtype} params="
           f"{model.num_params()} init_s={time.perf_counter() - t0:.1f}",
           flush=True)
     return cfg, model
 
 
-def serving_workload(dev, kv_dtype=None):
-    """Llama-3-8B at full width and depth (random bf16 weights from a
-    seeded generator on the card) behind ``LlamaServingEngine(max_batch
-    =8, page_size=16, kv_dtype=kv_dtype)``, warmed up, and 8 prompts of
-    64-512 tokens. Returns (cfg, model, engine, prompts)."""
+def serving_workload(dev, kv_dtype=None, layers=None, page_size=16,
+                     dtype="bfloat16"):
+    """Llama-3-8B at full width (and depth, unless ``layers``; random
+    weights in ``dtype`` from a seeded generator on the card) behind
+    ``LlamaServingEngine(max_batch=8, page_size=page_size,
+    kv_dtype=kv_dtype)``, warmed up, and 8 prompts of 64-512 tokens.
+    Returns (cfg, model, engine, prompts)."""
     from paddle_tpu_torch.inference import LlamaServingEngine
-    cfg, model = llama_model(dev)
-    engine = LlamaServingEngine(model, max_batch=8, page_size=16,
+    cfg, model = llama_model(dev, layers, dtype)
+    engine = LlamaServingEngine(model, max_batch=8, page_size=page_size,
                                 kv_dtype=kv_dtype)
     prompts = serving_prompts(cfg.vocab_size)
     engine.generate([prompts[0][:16]], max_new_tokens=2)   # warm-up
@@ -580,20 +632,23 @@ def kv8_attention(q, k, v):
     return llama.plain_attention(q.float(), kd, vd).to(q.dtype)
 
 
-def serve(dev, kv_dtype=None, bf16_outs=None):
+def serve(dev, kv_dtype=None, bf16_outs=None, label=None, **workload):
     """Phase 4 (``kv_dtype=None``) and phase 8 (``"int8"``): serve
     Llama-3-8B at full depth through the engine's entry point, every
     launch of the rope-fused attention (#12, or #13 on int8 pools)
     counted and no plain version called; every served token checked
     against the model's own plain forward (its K and V through the int8
-    quantizer and back for phase 8). Returns (launches, outputs)."""
+    quantizer and back for phase 8). ``workload`` (layers, page_size,
+    dtype) goes to :func:`serving_workload` (phase 9b). Returns
+    (launches, outputs)."""
     import torch
     from paddle_tpu_torch.inference import Request
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
-    label = "serve int8-kv" if kv_dtype else "serve"
+    label = label or ("serve int8-kv" if kv_dtype else "serve")
     key = "fused_rope_q8" if kv_dtype else "fused_rope"
-    cfg, model, engine, prompts = serving_workload(dev, kv_dtype)
+    cfg, model, engine, prompts = serving_workload(dev, kv_dtype,
+                                                   **workload)
     finite = []
     hook = model.lm_head.register_forward_hook(
         lambda mod, inp, out: finite.append(torch.isfinite(out).all()))
@@ -710,6 +765,27 @@ def recorded_attention(engine, store):
         for n, fn in zip(names, saved):
             setattr(serving, n, fn)
         del engine._dispatch_rows
+
+
+# phase 9b: the engine at geometries and dtypes past phase 4's, at
+# Llama-3-8B width cut to LADDER_LAYERS layers: label -> workload
+SERVE_DOMAIN = {"serve page 64": dict(page_size=64),
+                "serve f32 model": dict(dtype="float32")}
+
+
+def serve_domain(dev):
+    """Phase 9b: serve phase 4's prompts at 64-slot pages (bf16) and with
+    an f32 model (pages of 16), each through the rope-fused kernels with
+    every launch counted, no plain version called and every token held
+    against the model's plain forward at phase 4's floors. Returns the
+    launches of #12 over both runs."""
+    import torch
+    launches = 0
+    for label, workload in SERVE_DOMAIN.items():
+        n, _ = serve(dev, label=label, layers=LADDER_LAYERS, **workload)
+        launches += n
+        torch.cuda.empty_cache()
+    return launches
 
 
 def serve_ladder(dev):
@@ -1024,6 +1100,23 @@ def decode_cache(dev):
     return launches
 
 
+def flash_registers():
+    """``ptxas -v`` lines of the flash kernels: registers and spills of
+    each instance, from the build's log."""
+    import re
+    from paddle_tpu_torch.ops import _build
+    lines = []
+    for mangled, what in sorted(_build.ptxas_report(
+            "flash_attention").items()):
+        m = re.search(r"(flash_[a-z_]+)I(?:Li(\d+)E|(f)E|6(__half)E|"
+                      r"13(__nv_bfloat16)E)", mangled)
+        arg = next(g for g in m.groups()[1:] if g) if m else ""
+        name = f"{m.group(1)}<{'float' if arg == 'f' else arg}>" if m \
+            else mangled
+        lines.append(f"ptxas: {name}: {what}")
+    return lines
+
+
 def attention_pairs(b, h, sq, sk, causal):
     """Unmasked (query, key) pairs of one attention call."""
     if not causal:
@@ -1053,20 +1146,24 @@ def flash_bounds(b, sq, sk, causal):
                             BF16_FLOPS)}
 
 
-def flash_case(dev, label, b, sq, sk, causal, seed, timed):
-    """The three flash kernels against the plain versions on one bf16
-    batch at the Llama-3-8B head shapes; the backward kernels get the
-    plain forward's lse and delta, so each kernel is checked alone.
-    Returns ({kernel: max abs err}, {kernel: timings} if ``timed``)."""
+def flash_case(dev, label, b, sq, sk, causal, seed, timed, d=D,
+               dtype="bfloat16"):
+    """The three flash kernels against the plain versions on one batch
+    at the Llama-3-8B head counts (head_dim ``d``, ``dtype`` q/k/v); the
+    backward kernels get the plain forward's lse and delta, so each
+    kernel is checked alone. Prints the instance each kernel ran
+    (``kernel_instance``'s rule). Returns ({kernel: max abs err},
+    {kernel: timings} if ``timed``)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as FT
     g = torch.Generator(dev).manual_seed(seed)
-    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
-    q, do = torch.randn(b, sq, H, D, **bf), torch.randn(b, sq, H, D, **bf)
-    k, v = torch.randn(b, sk, HK, D, **bf), torch.randn(b, sk, HK, D, **bf)
-    scale = 1.0 / math.sqrt(D)
+    bf = dict(device=dev, dtype=getattr(torch, dtype), generator=g)
+    q, do = torch.randn(b, sq, H, d, **bf), torch.randn(b, sq, H, d, **bf)
+    k, v = torch.randn(b, sk, HK, d, **bf), torch.randn(b, sk, HK, d, **bf)
+    scale = 1.0 / math.sqrt(d)
     args = (q, k, v, causal, scale)
+    before = dict(FT.instance_launches)
     out, lse = FT._launch_forward(*args)
     out_r, lse_r = FT.flash_attention_fwd_ref(*args)
     delta = FT.attention_delta(out_r, do)
@@ -1083,14 +1180,31 @@ def flash_case(dev, label, b, sq, sk, causal, seed, timed):
     lse_err = float((lse - lse_r).abs().max())
     if not lse_err <= LSE_ABS:
         fail(f"flash {label}: lse differs by {lse_err} > {LSE_ABS}")
-    print(f"flash check ({label}): B={b} Sq={sq} Sk={sk} causal={causal} "
+    if any(x.dtype != q.dtype for x in (out, dq, dk, dv)):
+        fail(f"flash {label}: outputs not in the inputs' dtype {q.dtype}")
+    ran = sorted(k_ for k_, n in FT.instance_launches.items()
+                 if n > before[k_])
+    print(f"flash check ({label}): B={b} Sq={sq} Sk={sk} D={d} {dtype} "
+          f"causal={causal} instances={','.join(ran)} "
           f"out_err={err['forward']:.3e} lse_err={lse_err:.3e} "
           f"dq_err={err['dq']:.3e} dkv_err={err['dkv']:.3e}", flush=True)
+    if len(ran) != 3:
+        fail(f"flash {label}: instances {ran}, not one per kernel")
     if not timed:
+        if dtype != "bfloat16" or d not in (64, 128):
+            print(f"flash {label} times (general instance): forward_ms="
+                  f"{time_ms(lambda: FT._launch_forward(*args), 5, 1):.4f}"
+                  f" dq_ms={time_ms(lambda: FT._launch_dq(*bargs), 5, 1):.4f}"
+                  f" dkv_ms="
+                  f"{time_ms(lambda: FT._launch_dkv(*bargs), 5, 1):.4f}",
+                  flush=True)
         return err, None
     t = {"forward": time_ms(lambda: FT._launch_forward(*args)),
          "dq": time_ms(lambda: FT._launch_dq(*bargs)),
          "dkv": time_ms(lambda: FT._launch_dkv(*bargs))}
+    dev_t = {"forward": device_ms(lambda: FT._launch_forward(*args)),
+             "dq": device_ms(lambda: FT._launch_dq(*bargs)),
+             "dkv": device_ms(lambda: FT._launch_dkv(*bargs))}
     plain_fwd = time_ms(lambda: FT.flash_attention_fwd_ref(*args), iters=3,
                         warmup=1)
     plain_bwd = time_ms(lambda: FT.flash_attention_bwd_ref(*bargs), iters=3,
@@ -1113,8 +1227,10 @@ def flash_case(dev, label, b, sq, sk, causal, seed, timed):
         timing[name] = dict(
             ms=t[name], plain_ms=plain_fwd if name == "forward" else plain_bwd,
             library_ms=lib_fwd if name == "forward" else lib_both - lib_fwd,
-            bound_ms=bound_ms, bound_by=bound_by)
-        print(f"flash {name}: ms={t[name]:.4f} plain_ms="
+            bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_t[name],
+            instance=[k_ for k_ in ran if k_.startswith(name + ".")][0])
+        print(f"flash {name}: instance={timing[name]['instance']} "
+              f"ms={t[name]:.4f} device_ms={dev_t[name]:.4f} plain_ms="
               f"{timing[name]['plain_ms']:.3f} library_ms="
               f"{timing[name]['library_ms']:.4f} bound_ms={bound_ms:.5f} "
               f"({bound_by})", flush=True)
@@ -1123,15 +1239,29 @@ def flash_case(dev, label, b, sq, sk, causal, seed, timed):
     return err, timing
 
 
+# phase 3b: the general instance (f32 FMAs) at points of the reference's
+# domain past bf16 head_dim 64/128: label -> (b, sq, sk, causal, d, dtype)
+FLASH_DOMAIN = {"f32 d128": (1, 512, 512, True, 128, "float32"),
+                "bf16 d96": (1, 512, 512, True, 96, "bfloat16"),
+                "bf16 d256": (1, 256, 256, False, 256, "bfloat16"),
+                "f16 d64": (1, 256, 384, True, 64, "float16")}
+
+
 def check_flash(dev):
-    """Phase 3b, flash attention: the Llama-3-8B training batch (timed),
-    a non-causal batch and a causal one with fewer queries than keys.
-    Returns the three kernels' JSON entries (without ``launches``)."""
+    """Phase 3b, flash attention: the Llama-3-8B training batch (timed;
+    the forward is the wgmma instance), a non-causal batch and a causal
+    one with fewer queries than keys, then the general instance at
+    FLASH_DOMAIN's points. Returns the three kernels' JSON entries
+    (without ``launches``)."""
     err, timing = flash_case(dev, "train", TRAIN_B, TRAIN_S, TRAIN_S, True,
                              seed=1, timed=True)
     for label, args in (("non-causal", (1, 512, 512, False)),
                         ("short-q", (1, 256, 768, True))):
         e, _ = flash_case(dev, label, *args, seed=2, timed=False)
+        err = {k: max(err[k], e[k]) for k in err}
+    for label, (b, sq, sk, causal, d, dtype) in FLASH_DOMAIN.items():
+        e, _ = flash_case(dev, label, b, sq, sk, causal, seed=3,
+                          timed=False, d=d, dtype=dtype)
         err = {k: max(err[k], e[k]) for k in err}
     return [dict(name=FA_NAMES[k], route="cuda", source=FA_SOURCE,
                  replaces=FA_REPLACES[k], max_abs_err=err[k], **timing[k])
@@ -1329,12 +1459,16 @@ def train(dev):
     return launches
 
 
-def compare_step(dev):
+def compare_step(dev, use_amp=True):
     """Phase 5b: one step (loss and gradients, no update) of a 2-layer
     model at full width through the kernels, against the same step
-    through the plain versions, on the same weights and batch."""
+    through the plain versions, on the same weights and batch: under
+    bf16 ``auto_cast`` (the flash kernels' tensor-core instances), and
+    with ``use_amp=False`` in f32 (their general instance)."""
+    import contextlib as cl
     import torch
     from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import flash_attention as FT
     model, ids = training_model(dev, 2)
     x = torch.from_numpy(ids[:, :-1]).to(dev)
     y = torch.from_numpy(ids[:, 1:]).to(dev)
@@ -1343,13 +1477,17 @@ def compare_step(dev):
     params = dict(model.named_parameters())
 
     def step():
-        with amp.auto_cast(dtype="bfloat16"):
+        with (amp.auto_cast(dtype="bfloat16") if use_amp
+              else cl.nullcontext()):
             loss, _ = model(x, y)
         loss.backward()
         grads = [params[n].grad.clone() for n in names]
         model.zero_grad(set_to_none=True)
         return loss.item(), grads
+    before = dict(FT.instance_launches)
     loss_k, g_k = step()
+    ran = sorted(k for k, n in FT.instance_launches.items()
+                 if n > before[k])
     with plain_paths():
         loss_p, g_p = step()
     rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -1363,7 +1501,12 @@ def compare_step(dev):
         line.append(f"{n}: cos={cos:.6f} norm_ratio={ratio:.5f}")
         if not (cos >= GRAD_COS and abs(ratio - 1) <= GRAD_NORM):
             fail(f"2-layer step: grad of {n} cos {cos} norm ratio {ratio}")
-    print("compare step (2 layers, kernels vs plain): " + " ".join(line),
+    want = ["dkv.wmma", "dq.wmma", "forward.wgmma"] if use_amp \
+        else ["dkv.general", "dq.general", "forward.general"]
+    if ran != want:
+        fail(f"2-layer step: flash instances {ran} != {want}")
+    print(f"compare step (2 layers, {'bf16 auto_cast' if use_amp else 'f32'}"
+          f", kernels vs plain; flash {','.join(ran)}): " + " ".join(line),
           flush=True)
 
 
@@ -1918,8 +2061,14 @@ def main():
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build_s={time.perf_counter() - t0:.1f}", flush=True)
+    for line in flash_registers():
+        print(line, flush=True)
     entry, = check_kernels(dev)                     # phase 3: #12
     family = check_kernels(dev, FAMILY)             # phase 3d
+    domain_errs = check_kernel_domain(dev)          # phase 3d, widened
+    for e in [entry] + family:
+        key = next(k for k, v in VARIANTS.items() if v[0] == e["name"])
+        e["max_abs_err"] = max(e["max_abs_err"], domain_errs[key])
     paged = check_paged_kernel(dev)                 # phase 3e: #4
     torch.cuda.empty_cache()
     training_entries = check_flash(dev) + [check_ce(dev)]
@@ -1931,6 +2080,8 @@ def main():
     kv8_launches, _ = serve(dev, "int8", bf16_outs)   # phase 8
     torch.cuda.empty_cache()
     ladder = serve_ladder(dev)                      # phase 9
+    torch.cuda.empty_cache()
+    entry["launches"] += serve_domain(dev)          # phase 9b
     for e, key in zip(family, FAMILY):
         e["launches"] = kv8_launches if key == "fused_rope_q8" \
             else ladder[key]
@@ -1940,6 +2091,8 @@ def main():
     launches = train(dev)
     torch.cuda.empty_cache()
     compare_step(dev)
+    torch.cuda.empty_cache()
+    compare_step(dev, use_amp=False)
     for e, key in zip(training_entries, ("forward", "dq", "dkv", "ce")):
         e["launches"] = launches[key]
     torch.cuda.empty_cache()
@@ -1949,6 +2102,8 @@ def main():
     for e, counts in zip(moe_entries, (float_launches, int8_launches,
                                        int8_launches)):
         e["launches"] = counts[e["name"]]
+    print(f"smoke_s={time.perf_counter() - t0:.1f} (build and every phase)",
+          flush=True)
     print(json.dumps({"kernels": [entry] + family + [paged]
                       + training_entries + moe_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,51 +8,82 @@
 // Layout: q [B, Sq, H, D], k/v [B, Sk, Hk, D], read through their (batch,
 // seq, head) strides with unit stride along D (no transposes on the host);
 // query head h reads kv head h / (H / Hk). Outputs are contiguous: out and
-// dq [B, Sq, H, D], dk/dv [B, Sk, Hk, D], lse [B, H, Sq] f32. Causal
-// alignment is bottom-right: query i sees keys j <= i + (Sk - Sq).
+// dq [B, Sq, H, D], dk/dv [B, Sk, Hk, D] in the inputs' dtype, lse [B, H, Sq]
+// f32. Causal alignment is bottom-right: query i sees keys j <= i + (Sk - Sq).
+// Both sequence lengths are multiples of 128.
 //
-// Design. Every kernel works on 64-row tiles of q and k with 4 warps; a warp
-// owns 16 rows of its block's tile. The products run on the tensor cores
-// through WMMA (16x16x16 bf16, f32 accumulation); the softmax and the
-// elementwise backward run in f32 on scores stored to shared memory, where
-// each warp touches only its own rows. Probabilities P and the score
-// gradient dS are f32 values that the products need in bf16: each is split
-// into hi = bf16(x) and lo = bf16(x - hi) and multiplied twice, so the
-// products see ~16 bits of mantissa and the kernels agree with the f32 plain
-// version to f32 summation order (the bf16 inputs are exact operands).
-//   forward  one block per (q tile, head, batch): Q fragments in registers,
-//            K/V tiles streamed to the causal horizon, online softmax with a
-//            finite -1e30 running max, the output accumulator in shared
-//            memory (rescaled by each tile's alpha); lse = m + log l.
-//   dQ       one block per (q tile, head, batch): Q and dO fragments in
-//            registers, P = exp(S scale - lse) recomputed from the saved lse,
-//            dS = P (dP - delta) scale, dQ += dS K in register accumulators.
-//   dK/dV    one block per (k tile, kv head, batch): loops over the group's
-//            query heads and the q tiles from the causal start block
-//            max(0, (k0 - offset) / 64), streaming Q and dO tiles through
-//            shared memory (the TPU kernel held the group's whole Q and dO in
-//            VMEM); computes S^T = K Q^T and dP^T = V dO^T, so dV += P^T dO
-//            and dK += dS^T Q need no transposed copies. The group's sum
-//            stays in the block's register accumulators: no atomics, and
-//            the result does not depend on scheduling.
+// Two instances of each kernel; ops/flash_attention.py picks one by dtype
+// and head_dim (one rule, `kernel_instance`), and the C entries refuse any
+// other pairing:
+//
+//   tensor-core  bf16 at D 64 or 128.
+//     forward  wgmma + TMA: one block per (128 q rows, head, batch), longest
+//              causal rows first; two consumer warpgroups of 64 q rows and
+//              a producer warpgroup, one lane of which issues the copies
+//              (setmaxnreg moves registers by warpgroups: the producer
+//              drops to 24, the consumers rise to 240). The producer loads
+//              Q once and keeps rings of 2 stages of 128-key K tiles and of
+//              V tiles full through TMA (4-D tensor maps over the strided
+//              tensors, 128-byte swizzle, mbarriers). S = Q K^T is wgmma m64n128k16
+//              with both operands K-major in shared memory and the f32
+//              accumulator in registers; the online softmax runs on those
+//              registers (row max by quad shuffles, exp2 with
+//              scale * log2(e) folded in, the reference's finite -1e30 mask
+//              on the diagonal tile only); P is split in registers into bf16
+//              hi + lo and fed as the register A operand of two wgmma
+//              m64nDk16 per 16 keys against V read transposed (MN-major)
+//              from shared memory; O stays in registers for the whole key
+//              loop. Each warpgroup issues tile j's S before tile j-1's
+//              P V and runs tile j's softmax while P V is in flight. The epilogue stages O / l as bf16 in shared memory and
+//              stores 16-byte rows; lse = m + log l.
+//     dQ, dK/dV  WMMA (16x16x16 bf16, f32 accumulation) on 64-row tiles with
+//              4 warps; a warp owns 16 rows of its block's tile. Scores and
+//              the elementwise backward in f32 through shared memory.
+//              dQ: one block per (q tile, head, batch), dQ += dS K in
+//              register accumulators. dK/dV: one block per (k tile, kv head,
+//              batch) loops over the group's query heads and the q tiles
+//              from the causal start, computes S^T = K Q^T and dP^T = V dO^T
+//              so dV += P^T dO and dK += dS^T Q need no transposed copies,
+//              and sums the group in registers: no atomics.
+//   general      every other (dtype, D) of the reference's domain: f32, f16
+//              and bf16 (read as 16-bit, computed in f32), any D % 8 == 0 up
+//              to 256, padded with zeros to a multiple of 16 in shared
+//              memory. The same three kernels on 32-row tiles with 256
+//              threads; each thread owns 2 x 2 scores and 2 rows x D/16
+//              output columns in registers; every product is an f32 FMA
+//              (never TF32).
+//
+// P and dS are f32 values the bf16 products need in bf16: each is split into
+// hi = bf16(x) and lo = bf16(x - hi) and multiplied twice, so the products
+// see ~16 bits of mantissa and the kernels agree with the f32 plain version
+// to f32 summation order (the bf16 inputs are exact operands).
 //
 // Bound. At training shapes (S = 2048, D = 128) the kernels are bound by
 // operations: 4 D flops per unmasked (query, key) pair forward, 6 D for dQ,
-// 8 D for dK/dV, against 989 TFLOP/s of dense bf16; the bytes (q, k, v, dO
-// and the outputs, once each) are far below that line.
+// 8 D for dK/dV, against 989 TFLOP/s of dense bf16 (67 TFLOP/s of f32 for
+// the general instance); the bytes (q, k, v, dO and the outputs, once each)
+// are far below that line.
 //
-// What the simple design leaves on the table: WMMA through shared memory
-// instead of wgmma with register-resident accumulators, scores and the
-// output accumulator round-tripping through shared memory, one softmax row
-// per warp step with shuffles, no cp.async/TMA pipelining of the K/V (or
-// Q/dO) tiles, and the hi/lo split doubling the P and dS products.
+// What is left on the table: the split doubles the forward's P V product,
+// the masked half of each diagonal tile is computed, and the two consumer
+// warpgroups are not ordered against each other (no ping-pong of one's
+// softmax against the other's products). dQ and dK/dV keep WMMA through
+// shared memory and reach 255 registers.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <mma.h>
+#include <stdint.h>
 
 namespace {
+
+// error codes of the forward's tensor maps, past the CUDA runtime's own
+constexpr int kErrNoEncoder = 10001;
+constexpr int kErrTensorMap = 10002;
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
@@ -109,19 +140,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src) {
   if (threadIdx.x < kTile) dst[threadIdx.x] = src[threadIdx.x];
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // x = hi + lo to ~16 bits of mantissa, both bf16
 __device__ __forceinline__ void split_bf16(float x, bf16* hi, bf16* lo) {
   const bf16 h = __float2bfloat16_rn(x);
@@ -157,122 +175,6 @@ __device__ __forceinline__ void write_rows(bf16* out, long long row_stride,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, Strides qs, Strides ks,
-                     Strides vs, int H, int Hk, int Sq, int Sk, int causal,
-                     float scale) {
-  using T = Dims<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);                 // [64][D+8]
-  bf16* v_s = k_s + T::kTileH;                               // [64][D+8]
-  float* s_s = reinterpret_cast<float*>(v_s + T::kTileH);    // [64][68]
-  bf16* ph_s = reinterpret_cast<bf16*>(s_s + T::kTileS);     // [64][72]
-  bf16* pl_s = ph_s + T::kTileP;                             // [64][72]
-  float* o_s = reinterpret_cast<float*>(pl_s + T::kTileP);   // [64][D+4]
-  float* m_s = o_s + kTile * T::kLdO;                        // [64]
-  float* l_s = m_s + kTile;                                  // [64]
-  float* a_s = l_s + kTile;                                  // [64]
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hk);
-  const int q0 = qt * kTile, offset = Sk - Sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp * 16;
-
-  // Q stages through the score tile into the warp's register fragments
-  bf16* q_stage = reinterpret_cast<bf16*>(s_s);
-  load_tile<D>(q_stage, q, qs, b, q0, h);
-  for (int i = threadIdx.x; i < kTile * T::kLdO; i += kThreads) o_s[i] = 0.f;
-  if (threadIdx.x < kTile) {
-    m_s[threadIdx.x] = kNegInf;
-    l_s[threadIdx.x] = 0.f;
-  }
-  __syncthreads();
-  FragA qf[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], q_stage + wr * T::kLdH + kk * 16,
-                           T::kLdH);
-  __syncthreads();
-
-  int n_kt = Sk / kTile;
-  // keys past the tile's last query (q0 + 63 + offset) are all masked
-  if (causal) n_kt = min(n_kt, (q0 + 2 * kTile - 1 + offset) / kTile);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    load_tile<D>(k_s, k, ks, b, k0, hk);
-    load_tile<D>(v_s, v, vs, b, k0, hk);
-    __syncthreads();
-#pragma unroll
-    for (int n = 0; n < kTile / 16; ++n) {  // S = Q K^T, the warp's rows
-      FragC c;
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        FragBt kb;
-        wmma::load_matrix_sync(kb, k_s + n * 16 * T::kLdH + kk * 16, T::kLdH);
-        wmma::mma_sync(c, qf[kk], kb, c);
-      }
-      wmma::store_matrix_sync(s_s + wr * kLdS + n * 16, c, kLdS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-    // online softmax, one row per step; lane owns columns lane, lane + 32
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr + r, qpos = q0 + row + offset;
-      float s0 = s_s[row * kLdS + lane] * scale;
-      float s1 = s_s[row * kLdS + lane + 32] * scale;
-      if (causal) {
-        if (k0 + lane > qpos) s0 = kNegInf;
-        if (k0 + lane + 32 > qpos) s1 = kNegInf;
-      }
-      const float m_prev = m_s[row];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      const float sum = warp_sum(p0 + p1);
-      split_bf16(p0, ph_s + row * kLdP + lane, pl_s + row * kLdP + lane);
-      split_bf16(p1, ph_s + row * kLdP + lane + 32,
-                 pl_s + row * kLdP + lane + 32);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[row] = l_s[row] * alpha + sum;
-        m_s[row] = m_new;
-        a_s[row] = alpha;
-      }
-    }
-    __syncwarp();
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int r = i / D, c = i - r * D;
-      o_s[(wr + r) * T::kLdO + c] *= a_s[wr + r];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {  // O += (P_hi + P_lo) V
-      FragC c;
-      float* o_tile = o_s + wr * T::kLdO + n * 16;
-      wmma::load_matrix_sync(c, o_tile, T::kLdO, wmma::mem_row_major);
-      mma_row<kTile / 16, FragB>(c, ph_s + wr * kLdP, kLdP, v_s + n * 16,
-                                 T::kLdH, 16 * T::kLdH);
-      mma_row<kTile / 16, FragB>(c, pl_s + wr * kLdP, kLdP, v_s + n * 16,
-                                 T::kLdH, 16 * T::kLdH);
-      wmma::store_matrix_sync(o_tile, c, T::kLdO, wmma::mem_row_major);
-    }
-    __syncthreads();  // k_s / v_s are reloaded next
-  }
-
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = i / D, c = i - r * D, row = wr + r;
-    out[(((long long)b * Sq + q0 + row) * H + h) * D + c] =
-        __float2bfloat16_rn(o_s[row * T::kLdO + c] / l_s[row]);
-  }
-  if (lane < 16) {
-    const int row = wr + lane;
-    lse[((long long)b * H + h) * Sq + q0 + row] = m_s[row] + logf(l_s[row]);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -491,20 +393,6 @@ int prepare(K kernel, size_t smem) {
 }
 
 template <int D>
-int forward(const void* q, const void* k, const void* v, void* out, void* lse,
-            Strides qs, Strides ks, Strides vs, int B, int H, int Hk, int Sq,
-            int Sk, int causal, float scale, cudaStream_t stream) {
-  using T = Dims<D>;
-  const size_t smem = 2 * T::kTileH * 2 + T::kTileS * 4 + 2 * T::kTileP * 2 +
-                      kTile * T::kLdO * 4 + 3 * kTile * 4;
-  if (int e = prepare(flash_fwd_kernel<D>, smem)) return e;
-  flash_fwd_kernel<D><<<dim3(Sq / kTile, H, B), kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, (float*)lse,
-      qs, ks, vs, H, Hk, Sq, Sk, causal, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
 int backward_dq(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dq, Strides qs,
                 Strides ks, Strides vs, Strides dos, int B, int H, int Hk,
@@ -538,74 +426,953 @@ int backward_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// Forward, bf16 at D 64 / 128: wgmma + TMA (replaces _fwd, pallas_call :155)
+// ---------------------------------------------------------------------------
+namespace wg {
 
-// C interface, loaded with ctypes. q/k/v/dout/out/dq/dk/dv are bf16, lse and
-// delta f32 [B, H, Sq]. Strides are (batch, seq, head) element strides of
-// each input. Each entry launches on `stream`, does not synchronise, and
-// returns the cudaGetLastError() code of its launch (0 on success);
-// head_dim must be 64 or 128 and both sequence lengths multiples of 64.
+constexpr int kRows = 128;       // q rows of a block, keys of a K/V tile
+constexpr int kConsumers = 2;    // warpgroups of 64 q rows each
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+constexpr int kStages = 2;       // K/V tiles in flight
+constexpr int kBox = 64;         // bf16 columns of one 128-byte swizzled box
+constexpr int kBoxBytes = kRows * kBox * 2;      // one [128][64] box: 16 KB
+constexpr float kLn2 = 0.69314718055994531f;
+// registers a thread after the split: the launch gives 168 to each of the
+// 384 threads (65536 / 384); 2 x 128 x 240 + 128 x 24 is the same file
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// shared memory: Q [D/64 boxes of 128 x 64], then a ring of kStages K tiles
+// and a ring of kStages V tiles in the same box layout, then the mbarriers;
+// the base is aligned to 1024 bytes (the 128-byte swizzle repeats every 8
+// rows)
+template <int D>
+struct Smem {
+  static constexpr int kTile = kRows * D * 2;
+  static constexpr int kK = kTile;                       // K stage s at +s
+  static constexpr int kV = kK + kStages * kTile;        // V stage s at +s
+  // k_full, k_empty, v_full, v_empty (kStages each), q
+  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kBytes = kBar + 8 * (4 * kStages + 1) + 1024;
+  static constexpr int kLdStage = D + 8;                 // epilogue rows
+  static_assert(kConsumers * 64 * kLdStage * 2 <= kStages * kTile,
+                "the epilogue stages in the K ring");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one [128 rows][64 columns] box of a [B, S, heads, D] tensor map
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row),
+      "r"(batch), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// a shared-memory matrix descriptor with the 128-byte swizzle; `lbo` and
+// `sbo` in bytes (K-major: sbo = 8 rows; MN-major: lbo = the next 64
+// columns, sbo = the next 8 rows of K)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads and writes across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d[64] (+)= A[64 x 16] B[16 x 128], both operands K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[32] += A[64 x 16] B[16 x 64]: A from registers (bf16x2 a[4]), B
+// MN-major in shared memory (read transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64] += A[64 x 16] B[16 x 128]: A from registers (bf16x2 a[4]), B
+// MN-major in shared memory (read transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(o, a, b);
+  } else {
+    wgmma_rs_n64(o, a, b);
+  }
+}
+
+// Accumulator layout of m64nNk16 (f32): warp w of the warpgroup owns rows
+// 16w + lane/4 (+8); register i holds row +8 * ((i >> 1) & 1), column
+// 8 * (i >> 2) + 2 * (lane & 3) + (i & 1). Registers 8kk..8kk+7 of S are
+// the A fragment of keys 16kk..16kk+15 for P V, two values a register.
+//
+// The key loop is software-pipelined inside each warpgroup: tile j's
+// S = Q K_j is issued, then tile j-1's O += P V_{j-1}; the softmax of S_j
+// runs while that product is on the tensor cores, and O is rescaled by
+// tile j's alpha once it has landed. K and V have rings (and barriers) of
+// their own, so K_j's slot frees when S_j is done and V_j's when P V_j is.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    bf16* __restrict__ out, float* __restrict__ lse, int H,
+                    int Hk, int Sq, int Sk, int causal, float scale_log2) {
+  using SM = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base;
+  const uint32_t k_full = base + SM::kBar, k_empty = k_full + 8 * kStages;
+  const uint32_t v_full = k_empty + 8 * kStages;
+  const uint32_t v_empty = v_full + 8 * kStages;
+  const uint32_t q_bar = v_empty + 8 * kStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hk);
+  const int q0 = qt * kRows, offset = Sk - Sq;
+  // keys past the block's last query are all masked; the last tile is the
+  // diagonal one (S and the offset are multiples of 128)
+  const int n_kt = causal ? (q0 + offset) / kRows + 1 : Sk / kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 128 * kConsumers);
+      mbar_init(v_empty + 8 * s, 128 * kConsumers);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {
+    // producer warpgroup: one lane keeps the K and V rings full through
+    // TMA; the warpgroup hands its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
+      mbar_expect_tx(q_bar, SM::kTile);
+      for (int c = 0; c < D / kBox; ++c)
+        tma_load(q_s + c * kBoxBytes, &tq, q_bar, c * kBox, h, q0, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages;
+        const uint32_t parity = ((kt / kStages) & 1) ^ 1;
+        const uint32_t k_s = base + SM::kK + s * SM::kTile;
+        const uint32_t v_s = base + SM::kV + s * SM::kTile;
+        mbar_wait(k_empty + 8 * s, parity);
+        mbar_expect_tx(k_full + 8 * s, SM::kTile);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load(k_s + c * kBoxBytes, &tk, k_full + 8 * s, c * kBox, hk,
+                   kt * kRows, b);
+        mbar_wait(v_empty + 8 * s, parity);
+        mbar_expect_tx(v_full + 8 * s, SM::kTile);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load(v_s + c * kBoxBytes, &tv, v_full + 8 * s, c * kBox, hk,
+                   kt * kRows, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup `grp` owns q rows 64 grp .. 64 grp + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int grp = warp >> 2;
+  const int row = grp * 64 + (warp & 3) * 16 + (lane >> 2);  // and row + 8
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float sc[64];
+  uint32_t p_hi[8][4], p_lo[8][4];
+
+  // S = Q K^T of tile kt: K-major operands, 16 columns of D (32 bytes) a
+  // step; committed as one group
+  auto issue_s = [&](int kt) {
+    const int s = kt % kStages;
+    mbar_wait(k_full + 8 * s, (kt / kStages) & 1);
+    const uint32_t k_s = base + SM::kK + s * SM::kTile;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t step = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
+      wgmma_ss_n128(sc, smem_desc(q_s + step + grp * 64 * 128, 16, 1024),
+                    smem_desc(k_s + step, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P_hi V + P_lo V of tile kt: V MN-major (transposed), 16 keys a
+  // step; committed as one group
+  auto issue_pv = [&](int kt) {
+    const int s = kt % kStages;
+    mbar_wait(v_full + 8 * s, (kt / kStages) & 1);
+    const uint32_t v_s = base + SM::kV + s * SM::kTile;
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_pv<D>(o, p_hi[kk],
+                  smem_desc(v_s + kk * 16 * 128, kBoxBytes, 1024));
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_pv<D>(o, p_lo[kk],
+                  smem_desc(v_s + kk * 16 * 128, kBoxBytes, 1024));
+    wgmma_commit();
+  };
+  // the online softmax of tile kt on S in registers, in base 2 with the
+  // scale folded in; the reference's finite -1e30 mask on the diagonal
+  // tile only. Leaves P (f32) in sc and returns each row's rescale.
+  auto softmax = [&](int kt, float (&alpha)[2]) {
+    const bool diag = causal && kt == n_kt - 1;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float x = sc[i] * scale_log2;
+      const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      if (diag && col > row + 8 * ((i >> 1) & 1)) x = kNegInf;
+      sc[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+      alpha[j] = exp2f(m[j] - mx[j]);
+      m[j] = mx[j];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      sc[i] = exp2f(sc[i] - m[(i >> 1) & 1]);
+      ps[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + ps[j];
+  };
+  // P = hi + lo, both bf16, as the register A operand
+  auto split_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
+        p_hi[kk][r] = pack_bf16(x0, x1);
+        const __nv_bfloat162 hv =
+            *reinterpret_cast<const __nv_bfloat162*>(&p_hi[kk][r]);
+        p_lo[kk][r] = pack_bf16(x0 - __low2float(hv), x1 - __high2float(hv));
+      }
+    }
+  };
+
+  mbar_wait(q_bar, 0);
+  float alpha[2];
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  mbar_arrive(k_empty);
+  softmax(0, alpha);  // O is still zero: nothing to rescale
+  split_p();
+  for (int kt = 1; kt < n_kt; ++kt) {
+    issue_s(kt);
+    issue_pv(kt - 1);
+    wgmma_wait<1>();  // S of tile kt has landed; P V of kt - 1 runs on
+    fence_regs(sc);
+    mbar_arrive(k_empty + 8 * (kt % kStages));
+    softmax(kt, alpha);
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(v_empty + 8 * ((kt - 1) % kStages));
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    split_p();
+  }
+  issue_pv(n_kt - 1);
+  wgmma_wait<0>();
+  fence_regs(o);
+  mbar_arrive(v_empty + 8 * ((n_kt - 1) % kStages));
+
+  // epilogue: O / l to bf16, staged in the K ring once both warpgroups are
+  // done with every tile, then stored as 16-byte rows
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+  }
+  named_sync(1, 128 * kConsumers);
+  bf16* stage = reinterpret_cast<bf16*>(smem + SM::kK) +
+                grp * 64 * SM::kLdStage;
+  const int r0 = row - grp * 64;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int hr = (i >> 1) & 1;
+    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    *reinterpret_cast<uint32_t*>(stage + (r0 + 8 * hr) * SM::kLdStage + col) =
+        pack_bf16(o[i] / l[hr], o[i + 1] / l[hr]);
+  }
+  named_sync(2 + grp, 128);
+  const int t = threadIdx.x - grp * 128;
+  bf16* dst = out + (((long long)b * Sq + q0 + grp * 64) * H + h) * D;
+  for (int v = t; v < 64 * D / 8; v += 128) {
+    const int r = v / (D / 8), c = (v - r * (D / 8)) * 8;
+    *reinterpret_cast<uint4*>(dst + (long long)r * H * D + c) =
+        *reinterpret_cast<const uint4*>(stage + r * SM::kLdStage + c);
+  }
+  if ((lane & 3) == 0) {
+    float* lrow = lse + ((long long)b * H + h) * Sq + q0;
+    lrow[row] = m[0] * kLn2 + logf(l[0]);
+    lrow[row + 8] = m[1] * kLn2 + logf(l[1]);
+  }
+}
+
+// cuTensorMapEncodeTiled from libcuda, found at run time (PyTorch has
+// loaded it already), so the library links against nothing but cudart
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// a 4-D map (D, heads, S, B) of a bf16 [B, S, heads, D] tensor read through
+// its strides, [128 rows][64 columns] boxes with the 128-byte swizzle
+int tensor_map(CUtensorMap* map, const void* ptr, Strides st, int D,
+               int heads, int S, int B) {
+  const EncodeTiled encode = encoder();
+  if (!encode) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {kBox, 1, kRows, 1}, elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+template <int D>
+int forward(const void* q, const void* k, const void* v, void* out, void* lse,
+            Strides qs, Strides ks, Strides vs, int B, int H, int Hk, int Sq,
+            int Sk, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (int e = tensor_map(&tq, q, qs, D, H, Sq, B)) return e;
+  if (int e = tensor_map(&tk, k, ks, D, Hk, Sk, B)) return e;
+  if (int e = tensor_map(&tv, v, vs, D, Hk, Sk, B)) return e;
+  const size_t smem = Smem<D>::kBytes;
+  if (int e = prepare(flash_fwd_wgmma<D>, smem)) return e;
+  const float log2e = 1.4426950408889634f;
+  flash_fwd_wgmma<D><<<dim3(Sq / kRows, H, B), kThreads, smem, stream>>>(
+      tq, tk, tv, (bf16*)out, (float*)lse, H, Hk, Sq, Sk, causal,
+      scale * log2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// The general instance: every other (dtype, D) of the domain (f32, f16, bf16;
+// D % 8 == 0, D <= 256), forward, dQ and dK/dV, products in f32 FMAs
+// ---------------------------------------------------------------------------
+namespace gen {
+
+constexpr int kTile = 32;     // q rows and keys of a tile
+constexpr int kThreads = 256;
+constexpr int kMaxCols = 16;  // output columns a thread owns: DP / 16
+constexpr int kLdP = kTile + 1;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// rows [row0, row0 + 32) of head `head` of a strided [B, S, heads, D] tensor
+// as f32 into a shared [32][DP + 1] tile, columns D..DP-1 zero
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, Strides st,
+                                          int b, int row0, int head, int D,
+                                          int DP) {
+  const T* base = src + b * st.b + row0 * st.s + head * st.h;
+  for (int i = threadIdx.x; i < kTile * DP; i += kThreads) {
+    const int r = i / DP, c = i - r * DP;
+    dst[r * (DP + 1) + c] = c < D ? to_f32(base[r * st.s + c]) : 0.f;
+  }
+}
+
+// 32 x 32 products of the thread's 2 rows (2ty, 2ty+1) of `a` and its 2
+// rows (tx, tx + 16) of `b`, over DP (a multiple of 16) columns
+__device__ __forceinline__ void dots(float (&acc)[2][2], const float* a,
+                                     const float* b, int DP, int ty, int tx) {
+  const float* a0 = a + 2 * ty * (DP + 1);
+  const float* a1 = a0 + DP + 1;
+  const float* b0 = b + tx * (DP + 1);
+  const float* b1 = b0 + 16 * (DP + 1);
+#pragma unroll 4
+  for (int d = 0; d < DP; ++d) {
+    const float x0 = a0[d], x1 = a1[d], y0 = b0[d], y1 = b1[d];
+    acc[0][0] = fmaf(x0, y0, acc[0][0]);
+    acc[0][1] = fmaf(x0, y1, acc[0][1]);
+    acc[1][0] = fmaf(x1, y0, acc[1][0]);
+    acc[1][1] = fmaf(x1, y1, acc[1][1]);
+  }
+}
+
+// acc[r][j] += sum_k p[2ty + r][k] x[k][tx + 16j], k over the 32 keys
+__device__ __forceinline__ void accumulate(float (&acc)[2][kMaxCols],
+                                           const float* p, const float* x,
+                                           int DP, int ty, int tx) {
+  for (int k = 0; k < kTile; ++k) {
+    const float p0 = p[2 * ty * kLdP + k], p1 = p[(2 * ty + 1) * kLdP + k];
+    const float* xr = x + k * (DP + 1) + tx;
+#pragma unroll
+    for (int j = 0; j < kMaxCols; ++j) {
+      if (16 * j < DP) {
+        acc[0][j] = fmaf(p0, xr[16 * j], acc[0][j]);
+        acc[1][j] = fmaf(p1, xr[16 * j], acc[1][j]);
+      }
+    }
+  }
+}
+
+// max / sum over the 16 lanes (tx) that share a row
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_rows(T* out, long long row_stride,
+                                           const float (&acc)[2][kMaxCols],
+                                           const float (&div)[2], int D,
+                                           int DP, int ty, int tx) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < kMaxCols; ++j) {
+      const int c = tx + 16 * j;
+      if (16 * j < DP && c < D)
+        out[(2 * ty + r) * row_stride + c] = from_f32<T>(acc[r][j] / div[r]);
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ out,
+              float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
+              int D, int DP, int H, int Hk, int Sq, int Sk, int causal,
+              float scale) {
+  extern __shared__ float fsm[];
+  float* q_s = fsm;                       // [32][DP+1]
+  float* k_s = q_s + kTile * (DP + 1);    // [32][DP+1]
+  float* v_s = k_s + kTile * (DP + 1);    // [32][DP+1]
+  float* p_s = v_s + kTile * (DP + 1);    // [32][33]
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hk);
+  const int q0 = qt * kTile, offset = Sk - Sq;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  load_tile(q_s, q, qs, b, q0, h, D, DP);
+  float acc[2][kMaxCols] = {};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int n_kt = causal ? (q0 + kTile - 1 + offset) / kTile + 1
+                          : Sk / kTile;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    load_tile(k_s, k, ks, b, k0, hk, D, DP);
+    load_tile(v_s, v, vs, b, k0, hk, D, DP);
+    __syncthreads();
+    float s[2][2] = {};
+    dots(s, q_s, k_s, DP, ty, tx);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = q0 + 2 * ty + r + offset;
+      float x[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        x[c] = s[r][c] * scale;
+        if (causal && k0 + tx + 16 * c > qpos) x[c] = kNegInf;
+      }
+      const float m_new = fmaxf(m[r], row_max(fmaxf(x[0], x[1])));
+      const float alpha = expf(m[r] - m_new);
+      const float p0 = expf(x[0] - m_new), p1 = expf(x[1] - m_new);
+      l[r] = l[r] * alpha + row_sum(p0 + p1);
+      m[r] = m_new;
+      p_s[(2 * ty + r) * kLdP + tx] = p0;
+      p_s[(2 * ty + r) * kLdP + tx + 16] = p1;
+#pragma unroll
+      for (int j = 0; j < kMaxCols; ++j) acc[r][j] *= alpha;
+    }
+    __syncthreads();
+    accumulate(acc, p_s, v_s, DP, ty, tx);
+    __syncthreads();
+  }
+  store_rows(out + (((long long)b * Sq + q0) * H + h) * D, (long long)H * D,
+             acc, l, D, DP, ty, tx);
+  if (tx == 0) {
+    float* lrow = lse + ((long long)b * H + h) * Sq + q0 + 2 * ty;
+    lrow[0] = m[0] + logf(l[0]);
+    lrow[1] = m[1] + logf(l[1]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dq, Strides qs, Strides ks, Strides vs,
+             Strides dos, int D, int DP, int H, int Hk, int Sq, int Sk,
+             int causal, float scale) {
+  extern __shared__ float fsm[];
+  float* q_s = fsm;
+  float* do_s = q_s + kTile * (DP + 1);
+  float* k_s = do_s + kTile * (DP + 1);
+  float* v_s = k_s + kTile * (DP + 1);
+  float* ds_s = v_s + kTile * (DP + 1);  // [32][33]
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hk);
+  const int q0 = qt * kTile, offset = Sk - Sq;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  load_tile(q_s, q, qs, b, q0, h, D, DP);
+  load_tile(do_s, dout, dos, b, q0, h, D, DP);
+  const long long rb = ((long long)b * H + h) * Sq + q0 + 2 * ty;
+  const float lse_r[2] = {lse[rb], lse[rb + 1]};
+  const float dl_r[2] = {delta[rb], delta[rb + 1]};
+  float acc[2][kMaxCols] = {};
+  const int n_kt = causal ? (q0 + kTile - 1 + offset) / kTile + 1
+                          : Sk / kTile;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    load_tile(k_s, k, ks, b, k0, hk, D, DP);
+    load_tile(v_s, v, vs, b, k0, hk, D, DP);
+    __syncthreads();
+    float s[2][2] = {}, dp[2][2] = {};
+    dots(s, q_s, k_s, DP, ty, tx);
+    dots(dp, do_s, v_s, DP, ty, tx);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = tx + 16 * c;
+        float p = 0.f;
+        if (!causal || k0 + key <= q0 + 2 * ty + r + offset)
+          p = expf(s[r][c] * scale - lse_r[r]);
+        ds_s[(2 * ty + r) * kLdP + key] = p * (dp[r][c] - dl_r[r]) * scale;
+      }
+    __syncthreads();
+    accumulate(acc, ds_s, k_s, DP, ty, tx);
+    __syncthreads();
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows(dq + (((long long)b * Sq + q0) * H + h) * D, (long long)H * D,
+             acc, one, D, DP, ty, tx);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dk, T* __restrict__ dv, Strides qs, Strides ks,
+              Strides vs, Strides dos, int D, int DP, int H, int Hk, int Sq,
+              int Sk, int causal, float scale) {
+  extern __shared__ float fsm[];
+  float* k_s = fsm;
+  float* v_s = k_s + kTile * (DP + 1);
+  float* q_s = v_s + kTile * (DP + 1);
+  float* do_s = q_s + kTile * (DP + 1);
+  float* pt_s = do_s + kTile * (DP + 1);   // [32 keys][33]
+  float* dst_s = pt_s + kTile * kLdP;      // [32 keys][33]
+  float* lse_s = dst_s + kTile * kLdP;     // [32]
+  float* dl_s = lse_s + kTile;             // [32]
+  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hk, k0 = kt * kTile, offset = Sk - Sq;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  load_tile(k_s, k, ks, b, k0, hk, D, DP);
+  load_tile(v_s, v, vs, b, k0, hk, D, DP);
+  float dk_acc[2][kMaxCols] = {}, dv_acc[2][kMaxCols] = {};
+  // q tiles whose last query precedes this k tile never see it
+  const int qt0 = causal ? max(0, (k0 - offset) / kTile) : 0;
+  for (int g = 0; g < G; ++g) {
+    const int h = hk * G + g;
+    for (int qt = qt0; qt < Sq / kTile; ++qt) {
+      const int q0 = qt * kTile;
+      load_tile(q_s, q, qs, b, q0, h, D, DP);
+      load_tile(do_s, dout, dos, b, q0, h, D, DP);
+      const long long rb = ((long long)b * H + h) * Sq + q0;
+      if (threadIdx.x < kTile) {
+        lse_s[threadIdx.x] = lse[rb + threadIdx.x];
+        dl_s[threadIdx.x] = delta[rb + threadIdx.x];
+      }
+      __syncthreads();
+      // rows are keys (2ty, 2ty+1), columns queries (tx, tx+16)
+      float st[2][2] = {}, dpt[2][2] = {};
+      dots(st, k_s, q_s, DP, ty, tx);
+      dots(dpt, v_s, do_s, DP, ty, tx);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = tx + 16 * c;
+          float p = 0.f;
+          if (!causal || k0 + 2 * ty + r <= q0 + qi + offset)
+            p = expf(st[r][c] * scale - lse_s[qi]);
+          pt_s[(2 * ty + r) * kLdP + qi] = p;
+          dst_s[(2 * ty + r) * kLdP + qi] =
+              p * (dpt[r][c] - dl_s[qi]) * scale;
+        }
+      __syncthreads();
+      accumulate(dv_acc, pt_s, do_s, DP, ty, tx);
+      accumulate(dk_acc, dst_s, q_s, DP, ty, tx);
+      __syncthreads();
+    }
+  }
+  const long long base = (((long long)b * Sk + k0) * Hk + hk) * D;
+  const float one[2] = {1.f, 1.f};
+  store_rows(dk + base, (long long)Hk * D, dk_acc, one, D, DP, ty, tx);
+  store_rows(dv + base, (long long)Hk * D, dv_acc, one, D, DP, ty, tx);
+}
+
+inline int padded(int D) { return (D + 15) / 16 * 16; }
+inline size_t tile_floats(int DP) { return (size_t)kTile * (DP + 1); }
+
+template <typename T>
+int forward(const void* q, const void* k, const void* v, void* out, void* lse,
+            Strides qs, Strides ks, Strides vs, int D, int B, int H, int Hk,
+            int Sq, int Sk, int causal, float scale, cudaStream_t stream) {
+  const int DP = padded(D);
+  const size_t smem = 4 * (3 * tile_floats(DP) + kTile * kLdP);
+  if (int e = prepare(flash_fwd<T>, smem)) return e;
+  flash_fwd<T><<<dim3(Sq / kTile, H, B), kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, qs, ks, vs,
+      D, DP, H, Hk, Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int backward_dq(const void* q, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, void* dq, Strides qs,
+                Strides ks, Strides vs, Strides dos, int D, int B, int H,
+                int Hk, int Sq, int Sk, int causal, float scale,
+                cudaStream_t stream) {
+  const int DP = padded(D);
+  const size_t smem = 4 * (4 * tile_floats(DP) + kTile * kLdP);
+  if (int e = prepare(flash_dq<T>, smem)) return e;
+  flash_dq<T><<<dim3(Sq / kTile, H, B), kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dq, qs, ks, vs, dos, D, DP,
+      H, Hk, Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int backward_dkv(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, Strides qs, Strides ks, Strides vs,
+                 Strides dos, int D, int B, int H, int Hk, int Sq, int Sk,
+                 int causal, float scale, cudaStream_t stream) {
+  const int DP = padded(D);
+  const size_t smem = 4 * (4 * tile_floats(DP) + 2 * kTile * kLdP + 2 * kTile);
+  if (int e = prepare(flash_dkv<T>, smem)) return e;
+  flash_dkv<T><<<dim3(Sk / kTile, Hk, B), kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, qs, ks, vs, dos,
+      D, DP, H, Hk, Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gen
+
+}  // namespace
+// C interface, loaded with ctypes. `instance` is 0 for the tensor-core
+// kernels (bf16, head_dim 64 or 128) and 1 for the general ones; `dtype` is
+// 0 bf16, 1 f16, 2 f32 (q/k/v/dout and the outputs alike); lse and delta are
+// f32 [B, H, Sq]. Strides are (batch, seq, head) element strides of each
+// input. Each entry launches on `stream`, does not synchronise, and returns
+// the cudaGetLastError() code of its launch (0 on success), or
+// cudaErrorInvalidValue for an (instance, dtype, head_dim) that no kernel
+// takes.
 extern "C" {
 
 const char* fa_error_string(int code) {
+  if (code == kErrNoEncoder)
+    return "cuTensorMapEncodeTiled not found in libcuda.so.1";
+  if (code == kErrTensorMap)
+    return "cuTensorMapEncodeTiled refused a tensor map (strides or "
+           "alignment)";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int fa_forward(const void* q, const void* k, const void* v, void* out,
-               void* lse, long long qsb, long long qss, long long qsh,
-               long long ksb, long long kss, long long ksh, long long vsb,
-               long long vss, long long vsh, int D, int B, int H, int Hk,
-               int Sq, int Sk, int causal, float scale, void* stream) {
+int fa_forward(int instance, int dtype, const void* q, const void* k,
+               const void* v, void* out, void* lse, long long qsb,
+               long long qss, long long qsh, long long ksb, long long kss,
+               long long ksh, long long vsb, long long vss, long long vsh,
+               int D, int B, int H, int Hk, int Sq, int Sk, int causal,
+               float scale, void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not a stale one
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64)
-    return forward<64>(q, k, v, out, lse, qs, ks, vs, B, H, Hk, Sq, Sk,
-                       causal, scale, st);
-  if (D == 128)
-    return forward<128>(q, k, v, out, lse, qs, ks, vs, B, H, Hk, Sq, Sk,
-                        causal, scale, st);
+  if (instance == 0 && dtype == 0 && D == 64)
+    return wg::forward<64>(q, k, v, out, lse, qs, ks, vs, B, H, Hk, Sq, Sk,
+                           causal, scale, st);
+  if (instance == 0 && dtype == 0 && D == 128)
+    return wg::forward<128>(q, k, v, out, lse, qs, ks, vs, B, H, Hk, Sq, Sk,
+                            causal, scale, st);
+  if (instance != 1 || D % 8 || D > 256) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return gen::forward<bf16>(q, k, v, out, lse, qs, ks, vs, D, B, H, Hk, Sq,
+                              Sk, causal, scale, st);
+  if (dtype == 1)
+    return gen::forward<__half>(q, k, v, out, lse, qs, ks, vs, D, B, H, Hk,
+                                Sq, Sk, causal, scale, st);
+  if (dtype == 2)
+    return gen::forward<float>(q, k, v, out, lse, qs, ks, vs, D, B, H, Hk, Sq,
+                               Sk, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
-int fa_backward_dq(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dq, long long qsb, long long qss, long long qsh,
-                   long long ksb, long long kss, long long ksh, long long vsb,
-                   long long vss, long long vsh, long long dsb, long long dss,
-                   long long dsh, int D, int B, int H, int Hk, int Sq, int Sk,
-                   int causal, float scale, void* stream) {
+int fa_backward_dq(int instance, int dtype, const void* q, const void* k,
+                   const void* v, const void* dout, const void* lse,
+                   const void* delta, void* dq, long long qsb, long long qss,
+                   long long qsh, long long ksb, long long kss, long long ksh,
+                   long long vsb, long long vss, long long vsh, long long dsb,
+                   long long dss, long long dsh, int D, int B, int H, int Hk,
+                   int Sq, int Sk, int causal, float scale, void* stream) {
   (void)cudaGetLastError();
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       dos{dsb, dss, dsh};
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64)
+  if (instance == 0 && dtype == 0 && D == 64)
     return backward_dq<64>(q, k, v, dout, lse, delta, dq, qs, ks, vs, dos, B,
                            H, Hk, Sq, Sk, causal, scale, st);
-  if (D == 128)
+  if (instance == 0 && dtype == 0 && D == 128)
     return backward_dq<128>(q, k, v, dout, lse, delta, dq, qs, ks, vs, dos, B,
                             H, Hk, Sq, Sk, causal, scale, st);
+  if (instance != 1 || D % 8 || D > 256) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return gen::backward_dq<bf16>(q, k, v, dout, lse, delta, dq, qs, ks, vs,
+                                  dos, D, B, H, Hk, Sq, Sk, causal, scale, st);
+  if (dtype == 1)
+    return gen::backward_dq<__half>(q, k, v, dout, lse, delta, dq, qs, ks, vs,
+                                    dos, D, B, H, Hk, Sq, Sk, causal, scale,
+                                    st);
+  if (dtype == 2)
+    return gen::backward_dq<float>(q, k, v, dout, lse, delta, dq, qs, ks, vs,
+                                   dos, D, B, H, Hk, Sq, Sk, causal, scale,
+                                   st);
   return (int)cudaErrorInvalidValue;
 }
 
-int fa_backward_dkv(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    void* dk, void* dv, long long qsb, long long qss,
-                    long long qsh, long long ksb, long long kss,
-                    long long ksh, long long vsb, long long vss,
-                    long long vsh, long long dsb, long long dss,
-                    long long dsh, int D, int B, int H, int Hk, int Sq,
-                    int Sk, int causal, float scale, void* stream) {
+int fa_backward_dkv(int instance, int dtype, const void* q, const void* k,
+                    const void* v, const void* dout, const void* lse,
+                    const void* delta, void* dk, void* dv, long long qsb,
+                    long long qss, long long qsh, long long ksb,
+                    long long kss, long long ksh, long long vsb,
+                    long long vss, long long vsh, long long dsb,
+                    long long dss, long long dsh, int D, int B, int H, int Hk,
+                    int Sq, int Sk, int causal, float scale, void* stream) {
   (void)cudaGetLastError();
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       dos{dsb, dss, dsh};
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64)
+  if (instance == 0 && dtype == 0 && D == 64)
     return backward_dkv<64>(q, k, v, dout, lse, delta, dk, dv, qs, ks, vs, dos,
                             B, H, Hk, Sq, Sk, causal, scale, st);
-  if (D == 128)
+  if (instance == 0 && dtype == 0 && D == 128)
     return backward_dkv<128>(q, k, v, dout, lse, delta, dk, dv, qs, ks, vs,
                              dos, B, H, Hk, Sq, Sk, causal, scale, st);
+  if (instance != 1 || D % 8 || D > 256) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return gen::backward_dkv<bf16>(q, k, v, dout, lse, delta, dk, dv, qs, ks,
+                                   vs, dos, D, B, H, Hk, Sq, Sk, causal,
+                                   scale, st);
+  if (dtype == 1)
+    return gen::backward_dkv<__half>(q, k, v, dout, lse, delta, dk, dv, qs,
+                                     ks, vs, dos, D, B, H, Hk, Sq, Sk, causal,
+                                     scale, st);
+  if (dtype == 2)
+    return gen::backward_dkv<float>(q, k, v, dout, lse, delta, dk, dv, qs, ks,
+                                    vs, dos, D, B, H, Hk, Sq, Sk, causal,
+                                    scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

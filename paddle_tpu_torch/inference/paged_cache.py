@@ -342,11 +342,20 @@ class PagedKVCache(PageAllocator):
         self.k_pages[pid, hidx, off] = k
         self.v_pages[pid, hidx, off] = v
 
-    def attend(self, seq_ids, q, scale=None, use_kernel=True):
+    def attend(self, seq_ids, q, scale=None, use_pallas=None,
+               use_kernel=None):
         """Decode-step attention for ``q [B, H, D]`` over the batch's
         pages; rows of ``q`` correspond to ``seq_ids``. On the card
-        ``use_kernel=False`` runs the plain version instead of the
-        kernel; on the CPU both run the plain version."""
+        ``use_pallas=False`` (the reference's name; ``use_kernel`` is an
+        alias; both default to True) runs the plain version instead of
+        the kernel; on the CPU both run the plain version. Passing both
+        names with different values raises :class:`ValueError`."""
+        if use_pallas is not None and use_kernel is not None \
+                and bool(use_pallas) != bool(use_kernel):
+            raise ValueError(f"use_pallas={use_pallas!r} and its alias "
+                             f"use_kernel={use_kernel!r} disagree")
+        use_pallas = next((bool(x) for x in (use_pallas, use_kernel)
+                           if x is not None), True)
         tables, lens = self.batch_views(seq_ids, device=self.k_pages.device)
-        fn = _pa.paged_attention if use_kernel else _pa.paged_attention_ref
+        fn = _pa.paged_attention if use_pallas else _pa.paged_attention_ref
         return fn(q, self.k_pages, self.v_pages, tables, lens, scale=scale)

@@ -62,7 +62,8 @@ import numpy as np
 import torch
 
 from ..incubate.nn.functional import fused_rotary_position_embedding
-from ..ops.ragged_paged_attention import (fused_ragged_paged_attention,
+from ..ops.ragged_paged_attention import (check_geometry,
+                                          fused_ragged_paged_attention,
                                           fused_rope_geometry_ok,
                                           ragged_paged_attention, rope_tables)
 from ..quant.format import (is_quantized, model_weight_block,
@@ -149,18 +150,30 @@ class AdmissionError(MemoryError):
 
 
 class Request:
-    """One generation request (``seq_id`` is assigned by the engine).
+    """One generation request (``seq_id`` is assigned by the engine). The
+    reference's signature and argument order.
 
     Args:
         prompt_ids: non-empty 1-D sequence of prompt token ids.
         max_new_tokens: generation budget, >= 1.
         eos_token_id: optional early-stop token (kept in the output).
-        temperature: 0 (greedy) only; sampling is a later slice.
+        deadline, token_budget, priority, retry_budget: the reference's
+            lifecycle knobs; validated as the reference validates them,
+            and accepted only at their defaults (``None``, ``None``,
+            ``0``, ``1``): deadlines, priorities and retries are ROADMAP
+            item A5.
+        sampling: ``None`` or a greedy sampling spec (``temperature``
+            0, no ``logit_bias``, no ``constraint``), whose ``stop`` ids
+            merge with ``stop``; sampled decoding is ROADMAP item A1.
         stop: token ids that end generation before being appended.
+        on_token: optional ``fn(request, token)`` fired after each
+            appended token (the streaming hook); it runs on the engine's
+            dispatch thread, and what it raises is swallowed.
     """
 
     def __init__(self, prompt_ids, max_new_tokens=16, eos_token_id=None,
-                 temperature=0.0, stop=()):
+                 deadline=None, token_budget=None, priority=0,
+                 retry_budget=1, sampling=None, stop=(), on_token=None):
         self.prompt_ids = np.asarray(prompt_ids, np.int64).reshape(-1)
         if self.prompt_ids.size == 0:
             raise ValueError(
@@ -169,13 +182,42 @@ class Request:
         if int(max_new_tokens) <= 0:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
-        if temperature:
+        if deadline is not None and float(deadline) <= 0:
+            raise ValueError(f"deadline must be > 0 seconds, "
+                             f"got {deadline}")
+        if token_budget is not None and float(token_budget) <= 0:
+            raise ValueError(f"token_budget must be > 0 seconds/token, "
+                             f"got {token_budget}")
+        if int(retry_budget) < 0:
+            raise ValueError(
+                f"retry_budget must be >= 0, got {retry_budget}")
+        lifecycle = {"deadline": deadline is not None,
+                     "token_budget": token_budget is not None,
+                     "priority": int(priority) != 0,
+                     "retry_budget": int(retry_budget) != 1}
+        asked = [k for k, v in lifecycle.items() if v]
+        if asked:
             raise NotImplementedError(
-                "sampled decoding (temperature > 0) is not ported yet "
-                "(ROADMAP queue A); this engine decodes greedily")
+                f"{', '.join(asked)}: request deadlines, priorities and "
+                f"retries are not ported yet (ROADMAP item A5)")
+        if sampling is not None and (
+                float(getattr(sampling, "temperature", 0.0)) != 0.0
+                or getattr(sampling, "logit_bias", None)
+                or getattr(sampling, "constraint", None) is not None):
+            raise NotImplementedError(
+                "sampled decoding (temperature > 0, logit_bias, "
+                "constraint) is not ported yet (ROADMAP item A1); this "
+                "engine decodes greedily")
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
-        self.stop_set = frozenset(int(t) for t in stop)
+        self.deadline = None
+        self.token_budget = None
+        self.priority = 0
+        self.retry_budget = 1
+        self.sampling = sampling
+        self.stop_set = frozenset(int(t) for t in (stop or ())) \
+            | frozenset(int(t) for t in getattr(sampling, "stop", ()) or ())
+        self.on_token = on_token
         self.output_ids: list[int] = []
         self.seq_id = None
         self.done = False
@@ -194,8 +236,10 @@ class LlamaServingEngine:
     ``weight_block``, ``kv_dtype`` (None: the model's dtype; "int8"),
     ``fused_kv`` and ``fused_rope`` (see the module docstring) mean what
     they mean in the reference engine, environment knobs included;
-    ``prefix_cache``, ``spec_k`` and ``kv_tier`` are accepted only at
-    their off values (later slices)."""
+    ``prefix_cache``, ``spec_k`` and ``kv_tier`` (and the reference's
+    ``PADDLE_TPU_SPEC_K`` / ``PADDLE_TPU_KV_TIER``) are accepted only at
+    their off values (later slices); ``prefix_cache`` defaults off here
+    until the prefix cache is ported (ROADMAP A4)."""
 
     #: decode steps between admission checks while prompts are pending
     DECODE_TICKS = 16
@@ -203,12 +247,21 @@ class LlamaServingEngine:
     def __init__(self, model, max_batch=16, page_size=16, num_pages=None,
                  max_pages_per_seq=None, chunk_budget=None,
                  chunk_block=None, decode_ticks=None, prefix_cache=False,
-                 spec_k=0, kv_dtype=None, weight_dtype=None,
-                 weight_block=None, kv_tier=False, fused_kv=None,
+                 spec_k=None, kv_dtype=None, weight_dtype=None,
+                 weight_block=None, kv_tier=None, fused_kv=None,
                  fused_rope=None):
-        later = {"prefix_cache": prefix_cache, "spec_k": spec_k,
-                 "kv_tier": kv_tier}
-        asked = [k for k, v in later.items() if v]
+        # the reference's fleet knobs, read as it reads them: a fleet that
+        # sets them is told, not silently served without the feature
+        if spec_k is None:
+            spec_k = int(os.environ.get("PADDLE_TPU_SPEC_K", "0") or 0)
+        if kv_tier is None:
+            kv_tier = os.environ.get(
+                "PADDLE_TPU_KV_TIER", "0").lower() in ("1", "true", "on")
+        later = {"prefix_cache": (prefix_cache, "A4"),
+                 "spec_k / PADDLE_TPU_SPEC_K": (int(spec_k) > 0, "A6"),
+                 "kv_tier / PADDLE_TPU_KV_TIER": (kv_tier, "A7")}
+        asked = [f"{k} (ROADMAP item {item})"
+                 for k, (on, item) in later.items() if on]
         if asked:
             raise NotImplementedError(
                 f"{', '.join(asked)}: not ported yet (ROADMAP queue A)")
@@ -277,6 +330,11 @@ class LlamaServingEngine:
         self.fused_rope = bool(fused_rope) and self.fused_kv \
             and fused_rope_geometry_ok(cfg.head_dim)
         hk, n_layers = cfg.num_key_value_heads, cfg.num_hidden_layers
+        if self.device.type == "cuda":
+            # a geometry the attention kernels cannot take fails here, not
+            # at the first dispatch
+            check_geometry(page_size, cfg.head_dim, param.dtype,
+                           self.kv_quant)
         shape = (num_pages, hk, page_size, cfg.head_dim)
         pool_dt = torch.int8 if self.kv_quant else param.dtype
         self.k_pools = [torch.zeros(shape, dtype=pool_dt, device=self.device)
@@ -546,6 +604,11 @@ class LlamaServingEngine:
             self._retire(req, "completed")
             return
         req.output_ids.append(token)
+        if req.on_token is not None:
+            try:
+                req.on_token(req, token)
+            except Exception:
+                pass        # a streaming hook never kills a dispatch
         if (req.eos_token_id is not None and token == req.eos_token_id) \
                 or len(req.output_ids) >= req.max_new_tokens:
             self._retire(req, "completed")

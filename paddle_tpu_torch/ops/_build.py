@@ -6,6 +6,9 @@ happen at first use, all sources at once (one ``nvcc`` process each),
 into ``paddle_tpu_torch/build/<hash>/``, keyed by a hash of the
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source rebuilds and an unchanged one is reused. A missing ``nvcc`` or a failed build raises.
+Each build keeps the compiler's output (``ptxas -v``: registers, shared
+memory and spills of every kernel) beside its library; :func:`ptxas_report`
+reads it back.
 """
 
 from __future__ import annotations
@@ -13,17 +16,20 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "data_ptr", "load"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "data_ptr", "load",
+           "ptxas_report"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-ldl"]
 #: library name -> source file under csrc/
 SOURCES = {"ragged_paged_attention": "ragged_paged_attention.cu",
            "flash_attention": "flash_attention.cu",
@@ -85,11 +91,34 @@ def build_all(names=None):
         if proc.returncode != 0:
             failed.append(f"{SOURCES[n]} (exit {proc.returncode}):\n{log}")
         else:
+            with open(paths[n] + ".log", "w") as f:
+                f.write(log)
             os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("CUDA kernel build failed: "
                            + "\n".join(failed))
     return paths
+
+
+def ptxas_report(name):
+    """``{kernel (mangled): "N registers, spill stores S B, loads L B"}``
+    from library ``name``'s build log (``ptxas -v``), building it first
+    if needed."""
+    with open(build_all([name])[name] + ".log") as f:
+        log = f.read()
+    report, kernel, spills = {}, None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            report[kernel] = f"{m.group(1)} registers, {spills}"
+    return report
 
 
 def data_ptr(t):

@@ -17,10 +17,24 @@ Backward uses the recomputation split of the reference:
 dK/dV sum over the group of query heads sharing a kv head.
 
 On CUDA tensors :func:`flash_attention` launches the hand-written
-kernels of ``csrc/flash_attention.cu`` (forward, dQ, dK/dV; bf16 in and
-out, f32 accumulation); on CPU tensors it runs the plain versions
-:func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref`.
-There is no fallback from one to the other.
+kernels of ``csrc/flash_attention.cu`` (forward, dQ, dK/dV; outputs in
+the inputs' dtypes, lse f32, f32 accumulation); on CPU tensors it runs
+the plain versions :func:`flash_attention_fwd_ref` and
+:func:`flash_attention_bwd_ref`. There is no fallback from one to the
+other.
+
+The kernels take the whole domain :func:`supported` states: f32, f16
+and bf16, ``head_dim % 8 == 0`` up to 256, GQA, causal or not, sequence
+lengths that are multiples of 128. One rule, :func:`kernel_instance`,
+picks the instance from the dtype and head_dim:
+
+- bf16 at head_dim 64 or 128: the tensor-core instance (forward on
+  ``wgmma`` with TMA copies, dQ and dK/dV on WMMA);
+- every other (dtype, head_dim): the general instance (the same three
+  kernels with every product an f32 FMA; f16 and bf16 read as 16-bit).
+
+q, k and v of different dtypes are widened to f32 (exact) for the
+general instance, and each gradient comes back in its input's dtype.
 """
 
 from __future__ import annotations
@@ -32,18 +46,36 @@ import torch
 
 from . import _build
 
-__all__ = ["supported", "flash_attention", "flash_attention_fwd_ref",
-           "flash_attention_bwd_ref", "attention_delta"]
+__all__ = ["supported", "kernel_instance", "flash_attention",
+           "flash_attention_fwd_ref", "flash_attention_bwd_ref",
+           "attention_delta"]
 
 BLOCK_Q = 128
 BLOCK_K = 128
 NEG_INF = -1e30
 
-#: kernel launches on the CUDA path, one count per kernel
+#: kernel launches on the CUDA path, one count per TPU kernel
 launches = {"forward": 0, "dq": 0, "dkv": 0}
+#: the same launches by kernel and instance (:func:`kernel_instance`)
+instance_launches = {f"{k}.{i}": 0 for k, i in (
+    ("forward", "wgmma"), ("forward", "general"), ("dq", "wmma"),
+    ("dq", "general"), ("dkv", "wmma"), ("dkv", "general"))}
 
-_KERNEL_HEAD_DIMS = (64, 128)   # head_dim values the CUDA kernels are built for
-_KERNEL_TILE = 64               # the kernels' q and k tile (divides BLOCK_Q)
+_TC_HEAD_DIMS = (64, 128)   # bf16 head_dims of the tensor-core instance
+# the C entries' codes
+_INSTANCES = {"tensor-core": 0, "general": 1}
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def kernel_instance(dtype, head_dim):
+    """The CUDA instance that takes q/k/v of ``dtype`` at ``head_dim``:
+    ``"tensor-core"`` for bf16 at head_dim 64 or 128 (the forward on
+    wgmma + TMA, dQ and dK/dV on WMMA), ``"general"`` (f32 FMAs) for
+    every other float dtype and head_dim of :func:`supported`'s domain.
+    Operands of mixed dtypes run the general instance in f32."""
+    if dtype == torch.bfloat16 and head_dim in _TC_HEAD_DIMS:
+        return "tensor-core"
+    return "general"
 
 
 def supported(q, k, v, attn_mask, causal):
@@ -137,9 +169,11 @@ def _lib():
     if not getattr(lib, "_fa_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         shape = [i32] * 7 + [ctypes.c_float, vp]   # D,B,H,Hk,Sq,Sk,causal
-        lib.fa_forward.argtypes = [vp] * 5 + [i64] * 9 + shape
-        lib.fa_backward_dq.argtypes = [vp] * 7 + [i64] * 12 + shape
-        lib.fa_backward_dkv.argtypes = [vp] * 8 + [i64] * 12 + shape
+        lib.fa_forward.argtypes = [i32] * 2 + [vp] * 5 + [i64] * 9 + shape
+        lib.fa_backward_dq.argtypes = [i32] * 2 + [vp] * 7 + [i64] * 12 \
+            + shape
+        lib.fa_backward_dkv.argtypes = [i32] * 2 + [vp] * 8 + [i64] * 12 \
+            + shape
         for fn in (lib.fa_forward, lib.fa_backward_dq, lib.fa_backward_dkv):
             fn.restype = i32
         lib.fa_error_string.argtypes = [i32]
@@ -161,25 +195,42 @@ def _strides(*ts):
 
 
 def _check_kernel_operands(*ts):
-    d = ts[0].shape[-1]
-    if any(t.dtype != torch.bfloat16 for t in ts):
-        raise ValueError(
-            "the CUDA flash kernels take bfloat16 q/k/v (run training "
-            "under amp.auto_cast); got "
-            + ", ".join(str(t.dtype) for t in ts))
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernels are built for head_dim "
-                         f"in {_KERNEL_HEAD_DIMS}; got {d}")
-    # tiles are fetched as 16-byte vectors along head_dim
+    """The kernels' limits past :func:`supported`, on q, k, v (and dO);
+    returns ``(instance, operands)``, the operands widened to f32 where
+    their dtypes differ. Raises for strides, alignment and sequence
+    lengths no instance takes."""
+    if any(t.dtype not in _DTYPES for t in ts):
+        raise ValueError("the CUDA flash kernels take float32, float16 or "
+                         "bfloat16; got "
+                         + ", ".join(str(t.dtype) for t in ts))
+    if len({t.dtype for t in ts}) > 1:
+        ts = tuple(t.float() for t in ts)
+    inst = kernel_instance(ts[0].dtype, ts[0].shape[-1])
     for t in ts:
-        if t.stride(-1) != 1 or t.data_ptr() % 16 \
-                or any(s % 8 for s in t.stride()[:3]):
+        if t.stride(-1) != 1:
             raise ValueError("the CUDA flash kernels need a unit stride "
-                             "along head_dim, 16-byte aligned rows and "
-                             "strides that are multiples of 8 elements")
-    if ts[0].shape[1] % _KERNEL_TILE or ts[1].shape[1] % _KERNEL_TILE:
-        raise ValueError(f"sequence lengths must be multiples of "
-                         f"{_KERNEL_TILE}")
+                             "along head_dim")
+        # the tensor-core instance copies 16-byte vectors (TMA boxes)
+        if inst == "tensor-core" and (
+                t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
+            raise ValueError("the bf16 head_dim 64/128 flash kernels need "
+                             "16-byte aligned rows and strides that are "
+                             "multiples of 8 elements")
+    if ts[0].shape[1] % BLOCK_Q or ts[1].shape[1] % BLOCK_Q:
+        raise ValueError(f"the CUDA flash kernels need sequence lengths "
+                         f"that are multiples of {BLOCK_Q}")
+    return inst, ts
+
+
+def _codes(inst, t):
+    return _INSTANCES[inst], _DTYPES[t.dtype]
+
+
+def _count(kernel, inst):
+    launches[kernel] += 1
+    name = {"tensor-core": "wgmma" if kernel == "forward" else "wmma",
+            "general": "general"}[inst]
+    instance_launches[f"{kernel}.{name}"] += 1
 
 
 def _geometry(q, k, causal, scale):
@@ -189,49 +240,50 @@ def _geometry(q, k, causal, scale):
 
 
 def _launch_forward(q, k, v, causal, scale):
-    _check_kernel_operands(q, k, v)
+    inst, (qk, kk, vk) = _check_kernel_operands(q, k, v)
     lib = _lib()
     b, sq, h, d = q.shape
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, d), dtype=qk.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    rc = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), lse.data_ptr(), *_strides(q, k, v),
+    rc = lib.fa_forward(*_codes(inst, qk), qk.data_ptr(), kk.data_ptr(),
+                        vk.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                        *_strides(qk, kk, vk),
                         *_geometry(q, k, causal, scale))
     _raise_on(lib, rc, "flash forward")
-    launches["forward"] += 1
-    return out, lse
+    _count("forward", inst)
+    return out.to(q.dtype), lse
 
 
 def _backward_operands(q, k, v, do, lse, delta):
-    _check_kernel_operands(q, k, v, do)
+    inst, ts = _check_kernel_operands(q, k, v, do)
     if lse.dtype != torch.float32 or delta.dtype != torch.float32 \
             or not lse.is_contiguous() or not delta.is_contiguous():
         raise ValueError("lse and delta must be contiguous f32 [B, H, Sq]")
-    return [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    return inst, ts, [t.data_ptr() for t in ts + (lse, delta)]
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal, scale):
-    ptrs = _backward_operands(q, k, v, do, lse, delta)
+    inst, ts, ptrs = _backward_operands(q, k, v, do, lse, delta)
     lib = _lib()
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    rc = lib.fa_backward_dq(*ptrs, dq.data_ptr(), *_strides(q, k, v, do),
-                            *_geometry(q, k, causal, scale))
+    dq = torch.empty(q.shape, dtype=ts[0].dtype, device=q.device)
+    rc = lib.fa_backward_dq(*_codes(inst, ts[0]), *ptrs, dq.data_ptr(),
+                            *_strides(*ts), *_geometry(q, k, causal, scale))
     _raise_on(lib, rc, "flash dq")
-    launches["dq"] += 1
-    return dq
+    _count("dq", inst)
+    return dq.to(q.dtype)
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal, scale):
-    ptrs = _backward_operands(q, k, v, do, lse, delta)
+    inst, ts, ptrs = _backward_operands(q, k, v, do, lse, delta)
     lib = _lib()
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    rc = lib.fa_backward_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
-                             *_strides(q, k, v, do),
+    dk = torch.empty(k.shape, dtype=ts[1].dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=ts[2].dtype, device=v.device)
+    rc = lib.fa_backward_dkv(*_codes(inst, ts[0]), *ptrs, dk.data_ptr(),
+                             dv.data_ptr(), *_strides(*ts),
                              *_geometry(q, k, causal, scale))
     _raise_on(lib, rc, "flash dk/dv")
-    launches["dkv"] += 1
-    return dk, dv
+    _count("dkv", inst)
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _launch_backward(q, k, v, do, lse, delta, causal, scale):

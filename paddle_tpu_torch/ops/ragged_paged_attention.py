@@ -54,7 +54,7 @@ import torch
 
 from . import _build
 
-__all__ = ["rope_tables", "supported", "fused_supported",
+__all__ = ["rope_tables", "supported", "fused_supported", "check_geometry",
            "fused_rope_geometry_ok", "ragged_paged_attention_ref",
            "fused_ragged_paged_attention_ref", "ragged_paged_attention",
            "fused_ragged_paged_attention"]
@@ -66,8 +66,9 @@ NEG_INF = -1e30
 launches = {"fused_rope": 0, "fused_rope_q8": 0, "fused": 0, "fused_q8": 0,
             "ragged": 0, "ragged_q8": 0}
 
-_MAX_PAGE = 32        # the softmax step holds one key slot per lane of a warp
-_MAX_HEAD_DIM = 128   # one thread per output column of a block
+#: the model dtypes of the CUDA instances (q, fresh K/V, out, float
+#: pools), by their C code
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def rope_tables(pos, head_dim, base):
@@ -298,20 +299,40 @@ def _check_fused(q, new_k, new_v, k_pages, v_pages, block_tables, meta,
                       (rope_sin, rope_cos) if rope_sin is not None else ())
 
 
+def check_geometry(page_size, head_dim, dtype, kv_int8=False):
+    """The CUDA kernels' rule on a serving geometry, the same as the
+    reference's: ``page_size % 8 == 0``, ``head_dim % 8 == 0`` up to 256,
+    and a model dtype of bf16, f16 or f32 (float pools in it, or int8
+    pools). Shared memory forces no further bound (the attention walks
+    keys in chunks of at most 32 slots). Raises :class:`ValueError`;
+    :class:`LlamaServingEngine` calls it at construction."""
+    if dtype not in _DTYPES:
+        raise ValueError(
+            f"the CUDA kernels take a bfloat16, float16 or float32 model "
+            f"(q, fresh K/V, float pools); got {dtype}")
+    if page_size % 8 or page_size < 8 or head_dim % 8 or not \
+            8 <= head_dim <= 256:
+        raise ValueError(
+            f"the CUDA kernels take page_size % 8 == 0 and head_dim % 8 == "
+            f"0 up to 256; got page_size {page_size}, head_dim {head_dim}"
+            + (" (int8 pools)" if kv_int8 else ""))
+
+
 def _check_kernel(q, k_pages, v_pages, k_scale, v_scale, rows, fresh=(),
                   tables=()):
     """The kernels' own limits on CUDA operands, past the contract
-    (:func:`_check_pools` ties int8 pools to their sidecars): bf16 q,
-    fresh rows and float pools, f32 sidecars, int32 rows, f32 rope
-    tables, contiguous, pages of at most 32 slots of head_dim <= 128
-    fetched as 16-byte vectors from 16-byte aligned pools."""
+    (:func:`_check_pools` ties int8 pools to their sidecars): the
+    geometry of :func:`check_geometry`; q, fresh rows and float pools of
+    one dtype; f32 sidecars, int32 rows, f32 rope tables; contiguous,
+    16-byte aligned pools."""
     q8 = k_scale is not None
-    if q.dtype != torch.bfloat16 or any(a.dtype != torch.bfloat16
-                                        for a in fresh) \
-            or not (q8 or k_pages.dtype == torch.bfloat16):
+    p, hk, page_size, d = k_pages.shape
+    check_geometry(page_size, d, q.dtype, q8)
+    if any(a.dtype != q.dtype for a in fresh) \
+            or not (q8 or k_pages.dtype == q.dtype):
         raise ValueError(
-            "the CUDA kernel takes bfloat16 q and fresh K/V and bfloat16 "
-            f"pools, or int8 pools with scales; got q {q.dtype}, pools "
+            "the CUDA kernel takes q, fresh K/V and float pools of one "
+            f"dtype, or int8 pools with scales; got q {q.dtype}, pools "
             f"{k_pages.dtype}/{v_pages.dtype}"
             + (f", fresh {fresh[0].dtype}" if fresh else "")
             + (" with scales" if q8 else ""))
@@ -326,14 +347,9 @@ def _check_kernel(q, k_pages, v_pages, k_scale, v_scale, rows, fresh=(),
         + ((k_scale, v_scale) if q8 else ())
     if not all(a.is_contiguous() for a in ops):
         raise ValueError("the CUDA kernel takes contiguous operands")
-    p, hk, page_size, d = k_pages.shape
-    vec = 16 if q8 else 8          # elements per 16-byte vector
-    if page_size > _MAX_PAGE or d > _MAX_HEAD_DIM or d % vec \
-            or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError(
-            f"the CUDA kernel takes pages of at most {_MAX_PAGE} slots, "
-            f"16-byte aligned pools and head_dim <= {_MAX_HEAD_DIM}, a "
-            f"multiple of {vec}; got page_size {page_size}, head_dim {d}")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the CUDA kernel fetches 16-byte vectors from "
+                         "16-byte aligned pools")
 
 
 def _passes(check, *args):
@@ -375,9 +391,9 @@ def _lib():
     lib = _build.load("ragged_paged_attention")
     if not getattr(lib, "_rpa_typed", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rpa_kv_write.argtypes = [i32] * 2 + [vp] * 14 + [i32] * 7 + [vp]
+        lib.rpa_kv_write.argtypes = [i32] * 3 + [vp] * 14 + [i32] * 7 + [vp]
         lib.rpa_kv_write.restype = i32
-        lib.rpa_attention.argtypes = [i32] * 2 + [vp] * 14 + [i32] * 9 \
+        lib.rpa_attention.argtypes = [i32] * 3 + [vp] * 14 + [i32] * 9 \
             + [ctypes.c_float, vp]
         lib.rpa_attention.restype = i32
         lib.rpa_error_string.argtypes = [i32]
@@ -405,7 +421,8 @@ def _attend(lib, rope, q, k_pages, v_pages, k_scale, v_scale, sin, cos,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q, k_pages, v_pages, k_scale, v_scale, sin, cos, block_tables,
             *meta, out)
-    rc = lib.rpa_attention(int(rope), int(k_scale is not None),
+    rc = lib.rpa_attention(_DTYPES[q.dtype], int(rope),
+                           int(k_scale is not None),
                            *map(_build.data_ptr, ptrs), r, n_tok, h, hk, d,
                            p, page_size, w, qb, float(scale), stream)
     _raise_on(lib, rc, what)
@@ -435,7 +452,8 @@ def _launch_fused(q, new_k, new_v, k_pages, v_pages, block_tables, meta,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (new_k, new_v, k_pages, v_pages, k_scale, v_scale, rope_sin,
                 rope_cos, block_tables, *meta)
-        rc = lib.rpa_kv_write(int(rope), int(k_scale is not None),
+        rc = lib.rpa_kv_write(_DTYPES[q.dtype], int(rope),
+                              int(k_scale is not None),
                               *map(_build.data_ptr, ptrs), r, t, hk, d, p,
                               page_size, w, stream)
         _raise_on(lib, rc, what + " write")
@@ -466,8 +484,9 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, kv_lens,
     docstring for shapes). Pass ``k_scale``/``v_scale`` sidecars with
     int8 pools. Returns ``out [R, QB, H, D]``.
 
-    CUDA tensors launch the hand-written attention kernel (bf16 q; bf16
-    pools, or int8 pools with f32 sidecars) and raise if they cannot;
+    CUDA tensors launch the hand-written attention kernel (q in bf16,
+    f16 or f32; pools in q's dtype, or int8 pools with f32 sidecars) and
+    raise if they cannot;
     CPU tensors run :func:`ragged_paged_attention_ref`."""
     meta = (kv_lens, q_starts, q_lens)
     _check_ragged(q, k_pages, v_pages, block_tables, meta, k_scale, v_scale)
@@ -491,9 +510,10 @@ def fused_ragged_paged_attention(q, new_k, new_v, k_pages, v_pages,
     [R, QB, H, D]``; the fresh K/V (quantized for int8 pools, with their
     scales) land in the pools IN PLACE; the dump page is never written.
 
-    CUDA tensors launch the hand-written write and attention kernels,
-    bf16 only besides int8 pools (and raise if they cannot); CPU tensors,
-    of any float dtype, run :func:`fused_ragged_paged_attention_ref`."""
+    CUDA tensors launch the hand-written write and attention kernels
+    (bf16, f16 or f32 q, fresh K/V and float pools of one dtype, or int8
+    pools; they raise if they cannot); CPU tensors, of any float dtype,
+    run :func:`fused_ragged_paged_attention_ref`."""
     meta = (kv_lens, q_starts, q_lens, w_starts, w_flats)
     _check_fused(q, new_k, new_v, k_pages, v_pages, block_tables,
                  meta + (w_ends,), dump_page, k_scale, v_scale, rope_sin,

@@ -1,16 +1,18 @@
 """The training and MoE/int8 kernels against their plain versions on
 the card, at small shapes and edge cases that ``chip_smoke.py`` does not
 reach: head dim 64, GQA groups 1 and 4, non-causal and shorter-query
-batches, the autograd path end to end; the loss kernel on ragged row
+batches, the autograd path end to end, and the flash kernels' general
+instance (f32, f16 and bf16 at head dims 8 to 256); the loss kernel on ragged row
 tiles, a ragged vocab tail and labels outside ``[0, V)`` (in the padded
 tail too); the grouped GEMMs (float and int8) on empty experts, ragged
 row, K and N tails, group sizes past the stride, f32 and bf16, and the
 backward's dx on the transposed weight; the dequant matmul at decode
 and prefill row counts; a ragged last scale block in both int8 kernels;
 every instance of the ragged paged attention family (rope-fused,
-post-rope fused and read-only, over bf16 and int8 pools) at head dims
-64 and 128 and pages of 16 and 32 slots, with multi-chunk rows, an
-inactive row and poisoned table tails; the decode paged attention
+post-rope fused and read-only, over float and int8 pools) at head dims
+8 to 256, pages of 8 to 64 slots and bf16, f16 and f32 models, with
+multi-chunk rows, an inactive row and poisoned table tails, and the
+engine's geometry check at construction; the decode paged attention
 kernel over bf16, f16 and f32 pools (q in the pools' dtype or f32) at
 GQA groups 1, 4, 6 and 32, head dims 16 to 256 and pages of 8, 16 and
 32 slots, with inactive and one-token rows, poisoned table tails and
@@ -23,7 +25,8 @@ the card this file runs on its own, without the jax-importing conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
 Tolerances are ``chip_smoke.py``'s: bf16 outputs within 1 bf16 ulp plus
-2^-10 of the head vector's largest value (for gradients, that largest
+2^-10 of the head vector's largest value (f16 within 1 f16 ulp plus the
+same, f32 within 1 f32 ulp plus 2^-16 of it) (for gradients, that largest
 value taken at least 2^-6 of the tensor's), f32 lse within 1e-3; the
 loss kernel's lse and pick within 1e-5 of max(|x|, 1). The f32
 grouped/dequant products: within 1e-5 of the out row's largest value.
@@ -86,7 +89,7 @@ FLASH = [  # b, sq, sk, h, hk, d, causal
     (1, 128, 128, 4, 1, 64, True),
     (2, 256, 256, 8, 2, 128, False),
     (1, 128, 384, 4, 4, 128, True),
-    (1, 192, 192, 2, 1, 64, True),
+    (1, 384, 384, 2, 1, 64, True),
     (2, 128, 256, 8, 8, 64, False),
 ]
 
@@ -111,6 +114,8 @@ def test_flash_kernels_match_plain(dev, case):
     for got, ref in zip(grads, refs):
         _close(got, ref, 2 ** -6)
     assert FT.launches == {k_: n + 1 for k_, n in before.items()}
+    inst = FT.instance_launches
+    assert inst["forward.wgmma"] and inst["dq.wmma"] and inst["dkv.wmma"]
 
 
 def test_flash_autograd_on_the_card(dev):
@@ -128,9 +133,69 @@ def test_flash_autograd_on_the_card(dev):
         FT.attention_delta(out_r, do), True)
     for t, ref in zip((q, k, v), refs):
         _close(t.grad, ref, 2 ** -6)
-    with pytest.raises(ValueError, match="bfloat16"):
-        FT.flash_attention(q.detach().float(), k.detach().float(),
-                           v.detach().float(), causal=True)
+    # f32 q/k/v (a model outside auto_cast) run the general instance
+    before = dict(FT.instance_launches)
+    qf, kf, vf = (t.detach().float() for t in (q, k, v))
+    out = FT.flash_attention(qf, kf, vf, causal=True)
+    _close_dtype(out, FT.flash_attention_fwd_ref(qf, kf, vf, True)[0])
+    assert FT.instance_launches["forward.general"] \
+        == before["forward.general"] + 1
+
+
+# the general instance: (b, sq, sk, h, hk, d, causal, dtype)
+FLASH_GENERAL = [
+    (2, 256, 256, 8, 2, 128, True, torch.float32),
+    (1, 128, 256, 4, 4, 64, True, torch.float16),
+    (1, 256, 256, 4, 1, 16, True, torch.bfloat16),
+    (2, 128, 128, 4, 2, 80, False, torch.bfloat16),
+    (1, 256, 384, 8, 2, 96, True, torch.bfloat16),
+    (1, 128, 128, 2, 1, 256, True, torch.bfloat16),
+    (1, 128, 128, 2, 2, 8, False, torch.float32),
+    (1, 128, 128, 4, 2, 200, True, torch.float16),
+]
+
+
+def _close_dtype(got, ref, floor=0.0):
+    """Within 1 ulp of the dtype plus 2^-10 (2^-16 for f32) of the head
+    vector's largest value (that value floored at ``floor`` x the
+    tensor's)."""
+    mant = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}
+    frac = 2 ** -16 if ref.dtype == torch.float32 else 2 ** -10
+    e = mant[ref.dtype]
+    ref, got = ref.float(), got.float()
+    vec = ref.abs().amax(dim=-1, keepdim=True).clamp_min(
+        floor * float(ref.abs().max()))
+    _, ex = torch.frexp(ref)
+    ulp = torch.where(ref == 0, torch.zeros_like(ref),
+                      torch.ldexp(torch.ones_like(ref), ex - e))
+    bad = (got - ref).abs() > ulp + frac * vec
+    assert torch.isfinite(got).all() and not bool(bad.any()), \
+        float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("case", FLASH_GENERAL)
+def test_flash_general_instance_matches_plain(dev, case):
+    b, sq, sk, h, hk, d, causal, dtype = case
+    g = torch.Generator(dev).manual_seed(d + sq)
+    kw = dict(device=dev, dtype=dtype, generator=g)
+    q, do = torch.randn(b, sq, h, d, **kw), torch.randn(b, sq, h, d, **kw)
+    k, v = torch.randn(b, sk, hk, d, **kw), torch.randn(b, sk, hk, d, **kw)
+    scale = 1.0 / math.sqrt(d)
+    before = dict(FT.instance_launches)
+    out, lse = FT._launch_forward(q, k, v, causal, scale)
+    out_r, lse_r = FT.flash_attention_fwd_ref(q, k, v, causal, scale)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _close_dtype(out, out_r)
+    assert float((lse - lse_r).abs().max()) <= 1e-3
+    delta = FT.attention_delta(out_r, do)
+    grads = FT._launch_backward(q, k, v, do, lse_r, delta, causal, scale)
+    refs = FT.flash_attention_bwd_ref(q, k, v, do, lse_r, delta, causal,
+                                      scale)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == dtype
+        _close_dtype(got, ref, 2 ** -6)
+    want = {k_: n + (k_.endswith("general")) for k_, n in before.items()}
+    assert FT.instance_launches == want
 
 
 @pytest.mark.parametrize("n,d,v", [(1, 64, 7), (45, 136, 1000),
@@ -275,11 +340,12 @@ RPA = [  # hk, group, d, page, qblock, (prior context, [chunks]) per seq
 ]
 
 
-def _rpa_case(dev, hk, group, d, page, qb, seqs, seed):
+def _rpa_case(dev, hk, group, d, page, qb, seqs, seed,
+              dtype=torch.bfloat16):
     """One dispatch on the card: each sequence's chunks as consecutive
     rows and packed tokens, an inactive row last, table tails poisoned,
-    bf16 pools (and their int8 twins with scales). Returns (kw, written
-    [P, page] bool, num_pages)."""
+    pools in ``dtype`` (and their int8 twins with scales). Returns (kw,
+    written [P, page] bool, num_pages)."""
     from paddle_tpu_torch.inference.paged_cache import quantize_kv_int8
     rng = np.random.RandomState(seed)
     n_pages = [-(-(p + sum(c)) // page) for p, c in seqs]
@@ -308,7 +374,7 @@ def _rpa_case(dev, hk, group, d, page, qb, seqs, seed):
     pos = np.concatenate([np.arange(s, s + n) for _, _, s, n, *_ in rows
                           if n > 0])
     g = torch.Generator(dev).manual_seed(seed)
-    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    bf = dict(device=dev, dtype=dtype, generator=g)
     i32 = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
            for a in (tables, *meta)]
     sin, cos = RP.rope_tables(torch.from_numpy(pos).to(dev), d, 10000.0)
@@ -355,11 +421,39 @@ def _variant_args(kw, variant):
     return a
 
 
-@pytest.mark.parametrize("variant", ["fused_rope", "fused_rope_q8", "fused",
-                                     "fused_q8", "ragged", "ragged_q8"])
+VARIANTS = ["fused_rope", "fused_rope_q8", "fused", "fused_q8", "ragged",
+            "ragged_q8"]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("case", RPA)
 def test_ragged_attention_family_matches_plain(dev, case, variant):
-    kw, written, num_pages = _rpa_case(dev, *case, seed=len(case[-1]))
+    _check_family(dev, case, variant, torch.bfloat16)
+
+
+# the reference's domain past pages of 32 and head_dim 128, in every model
+# dtype: hk, group, d, page, qblock, seqs, dtype
+RPA_WIDE = [
+    (2, 4, 128, 64, 16, [(5, [16, 7]), (100, [1]), (0, [3])],
+     torch.bfloat16),
+    (2, 4, 128, 16, 8, [(30, [8, 3]), (17, [1])], torch.float32),
+    (1, 4, 256, 16, 8, [(9, [8, 2]), (63, [1])], torch.bfloat16),
+    (2, 2, 72, 16, 8, [(40, [8, 1]), (3, [1])], torch.bfloat16),
+    (2, 2, 64, 24, 8, [(50, [8]), (0, [5])], torch.float16),
+    (1, 2, 256, 48, 4, [(97, [4, 4]), (10, [1])], torch.float32),
+    (4, 2, 8, 8, 8, [(20, [8]), (5, [1])], torch.float16),
+]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("case", RPA_WIDE)
+def test_ragged_attention_widened_domain(dev, case, variant):
+    _check_family(dev, case[:-1], variant, case[-1])
+
+
+def _check_family(dev, case, variant, dtype):
+    kw, written, num_pages = _rpa_case(dev, *case, seed=len(case[-1]),
+                                       dtype=dtype)
     read_only = variant.startswith("ragged")
     fn, ref = (RP.ragged_paged_attention, RP.ragged_paged_attention_ref) \
         if read_only else (RP.fused_ragged_paged_attention,
@@ -370,7 +464,7 @@ def test_ragged_attention_family_matches_plain(dev, case, variant):
     assert RP.launches[variant] == before + (1 if read_only else 2)
     out_r = ref(**a_r)
     torch.cuda.synchronize()
-    _close(out, out_r)
+    _close_dtype(out, out_r)
     # padded query rows and the inactive row are exact zeros
     assert not out[-1].any()
     for i, n in enumerate(kw["q_lens"].tolist()):
@@ -389,7 +483,10 @@ def test_ragged_attention_family_matches_plain(dev, case, variant):
             assert torch.equal(got, orig), name
         elif name == "k_pages" and variant == "fused_rope":
             g, w = got[wr].float(), want[wr].float()
-            assert bool(((g - w).abs() <= _ulp(w)).all())
+            e = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}
+            _, ex = torch.frexp(w)
+            ulp = torch.ldexp(torch.ones_like(w), ex - e[dtype])
+            assert bool(((g - w).abs() <= ulp).all())
         else:
             assert torch.equal(got[wr], want[wr]), name
 
@@ -400,8 +497,11 @@ def test_ragged_attention_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="int8 pools with scales"):
         RP.fused_ragged_paged_attention(**dict(a, k_scale=None,
                                                v_scale=None))
-    with pytest.raises(ValueError, match="bfloat16"):
+    # q of another dtype than the fresh K/V (f32 q is taken with f32 pools)
+    with pytest.raises(ValueError, match="one dtype"):
         RP.fused_ragged_paged_attention(**dict(a, q=a["q"].float()))
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        RP.check_geometry(16, 128, torch.float64)
     b = _variant_args(kw, "ragged")
     with pytest.raises(ValueError, match="contiguous"):
         RP.ragged_paged_attention(**dict(b, q=b["q"].transpose(1, 2)
@@ -549,3 +649,18 @@ def test_paged_kv_cache_on_the_card(dev):
         assert PA.launches["paged"] == before + 1
         torch.cuda.synchronize()
         _close(out, ref)
+
+
+def test_engine_checks_the_kernel_geometry_at_construction(dev):
+    from paddle_tpu_torch.inference.serving import LlamaServingEngine
+    from paddle_tpu_torch.models import LlamaForCausalLM, tiny_llama_config
+    model = LlamaForCausalLM(tiny_llama_config(), device=dev)
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        LlamaServingEngine(model.double(), max_batch=2, page_size=8,
+                           num_pages=16)
+    # an f32 model at 64-slot pages is served by the kernels
+    engine = LlamaServingEngine(model.float(), max_batch=2, page_size=64,
+                                num_pages=16)
+    before = dict(RP.launches)
+    out = engine.generate([[1, 2, 3, 4, 5]], max_new_tokens=3)
+    assert len(out[0]) == 3 and RP.launches != before

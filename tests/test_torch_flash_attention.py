@@ -158,14 +158,88 @@ def test_sdpa_under_auto_cast_runs_flash_in_bf16():
 
 
 def test_kernel_operand_checks():
+    # f32, f16 and bf16 at any head_dim of the domain route to an instance
     q = torch.zeros(1, 128, 2, 64)
-    with pytest.raises(ValueError, match="bfloat16"):
-        FT._check_kernel_operands(q, q, q)
+    assert FT._check_kernel_operands(q, q, q)[0] == "general"
     qb = torch.zeros(1, 128, 2, 32, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
-        FT._check_kernel_operands(qb, qb, qb)
+    assert FT._check_kernel_operands(qb, qb, qb)[0] == "general"
+    qh = torch.zeros(1, 128, 2, 256, dtype=torch.float16)
+    assert FT._check_kernel_operands(qh, qh, qh)[0] == "general"
     qt = torch.zeros(1, 2, 128, 64, dtype=torch.bfloat16).transpose(1, 2)
-    FT._check_kernel_operands(qt, qt, qt)     # strided [B, S, H, D] is fine
+    # strided [B, S, H, D] is fine
+    assert FT._check_kernel_operands(qt, qt, qt)[0] == "tensor-core"
     with pytest.raises(ValueError, match="unit stride"):
         FT._check_kernel_operands(qt.new_zeros(1, 128, 2, 128)[..., ::2],
                                   qt, qt)
+    # mixed dtypes run the general instance on f32 copies
+    inst, ts = FT._check_kernel_operands(qt, q, q)
+    assert inst == "general" and all(t.dtype == torch.float32 for t in ts)
+    # the tensor-core instance's TMA boxes need 16-byte strides
+    odd = torch.zeros(1, 128, 2, 132, dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="16-byte"):
+        FT._check_kernel_operands(odd, odd, odd)
+    assert FT._check_kernel_operands(odd.float(), odd.float(),
+                                     odd.float())[0] == "general"
+    with pytest.raises(ValueError, match="multiples of 128"):
+        FT._check_kernel_operands(q[:, :64], q, q)
+    with pytest.raises(ValueError, match="float32, float16 or bfloat16"):
+        FT._check_kernel_operands(q.double(), q.double(), q.double())
+
+
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 64), ("bfloat16", 128),
+                                     ("float32", 128), ("float16", 64),
+                                     ("bfloat16", 16), ("bfloat16", 80),
+                                     ("bfloat16", 96), ("bfloat16", 256),
+                                     ("float32", 8), ("float16", 200)])
+def test_kernel_instance_rule(dtype, d):
+    """One rule on (dtype, head_dim): bf16 at 64/128 is the tensor-core
+    instance, every other point of the domain the general one."""
+    want = "tensor-core" if dtype == "bfloat16" and d in (64, 128) \
+        else "general"
+    assert FT.kernel_instance(getattr(torch, dtype), d) == want
+
+
+def _ulp(x, dtype):
+    """One unit in the last place of ``dtype`` at each |x| (f32 numpy)."""
+    mant = {"bfloat16": 7, "float16": 10, "float32": 23}[dtype]
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -14)))
+    return 2.0 ** (e - mant)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,d", [("float32", 128), ("float16", 64),
+                                     ("bfloat16", 16), ("bfloat16", 80),
+                                     ("bfloat16", 96), ("bfloat16", 256)])
+def test_plain_matches_pallas_widened_domain(dtype, d, causal):
+    """The plain versions at the general instance's (dtype, head_dim)
+    points against the Pallas kernels on the same values in the same
+    dtype: out and the gradients within one ulp of the dtype plus the f32
+    tolerances above (both sides round f32 results once), lse 1e-5."""
+    q, k, v, do = _inputs(1, 128, 128, 4, 2, d, seed=d)
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    # both sides see the values rounded to the dtype
+    q, k, v, do = (torch.from_numpy(a).to(td).float().numpy()
+                   for a in (q, k, v, do))
+    ts = [torch.from_numpy(a).to(td).requires_grad_() for a in (q, k, v)]
+    out = FT.flash_attention(*ts, causal=causal)
+    out.backward(torch.from_numpy(do).to(td))
+    _, lse = FT.flash_attention_fwd_ref(*(t.detach() for t in ts),
+                                        causal=causal)
+    got = [out] + [t.grad for t in ts]
+    assert all(g.dtype == td for g in got) and lse.dtype == torch.float32
+    scale = 1.0 / math.sqrt(d)
+    fn = FJ._make_flash(scale, causal, 2)
+    qj, kj, vj = (jnp.asarray(a, dtype=jd) for a in (q, k, v))
+    out_j, vjp = jax.vjp(fn, qj, kj, vj)
+    want = [out_j, *vjp(jnp.asarray(do, dtype=jd))]
+    hm = lambda a: a.transpose(0, 2, 1, 3)  # noqa: E731
+    _, lse_j = FJ._fwd(hm(qj), hm(kj), hm(vj), scale, causal, 2)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[..., 0],
+                               rtol=0, atol=1e-5)
+    for name, g, w, tol in zip(("out", "dq", "dk", "dv"), got, want,
+                               (1e-5, 1e-4, 1e-4, 1e-4)):
+        g = g.detach().float().numpy()
+        w = np.asarray(w.astype(jnp.float32))
+        assert g.shape == w.shape, name
+        bad = np.abs(g - w) > _ulp(w, dtype) + tol
+        assert not bad.any(), (name, float(np.abs(g - w).max()))

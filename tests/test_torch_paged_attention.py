@@ -12,6 +12,7 @@ XLA path; ``test_inactive_row_is_zeros_where_the_reference_differs``
 records all three.
 """
 
+import inspect
 import math
 
 import numpy as np
@@ -338,3 +339,25 @@ def test_cache_device_defaults_to_the_card():
     assert c.k_pages.device.type == "cpu"
     assert c.k_pages.dtype == torch.bfloat16
     assert tuple(c.v_pages.shape) == (4, 2, 8, 32) and not c.v_pages.any()
+
+
+def test_attend_takes_the_reference_use_pallas():
+    want = inspect.signature(CacheJ.attend).parameters
+    got = inspect.signature(CacheT.attend).parameters
+    assert list(want) == list(got)[:len(want)]     # use_kernel: an alias
+    ct = CacheT(NP_C, PAGE_C, HK_C, D_C, dtype=torch.float32, device="cpu")
+    rng = np.random.RandomState(4)
+    ct.admit(0, 13)
+    ct.write(0, *(torch.from_numpy(a) for a in _step_kv(rng, 13)))
+    q = torch.from_numpy(rng.randn(1, 8, D_C).astype(np.float32))
+    base = ct.attend([0], q)
+    for kw in ({"use_pallas": False}, {"use_kernel": False},
+               {"use_pallas": True, "use_kernel": True},
+               {"use_pallas": False, "use_kernel": False}):
+        assert torch.equal(ct.attend([0], q, **kw), base)
+    for kw in ({"use_pallas": True, "use_kernel": False},
+               {"use_pallas": False, "use_kernel": True}):
+        with pytest.raises(ValueError, match="disagree"):
+            ct.attend([0], q, **kw)
+    # positional, as a reference caller passes it
+    assert torch.equal(ct.attend([0], q, None, False), base)

@@ -369,3 +369,105 @@ def test_pool_dtype_goes_with_the_sidecars():
         RT.ragged_paged_attention(q4, t["k_pages"], t["v_pages"], *rows,
                                   k_scale=sc, v_scale=sc)
     assert RT.supported(q4, *q8, *rows, k_scale=sc, v_scale=sc)
+
+
+# the reference's domain past the first slices' kernels: (page, head_dim,
+# pool dtype); each point holds the plain versions against both reference
+# formulations, for the rope-fused, fused and read-only calls
+WIDE = {"page64_f32": (64, 16, "float32"), "f16_pools": (8, 16, "float16"),
+        "d256_f32": (8, 256, "float32"), "int8_d72": (16, 72, "int8")}
+
+
+def _ulp16(x):
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -14)))
+    return 2.0 ** (e - 10)
+
+
+@pytest.mark.parametrize("ref", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("kind", ["rope_fused", "fused", "read_only"])
+@pytest.mark.parametrize("point", sorted(WIDE))
+def test_widened_domain_matches_reference(monkeypatch, point, kind, ref):
+    page, d, dtype = WIDE[point]
+    monkeypatch.setitem(globals(), "PAGE", page)
+    monkeypatch.setitem(globals(), "D", d)
+    rng = np.random.RandomState(page + d)
+    c = _case(rng, [(5, [6, 2]), (70, [1]), (130, [1])], 8, poison=True)
+    if kind != "rope_fused":
+        c = _row_blocked(c)
+    q8 = dtype == "int8"
+    if q8:
+        c = _int8_pools(c, rng)
+    elif dtype == "float16":
+        c = {k: (v.astype(np.float16) if isinstance(v, np.ndarray)
+                 and v.dtype == np.float32 and not k.startswith("rope")
+                 else v) for k, v in c.items()}
+    args = ("q", "k_pages", "v_pages", "block_tables", "kv_lens",
+            "q_starts", "q_lens")
+    if kind == "read_only":
+        t = {k: torch.from_numpy(np.array(v)) for k, v in c.items()
+             if isinstance(v, np.ndarray)}
+        kw = dict(k_scale=t["k_scale"], v_scale=t["v_scale"]) if q8 else {}
+        assert RT.supported(*(t[k] for k in args), **kw)
+        got = [RT.ragged_paged_attention(*(t[k] for k in args),
+                                         **kw).numpy()]
+        fn = RJ.ragged_paged_attention if ref == "pallas_interpret" \
+            else RJ.ragged_paged_attention_xla
+        jkw = {k: jnp.asarray(c[k]) for k in ("k_scale", "v_scale")} \
+            if q8 else {}
+        r = fn(*(jnp.asarray(c[k]) for k in args), **jkw)
+        want = [np.asarray(getattr(r, "_data", r))]
+    else:
+        rope = kind == "rope_fused"
+        got = list(_run_torch(c, RT.fused_ragged_paged_attention,
+                              rope=rope))
+        fn = RJ.fused_ragged_paged_attention if ref == "pallas_interpret" \
+            else RJ.fused_ragged_paged_attention_xla
+        want = _run_ref(c, fn, rope=rope)
+    assert got[0].shape == want[0].shape \
+        == (len(c["kv_lens"]), c["qblock"] if kind != "rope_fused"
+            else 8, HK * G, d)
+    g0, w0 = (np.asarray(a, np.float32) for a in (got[0], want[0]))
+    if dtype == "float16":
+        # both sides round an f32 result to f16 once
+        assert (np.abs(g0 - w0) <= _ulp16(w0) + 1e-5).all()
+    else:
+        _close(g0, w0)
+    live = np.arange(NUM_PAGES) != DUMP
+    keep = ~_written(c)[:, None, :, None] & live[:, None, None, None]
+    if kind != "read_only":
+        _unchanged(c, got, keep)
+        # V slots (and int8 slots and scales without rope) bit for bit
+        assert np.array_equal(got[2][live], want[2][live])
+        if q8 and kind == "fused":
+            for g, w in zip(got[1:], want[1:]):
+                assert np.array_equal(g[live], w[live])
+    assert not np.abs(g0[-1]).any()
+
+
+def test_kernel_geometry_rule_and_messages():
+    """The CUDA kernels' rule is the reference's shape rule; what they
+    still refuse is named: a dtype outside bf16/f16/f32, q and pools of
+    two dtypes, non-contiguous or unaligned operands."""
+    for page, d, dt, q8 in ((64, 256, torch.float32, False),
+                            (16, 72, torch.bfloat16, True),
+                            (8, 8, torch.float16, False),
+                            (128, 128, torch.bfloat16, False)):
+        RT.check_geometry(page, d, dt, q8)
+    with pytest.raises(ValueError, match="page_size % 8"):
+        RT.check_geometry(12, 128, torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 256"):
+        RT.check_geometry(16, 264, torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        RT.check_geometry(16, 128, torch.float64)
+    q = torch.zeros(2, 1, 4, 256)
+    pools = torch.zeros(6, 2, 64, 256)
+    rows = [torch.zeros(2, 3, dtype=torch.int32)] + [
+        torch.zeros(2, dtype=torch.int32)] * 3
+    RT._check_kernel(q, pools, pools, None, None, rows)
+    with pytest.raises(ValueError, match="one dtype"):
+        RT._check_kernel(q.bfloat16(), pools, pools, None, None, rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        RT._check_kernel(q.transpose(1, 2).contiguous().transpose(1, 2)
+                         .expand(2, 1, 4, 256)[:, :, :, :],
+                         pools[:, :, ::2], pools[:, :, ::2], None, None,
+                         rows)

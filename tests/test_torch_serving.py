@@ -12,12 +12,15 @@ reference engine's int8 two-op path. Across the port's own three paths
 the pools (and scale sidecars) must be bitwise equal.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.inference.serving import LlamaServingEngine as JaxEngine
+from paddle_tpu.inference.sampling import SamplingParams
 from paddle_tpu.inference.serving import Request as JaxRequest
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models import tiny_llama_config as jax_tiny
@@ -128,8 +131,8 @@ def test_admission_and_unported_options(models):
         te._admit(Request([1] * 20, max_new_tokens=10))  # 4 more: 9 > 8
     with pytest.raises(ValueError, match="pages per sequence"):
         te._admit(Request([1] * 100, max_new_tokens=10))
-    with pytest.raises(NotImplementedError):
-        Request([1, 2], temperature=0.7)
+    with pytest.raises(NotImplementedError, match="A1"):
+        Request([1, 2], sampling=SamplingParams(temperature=0.7))
     for kw in ({"prefix_cache": True}, {"spec_k": 2}, {"kv_tier": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LlamaServingEngine(tm, **kw)
@@ -221,3 +224,76 @@ def test_env_knobs_parse_as_reference(models, monkeypatch, env, kw):
     monkeypatch.setenv("PADDLE_TPU_KV_DTYPE", "fp8")
     with pytest.raises(ValueError, match="kv_dtype"):
         LlamaServingEngine(tm, **GEOM)
+
+
+def test_request_takes_the_reference_signature():
+    want = inspect.signature(JaxRequest.__init__).parameters
+    got = inspect.signature(Request.__init__).parameters
+    assert [(n, p.default) for n, p in got.items()] \
+        == [(n, p.default) for n, p in want.items()]
+    p = [5, 6, 7]
+    # positional as the reference takes them: the fourth is the deadline
+    for cls in (Request, JaxRequest):
+        r = cls(p, 4, 9, None, None, 0, 1, None, (3,), None)
+        assert (r.max_new_tokens, r.eos_token_id, r.stop_set) == (
+            4, 9, frozenset({3}))
+    # a greedy sampling spec is taken, its stop ids merged
+    r = Request(p, sampling=SamplingParams(stop=(11,)), stop=(3,))
+    assert r.stop_set == JaxRequest(p, sampling=SamplingParams(stop=(11,)),
+                                    stop=(3,)).stop_set == {3, 11}
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"deadline": 5.0}, "A5"), ({"token_budget": 0.1}, "A5"),
+    ({"priority": 2}, "A5"), ({"retry_budget": 0}, "A5"),
+    ({"sampling": SamplingParams(temperature=0.5)}, "A1"),
+    ({"sampling": SamplingParams(logit_bias={1: 2.0})}, "A1"),
+    ({"sampling": SamplingParams(constraint=lambda p, o: None)}, "A1")])
+def test_request_unported_knobs_raise(kw, item):
+    JaxRequest([1, 2], **kw)          # the reference takes each of them
+    with pytest.raises(NotImplementedError, match=item):
+        Request([1, 2], **kw)
+
+
+@pytest.mark.parametrize("kw", [{"deadline": 0}, {"token_budget": -1.0},
+                                {"retry_budget": -1}])
+def test_request_bad_values_raise_as_reference(kw):
+    with pytest.raises(ValueError):
+        JaxRequest([1, 2], **kw)
+    with pytest.raises(ValueError):
+        Request([1, 2], **kw)
+
+
+def test_on_token_sees_every_token_in_order(models):
+    _, tm = models
+    te = LlamaServingEngine(tm, **GEOM)
+    prompts = _prompts(13, (21, 9, 30))
+    want = te.generate(prompts, max_new_tokens=7)
+    seen = {}
+    reqs = [Request(p, max_new_tokens=7, on_token=lambda r, t: seen.setdefault(
+        id(r), []).append(t)) for p in prompts]
+    # a hook that raises does not stop the dispatch
+    reqs.append(Request(prompts[0], max_new_tokens=7,
+                        on_token=lambda r, t: 1 / 0))
+    for r in reqs:
+        te.add_request(r)
+    while not all(r.done for r in reqs):
+        te.step()
+    assert [r.output_ids for r in reqs] == want + want[:1]
+    assert [seen[id(r)] for r in reqs[:3]] == want
+
+
+@pytest.mark.parametrize("env,value", [
+    ("PADDLE_TPU_SPEC_K", "2"), ("PADDLE_TPU_KV_TIER", "1"),
+    ("PADDLE_TPU_KV_TIER", "true"), ("PADDLE_TPU_KV_TIER", "ON")])
+def test_fleet_env_knobs_raise(models, monkeypatch, env, value):
+    jm, tm = models
+    monkeypatch.setenv(env, value)
+    je = JaxEngine(jm, prefix_cache=False, sampling=False, **GEOM)
+    assert je.spec_k > 0 or je.tier is not None   # the reference reads it
+    je.close()
+    with pytest.raises(NotImplementedError, match=env):
+        LlamaServingEngine(tm, **GEOM)
+    # off values, as the reference parses them, serve as before
+    monkeypatch.setenv(env, "0")
+    LlamaServingEngine(tm, **GEOM)

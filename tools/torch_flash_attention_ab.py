@@ -1,0 +1,71 @@
+#!/usr/bin/env python3
+"""The flash attention kernels (#1-#3) of two or more checkouts of
+``paddle_tpu_torch`` on one card, in alternating order.
+
+    python3 tools/torch_flash_attention_ab.py [--ragged] TREE [TREE ...]
+
+Each TREE is the root of a checkout holding ``chip_smoke.py`` and
+``paddle_tpu_torch/``. The trees run in the given order and then in
+reverse (A B B A for two trees), each in a process of its own started in
+that tree: it builds the tree's kernels and runs its ``chip_smoke.py``
+phase 3b timed case (``flash_case``: the Llama-3-8B training batch, B 2 x
+S 2048, 32/8 heads, head_dim 128, bf16, causal, each kernel against its
+plain version), then times the three kernels again on the same inputs by
+CUDA events and by the profiler's device time and prints one line
+``ab: forward_ms=... forward_device_ms=... dq_ms=...``. With
+``--ragged`` each process also runs the tree's phases 3 and 3d (the
+ragged paged attention family at the serving shapes, with their times).
+Needs one card; exits non-zero if any tree's check fails.
+"""
+
+import os
+import subprocess
+import sys
+
+CHILD = """
+import math, sys, torch
+sys.path.insert(0, '.')
+import chip_smoke as cs
+from paddle_tpu_torch.ops import _build, flash_attention as FT
+_build.build_all(['flash_attention', 'ragged_paged_attention'])
+dev = torch.device('cuda')
+cs.flash_case(dev, 'train', cs.TRAIN_B, cs.TRAIN_S, cs.TRAIN_S, True,
+              seed=1, timed=True)
+g = torch.Generator(dev).manual_seed(1)
+bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+b, s = cs.TRAIN_B, cs.TRAIN_S
+q, do = torch.randn(b, s, cs.H, cs.D, **bf), torch.randn(b, s, cs.H, cs.D, **bf)
+k, v = torch.randn(b, s, cs.HK, cs.D, **bf), torch.randn(b, s, cs.HK, cs.D, **bf)
+args = (q, k, v, True, 1.0 / math.sqrt(cs.D))
+out, lse = FT.flash_attention_fwd_ref(*args)
+bargs = (q, k, v, do, lse, FT.attention_delta(out, do), True, args[-1])
+fns = {'forward': lambda: FT._launch_forward(*args),
+       'dq': lambda: FT._launch_dq(*bargs),
+       'dkv': lambda: FT._launch_dkv(*bargs)}
+line = []
+for name, fn in fns.items():
+    line.append(f'{name}_ms={cs.time_ms(fn):.4f} '
+                f'{name}_device_ms={cs.device_ms(fn):.4f}')
+print('ab: ' + ' '.join(line), flush=True)
+if RAGGED:
+    cs.check_kernels(dev, ('fused_rope',) + cs.FAMILY)
+"""
+
+
+def main():
+    args = sys.argv[1:]
+    ragged = "--ragged" in args
+    trees = [os.path.abspath(t) for t in args if t != "--ragged"]
+    if not trees:
+        sys.exit(__doc__)
+    child = f"RAGGED = {ragged}\n" + CHILD
+    rc = 0
+    for tree in trees + trees[::-1]:
+        print(f"tree {tree}", flush=True)
+        rc |= subprocess.run([sys.executable, "-c", child],
+                             cwd=tree).returncode
+    sys.exit(rc)
+
+
+if __name__ == "__main__":
+    main()
