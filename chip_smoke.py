@@ -44,10 +44,12 @@ package is not beside it, and when any phase fails:
    rows ignored; each with its time (CUDA events and the profiler's
    device time), the plain version's, a PyTorch library call's and the
    card's bound, and the instance each flash kernel ran (the forward's
-   wgmma instance at the training batch); then the flash kernels' general
+   and dK/dV's wgmma instances at the training batch, with dK/dV's
+   registers); then the flash kernels' general
    instance at ``FLASH_DOMAIN``'s points (f32 head_dim 128, bf16 96 and
-   256, f16 64); the registers and spills of every flash instance
-   (``ptxas -v``) are printed after the build;
+   256, f16 64); the registers and spills of every flash instance and of
+   the dequant matmul's cluster instance (``ptxas -v``) are printed after
+   the build;
 4. serving Llama-3-8B at full width and depth (random bf16 weights from
    a seeded generator on the card) through
    ``LlamaServingEngine.generate``: 8 prompts of 64-512 tokens, 32 new
@@ -70,9 +72,16 @@ package is not beside it, and when any phase fails:
    the dequant matmul (q/o N = 4096, k/v N = 1024), the int8 and the
    bf16 grouped GEMMs (gate/up and down shapes, routed by
    ``top_k_routing``, plus an empty expert and group sizes past the
-   stride), the grouped GEMM's dx through its backward; then tokens
-   through a Mixtral-width ``LlamaMoEMLP`` alone and packed among 7 and
-   among 63 others, bitwise equal, float and int8;
+   stride), the grouped GEMM's dx through its backward, each timed by
+   CUDA events and by the profiler's device time beside the library
+   call's two times; the dequant matmul's rows 0, 5 and 37 alone and
+   among 7 and 63 others, bitwise equal, at both N; then tokens through a
+   Mixtral-width ``LlamaMoEMLP`` alone and packed among 7 and among 63
+   others, bitwise equal, float and int8; then the three kernels' general
+   instance at ``GEMM_DOMAIN``'s points of the reference's domain (f16 x,
+   blocks of 8, 24 and 40, N 24, K and N off multiples of 8), an f16 and
+   a B = 24 point timed as the Mixtral shapes are (with bound and
+   library time);
 6. serving Mixtral-8x7B at full width and depth with int8 weights (built
    layer by layer from a seeded generator on the card, each layer
    quantized as it is made: 93 GB of bf16 never exist at once) through
@@ -98,9 +107,11 @@ package is not beside it, and when any phase fails:
    dispatch, pools after the whole run; launches counted per path (2 a
    layer a dispatch fused, 1 two-op), no plain version called;
 9b. (run after 9) the engine at Llama-3-8B width cut to 4 layers,
-   phase 4's prompts, at 64-slot pages (bf16) and as an f32 model: every
-   #12 launch counted, no plain version called, tokens held against the
-   plain forward at phase 4's floors;
+   phase 4's prompts, at 64-slot pages (bf16) and as an f32 model, and
+   cut to 2 layers as an f16 model with ``weight_dtype="int8"`` (the
+   dequant matmul on f16 x): every #12 and dequant launch counted, no
+   plain version called, tokens held against the plain forward (with the
+   plain dequant matmul) at phase 4's floors;
 10. (run after 9b) ``PagedKVCache`` at Llama-3-8B attention width on the
    card (12288 pages of 16 tokens, bf16): 32 sequences admitted with
    seeded prompts of 1-8160 tokens and their K/V written, 32 decode
@@ -572,16 +583,16 @@ def llama_model(dev, layers=None, dtype="bfloat16"):
 
 
 def serving_workload(dev, kv_dtype=None, layers=None, page_size=16,
-                     dtype="bfloat16"):
+                     dtype="bfloat16", weight_dtype=None):
     """Llama-3-8B at full width (and depth, unless ``layers``; random
     weights in ``dtype`` from a seeded generator on the card) behind
     ``LlamaServingEngine(max_batch=8, page_size=page_size,
-    kv_dtype=kv_dtype)``, warmed up, and 8 prompts of 64-512 tokens.
-    Returns (cfg, model, engine, prompts)."""
+    kv_dtype=kv_dtype, weight_dtype=weight_dtype)``, warmed up, and 8
+    prompts of 64-512 tokens. Returns (cfg, model, engine, prompts)."""
     from paddle_tpu_torch.inference import LlamaServingEngine
     cfg, model = llama_model(dev, layers, dtype)
     engine = LlamaServingEngine(model, max_batch=8, page_size=page_size,
-                                kv_dtype=kv_dtype)
+                                kv_dtype=kv_dtype, weight_dtype=weight_dtype)
     prompts = serving_prompts(cfg.vocab_size)
     engine.generate([prompts[0][:16]], max_new_tokens=2)   # warm-up
     return cfg, model, engine, prompts
@@ -604,7 +615,9 @@ def reset_launches():
     from paddle_tpu_torch.ops import paged_attention as PA
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.quant import kernels as QK
-    for counts in (rpa.launches, GG.launches, FT.launches, PA.launches):
+    for counts in (rpa.launches, GG.launches, FT.launches, PA.launches,
+                   FT.instance_launches, GG.instance_launches,
+                   QK.instance_launches):
         for key in counts:
             counts[key] = 0
     QK.launches = FC.launches = 0
@@ -639,12 +652,15 @@ def serve(dev, kv_dtype=None, bf16_outs=None, label=None, **workload):
     counted and no plain version called; every served token checked
     against the model's own plain forward (its K and V through the int8
     quantizer and back for phase 8). ``workload`` (layers, page_size,
-    dtype) goes to :func:`serving_workload` (phase 9b). Returns
-    (launches, outputs)."""
+    dtype, weight_dtype) goes to :func:`serving_workload` (phase 9b); with
+    int8 weights every projection launches the dequant matmul and the
+    plain forward takes its plain version too. Returns (launches,
+    outputs)."""
     import torch
     from paddle_tpu_torch.inference import Request
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.quant import kernels as QK
     label = label or ("serve int8-kv" if kv_dtype else "serve")
     key = "fused_rope_q8" if kv_dtype else "fused_rope"
     cfg, model, engine, prompts = serving_workload(dev, kv_dtype,
@@ -663,6 +679,7 @@ def serve(dev, kv_dtype=None, bf16_outs=None, label=None, **workload):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(rpa.launches)
+        dq_launches = dict(QK.instance_launches)
     dispatches = engine._dispatch_count - d0
     hook.remove()
     if plain_calls:
@@ -673,6 +690,15 @@ def serve(dev, kv_dtype=None, bf16_outs=None, label=None, **workload):
     if launches != want or not dispatches:
         fail(f"{label}: kernel launches {launches} != {want} (2 x layers x "
              f"dispatches of {key})")
+    int8_weights = workload.get("weight_dtype") == "int8"
+    per = cfg.num_hidden_layers * dispatches
+    n_dq = sum(dq_launches.values())
+    if int8_weights != bool(n_dq) or n_dq % per:
+        fail(f"{label}: dequant matmul launches {dq_launches} for "
+             f"{per} layer dispatches")
+    if n_dq:
+        print(f"{label}: dequant matmul launches {dq_launches} "
+              f"({n_dq // per} a layer a dispatch)", flush=True)
     if not all(bool(f) for f in finite):
         fail(f"{label}: non-finite logits in the serving run")
     for o in outs:
@@ -685,16 +711,15 @@ def serve(dev, kv_dtype=None, bf16_outs=None, label=None, **workload):
     # cache, plain attention) fed the same tokens: most must be its
     # argmax, the rest near-ties of it
     gaps = []
-    model_attention = llama.causal_attention
-    llama.causal_attention = kv8_attention if kv_dtype \
-        else llama.plain_attention
-    for p, o in zip(prompts, outs):
-        ids = torch.tensor([p + o[:-1]], device=dev)
-        with torch.no_grad():
-            lg = model(ids)[0, len(p) - 1:].float()
-        picked = lg.gather(1, torch.tensor(o, device=dev)[:, None])[:, 0]
-        gaps.append(lg.max(dim=1).values - picked)
-    llama.causal_attention = model_attention
+    with plain_serving_paths():
+        if kv_dtype:
+            llama.causal_attention = kv8_attention
+        for p, o in zip(prompts, outs):
+            ids = torch.tensor([p + o[:-1]], device=dev)
+            with torch.no_grad():
+                lg = model(ids)[0, len(p) - 1:].float()
+            picked = lg.gather(1, torch.tensor(o, device=dev)[:, None])[:, 0]
+            gaps.append(lg.max(dim=1).values - picked)
     gaps = torch.cat(gaps)
     exact, worst = int((gaps == 0).sum()), float(gaps.max())
     n_tok = len(prompts) * NEW
@@ -768,21 +793,27 @@ def recorded_attention(engine, store):
 
 
 # phase 9b: the engine at geometries and dtypes past phase 4's, at
-# Llama-3-8B width cut to LADDER_LAYERS layers: label -> workload
+# Llama-3-8B width cut to LADDER_LAYERS layers (2 for the f16 int8 model):
+# label -> workload
 SERVE_DOMAIN = {"serve page 64": dict(page_size=64),
-                "serve f32 model": dict(dtype="float32")}
+                "serve f32 model": dict(dtype="float32"),
+                "serve f16 int8 weights": dict(dtype="float16",
+                                               weight_dtype="int8",
+                                               layers=2)}
 
 
 def serve_domain(dev):
-    """Phase 9b: serve phase 4's prompts at 64-slot pages (bf16) and with
-    an f32 model (pages of 16), each through the rope-fused kernels with
-    every launch counted, no plain version called and every token held
-    against the model's plain forward at phase 4's floors. Returns the
-    launches of #12 over both runs."""
+    """Phase 9b: serve phase 4's prompts at 64-slot pages (bf16), with an
+    f32 model (pages of 16) and with an f16 model in int8 weights (the
+    dequant matmul's cluster instance on f16 x), each through the
+    rope-fused kernels with every launch counted, no plain version
+    called and every token held against the model's plain forward at
+    phase 4's floors. Returns the launches of #12 over the runs."""
     import torch
     launches = 0
     for label, workload in SERVE_DOMAIN.items():
-        n, _ = serve(dev, label=label, layers=LADDER_LAYERS, **workload)
+        n, _ = serve(dev, label=label, **dict(dict(layers=LADDER_LAYERS),
+                                              **workload))
         launches += n
         torch.cuda.empty_cache()
     return launches
@@ -1101,8 +1132,9 @@ def decode_cache(dev):
 
 
 def flash_registers():
-    """``ptxas -v`` lines of the flash kernels: registers and spills of
-    each instance, from the build's log."""
+    """``ptxas -v`` lines of the flash kernels and of the dequant matmul's
+    cluster instance: registers and spills of each instance, from the
+    builds' logs."""
     import re
     from paddle_tpu_torch.ops import _build
     lines = []
@@ -1114,6 +1146,13 @@ def flash_registers():
         name = f"{m.group(1)}<{'float' if arg == 'f' else arg}>" if m \
             else mangled
         lines.append(f"ptxas: {name}: {what}")
+    for mangled, what in sorted(_build.ptxas_report(
+            "dequant_matmul").items()):
+        m = re.search(r"dq_cluster_kernelI(?:6(__half)|13(__nv_bfloat16))"
+                      r"Li(\d)E", mangled)
+        if m:
+            lines.append(f"ptxas: dq_cluster_kernel<{m.group(1) or m.group(2)}"
+                         f", {m.group(3)}>: {what}")
     return lines
 
 
@@ -1253,8 +1292,13 @@ def check_flash(dev):
     one with fewer queries than keys, then the general instance at
     FLASH_DOMAIN's points. Returns the three kernels' JSON entries
     (without ``launches``)."""
+    from paddle_tpu_torch.ops import _build
     err, timing = flash_case(dev, "train", TRAIN_B, TRAIN_S, TRAIN_S, True,
                              seed=1, timed=True)
+    regs = {k: v for k, v in _build.ptxas_report("flash_attention").items()
+            if "flash_dkv_wgmmaILi128E" in k}
+    print(f"flash dkv: instance={timing['dkv']['instance']} registers "
+          f"(D 128, at launch): {', '.join(regs.values())}", flush=True)
     for label, args in (("non-causal", (1, 512, 512, False)),
                         ("short-q", (1, 256, 768, True))):
         e, _ = flash_case(dev, label, *args, seed=2, timed=False)
@@ -1501,7 +1545,7 @@ def compare_step(dev, use_amp=True):
         line.append(f"{n}: cos={cos:.6f} norm_ratio={ratio:.5f}")
         if not (cos >= GRAD_COS and abs(ratio - 1) <= GRAD_NORM):
             fail(f"2-layer step: grad of {n} cos {cos} norm ratio {ratio}")
-    want = ["dkv.wmma", "dq.wmma", "forward.wgmma"] if use_amp \
+    want = ["dkv.wgmma", "dq.wmma", "forward.wgmma"] if use_amp \
         else ["dkv.general", "dq.general", "forward.general"]
     if ran != want:
         fail(f"2-layer step: flash instances {ran} != {want}")
@@ -1564,42 +1608,75 @@ def grouped_case(label, kind, x, w, gs, scales=None, w_lib=None,
         f"gs={gs.tolist()} out_err={err:.3e}"
     if timed:
         xm = masked_rows(x, gs)
-        out.update(ms=time_ms(run), plain_ms=time_ms(plain, iters=3,
-                                                     warmup=1),
+        out.update(ms=time_ms(run), device_ms=device_ms(run),
+                   plain_ms=time_ms(plain, iters=3, warmup=1),
                    library_ms=time_ms(lambda: torch.bmm(xm, w_lib)),
+                   library_device_ms=device_ms(lambda: torch.bmm(xm, w_lib)),
                    bound_ms=bound_ms, bound_by=bound_by)
-        line += (f" ms={out['ms']:.4f} plain_ms={out['plain_ms']:.3f} "
-                 f"library_ms={out['library_ms']:.4f} bound_ms="
+        line += (f" ms={out['ms']:.4f} device_ms={out['device_ms']:.4f} "
+                 f"plain_ms={out['plain_ms']:.3f} library_ms="
+                 f"{out['library_ms']:.4f} library_device_ms="
+                 f"{out['library_device_ms']:.4f} bound_ms="
                  f"{bound_ms:.5f} ({bound_by})")
     print(line, flush=True)
     return out
 
 
-def dequant_case(label, x, q, scales, w_lib):
+def dequant_case(label, x, q, scales, w_lib, block=WEIGHT_BLOCK):
     """The dequant matmul kernel against its plain version on ``x [M,
-    K]``, timed, with ``F.linear`` on the bf16 weight ``w_lib [N, K]``
-    as the library yardstick."""
+    K]``, timed (CUDA events, which include the wrapper's host time
+    between launches at these sizes, and the profiler's device time),
+    with ``F.linear`` on the 16-bit weight ``w_lib [N, K]`` as the
+    library yardstick; prints the instance that ran. ``block`` is the
+    int8 block (phase 3c's Mixtral shapes use the format's default; a
+    C6 point of GEMM_DOMAIN its own)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.quant import kernels as QK
     (m, k), n = x.shape, q.shape[1]
-    y = QK._launch(x, q, scales, WEIGHT_BLOCK)
-    ref = QK.dequant_matmul_ref(x, q, scales, WEIGHT_BLOCK)
+    before = dict(QK.instance_launches)
+    y = QK._launch(x, q, scales, block)
+    ran = [i for i, c in QK.instance_launches.items() if c > before[i]]
+    ref = QK.dequant_matmul_ref(x, q, scales, block)
     torch.cuda.synchronize()
     err = check_close(f"{label}: out (row, column)", y, ref)
-    nbytes = k * n + (k // WEIGHT_BLOCK) * n * 4 + m * k * 2 + m * n * 2
+    nbytes = k * n + -(-k // block) * n * 4 + m * k * 2 + m * n * 2
     bound_ms, bound_by = roofline(nbytes, 2 * m * k * n, BF16_FLOPS)
-    out = dict(max_abs_err=err,
-               ms=time_ms(lambda: QK._launch(x, q, scales, WEIGHT_BLOCK)),
+
+    def run():
+        return QK._launch(x, q, scales, block)
+
+    def lib():
+        return F.linear(x, w_lib)
+    out = dict(max_abs_err=err, ms=time_ms(run), device_ms=device_ms(run),
                plain_ms=time_ms(lambda: QK.dequant_matmul_ref(
-                   x, q, scales, WEIGHT_BLOCK), iters=5, warmup=1),
-               library_ms=time_ms(lambda: F.linear(x, w_lib)),
-               bound_ms=bound_ms, bound_by=bound_by)
-    print(f"dequant kernel check ({label}): M={m} K={k} N={n} "
-          f"B={WEIGHT_BLOCK} out_err={err:.3e} ms={out['ms']:.4f} plain_ms="
-          f"{out['plain_ms']:.3f} library_ms={out['library_ms']:.4f} "
-          f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+                   x, q, scales, block), iters=5, warmup=1),
+               library_ms=time_ms(lib), library_device_ms=device_ms(lib),
+               bound_ms=bound_ms, bound_by=bound_by, instance=ran[0])
+    print(f"dequant kernel check ({label}): M={m} K={k} N={n} B={block} "
+          f"{x.dtype} instance={ran[0]} out_err={err:.3e} ms={out['ms']:.4f}"
+          f" device_ms={out['device_ms']:.4f} plain_ms={out['plain_ms']:.3f}"
+          f" library_ms={out['library_ms']:.4f} library_device_ms="
+          f"{out['library_device_ms']:.4f} bound_ms={bound_ms:.5f} "
+          f"({bound_by})", flush=True)
     return out
+
+
+def check_dequant_rows(x, q, scales, label):
+    """Rows 0, 5 and 37 of ``x [64, K]`` through the dequant matmul alone,
+    then among the first 8 and all 64 rows: bitwise equal."""
+    import torch
+    from paddle_tpu_torch.quant import kernels as QK
+    alone = {i: QK._launch(x[i:i + 1], q, scales, WEIGHT_BLOCK)[0]
+             for i in (0, 5, 37)}
+    for t in MOE_TOKENS:
+        packed = QK._launch(x[:t], q, scales, WEIGHT_BLOCK)
+        for i, y in alone.items():
+            if i < t and not torch.equal(y, packed[i]):
+                fail(f"dequant {label}: row {i} alone differs from the same "
+                     f"row among {t - 1} others")
+    print(f"dequant row check ({label}): rows 0, 5 and 37 alone == among 7 "
+          "and 63 others, bitwise", flush=True)
 
 
 def check_packing(mlp, x, label):
@@ -1716,7 +1793,9 @@ def check_moe_kernels(dev):
         for t in MOE_TOKENS:
             dq[(n, t)] = dequant_case(f"N={n} T={t}", xs[t], q, s, w_lib)
             err_dq = max(err_dq, dq[(n, t)]["max_abs_err"])
-    timing = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        check_dequant_rows(xs[64], q, s, f"N={n}")
+    timing = ("ms", "device_ms", "plain_ms", "library_ms",
+              "library_device_ms", "bound_ms", "bound_by")
     return [dict(name="grouped_gemm", route="cuda", source=GG_SOURCE,
                  replaces="paddle_tpu/ops/grouped_gemm.py:175",
                  max_abs_err=max(err_f, err_dx),
@@ -1729,7 +1808,98 @@ def check_moe_kernels(dev):
                  source="paddle_tpu_torch/csrc/dequant_matmul.cu",
                  replaces="paddle_tpu/quant/kernels.py:132",
                  max_abs_err=err_dq,
-                 **{k: dq[(4096, 64)][k] for k in timing})]
+                 **{k: dq[(4096, 64)][k] for k in timing},
+                 decode_t8={k: dq[(4096, 8)][k] for k in timing})]
+
+
+# phase 3c: the GEMM family's general instance (C6) at points of the
+# reference's domain past the fast instances: label -> (kernel, x dtype,
+# E, C (M for the dequant matmul), K, N, block, timed). A timed point goes
+# through dequant_case or grouped_case (a "q8" one at WEIGHT_BLOCK, the
+# block grouped_case takes).
+GEMM_DOMAIN = {
+    "#7 f16 x": ("q8", "float16", 8, 8, 4096, 1024, WEIGHT_BLOCK, True),
+    "#8 B=24": ("dq", "bfloat16", 1, 8, 4096, 4096, 24, True),
+    "#8 B=8": ("dq", "bfloat16", 1, 9, 96, 64, 8, False),
+    "#8 N=24 K=40": ("dq", "bfloat16", 1, 70, 40, 24, 40, False),
+    "#8 f32 K=37 N=29": ("dq", "float32", 1, 3, 37, 29, 16, False),
+    "#6 f16 x": ("float", "float16", 3, 8, 64, 48, None, False),
+    "#6 K=40 N=20": ("float", "bfloat16", 3, 8, 40, 20, None, False),
+    "#7 B=24": ("q8", "bfloat16", 3, 8, 96, 64, 24, False),
+    "#7 N=24 B=8": ("q8", "bfloat16", 3, 8, 40, 24, 8, False),
+    "#7 f32 K=37 N=29": ("q8", "float32", 3, 8, 37, 29, 16, False),
+}
+
+
+def check_gemm_domain(dev):
+    """Phase 3c, C6: the grouped GEMMs and the dequant matmul at
+    GEMM_DOMAIN's points (f16 x, blocks of 8, 24 and 40, N 24, K and N
+    off multiples of 8): each launches its kernel's general instance and
+    stays within phase 3's bound of its plain version; the timed points
+    also get phase 3c's times, bound and library time. Returns the
+    largest error of each kernel by its JSON name."""
+    import torch
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    from paddle_tpu_torch.ops._tile_gemm import gemm_instance
+    from paddle_tpu_torch.quant import kernels as QK
+    from paddle_tpu_torch.quant.format import dequant_blocks, quantize_weight
+    g = torch.Generator(dev).manual_seed(7)
+    errs = {"grouped_gemm": 0.0, "grouped_gemm_q8": 0.0,
+            "dequant_matmul": 0.0}
+    for label, (kind, dtype, e, c, k, n, block, timed) in GEMM_DOMAIN.items():
+        dt = getattr(torch, dtype)
+        w = torch.randn(e, k, n, device=dev, generator=g) * 0.05
+        x = torch.randn(e * c, k, device=dev, generator=g).to(dt)
+        gs = torch.tensor([c, 0, c + 2, 1, c - 1, 3, 0, c][:e],
+                          dtype=torch.int32, device=dev)
+        if kind == "dq":
+            name, counts = "dequant_matmul", QK.instance_launches
+            q, s = quantize_weight(w[0], block)
+
+            def run():
+                return QK._launch(x, q, s, block)
+
+            def plain():
+                return QK.dequant_matmul_ref(x, q, s, block)
+        elif kind == "q8":
+            name, counts = "grouped_gemm_q8", GG.instance_launches
+            q, s = quantize_weight(w, block)
+
+            def run():
+                return GG._launch_q8(x, q, s, gs, block)
+
+            def plain():
+                return GG.grouped_gemm_q8_ref(x, q, s, gs, block)
+        else:
+            name, counts = "grouped_gemm", GG.instance_launches
+            wt = w.to(dt)
+
+            def run():
+                return GG._launch_float(x, wt, gs)
+
+            def plain():
+                return GG.grouped_gemm_ref(x, wt, gs)
+        inst = gemm_instance(name, dt, k, n, block and min(block, k))
+        key = f"{name}.{inst}"
+        before = counts[key]
+        tag = f"gemm domain {label}"
+        if timed and kind == "dq":
+            lib = dequant_blocks(q, s, block).t().contiguous().to(dt)
+            err = dequant_case(tag, x, q, s, lib, block)["max_abs_err"]
+        elif timed:
+            lib = dequant_blocks(q, s, block).to(dt)
+            err = grouped_case(tag, kind, x, q, gs, s, lib)["max_abs_err"]
+        else:
+            y, ref = run(), plain()
+            torch.cuda.synchronize()
+            err = check_close(tag, y, ref)
+            print(f"gemm domain check ({label}): E={e} C={c} K={k} N={n} "
+                  f"B={block} {dtype} instance={key} out_err={err:.3e}",
+                  flush=True)
+        if inst != "general" or counts[key] == before:
+            fail(f"{tag}: ran {key}, not the general instance")
+        errs[name] = max(errs[name], err)
+    return errs
 
 
 def mixtral_int8(dev):
@@ -2074,6 +2244,9 @@ def main():
     training_entries = check_flash(dev) + [check_ce(dev)]
     torch.cuda.empty_cache()
     moe_entries = check_moe_kernels(dev)
+    gemm_errs = check_gemm_domain(dev)               # phase 3c, C6
+    for e in moe_entries:
+        e["max_abs_err"] = max(e["max_abs_err"], gemm_errs[e["name"]])
     torch.cuda.empty_cache()
     entry["launches"], bf16_outs = serve(dev)      # phase 4
     torch.cuda.empty_cache()

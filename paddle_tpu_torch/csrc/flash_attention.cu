@@ -36,15 +36,22 @@
 //              loop. Each warpgroup issues tile j's S before tile j-1's
 //              P V and runs tile j's softmax while P V is in flight. The epilogue stages O / l as bf16 in shared memory and
 //              stores 16-byte rows; lse = m + log l.
-//     dQ, dK/dV  WMMA (16x16x16 bf16, f32 accumulation) on 64-row tiles with
+//     dK/dV    wgmma + TMA: one block per (128 keys, kv head, batch), key
+//              tile 0 first; a producer warpgroup loads K and V once and
+//              keeps a ring of Q / dO tiles of 64 query rows (with their lse
+//              and delta) full, over the group's query heads and the q tiles
+//              from the causal start; two consumer warpgroups of 64 keys
+//              each compute S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16,
+//              f32 in registers), the elementwise backward in registers,
+//              and dV += P^T dO, dK += dS^T Q with P^T and dS^T split into
+//              bf16 hi + lo as the register A operand and dO, Q read
+//              transposed; dK and dV stay in registers across the group (no
+//              atomics). See the note above flash_dkv_wgmma.
+//     dQ       WMMA (16x16x16 bf16, f32 accumulation) on 64-row tiles with
 //              4 warps; a warp owns 16 rows of its block's tile. Scores and
-//              the elementwise backward in f32 through shared memory.
-//              dQ: one block per (q tile, head, batch), dQ += dS K in
-//              register accumulators. dK/dV: one block per (k tile, kv head,
-//              batch) loops over the group's query heads and the q tiles
-//              from the causal start, computes S^T = K Q^T and dP^T = V dO^T
-//              so dV += P^T dO and dK += dS^T Q need no transposed copies,
-//              and sums the group in registers: no atomics.
+//              the elementwise backward in f32 through shared memory. One
+//              block per (q tile, head, batch), dQ += dS K in register
+//              accumulators.
 //   general      every other (dtype, D) of the reference's domain: f32, f16
 //              and bf16 (read as 16-bit, computed in f32), any D % 8 == 0 up
 //              to 256, padded with zeros to a multiple of 16 in shared
@@ -67,23 +74,22 @@
 // What is left on the table: the split doubles the forward's P V product,
 // the masked half of each diagonal tile is computed, and the two consumer
 // warpgroups are not ordered against each other (no ping-pong of one's
-// softmax against the other's products). dQ and dK/dV keep WMMA through
-// shared memory and reach 255 registers.
+// softmax against the other's products). dK/dV waits for each product
+// before the next (a warpgroup's S^T / dP^T and its dV / dK products do not
+// overlap; the two warpgroups overlap each other). dQ keeps WMMA through
+// shared memory and reaches 255 registers.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
 
-namespace {
+#include "tma.cuh"
 
-// error codes of the forward's tensor maps, past the CUDA runtime's own
-constexpr int kErrNoEncoder = 10001;
-constexpr int kErrTensorMap = 10002;
+namespace {
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
@@ -276,114 +282,6 @@ __global__ void __launch_bounds__(kThreads)
                 s_s, wr, lane);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, Strides qs, Strides ks,
-                     Strides vs, Strides dos, int H, int Hk, int Sq, int Sk,
-                     int causal, float scale) {
-  using T = Dims<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);                 // [64][D+8]
-  bf16* v_s = k_s + T::kTileH;
-  bf16* q_s = v_s + T::kTileH;
-  bf16* do_s = q_s + T::kTileH;
-  float* st_s = reinterpret_cast<float*>(do_s + T::kTileH);  // [64][68]
-  float* dpt_s = st_s + T::kTileS;                           // [64][68]
-  bf16* pth_s = reinterpret_cast<bf16*>(dpt_s + T::kTileS);  // [64][72]
-  bf16* ptl_s = pth_s + T::kTileP;
-  bf16* dsth_s = ptl_s + T::kTileP;
-  bf16* dstl_s = dsth_s + T::kTileP;
-  float* lse_s = reinterpret_cast<float*>(dstl_s + T::kTileP);  // [64]
-  float* dl_s = lse_s + kTile;
-
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int G = H / Hk, k0 = kt * kTile, offset = Sk - Sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp * 16;
-
-  load_tile<D>(k_s, k, ks, b, k0, hk);
-  load_tile<D>(v_s, v, vs, b, k0, hk);
-  FragC dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
-  // q tiles whose last query precedes this k tile never see it
-  const int qt0 = causal ? max(0, (k0 - offset) / kTile) : 0;
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    for (int qt = qt0; qt < Sq / kTile; ++qt) {
-      const int q0 = qt * kTile;
-      load_tile<D>(q_s, q, qs, b, q0, h);
-      load_tile<D>(do_s, dout, dos, b, q0, h);
-      const long long row_base = ((long long)b * H + h) * Sq + q0;
-      load_rows(lse_s, lse + row_base);
-      load_rows(dl_s, delta + row_base);
-      __syncthreads();
-#pragma unroll
-      for (int n = 0; n < kTile / 16; ++n) {  // S^T = K Q^T, dP^T = V dO^T
-        FragC cs, cp;
-        wmma::fill_fragment(cs, 0.f);
-        wmma::fill_fragment(cp, 0.f);
-        mma_row<D / 16, FragBt>(cs, k_s + wr * T::kLdH, T::kLdH,
-                                q_s + n * 16 * T::kLdH, T::kLdH, 16);
-        mma_row<D / 16, FragBt>(cp, v_s + wr * T::kLdH, T::kLdH,
-                                do_s + n * 16 * T::kLdH, T::kLdH, 16);
-        wmma::store_matrix_sync(st_s + wr * kLdS + n * 16, cs, kLdS,
-                                wmma::mem_row_major);
-        wmma::store_matrix_sync(dpt_s + wr * kLdS + n * 16, cp, kLdS,
-                                wmma::mem_row_major);
-      }
-      __syncwarp();
-      // rows are keys, columns queries
-      for (int i = lane; i < 16 * kTile; i += 32) {
-        const int r = i / kTile, c = i - r * kTile, row = wr + r;
-        float p = 0.f;
-        if (!causal || k0 + row <= q0 + c + offset)
-          p = expf(st_s[row * kLdS + c] * scale - lse_s[c]);
-        const float ds = p * (dpt_s[row * kLdS + c] - dl_s[c]) * scale;
-        split_bf16(p, pth_s + row * kLdP + c, ptl_s + row * kLdP + c);
-        split_bf16(ds, dsth_s + row * kLdP + c, dstl_s + row * kLdP + c);
-      }
-      __syncwarp();
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {  // dV += P^T dO, dK += dS^T Q
-        const int step = 16 * T::kLdH;
-        mma_row<kTile / 16, FragB>(dv_acc[n], pth_s + wr * kLdP, kLdP,
-                                   do_s + n * 16, T::kLdH, step);
-        mma_row<kTile / 16, FragB>(dv_acc[n], ptl_s + wr * kLdP, kLdP,
-                                   do_s + n * 16, T::kLdH, step);
-        mma_row<kTile / 16, FragB>(dk_acc[n], dsth_s + wr * kLdP, kLdP,
-                                   q_s + n * 16, T::kLdH, step);
-        mma_row<kTile / 16, FragB>(dk_acc[n], dstl_s + wr * kLdP, kLdP,
-                                   q_s + n * 16, T::kLdH, step);
-      }
-      __syncthreads();  // q_s / do_s / lse_s are reloaded next
-    }
-  }
-
-  const long long row_stride = (long long)Hk * D;
-  const long long base = (((long long)b * Sk + k0) * Hk + hk) * D;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(st_s + wr * T::kLdO + n * 16, dk_acc[n], T::kLdO,
-                            wmma::mem_row_major);
-  __syncwarp();
-  write_rows<D>(dk + base, row_stride, st_s, wr, lane);
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(st_s + wr * T::kLdO + n * 16, dv_acc[n], T::kLdO,
-                            wmma::mem_row_major);
-  __syncwarp();
-  write_rows<D>(dv + base, row_stride, st_s, wr, lane);
-}
-
 template <typename K>
 int prepare(K kernel, size_t smem) {
   // above 48 KB only after an explicit opt-in; a refused launch never runs
@@ -406,23 +304,6 @@ int backward_dq(const void* q, const void* k, const void* v, const void* dout,
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dq, qs, ks, vs, dos, H,
       Hk, Sq, Sk, causal, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int backward_dkv(const void* q, const void* k, const void* v,
-                 const void* dout, const void* lse, const void* delta,
-                 void* dk, void* dv, Strides qs, Strides ks, Strides vs,
-                 Strides dos, int B, int H, int Hk, int Sq, int Sk,
-                 int causal, float scale, cudaStream_t stream) {
-  using T = Dims<D>;
-  const size_t smem = 4 * T::kTileH * 2 + 2 * T::kTileS * 4 +
-                      4 * T::kTileP * 2 + 2 * kTile * 4;
-  if (int e = prepare(flash_dkv_kernel<D>, smem)) return e;
-  flash_dkv_kernel<D><<<dim3(Sk / kTile, Hk, B), kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, qs, ks, vs,
-      dos, H, Hk, Sq, Sk, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -460,42 +341,6 @@ struct Smem {
                 "the epilogue stages in the K ring");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // one [128 rows][64 columns] box of a [B, S, heads, D] tensor map
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int col, int head,
@@ -508,8 +353,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // a shared-memory matrix descriptor with the 128-byte swizzle; `lbo` and
@@ -575,6 +426,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[32] (+)= A[64 x 16] B[16 x 64], both operands K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -873,37 +746,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled from libcuda, found at run time (PyTorch has
-// loaded it already), so the library links against nothing but cudart
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
 // a 4-D map (D, heads, S, B) of a bf16 [B, S, heads, D] tensor read through
-// its strides, [128 rows][64 columns] boxes with the 128-byte swizzle
+// its strides, [rows][64 columns] boxes with the 128-byte swizzle
 int tensor_map(CUtensorMap* map, const void* ptr, Strides st, int D,
-               int heads, int S, int B) {
+               int heads, int S, int B, int rows = kRows) {
   const EncodeTiled encode = encoder();
   if (!encode) return kErrNoEncoder;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
                                  (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {kBox, 1, kRows, 1}, elem[4] = {1, 1, 1, 1};
+  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)rows, 1},
+                   elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -926,6 +780,263 @@ int forward(const void* q, const void* k, const void* v, void* out, void* lse,
   flash_fwd_wgmma<D><<<dim3(Sq / kRows, H, B), kThreads, smem, stream>>>(
       tq, tk, tv, (bf16*)out, (float*)lse, H, Hk, Sq, Sk, causal,
       scale * log2e);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV, bf16 at D 64 / 128: wgmma + TMA (replaces _bwd's dK/dV kernel,
+// pallas_call :299)
+//
+// One block per (128 keys, kv head, batch), key tile 0 (the most causal work)
+// scheduled first. The producer warpgroup loads the block's K and V tiles
+// once and keeps a ring of kBwdStages stages full, each the Q and dO rows of
+// one 64-query tile of one query head with their 64 lse and delta values;
+// the stages run over the group's query heads and, for each, the q tiles
+// from the causal start, in one fixed order. Consumer warpgroup `grp` owns
+// keys 64 grp .. 64 grp + 63 and, per stage:
+//   S^T = K Q^T and dP^T = V dO^T   wgmma m64n64k16, both operands K-major
+//                                   from the swizzled boxes, f32 in registers
+//   P^T = exp2(S^T scale log2e - lse log2e), the causal mask on tiles that
+//   cross the diagonal; dS^T = P^T (dP^T - delta) scale, in registers (lse
+//   and delta read from the stage by the accumulator's column)
+//   dV += P^T dO, dK += dS^T Q       P^T and dS^T split into bf16 hi + lo as
+//                                   the register A operand of wgmma m64nDk16,
+//                                   dO and Q read MN-major (transposed) from
+//                                   the same boxes
+// dK and dV stay in registers for the whole group (no atomics: the output
+// is the same bit for bit from run to run) and leave through shared memory
+// as 16-byte rows.
+// ---------------------------------------------------------------------------
+constexpr int kQRows = 64;                      // query rows of a stage
+constexpr int kBwdStages = 2;                   // Q/dO stages in flight
+constexpr int kQBoxBytes = kQRows * kBox * 2;   // one [64][64] box: 8 KB
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared memory: K and V [D/64 boxes of 128 x 64], the ring of stages (Q then
+// dO, D/64 boxes of 64 x 64 each), the stages' lse and delta rows, then the
+// mbarriers; the base is aligned to 1024 bytes
+template <int D>
+struct BwdSmem {
+  static constexpr int kKV = kRows * D * 2;       // K (V at +kKV)
+  static constexpr int kQ = kQRows * D * 2;       // a Q (or dO) tile
+  static constexpr int kRing = 2 * kKV;           // stage s at +2 kQ s
+  static constexpr int kRowsAt = kRing + kBwdStages * 2 * kQ;  // [s][2][64]
+  static constexpr int kBar = kRowsAt + kBwdStages * 2 * kQRows * 4;
+  // full, empty (kBwdStages each), then K/V
+  static constexpr int kBytes = kBar + 8 * (2 * kBwdStages + 1) + 1024;
+  static constexpr int kLdStage = D + 8;          // epilogue rows
+  static_assert(4 * 64 * kLdStage * 2 <= kRowsAt,
+                "dK and dV stage in the tiles and the ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int H, int Hk, int Sq, int Sk,
+                    int causal, float scale) {
+  using SM = BwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t k_s = base, v_s = base + SM::kKV;
+  const uint32_t full = base + SM::kBar, empty = full + 8 * kBwdStages;
+  const uint32_t kv_bar = empty + 8 * kBwdStages;
+  const float* rows_s = reinterpret_cast<const float*>(smem + SM::kRowsAt);
+
+  const int kt = blockIdx.y;
+  const int hk = blockIdx.x % Hk, b = blockIdx.x / Hk;
+  const int G = H / Hk, k0 = kt * kRows, offset = Sk - Sq;
+  // q tiles whose last query precedes this key tile never see it
+  const int qt0 = causal ? max(0, (k0 - offset) / kQRows) : 0;
+  const int n_qt = Sq / kQRows - qt0, n_it = G * n_qt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * kConsumers);
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {
+    // producer warpgroup: one lane loads K and V, then keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
+      mbar_expect_tx(kv_bar, 2 * SM::kKV);
+      for (int c = 0; c < D / kBox; ++c) {
+        tma_load(k_s + c * kBoxBytes, &tk, kv_bar, c * kBox, hk, k0, b);
+        tma_load(v_s + c * kBoxBytes, &tv, kv_bar, c * kBox, hk, k0, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kBwdStages;
+        const int h = hk * G + it / n_qt, q0 = (qt0 + it % n_qt) * kQRows;
+        const uint32_t q_st = base + SM::kRing + s * 2 * SM::kQ;
+        const uint32_t bar = full + 8 * s;
+        mbar_wait(empty + 8 * s, ((it / kBwdStages) & 1) ^ 1);
+        mbar_expect_tx(bar, 2 * SM::kQ + 2 * kQRows * 4);
+        for (int c = 0; c < D / kBox; ++c) {
+          tma_load(q_st + c * kQBoxBytes, &tq, bar, c * kBox, h, q0, b);
+          tma_load(q_st + SM::kQ + c * kQBoxBytes, &tdo, bar, c * kBox, h, q0,
+                   b);
+        }
+        const long long row = ((long long)b * H + h) * Sq + q0;
+        const uint32_t r_s = base + SM::kRowsAt + s * 2 * kQRows * 4;
+        bulk_load(r_s, lse + row, kQRows * 4, bar);
+        bulk_load(r_s + kQRows * 4, delta + row, kQRows * 4, bar);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup `grp` owns keys 64 grp .. 64 grp + 63 of the tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int grp = warp >> 2;
+  const int key = grp * 64 + (warp & 3) * 16 + (lane >> 2);  // and key + 8
+  const float scale_log2 = scale * kLog2e;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float st[32], dpt[32];
+  uint32_t p_hi[4][4], p_lo[4][4], d_hi[4][4], d_lo[4][4];
+
+  mbar_wait(kv_bar, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kBwdStages;
+    const int q0 = (qt0 + it % n_qt) * kQRows;
+    const uint32_t q_st = base + SM::kRing + s * 2 * SM::kQ;
+    const uint32_t do_st = q_st + SM::kQ;
+    mbar_wait(full + 8 * s, (it / kBwdStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 columns of D (32 bytes) a step
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a = (kk >> 2) * kBoxBytes + (kk & 3) * 32 + grp * 64 * 128;
+      const uint32_t bq = (kk >> 2) * kQBoxBytes + (kk & 3) * 32;
+      wgmma_ss_n64(st, smem_desc(k_s + a, 16, 1024),
+                   smem_desc(q_st + bq, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a = (kk >> 2) * kBoxBytes + (kk & 3) * 32 + grp * 64 * 128;
+      const uint32_t bq = (kk >> 2) * kQBoxBytes + (kk & 3) * 32;
+      wgmma_ss_n64(dpt, smem_desc(v_s + a, 16, 1024),
+                   smem_desc(do_st + bq, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // the elementwise backward: rows are keys, columns queries
+    const float* lse_s = rows_s + s * 2 * kQRows;
+    const float* dl_s = lse_s + kQRows;
+    const bool diag = causal && k0 + grp * 64 + 63 > q0 + offset;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      float p = exp2f(fmaf(st[i], scale_log2, -lse_s[col] * kLog2e));
+      if (diag && k0 + key + 8 * ((i >> 1) & 1) > q0 + col + offset) p = 0.f;
+      dpt[i] = p * (dpt[i] - dl_s[col]) * scale;
+      st[i] = p;
+    }
+    // P^T and dS^T = hi + lo, both bf16, as register A operands: registers
+    // 8kk .. 8kk+7 hold queries 16kk .. 16kk+15
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r;
+        p_hi[kk][r] = pack_bf16(st[i], st[i + 1]);
+        d_hi[kk][r] = pack_bf16(dpt[i], dpt[i + 1]);
+        const __nv_bfloat162 ph =
+            *reinterpret_cast<const __nv_bfloat162*>(&p_hi[kk][r]);
+        const __nv_bfloat162 dh =
+            *reinterpret_cast<const __nv_bfloat162*>(&d_hi[kk][r]);
+        p_lo[kk][r] = pack_bf16(st[i] - __low2float(ph),
+                                st[i + 1] - __high2float(ph));
+        d_lo[kk][r] = pack_bf16(dpt[i] - __low2float(dh),
+                                dpt[i + 1] - __high2float(dh));
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q: dO and Q MN-major, 16 queries a step
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bd = smem_desc(do_st + kk * 16 * 128, kQBoxBytes, 1024);
+      wgmma_pv<D>(dv_acc, p_hi[kk], bd);
+      wgmma_pv<D>(dv_acc, p_lo[kk], bd);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bq = smem_desc(q_st + kk * 16 * 128, kQBoxBytes, 1024);
+      wgmma_pv<D>(dk_acc, d_hi[kk], bq);
+      wgmma_pv<D>(dk_acc, d_lo[kk], bq);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    mbar_arrive(empty + 8 * s);
+  }
+
+  // epilogue: dK and dV to bf16, staged over the tiles once both
+  // warpgroups are past their last stage, then stored as 16-byte rows
+  named_sync(1, 128 * kConsumers);
+  bf16* stage = reinterpret_cast<bf16*>(smem);   // dK [128][ld], dV after
+  constexpr int ld = SM::kLdStage;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = key + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    *reinterpret_cast<uint32_t*>(stage + r * ld + col) =
+        pack_bf16(dk_acc[i], dk_acc[i + 1]);
+    *reinterpret_cast<uint32_t*>(stage + (kRows + r) * ld + col) =
+        pack_bf16(dv_acc[i], dv_acc[i + 1]);
+  }
+  named_sync(2 + grp, 128);
+  const int t = threadIdx.x - grp * 128;
+  const long long off = (((long long)b * Sk + k0 + grp * 64) * Hk + hk) * D;
+  for (int v = t; v < 64 * D / 8; v += 128) {
+    const int r = v / (D / 8), c = (v - r * (D / 8)) * 8;
+    const long long o = off + (long long)r * Hk * D + c;
+    *reinterpret_cast<uint4*>(dk + o) =
+        *reinterpret_cast<const uint4*>(stage + (grp * 64 + r) * ld + c);
+    *reinterpret_cast<uint4*>(dv + o) = *reinterpret_cast<const uint4*>(
+        stage + (kRows + grp * 64 + r) * ld + c);
+  }
+}
+
+template <int D>
+int backward_dkv(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, Strides qs, Strides ks, Strides vs,
+                 Strides dos, int B, int H, int Hk, int Sq, int Sk,
+                 int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (int e = tensor_map(&tq, q, qs, D, H, Sq, B, kQRows)) return e;
+  if (int e = tensor_map(&tdo, dout, dos, D, H, Sq, B, kQRows)) return e;
+  if (int e = tensor_map(&tk, k, ks, D, Hk, Sk, B)) return e;
+  if (int e = tensor_map(&tv, v, vs, D, Hk, Sk, B)) return e;
+  const size_t smem = BwdSmem<D>::kBytes;
+  if (int e = prepare(flash_dkv_wgmma<D>, smem)) return e;
+  flash_dkv_wgmma<D><<<dim3(Hk * B, Sk / kRows), kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, H, Hk, Sq, Sk, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1273,14 +1384,7 @@ int backward_dkv(const void* q, const void* k, const void* v,
 // takes.
 extern "C" {
 
-const char* fa_error_string(int code) {
-  if (code == kErrNoEncoder)
-    return "cuTensorMapEncodeTiled not found in libcuda.so.1";
-  if (code == kErrTensorMap)
-    return "cuTensorMapEncodeTiled refused a tensor map (strides or "
-           "alignment)";
-  return cudaGetErrorString((cudaError_t)code);
-}
+const char* fa_error_string(int code) { return tma_error_string(code); }
 
 int fa_forward(int instance, int dtype, const void* q, const void* k,
                const void* v, void* out, void* lse, long long qsb,
@@ -1355,10 +1459,10 @@ int fa_backward_dkv(int instance, int dtype, const void* q, const void* k,
       dos{dsb, dss, dsh};
   cudaStream_t st = (cudaStream_t)stream;
   if (instance == 0 && dtype == 0 && D == 64)
-    return backward_dkv<64>(q, k, v, dout, lse, delta, dk, dv, qs, ks, vs, dos,
+    return wg::backward_dkv<64>(q, k, v, dout, lse, delta, dk, dv, qs, ks, vs, dos,
                             B, H, Hk, Sq, Sk, causal, scale, st);
   if (instance == 0 && dtype == 0 && D == 128)
-    return backward_dkv<128>(q, k, v, dout, lse, delta, dk, dv, qs, ks, vs,
+    return wg::backward_dkv<128>(q, k, v, dout, lse, delta, dk, dv, qs, ks, vs,
                              dos, B, H, Hk, Sq, Sk, causal, scale, st);
   if (instance != 1 || D % 8 || D > 256) return (int)cudaErrorInvalidValue;
   if (dtype == 0)

@@ -1,48 +1,59 @@
 // Tiled products over ragged row groups for Hopper (sm_90a), shared by the
 // grouped GEMM (float and int8 weights, csrc/grouped_gemm.cu) and the int8
-// dequant matmul (csrc/dequant_matmul.cu).
+// dequant matmul (csrc/dequant_matmul.cu, whose 16-bit x has a kernel of its
+// own there; f32 x and the general instance come from here).
 //
 // One function covers all three: E groups of C rows each, x [E*C, K] row-major,
 // weights w [E, K, N] and out y [E*C, N]. Group e owns rows [e*C, (e+1)*C), of
 // which the first rows_e = clip(gs[e], 0, C) are real (gs == nullptr: all C).
 //   y[e*C + i] = x[e*C + i] @ W[e]   for i < rows_e,   0 elsewhere,
-// where W is w itself (float weights, any of two stride layouts) or the int8
+// where W is w itself (float weights, read through strides) or the int8
 // weights dequantized with per-block f32 scales [E, ceil(K/B), N]:
 //   W[e][k][n] = q[e][k][n] * scales[e][k / B][n]
-// (B a multiple of 32; the last block is ragged where B does not divide K).
+// (the last block is ragged where B does not divide K).
 //
-// Grid (N / 128, C / 32, E): one block of 128 threads per 32 x 128 out tile.
-// A tile whose first row is at or past rows_e writes zeros and reads nothing
-// else, so the dead rows of dropless routing (E*C rows, n*k real) cost only
-// the zero writes. Rows at or past rows_e inside a live tile read zeros and
-// are written as zeros.
+// Two instances, picked by one rule in paddle_tpu_torch/ops/_tile_gemm.py
+// (`gemm_instance`):
 //
-// The K loop walks 32-deep tiles in order. bf16 x (the serving path): a
-// ring of cp.async copies keeps 3 (bf16 weights) or 7 (int8) tiles in
-// flight per block while one computes; each landed weight tile is converted
-// once into the MMA's layout. f32 x: double-buffered through registers.
-// Every out element is one sum over K in that fixed order, whatever M, C or
+//   tile     bf16 or f32 x, K % 8 == 0, N % 8 == 0; int8 blocks that are a
+//            multiple of 32 and N % 16 == 0; w with a unit stride along K or
+//            N. The kernels below: grid (N / 128, C / 32, E), one block of
+//            128 threads per 32 x 128 out tile. A tile whose first row is at
+//            or past rows_e writes zeros and reads nothing else, so the dead
+//            rows of dropless routing (E*C rows, n*k real) cost only the zero
+//            writes. Rows at or past rows_e inside a live tile read zeros and
+//            are written as zeros. The K loop walks 32-deep tiles in order.
+//            bf16 x (the serving path): a ring of cp.async copies keeps 3
+//            (bf16 weights) or 7 (int8) tiles in flight per block while one
+//            computes; each landed weight tile is converted once into the
+//            MMA's layout. f32 x: double-buffered through registers.
+//   general  everything else: f32, f16 or bf16 x, any K, N >= 1, any block
+//            B >= 1, float weights through any strides (`gen_kernel`).
+//
+// Every out element is one sum over K in one fixed order, whatever M, C or
 // the tile's other rows are: an out row depends on its own x row only, bit
 // for bit, which the serving engine's exactness rests on.
 //
-// Numbers. bf16 x: bf16 tensor-core products (mma.sync m16n8k16) with f32
-// accumulators; a bf16 x bf16 product is exact in f32. f32 x: f32 FMAs on the
-// CUDA cores, no TF32. int8 weights: int8 values are exact in bf16 and f32, so
-// each 32-deep tile multiplies x by the raw q; the partial sum of a scale
-// block (B rows of K) is kept apart and added as acc += partial * scale[n]
-// when the block ends. That is the reference's f32 sum of x * (q * scale)
-// with the scale factored out of each block: f32-grade, not bitwise.
+// Numbers. bf16 x on the tile instance: bf16 tensor-core products (mma.sync
+// m16n8k16) with f32 accumulators; a bf16 x bf16 product is exact in f32.
+// f32 x, and the general instance: f32 FMAs on the CUDA cores, no TF32.
+// int8 weights: int8 values are exact in bf16 and f32, so x multiplies the
+// raw q; the partial sum of a scale block (B rows of K) is kept apart and
+// added as acc += partial * scale[n] when the block ends. That is the
+// reference's f32 sum of x * (q * scale) with the scale factored out of each
+// block: f32-grade, not bitwise.
 //
 // Bound. At the serving shapes (rows per group <= 64) each live tile streams
 // its 32 x 128 weight tiles from device memory once per row tile, so the
 // weight bytes bound it; the design keeps one weight read per row tile,
 // enough bytes in flight to cover the memory latency, and skips dead groups
-// entirely. Left for later: TMA, wgmma, and a split of K for narrow N (the
-// dequant matmul's k/v projections give only 8 column blocks).
+// entirely. A narrow grid splits K over blocks (`split_count`). Left for
+// later: TMA and wgmma.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,6 +100,16 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch casts
 }
+template <>
+__device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
 __device__ __forceinline__ int live_rows(const Args& a, int e) {
   const int r = a.gs ? a.gs[e] : a.C;
@@ -605,18 +626,140 @@ __global__ void __launch_bounds__(kThreads) fma_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The general instance: every x type (f32, f16, bf16), any K, N >= 1, any
+// scale block B >= 1, float weights through any strides. Scalar loads into
+// 32 x 16 (x) and 16 x 64 (weight) f32 tiles; thread (tx, ty) = (tid % 32,
+// tid / 32) owns rows 4 ty .. 4 ty + 3 and columns tx, tx + 32 of the
+// block's 32 x 64 out tile. Every product is an f32 FMA (never TF32), one
+// fixed K order per out element; an int8 block's partial is scaled at the
+// block's last row, wherever that falls in a tile.
+// ---------------------------------------------------------------------------
+
+constexpr int kGenM = 32, kGenN = 64, kGenK = 16, kGenThreads = 256;
+
+template <typename XT, int WK>
+__global__ void __launch_bounds__(kGenThreads) gen_kernel(Args a) {
+  __shared__ float As[kGenM][kGenK + 1];
+  __shared__ float Bs[kGenK][kGenN + 1];
+  const int e = blockIdx.z, m0 = blockIdx.y * kGenM, n0 = blockIdx.x * kGenN;
+  const int rows = live_rows(a, e);
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+  XT* y = reinterpret_cast<XT*>(a.y) + (size_t)e * a.C * a.N;
+  const int r_end = min(m0 + kGenM, a.C);
+  if (m0 >= rows) {  // dead tile: zeros, no weight read
+    const int nc = min(kGenN, a.N - n0);
+    for (int i = tid; i < (r_end - m0) * nc; i += kGenThreads)
+      y[(size_t)(m0 + i / nc) * a.N + n0 + i % nc] = from_f<XT>(0.f);
+    return;
+  }
+  const XT* x = reinterpret_cast<const XT*>(a.x) + (size_t)e * a.C * a.K;
+  const int nb = (a.K + a.block - 1) / max(a.block, 1);
+  float acc[4][2], part[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) acc[i][j] = part[i][j] = 0.f;
+  for (int k0 = 0; k0 < a.K; k0 += kGenK) {
+    for (int i = tid; i < kGenM * kGenK; i += kGenThreads) {
+      const int r = i / kGenK, kk = i % kGenK;
+      As[r][kk] = m0 + r < rows && k0 + kk < a.K
+                      ? to_f(x[(size_t)(m0 + r) * a.K + k0 + kk])
+                      : 0.f;
+    }
+    for (int i = tid; i < kGenK * kGenN; i += kGenThreads) {
+      const int kk = i / kGenN, n = i % kGenN;
+      float v = 0.f;
+      if (k0 + kk < a.K && n0 + n < a.N) {
+        if (WK == kWeightInt8)
+          v = (float)reinterpret_cast<const int8_t*>(
+              a.w)[((size_t)e * a.K + k0 + kk) * a.N + n0 + n];
+        else
+          v = to_f(reinterpret_cast<const XT*>(a.w)[
+              e * a.w_se + (k0 + kk) * a.w_sk + (long long)(n0 + n) * a.w_sn]);
+      }
+      Bs[kk][n] = v;
+    }
+    __syncthreads();
+    const int kn = min(kGenK, a.K - k0);
+    for (int kk = 0; kk < kn; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          part[i][j] = fmaf(As[ty * 4 + i][kk], Bs[kk][tx + 32 * j], part[i][j]);
+      const int k = k0 + kk;
+      if (WK == kWeightInt8 && ((k + 1) % a.block == 0 || k + 1 == a.K)) {
+        const float* srow = a.scales + ((size_t)e * nb + k / a.block) * a.N;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = n0 + tx + 32 * j;
+          const float s = n < a.N ? srow[n] : 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][j] = fmaf(part[i][j], s, acc[i][j]);
+            part[i][j] = 0.f;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + ty * 4 + i;
+    if (r >= r_end) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + tx + 32 * j;
+      const float o = WK == kWeightInt8 ? acc[i][j] : part[i][j];
+      if (n < a.N) y[(size_t)r * a.N + n] = from_f<XT>(r < rows ? o : 0.f);
+    }
+  }
+}
+
 // dtype codes of the C entries
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+// instance codes: the tile kernels above, or the general one
+enum Instance { kTileInstance = 0, kGeneralInstance = 1 };
+
+template <typename XT>
+void launch_general(const Args& a, int E, int wk, cudaStream_t s) {
+  const dim3 grid((a.N + kGenN - 1) / kGenN, (a.C + kGenM - 1) / kGenM, E);
+  if (wk == kWeightInt8)
+    gen_kernel<XT, kWeightInt8><<<grid, kGenThreads, 0, s>>>(a);
+  else
+    gen_kernel<XT, kWeightFloat><<<grid, kGenThreads, 0, s>>>(a);
+}
 
 // Launch the product for groups of x type `dtype` (the weight kind `wk`) on
-// `stream`; returns the cudaGetLastError() code of the launch, or
-// cudaErrorInvalidValue for a geometry the kernels do not take.
-inline int launch(const Args& a, int E, int dtype, int wk, void* stream) {
+// `stream` through `instance`; returns the cudaGetLastError() code of the
+// launch, or cudaErrorInvalidValue for a geometry the instance does not take
+// (the tile instance: bf16 or f32 x, K % 8 == 0, N % 8 == 0, int8 blocks
+// that are multiples of 32 and N % 16 == 0, a unit stride of w along K or N;
+// the general instance: any K, N >= 1 and block >= 1).
+inline int launch(const Args& a, int E, int dtype, int wk, int instance,
+                  void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not a stale one
-  if (E <= 0 || a.C <= 0 || a.K <= 0 || a.N <= 0 || a.K % 8 || a.N % 8)
+  if (E <= 0 || a.C <= 0 || a.K <= 0 || a.N <= 0)
     return (int)cudaErrorInvalidValue;
-  if (wk == kWeightInt8 &&
-      (a.block <= 0 || a.block % kBK || a.N % 16 || !a.scales))
+  if (wk == kWeightInt8 && (a.block <= 0 || !a.scales))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (instance == kGeneralInstance) {
+    if (dtype == kF32)
+      launch_general<float>(a, E, wk, s);
+    else if (dtype == kBF16)
+      launch_general<__nv_bfloat16>(a, E, wk, s);
+    else if (dtype == kF16)
+      launch_general<__half>(a, E, wk, s);
+    else
+      return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+  }
+  if (instance != kTileInstance || a.K % 8 || a.N % 8)
+    return (int)cudaErrorInvalidValue;
+  if (wk == kWeightInt8 && (a.block % kBK || a.N % 16))
     return (int)cudaErrorInvalidValue;
   if (wk == kWeightFloat && a.w_sn != 1 && a.w_sk != 1)
     return (int)cudaErrorInvalidValue;
@@ -625,7 +768,6 @@ inline int launch(const Args& a, int E, int dtype, int wk, void* stream) {
     return (int)cudaErrorInvalidValue;
   const dim3 grid((a.N + kBN - 1) / kBN, (a.C + kBM - 1) / kBM,
                   E * a.splits);
-  cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kBF16) {
     // above 48 KB of shared memory a kernel must ask for it once
     static bool sized[2] = {false, false};

@@ -19,7 +19,15 @@ the hand-written kernels of ``csrc/grouped_gemm.cu``, which read the
 group sizes on the device (no host sync) and skip dead tiles; on CPU
 tensors they run the plain versions :func:`grouped_gemm_ref` and
 :func:`grouped_gemm_q8_ref`. Each out row depends only on its own x row,
-bit for bit, on the card. :func:`grouped_gemm` is differentiable: dx is
+bit for bit, on the card.
+
+The kernels take the reference's kernel domain (:func:`supported`,
+:func:`supported_q8`) and every shape its public functions take: one
+rule, ``ops._tile_gemm.gemm_instance``, sends bf16 and f32 x with K % 8
+and N % 8 zero (int8: B % 32 and N % 16 too) to the tile instance and
+the rest (f16 x, any K, N, B >= 1) to the general instance (f32 FMAs).
+x and w of two dtypes are widened to f32 (exact) and the out cast to
+x's dtype, as the reference computes them. :func:`grouped_gemm` is differentiable: dx is
 the same grouped product against ``w`` transposed (read through its
 strides, never copied), dw the masked f32 batched product
 :func:`grouped_gemm_dw`.
@@ -33,13 +41,19 @@ import torch
 
 from ..quant.format import dequant_blocks
 from . import _build
-from ._tile_gemm import TILE_K, split_count, split_scratch
+from ._tile_gemm import (INSTANCES, TILE_K, gemm_instance, split_count,
+                         split_scratch)
 
 __all__ = ["grouped_gemm", "grouped_gemm_ref", "grouped_gemm_dw",
-           "grouped_gemm_q8", "grouped_gemm_q8_ref"]
+           "grouped_gemm_q8", "grouped_gemm_q8_ref", "supported",
+           "supported_q8"]
 
 #: kernel launches on the CUDA path, per kernel
 launches = {"grouped_gemm": 0, "grouped_gemm_q8": 0}
+#: the same launches by kernel and instance (``gemm_instance``)
+instance_launches = {f"{k}.{i}": 0 for k in launches
+                     for i in INSTANCES[k]}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 def _geometry(x, w, group_sizes):
     if x.dim() != 2 or w.dim() != 3 or group_sizes.dim() != 1:
@@ -55,6 +69,38 @@ def _geometry(x, w, group_sizes):
     if len({x.device, w.device, group_sizes.device}) != 1:
         raise ValueError("x, w and group_sizes must share one device")
     return e, m // e, k, n
+
+
+def supported(x, w, group_sizes):
+    """The reference's kernel rule without its TPU and VMEM clauses: x
+    ``[M, K]`` in f32, f16 or bf16 with M a positive multiple of E, w
+    ``[E, K, N]``, group_sizes ``[E]``, K % 8 == 0 and N % 8 == 0. The
+    kernels take every other shape the public function takes too (the
+    general instance)."""
+    if x.dim() != 2 or w.dim() != 3 or group_sizes.dim() != 1:
+        return False
+    m, k = x.shape
+    e, kw, n = w.shape
+    if e == 0 or group_sizes.shape[0] != e or kw != k:
+        return False
+    if m == 0 or m % e or x.dtype not in _DTYPES:
+        return False
+    return k % 8 == 0 and n % 8 == 0
+
+
+def supported_q8(x, w_q, scales, group_sizes, block):
+    """:func:`supported`'s rule for the int8 kernel, plus int8 weights,
+    a block B >= 1 and f32 scales ``[E, ceil(K/B), N]``: the reference's
+    rule, which also needs K % B == 0 (a ragged last block is taken
+    here). The kernels take every other shape the public function takes
+    too."""
+    if not supported(x, w_q, group_sizes) or scales.dim() != 3:
+        return False
+    e, k, n = w_q.shape
+    b = int(block)
+    if b <= 0 or tuple(scales.shape) != (e, -(-k // b), n):
+        return False
+    return w_q.dtype == torch.int8 and scales.dtype == torch.float32
 
 
 def _masked(x, e, c, gs):
@@ -99,10 +145,11 @@ def _lib():
     lib = _build.load("grouped_gemm")
     if not getattr(lib, "_gg_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.gg_forward.argtypes = [vp] * 4 + [i32] * 4 + [i64] * 3 \
+        lib.gg_forward.argtypes = [i32] + [vp] * 4 + [i32] * 4 + [i64] * 3 \
             + [i32, vp, vp, i32, vp]
         lib.gg_forward.restype = i32
-        lib.gg_q8_forward.argtypes = [vp] * 5 + [i32] * 6 + [vp, vp, i32, vp]
+        lib.gg_q8_forward.argtypes = [i32] + [vp] * 5 + [i32] * 6 \
+            + [vp, vp, i32, vp]
         lib.gg_q8_forward.restype = i32
         lib.gg_error_string.argtypes = [i32]
         lib.gg_error_string.restype = ctypes.c_char_p
@@ -116,78 +163,88 @@ def _raise_on(lib, rc, what):
                            f"({lib.gg_error_string(rc).decode()})")
 
 
-def _operands(x, group_sizes, k, n):
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the CUDA grouped GEMM takes bf16 or f32 x, got "
-                         f"{x.dtype}")
-    if k % 8 or n % 8:
-        raise ValueError(f"the CUDA grouped GEMM needs K % 8 == 0 and N % 8 "
-                         f"== 0; got K {k}, N {n}")
+def _count(kernel, inst):
+    launches[kernel] += 1
+    instance_launches[f"{kernel}.{inst}"] += 1
+
+
+def _operands(x, group_sizes, inst):
     x = x.contiguous()
-    if x.data_ptr() % 16:
-        raise ValueError("the CUDA grouped GEMM takes 16-byte aligned x")
+    if inst == "tile" and x.data_ptr() % 16:
+        raise ValueError("the CUDA grouped GEMM's tile instance takes "
+                         "16-byte aligned x")
     return x, group_sizes.to(torch.int32).contiguous()
 
 
 def _launch_float(x, w, group_sizes):
+    """The instance :func:`gemm_instance` picks. Raises only for what no
+    instance takes: x of another dtype than f32, f16 or bf16, and, on
+    the tile instance, w without a unit stride along K or N, with other
+    strides that are not multiples of 8, or misaligned."""
     e, c, k, n = _geometry(x, w, group_sizes)
-    x, gs = _operands(x, group_sizes, k, n)
+    out_dtype = x.dtype
     if w.dtype != x.dtype:
-        raise ValueError(f"the CUDA grouped GEMM takes w in x's dtype; got "
-                         f"{w.dtype} for {x.dtype} x")
+        # as the reference computes them: both in f32 (exact), out in x's
+        # dtype
+        x, w = x.float(), w.float()
+    inst = gemm_instance("grouped_gemm", x.dtype, k, n)
+    x, gs = _operands(x, group_sizes, inst)
     se, sk, sn = w.stride()
     # 16-byte vectors along the unit-stride axis of w: N (the stored
     # weight) or K (its transpose, the backward's dx)
-    if (sn != 1 and sk != 1) or any(s % 8 for s in (se, sk, sn) if s != 1) \
-            or w.data_ptr() % 16:
+    if inst == "tile" and (
+            (sn != 1 and sk != 1) or any(s % 8 for s in (se, sk, sn)
+                                         if s != 1) or w.data_ptr() % 16):
         raise ValueError(
-            "the CUDA grouped GEMM reads w with a unit stride along K or N, "
-            f"the other strides multiples of 8 and 16-byte alignment; got "
-            f"strides {w.stride()}")
+            "the CUDA grouped GEMM's tile instance reads w with a unit "
+            "stride along K or N, the other strides multiples of 8 and "
+            f"16-byte alignment; got strides {w.stride()}")
     y = torch.empty((e * c, n), dtype=x.dtype, device=x.device)
-    bf16 = x.dtype == torch.bfloat16
+    bf16 = inst == "tile" and x.dtype == torch.bfloat16
     splits = split_count(x.device, e, k, n, TILE_K) if bf16 else 1
     partial, tickets = split_scratch(x, splits, e, c, n)
     lib = _lib()
-    rc = lib.gg_forward(x.data_ptr(), w.data_ptr(), gs.data_ptr(),
-                        y.data_ptr(), e, c, k, n, se, sk, sn, splits,
-                        _build.data_ptr(partial), _build.data_ptr(tickets),
-                        int(bf16),
+    rc = lib.gg_forward(INSTANCES["grouped_gemm"][inst], x.data_ptr(),
+                        w.data_ptr(), gs.data_ptr(), y.data_ptr(), e, c, k,
+                        n, se, sk, sn, splits, _build.data_ptr(partial),
+                        _build.data_ptr(tickets), _DTYPES[x.dtype],
                         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, rc, "grouped_gemm")
-    launches["grouped_gemm"] += 1
-    return y
+    _count("grouped_gemm", inst)
+    return y.to(out_dtype)
 
 
 def _launch_q8(x, w_q, scales, group_sizes, block):
+    """The instance :func:`gemm_instance` picks. Raises only for what no
+    instance takes: x of another dtype than f32, f16 or bf16, weights
+    that are not int8 ``[E, K, N]`` with f32 scales ``[E, ceil(K/B),
+    N]``, and misaligned operands of the tile instance."""
     e, c, k, n = _geometry(x, w_q, group_sizes)
-    x, gs = _operands(x, group_sizes, k, n)
+    inst = gemm_instance("grouped_gemm_q8", x.dtype, k, n, block)
     if w_q.dtype != torch.int8 or scales.dtype != torch.float32 \
-            or tuple(scales.shape) != (e, -(-k // block), n):
+            or tuple(scales.shape) != (e, -(-k // block), n) or block < 1:
         raise ValueError(
             "the CUDA int8 grouped GEMM takes int8 w [E, K, N] and f32 "
             f"scales [E, ceil(K/B), N]; got {w_q.dtype} {tuple(w_q.shape)}, "
             f"{scales.dtype} {tuple(scales.shape)}, block {block}")
-    if block % TILE_K or n % 16:
-        raise ValueError(f"the CUDA int8 grouped GEMM needs a block that is "
-                         f"a multiple of {TILE_K} and N % 16 == 0; got "
-                         f"block {block}, N {n}")
-    if not (w_q.is_contiguous() and scales.is_contiguous()) \
-            or w_q.data_ptr() % 16 or scales.data_ptr() % 16:
-        raise ValueError("the CUDA int8 grouped GEMM takes contiguous, "
+    x, gs = _operands(x, group_sizes, inst)
+    w_q, scales = w_q.contiguous(), scales.contiguous()
+    if inst == "tile" and (w_q.data_ptr() % 16 or scales.data_ptr() % 16):
+        raise ValueError("the CUDA int8 grouped GEMM's tile instance takes "
                          "16-byte aligned weights and scales")
     y = torch.empty((e * c, n), dtype=x.dtype, device=x.device)
-    bf16 = x.dtype == torch.bfloat16
+    bf16 = inst == "tile" and x.dtype == torch.bfloat16
     splits = split_count(x.device, e, k, n, block) if bf16 else 1
     partial, tickets = split_scratch(x, splits, e, c, n)
     lib = _lib()
-    rc = lib.gg_q8_forward(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
-                           gs.data_ptr(), y.data_ptr(), e, c, k, n, block,
-                           splits, _build.data_ptr(partial),
-                           _build.data_ptr(tickets), int(bf16),
+    rc = lib.gg_q8_forward(INSTANCES["grouped_gemm_q8"][inst], x.data_ptr(),
+                           w_q.data_ptr(), scales.data_ptr(), gs.data_ptr(),
+                           y.data_ptr(), e, c, k, n, block, splits,
+                           _build.data_ptr(partial),
+                           _build.data_ptr(tickets), _DTYPES[x.dtype],
                            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, rc, "grouped_gemm_q8")
-    launches["grouped_gemm_q8"] += 1
+    _count("grouped_gemm_q8", inst)
     return y
 
 

@@ -4,10 +4,18 @@
 The decode-side projection of int8 serving: device memory holds the
 int8 weight and its f32 scale rows, and the dequantize happens in the
 kernel next to the product. On a CUDA tensor :func:`dequant_matmul`
-launches the hand-written kernel in ``csrc/dequant_matmul.cu`` (a
-ragged last scale block included, where the reference's kernel needs K
-to be a whole number of blocks) or raises; on a CPU tensor it runs the
-plain version :func:`dequant_matmul_ref`.
+launches the hand-written kernels of ``csrc/dequant_matmul.cu`` or
+raises; on a CPU tensor it runs the plain version
+:func:`dequant_matmul_ref`.
+
+The kernels take the reference's kernel domain (:func:`supported`) and
+every shape its public function takes: one rule,
+``ops._tile_gemm.gemm_instance``, sends 16-bit x with K % 8, N % 16 and
+B % 16 zero to the cluster instance (the serving path), f32 x with B %
+32 zero to the tile instance, and the rest to the general instance (f32
+FMAs, any K, N, B >= 1). A ragged last scale block (K % B != 0) is
+taken too, where the reference's kernel needs K to be a whole number of
+blocks.
 """
 
 from __future__ import annotations
@@ -17,13 +25,18 @@ import ctypes
 import torch
 
 from ..ops import _build
-from ..ops._tile_gemm import TILE_K, split_count, split_scratch
+from ..ops._tile_gemm import INSTANCES, cluster_splits, gemm_instance
 from .format import dequant_blocks, effective_block
 
 __all__ = ["dequant_matmul", "dequant_matmul_ref", "supported"]
 
 #: kernel launches on the CUDA path
 launches = 0
+#: the same launches by instance (``ops._tile_gemm.gemm_instance``)
+instance_launches = {f"dequant_matmul.{i}": 0
+                     for i in INSTANCES["dequant_matmul"]}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
 
 def dequant_matmul_ref(x, q, scales, block):
     """The plain version: dequantize to f32, one f32 product over the
@@ -33,23 +46,32 @@ def dequant_matmul_ref(x, q, scales, block):
 
 
 def supported(x, q, scales, block=None):
-    """The shapes the CUDA kernel takes: bf16 or f32 ``x [..., K]``, 2-D
-    int8 ``q [K, N]`` and f32 ``scales [ceil(K/B), N]`` with B a multiple
-    of the 32-deep K tile, K % 8 == 0 and N % 16 == 0."""
+    """The kernel domain: the reference's kernel rule without its TPU
+    and VMEM clauses, f32, f16 or bf16 ``x [..., K]`` with at least one
+    row, 2-D int8 ``q [K, N]``, f32 ``scales [ceil(K/B), N]`` for the
+    block B (clamped to K by ``effective_block``), K % 8 == 0 and N % 8
+    == 0, where the reference also needs K % B == 0 (a ragged last block
+    is taken here). The kernels take every other shape the public
+    function takes too (the general instance)."""
+    if x.dim() < 1 or q.dim() != 2 or scales.dim() != 2:
+        return False
     k = x.shape[-1]
-    b = effective_block(k, block)
-    return (x.dtype in (torch.bfloat16, torch.float32) and q.dim() == 2
-            and scales.dim() == 2 and q.shape[0] == k
-            and q.dtype == torch.int8 and scales.dtype == torch.float32
-            and tuple(scales.shape) == (-(-k // b), q.shape[1])
-            and b % TILE_K == 0 and k % 8 == 0 and q.shape[1] % 16 == 0)
+    kw, n = q.shape
+    if kw != k or scales.shape[1] != n or k == 0:
+        return False
+    if x.dtype not in _DTYPES or q.dtype != torch.int8 \
+            or scales.dtype != torch.float32:
+        return False
+    if scales.shape[0] != -(-k // effective_block(k, block)):
+        return False
+    return x.numel() // k > 0 and k % 8 == 0 and n % 8 == 0
 
 
 def _lib():
     lib = _build.load("dequant_matmul")
     if not getattr(lib, "_dq_typed", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.dq_forward.argtypes = [vp] * 4 + [i32] * 5 + [vp, vp, i32, vp]
+        lib.dq_forward.argtypes = [i32] + [vp] * 4 + [i32] * 6 + [vp]
         lib.dq_forward.restype = i32
         lib.dq_error_string.argtypes = [i32]
         lib.dq_error_string.restype = ctypes.c_char_p
@@ -58,45 +80,39 @@ def _lib():
 
 
 def _launch(x2, q, scales, block):
-    """The kernel on 2-D ``x2 [M, K]`` (bf16 or f32)."""
+    """The kernel instance :func:`gemm_instance` picks, on 2-D ``x2 [M,
+    K]``. Raises for operands no instance takes: other dtypes than
+    float x, int8 q and f32 scales ``[ceil(K/B), N]``; strided or
+    misaligned operands of the cluster and tile instances."""
     global launches
     m, k = x2.shape
     n = q.shape[1]
-    if x2.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the CUDA dequant kernel takes bf16 or f32 x, got "
-                         f"{x2.dtype}")
+    inst = gemm_instance("dequant_matmul", x2.dtype, k, n, block)
     if q.dtype != torch.int8 or scales.dtype != torch.float32 \
             or tuple(scales.shape) != (-(-k // block), n):
         raise ValueError(
-            "the CUDA dequant kernel takes int8 q and f32 scales "
+            "the CUDA dequant kernels take int8 q and f32 scales "
             f"[ceil(K/B), N]; got {q.dtype} {tuple(q.shape)}, "
             f"{scales.dtype} {tuple(scales.shape)}, block {block}")
-    if block % TILE_K or k % 8 or n % 16:
-        raise ValueError(
-            f"the CUDA dequant kernel needs a block that is a multiple of "
-            f"{TILE_K}, K % 8 == 0 and N % 16 == 0; got block {block}, "
-            f"K {k}, N {n}")
-    x2 = x2.contiguous()
-    if not (q.is_contiguous() and scales.is_contiguous()) \
-            or any(t.data_ptr() % 16 for t in (x2, q, scales)):
-        raise ValueError("the CUDA dequant kernel takes contiguous, 16-byte "
-                         "aligned operands")
+    x2, q, scales = x2.contiguous(), q.contiguous(), scales.contiguous()
+    if inst != "general" and any(t.data_ptr() % 16 for t in (x2, q, scales)):
+        raise ValueError(f"the CUDA dequant kernel's {inst} instance takes "
+                         "16-byte aligned operands")
     y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     if m == 0:
         return y
-    bf16 = x2.dtype == torch.bfloat16
-    splits = split_count(x2.device, 1, k, n, block) if bf16 else 1
-    partial, tickets = split_scratch(x2, splits, 1, m, n)
+    splits = cluster_splits(x2.device, k, n, block) if inst == "cluster" \
+        else 1
     lib = _lib()
-    rc = lib.dq_forward(x2.data_ptr(), q.data_ptr(), scales.data_ptr(),
-                        y.data_ptr(), m, k, n, block, splits,
-                        _build.data_ptr(partial), _build.data_ptr(tickets),
-                        int(bf16),
+    rc = lib.dq_forward(INSTANCES["dequant_matmul"][inst], x2.data_ptr(),
+                        q.data_ptr(), scales.data_ptr(), y.data_ptr(), m, k,
+                        n, block, splits, _DTYPES[x2.dtype],
                         torch.cuda.current_stream(x2.device).cuda_stream)
     if rc:
         raise RuntimeError(f"dequant_matmul launch failed: CUDA error {rc} "
                            f"({lib.dq_error_string(rc).decode()})")
     launches += 1
+    instance_launches[f"dequant_matmul.{inst}"] += 1
     return y
 
 

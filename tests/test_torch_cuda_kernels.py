@@ -115,7 +115,23 @@ def test_flash_kernels_match_plain(dev, case):
         _close(got, ref, 2 ** -6)
     assert FT.launches == {k_: n + 1 for k_, n in before.items()}
     inst = FT.instance_launches
-    assert inst["forward.wgmma"] and inst["dq.wmma"] and inst["dkv.wmma"]
+    assert inst["forward.wgmma"] and inst["dq.wmma"] and inst["dkv.wgmma"]
+
+
+def test_flash_dkv_is_bitwise_across_calls(dev):
+    """dK/dV sums the group in registers in one fixed order (no
+    atomics): two launches on the same inputs agree bit for bit."""
+    g = torch.Generator(dev).manual_seed(11)
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    q, do = torch.randn(2, 256, 8, 128, **bf), torch.randn(2, 256, 8, 128, **bf)
+    k, v = torch.randn(2, 256, 2, 128, **bf), torch.randn(2, 256, 2, 128, **bf)
+    out, lse = FT.flash_attention_fwd_ref(q, k, v, True)
+    args = (q, k, v, do, lse, FT.attention_delta(out, do), True, 128 ** -0.5)
+    before = FT.instance_launches["dkv.wgmma"]
+    dk1, dv1 = FT._launch_dkv(*args)
+    dk2, dv2 = FT._launch_dkv(*args)
+    assert FT.instance_launches["dkv.wgmma"] == before + 2
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
 def test_flash_autograd_on_the_card(dev):
@@ -267,8 +283,12 @@ def test_grouped_gemm_kernel_matches_plain(dev, dtype, case):
         assert not y3[ei, min(m, c):].any()
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 def test_grouped_gemm_backward_on_the_card(dev, dtype):
+    """y and dx launch the kernel (f16 x the general instance, whose dx
+    reads the transposed weight through its strides); dw is the plain
+    masked product."""
     e, c, k, n, gs = GROUPED[1]
     x, w, gs_t = _grouped_inputs(dev, dtype, e, c, k, n, gs, seed=1)
     x.requires_grad_()
@@ -277,23 +297,29 @@ def test_grouped_gemm_backward_on_the_card(dev, dtype):
     before = GG.launches["grouped_gemm"]
     GG.grouped_gemm(x, w, gs_t).backward(g)
     assert GG.launches["grouped_gemm"] == before + 2     # y, then dx
-    _close_any(x.grad, GG.grouped_gemm_ref(g, w.detach().transpose(1, 2),
-                                           gs_t))
+    _close_gemm(x.grad, GG.grouped_gemm_ref(g, w.detach().transpose(1, 2),
+                                            gs_t))
     assert torch.equal(w.grad, GG.grouped_gemm_dw(x.detach(), g, gs_t,
                                                   w.dtype))
 
 
 def test_grouped_gemm_rows_are_independent(dev):
-    """A row's out is bit for bit the same whatever the other rows."""
+    """A row's out is bit for bit the same whatever the other rows: rows
+    0, 5 and 37 alone, then among 8 and among 64 rows of their expert."""
     g = torch.Generator(dev).manual_seed(4)
     w = torch.randn(2, 256, 128, device=dev, generator=g).bfloat16()
-    rows = torch.randn(33, 256, device=dev, generator=g).bfloat16()
-    alone = GG.grouped_gemm(torch.cat([rows[:1], rows[:1]]), w,
-                            torch.tensor([1, 0], device=dev))[0]
-    x = torch.zeros(66, 256, device=dev, dtype=torch.bfloat16)
-    x[:33] = rows
-    packed = GG.grouped_gemm(x, w, torch.tensor([33, 0], device=dev))[0]
-    assert torch.equal(alone, packed)
+    rows = torch.randn(64, 256, device=dev, generator=g).bfloat16()
+    x = torch.zeros(128, 256, device=dev, dtype=torch.bfloat16)
+    x[:64] = rows
+    for t in (8, 64):
+        packed = GG.grouped_gemm(x, w, torch.tensor([t, 0], device=dev))
+        for i in (0, 5, 37):
+            if i >= t:
+                continue
+            one = torch.zeros_like(x)
+            one[0] = rows[i]
+            alone = GG.grouped_gemm(one, w, torch.tensor([1, 0], device=dev))
+            assert torch.equal(alone[0], packed[i]), (i, t)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -312,24 +338,136 @@ def test_grouped_gemm_q8_kernel_matches_plain(dev, dtype, e, c, k, n, block,
     _close_any(y, GG.grouped_gemm_q8_ref(x, q, s, gs_t, block))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def _close_gemm(got, ref):
+    """bf16 and f32 outs by :func:`_close_any`, f16 by
+    :func:`_close_dtype`."""
+    if ref.dtype == torch.float16:
+        return _close_dtype(got, ref)
+    return _close_any(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 @pytest.mark.parametrize("m,k,n,block", [(1, 256, 1024, 128),
                                          (8, 512, 48, 64),
-                                         (45, 128, 256, 32)])
+                                         (45, 128, 256, 32),
+                                         (64, 4096, 1024, 128),
+                                         (100, 512, 256, 64)])
 def test_dequant_matmul_kernel_matches_plain(dev, dtype, m, k, n, block):
     g = torch.Generator(dev).manual_seed(m + k + n)
     x = torch.randn(m, k, device=dev, generator=g).to(dtype)
     q, s = quantize_weight(torch.randn(k, n, device=dev, generator=g), block)
-    before = QK.launches
+    inst = "dequant_matmul." + ("tile" if dtype == torch.float32
+                                else "cluster")
+    before, before_i = QK.launches, QK.instance_launches[inst]
     y = QK.dequant_matmul(x, q, s, block)
     assert QK.launches == before + 1
-    _close_any(y, QK.dequant_matmul_ref(x, q, s, block))
+    _close_gemm(y, QK.dequant_matmul_ref(x, q, s, block))
     # a ragged last scale block (K % B != 0) launches the kernel too
     q2, s2 = quantize_weight(torch.randn(k - 8, n, device=dev, generator=g),
                              block)
     y2 = QK.dequant_matmul(x[:, :k - 8], q2, s2, block)
     assert QK.launches == before + 2
-    _close_any(y2, QK.dequant_matmul_ref(x[:, :k - 8], q2, s2, block))
+    assert QK.instance_launches[inst] == before_i + 2
+    _close_gemm(y2, QK.dequant_matmul_ref(x[:, :k - 8], q2, s2, block))
+
+
+@pytest.mark.parametrize("dtype,n,block", [
+    (torch.bfloat16, 4096, 128), (torch.bfloat16, 1024, 128),
+    (torch.float16, 4096, 128), (torch.float16, 1024, 128),
+    (torch.bfloat16, 1024, 24)])        # the general instance
+def test_dequant_matmul_rows_are_independent(dev, dtype, n, block):
+    """Rows 0, 5 and 37 alone, then among 8 and among 64 rows: bitwise
+    equal (the K split is a rule of K, N and the block, never of M; the
+    general instance sums each out element in one K order)."""
+    from paddle_tpu_torch.ops._tile_gemm import gemm_instance
+    g = torch.Generator(dev).manual_seed(n)
+    x = (torch.randn(64, 4096, device=dev, generator=g) * 0.5).to(dtype)
+    q, s = quantize_weight(torch.randn(4096, n, device=dev, generator=g)
+                           * 0.02, block)
+    inst = "dequant_matmul." + gemm_instance("dequant_matmul", dtype, 4096,
+                                             n, block)
+    before = QK.instance_launches[inst]
+    alone = {i: QK.dequant_matmul(x[i:i + 1], q, s, block)[0]
+             for i in (0, 5, 37)}
+    assert QK.instance_launches[inst] == before + 3
+    for t in (8, 64):
+        packed = QK.dequant_matmul(x[:t], q, s, block)
+        for i, y in alone.items():
+            if i < t:
+                assert torch.equal(y, packed[i]), (i, t)
+
+
+# the general instance (C6): kernel, x dtype, (e, c,) m / k / n / block
+GEMM_GENERAL = [
+    ("dq", torch.float16, 5, 96, 64, 24),
+    ("dq", torch.bfloat16, 9, 96, 64, 8),
+    ("dq", torch.bfloat16, 70, 40, 24, 40),
+    ("dq", torch.float32, 3, 37, 29, 16),
+    ("dq", torch.bfloat16, 4, 120, 20, 24),
+    ("gg", torch.float16, 3, 64, 48, None),
+    ("gg", torch.bfloat16, 3, 40, 20, None),
+    ("gg", torch.float32, 3, 37, 29, None),
+    ("gg_q8", torch.float16, 3, 96, 64, 32),
+    ("gg_q8", torch.bfloat16, 3, 96, 64, 24),
+    ("gg_q8", torch.bfloat16, 3, 40, 24, 8),
+    ("gg_q8", torch.float32, 3, 37, 29, 16),
+    ("gg_q8", torch.bfloat16, 3, 128, 48, 40),
+]
+
+
+@pytest.mark.parametrize("case", GEMM_GENERAL)
+def test_gemm_general_instance_matches_plain(dev, case):
+    """The points of the reference's domain past the fast instances: f16
+    x, blocks that are not multiples of 32 (or 16), N % 16 != 0, and K
+    and N off multiples of 8; each launches its kernel's general
+    instance (the dequant matmul's cluster instance where it takes the
+    point) and stays within the plain version's tolerance."""
+    kind, dtype, m, k, n, block = case
+    from paddle_tpu_torch.ops._tile_gemm import gemm_instance
+    g = torch.Generator(dev).manual_seed(m + k + n)
+    if kind == "dq":
+        x = torch.randn(m, k, device=dev, generator=g).to(dtype)
+        q, s = quantize_weight(torch.randn(k, n, device=dev, generator=g),
+                               block)
+        inst = "dequant_matmul." + gemm_instance("dequant_matmul", dtype, k,
+                                                 n, block)
+        before = QK.instance_launches[inst]
+        y = QK.dequant_matmul(x, q, s, block)
+        assert QK.instance_launches[inst] == before + 1
+        return _close_gemm(y, QK.dequant_matmul_ref(x, q, s, block))
+    gs = [m, 0, m + 3]
+    c = m + 2
+    x, w, gs_t = _grouped_inputs(dev, dtype, 3, c, k, n, gs, seed=m)
+    if kind == "gg":
+        assert gemm_instance("grouped_gemm", dtype, k, n) == "general"
+        before = GG.instance_launches["grouped_gemm.general"]
+        y = GG.grouped_gemm(x, w, gs_t)
+        assert GG.instance_launches["grouped_gemm.general"] == before + 1
+        ref = GG.grouped_gemm_ref(x, w, gs_t)
+    else:
+        q, s = quantize_weight(w, block)
+        assert gemm_instance("grouped_gemm_q8", dtype, k, n,
+                             block) == "general"
+        before = GG.instance_launches["grouped_gemm_q8.general"]
+        y = GG.grouped_gemm_q8(x, q, s, gs_t, block)
+        assert GG.instance_launches["grouped_gemm_q8.general"] == before + 1
+        ref = GG.grouped_gemm_q8_ref(x, q, s, gs_t, block)
+    _close_gemm(y, ref)
+    assert not y.reshape(3, c, n)[1].any()
+
+
+def test_grouped_gemm_widens_mixed_dtypes(dev):
+    """x and w of two dtypes run in f32 (exact), out in x's dtype, as
+    the reference computes them; dx through the backward too."""
+    x, w, gs = _grouped_inputs(dev, torch.bfloat16, 2, 8, 64, 32, [5, 8])
+    w = w.float().requires_grad_()
+    x.requires_grad_()
+    y = GG.grouped_gemm(x, w, gs)
+    assert y.dtype == torch.bfloat16
+    _close_any(y, GG.grouped_gemm_ref(x.detach(), w.detach(), gs))
+    y.float().sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
 
 
 RPA = [  # hk, group, d, page, qblock, (prior context, [chunks]) per seq

@@ -103,6 +103,107 @@ def test_grouped_gemm_q8_matches_reference(case, block):
     assert _zeros_past(got, e, c, gs)
 
 
+# the general instance's points: e, c, k, n, group sizes, x dtype, block
+WIDE = [
+    (3, 6, 40, 24, [6, 0, 9], "float16", 8),
+    (3, 6, 96, 64, [2, 6, 0], "float16", 24),
+    (2, 5, 37, 29, [5, 3], "float32", 16),
+    (2, 7, 120, 40, [7, 1], "bfloat16", 40),
+    (3, 4, 44, 20, [0, 4, 2], "float32", 12),
+]
+_J = {"float16": jnp.float16, "bfloat16": jnp.bfloat16,
+      "float32": jnp.float32}
+
+
+def _close_in(got, want, dtype):
+    """Both sum in f32 in other orders and round to x's dtype: within 1
+    ulp of it (1e-5 in f32)."""
+    ulp = {"float16": 2 ** -10, "bfloat16": 2 ** -7, "float32": 1e-5}[dtype]
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), rtol=ulp,
+                               atol=ulp)
+
+
+@pytest.mark.parametrize("case", WIDE)
+def test_grouped_gemms_widened_domain_match_reference(case):
+    """f16 x, blocks of 8, 24 and 40, N 24 and K, N off multiples of 8:
+    the plain versions (what the general instance computes) against
+    ``grouped_gemm_xla`` / ``grouped_gemm_q8_xla`` fed the same x."""
+    e, c, k, n, gs, dtype, block = case
+    x, w = _inputs(e, c, k, n, seed=k)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    xj = jnp.asarray(xt.float().numpy()).astype(_J[dtype])
+    gs_np = np.asarray(gs, np.int32)
+    got = GG.grouped_gemm(xt, torch.from_numpy(w), torch.from_numpy(gs_np))
+    assert got.dtype == xt.dtype
+    want = grouped_gemm_xla(xj, w, gs_np).numpy()
+    _close_in(got.float().numpy(), want, dtype)
+    assert _zeros_past(got.float().numpy(), e, c, gs)
+    k_pad = -(-k // block) * block
+    if k_pad == k:   # the reference's int8 formulation needs whole blocks
+        q, s = (np.array(a) for a in jax_quantize(jnp.asarray(w), block))
+        got = GG.grouped_gemm_q8(xt, torch.from_numpy(q), torch.from_numpy(s),
+                                 torch.from_numpy(gs_np), block)
+        want = grouped_gemm_q8_xla(xj, q, s, gs_np, block).numpy()
+        _close_in(got.float().numpy(), want, dtype)
+        assert _zeros_past(got.float().numpy(), e, c, gs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(64, 64), (40, 24), (37, 64), (64, 20)])
+@pytest.mark.parametrize("block", [8, 24, 32])
+def test_supported_matches_the_reference_rule(monkeypatch, dtype, k, n,
+                                              block):
+    """``supported`` / ``supported_q8`` are the reference's kernel rules
+    without the TPU and VMEM clauses (its backend test forced to a TPU
+    here; the VMEM budget holds at these shapes), the int8 one taking a
+    ragged last block too."""
+    import paddle_tpu.ops.grouped_gemm as RG
+    monkeypatch.setattr(RG, "_interpret", lambda: False)
+    monkeypatch.setattr(RG, "_HAS_PLTPU", True)
+    e, c = 2, 4
+    x, w = _inputs(e, c, k, n)
+    gs = np.asarray([3, 4], np.int32)
+    q, s = (np.array(a) for a in jax_quantize(jnp.asarray(w), block)) \
+        if k % block == 0 else (None, None)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    xj = jnp.asarray(x).astype(_J[dtype])
+    assert GG.supported(xt, torch.from_numpy(w), torch.from_numpy(gs)) \
+        is RG.supported(xj, jnp.asarray(w), jnp.asarray(gs))
+    from paddle_tpu_torch.quant.format import quantize_weight
+    qt, st = quantize_weight(torch.from_numpy(w), block)
+    got = GG.supported_q8(xt, qt, st, torch.from_numpy(gs), block)
+    if k % block == 0:
+        assert got is RG.supported_q8(xj, jnp.asarray(q), jnp.asarray(s),
+                                      jnp.asarray(gs), block)
+    else:
+        assert got is (k % 8 == 0 and n % 8 == 0)
+
+
+def test_grouped_launch_raises_only_for_what_no_instance_takes():
+    """The CUDA wrappers refuse x dtypes, weights and scales no instance
+    takes, and strides or alignment the tile instance cannot read,
+    before any launch (so the checks run on the CPU too)."""
+    x, w = _inputs(2, 4, 64, 32)
+    gs = torch.tensor([4, 1])
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    with pytest.raises(ValueError, match="float32, float16 or bfloat16"):
+        GG._launch_float(xt.to(torch.int32), wt.to(torch.int32), gs)
+    strided = torch.zeros(2, 64, 64)[..., ::2]
+    with pytest.raises(ValueError, match="tile instance reads w with a "
+                                         "unit stride"):
+        GG._launch_float(xt, strided, gs)
+    q, s = (torch.from_numpy(np.array(a))
+            for a in jax_quantize(jnp.asarray(w), 32))
+    with pytest.raises(ValueError, match="int8 w \\[E, K, N\\] and f32"):
+        GG._launch_q8(xt, q, s[:, :1], gs, 32)
+    odd = torch.zeros(1 + 8 * 64)[1:].view(8, 64)
+    with pytest.raises(ValueError, match="tile instance takes 16-byte"):
+        GG._launch_q8(odd, q, s, gs, 32)
+    assert not any(GG.launches.values())
+    assert not any(GG.instance_launches.values())
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """On the CPU the wrappers call the plain versions (looked up at
     call time) and launch nothing."""

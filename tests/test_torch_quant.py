@@ -63,7 +63,11 @@ def test_quantize_weight_is_bitwise(shape, block, zero_rows, dtype):
 
 @pytest.mark.parametrize("lead,k,n,block", [
     ((5,), 64, 48, 32), ((2, 3), 128, 16, 64), ((7,), 96, 24, 32),
-    ((5,), 100, 24, 32)])        # K % B != 0: a ragged last block
+    ((5,), 100, 24, 32),         # K % B != 0: a ragged last block
+    # the general instance's points: B 8, 24 and 40, N 24, K 40, and K
+    # or N off multiples of 8
+    ((5,), 96, 64, 24), ((3,), 40, 64, 8), ((4,), 120, 24, 40),
+    ((6,), 37, 29, 16), ((2, 3), 44, 20, 12), ((3,), 40, 24, 128)])
 def test_dequant_matmul_matches_reference(lead, k, n, block):
     rng = np.random.RandomState(k + n)
     x = rng.randn(*lead, k).astype(np.float32)
@@ -76,24 +80,115 @@ def test_dequant_matmul_matches_reference(lead, k, n, block):
     assert got.shape == lead + (n,)
     want = np.asarray(dequant_matmul_xla(x, q, s, block).numpy())
     np.testing.assert_allclose(got, want, **TOL)
-    if k % block == 0:
+    if k % block == 0 and k % 8 == 0 and n % 8 == 0:
         pallas = np.asarray(_dequant_matmul(
             jnp.asarray(x), jnp.asarray(q), jnp.asarray(s), block,
             use_kernel=True))
         np.testing.assert_allclose(got, pallas, **TOL)
 
 
+@pytest.mark.parametrize("k,n,block,dtype", [
+    (96, 64, 24, torch.float16), (40, 64, 8, torch.bfloat16),
+    (120, 24, 40, torch.float32), (37, 29, 16, torch.bfloat16)])
+def test_dequant_matmul_f16_and_odd_shapes_match_reference(k, n, block,
+                                                          dtype):
+    """16-bit x (the kernels read f16 and bf16 as they are) at points of
+    the general instance: the plain version against the reference's
+    formulation fed the same 16-bit x. Both sum in f32 in other orders
+    and round to x's dtype: within 1 ulp of it."""
+    rng = np.random.RandomState(k + n)
+    x = torch.from_numpy(rng.randn(4, k).astype(np.float32)).to(dtype)
+    q, s = (np.array(a) for a in JF.quantize_weight(
+        jnp.asarray(_weight((k, n), seed=2)), block))
+    got = dequant_matmul(x, torch.from_numpy(q), torch.from_numpy(s),
+                         block).float().numpy()
+    xj = jnp.asarray(x.float().numpy()).astype(
+        jnp.float16 if dtype == torch.float16 else
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    want = np.asarray(dequant_matmul_xla(xj, q, s, block).numpy()) \
+        .astype(np.float32)
+    ulp = {torch.float16: 2 ** -10, torch.bfloat16: 2 ** -7,
+           torch.float32: 1e-5}[dtype]
+    np.testing.assert_allclose(got, want, rtol=ulp, atol=ulp)
+
+
 @pytest.mark.parametrize("k,n,block,dtype,ok", [
     (256, 64, 128, torch.bfloat16, True),
     (248, 64, 128, torch.bfloat16, True),    # a ragged last scale block
     (200, 48, 64, torch.float32, True),
-    (100, 24, 32, torch.float32, False),     # N % 16 != 0
-    (100, 32, 128, torch.float32, False),    # B clamps to K = 100: not 32k
-    (64, 32, 32, torch.float16, False)])     # neither bf16 nor f32
+    (100, 24, 32, torch.float32, False),     # K % 8 != 0
+    (104, 32, 128, torch.float32, True),     # B clamps to K = 104
+    (64, 32, 32, torch.float16, True),       # f16 x
+    (64, 20, 32, torch.bfloat16, False),     # N % 8 != 0
+    (96, 24, 24, torch.bfloat16, True),      # N % 16 != 0, B % 32 != 0
+    (64, 32, 32, torch.float64, False)])     # not a kernel dtype
 def test_supported_is_the_kernels_shape_rule(k, n, block, dtype, ok):
     w = torch.from_numpy(_weight((k, n), seed=k))
     q, s = quantize_weight(w, block)
     assert QK.supported(torch.zeros(3, k, dtype=dtype), q, s, block) is ok
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(64, 64), (96, 24), (100, 64), (40, 20),
+                                 (128, 48)])
+@pytest.mark.parametrize("block", [8, 24, 32, 128])
+def test_supported_matches_the_reference_rule(monkeypatch, dtype, k, n,
+                                              block):
+    """``supported`` is the reference's kernel rule without its TPU and
+    VMEM clauses (its backend test forced to a TPU here; the VMEM
+    budget holds at these shapes), but takes a ragged last block."""
+    import paddle_tpu.quant.kernels as RK
+    monkeypatch.setattr(RK, "_interpret", lambda: False)
+    w = _weight((k, n), seed=1)
+    q, s = quantize_weight(torch.from_numpy(w), block)
+    x = np.zeros((3, k), np.float32)
+    ref = RK.supported(jnp.asarray(x).astype(getattr(jnp, dtype)),
+                       jnp.asarray(q.numpy()), jnp.asarray(s.numpy()), block)
+    got = QK.supported(torch.zeros(3, k, dtype=getattr(torch, dtype)), q, s,
+                       block)
+    b = min(block, k)
+    assert got is (ref if k % b == 0 else k % 8 == 0 and n % 8 == 0)
+
+
+@pytest.mark.parametrize("kernel,dtype,k,n,block,want", [
+    ("dequant_matmul", torch.bfloat16, 4096, 4096, 128, "cluster"),
+    ("dequant_matmul", torch.float16, 4096, 1024, 48, "cluster"),
+    ("dequant_matmul", torch.bfloat16, 96, 64, 24, "general"),
+    ("dequant_matmul", torch.bfloat16, 96, 24, 32, "general"),
+    ("dequant_matmul", torch.float32, 4096, 1024, 128, "tile"),
+    ("dequant_matmul", torch.float32, 4096, 1024, 48, "general"),
+    ("dequant_matmul", torch.bfloat16, 36, 64, 16, "general"),
+    ("grouped_gemm", torch.bfloat16, 4096, 14336, None, "tile"),
+    ("grouped_gemm", torch.float32, 40, 24, None, "tile"),
+    ("grouped_gemm", torch.float16, 64, 64, None, "general"),
+    ("grouped_gemm", torch.bfloat16, 37, 64, None, "general"),
+    ("grouped_gemm_q8", torch.bfloat16, 4096, 14336, 128, "tile"),
+    ("grouped_gemm_q8", torch.bfloat16, 96, 64, 24, "general"),
+    ("grouped_gemm_q8", torch.bfloat16, 64, 24, 32, "general"),
+    ("grouped_gemm_q8", torch.float16, 64, 64, 32, "general")])
+def test_gemm_instance_rule(kernel, dtype, k, n, block, want):
+    from paddle_tpu_torch.ops._tile_gemm import gemm_instance
+    assert gemm_instance(kernel, dtype, k, n, block) == want
+
+
+def test_dequant_launch_raises_only_for_what_no_instance_takes():
+    """The CUDA wrapper refuses dtypes and scale shapes no instance
+    takes, and misaligned operands of the cluster instance, before any
+    launch (so the checks run on the CPU too)."""
+    from paddle_tpu_torch.ops._tile_gemm import gemm_instance
+    q, s = quantize_weight(torch.from_numpy(_weight((64, 32), seed=3)), 32)
+    with pytest.raises(ValueError, match="float32, float16 or bfloat16"):
+        QK._launch(torch.zeros(2, 64, dtype=torch.int32), q, s, 32)
+    with pytest.raises(ValueError, match="int8 q and f32 scales"):
+        QK._launch(torch.zeros(2, 64), q.float(), s, 32)
+    with pytest.raises(ValueError, match="int8 q and f32 scales"):
+        QK._launch(torch.zeros(2, 64), q, s[:1], 32)
+    odd = torch.zeros(1 + 2 * 64, dtype=torch.bfloat16)[1:].view(2, 64)
+    with pytest.raises(ValueError, match="cluster instance takes 16-byte"):
+        QK._launch(odd, q, s, 32)
+    with pytest.raises(ValueError, match="unknown GEMM kernel"):
+        gemm_instance("matmul", torch.float32, 8, 8)
+    assert QK.launches == 0 and not any(QK.instance_launches.values())
 
 
 @pytest.mark.parametrize("bias", [False, True])

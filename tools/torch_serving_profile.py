@@ -34,11 +34,12 @@ import time
 # the tile kernels are named by their library's namespace and by their
 # weight kind (template argument 1: int8); the ragged attention kernels
 # (a write and an attention launch) by their instance's template
-# arguments <rope, int8 pools>
-ATTENTION = {"<true, false>": "#12", "<true, true>": "#13",
-             "<false, false>": "#11a/#10", "<false, true>": "#11b/#9"}
+# arguments <rope, int8 pools, the model dtype, ...>
+ATTENTION = {"<true, false,": "#12", "<true, true,": "#13",
+             "<false, false,": "#11a/#10", "<false, true,": "#11b/#9"}
 FAMILIES = [
     ("dequant_matmul::", "dequant matmul #8"),
+    ("dq_cluster_kernel", "dequant matmul #8"),
     ("gemm", "GEMM (cuBLAS)"),
     ("xmma", "GEMM (cuBLAS)"),
     ("cutlass", "GEMM (cuBLAS)"),
