@@ -28,6 +28,10 @@ package is not beside it, and when any phase fails:
    reference's domain past phase 3's geometry (``DOMAIN``: pages of 64
    and 48 slots, f32 and f16 models, head_dim 256 and 72, int8 pools
    too), untimed, within phase 3's bound;
+3f. #12 and #13 on 8 decode rows at Llama-3-8B's full context (contexts
+   of 1-8192 tokens) at qblock 1 and 32, timed as phase 3 (where the
+   tensor-core instance's split over the sequence shows); phases 3, 3d
+   and 3f print the instance each launch ran (``attention_instance``);
 3e. the decode paged attention kernel (#4, the ``PagedKVCache`` path)
    against its plain version: at phase 3's decode-only shape (8 rows,
    contexts 64-544, 32/8 heads, head_dim 128, page 16) over bf16 and f32
@@ -43,13 +47,13 @@ package is not beside it, and when any phase fails:
    linear cross-entropy forward at N = D = 4096, V = 128256, f32, 5% of
    rows ignored; each with its time (CUDA events and the profiler's
    device time), the plain version's, a PyTorch library call's and the
-   card's bound, and the instance each flash kernel ran (the forward's
-   and dK/dV's wgmma instances at the training batch, with dK/dV's
-   registers); then the flash kernels' general
+   card's bound, and the instance each flash kernel ran (the wgmma
+   instances at the training batch, with dQ's and dK/dV's registers);
+   then the flash kernels' general
    instance at ``FLASH_DOMAIN``'s points (f32 head_dim 128, bf16 96 and
-   256, f16 64); the registers and spills of every flash instance and of
-   the dequant matmul's cluster instance (``ptxas -v``) are printed after
-   the build;
+   256, f16 64); the registers and spills of every flash instance, of the
+   ragged attention's tensor-core instance and of the dequant matmul's
+   cluster instance (``ptxas -v``) are printed after the build;
 4. serving Llama-3-8B at full width and depth (random bf16 weights from
    a seeded generator on the card) through
    ``LlamaServingEngine.generate``: 8 prompts of 64-512 tokens, 32 new
@@ -442,7 +446,12 @@ def check_kernel(dev, label, qb, ctx, chunks, inactive,
     orig = variant_args(args, variant, q8_pools)
     a_k = variant_args(args, variant, q8_pools)
     a_r = variant_args(args, variant, q8_pools)
+    before = dict(rpa.instance_launches)
     out_k = fn(**a_k)
+    ran = [k.split(".", 1)[1] for k, n in rpa.instance_launches.items()
+           if n > before[k]]
+    if len(ran) != 1:
+        fail(f"{label} {variant}: instances {ran}, not one launch")
     out_r = plain(**a_r)
     torch.cuda.synchronize()
     # zeros (padding, inactive rows) must be exact: their bound is 0
@@ -471,7 +480,7 @@ def check_kernel(dev, label, qb, ctx, chunks, inactive,
             fail(f"{label}: written {name} slots differ from the plain "
                  "version")
     if geom:
-        return dict(max_abs_err=err, rel=rel)
+        return dict(max_abs_err=err, rel=rel, instance=ran[0])
     # timing: a fused call rewrites the same slots each time (idempotent)
     ms = time_ms(lambda: fn(**a_k))
     dev_ms = device_ms(lambda: fn(**a_k))
@@ -501,7 +510,8 @@ def check_kernel(dev, label, qb, ctx, chunks, inactive,
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qr, kg, vg, attn_mask=mask))
     bound_ms, bound_by = bound(a_k, info, variant)
-    print(f"kernel check ({VARIANTS[variant][0]}, {label}): qblock={qb} "
+    print(f"kernel check ({VARIANTS[variant][0]}, {label}): "
+          f"instance={ran[0]} qblock={qb} "
           f"rows={info['rows']} tokens={info['tokens']} "
           f"pages={info['num_pages']} out_err={err:.3e} (max err / "
           f"head-vector max {rel:.3e}; tol 1 ulp + {OUT_VEC} x head-vector "
@@ -534,6 +544,25 @@ def check_kernels(dev, variants=("fused_rope",)):
     return entries
 
 
+# phase 3f: decode rows at Llama-3-8B's full context, where one long row set
+# the time before the split over the sequence
+LONG_CTX = (1, FULL_CTX + 1)
+
+
+def check_long_context(dev):
+    """Phase 3f: #12 and #13 (bf16 and int8 pools) on 8 decode rows with
+    contexts drawn from 1-8192, at qblock 1 and 32 (the decode-only and
+    mixed dispatch widths), timed as phase 3 with its bound. Returns
+    {variant: max abs err}."""
+    errs = {}
+    for qb in (1, QB):
+        for variant in ("fused_rope", "fused_rope_q8"):
+            r = check_kernel(dev, f"long context qblock {qb}", qb, LONG_CTX,
+                             [], False, variant)
+            errs[variant] = max(errs.get(variant, 0.0), r["max_abs_err"])
+    return errs
+
+
 # phase 3d: the reference's domain past phase 3's geometry, each point
 # through all six call forms of the family at the mixed dispatch
 DOMAIN = {"page 64": dict(page=64), "f32": dict(dtype="float32"),
@@ -557,7 +586,8 @@ def check_kernel_domain(dev):
             if rpa.launches[variant] == before:
                 fail(f"{label} {variant}: no kernel launch counted")
             errs[variant] = max(errs.get(variant, 0.0), r["max_abs_err"])
-            line.append(f"{variant}={r['max_abs_err']:.3e}")
+            line.append(f"{variant}={r['max_abs_err']:.3e} "
+                        f"({r['instance']})")
         print(f"kernel check (domain, {label}: {geom}): out_err "
               + " ".join(line), flush=True)
     return errs
@@ -1132,12 +1162,19 @@ def decode_cache(dev):
 
 
 def flash_registers():
-    """``ptxas -v`` lines of the flash kernels and of the dequant matmul's
-    cluster instance: registers and spills of each instance, from the
-    builds' logs."""
+    """``ptxas -v`` lines of the flash kernels, of the ragged attention's
+    tensor-core instance and of the dequant matmul's cluster instance:
+    registers and spills of each instance, from the builds' logs."""
     import re
     from paddle_tpu_torch.ops import _build
     lines = []
+    for mangled, what in sorted(_build.ptxas_report(
+            "ragged_paged_attention").items()):
+        m = re.search(r"attention_tcILb(\d)ELb(\d)E(?:13(__nv_bfloat16)|"
+                      r"6(__half))Li(\d+)E", mangled)
+        if m:
+            lines.append(f"ptxas: attention_tc<{m.group(1)}, {m.group(2)}, "
+                         f"{m.group(3) or m.group(4)}, {m.group(5)}>: {what}")
     for mangled, what in sorted(_build.ptxas_report(
             "flash_attention").items()):
         m = re.search(r"(flash_[a-z_]+)I(?:Li(\d+)E|(f)E|6(__half)E|"
@@ -1295,10 +1332,12 @@ def check_flash(dev):
     from paddle_tpu_torch.ops import _build
     err, timing = flash_case(dev, "train", TRAIN_B, TRAIN_S, TRAIN_S, True,
                              seed=1, timed=True)
-    regs = {k: v for k, v in _build.ptxas_report("flash_attention").items()
-            if "flash_dkv_wgmmaILi128E" in k}
-    print(f"flash dkv: instance={timing['dkv']['instance']} registers "
-          f"(D 128, at launch): {', '.join(regs.values())}", flush=True)
+    report = _build.ptxas_report("flash_attention")
+    for name in ("dq", "dkv"):
+        regs = [v for k, v in report.items()
+                if f"flash_{name}_wgmmaILi128E" in k]
+        print(f"flash {name}: instance={timing[name]['instance']} registers "
+              f"(D 128, at launch): {', '.join(regs)}", flush=True)
     for label, args in (("non-causal", (1, 512, 512, False)),
                         ("short-q", (1, 256, 768, True))):
         e, _ = flash_case(dev, label, *args, seed=2, timed=False)
@@ -1545,7 +1584,7 @@ def compare_step(dev, use_amp=True):
         line.append(f"{n}: cos={cos:.6f} norm_ratio={ratio:.5f}")
         if not (cos >= GRAD_COS and abs(ratio - 1) <= GRAD_NORM):
             fail(f"2-layer step: grad of {n} cos {cos} norm ratio {ratio}")
-    want = ["dkv.wgmma", "dq.wmma", "forward.wgmma"] if use_amp \
+    want = ["dkv.wgmma", "dq.wgmma", "forward.wgmma"] if use_amp \
         else ["dkv.general", "dq.general", "forward.general"]
     if ran != want:
         fail(f"2-layer step: flash instances {ran} != {want}")
@@ -2236,9 +2275,11 @@ def main():
     entry, = check_kernels(dev)                     # phase 3: #12
     family = check_kernels(dev, FAMILY)             # phase 3d
     domain_errs = check_kernel_domain(dev)          # phase 3d, widened
+    long_errs = check_long_context(dev)             # phase 3f
     for e in [entry] + family:
         key = next(k for k, v in VARIANTS.items() if v[0] == e["name"])
-        e["max_abs_err"] = max(e["max_abs_err"], domain_errs[key])
+        e["max_abs_err"] = max(e["max_abs_err"], domain_errs[key],
+                               long_errs.get(key, 0.0))
     paged = check_paged_kernel(dev)                 # phase 3e: #4
     torch.cuda.empty_cache()
     training_entries = check_flash(dev) + [check_ce(dev)]

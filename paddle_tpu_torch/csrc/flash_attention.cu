@@ -47,11 +47,17 @@
 //              bf16 hi + lo as the register A operand and dO, Q read
 //              transposed; dK and dV stay in registers across the group (no
 //              atomics). See the note above flash_dkv_wgmma.
-//     dQ       WMMA (16x16x16 bf16, f32 accumulation) on 64-row tiles with
-//              4 warps; a warp owns 16 rows of its block's tile. Scores and
-//              the elementwise backward in f32 through shared memory. One
-//              block per (q tile, head, batch), dQ += dS K in register
-//              accumulators.
+//     dQ       wgmma + TMA, the forward's structure with one product more:
+//              one block per (128 q rows, head, batch), longest causal rows
+//              first; the producer warpgroup loads Q and dO once (with lse
+//              and delta) and keeps rings of 64-key K and V tiles full; two
+//              consumer warpgroups of 64 q rows compute S = Q K^T and dP =
+//              dO V^T (wgmma m64n64k16, f32 in registers), the elementwise
+//              backward in registers, and dQ += dS K with dS split into
+//              bf16 hi + lo as the register A operand and K read transposed
+//              from the box S read K-major; tile j's S and dP are issued
+//              with tile j-1's dQ product. See the note above
+//              flash_dq_wgmma.
 //   general      every other (dtype, D) of the reference's domain: f32, f16
 //              and bf16 (read as 16-bit, computed in f32), any D % 8 == 0 up
 //              to 256, padded with zeros to a multiple of 16 in shared
@@ -76,211 +82,27 @@
 // warpgroups are not ordered against each other (no ping-pong of one's
 // softmax against the other's products). dK/dV waits for each product
 // before the next (a warpgroup's S^T / dP^T and its dV / dK products do not
-// overlap; the two warpgroups overlap each other). dQ keeps WMMA through
-// shared memory and reaches 255 registers.
+// overlap; the two warpgroups overlap each other). dQ computes its diagonal
+// 64 x 64 tiles whole and masks them; it splits dS as the others split P.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "tma.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 64;              // q rows and k rows per tile
-constexpr int kWarps = 4;              // a warp owns 16 rows of a tile
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPadH = 8;               // bf16 row padding: 16 bytes
-constexpr int kPadF = 4;               // f32 row padding: 16 bytes
-constexpr int kLdS = kTile + kPadF;    // f32 [64][68] score tiles
-constexpr int kLdP = kTile + kPadH;    // bf16 [64][72] probability tiles
 constexpr float kNegInf = -1e30f;      // the reference's finite mask value
 
 struct Strides {
   long long b, s, h;  // element strides of batch, sequence, head
 };
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-// B = X from a row-major [k][n] tile, and B = X^T from a row-major [n][k] one
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-template <int D>
-struct Dims {
-  static constexpr int kLdH = D + kPadH;       // bf16 [64][D+8] q/k/v tiles
-  static constexpr int kLdO = D + kPadF;       // f32 [64][D+4] accumulators
-  static constexpr int kTileH = kTile * kLdH;  // elements of one tile
-  static constexpr int kTileS = kTile * kLdS;
-  static constexpr int kTileP = kTile * kLdP;
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  static_assert(kTileH * 2 <= kTileS * 4, "a bf16 tile stages in a score tile");
-  static_assert(kTile * kLdO * 4 <= 2 * kTileS * 4,
-                "an f32 [64][D] tile stages in two score tiles");
-};
-
-// rows [row0, row0 + 64) of head `head` of a strided [B, S, H, D] tensor into
-// a padded shared [64][D + 8] tile, as 16-byte vectors
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          Strides st, int b, int row0,
-                                          int head) {
-  constexpr int kVec = D / 8;
-  const bf16* base = src + b * st.b + row0 * st.s + head * st.h;
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i - r * kVec) * 8;
-    *reinterpret_cast<uint4*>(dst + r * Dims<D>::kLdH + c) =
-        *reinterpret_cast<const uint4*>(base + r * st.s + c);
-  }
-}
-
-// 64 consecutive f32 values (one tile's lse or delta rows)
-__device__ __forceinline__ void load_rows(float* dst, const float* src) {
-  if (threadIdx.x < kTile) dst[threadIdx.x] = src[threadIdx.x];
-}
-
-// x = hi + lo to ~16 bits of mantissa, both bf16
-__device__ __forceinline__ void split_bf16(float x, bf16* hi, bf16* lo) {
-  const bf16 h = __float2bfloat16_rn(x);
-  *hi = h;
-  *lo = __float2bfloat16_rn(x - __bfloat162float(h));
-}
-
-// acc (+)= A[16 rows of a][0:16*KS] . B where the operands come from shared
-// tiles: a row-major [rows][lda], b as FragB/FragBt at b + kk * b_step
-template <int KS, typename FB>
-__device__ __forceinline__ void mma_row(FragC& acc, const bf16* a, int lda,
-                                        const bf16* b, int ldb, int b_step) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    FragA fa;
-    FB fb;
-    wmma::load_matrix_sync(fa, a + kk * 16, lda);
-    wmma::load_matrix_sync(fb, b + kk * b_step, ldb);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-}
-
-// the warp's 16 rows of an f32 [64][D] accumulator to a contiguous bf16
-// output whose row r starts at out + r * row_stride
-template <int D>
-__device__ __forceinline__ void write_rows(bf16* out, long long row_stride,
-                                           const float* acc, int wr,
-                                           int lane) {
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = i / D, c = i - r * D;
-    out[(wr + r) * row_stride + c] =
-        __float2bfloat16_rn(acc[(wr + r) * Dims<D>::kLdO + c]);
-  }
-}
-
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    Strides qs, Strides ks, Strides vs, Strides dos, int H,
-                    int Hk, int Sq, int Sk, int causal, float scale) {
-  using T = Dims<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);                 // [64][D+8]
-  bf16* v_s = k_s + T::kTileH;                               // [64][D+8]
-  float* s_s = reinterpret_cast<float*>(v_s + T::kTileH);    // [64][68]
-  float* dp_s = s_s + T::kTileS;                             // [64][68]
-  bf16* dsh_s = reinterpret_cast<bf16*>(dp_s + T::kTileS);   // [64][72]
-  bf16* dsl_s = dsh_s + T::kTileP;                           // [64][72]
-  float* lse_s = reinterpret_cast<float*>(dsl_s + T::kTileP);  // [64]
-  float* dl_s = lse_s + kTile;                               // [64]
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hk);
-  const int q0 = qt * kTile, offset = Sk - Sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp * 16;
-
-  bf16* q_stage = reinterpret_cast<bf16*>(s_s);
-  bf16* do_stage = reinterpret_cast<bf16*>(dp_s);
-  load_tile<D>(q_stage, q, qs, b, q0, h);
-  load_tile<D>(do_stage, dout, dos, b, q0, h);
-  const long long row_base = ((long long)b * H + h) * Sq + q0;
-  load_rows(lse_s, lse + row_base);
-  load_rows(dl_s, delta + row_base);
-  __syncthreads();
-  FragA qf[D / 16], dof[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], q_stage + wr * T::kLdH + kk * 16, T::kLdH);
-    wmma::load_matrix_sync(dof[kk], do_stage + wr * T::kLdH + kk * 16,
-                           T::kLdH);
-  }
-  __syncthreads();
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  int n_kt = Sk / kTile;
-  if (causal) n_kt = min(n_kt, (q0 + 2 * kTile - 1 + offset) / kTile);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    load_tile<D>(k_s, k, ks, b, k0, hk);
-    load_tile<D>(v_s, v, vs, b, k0, hk);
-    __syncthreads();
-#pragma unroll
-    for (int n = 0; n < kTile / 16; ++n) {  // S = Q K^T, dP = dO V^T
-      FragC cs, cp;
-      wmma::fill_fragment(cs, 0.f);
-      wmma::fill_fragment(cp, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        FragBt kb;
-        wmma::load_matrix_sync(kb, k_s + n * 16 * T::kLdH + kk * 16, T::kLdH);
-        wmma::mma_sync(cs, qf[kk], kb, cs);
-        wmma::load_matrix_sync(kb, v_s + n * 16 * T::kLdH + kk * 16, T::kLdH);
-        wmma::mma_sync(cp, dof[kk], kb, cp);
-      }
-      wmma::store_matrix_sync(s_s + wr * kLdS + n * 16, cs, kLdS,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(dp_s + wr * kLdS + n * 16, cp, kLdS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int i = lane; i < 16 * kTile; i += 32) {
-      const int r = i / kTile, c = i - r * kTile, row = wr + r;
-      float p = 0.f;
-      if (!causal || k0 + c <= q0 + row + offset)
-        p = expf(s_s[row * kLdS + c] * scale - lse_s[row]);
-      const float ds = p * (dp_s[row * kLdS + c] - dl_s[row]) * scale;
-      split_bf16(ds, dsh_s + row * kLdP + c, dsl_s + row * kLdP + c);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {  // dQ += (dS_hi + dS_lo) K
-      mma_row<kTile / 16, FragB>(acc[n], dsh_s + wr * kLdP, kLdP,
-                                 k_s + n * 16, T::kLdH, 16 * T::kLdH);
-      mma_row<kTile / 16, FragB>(acc[n], dsl_s + wr * kLdP, kLdP,
-                                 k_s + n * 16, T::kLdH, 16 * T::kLdH);
-    }
-    __syncthreads();
-  }
-
-  // the accumulators stage through the two score tiles as f32 [64][D+4]
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(s_s + wr * T::kLdO + n * 16, acc[n], T::kLdO,
-                            wmma::mem_row_major);
-  __syncwarp();
-  write_rows<D>(dq + (((long long)b * Sq + q0) * H + h) * D, (long long)H * D,
-                s_s, wr, lane);
-}
 
 template <typename K>
 int prepare(K kernel, size_t smem) {
@@ -288,23 +110,6 @@ int prepare(K kernel, size_t smem) {
   // and is reported only by cudaGetLastError
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <int D>
-int backward_dq(const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dq, Strides qs,
-                Strides ks, Strides vs, Strides dos, int B, int H, int Hk,
-                int Sq, int Sk, int causal, float scale,
-                cudaStream_t stream) {
-  using T = Dims<D>;
-  const size_t smem = 2 * T::kTileH * 2 + 2 * T::kTileS * 4 +
-                      2 * T::kTileP * 2 + 2 * kTile * 4;
-  if (int e = prepare(flash_dq_kernel<D>, smem)) return e;
-  flash_dq_kernel<D><<<dim3(Sq / kTile, H, B), kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, qs, ks, vs, dos, H,
-      Hk, Sq, Sk, causal, scale);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1040,6 +845,285 @@ int backward_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// dQ, bf16 at D 64 / 128: wgmma + TMA (replaces _bwd's dQ kernel,
+// pallas_call :279)
+//
+// One block per (128 q rows, head, batch), the longest causal rows first.
+// The producer warpgroup loads the block's Q and dO once (128-row boxes)
+// with their 128 lse and delta values, and keeps rings of kDqStages 64-key
+// K tiles and V tiles full. Consumer warpgroup `grp` owns q rows 64 grp ..
+// 64 grp + 63 and walks the keys its rows see, 64 a tile:
+//   S = Q K^T and dP = dO V^T      wgmma m64n64k16, both operands K-major
+//                                  from the swizzled boxes, f32 in registers
+//   P = exp2(S scale log2e - lse log2e), the causal mask on the diagonal
+//   tile (the last); dS = P (dP - delta), in registers
+//   dQ += dS K                     dS split into bf16 hi + lo as the register
+//                                  A operand of wgmma m64nDk16, K read
+//                                  MN-major (transposed) from the same boxes
+// Tile kt's S and dP are issued with tile kt-1's dQ product, and kt's
+// elementwise backward runs while that product is in flight (K and V have
+// rings and barriers of their own: V_kt frees when dP_kt is done, K_kt when
+// dQ's product of kt is). dQ stays in registers (no atomics: two launches
+// are equal bit for bit), is multiplied by the scale once, and leaves
+// through shared memory as 16-byte rows.
+// ---------------------------------------------------------------------------
+constexpr int kDqStages = 3;                    // K (and V) tiles in flight
+
+// shared memory: Q and dO [D/64 boxes of 128 x 64], the rings of K tiles and
+// of V tiles [D/64 boxes of 64 x 64], lse and delta [128] each, then the
+// mbarriers; the base is aligned to 1024 bytes
+template <int D>
+struct DqSmem {
+  static constexpr int kQ = kRows * D * 2;       // Q, dO at +kQ
+  static constexpr int kKV = kQRows * D * 2;     // one K or V tile
+  static constexpr int kK = 2 * kQ;              // K stage s at +s kKV
+  static constexpr int kV = kK + kDqStages * kKV;
+  static constexpr int kRowsAt = kV + kDqStages * kKV;   // lse, delta
+  static constexpr int kBar = kRowsAt + 2 * kRows * 4;
+  // k_full, k_empty, v_full, v_empty (kDqStages each), q
+  static constexpr int kBytes = kBar + 8 * (4 * kDqStages + 1) + 1024;
+  static constexpr int kLdStage = D + 8;         // epilogue rows
+  static_assert(kRows * kLdStage * 2 <= 2 * kQ, "dQ stages in Q and dO");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int H, int Hk, int Sq, int Sk, int causal, float scale) {
+  using SM = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base, do_s = base + SM::kQ;
+  const uint32_t k_full = base + SM::kBar, k_empty = k_full + 8 * kDqStages;
+  const uint32_t v_full = k_empty + 8 * kDqStages;
+  const uint32_t v_empty = v_full + 8 * kDqStages;
+  const uint32_t q_bar = v_empty + 8 * kDqStages;
+  const float* rows_s = reinterpret_cast<const float*>(smem + SM::kRowsAt);
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hk);
+  const int q0 = qt * kRows, offset = Sk - Sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 128 * kConsumers);
+      mbar_init(v_empty + 8 * s, 128 * kConsumers);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {
+    // producer warpgroup: one lane loads Q, dO, lse and delta, then keeps
+    // the K and V rings full through TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
+      // the keys of the block's last query: S and the offset are
+      // multiples of 128
+      const int n_kt = causal ? (q0 + offset) / kQRows + 2 : Sk / kQRows;
+      mbar_expect_tx(q_bar, 2 * SM::kQ + 2 * kRows * 4);
+      for (int c = 0; c < D / kBox; ++c) {
+        tma_load(q_s + c * kBoxBytes, &tq, q_bar, c * kBox, h, q0, b);
+        tma_load(do_s + c * kBoxBytes, &tdo, q_bar, c * kBox, h, q0, b);
+      }
+      const long long row = ((long long)b * H + h) * Sq + q0;
+      bulk_load(base + SM::kRowsAt, lse + row, kRows * 4, q_bar);
+      bulk_load(base + SM::kRowsAt + kRows * 4, delta + row, kRows * 4,
+                q_bar);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kDqStages;
+        const uint32_t parity = ((kt / kDqStages) & 1) ^ 1;
+        const uint32_t k_st = base + SM::kK + s * SM::kKV;
+        const uint32_t v_st = base + SM::kV + s * SM::kKV;
+        mbar_wait(k_empty + 8 * s, parity);
+        mbar_expect_tx(k_full + 8 * s, SM::kKV);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load(k_st + c * kQBoxBytes, &tk, k_full + 8 * s, c * kBox, hk,
+                   kt * kQRows, b);
+        mbar_wait(v_empty + 8 * s, parity);
+        mbar_expect_tx(v_full + 8 * s, SM::kKV);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load(v_st + c * kQBoxBytes, &tv, v_full + 8 * s, c * kBox, hk,
+                   kt * kQRows, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup `grp` owns q rows 64 grp .. 64 grp + 63; a
+  // thread's rows are `row` and row + 8 of them
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int grp = warp >> 2;
+  const int row = (warp & 3) * 16 + (lane >> 2);
+  // the group's last tile is its diagonal one; the producer's extra tile
+  // (the other group's diagonal) is never waited on here
+  const int n_kt =
+      causal ? (q0 + grp * 64 + offset) / kQRows + 1 : Sk / kQRows;
+  const float scale_log2 = scale * kLog2e;
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  float st[32], dpt[32];
+  uint32_t d_hi[4][4], d_lo[4][4];
+
+  mbar_wait(q_bar, 0);
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    lse_r[hr] = rows_s[grp * 64 + row + 8 * hr] * kLog2e;
+    dl_r[hr] = rows_s[kRows + grp * 64 + row + 8 * hr];
+  }
+
+  // S = Q K^T and dP = dO V^T of tile kt, 16 columns of D (32 bytes) a
+  // step; committed as one group
+  auto issue_sdp = [&](int kt) {
+    const int s = kt % kDqStages;
+    const uint32_t parity = (kt / kDqStages) & 1;
+    const uint32_t k_st = base + SM::kK + s * SM::kKV;
+    const uint32_t v_st = base + SM::kV + s * SM::kKV;
+    mbar_wait(k_full + 8 * s, parity);
+    mbar_wait(v_full + 8 * s, parity);
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a = (kk >> 2) * kBoxBytes + (kk & 3) * 32 + grp * 64 * 128;
+      const uint32_t bk = (kk >> 2) * kQBoxBytes + (kk & 3) * 32;
+      wgmma_ss_n64(st, smem_desc(q_s + a, 16, 1024),
+                   smem_desc(k_st + bk, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a = (kk >> 2) * kBoxBytes + (kk & 3) * 32 + grp * 64 * 128;
+      const uint32_t bk = (kk >> 2) * kQBoxBytes + (kk & 3) * 32;
+      wgmma_ss_n64(dpt, smem_desc(do_s + a, 16, 1024),
+                   smem_desc(v_st + bk, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // dQ += (dS_hi + dS_lo) K of tile kt: K MN-major, 16 keys a step
+  auto issue_dq = [&](int kt) {
+    const uint32_t k_st = base + SM::kK + (kt % kDqStages) * SM::kKV;
+    fence_regs(dq_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bk = smem_desc(k_st + kk * 16 * 128, kQBoxBytes, 1024);
+      wgmma_pv<D>(dq_acc, d_hi[kk], bk);
+      wgmma_pv<D>(dq_acc, d_lo[kk], bk);
+    }
+    wgmma_commit();
+  };
+  // the elementwise backward of tile kt on the registers: rows are
+  // queries, columns keys; leaves dS (f32) in dpt
+  auto elementwise = [&](int kt) {
+    const bool diag = causal && kt == n_kt - 1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hr = (i >> 1) & 1;
+      const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      float p = exp2f(fmaf(st[i], scale_log2, -lse_r[hr]));
+      if (diag && col > row + 8 * hr) p = 0.f;
+      dpt[i] = p * (dpt[i] - dl_r[hr]);
+    }
+  };
+  // dS = hi + lo, both bf16, as the register A operand: registers 8kk ..
+  // 8kk+7 hold keys 16kk .. 16kk+15
+  auto split_ds = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r;
+        d_hi[kk][r] = pack_bf16(dpt[i], dpt[i + 1]);
+        const __nv_bfloat162 dh =
+            *reinterpret_cast<const __nv_bfloat162*>(&d_hi[kk][r]);
+        d_lo[kk][r] = pack_bf16(dpt[i] - __low2float(dh),
+                                dpt[i + 1] - __high2float(dh));
+      }
+    }
+  };
+
+  issue_sdp(0);
+  wgmma_wait<0>();
+  fence_regs(st);
+  fence_regs(dpt);
+  mbar_arrive(v_empty);
+  elementwise(0);
+  split_ds();
+  for (int kt = 1; kt < n_kt; ++kt) {
+    issue_sdp(kt);
+    issue_dq(kt - 1);
+    wgmma_wait<1>();  // S and dP of tile kt have landed; dQ of kt - 1 runs
+    fence_regs(st);
+    fence_regs(dpt);
+    mbar_arrive(v_empty + 8 * (kt % kDqStages));
+    elementwise(kt);
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    mbar_arrive(k_empty + 8 * ((kt - 1) % kDqStages));
+    split_ds();
+  }
+  issue_dq(n_kt - 1);
+  wgmma_wait<0>();
+  fence_regs(dq_acc);
+  mbar_arrive(k_empty + 8 * ((n_kt - 1) % kDqStages));
+
+  // epilogue: dQ scale to bf16, staged over Q and dO once both warpgroups
+  // are done with every tile, then stored as 16-byte rows
+  named_sync(1, 128 * kConsumers);
+  constexpr int ld = SM::kLdStage;
+  bf16* stage = reinterpret_cast<bf16*>(smem) + grp * 64 * ld;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = row + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    *reinterpret_cast<uint32_t*>(stage + r * ld + col) =
+        pack_bf16(dq_acc[i] * scale, dq_acc[i + 1] * scale);
+  }
+  named_sync(2 + grp, 128);
+  const int t = threadIdx.x - grp * 128;
+  bf16* dst = dq + (((long long)b * Sq + q0 + grp * 64) * H + h) * D;
+  for (int v = t; v < 64 * D / 8; v += 128) {
+    const int r = v / (D / 8), c = (v - r * (D / 8)) * 8;
+    *reinterpret_cast<uint4*>(dst + (long long)r * H * D + c) =
+        *reinterpret_cast<const uint4*>(stage + r * ld + c);
+  }
+}
+
+template <int D>
+int backward_dq(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dq, Strides qs, Strides ks, Strides vs, Strides dos,
+                int B, int H, int Hk, int Sq, int Sk, int causal, float scale,
+                cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (int e = tensor_map(&tq, q, qs, D, H, Sq, B)) return e;
+  if (int e = tensor_map(&tdo, dout, dos, D, H, Sq, B)) return e;
+  if (int e = tensor_map(&tk, k, ks, D, Hk, Sk, B, kQRows)) return e;
+  if (int e = tensor_map(&tv, v, vs, D, Hk, Sk, B, kQRows)) return e;
+  const size_t smem = DqSmem<D>::kBytes;
+  if (int e = prepare(flash_dq_wgmma<D>, smem)) return e;
+  flash_dq_wgmma<D><<<dim3(Sq / kRows, H, B), kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq, H,
+      Hk, Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
@@ -1426,11 +1510,11 @@ int fa_backward_dq(int instance, int dtype, const void* q, const void* k,
       dos{dsb, dss, dsh};
   cudaStream_t st = (cudaStream_t)stream;
   if (instance == 0 && dtype == 0 && D == 64)
-    return backward_dq<64>(q, k, v, dout, lse, delta, dq, qs, ks, vs, dos, B,
-                           H, Hk, Sq, Sk, causal, scale, st);
+    return wg::backward_dq<64>(q, k, v, dout, lse, delta, dq, qs, ks, vs,
+                               dos, B, H, Hk, Sq, Sk, causal, scale, st);
   if (instance == 0 && dtype == 0 && D == 128)
-    return backward_dq<128>(q, k, v, dout, lse, delta, dq, qs, ks, vs, dos, B,
-                            H, Hk, Sq, Sk, causal, scale, st);
+    return wg::backward_dq<128>(q, k, v, dout, lse, delta, dq, qs, ks, vs,
+                                dos, B, H, Hk, Sq, Sk, causal, scale, st);
   if (instance != 1 || D % 8 || D > 256) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return gen::backward_dq<bf16>(q, k, v, dout, lse, delta, dq, qs, ks, vs,

@@ -29,7 +29,7 @@ lengths that are multiples of 128. One rule, :func:`kernel_instance`,
 picks the instance from the dtype and head_dim:
 
 - bf16 at head_dim 64 or 128: the tensor-core instance (forward and
-  dK/dV on ``wgmma`` with TMA copies, dQ on WMMA);
+  dQ and dK/dV on ``wgmma`` with TMA copies);
 - every other (dtype, head_dim): the general instance (the same three
   kernels with every product an f32 FMA; f16 and bf16 read as 16-bit).
 
@@ -58,7 +58,7 @@ NEG_INF = -1e30
 launches = {"forward": 0, "dq": 0, "dkv": 0}
 #: the same launches by kernel and instance (:func:`kernel_instance`)
 instance_launches = {f"{k}.{i}": 0 for k, i in (
-    ("forward", "wgmma"), ("forward", "general"), ("dq", "wmma"),
+    ("forward", "wgmma"), ("forward", "general"), ("dq", "wgmma"),
     ("dq", "general"), ("dkv", "wgmma"), ("dkv", "general"))}
 
 _TC_HEAD_DIMS = (64, 128)   # bf16 head_dims of the tensor-core instance
@@ -70,7 +70,7 @@ _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 def kernel_instance(dtype, head_dim):
     """The CUDA instance that takes q/k/v of ``dtype`` at ``head_dim``:
     ``"tensor-core"`` for bf16 at head_dim 64 or 128 (the forward and
-    dK/dV on wgmma + TMA, dQ on WMMA), ``"general"`` (f32 FMAs) for
+    both backward kernels on wgmma + TMA), ``"general"`` (f32 FMAs) for
     every other float dtype and head_dim of :func:`supported`'s domain.
     Operands of mixed dtypes run the general instance in f32."""
     if dtype == torch.bfloat16 and head_dim in _TC_HEAD_DIMS:
@@ -228,8 +228,7 @@ def _codes(inst, t):
 
 def _count(kernel, inst):
     launches[kernel] += 1
-    name = {"tensor-core": "wmma" if kernel == "dq" else "wgmma",
-            "general": "general"}[inst]
+    name = {"tensor-core": "wgmma", "general": "general"}[inst]
     instance_launches[f"{kernel}.{name}"] += 1
 
 

@@ -43,6 +43,17 @@ On a CPU tensor they run the plain versions
 (:func:`ragged_paged_attention_ref`,
 :func:`fused_ragged_paged_attention_ref`). There is no fallback from one
 to the other.
+
+The attention has two instances, picked by one rule on the model dtype
+and head_dim (:func:`attention_instance`):
+
+- ``"tensor-core"``: bf16 and f16 models at ``head_dim % 16 == 0`` (over
+  float or int8 pools): mma.sync on tensor cores, each row's keys cut
+  into splits (:func:`split_plan`) whose partial softmax states the
+  last split of each tile to finish merges in split order, in the same
+  launch;
+- ``"general"``: f32 models and head_dims off multiples of 16 (f32 FMAs
+  on CUDA cores).
 """
 
 from __future__ import annotations
@@ -55,7 +66,8 @@ import torch
 from . import _build
 
 __all__ = ["rope_tables", "supported", "fused_supported", "check_geometry",
-           "fused_rope_geometry_ok", "ragged_paged_attention_ref",
+           "attention_instance", "split_plan", "fused_rope_geometry_ok",
+           "ragged_paged_attention_ref",
            "fused_ragged_paged_attention_ref", "ragged_paged_attention",
            "fused_ragged_paged_attention"]
 
@@ -65,10 +77,23 @@ NEG_INF = -1e30
 #: two per fused call (write, then attention), one per read-only call
 launches = {"fused_rope": 0, "fused_rope_q8": 0, "fused": 0, "fused_q8": 0,
             "ragged": 0, "ragged_q8": 0}
+#: the attention launches by call form and instance
+#: (:func:`attention_instance`), keyed ``"<call form>.<instance>"``
+instance_launches = {f"{v}.{i}": 0 for v in launches
+                     for i in ("tensor-core", "general")}
 
 #: the model dtypes of the CUDA instances (q, fresh K/V, out, float
 #: pools), by their C code
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_INSTANCES = {"tensor-core": 0, "general": 1}   # the C entry's codes
+# the tensor-core instance's work plan (csrc/ragged_paged_attention.cu,
+# namespace tc): a block takes TC_TILE_ROWS flattened (token, group head)
+# rows of one row and kv head, a busy warp 16 of them, over one split of
+# the row's keys of TC_SPLIT_UNIT keys per busy warp (twice that where the
+# tile's rows see more than TC_LONG_KEYS keys)
+TC_TILE_ROWS = 64
+TC_SPLIT_UNIT = 256
+TC_LONG_KEYS = 1024
 
 
 def rope_tables(pos, head_dim, base):
@@ -303,9 +328,10 @@ def check_geometry(page_size, head_dim, dtype, kv_int8=False):
     """The CUDA kernels' rule on a serving geometry, the same as the
     reference's: ``page_size % 8 == 0``, ``head_dim % 8 == 0`` up to 256,
     and a model dtype of bf16, f16 or f32 (float pools in it, or int8
-    pools). Shared memory forces no further bound (the attention walks
-    keys in chunks of at most 32 slots). Raises :class:`ValueError`;
-    :class:`LlamaServingEngine` calls it at construction."""
+    pools). Shared memory forces no further bound (both attention
+    instances walk the keys in steps of a fixed size, whatever the
+    page). Raises :class:`ValueError`; :class:`LlamaServingEngine` calls
+    it at construction."""
     if dtype not in _DTYPES:
         raise ValueError(
             f"the CUDA kernels take a bfloat16, float16 or float32 model "
@@ -316,6 +342,63 @@ def check_geometry(page_size, head_dim, dtype, kv_int8=False):
             f"the CUDA kernels take page_size % 8 == 0 and head_dim % 8 == "
             f"0 up to 256; got page_size {page_size}, head_dim {head_dim}"
             + (" (int8 pools)" if kv_int8 else ""))
+
+
+def attention_instance(dtype, head_dim):
+    """The CUDA attention instance that takes a model of ``dtype`` at
+    ``head_dim`` (:func:`check_geometry`'s domain; float or int8 pools
+    alike): ``"tensor-core"`` for bf16 and f16 at ``head_dim % 16 ==
+    0`` (mma.sync, the keys split over the sequence), ``"general"`` (f32
+    FMAs) for f32 models and head_dims off multiples of 16. Raises
+    :class:`ValueError` outside the domain."""
+    check_geometry(8, head_dim, dtype)
+    if dtype in (torch.bfloat16, torch.float16) and head_dim % 16 == 0:
+        return "tensor-core"
+    return "general"
+
+
+def _check_instance(instance, dtype, head_dim):
+    """Refuse a launch of ``instance`` on any pairing the rule of
+    :func:`attention_instance` does not give it."""
+    want = attention_instance(dtype, head_dim)
+    if instance != want:
+        raise ValueError(
+            f"the {instance} attention instance does not take a {dtype} "
+            f"model at head_dim {head_dim} (the rule gives {want})")
+    return _INSTANCES[instance]
+
+
+def split_plan(kv_len, q_len, q_start, group, qblock, width, page_size):
+    """The tensor-core instance's work on one row, the rule the CUDA
+    kernels apply: ``[(tile, n_valid, [(k_lo, k_hi), ...]), ...]`` for
+    each tile of ``TC_TILE_ROWS`` flattened (query token, group head)
+    rows that holds a valid row; ``n_valid`` of its rows are valid, and
+    the splits cut the keys ``[0, n_keys)`` its rows see (``n_keys``:
+    the tile's last query's causal horizon, clipped to ``kv_len`` and
+    the table's ``width * page_size`` slots) into runs of
+    ``TC_SPLIT_UNIT`` keys per 16 valid rows, twice that past
+    ``TC_LONG_KEYS`` keys. It reads the row's own
+    metadata and the geometry only, never another row or the card, so a
+    row's output does not depend on what else a dispatch holds."""
+    rows = min(q_len, qblock) * group if kv_len > 0 and q_len > 0 else 0
+    plan = []
+    for tile in range(-(-rows // TC_TILE_ROWS)):
+        n_valid = min(TC_TILE_ROWS, rows - tile * TC_TILE_ROWS)
+        last_q = (tile * TC_TILE_ROWS + n_valid - 1) // group
+        n_keys = max(0, min(kv_len, q_start + last_q + 1,
+                            width * page_size))
+        split = TC_SPLIT_UNIT * -(-n_valid // 16) \
+            * (2 if n_keys > TC_LONG_KEYS else 1)
+        plan.append((tile, n_valid, [(lo, min(lo + split, n_keys))
+                                     for lo in range(0, n_keys, split)]))
+    return plan
+
+
+def tc_scratch_rows(width, page_size):
+    """Rows of one (row, kv head, tile) slab of the tensor-core
+    instance's partial buffers: every split of every valid row of a tile
+    fits, since a split holds at least 16 keys per valid row."""
+    return -(-width * page_size // 16) + TC_TILE_ROWS
 
 
 def _check_kernel(q, k_pages, v_pages, k_scale, v_scale, rows, fresh=(),
@@ -347,9 +430,12 @@ def _check_kernel(q, k_pages, v_pages, k_scale, v_scale, rows, fresh=(),
         + ((k_scale, v_scale) if q8 else ())
     if not all(a.is_contiguous() for a in ops):
         raise ValueError("the CUDA kernel takes contiguous operands")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+    tc = attention_instance(q.dtype, d) == "tensor-core"
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16 or (
+            q8 and (k_scale.data_ptr() % 16 or v_scale.data_ptr() % 16)) \
+            or (tc and q.data_ptr() % 16):
         raise ValueError("the CUDA kernel fetches 16-byte vectors from "
-                         "16-byte aligned pools")
+                         "16-byte aligned q, pools and sidecars")
 
 
 def _passes(check, *args):
@@ -393,7 +479,7 @@ def _lib():
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.rpa_kv_write.argtypes = [i32] * 3 + [vp] * 14 + [i32] * 7 + [vp]
         lib.rpa_kv_write.restype = i32
-        lib.rpa_attention.argtypes = [i32] * 3 + [vp] * 14 + [i32] * 9 \
+        lib.rpa_attention.argtypes = [i32] * 4 + [vp] * 17 + [i32] * 10 \
             + [ctypes.c_float, vp]
         lib.rpa_attention.restype = i32
         lib.rpa_error_string.argtypes = [i32]
@@ -415,19 +501,48 @@ def _attend(lib, rope, q, k_pages, v_pages, k_scale, v_scale, sin, cos,
     r, w = block_tables.shape
     h, d = q.shape[-2:]
     p, hk, page_size, _ = k_pages.shape
+    inst = attention_instance(q.dtype, d)
+    code = _check_instance(inst, q.dtype, d)
     out = torch.empty((r, qb, h, d), dtype=q.dtype, device=q.device)
     if r == 0:
         return out
+    part_o = part_ml = tickets = None
+    slab = 0
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if inst == "tensor-core":
+        # the splits' partial accumulators and (max, sum) pairs, and a
+        # ticket a tile
+        tiles = -(-qb * (h // hk) // TC_TILE_ROWS)
+        slab = tc_scratch_rows(w, page_size)
+        n = r * hk * tiles * slab
+        part_o = torch.empty((n * d,), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((n * 2,), dtype=torch.float32,
+                              device=q.device)
+        tickets = _tickets(q.device, stream, r * hk * tiles)
     ptrs = (q, k_pages, v_pages, k_scale, v_scale, sin, cos, block_tables,
-            *meta, out)
-    rc = lib.rpa_attention(_DTYPES[q.dtype], int(rope),
+            *meta, out, part_o, part_ml, tickets)
+    rc = lib.rpa_attention(code, _DTYPES[q.dtype], int(rope),
                            int(k_scale is not None),
                            *map(_build.data_ptr, ptrs), r, n_tok, h, hk, d,
-                           p, page_size, w, qb, float(scale), stream)
+                           p, page_size, w, qb, slab, float(scale), stream)
     _raise_on(lib, rc, what)
     launches[what] += 1
+    instance_launches[f"{what}.{inst}"] += 1
     return out
+
+
+_TICKETS: dict = {}   # (device, stream) -> the zeroed ticket buffer
+
+
+def _tickets(device, stream, need):
+    """The tensor-core instance's tile tickets: zero before a launch and
+    left zero by it, so one buffer per device and stream serves every
+    launch in that stream's order."""
+    buf = _TICKETS.get((device, stream))
+    if buf is None or buf.numel() < need:
+        buf = _TICKETS[(device, stream)] = torch.zeros(
+            (max(need, 4096),), dtype=torch.int32, device=device)
+    return buf
 
 
 def _launch_ragged(q, k_pages, v_pages, block_tables, meta, scale, k_scale,

@@ -115,7 +115,7 @@ def test_flash_kernels_match_plain(dev, case):
         _close(got, ref, 2 ** -6)
     assert FT.launches == {k_: n + 1 for k_, n in before.items()}
     inst = FT.instance_launches
-    assert inst["forward.wgmma"] and inst["dq.wmma"] and inst["dkv.wgmma"]
+    assert inst["forward.wgmma"] and inst["dq.wgmma"] and inst["dkv.wgmma"]
 
 
 def test_flash_dkv_is_bitwise_across_calls(dev):
@@ -644,6 +644,76 @@ def test_ragged_attention_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         RP.ragged_paged_attention(**dict(b, q=b["q"].transpose(1, 2)
                                          .contiguous().transpose(1, 2)))
+
+
+# the tensor-core instance (bf16 and f16 at head_dim % 16 == 0): rows
+# whose contexts cross several splits (256 keys per busy warp) and end
+# inside a page, a prefill row, a one-token row and the inactive row
+RPA_TC_SEQS = [(2900, [1]), (1100, [16, 5]), (0, [3]), (700, [1]),
+               (255, [1])]
+
+
+# 80 and 144: an odd count of 16-column groups, and rows whose 16-byte
+# units do not divide the block (the copies' general loop)
+@pytest.mark.parametrize("d", [64, 80, 128, 144, 256])
+@pytest.mark.parametrize("page", [8, 16, 64])
+@pytest.mark.parametrize("variant", ["fused_rope", "fused_rope_q8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ragged_attention_tensor_core_instance(dev, dtype, variant, page, d):
+    """Float and int8 pools through the tensor-core instance against the
+    plain version (the int8 scales factored out of the products: within
+    the same bound), with the write's slots as the family's test."""
+    assert RP.attention_instance(dtype, d) == "tensor-core"
+    before = RP.instance_launches[f"{variant}.tensor-core"]
+    _check_family(dev, (2, 4, d, page, 16, RPA_TC_SEQS), variant, dtype)
+    assert RP.instance_launches[f"{variant}.tensor-core"] == before + 1
+
+
+@pytest.mark.parametrize("variant", ["ragged", "ragged_q8"])
+def test_ragged_attention_rows_are_independent(dev, variant):
+    """A row's output is bit for bit the same alone and among the
+    dispatch's other rows (the split depends on the row alone), and from
+    call to call."""
+    seqs = [(1900, [1]), (40, [16, 9]), (600, [1]), (0, [5]), (3000, [1])]
+    kw, _, _ = _rpa_case(dev, 2, 4, 128, 16, 16, seqs, seed=5)
+    a = _variant_args(kw, variant)
+    out = RP.ragged_paged_attention(**a)
+    assert torch.equal(RP.ragged_paged_attention(**a), out)
+    rows = ("q", "block_tables", "kv_lens", "q_starts", "q_lens")
+    for i in range(a["block_tables"].shape[0]):
+        alone = RP.ragged_paged_attention(
+            **{k: (v[i:i + 1] if k in rows else v) for k, v in a.items()})
+        assert torch.equal(alone[0], out[i]), i
+    _close_dtype(out, RP.ragged_paged_attention_ref(**a))
+
+
+def test_ragged_attention_is_bitwise_across_calls(dev):
+    """Two fused calls on the same inputs (the slots they write are the
+    same values) agree bit for bit: the splits merge in one order, with
+    no atomics."""
+    kw, _, _ = _rpa_case(dev, 2, 4, 128, 16, 16, RPA_TC_SEQS, seed=7)
+    a = _variant_args(kw, "fused_rope_q8")
+    before = RP.instance_launches["fused_rope_q8.tensor-core"]
+    out1 = RP.fused_ragged_paged_attention(**a)
+    out2 = RP.fused_ragged_paged_attention(**a)
+    assert RP.instance_launches["fused_rope_q8.tensor-core"] == before + 2
+    assert torch.equal(out1, out2)
+
+
+def test_flash_dq_is_bitwise_across_calls(dev):
+    """dQ sums each q tile's keys in registers in one fixed order (no
+    atomics): two launches on the same inputs agree bit for bit."""
+    g = torch.Generator(dev).manual_seed(12)
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    q, do = torch.randn(2, 384, 8, 128, **bf), torch.randn(2, 384, 8, 128, **bf)
+    k, v = torch.randn(2, 384, 2, 128, **bf), torch.randn(2, 384, 2, 128, **bf)
+    out, lse = FT.flash_attention_fwd_ref(q, k, v, True)
+    args = (q, k, v, do, lse, FT.attention_delta(out, do), True, 128 ** -0.5)
+    before = FT.instance_launches["dq.wgmma"]
+    dq1 = FT._launch_dq(*args)
+    dq2 = FT._launch_dq(*args)
+    assert FT.instance_launches["dq.wgmma"] == before + 2
+    assert torch.equal(dq1, dq2)
 
 
 PAGED = [  # h, hk, d, page, pool dtype, q in f32

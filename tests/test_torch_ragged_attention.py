@@ -471,3 +471,96 @@ def test_kernel_geometry_rule_and_messages():
                          .expand(2, 1, 4, 256)[:, :, :, :],
                          pools[:, :, ::2], pools[:, :, ::2], None, None,
                          rows)
+
+
+# (dtype, head_dim) of every point the card tests and ``chip_smoke.py``
+# hold the kernels to: the card tests' RPA and RPA_WIDE, phase 3d's
+# DOMAIN (page 64, f32, head_dim 256 and 72, f16 at page 48) and phase
+# 3's Llama-3-8B shape
+INSTANCE_POINTS = [
+    ("bfloat16", 128, "tensor-core"), ("bfloat16", 64, "tensor-core"),
+    ("float32", 128, "general"), ("bfloat16", 256, "tensor-core"),
+    ("bfloat16", 72, "general"), ("float16", 64, "tensor-core"),
+    ("float32", 256, "general"), ("float16", 8, "general"),
+    ("float16", 128, "tensor-core"), ("float16", 16, "tensor-core"),
+    ("bfloat16", 8, "general"), ("float16", 200, "general"),
+]
+
+
+@pytest.mark.parametrize("dtype,d,want", INSTANCE_POINTS)
+def test_attention_instance_rule(dtype, d, want):
+    """One rule on (model dtype, head_dim), float and int8 pools alike:
+    bf16 and f16 at head_dim % 16 == 0 run the tensor-core instance,
+    f32 and other head_dims the general one; a launch refuses any other
+    pairing before it reaches the library."""
+    dt = getattr(torch, dtype)
+    assert RT.attention_instance(dt, d) == want
+    assert RT._check_instance(want, dt, d) == RT._INSTANCES[want]
+    other = {"tensor-core": "general", "general": "tensor-core"}[want]
+    with pytest.raises(ValueError, match=f"the {other} attention instance"):
+        RT._check_instance(other, dt, d)
+
+
+def test_attention_instance_refuses_outside_the_domain():
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        RT.attention_instance(torch.float64, 128)
+    with pytest.raises(ValueError, match="up to 256"):
+        RT.attention_instance(torch.bfloat16, 272)
+    with pytest.raises(ValueError, match="head_dim % 8"):
+        RT.attention_instance(torch.float16, 20)
+
+
+# rows: (kv_len, q_len, q_start) with group, qblock, table width, page
+PLAN_ROWS = [
+    (2901, 1, 2900, 4, 16, 200, 16),     # decode, 6 splits of 512
+    (1024, 1, 1023, 4, 16, 200, 16),     # 4 splits of 256
+    (1121, 16, 1105, 4, 16, 200, 16),    # a 16-token chunk, 64 rows
+    (8192, 1, 8191, 4, 32, 512, 16),     # Llama-3-8B's full context
+    (300, 32, 268, 4, 32, 20, 16),       # 128 rows: two tiles
+    (5000, 1, 4999, 8, 1, 100, 64),      # group 8, 64-slot pages
+    (9000, 1, 8999, 4, 1, 20, 16),       # past the table: capped at 320
+    (40, 3, 37, 32, 4, 8, 8),            # group 32: two tiles
+    (0, 1, 0, 4, 16, 10, 16),            # inactive
+    (77, 0, 77, 4, 16, 10, 16),          # no query
+    (3, 5, 7, 2, 8, 4, 8),               # queries past kv_len
+]
+
+
+@pytest.mark.parametrize("row", PLAN_ROWS)
+def test_split_plan_covers_each_key_once(row):
+    """Each tile's splits cut [0, n_keys) into consecutive runs, each key
+    once, of TC_SPLIT_UNIT keys per 16 valid rows, twice that past
+    TC_LONG_KEYS keys (the last run shorter);
+    n_keys is the tile's last valid query's causal horizon clipped to
+    kv_len and the table; the tiles hold every valid row once; and the
+    partial buffers' slab holds every split of every valid row."""
+    kv, ql, qs, group, qb, width, page = row
+    plan = RT.split_plan(*row)
+    rows = min(ql, qb) * group if kv > 0 and ql > 0 else 0
+    assert sum(n for _, n, _ in plan) == rows
+    assert [t for t, _, _ in plan] == list(range(len(plan)))
+    for tile, n_valid, splits in plan:
+        last_q = (tile * RT.TC_TILE_ROWS + n_valid - 1) // group
+        n_keys = max(0, min(kv, qs + last_q + 1, width * page))
+        split = RT.TC_SPLIT_UNIT * -(-n_valid // 16) \
+            * (2 if n_keys > RT.TC_LONG_KEYS else 1)
+        covered = [k for lo, hi in splits for k in range(lo, hi)]
+        assert covered == list(range(n_keys))
+        assert all(hi - lo == split for lo, hi in splits[:-1])
+        assert all(0 < hi - lo <= split for lo, hi in splits)
+        assert len(splits) * n_valid <= RT.tc_scratch_rows(width, page)
+
+
+def test_split_plan_depends_on_the_row_alone():
+    """A row's plan is a function of its own (kv_len, q_len, q_start)
+    and the geometry: the same for the row alone and among any others,
+    and the same whatever qblock once it holds the row's queries."""
+    rng = np.random.RandomState(0)
+    rows = [(int(k), int(n), int(k) - int(n))
+            for k, n in zip(rng.randint(1, 4000, 40), rng.randint(1, 33, 40))]
+    alone = [RT.split_plan(*r, 4, 32, 260, 16) for r in rows]
+    for perm in (rng.permutation(len(rows)) for _ in range(3)):
+        for i in perm:
+            assert RT.split_plan(*rows[i], 4, 32, 260, 16) == alone[i]
+    for r, want in zip(rows, alone):
+        assert RT.split_plan(*r, 4, 64, 260, 16) == want

@@ -14,7 +14,9 @@ plain version), then times the three kernels again on the same inputs by
 CUDA events and by the profiler's device time and prints one line
 ``ab: forward_ms=... forward_device_ms=... dq_ms=...``. With
 ``--ragged`` each process also runs the tree's phases 3 and 3d (the
-ragged paged attention family at the serving shapes, with their times).
+ragged paged attention family at the serving shapes, with their times)
+and phase 3f's long-context points (#12 and #13 on 8 decode rows over
+1-8192 tokens at qblock 1 and 32) through the tree's ``check_kernel``.
 Needs one card; exits non-zero if any tree's check fails.
 """
 
@@ -49,6 +51,10 @@ for name, fn in fns.items():
 print('ab: ' + ' '.join(line), flush=True)
 if RAGGED:
     cs.check_kernels(dev, ('fused_rope',) + cs.FAMILY)
+    for qb in (1, cs.QB):
+        for variant in ('fused_rope', 'fused_rope_q8'):
+            cs.check_kernel(dev, f'long context qblock {qb}', qb,
+                            (1, cs.FULL_CTX + 1), [], False, variant)
 """
 
 

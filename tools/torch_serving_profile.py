@@ -33,8 +33,9 @@ import time
 # kernel families by a fragment of the kernel's name, first match wins;
 # the tile kernels are named by their library's namespace and by their
 # weight kind (template argument 1: int8); the ragged attention kernels
-# (a write and an attention launch) by their instance's template
-# arguments <rope, int8 pools, the model dtype, ...>
+# (a write and an attention launch: the general instance's or the
+# tensor-core instance's) by their instance's template arguments <rope,
+# int8 pools, the model dtype, ...>
 ATTENTION = {"<true, false,": "#12", "<true, true,": "#13",
              "<false, false,": "#11a/#10", "<false, true,": "#11b/#9"}
 FAMILIES = [
@@ -51,7 +52,8 @@ FAMILIES = [
 
 
 def family(name):
-    if "kv_write_kernel" in name or "ragged_attention_kernel" in name:
+    if any(k in name for k in ("kv_write_kernel", "ragged_attention_kernel",
+                                "attention_tc")):
         for args, rows in ATTENTION.items():
             if args in name:
                 return f"ragged attention {rows}"
