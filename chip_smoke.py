@@ -45,10 +45,15 @@ package is not beside it, and when any phase fails:
    (batch 2 x seq 2048, 32 q / 8 kv heads, head_dim 128, bf16, causal;
    also a non-causal and a shorter-query causal case), and the fused
    linear cross-entropy forward at N = D = 4096, V = 128256, f32, 5% of
-   rows ignored; each with its time (CUDA events and the profiler's
-   device time), the plain version's, a PyTorch library call's and the
-   card's bound, and the instance each flash kernel ran (the wgmma
-   instances at the training batch, with dQ's and dK/dV's registers);
+   rows ignored (the tensor-core instance, 3xTF32); each with its time
+   (CUDA events and the profiler's device time), the plain version's, a
+   PyTorch library call's and the card's bound (the loss: both, f32 on
+   the CUDA cores and 3xTF32 on the tensor cores), and the instance each
+   kernel ran (the wgmma instances at the training batch, with dQ's,
+   dK/dV's and the loss's registers); then the loss and its gradients
+   through the public function at bf16 hidden and weight (the same
+   shape, timed too) and at D = 4100, f16 hidden and f32 weight (the
+   general instance), against the plain path;
    then the flash kernels' general
    instance at ``FLASH_DOMAIN``'s points (f32 head_dim 128, bf16 96 and
    256, f16 64); the registers and spills of every flash instance, of the
@@ -81,11 +86,14 @@ package is not beside it, and when any phase fails:
    call's two times; the dequant matmul's rows 0, 5 and 37 alone and
    among 7 and 63 others, bitwise equal, at both N; then tokens through a
    Mixtral-width ``LlamaMoEMLP`` alone and packed among 7 and among 63
-   others, bitwise equal, float and int8; then the three kernels' general
-   instance at ``GEMM_DOMAIN``'s points of the reference's domain (f16 x,
-   blocks of 8, 24 and 40, N 24, K and N off multiples of 8), an f16 and
-   a B = 24 point timed as the Mixtral shapes are (with bound and
-   library time);
+   others, bitwise equal, float and int8; the instance each grouped GEMM
+   launch ran (the int8 one's cluster instance, registers printed after
+   the build); then the three kernels at ``GEMM_DOMAIN``'s points of the
+   reference's domain (f16 x, blocks of 8, 24 and 40, N 24, K and N off
+   multiples of 8), each on the instance ``gemm_instance`` names (the
+   general one but for the int8 grouped GEMM's f16 point, now its
+   cluster instance), an f16 and a B = 24 point timed as the Mixtral
+   shapes are (with bound and library time);
 6. serving Mixtral-8x7B at full width and depth with int8 weights (built
    layer by layer from a seeded generator on the card, each layer
    quantized as it is made: 93 GB of bf16 never exist at once) through
@@ -166,10 +174,12 @@ VARIANTS = {
     "ragged_q8": ("ragged_paged_attention_q8", 328, False, True, True),
 }
 F32_FLOPS = 67e12   # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 494.7e12   # H100 SXM dense TF32 on the tensor cores
 TRAIN_B, TRAIN_S = 2, 2048               # Llama-3-8B training batch
 TRAIN_LAYERS, TRAIN_STEPS = 8, 10        # depth cut to fit one card
 CE_N, CE_D, CE_V = 4096, 4096, 128256    # the loss at those shapes
 CE_IGNORED = 0.05   # share of loss rows at ignore_index
+CE_GENERAL = (512, 4100, 32000)   # N, D, V of the general instance's point
 LSE_ABS = 1e-3      # flash lse tolerance
 CE_REL = 1e-4       # loss kernel lse/pick, relative to max(|x|, 1)
 LOSS_REL = 1e-5     # loss through the kernel vs through the plain version
@@ -647,7 +657,7 @@ def reset_launches():
     from paddle_tpu_torch.quant import kernels as QK
     for counts in (rpa.launches, GG.launches, FT.launches, PA.launches,
                    FT.instance_launches, GG.instance_launches,
-                   QK.instance_launches):
+                   QK.instance_launches, FC.instance_launches):
         for key in counts:
             counts[key] = 0
     QK.launches = FC.launches = 0
@@ -1163,8 +1173,9 @@ def decode_cache(dev):
 
 def flash_registers():
     """``ptxas -v`` lines of the flash kernels, of the ragged attention's
-    tensor-core instance and of the dequant matmul's cluster instance:
-    registers and spills of each instance, from the builds' logs."""
+    tensor-core instance, of the loss kernel's tensor-core instance and of
+    the int8 kernels' cluster instances: registers and spills of each
+    instance, from the builds' logs."""
     import re
     from paddle_tpu_torch.ops import _build
     lines = []
@@ -1183,13 +1194,20 @@ def flash_registers():
         name = f"{m.group(1)}<{'float' if arg == 'f' else arg}>" if m \
             else mangled
         lines.append(f"ptxas: {name}: {what}")
+    for lib, kernel in (("dequant_matmul", "dq_cluster_kernel"),
+                        ("grouped_gemm", "q8_cluster_kernel")):
+        for mangled, what in sorted(_build.ptxas_report(lib).items()):
+            m = re.search(kernel + r"I(?:6(__half)|13(__nv_bfloat16))"
+                          r"Li(\d)E", mangled)
+            if m:
+                lines.append(f"ptxas: {kernel}<{m.group(1) or m.group(2)}, "
+                             f"{m.group(3)}>: {what}")
     for mangled, what in sorted(_build.ptxas_report(
-            "dequant_matmul").items()):
-        m = re.search(r"dq_cluster_kernelI(?:6(__half)|13(__nv_bfloat16))"
-                      r"Li(\d)E", mangled)
+            "fused_linear_cross_entropy").items()):
+        m = re.search(r"(linear_ce_fwd_tc)ILb(\d)ELb(\d)E", mangled)
         if m:
-            lines.append(f"ptxas: dq_cluster_kernel<{m.group(1) or m.group(2)}"
-                         f", {m.group(3)}>: {what}")
+            lines.append(f"ptxas: {m.group(1)}<h f32: {m.group(2)}, w f32: "
+                         f"{m.group(3)}>: {what}")
     return lines
 
 
@@ -1351,14 +1369,72 @@ def check_flash(dev):
             for k in ("forward", "dq", "dkv")]
 
 
+def ce_point(dev, label, h, w, lab, want, timed=False):
+    """The loss and its gradients through the public function against
+    the plain path on one set of inputs: the loss within LOSS_REL; f32
+    gradients within GRAD_REL of their largest value, 16-bit ones within
+    phase 3's bound (1 bf16 ulp plus 2^-10 of the row's largest value: a
+    16-bit gradient rounds where an lse 1e-7 away rounds otherwise). The
+    forward must launch the ``want`` instance; with ``timed``, the
+    kernel's time by CUDA events and its device time. Returns the largest
+    lse/pick error and the times."""
+    import torch
+    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+
+    def loss_and_grads():
+        hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
+        loss = FC.fused_linear_cross_entropy(hg, wg, lab)
+        loss.backward()
+        return loss.detach(), hg.grad, wg.grad
+    before = dict(FC.instance_launches)
+    loss_k, dh_k, dw_k = loss_and_grads()
+    ran = [k for k, n in FC.instance_launches.items() if n > before[k]]
+    if ran != [want]:
+        fail(f"loss {label}: instances {ran}, not {want}")
+    lse, pick = FC._launch(h, w, lab)
+    lse_r, pick_r = FC.fused_linear_cross_entropy_ref(h, w, lab,
+                                                      FC.default_chunk())
+    err = max(float((lse - lse_r).abs().max()),
+              float((pick - pick_r).abs().max()))
+    with plain_paths():
+        loss_p, dh_p, dw_p = loss_and_grads()
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not rel <= LOSS_REL:
+        fail(f"loss {label}: {float(loss_k)} vs plain {float(loss_p)}: "
+             f"{rel:.3e}")
+    for name, a, b in (("dh", dh_k, dh_p), ("dW", dw_k, dw_p)):
+        if a.dtype != b.dtype or a.dtype != (h if name == "dh" else w).dtype:
+            fail(f"loss {label}: {name} in {a.dtype}")
+        if a.dtype == torch.float32:
+            e = float((a - b).abs().max()) / float(b.abs().max())
+            if not e <= GRAD_REL:
+                fail(f"loss {label}: {name} differs from the plain path by "
+                     f"{e:.3e} of its max")
+        else:
+            check_close(f"loss {label}: {name} (row, column)", a, b)
+    line = (f"loss check ({label}): N={h.shape[0]} D={h.shape[1]} "
+            f"V={w.shape[0]} {h.dtype} hidden {w.dtype} weight "
+            f"instance={want} lse_pick_err={err:.3e} loss_rel={rel:.3e}")
+    times = {}
+    if timed:
+        times = dict(ms=time_ms(lambda: FC._launch(h, w, lab), 3, 1),
+                     device_ms=device_ms(lambda: FC._launch(h, w, lab), 3))
+        line += f" ms={times['ms']:.3f} device_ms={times['device_ms']:.3f}"
+    print(line, flush=True)
+    return err, times
+
+
 def check_ce(dev):
-    """Phase 3b, the loss: the fused linear cross-entropy kernel against
-    the plain chunked version at N = D = 4096, V = 128256 in f32, 5% of
-    rows at ignore_index; then the loss and its gradients through the
-    kernel path against the plain path. Returns the JSON entry (without
-    ``launches``)."""
+    """Phase 3b, the loss: the fused linear cross-entropy kernel (its
+    tensor-core instance) against the plain chunked version at N = D =
+    4096, V = 128256 in f32, 5% of rows at ignore_index; then the loss
+    and its gradients through the kernel path against the plain path;
+    then ``ce_point`` at bf16 hidden and weight (same shape, timed) and
+    at CE_GENERAL (D % 8 != 0: the general instance, f16 hidden, f32
+    weight). Returns the JSON entry (without ``launches``)."""
     import torch
     import torch.nn.functional as F
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
     g = torch.Generator(dev).manual_seed(3)
     h = torch.randn(CE_N, CE_D, device=dev, generator=g)
@@ -1366,9 +1442,13 @@ def check_ce(dev):
     lab = torch.randint(0, CE_V, (CE_N,), device=dev, generator=g)
     lab[torch.rand(CE_N, device=dev, generator=g) < CE_IGNORED] = -100
     chunk = FC.default_chunk()
+    before = dict(FC.instance_launches)
     lse, pick = FC._launch(h, w, lab)
+    ran = [k for k, n in FC.instance_launches.items() if n > before[k]]
     lse_r, pick_r = FC.fused_linear_cross_entropy_ref(h, w, lab, chunk)
     torch.cuda.synchronize()
+    if ran != ["tensor-core"]:
+        fail(f"loss kernel: instances {ran}, not the tensor-core one")
     errs = []
     for name, got, ref in (("lse", lse, lse_r), ("pick", pick, pick_r)):
         if not torch.isfinite(got).all():
@@ -1404,7 +1484,9 @@ def check_ce(dev):
             fail(f"loss {name} differs from the plain path by {e:.3e} of "
                  f"its max")
     del dh_k, dw_k, dh_b, dw_b, dh_p, dw_p
-    ms = time_ms(lambda: FC._launch(h, w, lab), iters=3, warmup=1)
+    run = lambda: FC._launch(h, w, lab)  # noqa: E731
+    ms = time_ms(run, iters=3, warmup=1)
+    dev_ms = device_ms(run, iters=3)
     plain_ms = time_ms(lambda: FC.fused_linear_cross_entropy_ref(
         h, w, lab, chunk), iters=3, warmup=1)
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -1414,18 +1496,38 @@ def check_ce(dev):
                          iters=3, warmup=1)
     torch.backends.cuda.matmul.allow_tf32 = tf32
     nbytes = 4 * CE_N * CE_D + 4 * CE_V * CE_D + 8 * CE_N + 8 * CE_N
-    bound_ms, bound_by = roofline(nbytes, 2 * CE_N * CE_D * CE_V, F32_FLOPS)
+    ops = 2 * CE_N * CE_D * CE_V
+    # what the kernel does: three TF32 products on the tensor cores; an
+    # f32 product on the CUDA cores would take the second bound
+    bound_ms, bound_by = roofline(nbytes, 3 * ops, TF32_FLOPS)
+    f32_bound_ms, _ = roofline(nbytes, ops, F32_FLOPS)
+    regs = [v for k, v in _build.ptxas_report(
+        "fused_linear_cross_entropy").items() if "linear_ce_fwd_tcILb1ELb1E" in k]
     print(f"loss kernel check: N={CE_N} D={CE_D} V={CE_V} "
-          f"ignored={int(CE_N - valid)} lse_err={errs[0]:.3e} "
-          f"pick_err={errs[1]:.3e} loss={float(loss_k):.6f} plain_loss="
-          f"{float(loss_p):.6f} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+          f"ignored={int(CE_N - valid)} instance={ran[0]} registers="
+          f"{','.join(regs)} lse_err={errs[0]:.3e} pick_err={errs[1]:.3e} "
+          f"loss={float(loss_k):.6f} plain_loss={float(loss_p):.6f} "
+          f"ms={ms:.3f} device_ms={dev_ms:.3f} plain_ms={plain_ms:.3f} "
           f"library_ms={library_ms:.3f} bound_ms={bound_ms:.3f} "
-          f"({bound_by})", flush=True)
+          f"({bound_by}, 3xTF32) f32_bound_ms={f32_bound_ms:.3f}",
+          flush=True)
+    err16, _ = ce_point(dev, "bf16", h.bfloat16(), w.bfloat16(), lab,
+                        "tensor-core", timed=True)
+    del h, w
+    torch.cuda.empty_cache()
+    n, d, v = CE_GENERAL
+    h = torch.randn(n, d, device=dev, generator=g).half()
+    w = torch.randn(v, d, device=dev, generator=g) * 0.02
+    lab = torch.randint(0, v, (n,), device=dev, generator=g)
+    lab[:8] = -100
+    err_g, _ = ce_point(dev, "general", h, w, lab, "general")
     return dict(name="fused_linear_cross_entropy_forward", route="cuda",
                 source="paddle_tpu_torch/csrc/fused_linear_cross_entropy.cu",
                 replaces="paddle_tpu/ops/fused_linear_cross_entropy.py:220",
-                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                max_abs_err=max(errs + [err16, err_g]), ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, f32_bound_ms=f32_bound_ms,
+                library_ms=library_ms, instance=ran[0])
 
 
 @contextlib.contextmanager
@@ -1618,9 +1720,10 @@ def masked_rows(x, gs):
 def grouped_case(label, kind, x, w, gs, scales=None, w_lib=None,
                  timed=True):
     """One grouped GEMM launch (``kind`` "float" or "q8") against its
-    plain version; with ``timed``, its time, the plain version's, the
-    library's (``torch.bmm`` on the masked rows against ``w_lib``, the
-    bf16 weight) and the bound. Returns the numbers."""
+    plain version, with the instance it ran; with ``timed``, its time, the
+    plain version's, the library's (``torch.bmm`` on the masked rows
+    against ``w_lib``, the bf16 weight) and the bound. Returns the
+    numbers."""
     import torch
     from paddle_tpu_torch.ops import grouped_gemm as GG
     e, k, n = w.shape
@@ -1639,12 +1742,14 @@ def grouped_case(label, kind, x, w, gs, scales=None, w_lib=None,
         def plain():
             return GG.grouped_gemm_ref(x, w, gs)
         bound_ms, bound_by = moe_bound(gs, c, k, n, 2)
+    before = dict(GG.instance_launches)
     y, ref = run(), plain()
     torch.cuda.synchronize()
+    ran = [i for i, n_ in GG.instance_launches.items() if n_ > before[i]]
     err = check_close(f"{label}: out (row, column)", y, ref)
-    out = dict(max_abs_err=err)
+    out = dict(max_abs_err=err, instance=ran[0])
     line = f"moe kernel check ({label}): E={e} C={c} K={k} N={n} " \
-        f"gs={gs.tolist()} out_err={err:.3e}"
+        f"gs={gs.tolist()} instance={ran[0]} out_err={err:.3e}"
     if timed:
         xm = masked_rows(x, gs)
         out.update(ms=time_ms(run), device_ms=device_ms(run),
@@ -1851,11 +1956,13 @@ def check_moe_kernels(dev):
                  decode_t8={k: dq[(4096, 8)][k] for k in timing})]
 
 
-# phase 3c: the GEMM family's general instance (C6) at points of the
-# reference's domain past the fast instances: label -> (kernel, x dtype,
-# E, C (M for the dequant matmul), K, N, block, timed). A timed point goes
-# through dequant_case or grouped_case (a "q8" one at WEIGHT_BLOCK, the
-# block grouped_case takes).
+# phase 3c: the GEMM family at points of the reference's domain past the
+# serving shapes: label -> (kernel, x dtype, E, C (M for the dequant
+# matmul), K, N, block, timed). Each runs the instance ``gemm_instance``
+# names: the general one (C6), but for "#7 f16 x", which the int8 grouped
+# GEMM's cluster instance takes. A timed point goes through
+# dequant_case or grouped_case (a "q8" one at WEIGHT_BLOCK, the block
+# grouped_case takes).
 GEMM_DOMAIN = {
     "#7 f16 x": ("q8", "float16", 8, 8, 4096, 1024, WEIGHT_BLOCK, True),
     "#8 B=24": ("dq", "bfloat16", 1, 8, 4096, 4096, 24, True),
@@ -1873,10 +1980,11 @@ GEMM_DOMAIN = {
 def check_gemm_domain(dev):
     """Phase 3c, C6: the grouped GEMMs and the dequant matmul at
     GEMM_DOMAIN's points (f16 x, blocks of 8, 24 and 40, N 24, K and N
-    off multiples of 8): each launches its kernel's general instance and
-    stays within phase 3's bound of its plain version; the timed points
-    also get phase 3c's times, bound and library time. Returns the
-    largest error of each kernel by its JSON name."""
+    off multiples of 8): each launches the instance ``gemm_instance``
+    names (the general one but at "#7 f16 x") and stays within phase 3's
+    bound of its plain version; the timed points also get phase 3c's
+    times, bound and library time. Returns the largest error of each
+    kernel by its JSON name."""
     import torch
     from paddle_tpu_torch.ops import grouped_gemm as GG
     from paddle_tpu_torch.ops._tile_gemm import gemm_instance
@@ -1935,8 +2043,9 @@ def check_gemm_domain(dev):
             print(f"gemm domain check ({label}): E={e} C={c} K={k} N={n} "
                   f"B={block} {dtype} instance={key} out_err={err:.3e}",
                   flush=True)
-        if inst != "general" or counts[key] == before:
-            fail(f"{tag}: ran {key}, not the general instance")
+        want = "cluster" if label == "#7 f16 x" else "general"
+        if inst != want or counts[key] == before:
+            fail(f"{tag}: ran {key}, not the {want} instance")
         errs[name] = max(errs[name], err)
     return errs
 

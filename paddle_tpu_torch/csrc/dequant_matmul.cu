@@ -92,17 +92,6 @@ struct Smem {
   static_assert(16 * MT * kLdPart * 4 <= kBar, "the partial tile fits");
 };
 
-// one box of a 2-D tensor map at (column, row)
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
-      : "memory");
-}
-
 template <typename XT>
 __device__ __forceinline__ void store4(XT* dst, float4 v);
 template <>
@@ -302,25 +291,6 @@ __global__ void __launch_bounds__(kThreads)
     store4<XT>(y + (size_t)(m0 + r) * N + n0 + c, sum);
   }
   cluster.sync();  // no block leaves while another reads its tile
-}
-
-// a 2-D map of a row-major [rows, cols] matrix (row stride `stride` bytes),
-// [box_rows][box_cols] boxes of 128 bytes a row with the 128-byte swizzle;
-// out-of-range elements read as zeros
-int map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-           int rows, int cols, long long stride, int box_rows, int box_cols) {
-  const EncodeTiled encode = encoder();
-  if (!encode) return kErrNoEncoder;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)stride};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r =
-      encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
 }
 
 template <typename XT, int MT>

@@ -1,5 +1,6 @@
 // Warp-level tensor-core helpers shared by the kernels that multiply 16-bit
-// tiles with mma.sync (csrc/dequant_matmul.cu, csrc/ragged_paged_attention.cu):
+// tiles with mma.sync (csrc/dequant_matmul.cu, csrc/grouped_gemm.cu,
+// csrc/ragged_paged_attention.cu):
 // ldmatrix loads, the m16n8k16 product with f32 accumulation, and the exact
 // conversion of int8 byte pairs to 16-bit pairs. Internal linkage: each
 // library keeps its own copy.
@@ -12,12 +13,19 @@
 
 namespace {
 
-// four 8x8 16-bit matrices from shared memory, lane i giving the address of
-// row i % 8 of matrix i / 8 (and .trans: each matrix transposed)
+// two or four 8x8 16-bit matrices from shared memory, lane i giving the
+// address of row i % 8 of matrix i / 8 (and .trans: each matrix transposed)
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&a)[2],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+      : "=r"(a[0]), "=r"(a[1])
       : "r"(addr));
 }
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4],

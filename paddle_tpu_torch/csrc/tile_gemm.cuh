@@ -23,10 +23,13 @@
 //            rows of dropless routing (E*C rows, n*k real) cost only the zero
 //            writes. Rows at or past rows_e inside a live tile read zeros and
 //            are written as zeros. The K loop walks 32-deep tiles in order.
-//            bf16 x (the serving path): a ring of cp.async copies keeps 3
-//            (bf16 weights) or 7 (int8) tiles in flight per block while one
+//            bf16 x with bf16 weights (the float grouped GEMM): a ring of
+//            cp.async copies keeps 3 tiles in flight per block while one
 //            computes; each landed weight tile is converted once into the
-//            MMA's layout. f32 x: double-buffered through registers.
+//            MMA's layout. f32 x (float or int8 weights): double-buffered
+//            through registers. (16-bit x with int8 weights has kernels of
+//            its own: the cluster instances of csrc/grouped_gemm.cu and
+//            csrc/dequant_matmul.cu.)
 //   general  everything else: f32, f16 or bf16 x, any K, N >= 1, any block
 //            B >= 1, float weights through any strides (`gen_kernel`).
 //
@@ -280,31 +283,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The ring of K tiles in flight: deep for int8 (a tile is 4 KB), shallower
-// for bf16 weights (8 KB a tile).
-template <int WK>
-struct Ring {
-  static constexpr int kStages = 8;
-  static constexpr int kRaw = kBK * kBN;          // int8 [32 k][128 n]
-};
-template <>
-struct Ring<kWeightFloat> {
-  static constexpr int kStages = 4;
-  static constexpr int kRaw = kBK * kBN * 2;      // bf16 [32][128] or [128][32]
-};
+// The ring of K tiles in flight (8 KB of bf16 weights a tile)
+constexpr int kMmaStages = 4;
+constexpr int kMmaRaw = kBK * kBN * 2;       // bf16 [32][128] or [128][32]
 
-// dynamic shared memory of mma_kernel<WK>: the x ring, the raw weight ring,
-// then one converted weight tile Bs[kBN][kLdH]
-template <int WK>
-constexpr int mma_smem_bytes() {
-  return Ring<WK>::kStages * (kBM * kLdH * 2 + Ring<WK>::kRaw) +
-         kBN * kLdH * 2;
-}
+// dynamic shared memory of mma_kernel: the x ring, the raw weight ring, then
+// one converted weight tile Bs[kBN][kLdH]
+constexpr int kMmaSmemBytes =
+    kMmaStages * (kBM * kLdH * 2 + kMmaRaw) + kBN * kLdH * 2;
 
-template <int WK>
+// bf16 x, bf16 weights
 __global__ void __launch_bounds__(kThreads) mma_kernel(Args a) {
   using XT = __nv_bfloat16;
-  constexpr int S = Ring<WK>::kStages, kRaw = Ring<WK>::kRaw;
+  constexpr int S = kMmaStages, kRaw = kMmaRaw;
   extern __shared__ __align__(16) unsigned char smem[];
   auto As = reinterpret_cast<XT(*)[kBM][kLdH]>(smem);
   unsigned char* raw = smem + S * kBM * kLdH * 2;
@@ -317,28 +308,26 @@ __global__ void __launch_bounds__(kThreads) mma_kernel(Args a) {
     if (ks == 0) zero_rows<XT>(a, e, m0, min(m0 + kBM, a.C), n0);
     return;
   }
-  // this split's K tiles [t0, t1): whole scale blocks (int8) or K tiles
-  const int unit = WK == kWeightInt8 ? a.block : kBK;
-  const int n_units = (a.K + unit - 1) / unit;
-  const int t0 = ks * n_units / a.splits * unit / kBK;
-  const int t1 =
-      (min((ks + 1) * n_units / a.splits * unit, a.K) + kBK - 1) / kBK;
+  // this split's K tiles [t0, t1)
+  const int n_units = (a.K + kBK - 1) / kBK;
+  const int t0 = ks * n_units / a.splits;
+  const int t1 = (ks + 1) * n_units / a.splits;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
   const bool n_major = a.w_sn == 1;
   const XT* x = reinterpret_cast<const XT*>(a.x) + (size_t)e * a.C * a.K;
-  float acc[2][4][4], part[2][4][4];
+  float part[2][4][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = part[mi][ni][q] = 0.f;
+      for (int q = 0; q < 4; ++q) part[mi][ni][q] = 0.f;
 
   // Raw weight tiles keep the global layout, 16-byte chunks XOR-swizzled
   // by (row & 7) so that the conversion pass reads them without bank
-  // conflicts: int8 and N-contiguous bf16 rows are one k each; the
-  // K-contiguous (transposed) bf16 tile is [128 n][32 k], read in order.
+  // conflicts: N-contiguous rows are one k each; the K-contiguous
+  // (transposed) tile is [128 n][32 k], read in order.
   auto fetch = [&](int t) {
     if (t < t1) {
       const int st = (t - t0) % S, k0 = t * kBK;
@@ -349,17 +338,7 @@ __global__ void __launch_bounds__(kThreads) mma_kernel(Args a) {
                    ok ? x + (size_t)(m0 + row) * a.K + k0 + kc : x, ok);
       }
       unsigned char* dst = raw + st * kRaw;
-      if (WK == kWeightInt8) {
-        const int8_t* w = reinterpret_cast<const int8_t*>(a.w) +
-                          (size_t)e * a.K * a.N;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int idx = tid + i * kThreads, k = idx >> 3, c = idx & 7;
-          const bool ok = k0 + k < a.K && n0 + c * 16 < a.N;
-          cp_async16(dst + k * kBN + ((c ^ (k & 7)) * 16),
-                     ok ? w + (size_t)(k0 + k) * a.N + n0 + c * 16 : w, ok);
-        }
-      } else {
+      {
         const XT* w = reinterpret_cast<const XT*>(a.w) + (size_t)e * a.w_se;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -382,22 +361,11 @@ __global__ void __launch_bounds__(kThreads) mma_kernel(Args a) {
     cp_async_commit();  // an empty group past the end keeps the count even
   };
 
-  // raw tile -> Bs[n][k] in bf16 (int8 converts exactly); lane = k for the
-  // k-per-row layouts, so the 2-byte stores of a warp hit one row
+  // raw tile -> Bs[n][k]; lane = k for the k-per-row layout, so the 2-byte
+  // stores of a warp hit one row
   auto convert = [&](int st) {
     const unsigned char* src = raw + st * kRaw;
-    if (WK == kWeightInt8) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int k = lane, c = warp * 2 + i;
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            src + k * kBN + ((c ^ (k & 7)) * 16));
-        const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          Bs[c * 16 + j][k] = __float2bfloat16((float)b[j]);
-      }
-    } else if (n_major) {
+    if (n_major) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int k = lane, c = warp * 4 + i;
@@ -447,26 +415,8 @@ __global__ void __launch_bounds__(kThreads) mma_kernel(Args a) {
         for (int mi = 0; mi < 2; ++mi) mma_bf16(part[mi][ni], af[mi], b0, b1);
       }
     }
-    if (WK == kWeightInt8 && block_ends(a, t, t1)) {
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + warp * 32 + ni * 8 + tig * 2;
-        const float s0 = n < a.N ? scale_at(a, e, t, n) : 0.f;
-        const float s1 = n + 1 < a.N ? scale_at(a, e, t, n + 1) : 0.f;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          acc[mi][ni][0] = fmaf(part[mi][ni][0], s0, acc[mi][ni][0]);
-          acc[mi][ni][1] = fmaf(part[mi][ni][1], s1, acc[mi][ni][1]);
-          acc[mi][ni][2] = fmaf(part[mi][ni][2], s0, acc[mi][ni][2]);
-          acc[mi][ni][3] = fmaf(part[mi][ni][3], s1, acc[mi][ni][3]);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) part[mi][ni][q] = 0.f;
-        }
-      }
-    }
   }
   cp_async_wait<0>();
-  float(&res)[2][4][4] = WK == kWeightInt8 ? acc : part;
   const int r_end = min(m0 + kBM, a.C);
 
   if (a.splits > 1) {
@@ -487,7 +437,7 @@ __global__ void __launch_bounds__(kThreads) mma_kernel(Args a) {
           const int n = n0 + warp * 32 + ni * 8 + tig * 2;
           if (r < rows && n < a.N)
             *reinterpret_cast<float2*>(slot(ks, r, n)) =
-                make_float2(res[mi][ni][2 * h], res[mi][ni][2 * h + 1]);
+                make_float2(part[mi][ni][2 * h], part[mi][ni][2 * h + 1]);
         }
       }
     __threadfence();
@@ -516,8 +466,8 @@ __global__ void __launch_bounds__(kThreads) mma_kernel(Args a) {
               sum.y += v.y;
             }
           }
-          res[mi][ni][2 * h] = sum.x;
-          res[mi][ni][2 * h + 1] = sum.y;
+          part[mi][ni][2 * h] = sum.x;
+          part[mi][ni][2 * h + 1] = sum.y;
         }
       }
     if (tid == 0) a.tickets[tile] = 0;  // ready for the next call
@@ -536,8 +486,8 @@ __global__ void __launch_bounds__(kThreads) mma_kernel(Args a) {
         if (n >= a.N) continue;  // N % 8 == 0: the pair is whole
         const bool live = r < rows;
         __nv_bfloat162 v;
-        v.x = __float2bfloat16(live ? res[mi][ni][2 * h] : 0.f);
-        v.y = __float2bfloat16(live ? res[mi][ni][2 * h + 1] : 0.f);
+        v.x = __float2bfloat16(live ? part[mi][ni][2 * h] : 0.f);
+        v.y = __float2bfloat16(live ? part[mi][ni][2 * h + 1] : 0.f);
         *reinterpret_cast<__nv_bfloat162*>(y + (size_t)r * a.N + n) = v;
       }
     }
@@ -766,29 +716,20 @@ inline int launch(const Args& a, int E, int dtype, int wk, int instance,
   if (a.splits < 1 || (a.splits > 1 && (dtype != kBF16 || !a.partial ||
                                         !a.tickets)))
     return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16 && wk == kWeightInt8) return (int)cudaErrorInvalidValue;
   const dim3 grid((a.N + kBN - 1) / kBN, (a.C + kBM - 1) / kBM,
                   E * a.splits);
   if (dtype == kBF16) {
     // above 48 KB of shared memory a kernel must ask for it once
-    static bool sized[2] = {false, false};
-    constexpr int kI8 = mma_smem_bytes<kWeightInt8>();
-    constexpr int kF = mma_smem_bytes<kWeightFloat>();
-    if (!sized[wk]) {
-      cudaError_t rc =
-          wk == kWeightInt8
-              ? cudaFuncSetAttribute(mma_kernel<kWeightInt8>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     kI8)
-              : cudaFuncSetAttribute(mma_kernel<kWeightFloat>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     kF);
+    static bool sized = false;
+    if (!sized) {
+      cudaError_t rc = cudaFuncSetAttribute(
+          mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kMmaSmemBytes);
       if (rc != cudaSuccess) return (int)rc;
-      sized[wk] = true;
+      sized = true;
     }
-    if (wk == kWeightInt8)
-      mma_kernel<kWeightInt8><<<grid, kThreads, kI8, s>>>(a);
-    else
-      mma_kernel<kWeightFloat><<<grid, kThreads, kF, s>>>(a);
+    mma_kernel<<<grid, kThreads, kMmaSmemBytes, s>>>(a);
   } else if (dtype == kF32) {
     if (wk == kWeightInt8)
       fma_kernel<kWeightInt8><<<grid, kThreads, 0, s>>>(a);

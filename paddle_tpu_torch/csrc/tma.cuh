@@ -1,7 +1,9 @@
 // Hopper copy and barrier helpers shared by the kernels that stream tiles
-// with TMA (csrc/flash_attention.cu, csrc/dequant_matmul.cu): shared-memory
-// addresses, mbarriers, named barriers, and cuTensorMapEncodeTiled found in
-// libcuda at run time. Internal linkage: each library keeps its own copy.
+// with TMA (csrc/flash_attention.cu, csrc/dequant_matmul.cu,
+// csrc/fused_linear_cross_entropy.cu, csrc/grouped_gemm.cu): shared-memory
+// addresses, mbarriers, named barriers, 2-D tensor maps and their loads, and
+// cuTensorMapEncodeTiled found in libcuda at run time. Internal linkage: each
+// library keeps its own copy.
 
 #pragma once
 
@@ -74,6 +76,38 @@ EncodeTiled encoder() {
       fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
   }
   return fn;
+}
+
+// one box of a 2-D tensor map at (column, row), completing on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// a 2-D map of a row-major [rows, cols] matrix (row stride `stride` bytes),
+// [box_rows][box_cols] boxes with the given swizzle (128 bytes a box row for
+// the 128-byte swizzle); out-of-range elements read as zeros
+inline int map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                  int rows, int cols, long long stride, int box_rows,
+                  int box_cols,
+                  CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  const EncodeTiled encode = encoder();
+  if (!encode) return kErrNoEncoder;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r =
+      encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
 }
 
 inline const char* tma_error_string(int code) {

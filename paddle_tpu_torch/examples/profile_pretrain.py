@@ -26,10 +26,10 @@ from paddle_tpu_torch.examples.llama_pretrain import build_model, train
 
 #: kernel-name fragment -> family, first match wins
 FAMILIES = [
-    ("flash_fwd_kernel", "flash forward (#1)"),
-    ("flash_dq_kernel", "flash dQ (#2)"),
-    ("flash_dkv_kernel", "flash dK/dV (#3)"),
-    ("linear_ce_fwd_kernel", "loss forward (#5)"),
+    ("flash_fwd", "flash forward (#1)"),
+    ("flash_dq", "flash dQ (#2)"),
+    ("flash_dkv", "flash dK/dV (#3)"),
+    ("linear_ce_fwd", "loss forward (#5)"),
     ("gemm", "GEMM (cuBLAS)"),
     ("xmma", "GEMM (cuBLAS)"),
     ("cutlass", "GEMM (cuBLAS)"),

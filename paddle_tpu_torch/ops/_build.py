@@ -21,8 +21,10 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 __all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "data_ptr", "load",
-           "ptxas_report"]
+           "ptxas_report", "sm_count", "tickets"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -40,6 +42,8 @@ SOURCES = {"ragged_paged_attention": "ragged_paged_attention.cu",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_SMS: dict = {}             # device -> its SM count
+_TICKETS: dict = {}         # (device, stream) -> the zeroed ticket buffer
 
 
 def _nvcc():
@@ -124,6 +128,29 @@ def ptxas_report(name):
 def data_ptr(t):
     """A tensor's device address for a C entry, None for no tensor."""
     return None if t is None else t.data_ptr()
+
+
+def sm_count(device):
+    """The SM count of CUDA ``device``."""
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = _SMS[device] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return sms
+
+
+def tickets(device, need):
+    """At least ``need`` int32 tickets of ``device``'s current stream for
+    the kernels whose last block to finish merges partial results. Every
+    such kernel finds them zero and leaves them zero, and launches on one
+    stream run in order, so one buffer per device and stream serves every
+    launch there."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < need:
+        buf = _TICKETS[key] = torch.zeros((max(need, 4096),),
+                                          dtype=torch.int32, device=device)
+    return buf
 
 
 def load(name):

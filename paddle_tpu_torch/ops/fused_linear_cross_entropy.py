@@ -11,10 +11,18 @@ Shapes (N = B*S tokens, D hidden, V vocab):
 
 The forward needs per row ``lse`` (log-sum-exp of the logits) and
 ``pick`` (the label's logit), computed online over vocab tiles: on CUDA
-tensors by the hand-written kernel of ``csrc/fused_linear_cross_entropy.cu``
-(f32 only), on CPU tensors by the plain chunked version
-:func:`fused_linear_cross_entropy_ref`. There is no fallback from one to
-the other. A label outside ``[0, V)`` matches no column: its pick is 0.
+tensors by the hand-written kernels of
+``csrc/fused_linear_cross_entropy.cu``, on CPU tensors by the plain
+chunked version :func:`fused_linear_cross_entropy_ref`. There is no
+fallback from one to the other. Hidden and weight may be f32, bf16 or
+f16 in any mix (converted to f32 on load inside the kernel, as the
+reference's body converts its blocks); labels any integer dtype. A label
+outside ``[0, V)`` matches no column: its pick is 0.
+
+One rule (:func:`kernel_instance`) picks the kernel's instance: D % 8 ==
+0 goes to the tensor-core instance (3xTF32 on wgmma, the vocab split
+over the grid by :func:`split_plan`), every other D >= 1 to the general
+one (f32 FMAs).
 
 The backward recomputes each vocab chunk's logits from the saved
 ``lse`` and accumulates ``d_hidden`` and ``d_weight`` chunk by chunk
@@ -36,10 +44,16 @@ import torch
 from . import _build
 
 __all__ = ["fused_linear_cross_entropy", "fused_linear_cross_entropy_ref",
-           "default_chunk"]
+           "default_chunk", "kernel_instance", "split_plan"]
 
 #: kernel launches on the CUDA path
 launches = 0
+#: the same launches by instance (``kernel_instance``)
+instance_launches = {"tensor-core": 0, "general": 0}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_INSTANCES = {"tensor-core": 0, "general": 1}
+TILE_ROWS = 128     # rows of a tensor-core block
+TILE_COLS = 128     # vocab columns of a tensor-core tile
 
 
 def default_chunk():
@@ -76,11 +90,35 @@ def fused_linear_cross_entropy_ref(h2d, w, labels, chunk):
     return m + torch.log(s), pick
 
 
+def kernel_instance(dtype_h, dtype_w, d):
+    """The CUDA instance that takes hidden of ``dtype_h`` and weight of
+    ``dtype_w`` (each f32, bf16 or f16) at hidden size ``d``:
+    ``"tensor-core"`` for ``d % 8 == 0`` (16-byte rows), ``"general"``
+    for every other ``d >= 1``. Raises for any other dtype."""
+    for dt in (dtype_h, dtype_w):
+        if dt not in _DTYPES:
+            raise ValueError("the CUDA cross-entropy kernel takes float32, "
+                             f"bfloat16 or float16 hidden and weight, got "
+                             f"{dt}")
+    return "tensor-core" if d > 0 and d % 8 == 0 else "general"
+
+
+def split_plan(v, sms):
+    """``(splits, per)``: the tensor-core instance's vocab split. Split
+    ``y`` walks the vocab tiles of 128 columns ``[y per, (y + 1) per)``:
+    ``per`` tiles each, as few as leave at most ``sms`` splits, and no
+    split empty. A function of V and the SM count only, never of the
+    rows: a row's lse and pick are the same bits whatever N."""
+    tiles = -(-v // TILE_COLS)
+    per = -(-tiles // max(1, sms))
+    return -(-tiles // per), per
+
+
 def _lib():
     lib = _build.load("fused_linear_cross_entropy")
     if not getattr(lib, "_ce_typed", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ce_forward.argtypes = [vp] * 5 + [i32] * 3 + [vp]
+        lib.ce_forward.argtypes = [i32] + [vp] * 5 + [i32] * 7 + [vp] * 3
         lib.ce_forward.restype = i32
         lib.ce_error_string.argtypes = [i32]
         lib.ce_error_string.restype = ctypes.c_char_p
@@ -89,27 +127,41 @@ def _lib():
 
 
 def _launch(h2d, w, labels):
+    """The instance :func:`kernel_instance` picks. Raises only for what
+    no instance takes: other dtypes than f32, bf16 and f16, and
+    misaligned hidden or weight on the tensor-core instance."""
     global launches
-    if h2d.dtype != torch.float32 or w.dtype != torch.float32:
-        raise ValueError("the CUDA cross-entropy kernel takes f32 hidden "
-                         f"and weight; got {h2d.dtype}, {w.dtype}")
     n, d = h2d.shape
-    if d % 8 or h2d.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("the CUDA cross-entropy kernel needs hidden % 8 "
-                         f"== 0 and 16-byte aligned rows; got hidden {d}")
+    v = w.shape[0]
+    inst = kernel_instance(h2d.dtype, w.dtype, d)
     h2d, w = h2d.contiguous(), w.contiguous()
+    if inst == "tensor-core" and (h2d.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("the CUDA cross-entropy kernel's tensor-core "
+                         "instance takes 16-byte aligned hidden and weight")
     lab = labels.to(torch.int64).contiguous()
     lse = torch.empty(n, dtype=torch.float32, device=h2d.device)
     pick = torch.empty(n, dtype=torch.float32, device=h2d.device)
+    if n == 0:
+        return lse, pick
+    splits, per = split_plan(v, _build.sm_count(h2d.device))
+    partial = tickets = None
+    if inst == "tensor-core":
+        partial = torch.empty((splits, 3, n), dtype=torch.float32,
+                              device=h2d.device)
+        tickets = _build.tickets(h2d.device, -(-n // TILE_ROWS))
     lib = _lib()
-    rc = lib.ce_forward(h2d.data_ptr(), w.data_ptr(), lab.data_ptr(),
-                        lse.data_ptr(), pick.data_ptr(), n, d, w.shape[0],
+    rc = lib.ce_forward(_INSTANCES[inst], h2d.data_ptr(), w.data_ptr(),
+                        lab.data_ptr(), lse.data_ptr(), pick.data_ptr(), n,
+                        d, v, _DTYPES[h2d.dtype], _DTYPES[w.dtype], splits,
+                        per, _build.data_ptr(partial),
+                        _build.data_ptr(tickets),
                         torch.cuda.current_stream(h2d.device).cuda_stream)
     if rc:
         msg = lib.ce_error_string(rc).decode()
         raise RuntimeError(f"cross-entropy launch failed: CUDA error {rc} "
                            f"({msg})")
     launches += 1
+    instance_launches[inst] += 1
     return lse, pick
 
 

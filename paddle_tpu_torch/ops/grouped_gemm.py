@@ -23,9 +23,13 @@ bit for bit, on the card.
 
 The kernels take the reference's kernel domain (:func:`supported`,
 :func:`supported_q8`) and every shape its public functions take: one
-rule, ``ops._tile_gemm.gemm_instance``, sends bf16 and f32 x with K % 8
-and N % 8 zero (int8: B % 32 and N % 16 too) to the tile instance and
-the rest (f16 x, any K, N, B >= 1) to the general instance (f32 FMAs).
+rule, ``ops._tile_gemm.gemm_instance``, sends the float kernel's bf16
+and f32 x with K % 8 and N % 8 zero to its tile instance, the int8
+kernel's bf16 and f16 x with K % 8, N % 16 and B % 16 zero to its
+cluster instance (int8 converted in registers, one weight read per
+expert) and its f32 x with K % 8, N % 16 and B % 32 zero to its tile
+instance, and the rest (any K, N, B >= 1) to the general instance (f32
+FMAs).
 x and w of two dtypes are widened to f32 (exact) and the out cast to
 x's dtype, as the reference computes them. :func:`grouped_gemm` is differentiable: dx is
 the same grouped product against ``w`` transposed (read through its
@@ -148,8 +152,7 @@ def _lib():
         lib.gg_forward.argtypes = [i32] + [vp] * 4 + [i32] * 4 + [i64] * 3 \
             + [i32, vp, vp, i32, vp]
         lib.gg_forward.restype = i32
-        lib.gg_q8_forward.argtypes = [i32] + [vp] * 5 + [i32] * 6 \
-            + [vp, vp, i32, vp]
+        lib.gg_q8_forward.argtypes = [i32] + [vp] * 5 + [i32] * 7 + [vp]
         lib.gg_q8_forward.restype = i32
         lib.gg_error_string.argtypes = [i32]
         lib.gg_error_string.restype = ctypes.c_char_p
@@ -170,8 +173,8 @@ def _count(kernel, inst):
 
 def _operands(x, group_sizes, inst):
     x = x.contiguous()
-    if inst == "tile" and x.data_ptr() % 16:
-        raise ValueError("the CUDA grouped GEMM's tile instance takes "
+    if inst != "general" and x.data_ptr() % 16:
+        raise ValueError(f"the CUDA grouped GEMM's {inst} instance takes "
                          "16-byte aligned x")
     return x, group_sizes.to(torch.int32).contiguous()
 
@@ -229,19 +232,17 @@ def _launch_q8(x, w_q, scales, group_sizes, block):
             f"{scales.dtype} {tuple(scales.shape)}, block {block}")
     x, gs = _operands(x, group_sizes, inst)
     w_q, scales = w_q.contiguous(), scales.contiguous()
-    if inst == "tile" and (w_q.data_ptr() % 16 or scales.data_ptr() % 16):
-        raise ValueError("the CUDA int8 grouped GEMM's tile instance takes "
-                         "16-byte aligned weights and scales")
+    if inst != "general" and (w_q.data_ptr() % 16 or scales.data_ptr() % 16):
+        raise ValueError(f"the CUDA int8 grouped GEMM's {inst} instance "
+                         "takes 16-byte aligned weights and scales")
     y = torch.empty((e * c, n), dtype=x.dtype, device=x.device)
-    bf16 = inst == "tile" and x.dtype == torch.bfloat16
-    splits = split_count(x.device, e, k, n, block) if bf16 else 1
-    partial, tickets = split_scratch(x, splits, e, c, n)
+    splits = split_count(x.device, e, k, n, block) \
+        if inst == "cluster" else 1
     lib = _lib()
     rc = lib.gg_q8_forward(INSTANCES["grouped_gemm_q8"][inst], x.data_ptr(),
                            w_q.data_ptr(), scales.data_ptr(), gs.data_ptr(),
                            y.data_ptr(), e, c, k, n, block, splits,
-                           _build.data_ptr(partial),
-                           _build.data_ptr(tickets), _DTYPES[x.dtype],
+                           _DTYPES[x.dtype],
                            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, rc, "grouped_gemm_q8")
     _count("grouped_gemm_q8", inst)

@@ -518,7 +518,7 @@ def _attend(lib, rope, q, k_pages, v_pages, k_scale, v_scale, sin, cos,
         part_o = torch.empty((n * d,), dtype=torch.float32, device=q.device)
         part_ml = torch.empty((n * 2,), dtype=torch.float32,
                               device=q.device)
-        tickets = _tickets(q.device, stream, r * hk * tiles)
+        tickets = _build.tickets(q.device, r * hk * tiles)
     ptrs = (q, k_pages, v_pages, k_scale, v_scale, sin, cos, block_tables,
             *meta, out, part_o, part_ml, tickets)
     rc = lib.rpa_attention(code, _DTYPES[q.dtype], int(rope),
@@ -529,20 +529,6 @@ def _attend(lib, rope, q, k_pages, v_pages, k_scale, v_scale, sin, cos,
     launches[what] += 1
     instance_launches[f"{what}.{inst}"] += 1
     return out
-
-
-_TICKETS: dict = {}   # (device, stream) -> the zeroed ticket buffer
-
-
-def _tickets(device, stream, need):
-    """The tensor-core instance's tile tickets: zero before a launch and
-    left zero by it, so one buffer per device and stream serves every
-    launch in that stream's order."""
-    buf = _TICKETS.get((device, stream))
-    if buf is None or buf.numel() < need:
-        buf = _TICKETS[(device, stream)] = torch.zeros(
-            (max(need, 4096),), dtype=torch.int32, device=device)
-    return buf
 
 
 def _launch_ragged(q, k_pages, v_pages, block_tables, meta, scale, k_scale,

@@ -2,11 +2,14 @@
 the card, at small shapes and edge cases that ``chip_smoke.py`` does not
 reach: head dim 64, GQA groups 1 and 4, non-causal and shorter-query
 batches, the autograd path end to end, and the flash kernels' general
-instance (f32, f16 and bf16 at head dims 8 to 256); the loss kernel on ragged row
-tiles, a ragged vocab tail and labels outside ``[0, V)`` (in the padded
-tail too); the grouped GEMMs (float and int8) on empty experts, ragged
-row, K and N tails, group sizes past the stride, f32 and bf16, and the
-backward's dx on the transposed weight; the dequant matmul at decode
+instance (f32, f16 and bf16 at head dims 8 to 256); the loss kernel's
+two instances on ragged row tiles, D and vocab tails, labels outside
+``[0, V)`` (in the padded tail too), in f32, bf16, f16 and mixed inputs,
+rows bitwise the same alone and in a batch and two calls bitwise; the
+grouped GEMMs (float and int8) on empty experts, ragged row, K and N
+tails, group sizes past the stride, f32, bf16 and f16, 33-64 live rows of
+an expert, and the backward's dx on the transposed weight; registers and
+spills of the redesigned kernels; the dequant matmul at decode
 and prefill row counts; a ragged last scale block in both int8 kernels;
 every instance of the ragged paged attention family (rope-fused,
 post-rope fused and read-only, over float and int8 pools) at head dims
@@ -235,6 +238,90 @@ def test_loss_kernel_matches_plain(dev, n, d, v):
         assert not pick[:4].any()
 
 
+# the loss kernel's instances: n, d, v (d % 8 != 0: the general instance)
+LOSS = [(1, 64, 7), (300, 200, 1000), (130, 40, 513), (77, 37, 300),
+        (5, 9, 2048), (256, 4096, 600)]
+LOSS_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.float16, torch.float16), (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.float32), (torch.float16, torch.float32),
+               (torch.bfloat16, torch.float16)]
+
+
+def _loss_inputs(dev, n, d, v, dtype_h, dtype_w, seed=0):
+    g = torch.Generator(dev).manual_seed(seed + n + d + v)
+    h = torch.randn(n, d, device=dev, generator=g).to(dtype_h)
+    w = (torch.randn(v, d, device=dev, generator=g) * 0.2).to(dtype_w)
+    lab = torch.randint(0, v, (n,), device=dev, generator=g)
+    if n > 4:
+        lab[:4] = torch.tensor([-100, v, v + 3, 1 << 20], device=dev)
+    return h, w, lab
+
+
+@pytest.mark.parametrize("dtype_h,dtype_w", LOSS_DTYPES)
+@pytest.mark.parametrize("case", LOSS)
+def test_loss_kernel_instances_match_plain(dev, case, dtype_h, dtype_w):
+    """Each instance (``kernel_instance``'s rule) at every dtype mix
+    against the plain version on the same inputs: lse and pick within
+    1e-5 of max(|x|, 1); ignored and out-of-range labels pick 0; int32
+    labels as int64."""
+    n, d, v = case
+    h, w, lab = _loss_inputs(dev, n, d, v, dtype_h, dtype_w)
+    inst = FC.kernel_instance(dtype_h, dtype_w, d)
+    before = FC.instance_launches[inst]
+    lse, pick = FC._launch(h, w, lab.to(torch.int32))
+    assert FC.instance_launches[inst] == before + 1
+    lse_r, pick_r = FC.fused_linear_cross_entropy_ref(h, w, lab, 64)
+    for got, ref in ((lse, lse_r), (pick, pick_r)):
+        assert torch.isfinite(got).all()
+        assert float(((got - ref).abs() / ref.abs().clamp_min(1)).max()) \
+            <= 1e-5
+    if n > 4:
+        assert not pick[:4].any()
+
+
+@pytest.mark.parametrize("dtype_h,dtype_w", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.float16, torch.float16)])
+def test_loss_kernel_rows_are_independent(dev, dtype_h, dtype_w):
+    """Rows 0, 5, 130 and 299 alone and among 300 (three row tiles of
+    the tensor-core instance): lse and pick bitwise equal; two calls
+    bitwise equal (the vocab split and its merge order are fixed)."""
+    h, w, lab = _loss_inputs(dev, 300, 512, 3000, dtype_h, dtype_w, seed=7)
+    lse, pick = FC._launch(h, w, lab)
+    lse2, pick2 = FC._launch(h, w, lab)
+    assert torch.equal(lse, lse2) and torch.equal(pick, pick2)
+    for i in (0, 5, 130, 299):
+        one_lse, one_pick = FC._launch(h[i:i + 1], w, lab[i:i + 1])
+        assert torch.equal(one_lse[0], lse[i]), i
+        assert torch.equal(one_pick[0], pick[i]), i
+
+
+def test_loss_autograd_16bit_on_the_card(dev):
+    """bf16 hidden and weight through the autograd Function: the kernel
+    forward, d_hidden and d_weight in their inputs' dtypes, against the
+    plain path."""
+    h, w, lab = _loss_inputs(dev, 96, 64, 300, torch.bfloat16,
+                             torch.bfloat16, seed=3)
+    grads = []
+    for plain in (False, True):
+        hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
+        if plain:
+            lse, pick = FC.fused_linear_cross_entropy_ref(h, w, lab, 128)
+            saved, FC._launch = FC._launch, lambda *a: (lse, pick)
+        try:
+            loss = FC.fused_linear_cross_entropy(hg, wg, lab, vocab_chunk=128)
+            loss.backward()
+        finally:
+            if plain:
+                FC._launch = saved
+        grads.append((loss.detach(), hg.grad, wg.grad))
+    (lk, dhk, dwk), (lp, dhp, dwp) = grads
+    assert dhk.dtype == torch.bfloat16 and dwk.dtype == torch.bfloat16
+    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=0)
+    _close(dhk, dhp)
+    _close(dwk, dwp)
+
+
 def test_loss_autograd_on_the_card(dev):
     g = torch.Generator(dev).manual_seed(9)
     h = torch.randn(96, 64, device=dev, generator=g, requires_grad=True)
@@ -303,23 +390,78 @@ def test_grouped_gemm_backward_on_the_card(dev, dtype):
                                                   w.dtype))
 
 
-def test_grouped_gemm_rows_are_independent(dev):
+@pytest.mark.parametrize("kind", ["float", "q8", "q8 f16"])
+def test_grouped_gemm_rows_are_independent(dev, kind):
     """A row's out is bit for bit the same whatever the other rows: rows
-    0, 5 and 37 alone, then among 8 and among 64 rows of their expert."""
+    0, 5 and 37 alone, then among 8 and among 64 rows of their expert
+    (the float kernel's tile instance; the int8 kernel's cluster
+    instance, bf16 and f16 x, whose K split needs a narrow grid)."""
     g = torch.Generator(dev).manual_seed(4)
-    w = torch.randn(2, 256, 128, device=dev, generator=g).bfloat16()
-    rows = torch.randn(64, 256, device=dev, generator=g).bfloat16()
-    x = torch.zeros(128, 256, device=dev, dtype=torch.bfloat16)
+    dt = torch.float16 if kind == "q8 f16" else torch.bfloat16
+    w = torch.randn(2, 256, 128, device=dev, generator=g).to(dt)
+    rows = torch.randn(64, 256, device=dev, generator=g).to(dt)
+    x = torch.zeros(128, 256, device=dev, dtype=dt)
     x[:64] = rows
+    if kind == "float":
+        run = lambda x, gs: GG.grouped_gemm(x, w, gs)  # noqa: E731
+    else:
+        q, s = quantize_weight(w.float(), 32)
+        run = lambda x, gs: GG.grouped_gemm_q8(x, q, s, gs, 32)  # noqa
     for t in (8, 64):
-        packed = GG.grouped_gemm(x, w, torch.tensor([t, 0], device=dev))
+        packed = run(x, torch.tensor([t, 0], device=dev))
         for i in (0, 5, 37):
             if i >= t:
                 continue
             one = torch.zeros_like(x)
             one[0] = rows[i]
-            alone = GG.grouped_gemm(one, w, torch.tensor([1, 0], device=dev))
+            alone = run(one, torch.tensor([1, 0], device=dev))
             assert torch.equal(alone[0], packed[i]), (i, t)
+
+
+# the int8 kernel's cluster instance: e, c, k, n, block, group sizes
+GROUPED_Q8 = [
+    (8, 64, 512, 256, 128, [64, 0, 33, 17, 50, 1, 0, 40]),  # 33-64 live
+    (4, 10, 72, 144, 16, [12, 0, 1, 10]),    # gs > C, ragged K, N 144
+    (3, 5, 256, 64, 64, [0, 0, 0]),          # every expert empty
+    (2, 70, 200, 128, 64, [70, 65]),         # two row chunks, ragged block
+    (8, 8, 4096, 1024, 128, [8, 0, 3, 1, 0, 2, 1, 1]),   # K split
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", GROUPED_Q8)
+def test_grouped_gemm_q8_cluster_instance_matches_plain(dev, dtype, case):
+    """The cluster instance against the plain version: outs within the
+    dtype's bound, rows past each expert's size zero; one launch of the
+    instance."""
+    e, c, k, n, block, gs = case
+    x, w, gs_t = _grouped_inputs(dev, dtype, e, c, k, n, gs, seed=6)
+    q, s = quantize_weight(w.float(), block)
+    from paddle_tpu_torch.ops._tile_gemm import gemm_instance
+    assert gemm_instance("grouped_gemm_q8", dtype, k, n, block) == "cluster"
+    before = GG.instance_launches["grouped_gemm_q8.cluster"]
+    y = GG.grouped_gemm_q8(x, q, s, gs_t, block)
+    assert GG.instance_launches["grouped_gemm_q8.cluster"] == before + 1
+    assert y.dtype == dtype
+    _close_gemm(y, GG.grouped_gemm_q8_ref(x, q, s, gs_t, block))
+    y3 = y.reshape(e, c, -1)
+    for ei, m in enumerate(gs):
+        assert not y3[ei, min(m, c):].any()
+
+
+def test_redesigned_kernels_do_not_spill(dev):
+    """The loss kernel's tensor-core instance and the int8 grouped GEMM's
+    cluster instance (``ptxas -v`` of their builds): no spill stores or
+    loads in any instantiation."""
+    from paddle_tpu_torch.ops import _build
+    found = 0
+    for lib, frag in (("fused_linear_cross_entropy", "linear_ce_fwd_tc"),
+                      ("grouped_gemm", "q8_cluster_kernel")):
+        for name, what in _build.ptxas_report(lib).items():
+            if frag in name:
+                found += 1
+                assert "spill stores 0 B, loads 0 B" in what, (name, what)
+    assert found >= 4 + 6
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -408,7 +550,7 @@ GEMM_GENERAL = [
     ("gg", torch.float16, 3, 64, 48, None),
     ("gg", torch.bfloat16, 3, 40, 20, None),
     ("gg", torch.float32, 3, 37, 29, None),
-    ("gg_q8", torch.float16, 3, 96, 64, 32),
+    ("gg_q8", torch.float16, 3, 96, 64, 24),
     ("gg_q8", torch.bfloat16, 3, 96, 64, 24),
     ("gg_q8", torch.bfloat16, 3, 40, 24, 8),
     ("gg_q8", torch.float32, 3, 37, 29, 16),

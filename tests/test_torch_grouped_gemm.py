@@ -200,6 +200,11 @@ def test_grouped_launch_raises_only_for_what_no_instance_takes():
     odd = torch.zeros(1 + 8 * 64)[1:].view(8, 64)
     with pytest.raises(ValueError, match="tile instance takes 16-byte"):
         GG._launch_q8(odd, q, s, gs, 32)
+    # bf16 and f16 x: the cluster instance (int8 converted in registers)
+    for dt in (torch.bfloat16, torch.float16):
+        odd = torch.zeros(1 + 8 * 64, dtype=dt)[1:].view(8, 64)
+        with pytest.raises(ValueError, match="cluster instance takes 16-byte"):
+            GG._launch_q8(odd, q, s, gs, 32)
     assert not any(GG.launches.values())
     assert not any(GG.instance_launches.values())
 

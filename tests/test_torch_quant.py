@@ -162,10 +162,15 @@ def test_supported_matches_the_reference_rule(monkeypatch, dtype, k, n,
     ("grouped_gemm", torch.float32, 40, 24, None, "tile"),
     ("grouped_gemm", torch.float16, 64, 64, None, "general"),
     ("grouped_gemm", torch.bfloat16, 37, 64, None, "general"),
-    ("grouped_gemm_q8", torch.bfloat16, 4096, 14336, 128, "tile"),
+    ("grouped_gemm_q8", torch.bfloat16, 4096, 14336, 128, "cluster"),
     ("grouped_gemm_q8", torch.bfloat16, 96, 64, 24, "general"),
     ("grouped_gemm_q8", torch.bfloat16, 64, 24, 32, "general"),
-    ("grouped_gemm_q8", torch.float16, 64, 64, 32, "general")])
+    ("grouped_gemm_q8", torch.float16, 64, 64, 32, "cluster"),
+    ("grouped_gemm_q8", torch.float16, 14336, 4096, 128, "cluster"),
+    ("grouped_gemm_q8", torch.bfloat16, 40, 32, 16, "cluster"),
+    ("grouped_gemm_q8", torch.float16, 36, 32, 16, "general"),
+    ("grouped_gemm_q8", torch.float32, 4096, 1024, 128, "tile"),
+    ("grouped_gemm_q8", torch.float32, 4096, 1024, 48, "general")])
 def test_gemm_instance_rule(kernel, dtype, k, n, block, want):
     from paddle_tpu_torch.ops._tile_gemm import gemm_instance
     assert gemm_instance(kernel, dtype, k, n, block) == want

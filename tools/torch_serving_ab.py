@@ -3,7 +3,7 @@
 one card, in alternating order.
 
     python3 tools/torch_serving_ab.py TREE [TREE ...] [--rounds N]
-        [--reps K] [--out PATH]
+        [--reps K] [--model llama3-8b|mixtral-int8] [--out PATH]
 
 Each TREE is the root of a checkout holding ``chip_smoke.py`` and
 ``paddle_tpu_torch/``. A round runs the trees in the given order and then
@@ -11,7 +11,9 @@ in reverse (A B B A for two trees), each in a process of its own that
 imports that tree's code: it builds the tree's ``chip_smoke.py`` phase 4
 workload (``serving_workload``: Llama-3-8B at full width and depth, random
 bf16 weights from a seeded generator on the card, ``max_batch=8``,
-``page_size=16``), serves the 8 prompts of 64-512 tokens once to warm up,
+``page_size=16``) or, with ``--model mixtral-int8``, phase 6's
+(``mixtral_int8``: Mixtral-8x7B at full width and depth with int8 weights,
+the same engine geometry), serves the 8 prompts of 64-512 tokens once to warm up,
 then ``--reps`` times more, 32 new tokens each, and reports the tokens/s
 of each pass (new tokens over the wall time of ``generate``, synchronised,
 as phase 4 reads it). Prints one JSON object with every reading, by tree
@@ -26,14 +28,21 @@ import sys
 import time
 
 
-def child(reps):
+def child(reps, model):
     """One process's readings for the tree it runs in: a JSON line."""
     sys.path.insert(0, os.getcwd())
     import torch
-    from chip_smoke import NEW, serving_workload
-    from paddle_tpu_torch.inference import Request
+    import chip_smoke as cs
+    from paddle_tpu_torch.inference import LlamaServingEngine, Request
+    NEW = cs.NEW
     dev = torch.device("cuda")
-    _, _, engine, prompts = serving_workload(dev)
+    if model == "mixtral-int8":
+        moe = cs.mixtral_int8(dev)
+        engine = LlamaServingEngine(moe, max_batch=8, page_size=16,
+                                    weight_dtype="int8")
+        prompts = cs.serving_prompts(moe.config.vocab_size)
+    else:
+        _, _, engine, prompts = cs.serving_workload(dev)
 
     def run():
         reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
@@ -51,11 +60,13 @@ def main():
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--model", choices=("llama3-8b", "mixtral-int8"),
+                    default="llama3-8b")
     ap.add_argument("--out", default="")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.reps)
+        child(args.reps, args.model)
         return
     if not args.trees:
         ap.error("name at least one tree")
@@ -65,7 +76,8 @@ def main():
     for tree in order:
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", "--reps",
-             str(args.reps)], cwd=tree, capture_output=True, text=True)
+             str(args.reps), "--model", args.model], cwd=tree,
+            capture_output=True, text=True)
         if res.returncode != 0:
             sys.stderr.write(res.stdout + res.stderr)
             sys.exit(f"the run in {tree} failed ({res.returncode})")

@@ -59,7 +59,7 @@ def family(name):
                 return f"ragged attention {rows}"
     if "grouped_gemm::" in name:
         return "int8 grouped GEMM #7" if "_kernel<1>" in name \
-            else "float grouped GEMM #6"
+            or "q8_cluster_kernel" in name else "float grouped GEMM #6"
     for frag, fam in FAMILIES:
         if frag.lower() in name.lower():
             return fam

@@ -15,9 +15,12 @@ and down shapes routed by its router at T = 8 and 64 tokens, #8 on q/o
 (N = 4096) and k/v (N = 1024) weights at T = 8 and 64, bf16, block 128).
 Every case is held against its plain version (phase 3's bound), then
 timed by CUDA events (which include the wrapper's host time between
-launches at these sizes) and by the profiler's device time; each process
-prints one line ``ab: <case>_ms=... <case>_device_ms=... ...``. Needs one
-card; exits non-zero if any tree's check fails.
+launches at these sizes) and by the profiler's device time, beside its
+library call's device time (phase 3c's: ``torch.bmm`` on the masked rows
+against the bf16 weight, bf16-dequantized for #7; ``F.linear`` on the
+bf16-dequantized weight for #8); each process prints one line ``ab:
+<case>_ms=... <case>_device_ms=... <case>_library_device_ms=... ...``.
+Needs one card; exits non-zero if any tree's check fails.
 """
 
 import os
@@ -26,11 +29,12 @@ import sys
 
 CHILD = """
 import sys, torch
+import torch.nn.functional as F
 sys.path.insert(0, '.')
 import chip_smoke as cs
 from paddle_tpu_torch.ops import _build, grouped_gemm as GG
 from paddle_tpu_torch.quant import kernels as QK
-from paddle_tpu_torch.quant.format import quantize_weight
+from paddle_tpu_torch.quant.format import dequant_blocks, quantize_weight
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaMoEMLP
 _build.build_all(['grouped_gemm', 'dequant_matmul'])
 dev = torch.device('cuda')
@@ -50,34 +54,42 @@ for t in cs.MOE_TOKENS:
     xg = xs[t][slot.clamp_min(0)]
     wu, wd = mlp.gate_proj.detach(), mlp.down_proj.detach()
     cases[f'gg_up_t{t}'] = (lambda x=xg, w=wu, s=gs: GG._launch_float(x, w, s),
-                            lambda x=xg, w=wu, s=gs: GG.grouped_gemm_ref(x, w, s))
+                            lambda x=xg, w=wu, s=gs: GG.grouped_gemm_ref(x, w, s),
+                            lambda x=cs.masked_rows(xg, gs), w=wu: torch.bmm(x, w))
     cases[f'gg_down_t{t}'] = (lambda x=hs[t], w=wd, s=gs: GG._launch_float(x, w, s),
-                              lambda x=hs[t], w=wd, s=gs: GG.grouped_gemm_ref(x, w, s))
+                              lambda x=hs[t], w=wd, s=gs: GG.grouped_gemm_ref(x, w, s),
+                              lambda x=cs.masked_rows(hs[t], gs), w=wd: torch.bmm(x, w))
     cases[f'gs_t{t}'] = (gs, xg)
 mlp.quantize_weights(B)
 for t in cs.MOE_TOKENS:
     gs, xg = cases.pop(f'gs_t{t}')
     qu, su = mlp.gate_proj, mlp.gate_proj_scale
     qd, sd = mlp.down_proj, mlp.down_proj_scale
+    lu, ld = (dequant_blocks(q, s, B).to(bf) for q, s in ((qu, su), (qd, sd)))
     cases[f'q8_up_t{t}'] = (
         lambda x=xg, q=qu, s=su, n=gs: GG._launch_q8(x, q, s, n, B),
-        lambda x=xg, q=qu, s=su, n=gs: GG.grouped_gemm_q8_ref(x, q, s, n, B))
+        lambda x=xg, q=qu, s=su, n=gs: GG.grouped_gemm_q8_ref(x, q, s, n, B),
+        lambda x=cs.masked_rows(xg, gs), w=lu: torch.bmm(x, w))
     cases[f'q8_down_t{t}'] = (
         lambda x=hs[t], q=qd, s=sd, n=gs: GG._launch_q8(x, q, s, n, B),
-        lambda x=hs[t], q=qd, s=sd, n=gs: GG.grouped_gemm_q8_ref(x, q, s, n, B))
+        lambda x=hs[t], q=qd, s=sd, n=gs: GG.grouped_gemm_q8_ref(x, q, s, n, B),
+        lambda x=cs.masked_rows(hs[t], gs), w=ld: torch.bmm(x, w))
 for n in (4096, 1024):
     q, s = quantize_weight(torch.randn(d, n, device=dev, generator=g) * 0.02, B)
+    w_lib = dequant_blocks(q, s, B).t().contiguous().to(bf)
     for t in cs.MOE_TOKENS:
         cases[f'dq_n{n}_t{t}'] = (
             lambda x=xs[t], q=q, s=s: QK._launch(x, q, s, B),
-            lambda x=xs[t], q=q, s=s: QK.dequant_matmul_ref(x, q, s, B))
+            lambda x=xs[t], q=q, s=s: QK.dequant_matmul_ref(x, q, s, B),
+            lambda x=xs[t], w=w_lib: F.linear(x, w))
 line = []
-for name, (run, plain) in cases.items():
+for name, (run, plain, lib) in cases.items():
     y, ref = run(), plain()
     torch.cuda.synchronize()
     cs.check_close(f'ab {name}', y, ref)
     line.append(f'{name}_ms={cs.time_ms(run):.4f} '
-                f'{name}_device_ms={cs.device_ms(run):.4f}')
+                f'{name}_device_ms={cs.device_ms(run):.4f} '
+                f'{name}_library_device_ms={cs.device_ms(lib):.4f}')
 print('ab: ' + ' '.join(line), flush=True)
 """
 
