@@ -15,7 +15,9 @@ package is not beside it, and when any phase fails:
    32 and a decode-only one at qblock 1), with its time, the plain
    version's time, a PyTorch library call's time and the card's bound;
    (phases 3 and 3d also print each kernel's device time from the
-   profiler, which leaves out the host's time between launches);
+   profiler, which leaves out the host's time between launches, and for
+   each fused call its write launch's device time alone beside the
+   write's bound);
 3d. the rest of the ragged paged attention family at phase 3's shapes
    and dispatches: the rope-fused call over int8 pools (#13), the
    post-rope fused call over bf16 and int8 pools (#11a, #11b) and the
@@ -87,13 +89,14 @@ package is not beside it, and when any phase fails:
    among 7 and 63 others, bitwise equal, at both N; then tokens through a
    Mixtral-width ``LlamaMoEMLP`` alone and packed among 7 and among 63
    others, bitwise equal, float and int8; the instance each grouped GEMM
-   launch ran (the int8 one's cluster instance, registers printed after
-   the build); then the three kernels at ``GEMM_DOMAIN``'s points of the
-   reference's domain (f16 x, blocks of 8, 24 and 40, N 24, K and N off
-   multiples of 8), each on the instance ``gemm_instance`` names (the
-   general one but for the int8 grouped GEMM's f16 point, now its
-   cluster instance), an f16 and a B = 24 point timed as the Mixtral
-   shapes are (with bound and library time);
+   launch ran (both kernels' cluster instances at 16-bit x, their
+   registers and spills printed); then the three kernels at
+   ``GEMM_DOMAIN``'s points of the reference's domain (f16 x, blocks of
+   8, 24 and 40, N 24, K and N off multiples of 8), each on the instance
+   ``gemm_instance`` names (the general one but for the f16 points of
+   the grouped GEMMs, which their cluster instances take), two f16
+   points and a B = 24 point timed as the Mixtral shapes are (with bound
+   and library time);
 6. serving Mixtral-8x7B at full width and depth with int8 weights (built
    layer by layer from a seeded generator on the card, each layer
    quantized as it is made: 93 GB of bf16 never exist at once) through
@@ -250,11 +253,12 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
-    """Mean device time of the kernels ``fn`` launches, per call, from
-    ``torch.profiler`` (kernels and copies only): unlike :func:`time_ms`
-    it leaves out the host's time between launches, which is longer than
-    the kernels' at small shapes."""
+def device_ms_by_kernel(fn, iters=20):
+    """Mean device time per call of each kernel (and copy) ``fn``
+    launches, ``{name: ms}``, from ``torch.profiler``: unlike
+    :func:`time_ms` it leaves out the host's time between launches,
+    which is longer than the kernels' at small shapes."""
+    import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -263,10 +267,19 @@ def device_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False))
-    return total / iters / 1e3
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] += (e.time_range.end - e.time_range.start) \
+                / iters / 1e3
+    return by_name
+
+
+def device_ms(fn, iters=20):
+    """Mean device time of the kernels ``fn`` launches, per call
+    (:func:`device_ms_by_kernel`, summed)."""
+    return sum(device_ms_by_kernel(fn, iters).values())
 
 
 def attention_batch(dev, qb, ctx, chunks, inactive, seed=0, page=PAGE,
@@ -363,6 +376,20 @@ def bound(args, info, variant="fused_rope"):
         nbytes += 2 * t * D * 4                          # sin/cos
     ops = 4 * D * H * info["pairs"]              # QK^T and PV
     return roofline(nbytes, ops, BF16_FLOPS)
+
+
+def write_bound(args, info, variant):
+    """Least time the card could take for the write launch of one call
+    of the fused ``variant``: the fresh K/V read once, their slots (and
+    int8 scales) written once, the rows' metadata and, with rope, K's
+    sin/cos rows read once, over the memory rate."""
+    _, _, rope, q8, _ = VARIANTS[variant]
+    t, d = info["tokens"], args["new_k"].shape[-1]
+    el = args["new_k"].element_size()
+    slot = HK * (d * (1 if q8 else el) + (4 if q8 else 0))
+    nbytes = 2 * t * HK * d * el + 2 * t * slot \
+        + 5 * info["rows"] * 4 + (2 * t * d * 4 if rope else 0)
+    return roofline(nbytes, 0, BF16_FLOPS)
 
 
 def ulp_bf16(x):
@@ -493,7 +520,9 @@ def check_kernel(dev, label, qb, ctx, chunks, inactive,
         return dict(max_abs_err=err, rel=rel, instance=ran[0])
     # timing: a fused call rewrites the same slots each time (idempotent)
     ms = time_ms(lambda: fn(**a_k))
-    dev_ms = device_ms(lambda: fn(**a_k))
+    by_kernel = device_ms_by_kernel(lambda: fn(**a_k))
+    dev_ms = sum(by_kernel.values())
+    write_ms = sum(v for k, v in by_kernel.items() if "kv_write" in k)
     plain_ms = time_ms(lambda: plain(**a_r), iters=5, warmup=1)
     # library yardstick: SDPA over the gathered pages (dequantized to
     # bf16 from int8) with the same mask; the port never calls it
@@ -520,6 +549,10 @@ def check_kernel(dev, label, qb, ctx, chunks, inactive,
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qr, kg, vg, attn_mask=mask))
     bound_ms, bound_by = bound(a_k, info, variant)
+    write = "" if read_only else (
+        f" write_device_ms={write_ms:.4f} write_bound_ms="
+        f"{write_bound(a_k, info, variant)[0]:.5f} (bytes) "
+        f"attention_device_ms={dev_ms - write_ms:.4f}")
     print(f"kernel check ({VARIANTS[variant][0]}, {label}): "
           f"instance={ran[0]} qblock={qb} "
           f"rows={info['rows']} tokens={info['tokens']} "
@@ -528,7 +561,7 @@ def check_kernel(dev, label, qb, ctx, chunks, inactive,
           f"max) written_K_bitwise={bool(k_bits) and not read_only} "
           f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.3f} "
           f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
-          f"({bound_by})", flush=True)
+          f"({bound_by}){write}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
@@ -1173,9 +1206,9 @@ def decode_cache(dev):
 
 def flash_registers():
     """``ptxas -v`` lines of the flash kernels, of the ragged attention's
-    tensor-core instance, of the loss kernel's tensor-core instance and of
-    the int8 kernels' cluster instances: registers and spills of each
-    instance, from the builds' logs."""
+    tensor-core instance and write launch, of the loss kernel's
+    tensor-core instance and of the GEMM kernels' cluster instances:
+    registers and spills of each instance, from the builds' logs."""
     import re
     from paddle_tpu_torch.ops import _build
     lines = []
@@ -1186,6 +1219,12 @@ def flash_registers():
         if m:
             lines.append(f"ptxas: attention_tc<{m.group(1)}, {m.group(2)}, "
                          f"{m.group(3) or m.group(4)}, {m.group(5)}>: {what}")
+        m = re.search(r"kv_write_kernelILb(\d)ELb(\d)E(?:13(__nv_bfloat16)|"
+                      r"6(__half)|(f))E", mangled)
+        if m:
+            t = m.group(3) or m.group(4) or "float"
+            lines.append(f"ptxas: kv_write_kernel<{m.group(1)}, "
+                         f"{m.group(2)}, {t}>: {what}")
     for mangled, what in sorted(_build.ptxas_report(
             "flash_attention").items()):
         m = re.search(r"(flash_[a-z_]+)I(?:Li(\d+)E|(f)E|6(__half)E|"
@@ -1202,6 +1241,13 @@ def flash_registers():
             if m:
                 lines.append(f"ptxas: {kernel}<{m.group(1) or m.group(2)}, "
                              f"{m.group(3)}>: {what}")
+    for mangled, what in sorted(_build.ptxas_report("grouped_gemm").items()):
+        m = re.search(r"float_cluster_kernelI(?:6(__half)|13(__nv_bfloat16))"
+                      r"Li(\d)ELb(\d)E", mangled)
+        if m:
+            t = m.group(1) or m.group(2)
+            lines.append(f"ptxas: float_cluster_kernel<{t}, {m.group(3)}, "
+                         f"k-major {m.group(4)}>: {what}")
     for mangled, what in sorted(_build.ptxas_report(
             "fused_linear_cross_entropy").items()):
         m = re.search(r"(linear_ce_fwd_tc)ILb(\d)ELb(\d)E", mangled)
@@ -1905,10 +1951,15 @@ def check_moe_kernels(dev):
     if not torch.equal(w.grad, GG.grouped_gemm_dw(xg.detach(), gy, gs, bf)):
         fail("grouped GEMM dw differs from the plain masked product")
     dx_ms = time_ms(lambda: GG._launch_float(gy, wt, gs))
+    dx_dev = device_ms(lambda: GG._launch_float(gy, wt, gs))
+    gm = masked_rows(gy, gs)
+    dx_lib = device_ms(lambda: torch.bmm(gm, wt))
     dx_bound, dx_by = moe_bound(gs, 64, f, d, 2)
     print(f"moe kernel check (float dx T=64): out_err={err_dx:.3e} "
-          f"dw_bitwise=True ms={dx_ms:.4f} bound_ms={dx_bound:.5f} "
+          f"dw_bitwise=True ms={dx_ms:.4f} device_ms={dx_dev:.4f} "
+          f"library_device_ms={dx_lib:.4f} bound_ms={dx_bound:.5f} "
           f"({dx_by})", flush=True)
+    del gm
     del xg, w, gy, wt, dx_ref
     check_packing(mlp.eval(), xs[64], "bf16")
     # what the router's fixed order costs against one library product
@@ -1959,12 +2010,15 @@ def check_moe_kernels(dev):
 # phase 3c: the GEMM family at points of the reference's domain past the
 # serving shapes: label -> (kernel, x dtype, E, C (M for the dequant
 # matmul), K, N, block, timed). Each runs the instance ``gemm_instance``
-# names: the general one (C6), but for "#7 f16 x", which the int8 grouped
-# GEMM's cluster instance takes. A timed point goes through
-# dequant_case or grouped_case (a "q8" one at WEIGHT_BLOCK, the block
-# grouped_case takes).
+# names: the general one (C6), but for the grouped GEMMs' f16 points,
+# which their cluster instances take (CLUSTER_POINTS). A timed point goes
+# through dequant_case or grouped_case (a "q8" one at WEIGHT_BLOCK, the
+# block grouped_case takes).
+CLUSTER_POINTS = ("#7 f16 x", "#6 f16 x", "#6 f16 x Mixtral gate/up")
 GEMM_DOMAIN = {
     "#7 f16 x": ("q8", "float16", 8, 8, 4096, 1024, WEIGHT_BLOCK, True),
+    "#6 f16 x Mixtral gate/up": ("float", "float16", 8, 8, 4096, 14336, None,
+                                 True),
     "#8 B=24": ("dq", "bfloat16", 1, 8, 4096, 4096, 24, True),
     "#8 B=8": ("dq", "bfloat16", 1, 9, 96, 64, 8, False),
     "#8 N=24 K=40": ("dq", "bfloat16", 1, 70, 40, 24, 40, False),
@@ -1981,7 +2035,7 @@ def check_gemm_domain(dev):
     """Phase 3c, C6: the grouped GEMMs and the dequant matmul at
     GEMM_DOMAIN's points (f16 x, blocks of 8, 24 and 40, N 24, K and N
     off multiples of 8): each launches the instance ``gemm_instance``
-    names (the general one but at "#7 f16 x") and stays within phase 3's
+    names (the general one but at CLUSTER_POINTS) and stays within phase 3's
     bound of its plain version; the timed points also get phase 3c's
     times, bound and library time. Returns the largest error of each
     kernel by its JSON name."""
@@ -2033,6 +2087,8 @@ def check_gemm_domain(dev):
         if timed and kind == "dq":
             lib = dequant_blocks(q, s, block).t().contiguous().to(dt)
             err = dequant_case(tag, x, q, s, lib, block)["max_abs_err"]
+        elif timed and kind == "float":
+            err = grouped_case(tag, kind, x, wt, gs, w_lib=wt)["max_abs_err"]
         elif timed:
             lib = dequant_blocks(q, s, block).to(dt)
             err = grouped_case(tag, kind, x, q, gs, s, lib)["max_abs_err"]
@@ -2043,7 +2099,7 @@ def check_gemm_domain(dev):
             print(f"gemm domain check ({label}): E={e} C={c} K={k} N={n} "
                   f"B={block} {dtype} instance={key} out_err={err:.3e}",
                   flush=True)
-        want = "cluster" if label == "#7 f16 x" else "general"
+        want = "cluster" if label in CLUSTER_POINTS else "general"
         if inst != want or counts[key] == before:
             fail(f"{tag}: ran {key}, not the {want} instance")
         errs[name] = max(errs[name], err)

@@ -387,7 +387,7 @@ int dq_forward(int instance, const void* x, const void* q, const void* scales,
     return (int)cudaErrorInvalidValue;
   }
   Args a{x, q, (const float*)scales, nullptr, y, M, K, N, block,
-         (long long)K * N, N, 1, 1, nullptr, nullptr};
+         (long long)K * N, N, 1};
   if (instance == 1) {
     if (dtype != dequant_matmul::kF32) return (int)cudaErrorInvalidValue;
     return dequant_matmul::launch(a, 1, dtype, dequant_matmul::kWeightInt8,

@@ -32,15 +32,17 @@
 // Design. The TPU kernels replay a dispatch's fresh K/V on every read, because
 // a Pallas grid cannot order a page write before another grid step's read.
 // Here the work is launches on one stream, which gives that order for free:
-//   (a) kv_write_kernel, one block per (row, kv-head): positions
-//       [q_start, q_start + q_len) of each active row, packed index
-//       w_flat + p - w_start. With rope, K is roped in f32 and cast to the
-//       model dtype; the float instances store K and V as they are then, the
-//       int8 ones quantize each (token, kv-head) vector of D values (one warp
-//       each: absmax by shuffles, scale max(amax, 1e-8) * f32(1/127),
-//       rint(x / scale) clipped to +-127) and store the int8 slot and its
-//       scale. Each fresh position belongs to exactly one row, so no slot is
-//       written twice; the dump page is never touched.
+//   (a) kv_write_kernel, one warp per (fresh token, kv head, K or V)
+//       vector, on a grid of the packed tokens (not the rows): the warp
+//       finds its token's row by a ballot over the rows (row r writes
+//       positions [q_start, q_start + q_len) of its sequence from packed
+//       index w_flat + p - w_start), a lane moves 16-byte vectors. With
+//       rope, K is roped in f32 and cast to the model dtype; the float
+//       instances store K and V as they are then, the int8 ones quantize
+//       each vector of D values (absmax by shuffles, scale max(amax, 1e-8)
+//       * f32(1/127), rint(x / scale) clipped to +-127) and store the int8
+//       slot and its scale. Each fresh position belongs to exactly one row,
+//       so no slot is written twice; the dump page is never touched.
 //   (b) the attention, over the flattened (query token, group head) rows of
 //       a row and kv head: mask kpos <= qpos & kpos < kv_len & qrow < q_len,
 //       the reference's finite -1e30 running max, masked keys contribute 0,
@@ -131,6 +133,7 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -146,7 +149,6 @@ constexpr int kMaxChunk = 32;      // key slots a softmax step holds: a warp
 // column: a chunk holds at most kThreads * kVecPerCol * 16 = 8 KB per head
 // for each column a thread owns
 constexpr int kVecPerCol = 4;
-constexpr int kMaxLaneVals = 8;  // head_dim <= 32 * 8 for the quantizer
 // the quantizer's constants as the reference rounds them: doubles cast to f32
 constexpr float kMinAmax = static_cast<float>(1e-8);
 constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
@@ -186,48 +188,151 @@ __device__ __forceinline__ int clamp_page(int p, int num_pages) {
   return p < 0 ? 0 : (p >= num_pages ? num_pages - 1 : p);
 }
 
-// One warp quantizes one (token, kv-head) vector of D <= 256 values: the f32
-// widening of `src` (roped and cast through the model dtype first when ROPE),
-// absmax over D, scale, rint(x / scale) clipped to +-127. Every lane ends with
-// the same absmax whatever the order of the shuffles (max of finite values).
-template <bool ROPE, typename T>
-__device__ __forceinline__ void quantize_row(const T* src, int D,
-                                             const float* sin_row,
-                                             const float* cos_row,
-                                             int8_t* dst, float* scale_dst,
-                                             int lane) {
-  float x[kMaxLaneVals];
-  float amax = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxLaneVals; ++j) {
-    const int d = lane + 32 * j;
-    float v = 0.f;
-    if (d < D) {
-      if constexpr (ROPE) {
-        v = to_f32(from_f32<T>(rope_elem(src, d, D, sin_row, cos_row)));
-      } else {
-        v = to_f32(src[d]);
-      }
-    }
-    x[j] = v;
-    amax = fmaxf(amax, fabsf(v));
-  }
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float sc = __fmul_rn(fmaxf(amax, kMinAmax), kInv127);
-#pragma unroll
-  for (int j = 0; j < kMaxLaneVals; ++j) {
-    const int d = lane + 32 * j;
-    if (d < D) {
-      const float r = rintf(__fdiv_rn(x[j], sc));
-      dst[d] = (int8_t)fminf(fmaxf(r, -127.f), 127.f);
-    }
-  }
-  if (lane == 0) *scale_dst = sc;
+// ---------------------------------------------------------------------------
+// The write launch: one warp per (fresh token, kv head, K or V) vector.
+// ---------------------------------------------------------------------------
+
+constexpr int kWriteWarps = 2;  // vectors a block of the write launch
+// blocks an SM the launch bounds ask for: 32 warps, so that ptxas may take
+// up to 64 registers a thread
+constexpr int kWriteMinBlocks = 32 / kWriteWarps;
+constexpr int kWriteVals = 8;   // values a lane holds: D <= 32 * 8
+
+// 16-bit words <-> f32 by register operations only (no local arrays of
+// another type): a word's low and high halves widened exactly, and two f32
+// values rounded to nearest even into one word, as torch casts
+__device__ __forceinline__ float2 widen2(uint32_t w, bf16*) {
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+__device__ __forceinline__ float2 widen2(uint32_t w, __half*) {
+  __half2 h;
+  memcpy(&h, &w, sizeof(w));
+  return __half22float2(h);
+}
+__device__ __forceinline__ uint32_t narrow2(float lo, float hi, bf16*) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  uint32_t w;
+  memcpy(&w, &h, sizeof(w));
+  return w;
+}
+__device__ __forceinline__ uint32_t narrow2(float lo, float hi, __half*) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  uint32_t w;
+  memcpy(&w, &h, sizeof(w));
+  return w;
 }
 
+// A lane's 8 values of a head vector: their 16 (16-bit T) or 32 (f32) bytes
+// as loaded, and widened to f32. Loads from 16-byte aligned `src`.
+template <typename T>
+struct Vals8 {
+  static constexpr int kWords = sizeof(T) == 4 ? 8 : 4;
+  uint32_t w[kWords];
+  __device__ __forceinline__ void load(const T* src) {
+#pragma unroll
+    for (int i = 0; i < kWords / 4; ++i) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(src) + i);
+      w[4 * i] = u.x;
+      w[4 * i + 1] = u.y;
+      w[4 * i + 2] = u.z;
+      w[4 * i + 3] = u.w;
+    }
+  }
+  __device__ __forceinline__ void widen(float* v) const {
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = __uint_as_float(w[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = widen2(w[k], (T*)nullptr);
+        v[2 * k] = f.x;
+        v[2 * k + 1] = f.y;
+      }
+    }
+  }
+  // f32 values rounded to T into the words
+  __device__ __forceinline__ void narrow(const float* v) {
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) w[k] = __float_as_uint(v[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        w[k] = narrow2(v[2 * k], v[2 * k + 1], (T*)nullptr);
+    }
+  }
+  __device__ __forceinline__ void store(T* dst) const {
+#pragma unroll
+    for (int i = 0; i < kWords / 4; ++i)
+      reinterpret_cast<uint4*>(dst)[i] =
+          make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+  }
+};
+
+// 4 values of T from 8-byte (16-bit T) or 16-byte (f32) aligned `src`,
+// widened to f32
+__device__ __forceinline__ void load4(const bf16* src, float* v) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+  const float2 a = widen2(u.x, (bf16*)nullptr), b = widen2(u.y, (bf16*)nullptr);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+__device__ __forceinline__ void load4(const __half* src, float* v) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+  const float2 a = widen2(u.x, (__half*)nullptr),
+               b = widen2(u.y, (__half*)nullptr);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+__device__ __forceinline__ void load4(const float* src, float* v) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(src));
+  v[0] = u.x;
+  v[1] = u.y;
+  v[2] = u.z;
+  v[3] = u.w;
+}
+
+// The write launch of the fused calls: the dispatch's fresh K/V (K roped in
+// f32 and cast to T when ROPE) into their page slots, as T (float pools) or
+// quantized (int8 pools with f32 scales). Work item i = blockIdx.x *
+// kWriteWarps + warp is one (fresh token f, kv head hk, K or V) vector: f = i
+// / (2 Hk), hk = (i / 2) % Hk, V for odd i. A grid of ceil(2 n_tok Hk /
+// kWriteWarps) blocks, a function of n_tok and Hk only, so a long prefill
+// chunk spreads over as many blocks as it has tokens and no row sets the
+// launch time.
+//
+// Lane l holds values [8 l, 8 l + 8) of the vector (16-byte loads and
+// stores; lanes past D / 8 hold none). Its loads are issued first, since
+// they depend on f alone: the vector's own values, with rope the partner
+// half (two runs of 4: a run never straddles D / 2, which is a multiple of
+// 4) and sin/cos as float4, and, beside them, one row's metadata a lane.
+// The warp then finds f's row: each lane tests its row (an active row r
+// holds packed tokens [w_flats + q_starts - w_starts, + q_lens), kv_lens >
+// 0) and a ballot gives the rows that hold f, 32 rows a round; padding
+// tokens are in no row and write nothing. The row's page-table entry is
+// loaded before the rope and the quantizer run and used only at the store,
+// so the dependent loads are two round trips (the metadata beside the
+// vector, then the entry) with the arithmetic under the second; the slot is
+// computed once per (vector, row). Each fresh position belongs to one row,
+// so no slot is written twice; slots past the table (pi >= W) are skipped
+// and the dump page is never touched. (The launch bounds ask for 32 warps
+// an SM, not the full 64 that ptxas aims for by itself, which held the rope
+// instances to 32 registers and spilled. Two warps a block measured 0.1 us
+// under eight at the decode-only shape, NVIDIA H100 80GB HBM3, 700 W.)
+//
+// The arithmetic is the plain version's, bit for bit: rope as __fmul_rn /
+// __fadd_rn in f32 (no contraction), cast through T; the int8 scale
+// __fmul_rn(max(amax, 1e-8), f32(1/127)) with the absmax reduced over the
+// lanes by shuffles (the max of finite values is order-free), each value
+// rintf(__fdiv_rn(x, scale)) clipped to +-127.
 template <bool ROPE, bool Q8, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kWriteWarps, kWriteMinBlocks)
     kv_write_kernel(const T* __restrict__ new_k, const T* __restrict__ new_v,
                     void* __restrict__ k_out, void* __restrict__ v_out,
                     float* __restrict__ k_scale, float* __restrict__ v_scale,
@@ -238,51 +343,125 @@ __global__ void __launch_bounds__(kThreads)
                     const int* __restrict__ q_starts,
                     const int* __restrict__ q_lens,
                     const int* __restrict__ w_starts,
-                    const int* __restrict__ w_flats, int n_tok, int Hk, int D,
-                    int P, int page, int W) {
-  const int r = blockIdx.x, hk = blockIdx.y;
-  const int qlen = q_lens[r];
-  if (qlen <= 0 || kv_lens[r] <= 0) return;
-  const int qstart = q_starts[r];
-  const int f_base = w_flats[r] + qstart - w_starts[r];
-  if constexpr (!Q8) {
-    T* k_pages = static_cast<T*>(k_out);
-    T* v_pages = static_cast<T*>(v_out);
-    for (int idx = threadIdx.x; idx < qlen * D; idx += blockDim.x) {
-      const int t = idx / D, d = idx - t * D;
-      const int pos = qstart + t, f = f_base + t, pi = pos / page;
-      if (f < 0 || f >= n_tok || pi >= W) continue;
-      const int pid = clamp_page(tables[(size_t)r * W + pi], P);
-      const size_t src = ((size_t)f * Hk + hk) * D;
-      const size_t dst =
-          (((size_t)pid * Hk + hk) * page + (pos - pi * page)) * D + d;
-      if constexpr (ROPE) {
-        k_pages[dst] = from_f32<T>(rope_elem(new_k + src, d, D,
-                                             sin_tab + (size_t)f * D,
-                                             cos_tab + (size_t)f * D));
-      } else {
-        k_pages[dst] = new_k[src + d];
-      }
-      v_pages[dst] = new_v[src + d];
+                    const int* __restrict__ w_flats, int R, int n_tok,
+                    int Hk, int D, int P, int page, int W) {
+  const int lane = threadIdx.x & 31;
+  const int item = blockIdx.x * kWriteWarps + (threadIdx.x >> 5);
+  if (item >= 2 * n_tok * Hk) return;  // the whole warp
+  const bool is_v = item & 1;
+  const int hk = (item >> 1) % Hk, f = (item >> 1) / Hk;
+  const int d0 = lane * kWriteVals;
+  const bool has = d0 < D;
+  const size_t vec = ((size_t)f * Hk + hk) * D;
+  // lane l holds row r0 + l's metadata, 32 rows a round; the first round's
+  // loads go out with the vector's own, unconditionally, so that finding
+  // the row costs one round trip beside them
+  int ql = 0, kv = 0, qs = 0, wf = 0, ws = 0;
+  auto fetch_row = [&](int r) {
+    ql = 0;
+    if (r < R) {
+      ql = q_lens[r];
+      kv = kv_lens[r];
+      qs = q_starts[r];
+      wf = w_flats[r];
+      ws = w_starts[r];
     }
-  } else {
-    int8_t* k_pages = static_cast<int8_t*>(k_out);
-    int8_t* v_pages = static_cast<int8_t*>(v_out);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
-    // one warp per fresh token; the skip below is uniform across a warp
-    for (int t = warp; t < qlen; t += nwarps) {
-      const int pos = qstart + t, f = f_base + t, pi = pos / page;
-      if (f < 0 || f >= n_tok || pi >= W) continue;
-      const int pid = clamp_page(tables[(size_t)r * W + pi], P);
-      const size_t src = ((size_t)f * Hk + hk) * D;
-      const size_t slot = ((size_t)pid * Hk + hk) * page + (pos - pi * page);
-      const float* sin_row = ROPE ? sin_tab + (size_t)f * D : nullptr;
-      const float* cos_row = ROPE ? cos_tab + (size_t)f * D : nullptr;
-      quantize_row<ROPE, T>(new_k + src, D, sin_row, cos_row,
-                            k_pages + slot * D, k_scale + slot, lane);
-      quantize_row<false, T>(new_v + src, D, nullptr, nullptr,
-                             v_pages + slot * D, v_scale + slot, lane);
+  };
+  fetch_row(lane);
+  // the vector's values and, for K with rope, its partners (two runs of 4:
+  // [d + half, ...) below D / 2, [d - half, ...) from there) and sin/cos
+  Vals8<T> vals;
+  float part[kWriteVals], sv[kWriteVals], cv[kWriteVals];
+  const int half = D / 2;
+  if (has) vals.load((is_v ? new_v : new_k) + vec + d0);
+  if constexpr (ROPE) {
+    if (!is_v && has) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = d0 + 4 * h;
+        load4(new_k + vec + (d < half ? d + half : d - half), part + 4 * h);
+        load4(sin_tab + (size_t)f * D + d, sv + 4 * h);
+        load4(cos_tab + (size_t)f * D + d, cv + 4 * h);
+      }
+    }
+  }
+  // the rows that hold f, 32 rows a round by a ballot, and the next one's
+  // table entry and slot in its page; the entry is used only at the store,
+  // so its load is in flight while the vector is roped and quantized
+  int r0 = 0, pos = 0;
+  unsigned hits = 0;
+  auto scan = [&]() {
+    const int t = f - (wf + qs - ws);
+    hits = __ballot_sync(0xffffffffu,
+                         ql > 0 && kv > 0 && t >= 0 && t < ql);
+    pos = qs + t;
+  };
+  auto next_row = [&](int& entry, int& off) {
+    for (;;) {
+      while (hits) {  // uniform across the warp
+        const int src = __ffs(hits) - 1;
+        hits &= hits - 1;
+        const int p = __shfl_sync(0xffffffffu, pos, src);
+        const int pi = p / page;
+        if (p < 0 || pi >= W) continue;
+        entry = tables[(size_t)(r0 + src) * W + pi];
+        off = p - pi * page;
+        return true;
+      }
+      r0 += 32;
+      if (r0 >= R) return false;
+      fetch_row(r0 + lane);
+      scan();
+    }
+  };
+  scan();
+  int entry = 0, off = 0;
+  bool more = next_row(entry, off);
+  float x[kWriteVals] = {};
+  if (has) vals.widen(x);
+  if constexpr (ROPE) {
+    if (!is_v && has) {
+#pragma unroll
+      for (int j = 0; j < kWriteVals; ++j) {
+        const float p = d0 + j < half ? -part[j] : part[j];
+        x[j] = __fadd_rn(__fmul_rn(x[j], cv[j]), __fmul_rn(p, sv[j]));
+      }
+      // the roped K cast to the model dtype: the float pools' values, and
+      // the int8 quantizer's input widened back
+      vals.narrow(x);
+      vals.widen(x);
+    }
+  }
+  // the int8 slot's 8 bytes and scale, the same for every row that takes f
+  uint2 q8v = make_uint2(0u, 0u);
+  float sc = 0.f;
+  if constexpr (Q8) {
+    float amax = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWriteVals; ++j) amax = fmaxf(amax, fabsf(x[j]));
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    sc = __fmul_rn(fmaxf(amax, kMinAmax), kInv127);
+#pragma unroll
+    for (int j = 0; j < kWriteVals; ++j) {
+      const int q = (int)fminf(fmaxf(rintf(__fdiv_rn(x[j], sc)), -127.f),
+                               127.f);
+      const uint32_t b = (uint32_t)(q & 0xff) << (8 * (j & 3));
+      if (j < 4)
+        q8v.x |= b;
+      else
+        q8v.y |= b;
+    }
+  }
+  for (; more; more = next_row(entry, off)) {
+    const size_t slot =
+        ((size_t)clamp_page(entry, P) * Hk + hk) * page + off;
+    if constexpr (Q8) {
+      int8_t* pool = static_cast<int8_t*>(is_v ? v_out : k_out);
+      if (has) *reinterpret_cast<uint2*>(pool + slot * D + d0) = q8v;
+      if (lane == 0) (is_v ? v_scale : k_scale)[slot] = sc;
+    } else if (has) {
+      vals.store(static_cast<T*>(is_v ? v_out : k_out) + slot * D + d0);
     }
   }
 }
@@ -571,10 +750,14 @@ int launch_write(const void* new_k, const void* new_v, void* k_pages,
                  void* v_pages, void* k_scale, void* v_scale, const Meta& m,
                  int R, int n_tok, int Hk, int D, int P, int page, int W,
                  cudaStream_t stream) {
-  kv_write_kernel<ROPE, Q8, T><<<dim3(R, Hk), kThreads, 0, stream>>>(
+  const long long items = 2LL * n_tok * Hk;
+  if (items == 0) return 0;
+  const unsigned blocks =
+      (unsigned)((items + kWriteWarps - 1) / kWriteWarps);
+  kv_write_kernel<ROPE, Q8, T><<<blocks, 32 * kWriteWarps, 0, stream>>>(
       (const T*)new_k, (const T*)new_v, k_pages, v_pages, (float*)k_scale,
       (float*)v_scale, m.sin_tab, m.cos_tab, m.tables, m.kv_lens, m.q_starts,
-      m.q_lens, m.w_starts, m.w_flats, n_tok, Hk, D, P, page, W);
+      m.q_lens, m.w_starts, m.w_flats, R, n_tok, Hk, D, P, page, W);
   return (int)cudaGetLastError();
 }
 
@@ -1475,7 +1658,9 @@ int attention_for(int rope, int q8, const void* q, const void* k_pages,
 // that type (q8 = 0) or int8 with f32 [P, Hk, page, 1] scale sidecars
 // (q8 = 1; null otherwise); the rope tables f32 [T, D] (rope = 1; null
 // otherwise); the metadata int32. With rope = 0 the attention takes q
-// row-blocked [R, QB, H, D] and needs no w_starts/w_flats. The attention's
+// row-blocked [R, QB, H, D] and needs no w_starts/w_flats. The write reads
+// new_k, new_v and the rope tables as 16-byte vectors (16-byte aligned). The
+// attention's
 // `instance` is 0 for the tensor-core kernels (bf16 or f16, head_dim % 16
 // == 0), whose scratch is `part_o` (f32 [R, Hk, tiles, slab_rows, D]),
 // `part_ml` (f32 [R, Hk, tiles, slab_rows, 2]) and `tickets` (int32 [R, Hk,

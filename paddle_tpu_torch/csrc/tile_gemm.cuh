@@ -1,7 +1,7 @@
 // Tiled products over ragged row groups for Hopper (sm_90a), shared by the
 // grouped GEMM (float and int8 weights, csrc/grouped_gemm.cu) and the int8
-// dequant matmul (csrc/dequant_matmul.cu, whose 16-bit x has a kernel of its
-// own there; f32 x and the general instance come from here).
+// dequant matmul (csrc/dequant_matmul.cu): their f32 x and general instances
+// (16-bit x has cluster instances of its own in each library).
 //
 // One function covers all three: E groups of C rows each, x [E*C, K] row-major,
 // weights w [E, K, N] and out y [E*C, N]. Group e owns rows [e*C, (e+1)*C), of
@@ -12,24 +12,21 @@
 //   W[e][k][n] = q[e][k][n] * scales[e][k / B][n]
 // (the last block is ragged where B does not divide K).
 //
-// Two instances, picked by one rule in paddle_tpu_torch/ops/_tile_gemm.py
+// Two instances here, picked by one rule in paddle_tpu_torch/ops/_tile_gemm.py
 // (`gemm_instance`):
 //
-//   tile     bf16 or f32 x, K % 8 == 0, N % 8 == 0; int8 blocks that are a
-//            multiple of 32 and N % 16 == 0; w with a unit stride along K or
-//            N. The kernels below: grid (N / 128, C / 32, E), one block of
-//            128 threads per 32 x 128 out tile. A tile whose first row is at
-//            or past rows_e writes zeros and reads nothing else, so the dead
-//            rows of dropless routing (E*C rows, n*k real) cost only the zero
-//            writes. Rows at or past rows_e inside a live tile read zeros and
-//            are written as zeros. The K loop walks 32-deep tiles in order.
-//            bf16 x with bf16 weights (the float grouped GEMM): a ring of
-//            cp.async copies keeps 3 tiles in flight per block while one
-//            computes; each landed weight tile is converted once into the
-//            MMA's layout. f32 x (float or int8 weights): double-buffered
-//            through registers. (16-bit x with int8 weights has kernels of
-//            its own: the cluster instances of csrc/grouped_gemm.cu and
-//            csrc/dequant_matmul.cu.)
+//   tile     f32 x, K % 8 == 0, N % 8 == 0, with f32 weights read with a
+//            unit stride along K or N, or int8 weights in blocks that are a
+//            multiple of 32 and N % 16 == 0 (`fma_kernel`): grid (N / 128,
+//            C / 32, E), one block of 128 threads per 32 x 128 out tile. A
+//            tile whose first row is at or past rows_e writes zeros and reads
+//            nothing else, so the dead rows of dropless routing (E*C rows,
+//            n*k real) cost only the zero writes. Rows at or past rows_e
+//            inside a live tile read zeros and are written as zeros. The K
+//            loop walks 32-deep tiles in order, double-buffered through
+//            registers. (16-bit x has kernels of its own: the cluster
+//            instances of csrc/grouped_gemm.cu, float and int8 weights, and
+//            of csrc/dequant_matmul.cu.)
 //   general  everything else: f32, f16 or bf16 x, any K, N >= 1, any block
 //            B >= 1, float weights through any strides (`gen_kernel`).
 //
@@ -37,21 +34,16 @@
 // the tile's other rows are: an out row depends on its own x row only, bit
 // for bit, which the serving engine's exactness rests on.
 //
-// Numbers. bf16 x on the tile instance: bf16 tensor-core products (mma.sync
-// m16n8k16) with f32 accumulators; a bf16 x bf16 product is exact in f32.
-// f32 x, and the general instance: f32 FMAs on the CUDA cores, no TF32.
-// int8 weights: int8 values are exact in bf16 and f32, so x multiplies the
-// raw q; the partial sum of a scale block (B rows of K) is kept apart and
-// added as acc += partial * scale[n] when the block ends. That is the
-// reference's f32 sum of x * (q * scale) with the scale factored out of each
-// block: f32-grade, not bitwise.
+// Numbers. f32 FMAs on the CUDA cores, no TF32. int8 weights: int8 values
+// are exact in f32, so x multiplies the raw q; the partial sum of a scale
+// block (B rows of K) is kept apart and added as acc += partial * scale[n]
+// when the block ends. That is the reference's f32 sum of x * (q * scale)
+// with the scale factored out of each block: f32-grade, not bitwise.
 //
 // Bound. At the serving shapes (rows per group <= 64) each live tile streams
 // its 32 x 128 weight tiles from device memory once per row tile, so the
-// weight bytes bound it; the design keeps one weight read per row tile,
-// enough bytes in flight to cover the memory latency, and skips dead groups
-// entirely. A narrow grid splits K over blocks (`split_count`). Left for
-// later: TMA and wgmma.
+// weight bytes bound it; f32 x is off the serving and training paths (which
+// run 16-bit x), so these instances stay simple.
 
 #pragma once
 
@@ -76,7 +68,6 @@ constexpr int kBM = 32;             // rows per block
 constexpr int kBN = 128;            // columns per block
 constexpr int kBK = 32;             // depth of one K tile
 constexpr int kThreads = 128;       // 4 warps
-constexpr int kLdH = kBK + 8;       // bf16 smem row stride: 80 B, 16-B aligned
 constexpr int kLdF = kBK + 1;       // f32 smem row stride: conflict-free columns
 
 enum WKind { kWeightFloat = 0, kWeightInt8 = 1 };
@@ -90,9 +81,6 @@ struct Args {
   void* y;                // [E*C, N], the x type
   int C, K, N, block;     // block: scale rows per block (int8 only)
   long long w_se, w_sk, w_sn;  // element strides of w
-  int splits;             // K splits (bf16 x only; 1 = none)
-  float* partial;         // splits > 1: [splits, E*C, N] f32 scratch
-  int* tickets;           // splits > 1: [E, C tiles, N tiles], zeroed
 };
 
 template <typename T>
@@ -252,245 +240,6 @@ __device__ __forceinline__ bool block_ends(const Args& a, int t, int nk) {
 __device__ __forceinline__ float scale_at(const Args& a, int e, int t, int n) {
   const int kb = (t * kBK) / a.block, nb = (a.K + a.block - 1) / a.block;
   return a.scales[((size_t)e * nb + kb) * a.N + n];
-}
-
-// ---------------------------------------------------------------------------
-// bf16 x: tensor-core tiles. Warp w owns columns [32 w, 32 w + 32) of the
-// block's tile and both 16-row halves: 2 x 4 mma tiles of 16 x 8.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  // 16 bytes global -> shared, bypassing L1; a false `valid` fills zeros
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The ring of K tiles in flight (8 KB of bf16 weights a tile)
-constexpr int kMmaStages = 4;
-constexpr int kMmaRaw = kBK * kBN * 2;       // bf16 [32][128] or [128][32]
-
-// dynamic shared memory of mma_kernel: the x ring, the raw weight ring, then
-// one converted weight tile Bs[kBN][kLdH]
-constexpr int kMmaSmemBytes =
-    kMmaStages * (kBM * kLdH * 2 + kMmaRaw) + kBN * kLdH * 2;
-
-// bf16 x, bf16 weights
-__global__ void __launch_bounds__(kThreads) mma_kernel(Args a) {
-  using XT = __nv_bfloat16;
-  constexpr int S = kMmaStages, kRaw = kMmaRaw;
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto As = reinterpret_cast<XT(*)[kBM][kLdH]>(smem);
-  unsigned char* raw = smem + S * kBM * kLdH * 2;
-  auto Bs = reinterpret_cast<XT(*)[kLdH]>(raw + S * kRaw);
-  __shared__ int last_split;
-  const int ks = blockIdx.z % a.splits, e = blockIdx.z / a.splits;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int rows = live_rows(a, e);
-  if (m0 >= rows) {  // dead tile: zeros, no weight read
-    if (ks == 0) zero_rows<XT>(a, e, m0, min(m0 + kBM, a.C), n0);
-    return;
-  }
-  // this split's K tiles [t0, t1)
-  const int n_units = (a.K + kBK - 1) / kBK;
-  const int t0 = ks * n_units / a.splits;
-  const int t1 = (ks + 1) * n_units / a.splits;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const bool n_major = a.w_sn == 1;
-  const XT* x = reinterpret_cast<const XT*>(a.x) + (size_t)e * a.C * a.K;
-  float part[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) part[mi][ni][q] = 0.f;
-
-  // Raw weight tiles keep the global layout, 16-byte chunks XOR-swizzled
-  // by (row & 7) so that the conversion pass reads them without bank
-  // conflicts: N-contiguous rows are one k each; the K-contiguous
-  // (transposed) tile is [128 n][32 k], read in order.
-  auto fetch = [&](int t) {
-    if (t < t1) {
-      const int st = (t - t0) % S, k0 = t * kBK;
-      {
-        const int row = tid >> 2, kc = (tid & 3) * 8;
-        const bool ok = m0 + row < rows && k0 + kc < a.K;
-        cp_async16(&As[st][row][kc],
-                   ok ? x + (size_t)(m0 + row) * a.K + k0 + kc : x, ok);
-      }
-      unsigned char* dst = raw + st * kRaw;
-      {
-        const XT* w = reinterpret_cast<const XT*>(a.w) + (size_t)e * a.w_se;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int idx = tid + i * kThreads;
-          if (n_major) {
-            const int k = idx >> 4, c = idx & 15;
-            const bool ok = k0 + k < a.K && n0 + c * 8 < a.N;
-            cp_async16(dst + (k * kBN + ((c ^ (k & 7)) * 8)) * 2,
-                       ok ? w + (size_t)(k0 + k) * a.w_sk + n0 + c * 8 : w,
-                       ok);
-          } else {
-            const int n = idx >> 2, kc = (idx & 3) * 8;
-            const bool ok = k0 + kc < a.K && n0 + n < a.N;
-            cp_async16(dst + (n * kBK + kc) * 2,
-                       ok ? w + (size_t)(n0 + n) * a.w_sn + k0 + kc : w, ok);
-          }
-        }
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count even
-  };
-
-  // raw tile -> Bs[n][k]; lane = k for the k-per-row layout, so the 2-byte
-  // stores of a warp hit one row
-  auto convert = [&](int st) {
-    const unsigned char* src = raw + st * kRaw;
-    if (n_major) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = lane, c = warp * 4 + i;
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            src + (k * kBN + ((c ^ (k & 7)) * 8)) * 2);
-        const XT* b = reinterpret_cast<const XT*>(&v);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) Bs[c * 8 + j][k] = b[j];
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int idx = tid + i * kThreads, n = idx >> 2, kc = (idx & 3) * 8;
-        *reinterpret_cast<uint4*>(&Bs[n][kc]) =
-            *reinterpret_cast<const uint4*>(src + (n * kBK + kc) * 2);
-      }
-    }
-  };
-
-#pragma unroll 1
-  for (int t = t0; t < t0 + S - 1; ++t) fetch(t);
-#pragma unroll 1
-  for (int t = t0; t < t1; ++t) {
-    const int st = (t - t0) % S;
-    cp_async_wait<S - 2>();  // this thread's copies of tile t have landed
-    __syncthreads();         // everyone's have; tile t - 1 is consumed
-    fetch(t + S - 1);        // into the stage tile t - 1 used
-    convert(st);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = mi * 16 + g, c = kk + tig * 2;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(&As[st][r][c]);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(&As[st][r + 8][c]);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(&As[st][r][c + 8]);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(&As[st][r + 8][c + 8]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = warp * 32 + ni * 8 + g, c = kk + tig * 2;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&Bs[n][c]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&Bs[n][c + 8]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_bf16(part[mi][ni], af[mi], b0, b1);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  const int r_end = min(m0 + kBM, a.C);
-
-  if (a.splits > 1) {
-    // Each split leaves its f32 sums of the live rows in the scratch; the
-    // block that finishes last adds them in split order (fixed, whatever
-    // the rows) and writes the tile.
-    const size_t rows_all = (size_t)(gridDim.z / a.splits) * a.C;
-    auto slot = [&](int j, int r, int n) {
-      return a.partial + ((size_t)j * rows_all + (size_t)e * a.C + r) * a.N + n;
-    };
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + mi * 16 + g + h * 8;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int n = n0 + warp * 32 + ni * 8 + tig * 2;
-          if (r < rows && n < a.N)
-            *reinterpret_cast<float2*>(slot(ks, r, n)) =
-                make_float2(part[mi][ni][2 * h], part[mi][ni][2 * h + 1]);
-        }
-      }
-    __threadfence();
-    __syncthreads();
-    const int tile = (e * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    if (tid == 0)
-      last_split = atomicAdd(&a.tickets[tile], 1) == a.splits - 1;
-    __syncthreads();
-    if (!last_split) return;
-    __threadfence();
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + mi * 16 + g + h * 8;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int n = n0 + warp * 32 + ni * 8 + tig * 2;
-          float2 sum = make_float2(0.f, 0.f);
-          if (r < rows && n < a.N) {
-            sum = __ldcg(reinterpret_cast<const float2*>(slot(0, r, n)));
-            for (int j = 1; j < a.splits; ++j) {
-              const float2 v =
-                  __ldcg(reinterpret_cast<const float2*>(slot(j, r, n)));
-              sum.x += v.x;
-              sum.y += v.y;
-            }
-          }
-          part[mi][ni][2 * h] = sum.x;
-          part[mi][ni][2 * h + 1] = sum.y;
-        }
-      }
-    if (tid == 0) a.tickets[tile] = 0;  // ready for the next call
-  }
-
-  XT* y = reinterpret_cast<XT*>(a.y) + (size_t)e * a.C * a.N;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m0 + mi * 16 + g + h * 8;
-      if (r >= r_end) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + warp * 32 + ni * 8 + tig * 2;
-        if (n >= a.N) continue;  // N % 8 == 0: the pair is whole
-        const bool live = r < rows;
-        __nv_bfloat162 v;
-        v.x = __float2bfloat16(live ? part[mi][ni][2 * h] : 0.f);
-        v.y = __float2bfloat16(live ? part[mi][ni][2 * h + 1] : 0.f);
-        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)r * a.N + n) = v;
-      }
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -685,9 +434,9 @@ void launch_general(const Args& a, int E, int wk, cudaStream_t s) {
 // Launch the product for groups of x type `dtype` (the weight kind `wk`) on
 // `stream` through `instance`; returns the cudaGetLastError() code of the
 // launch, or cudaErrorInvalidValue for a geometry the instance does not take
-// (the tile instance: bf16 or f32 x, K % 8 == 0, N % 8 == 0, int8 blocks
-// that are multiples of 32 and N % 16 == 0, a unit stride of w along K or N;
-// the general instance: any K, N >= 1 and block >= 1).
+// (the tile instance: f32 x, K % 8 == 0, N % 8 == 0, int8 blocks that are
+// multiples of 32 and N % 16 == 0, a unit stride of w along K or N; the
+// general instance: any K, N >= 1 and block >= 1).
 inline int launch(const Args& a, int E, int dtype, int wk, int instance,
                   void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not a stale one
@@ -707,37 +456,17 @@ inline int launch(const Args& a, int E, int dtype, int wk, int instance,
       return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
   }
-  if (instance != kTileInstance || a.K % 8 || a.N % 8)
+  if (instance != kTileInstance || dtype != kF32 || a.K % 8 || a.N % 8)
     return (int)cudaErrorInvalidValue;
   if (wk == kWeightInt8 && (a.block % kBK || a.N % 16))
     return (int)cudaErrorInvalidValue;
   if (wk == kWeightFloat && a.w_sn != 1 && a.w_sk != 1)
     return (int)cudaErrorInvalidValue;
-  if (a.splits < 1 || (a.splits > 1 && (dtype != kBF16 || !a.partial ||
-                                        !a.tickets)))
-    return (int)cudaErrorInvalidValue;
-  if (dtype == kBF16 && wk == kWeightInt8) return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.N + kBN - 1) / kBN, (a.C + kBM - 1) / kBM,
-                  E * a.splits);
-  if (dtype == kBF16) {
-    // above 48 KB of shared memory a kernel must ask for it once
-    static bool sized = false;
-    if (!sized) {
-      cudaError_t rc = cudaFuncSetAttribute(
-          mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kMmaSmemBytes);
-      if (rc != cudaSuccess) return (int)rc;
-      sized = true;
-    }
-    mma_kernel<<<grid, kThreads, kMmaSmemBytes, s>>>(a);
-  } else if (dtype == kF32) {
-    if (wk == kWeightInt8)
-      fma_kernel<kWeightInt8><<<grid, kThreads, 0, s>>>(a);
-    else
-      fma_kernel<kWeightFloat><<<grid, kThreads, 0, s>>>(a);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const dim3 grid((a.N + kBN - 1) / kBN, (a.C + kBM - 1) / kBM, E);
+  if (wk == kWeightInt8)
+    fma_kernel<kWeightInt8><<<grid, kThreads, 0, s>>>(a);
+  else
+    fma_kernel<kWeightFloat><<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 

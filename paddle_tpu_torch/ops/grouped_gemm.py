@@ -23,12 +23,13 @@ bit for bit, on the card.
 
 The kernels take the reference's kernel domain (:func:`supported`,
 :func:`supported_q8`) and every shape its public functions take: one
-rule, ``ops._tile_gemm.gemm_instance``, sends the float kernel's bf16
-and f32 x with K % 8 and N % 8 zero to its tile instance, the int8
-kernel's bf16 and f16 x with K % 8, N % 16 and B % 16 zero to its
-cluster instance (int8 converted in registers, one weight read per
-expert) and its f32 x with K % 8, N % 16 and B % 32 zero to its tile
-instance, and the rest (any K, N, B >= 1) to the general instance (f32
+rule, ``ops._tile_gemm.gemm_instance``, sends 16-bit x to each kernel's
+cluster instance (the float kernel's at K % 8 and N % 8 zero: 16-bit
+weights by TMA with no conversion; the int8 kernel's at K % 8, N % 16
+and B % 16 zero: int8 converted in registers; both read each weight
+byte once per expert), f32 x to the tile instances (the float kernel's
+at K % 8 and N % 8 zero, the int8 kernel's at K % 8, N % 16 and B % 32
+zero), and the rest (any K, N, B >= 1) to the general instance (f32
 FMAs).
 x and w of two dtypes are widened to f32 (exact) and the out cast to
 x's dtype, as the reference computes them. :func:`grouped_gemm` is differentiable: dx is
@@ -45,8 +46,8 @@ import torch
 
 from ..quant.format import dequant_blocks
 from . import _build
-from ._tile_gemm import (INSTANCES, TILE_K, gemm_instance, split_count,
-                         split_scratch)
+from ._tile_gemm import (CLUSTER_DEPTH, INSTANCES, gemm_instance,
+                         split_count)
 
 __all__ = ["grouped_gemm", "grouped_gemm_ref", "grouped_gemm_dw",
            "grouped_gemm_q8", "grouped_gemm_q8_ref", "supported",
@@ -150,7 +151,7 @@ def _lib():
     if not getattr(lib, "_gg_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.gg_forward.argtypes = [i32] + [vp] * 4 + [i32] * 4 + [i64] * 3 \
-            + [i32, vp, vp, i32, vp]
+            + [i32, i32, vp]
         lib.gg_forward.restype = i32
         lib.gg_q8_forward.argtypes = [i32] + [vp] * 5 + [i32] * 7 + [vp]
         lib.gg_q8_forward.restype = i32
@@ -182,8 +183,8 @@ def _operands(x, group_sizes, inst):
 def _launch_float(x, w, group_sizes):
     """The instance :func:`gemm_instance` picks. Raises only for what no
     instance takes: x of another dtype than f32, f16 or bf16, and, on
-    the tile instance, w without a unit stride along K or N, with other
-    strides that are not multiples of 8, or misaligned."""
+    the cluster and tile instances, w without a unit stride along K or
+    N, with other strides that are not multiples of 8, or misaligned."""
     e, c, k, n = _geometry(x, w, group_sizes)
     out_dtype = x.dtype
     if w.dtype != x.dtype:
@@ -193,24 +194,23 @@ def _launch_float(x, w, group_sizes):
     inst = gemm_instance("grouped_gemm", x.dtype, k, n)
     x, gs = _operands(x, group_sizes, inst)
     se, sk, sn = w.stride()
-    # 16-byte vectors along the unit-stride axis of w: N (the stored
-    # weight) or K (its transpose, the backward's dx)
-    if inst == "tile" and (
+    # 16-byte vectors (tile) or tensor-map rows (cluster) along the
+    # unit-stride axis of w: N (the stored weight) or K (its transpose,
+    # the backward's dx)
+    if inst != "general" and (
             (sn != 1 and sk != 1) or any(s % 8 for s in (se, sk, sn)
                                          if s != 1) or w.data_ptr() % 16):
         raise ValueError(
-            "the CUDA grouped GEMM's tile instance reads w with a unit "
+            f"the CUDA grouped GEMM's {inst} instance reads w with a unit "
             "stride along K or N, the other strides multiples of 8 and "
             f"16-byte alignment; got strides {w.stride()}")
     y = torch.empty((e * c, n), dtype=x.dtype, device=x.device)
-    bf16 = inst == "tile" and x.dtype == torch.bfloat16
-    splits = split_count(x.device, e, k, n, TILE_K) if bf16 else 1
-    partial, tickets = split_scratch(x, splits, e, c, n)
+    splits = split_count(x.device, e, k, n, CLUSTER_DEPTH) \
+        if inst == "cluster" else 1
     lib = _lib()
     rc = lib.gg_forward(INSTANCES["grouped_gemm"][inst], x.data_ptr(),
                         w.data_ptr(), gs.data_ptr(), y.data_ptr(), e, c, k,
-                        n, se, sk, sn, splits, _build.data_ptr(partial),
-                        _build.data_ptr(tickets), _DTYPES[x.dtype],
+                        n, se, sk, sn, splits, _DTYPES[x.dtype],
                         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, rc, "grouped_gemm")
     _count("grouped_gemm", inst)

@@ -37,8 +37,10 @@ model dtype first) into the pool and its sidecars. Pools and sidecars are
 updated IN PLACE; the dump page is never written.
 
 On a CUDA tensor the wrappers launch the hand-written kernels in
-``csrc/ragged_paged_attention.cu`` (a write launch, then the attention
-launch, on one stream; the read-only call launches the attention alone).
+``csrc/ragged_paged_attention.cu`` (a write launch over the packed
+tokens, one warp per fresh K or V vector of a kv head, :func:`write_grid`
+and :func:`write_slots`; then the attention launch, on one stream; the
+read-only call launches the attention alone).
 On a CPU tensor they run the plain versions
 (:func:`ragged_paged_attention_ref`,
 :func:`fused_ragged_paged_attention_ref`). There is no fallback from one
@@ -66,7 +68,8 @@ import torch
 from . import _build
 
 __all__ = ["rope_tables", "supported", "fused_supported", "check_geometry",
-           "attention_instance", "split_plan", "fused_rope_geometry_ok",
+           "attention_instance", "split_plan", "write_grid", "write_slots",
+           "fused_rope_geometry_ok",
            "ragged_paged_attention_ref",
            "fused_ragged_paged_attention_ref", "ragged_paged_attention",
            "fused_ragged_paged_attention"]
@@ -94,6 +97,8 @@ _INSTANCES = {"tensor-core": 0, "general": 1}   # the C entry's codes
 TC_TILE_ROWS = 64
 TC_SPLIT_UNIT = 256
 TC_LONG_KEYS = 1024
+# the write launch's vectors (warps) a block (csrc: kWriteWarps)
+WRITE_WARPS = 2
 
 
 def rope_tables(pos, head_dim, base):
@@ -394,6 +399,43 @@ def split_plan(kv_len, q_len, q_start, group, qblock, width, page_size):
     return plan
 
 
+def write_grid(n_tok, num_kv_heads):
+    """Blocks of the CUDA write launch: one warp per (fresh token, kv
+    head, K or V) vector, WRITE_WARPS vectors a block; a function of the
+    packed token count and the kv heads only, never of the rows."""
+    return -(-2 * n_tok * num_kv_heads // WRITE_WARPS)
+
+
+def write_slots(n_tok, block_tables, kv_lens, q_starts, q_lens, w_starts,
+                w_flats, num_pages, page_size):
+    """The write launch's map, the rule the CUDA kernel applies to each
+    packed token ``f < n_tok`` (the same for every kv head and for K and
+    V): the rows that hold it (an active row, ``q_lens > 0`` and
+    ``kv_lens > 0``, holds packed tokens ``[w_flats + q_starts -
+    w_starts, + q_lens)``) and, for each, the (page, slot) its position
+    ``q_starts + t`` lands in, the table entry clamped into ``[0,
+    num_pages)``; positions past the table are skipped. Returns ``{f:
+    [(row, page, slot), ...]}`` for the tokens some row holds; a padding
+    token is in none."""
+    meta = [m.tolist() for m in (kv_lens, q_starts, q_lens, w_starts,
+                                 w_flats)]
+    tables = block_tables.tolist()
+    width = len(tables[0]) if tables else 0
+    plan = {}
+    for f in range(n_tok):
+        for r, (kv, qs, ql, ws, wf) in enumerate(zip(*meta)):
+            t = f - (wf + qs - ws)
+            if ql <= 0 or kv <= 0 or not 0 <= t < ql:
+                continue
+            pos = qs + t
+            pi = pos // page_size
+            if pos < 0 or pi >= width:
+                continue
+            page = min(max(tables[r][pi], 0), num_pages - 1)
+            plan.setdefault(f, []).append((r, page, pos - pi * page_size))
+    return plan
+
+
 def tc_scratch_rows(width, page_size):
     """Rows of one (row, kv head, tile) slab of the tensor-core
     instance's partial buffers: every split of every valid row of a tile
@@ -407,7 +449,7 @@ def _check_kernel(q, k_pages, v_pages, k_scale, v_scale, rows, fresh=(),
     (:func:`_check_pools` ties int8 pools to their sidecars): the
     geometry of :func:`check_geometry`; q, fresh rows and float pools of
     one dtype; f32 sidecars, int32 rows, f32 rope tables; contiguous,
-    16-byte aligned pools."""
+    16-byte aligned pools, fresh rows and rope tables."""
     q8 = k_scale is not None
     p, hk, page_size, d = k_pages.shape
     check_geometry(page_size, d, q.dtype, q8)
@@ -431,11 +473,12 @@ def _check_kernel(q, k_pages, v_pages, k_scale, v_scale, rows, fresh=(),
     if not all(a.is_contiguous() for a in ops):
         raise ValueError("the CUDA kernel takes contiguous operands")
     tc = attention_instance(q.dtype, d) == "tensor-core"
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16 or (
-            q8 and (k_scale.data_ptr() % 16 or v_scale.data_ptr() % 16)) \
-            or (tc and q.data_ptr() % 16):
+    vec = (k_pages, v_pages, *fresh, *tables) \
+        + ((k_scale, v_scale) if q8 else ()) + ((q,) if tc else ())
+    if any(a.data_ptr() % 16 for a in vec):
         raise ValueError("the CUDA kernel fetches 16-byte vectors from "
-                         "16-byte aligned q, pools and sidecars")
+                         "16-byte aligned q, pools, sidecars, fresh K/V and "
+                         "rope tables")
 
 
 def _passes(check, *args):
@@ -539,31 +582,45 @@ def _launch_ragged(q, k_pages, v_pages, block_tables, meta, scale, k_scale,
                    q.shape[1], scale, what)
 
 
-def _launch_fused(q, new_k, new_v, k_pages, v_pages, block_tables, meta,
-                  scale, k_scale, v_scale, rope_sin, rope_cos, qblock):
-    rope = rope_sin is not None
-    what = ("fused_rope" if rope else "fused") \
+def _fused_form(rope_sin, k_scale):
+    return ("fused_rope" if rope_sin is not None else "fused") \
         + ("_q8" if k_scale is not None else "")
-    lib = _lib()
+
+
+def _launch_write(lib, new_k, new_v, k_pages, v_pages, block_tables, meta,
+                  k_scale, v_scale, rope_sin, rope_cos):
+    """The write launch of a fused call (``meta``: kv_lens, q_starts,
+    q_lens, w_starts, w_flats); counted in ``launches`` under the call
+    form."""
     r, w = block_tables.shape
     t = new_k.shape[0]
     p, hk, page_size, d = k_pages.shape
+    what = _fused_form(rope_sin, k_scale)
+    ptrs = (new_k, new_v, k_pages, v_pages, k_scale, v_scale, rope_sin,
+            rope_cos, block_tables, *meta)
+    rc = lib.rpa_kv_write(_DTYPES[new_k.dtype], int(rope_sin is not None),
+                          int(k_scale is not None),
+                          *map(_build.data_ptr, ptrs), r, t, hk, d, p,
+                          page_size, w,
+                          torch.cuda.current_stream(new_k.device).cuda_stream)
+    _raise_on(lib, rc, what + " write")
+    launches[what] += 1
+
+
+def _launch_fused(q, new_k, new_v, k_pages, v_pages, block_tables, meta,
+                  scale, k_scale, v_scale, rope_sin, rope_cos, qblock):
+    rope = rope_sin is not None
+    what = _fused_form(rope_sin, k_scale)
+    lib = _lib()
     qb = int(qblock) if rope else q.shape[1]
-    if r:
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        ptrs = (new_k, new_v, k_pages, v_pages, k_scale, v_scale, rope_sin,
-                rope_cos, block_tables, *meta)
-        rc = lib.rpa_kv_write(_DTYPES[q.dtype], int(rope),
-                              int(k_scale is not None),
-                              *map(_build.data_ptr, ptrs), r, t, hk, d, p,
-                              page_size, w, stream)
-        _raise_on(lib, rc, what + " write")
-        launches[what] += 1
+    if block_tables.shape[0]:
+        _launch_write(lib, new_k, new_v, k_pages, v_pages, block_tables,
+                      meta, k_scale, v_scale, rope_sin, rope_cos)
     # the attention reads the written pools, so it needs no fresh rows
     return _attend(lib, rope, q, k_pages, v_pages, k_scale, v_scale,
                    rope_sin, rope_cos, block_tables,
-                   meta if rope else tuple(meta[:3]) + (None, None), t, qb,
-                   scale, what)
+                   meta if rope else tuple(meta[:3]) + (None, None),
+                   new_k.shape[0], qb, scale, what)
 
 
 def _scale(scale, d):

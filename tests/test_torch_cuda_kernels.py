@@ -8,14 +8,17 @@ two instances on ragged row tiles, D and vocab tails, labels outside
 rows bitwise the same alone and in a batch and two calls bitwise; the
 grouped GEMMs (float and int8) on empty experts, ragged row, K and N
 tails, group sizes past the stride, f32, bf16 and f16, 33-64 live rows of
-an expert, and the backward's dx on the transposed weight; registers and
+an expert, and the backward's dx on the transposed weight (both cluster
+instances, rows bitwise the same alone and among others); registers and
 spills of the redesigned kernels; the dequant matmul at decode
 and prefill row counts; a ragged last scale block in both int8 kernels;
 every instance of the ragged paged attention family (rope-fused,
 post-rope fused and read-only, over float and int8 pools) at head dims
 8 to 256, pages of 8 to 64 slots and bf16, f16 and f32 models, with
-multi-chunk rows, an inactive row and poisoned table tails, and the
-engine's geometry check at construction; the decode paged attention
+multi-chunk rows, an inactive row and poisoned table tails, the write
+launch alone bitwise against the plain write (pages of 8 to 256 slots,
+head dims 8 to 256, a 600-token chunk, decode-only), and the engine's
+geometry check at construction; the decode paged attention
 kernel over bf16, f16 and f32 pools (q in the pools' dtype or f32) at
 GQA groups 1, 4, 6 and 32, head dims 16 to 256 and pages of 8, 16 and
 32 slots, with inactive and one-token rows, poisoned table tails and
@@ -373,9 +376,9 @@ def test_grouped_gemm_kernel_matches_plain(dev, dtype, case):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.float16])
 def test_grouped_gemm_backward_on_the_card(dev, dtype):
-    """y and dx launch the kernel (f16 x the general instance, whose dx
-    reads the transposed weight through its strides); dw is the plain
-    masked product."""
+    """y and dx launch the kernel (bf16 and f16 the cluster instance,
+    whose dx reads the transposed weight K-contiguous through its
+    strides; f32 the tile instance); dw is the plain masked product."""
     e, c, k, n, gs = GROUPED[1]
     x, w, gs_t = _grouped_inputs(dev, dtype, e, c, k, n, gs, seed=1)
     x.requires_grad_()
@@ -390,19 +393,25 @@ def test_grouped_gemm_backward_on_the_card(dev, dtype):
                                                   w.dtype))
 
 
-@pytest.mark.parametrize("kind", ["float", "q8", "q8 f16"])
+@pytest.mark.parametrize("kind", ["float", "q8", "q8 f16", "float f16",
+                                  "float dx"])
 def test_grouped_gemm_rows_are_independent(dev, kind):
     """A row's out is bit for bit the same whatever the other rows: rows
     0, 5 and 37 alone, then among 8 and among 64 rows of their expert
-    (the float kernel's tile instance; the int8 kernel's cluster
-    instance, bf16 and f16 x, whose K split needs a narrow grid)."""
+    (both kernels' cluster instances, bf16 and f16 x, the float one on
+    the stored and on the transposed weight; the narrow grid splits K
+    over a cluster)."""
     g = torch.Generator(dev).manual_seed(4)
-    dt = torch.float16 if kind == "q8 f16" else torch.bfloat16
+    dt = torch.float16 if kind.endswith("f16") else torch.bfloat16
     w = torch.randn(2, 256, 128, device=dev, generator=g).to(dt)
     rows = torch.randn(64, 256, device=dev, generator=g).to(dt)
     x = torch.zeros(128, 256, device=dev, dtype=dt)
     x[:64] = rows
-    if kind == "float":
+    if kind == "float dx":
+        wt = torch.randn(2, 128, 256, device=dev, generator=g).to(dt)
+        run = lambda x, gs: GG.grouped_gemm(  # noqa: E731
+            x, wt.transpose(1, 2), gs)
+    elif kind.startswith("float"):
         run = lambda x, gs: GG.grouped_gemm(x, w, gs)  # noqa: E731
     else:
         q, s = quantize_weight(w.float(), 32)
@@ -416,6 +425,42 @@ def test_grouped_gemm_rows_are_independent(dev, kind):
             one[0] = rows[i]
             alone = run(one, torch.tensor([1, 0], device=dev))
             assert torch.equal(alone[0], packed[i]), (i, t)
+
+
+# the float kernel's cluster instance: e, c, k, n, group sizes
+GROUPED_CLUSTER = [
+    (8, 64, 512, 256, [64, 0, 33, 17, 50, 1, 0, 40]),   # 1-64 live rows
+    (4, 10, 72, 136, [12, 0, 1, 10]),       # gs > C, ragged K and N tiles
+    (3, 5, 256, 64, [0, 0, 0]),             # every expert empty
+    (2, 70, 200, 128, [70, 65]),            # two row chunks, 65+ rows
+    (8, 8, 4096, 1024, [8, 0, 3, 1, 0, 2, 1, 1]),   # K split
+]
+
+
+@pytest.mark.parametrize("layout", ["stored", "transposed"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", GROUPED_CLUSTER)
+def test_grouped_gemm_float_cluster_instance_matches_plain(dev, dtype, case,
+                                                           layout):
+    """The float kernel's cluster instance against the plain version, on
+    the stored [E, K, N] weight and on the transposed view of an [E, N,
+    K] one (the backward's dx layout): outs within the dtype's bound,
+    rows past each expert's size zero; one launch of the instance."""
+    e, c, k, n, gs = case
+    x, w, gs_t = _grouped_inputs(dev, dtype, e, c, k, n, gs, seed=8)
+    if layout == "transposed":
+        w = w.transpose(1, 2).contiguous().transpose(1, 2)
+        assert w.stride(1) == 1
+    from paddle_tpu_torch.ops._tile_gemm import gemm_instance
+    assert gemm_instance("grouped_gemm", dtype, k, n) == "cluster"
+    before = GG.instance_launches["grouped_gemm.cluster"]
+    y = GG.grouped_gemm(x, w, gs_t)
+    assert GG.instance_launches["grouped_gemm.cluster"] == before + 1
+    assert y.dtype == dtype
+    _close_gemm(y, GG.grouped_gemm_ref(x, w, gs_t))
+    y3 = y.reshape(e, c, -1)
+    for ei, m in enumerate(gs):
+        assert not y3[ei, min(m, c):].any()
 
 
 # the int8 kernel's cluster instance: e, c, k, n, block, group sizes
@@ -450,18 +495,20 @@ def test_grouped_gemm_q8_cluster_instance_matches_plain(dev, dtype, case):
 
 
 def test_redesigned_kernels_do_not_spill(dev):
-    """The loss kernel's tensor-core instance and the int8 grouped GEMM's
-    cluster instance (``ptxas -v`` of their builds): no spill stores or
-    loads in any instantiation."""
+    """The loss kernel's tensor-core instance, both grouped GEMMs'
+    cluster instances and the ragged family's write launch (``ptxas -v``
+    of their builds): no spill stores or loads in any instantiation."""
     from paddle_tpu_torch.ops import _build
     found = 0
     for lib, frag in (("fused_linear_cross_entropy", "linear_ce_fwd_tc"),
-                      ("grouped_gemm", "q8_cluster_kernel")):
+                      ("grouped_gemm", "q8_cluster_kernel"),
+                      ("grouped_gemm", "float_cluster_kernel"),
+                      ("ragged_paged_attention", "kv_write_kernel")):
         for name, what in _build.ptxas_report(lib).items():
             if frag in name:
                 found += 1
                 assert "spill stores 0 B, loads 0 B" in what, (name, what)
-    assert found >= 4 + 6
+    assert found >= 4 + 6 + 12 + 12
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -547,7 +594,7 @@ GEMM_GENERAL = [
     ("dq", torch.bfloat16, 70, 40, 24, 40),
     ("dq", torch.float32, 3, 37, 29, 16),
     ("dq", torch.bfloat16, 4, 120, 20, 24),
-    ("gg", torch.float16, 3, 64, 48, None),
+    ("gg", torch.float16, 3, 60, 48, None),
     ("gg", torch.bfloat16, 3, 40, 20, None),
     ("gg", torch.float32, 3, 37, 29, None),
     ("gg_q8", torch.float16, 3, 96, 64, 24),
@@ -769,6 +816,51 @@ def _check_family(dev, case, variant, dtype):
             assert bool(((g - w).abs() <= ulp).all())
         else:
             assert torch.equal(got[wr], want[wr]), name
+
+
+# the write launch alone: hk, group, d, page, qblock, seqs, dtype; pages
+# of 8-256 slots, head_dim 8-256, every model dtype, a 600-token chunk in
+# one row and a decode-only batch
+WRITE_DOMAIN = [
+    (2, 2, 8, 8, 8, [(20, [8]), (5, [1])], torch.float16),
+    (2, 4, 128, 16, 16, [(5, [16, 7]), (40, [1]), (0, [3])], torch.bfloat16),
+    (2, 2, 72, 48, 8, [(40, [8, 1]), (3, [1])], torch.bfloat16),
+    (1, 4, 256, 64, 8, [(9, [8, 2]), (63, [1])], torch.float32),
+    (2, 2, 128, 256, 8, [(300, [1]), (10, [5])], torch.float16),
+    (8, 4, 128, 16, 600, [(100, [600]), (30, [1])], torch.bfloat16),
+    (8, 4, 128, 16, 1, [(9, [1]), (63, [1]), (0, [1]), (200, [1])],
+     torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("variant", ["fused_rope", "fused_rope_q8", "fused",
+                                     "fused_q8"])
+@pytest.mark.parametrize("case", WRITE_DOMAIN)
+def test_kv_write_launch_matches_plain_write(dev, case, variant):
+    """The write launch alone against the plain version's write (the
+    pools after ``fused_ragged_paged_attention_ref``): written slots
+    (roped K, V, int8 slots) and their scales bit for bit, every other
+    slot (the dump page included) unchanged."""
+    kw, written, num_pages = _rpa_case(dev, *case[:-1], seed=len(case[-2]),
+                                       dtype=case[-1])
+    a_k, a_r = _variant_args(kw, variant), _variant_args(kw, variant)
+    orig = _variant_args(kw, variant)
+    meta = tuple(a_k[k] for k in ("kv_lens", "q_starts", "q_lens",
+                                  "w_starts", "w_flats"))
+    before = RP.launches[variant]
+    RP._launch_write(RP._lib(), a_k["new_k"], a_k["new_v"], a_k["k_pages"],
+                     a_k["v_pages"], a_k["block_tables"], meta,
+                     a_k.get("k_scale"), a_k.get("v_scale"),
+                     a_k.get("rope_sin"), a_k.get("rope_cos"))
+    assert RP.launches[variant] == before + 1
+    RP.fused_ragged_paged_attention_ref(**a_r)
+    torch.cuda.synchronize()
+    hk, page = kw["k_pages"].shape[1:3]
+    keep = ~written[:, None, :].expand(num_pages, hk, page)
+    for name in ("k_pages", "v_pages") + (
+            ("k_scale", "v_scale") if variant.endswith("q8") else ()):
+        assert torch.equal(a_k[name], a_r[name]), name
+        assert torch.equal(a_k[name][keep], orig[name][keep]), name
 
 
 def test_ragged_attention_rejects_what_it_cannot_take(dev):

@@ -3,7 +3,8 @@ package: the plain versions against ``grouped_gemm_xla`` /
 ``grouped_gemm_q8_xla`` and against the Pallas kernels in interpret mode
 (``_grouped(..., use_kernel=True)``, ``_grouped_q8(..., use_kernel=
 True)``), on empty experts, ragged tails and group sizes past the
-stride; the gradients against ``jax.vjp`` of the reference.
+stride, in f32 and at f16 and bf16 x and w; the gradients against
+``jax.vjp`` of the reference; the CUDA instance rule and K split.
 
 Inputs are seeded numpy arrays handed to both. Tolerance: f32 outputs
 within 1e-5 (absolute, values of order 1; the frameworks sum in other
@@ -149,6 +150,85 @@ def test_grouped_gemms_widened_domain_match_reference(case):
         assert _zeros_past(got.float().numpy(), e, c, gs)
 
 
+# 16-bit x and w of one dtype, the CUDA cluster instance's domain: e, c, k,
+# n, group sizes (empty experts, gs > C, 1-9 live rows)
+SIXTEEN = [
+    CASES[0],
+    CASES[4],
+    (8, 9, 64, 48, [9, 0, 3, 1, 0, 2, 1, 12]),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("case", SIXTEEN)
+def test_grouped_gemm_16bit_matches_reference(case, dtype):
+    """The plain version at f16 and bf16 x and w (what the cluster
+    instance computes: exact 16-bit products summed in f32, out in x's
+    dtype) against the reference's ``grouped_gemm_xla`` and its Pallas
+    kernel in interpret mode, fed the same 16-bit values: within 1 ulp
+    of the dtype (both sum in f32, in other orders); rows past each
+    expert's size exactly zero."""
+    e, c, k, n, gs = case
+    x, w = _inputs(e, c, k, n, seed=11)
+    dt = getattr(torch, dtype)
+    xt, wt = torch.from_numpy(x).to(dt), torch.from_numpy(w).to(dt)
+    xj = jnp.asarray(xt.float().numpy()).astype(_J[dtype])
+    wj = jnp.asarray(wt.float().numpy()).astype(_J[dtype])
+    gs_np = np.asarray(gs, np.int32)
+    got = GG.grouped_gemm(xt, wt, torch.from_numpy(gs_np))
+    assert got.dtype == dt
+    got = got.float().numpy()
+    xla = np.asarray(grouped_gemm_xla(xj, wj, gs_np).numpy(), np.float32)
+    pallas = np.asarray(_grouped(xj, wj, jnp.asarray(gs_np),
+                                 use_kernel=True), np.float32)
+    _close_in(got, xla, dtype)
+    _close_in(got, pallas, dtype)
+    assert _zeros_past(got, e, c, gs)
+
+
+@pytest.mark.parametrize("dtype,k,n,want", [
+    (torch.bfloat16, 4096, 14336, "cluster"),    # Mixtral gate/up
+    (torch.bfloat16, 14336, 4096, "cluster"),    # down, and dx of gate/up
+    (torch.float16, 4096, 14336, "cluster"),
+    (torch.float16, 64, 48, "cluster"),
+    (torch.float16, 60, 48, "general"),
+    (torch.bfloat16, 64, 20, "general"),
+    (torch.float32, 4096, 14336, "tile"),
+    (torch.float32, 37, 64, "general")])
+def test_float_gemm_instance_rule(dtype, k, n, want):
+    """The float grouped GEMM's instance: 16-bit x (bf16 and f16 alike)
+    at K % 8 and N % 8 takes the cluster instance, f32 x the tile one,
+    the rest the general one."""
+    from paddle_tpu_torch.ops._tile_gemm import gemm_instance
+    assert gemm_instance("grouped_gemm", dtype, k, n) == want
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_split_count_is_a_function_of_shape_and_card(monkeypatch, sms):
+    """The cluster instances' K split: whole units, at most 8 and at most
+    the units K holds, more where the column tiles leave the card's SMs
+    idle; its arguments are the weight's shape, the unit and the card,
+    never the rows (so every out row stays one fixed-order sum)."""
+    import inspect
+    from paddle_tpu_torch.ops import _tile_gemm as TG
+    monkeypatch.setattr(TG, "sm_count", lambda device: sms)
+    assert list(inspect.signature(TG.split_count).parameters) == [
+        "device", "e", "k", "n", "unit"]
+    dev = torch.device("cpu")
+    # Mixtral-8x7B: gate/up has 896 column tiles, down 256
+    assert TG.split_count(dev, 8, 4096, 14336, TG.CLUSTER_DEPTH) == 1
+    assert TG.split_count(dev, 8, 14336, 4096, TG.CLUSTER_DEPTH) == \
+        4 * sms // 256
+    for e, k, n in [(1, 4096, 1024), (3, 64, 48), (2, 200, 256),
+                    (8, 14336, 4096)]:
+        s = TG.split_count(dev, e, k, n, TG.CLUSTER_DEPTH)
+        units = -(-k // TG.CLUSTER_DEPTH)
+        assert 1 <= s <= min(TG.MAX_SPLITS, units)
+        want = max(1, min(TG.MAX_SPLITS, units,
+                          4 * sms // (e * -(-n // TG.TILE_N))))
+        assert s == want
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
 @pytest.mark.parametrize("k,n", [(64, 64), (40, 24), (37, 64), (64, 20)])
 @pytest.mark.parametrize("block", [8, 24, 32])
@@ -193,6 +273,16 @@ def test_grouped_launch_raises_only_for_what_no_instance_takes():
     with pytest.raises(ValueError, match="tile instance reads w with a "
                                          "unit stride"):
         GG._launch_float(xt, strided, gs)
+    # 16-bit x: the cluster instance's tensor maps need the same
+    for dt in (torch.bfloat16, torch.float16):
+        with pytest.raises(ValueError, match="cluster instance reads w "
+                                             "with a unit stride"):
+            GG._launch_float(xt.to(dt),
+                             torch.zeros(2, 64, 64, dtype=dt)[..., ::2], gs)
+        odd = torch.zeros(1 + 8 * 64, dtype=dt)[1:].view(8, 64)
+        with pytest.raises(ValueError, match="cluster instance takes "
+                                             "16-byte"):
+            GG._launch_float(odd, wt.to(dt), gs)
     q, s = (torch.from_numpy(np.array(a))
             for a in jax_quantize(jnp.asarray(w), 32))
     with pytest.raises(ValueError, match="int8 w \\[E, K, N\\] and f32"):

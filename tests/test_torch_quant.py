@@ -158,9 +158,9 @@ def test_supported_matches_the_reference_rule(monkeypatch, dtype, k, n,
     ("dequant_matmul", torch.float32, 4096, 1024, 128, "tile"),
     ("dequant_matmul", torch.float32, 4096, 1024, 48, "general"),
     ("dequant_matmul", torch.bfloat16, 36, 64, 16, "general"),
-    ("grouped_gemm", torch.bfloat16, 4096, 14336, None, "tile"),
+    ("grouped_gemm", torch.bfloat16, 4096, 14336, None, "cluster"),
     ("grouped_gemm", torch.float32, 40, 24, None, "tile"),
-    ("grouped_gemm", torch.float16, 64, 64, None, "general"),
+    ("grouped_gemm", torch.float16, 64, 64, None, "cluster"),
     ("grouped_gemm", torch.bfloat16, 37, 64, None, "general"),
     ("grouped_gemm_q8", torch.bfloat16, 4096, 14336, 128, "cluster"),
     ("grouped_gemm_q8", torch.bfloat16, 96, 64, 24, "general"),

@@ -564,3 +564,83 @@ def test_split_plan_depends_on_the_row_alone():
             assert RT.split_plan(*rows[i], 4, 32, 260, 16) == alone[i]
     for r, want in zip(rows, alone):
         assert RT.split_plan(*r, 4, 64, 260, 16) == want
+
+
+# the write launch's map: sequences of (prior context, [chunks]) with a
+# chunk longer than a page, a row of 0 fresh tokens, decode rows and a
+# long context; then padding tokens no row holds, an inactive row and a
+# row with fresh tokens but kv_len 0
+WRITE_SEQS = [(3, [20, 5]), (9, [1]), (0, [1]), (6, [0]), (300, [1]),
+              (17, [70])]
+
+
+def _write_case(page, pad, hk=2, d=8):
+    rng = np.random.RandomState(page)
+    n_pages = [max(1, -(-(p + sum(c)) // page)) for p, c in WRITE_SEQS]
+    num_pages = sum(n_pages) + 3
+    dump = num_pages - 1
+    perm = rng.permutation(num_pages - 1)
+    rows, used, t = [], 0, 0
+    for (prior, chunks), npg in zip(WRITE_SEQS, n_pages):
+        pages = perm[used:used + npg]
+        used += npg
+        start = prior
+        for c in chunks:
+            rows.append((pages, start + c, start, c, prior, t))
+            start += c
+        t += sum(chunks)
+    rows.append(((), 0, 0, 0, 0, 0))                   # inactive
+    rows.append((perm[-2:-1], 0, 0, 3, 0, 0))          # kv_len 0
+    width = max(n_pages) + 1
+    tables = np.full((len(rows), width), dump, np.int32)
+    for i, row in enumerate(rows):
+        tables[i, :len(row[0])] = row[0]
+    meta = [torch.from_numpy(np.ascontiguousarray(m))
+            for m in np.asarray([r[1:] for r in rows], np.int32).T]
+    n_tok = t + pad
+    return dict(n_tok=n_tok, tables=torch.from_numpy(tables), meta=meta,
+                num_pages=num_pages, dump=dump, hk=hk, d=d, real=t)
+
+
+@pytest.mark.parametrize("pad", [0, 5])
+@pytest.mark.parametrize("page", [8, 16, 48, 256])
+def test_write_slots_cover_each_fresh_token_once(page, pad):
+    """The CUDA write launch's token -> (row, slot) map (``write_slots``,
+    the rule the kernel applies to each packed token): every fresh token
+    of an active row lands in exactly one slot, padding tokens and the
+    rows that are inactive, have no fresh token or have kv_len 0 in
+    none, no slot twice, never the dump page; and the slots are the
+    plain write's (``fused_ragged_paged_attention_ref``, each token's
+    K/V tagged with its index). The grid is a function of the packed
+    tokens and kv heads only."""
+    c = _write_case(page, pad)
+    kv, qs, ql, ws, wf = c["meta"]
+    plan = RT.write_slots(c["n_tok"], c["tables"], kv, qs, ql, ws, wf,
+                          c["num_pages"], page)
+    assert sorted(plan) == list(range(c["real"]))
+    slots = [s for f in plan for s in plan[f]]
+    assert all(len(plan[f]) == 1 for f in plan)
+    assert len({(p, o) for _, p, o in slots}) == len(slots)
+    assert all(p != c["dump"] for _, p, o in slots)
+    assert all(0 <= o < page for _, p, o in slots)
+    # the plain write, each token's K tagged f + 1 and V -(f + 1)
+    hk, d, t = c["hk"], c["d"], c["n_tok"]
+    tag = torch.arange(1, t + 1, dtype=torch.float32)[:, None, None]
+    new_k = tag.expand(t, hk, d).contiguous()
+    k_pages = torch.zeros(c["num_pages"], hk, page, d)
+    v_pages = torch.zeros_like(k_pages)
+    r = c["tables"].shape[0]
+    q = torch.zeros(r, 1, hk * 2, d)
+    RT.fused_ragged_paged_attention_ref(
+        q, new_k, -new_k, k_pages, v_pages, c["tables"], kv, qs, ql, ws, wf,
+        kv, c["dump"])
+    written = {}
+    for p, h, o in (k_pages[..., 0] != 0).nonzero().tolist():
+        written.setdefault((p, o), set()).add(int(k_pages[p, h, o, 0]) - 1)
+    assert bool((v_pages == -k_pages).all())
+    assert all(len(f) == 1 for f in written.values())
+    assert {key: min(f) for key, f in written.items()} == {
+        (p, o): f for f in plan for _, p, o in plan[f]}
+    blocks = RT.write_grid(t, hk)
+    assert (blocks - 1) * RT.WRITE_WARPS < 2 * t * hk <= \
+        blocks * RT.WRITE_WARPS

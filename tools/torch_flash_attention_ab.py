@@ -16,7 +16,12 @@ CUDA events and by the profiler's device time and prints one line
 ``--ragged`` each process also runs the tree's phases 3 and 3d (the
 ragged paged attention family at the serving shapes, with their times)
 and phase 3f's long-context points (#12 and #13 on 8 decode rows over
-1-8192 tokens at qblock 1 and 32) through the tree's ``check_kernel``.
+1-8192 tokens at qblock 1 and 32) through the tree's ``check_kernel``,
+then times each fused call form (#12, #13, #11a, #11b) at the mixed,
+decode-only and both long-context shapes by the profiler, its write
+launch apart from its attention launch (kernels named ``kv_write``), and
+prints one line ``ragged: <form>_<shape>_write_device_ms=...
+<form>_<shape>_attention_device_ms=... ...``.
 Needs one card; exits non-zero if any tree's check fails.
 """
 
@@ -55,6 +60,41 @@ if RAGGED:
         for variant in ('fused_rope', 'fused_rope_q8'):
             cs.check_kernel(dev, f'long context qblock {qb}', qb,
                             (1, cs.FULL_CTX + 1), [], False, variant)
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference.paged_cache import quantize_kv_int8
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+
+    def split_ms(fn, iters=20):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms = {True: 0.0, False: 0.0}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and not getattr(e, 'is_user_annotation', False):
+                ms['kv_write' in e.name] += \
+                    (e.time_range.end - e.time_range.start) / iters / 1e3
+        return ms[True], ms[False]
+    shapes = {'mixed': (cs.QB, (100, 2001), [cs.QB, cs.QB], True),
+              'decode': (1, (64, 545), [], False),
+              'long_qb1': (1, (1, cs.FULL_CTX + 1), [], False),
+              'long_qb32': (cs.QB, (1, cs.FULL_CTX + 1), [], False)}
+    line = []
+    for shape, (qb, ctx, chunks, inactive) in shapes.items():
+        args, _ = cs.attention_batch(dev, qb, ctx, chunks, inactive)
+        kq, ks = quantize_kv_int8(args['k_pages'])
+        vq, vs = quantize_kv_int8(args['v_pages'])
+        pools = (kq, vq, ks[..., None], vs[..., None])
+        for form in ('fused_rope', 'fused_rope_q8', 'fused', 'fused_q8'):
+            a = cs.variant_args(args, form, pools)
+            w, att = split_ms(
+                lambda: rpa.fused_ragged_paged_attention(**a))
+            line.append(f'{form}_{shape}_write_device_ms={w:.4f} '
+                        f'{form}_{shape}_attention_device_ms={att:.4f}')
+    print('ragged: ' + ' '.join(line), flush=True)
 """
 
 

@@ -2,7 +2,8 @@
 """Where the time goes when ``paddle_tpu_torch`` serves a model.
 
     python3 tools/torch_serving_profile.py
-        [--model llama3-8b|llama3-8b-kv8|mixtral-int8] [--out PATH]
+        [--model llama3-8b|llama3-8b-kv8|mixtral-int8|mixtral-bf16]
+        [--out PATH]
 
 ``llama3-8b`` (the default) is the workload of ``chip_smoke.py`` phase
 4, taken from its ``serving_workload``: random bf16 Llama-3-8B weights
@@ -11,7 +12,10 @@ same model behind ``LlamaServingEngine(kv_dtype="int8")``, int8 KV pages
 with f32 scale sidecars. ``mixtral-int8`` is phase 6's:
 Mixtral-8x7B at full width and depth with int8 weights, built layer by
 layer by ``chip_smoke.mixtral_int8``, behind
-``LlamaServingEngine(weight_dtype="int8")``. Both serve 8 prompts of
+``LlamaServingEngine(weight_dtype="int8")``. ``mixtral-bf16`` is phase
+7's: Mixtral-8x7B width cut to 4 bf16 layers (seeded random weights on
+the card, ``chip_smoke.FLOAT_MOE_LAYERS``) behind the engine's default
+float weights, the float grouped GEMM #6 in every FFN. All serve 8 prompts of
 64-512 tokens, 32 new tokens each, ``max_batch=8``, ``page_size=16``:
 once to warm up, then twice: once timing every dispatch on the host
 clock (with a device synchronise after each, split into mixed
@@ -32,10 +36,11 @@ import time
 
 # kernel families by a fragment of the kernel's name, first match wins;
 # the tile kernels are named by their library's namespace and by their
-# weight kind (template argument 1: int8); the ragged attention kernels
-# (a write and an attention launch: the general instance's or the
-# tensor-core instance's) by their instance's template arguments <rope,
-# int8 pools, the model dtype, ...>
+# weight kind (template argument 1: int8), the grouped GEMMs' cluster
+# instances by their own names; the ragged attention kernels (a write and
+# an attention launch: the general instance's or the tensor-core
+# instance's) by their instance's template arguments <rope, int8 pools,
+# the model dtype, ...>, the write launch a family of its own within them
 ATTENTION = {"<true, false,": "#12", "<true, true,": "#13",
              "<false, false,": "#11a/#10", "<false, true,": "#11b/#9"}
 FAMILIES = [
@@ -56,7 +61,8 @@ def family(name):
                                 "attention_tc")):
         for args, rows in ATTENTION.items():
             if args in name:
-                return f"ragged attention {rows}"
+                return f"ragged attention {rows}" + (
+                    " write" if "kv_write" in name else "")
     if "grouped_gemm::" in name:
         return "int8 grouped GEMM #7" if "_kernel<1>" in name \
             or "q8_cluster_kernel" in name else "float grouped GEMM #6"
@@ -77,6 +83,22 @@ def moe_workload(dev):
     return model.config, model, engine, prompts
 
 
+def moe_bf16_workload(dev):
+    import dataclasses
+    import torch
+    from chip_smoke import FLOAT_MOE_LAYERS, MIXTRAL, serving_prompts
+    from paddle_tpu_torch.inference import LlamaServingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = dataclasses.replace(LlamaConfig(**MIXTRAL),
+                              num_hidden_layers=FLOAT_MOE_LAYERS)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                             generator=torch.Generator(dev).manual_seed(0))
+    engine = LlamaServingEngine(model.eval(), max_batch=8, page_size=16)
+    prompts = serving_prompts(cfg.vocab_size)
+    engine.generate([prompts[0][:16]], max_new_tokens=2)   # warm-up
+    return cfg, model, engine, prompts
+
+
 def workload(name):
     import torch
     from chip_smoke import NEW, serving_workload
@@ -84,6 +106,8 @@ def workload(name):
     dev = torch.device("cuda")
     if name == "mixtral-int8":
         cfg, _, engine, prompts = moe_workload(dev)
+    elif name == "mixtral-bf16":
+        cfg, _, engine, prompts = moe_bf16_workload(dev)
     else:
         cfg, _, engine, prompts = serving_workload(
             dev, "int8" if name == "llama3-8b-kv8" else None)
@@ -160,7 +184,7 @@ def profile(run):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("llama3-8b", "llama3-8b-kv8",
-                                        "mixtral-int8"),
+                                        "mixtral-int8", "mixtral-bf16"),
                     default="llama3-8b")
     ap.add_argument("--out", default="")
     args = ap.parse_args()

@@ -11,8 +11,9 @@ reverse (A B B A for two trees), each in a process of its own started in
 that tree: it builds the tree's two GEMM libraries and runs ``chip_smoke.py``
 phase 3c's timed cases on inputs made the same way in every tree (a
 Mixtral-8x7B-width ``LlamaMoEMLP`` from seed 5: #6 and #7 on the gate/up
-and down shapes routed by its router at T = 8 and 64 tokens, #8 on q/o
-(N = 4096) and k/v (N = 1024) weights at T = 8 and 64, bf16, block 128).
+and down shapes routed by its router at T = 8 and 64 tokens, #6's dx of
+gate/up too (the transposed weight read in place), #8 on q/o (N = 4096)
+and k/v (N = 1024) weights at T = 8 and 64, bf16, block 128).
 Every case is held against its plain version (phase 3's bound), then
 timed by CUDA events (which include the wrapper's host time between
 launches at these sizes) and by the profiler's device time, beside its
@@ -59,6 +60,10 @@ for t in cs.MOE_TOKENS:
     cases[f'gg_down_t{t}'] = (lambda x=hs[t], w=wd, s=gs: GG._launch_float(x, w, s),
                               lambda x=hs[t], w=wd, s=gs: GG.grouped_gemm_ref(x, w, s),
                               lambda x=cs.masked_rows(hs[t], gs), w=wd: torch.bmm(x, w))
+    wt = wu.transpose(1, 2)
+    cases[f'gg_dx_t{t}'] = (lambda g=hs[t], w=wt, s=gs: GG._launch_float(g, w, s),
+                            lambda g=hs[t], w=wt, s=gs: GG.grouped_gemm_ref(g, w, s),
+                            lambda g=cs.masked_rows(hs[t], gs), w=wt: torch.bmm(g, w))
     cases[f'gs_t{t}'] = (gs, xg)
 mlp.quantize_weights(B)
 for t in cs.MOE_TOKENS:
