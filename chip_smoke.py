@@ -41,7 +41,12 @@ package is not beside it, and when any phase fails:
    Llama-3-8B's full context (32 bf16 rows over 1-8192 tokens, an
    inactive row among them); table tails poisoned; outputs within phase
    3's bound; the same four times (the library call: SDPA over the
-   gathered K/V, kv heads repeated, with a length mask);
+   gathered K/V, kv heads repeated, with a length mask); then the
+   reference's other operand forms (int64 tables and lens, bf16 q over
+   f32 pools, f32 q over bf16 pools, raw int8 pools, a strided q) and a
+   group of 512 query heads (H 1024, Hk 2, head_dim 256, f32), each in
+   exactly one launch and no plain call, within the same bound, with the
+   instance each ran;
 3b. the training kernels against their plain versions on the card:
    flash attention forward, dQ and dK/dV at Llama-3-8B training shapes
    (batch 2 x seq 2048, 32 q / 8 kv heads, head_dim 128, bf16, causal;
@@ -134,8 +139,10 @@ package is not beside it, and when any phase fails:
    released and 16 new ones admitted on the recycled pages, 8 more
    steps; one #4 launch per ``attend`` and no plain version called; the
    first and last step of each stretch held against the plain version on
-   the same pools within phase 3's bound; mean ``attend`` time (host
-   clock, synchronised), device time, pool bytes and peak memory;
+   the same pools within phase 3's bound; every launch on the
+   tensor-core instance; mean ``attend`` time (host clock,
+   synchronised), device time, the host's share, pool bytes and peak
+   memory;
 
 then a JSON line of kernel results and the final result line.
 """
@@ -689,7 +696,8 @@ def reset_launches():
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.quant import kernels as QK
     for counts in (rpa.launches, GG.launches, FT.launches, PA.launches,
-                   FT.instance_launches, GG.instance_launches,
+                   PA.instance_launches, FT.instance_launches,
+                   GG.instance_launches,
                    QK.instance_launches, FC.instance_launches):
         for key in counts:
             counts[key] = 0
@@ -1078,12 +1086,80 @@ def check_paged(dev, label, ctxs, dtype, against_ragged=False):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+def paged_forms(dev, ctxs):
+    """The reference's other operand forms of #4 (C9), each ``(label,
+    args)``: int64 tables and lens, bf16 q over f32 pools, f32 q over
+    bf16 pools, raw int8 pools (values in [-127, 127], q scaled down so
+    the scores stay in exp's range), a strided q; and the widest group,
+    512 query heads a kv head (H 1024, Hk 2) at head_dim 256 in f32."""
+    import torch
+    bf = paged_batch(dev, ctxs, torch.bfloat16)
+    f32 = paged_batch(dev, ctxs, torch.float32)
+    g = torch.Generator(dev).manual_seed(3)
+    q8 = {k: torch.randint(-127, 128, bf[k].shape, device=dev, generator=g,
+                           dtype=torch.int8) for k in ("k_pages", "v_pages")}
+    q = bf["q"]
+    yield "int64 tables and lens", dict(
+        bf, block_tables=bf["block_tables"].long(),
+        context_lens=bf["context_lens"].long())
+    yield "bf16 q over f32 pools", dict(f32, q=f32["q"].bfloat16())
+    yield "f32 q over bf16 pools", dict(bf, q=q.float())
+    yield "raw int8 pools", dict(bf, **q8, q=q / 16)
+    yield "strided q", dict(bf, q=torch.cat([q, q], dim=-1)[..., :D])
+    n_pages = [-(-c // 8) for c in (0, 1, 300, 129)]
+    tables = torch.arange(sum(n_pages), device=dev).split(n_pages)
+    width = max(n_pages)
+    yield "group 512 (H 1024, Hk 2, head_dim 256, f32)", dict(
+        q=torch.randn(4, 1024, 256, device=dev, generator=g),
+        k_pages=torch.randn(sum(n_pages), 2, 8, 256, device=dev,
+                            generator=g),
+        v_pages=torch.randn(sum(n_pages), 2, 8, 256, device=dev,
+                            generator=g),
+        block_tables=torch.stack([torch.cat([t, t.new_zeros(width - len(t))])
+                                  for t in tables]).int(),
+        context_lens=torch.tensor([0, 1, 300, 129], dtype=torch.int32,
+                                  device=dev))
+
+
+def check_paged_forms(dev, ctxs):
+    """Phase 3e, C9: each of :func:`paged_forms` through the public
+    function in exactly one #4 launch and no plain call, against the
+    plain version within the kernel bound; returns the largest error."""
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as PA
+    errs = []
+    for label, args in paged_forms(dev, ctxs):
+        before = PA.launches["paged"]
+        inst = dict(PA.instance_launches)
+        with count_calls([(PA, "paged_attention_ref")]) as calls:
+            out = PA.paged_attention(**args)
+        if PA.launches["paged"] != before + 1 or calls:
+            fail(f"paged attention, {label}: {PA.launches['paged'] - before}"
+                 f" launches, {len(calls)} plain calls (want 1 and 0)")
+        ref = PA.paged_attention_ref(**args)
+        torch.cuda.synchronize()
+        if out.dtype != args["q"].dtype or out.shape != args["q"].shape:
+            fail(f"paged attention, {label}: out {out.dtype} "
+                 f"{tuple(out.shape)}")
+        err = check_close(f"paged attention, {label}: kernel out (row, "
+                          "head, col)", out, ref)
+        errs.append(err)
+        which = [k for k, n in PA.instance_launches.items() if n != inst[k]]
+        print(f"kernel check (paged_attention, {label}): instance="
+              f"{which[0]} out_err={err:.3e} (tol 1 ulp + {OUT_VEC} x "
+              "head-vector max)", flush=True)
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
 def check_paged_kernel(dev):
     """Phase 3e: #4 at phase 3's decode-only shape (8 rows, contexts
-    64-544, bf16 and f32; the bf16 pools through #10 too) and at
-    Llama-3-8B's full context (32 rows, bf16, contexts over 1-8192 and
-    an inactive row). Returns #4's JSON entry (without ``launches``),
-    with the full-context times, the shape phase 10 runs."""
+    64-544, bf16 and f32; the bf16 pools through #10 too), at Llama-3-8B's
+    full context (32 rows, bf16, contexts over 1-8192 and an inactive
+    row) and in the reference's other operand forms (C9,
+    :func:`check_paged_forms`). Returns #4's JSON entry (without
+    ``launches``), with the full-context times, the shape phase 10
+    runs."""
     import numpy as np
     import torch
     rng = np.random.RandomState(0)
@@ -1099,10 +1175,14 @@ def check_paged_kernel(dev):
         errs.append(r["max_abs_err"])
     full = check_paged(dev, "full context", full_ctxs, torch.bfloat16)
     full.pop("device_ms")
+    # the forms' errors scale with their values (int8 pools: up to 127),
+    # so they stand apart from the main shapes'
+    forms_err = check_paged_forms(dev, ctxs)
     torch.cuda.empty_cache()
     return dict(name="paged_attention", route="cuda", source=PA_SOURCE,
                 replaces=PA_REPLACES,
-                **dict(full, max_abs_err=max(errs + [full["max_abs_err"]])))
+                **dict(full, max_abs_err=max(errs + [full["max_abs_err"]]),
+                       forms_max_abs_err=forms_err))
 
 
 def decode_cache(dev):
@@ -1190,25 +1270,31 @@ def decode_cache(dev):
     if launched != [1] * attends or launches != attends:
         fail(f"decode cache: #4 launches per attend {launched} (want one "
              "each)")
+    if PA.instance_launches["tensor-core"] < attends:
+        fail(f"decode cache: #4's tensor-core instance ran "
+             f"{PA.instance_launches['tensor-core']} of {attends} attends")
     dev_ms = device_ms(lambda: cache.attend(live, rand(len(live), H, D)),
                        iters=5)
     keys = sum(cache.context_len(s) for s in live)
+    attend_ms = 1e3 * sum(times) / len(times)
     print(f"decode cache: pages={CACHE_PAGES} pool_bytes={pool_bytes} "
           f"rows={len(live)} prompt_tokens={prompt_tokens} "
           f"refill_prompt_tokens={refill_tokens} recycled_pages={reused} "
           f"attends={attends} launches={launches} "
           f"checked_steps={checked} final_keys={keys} attend_ms_mean="
-          f"{1e3 * sum(times) / len(times):.4f} attend_ms_max="
-          f"{1e3 * max(times):.4f} device_ms={dev_ms:.4f} peak_mem_gb="
+          f"{attend_ms:.4f} attend_ms_max={1e3 * max(times):.4f} "
+          f"device_ms={dev_ms:.4f} host_share="
+          f"{max(0.0, 1 - dev_ms / attend_ms):.3f} peak_mem_gb="
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}", flush=True)
     return launches
 
 
 def flash_registers():
     """``ptxas -v`` lines of the flash kernels, of the ragged attention's
-    tensor-core instance and write launch, of the loss kernel's
-    tensor-core instance and of the GEMM kernels' cluster instances:
-    registers and spills of each instance, from the builds' logs."""
+    tensor-core instance and write launch, of the decode paged
+    attention's (#4) instances, of the loss kernel's tensor-core instance
+    and of the GEMM kernels' cluster instances: registers and spills of
+    each instance, from the builds' logs."""
     import re
     from paddle_tpu_torch.ops import _build
     lines = []
@@ -1225,6 +1311,19 @@ def flash_registers():
             t = m.group(3) or m.group(4) or "float"
             lines.append(f"ptxas: kv_write_kernel<{m.group(1)}, "
                          f"{m.group(2)}, {t}>: {what}")
+    for mangled, what in sorted(_build.ptxas_report(
+            "paged_attention").items()):
+        m = re.search(r"decode_tcI(\w+?)Li(\d+)E", mangled)
+        if m:
+            pool = "bf16" if "bfloat16" in m.group(1) else "f16"
+            q = "f32" if m.group(1).endswith("f") else pool
+            lines.append(f"ptxas: paged decode_tc<pools {pool}, q {q}, "
+                         f"{m.group(2)}>: {what}")
+        m = re.search(r"decode_generalI([fa])E", mangled)
+        if m:
+            pool = {"f": "f32", "a": "int8"}[m.group(1)]
+            lines.append(f"ptxas: paged decode_general<pools {pool}>: "
+                         f"{what}")
     for mangled, what in sorted(_build.ptxas_report(
             "flash_attention").items()):
         m = re.search(r"(flash_[a-z_]+)I(?:Li(\d+)E|(f)E|6(__half)E|"

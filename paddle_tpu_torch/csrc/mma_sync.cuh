@@ -1,6 +1,6 @@
 // Warp-level tensor-core helpers shared by the kernels that multiply 16-bit
 // tiles with mma.sync (csrc/dequant_matmul.cu, csrc/grouped_gemm.cu,
-// csrc/ragged_paged_attention.cu):
+// csrc/paged_attention.cu, csrc/ragged_paged_attention.cu):
 // ldmatrix loads, the m16n8k16 product with f32 accumulation, and the exact
 // conversion of int8 byte pairs to 16-bit pairs. Internal linkage: each
 // library keeps its own copy.

@@ -184,6 +184,12 @@ __device__ __forceinline__ float rope_elem(const T* row, int d, int D,
   return __fadd_rn(__fmul_rn(x, cos_row[d]), __fmul_rn(partner, sin_row[d]));
 }
 
+}  // namespace
+
+#include "split_merge.cuh"
+
+namespace {
+
 __device__ __forceinline__ int clamp_page(int p, int num_pages) {
   return p < 0 ? 0 : (p >= num_pages ? num_pages - 1 : p);
 }
@@ -299,8 +305,9 @@ __device__ __forceinline__ void load4(const float* src, float* v) {
 }
 
 // The write launch of the fused calls: the dispatch's fresh K/V (K roped in
-// f32 and cast to T when ROPE) into their page slots, as T (float pools) or
-// quantized (int8 pools with f32 scales). Work item i = blockIdx.x *
+// f32 and cast to T when ROPE) into their page slots, cast to the pools'
+// dtype PT (float pools; PT != T with rope only) or quantized (int8 pools
+// with f32 scales). Work item i = blockIdx.x *
 // kWriteWarps + warp is one (fresh token f, kv head hk, K or V) vector: f = i
 // / (2 Hk), hk = (i / 2) % Hk, V for odd i. A grid of ceil(2 n_tok Hk /
 // kWriteWarps) blocks, a function of n_tok and Hk only, so a long prefill
@@ -331,7 +338,7 @@ __device__ __forceinline__ void load4(const float* src, float* v) {
 // __fmul_rn(max(amax, 1e-8), f32(1/127)) with the absmax reduced over the
 // lanes by shuffles (the max of finite values is order-free), each value
 // rintf(__fdiv_rn(x, scale)) clipped to +-127.
-template <bool ROPE, bool Q8, typename T>
+template <bool ROPE, bool Q8, typename T, typename PT>
 __global__ void __launch_bounds__(32 * kWriteWarps, kWriteMinBlocks)
     kv_write_kernel(const T* __restrict__ new_k, const T* __restrict__ new_v,
                     void* __restrict__ k_out, void* __restrict__ v_out,
@@ -461,14 +468,23 @@ __global__ void __launch_bounds__(32 * kWriteWarps, kWriteMinBlocks)
       if (has) *reinterpret_cast<uint2*>(pool + slot * D + d0) = q8v;
       if (lane == 0) (is_v ? v_scale : k_scale)[slot] = sc;
     } else if (has) {
-      vals.store(static_cast<T*>(is_v ? v_out : k_out) + slot * D + d0);
+      PT* dst = static_cast<PT*>(is_v ? v_out : k_out) + slot * D + d0;
+      if constexpr (std::is_same<T, PT>::value) {
+        vals.store(dst);
+      } else {
+        // V, and K roped and cast through T, cast to the pools' dtype
+        Vals8<PT> cast;
+        cast.narrow(x);
+        cast.store(dst);
+      }
     }
   }
 }
 
 // the pools' element as stored: the model dtype, or int8
-template <typename T, bool Q8>
-using Stored = typename std::conditional<Q8, int8_t, T>::type;
+// the pools' element as stored: their float dtype PT, or int8
+template <typename PT, bool Q8>
+using Stored = typename std::conditional<Q8, int8_t, PT>::type;
 
 // 16 bytes of pool values widened to f32 (int8 values times their slot's
 // scale, one rounding each: `s0` up to element `split`, `s1` from there, as
@@ -505,7 +521,7 @@ __device__ __forceinline__ void unpack_q8(const uint4& raw, float s0, float s1,
     dst[k] = __fmul_rn((float)b[k], k < split ? s0 : s1);
 }
 
-template <bool ROPE, bool Q8, typename T, int COLS>
+template <bool ROPE, bool Q8, typename T, typename PT, int COLS>
 __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(
     const T* __restrict__ q, const void* __restrict__ k_pages,
     const void* __restrict__ v_pages, const float* __restrict__ k_scale,
@@ -515,7 +531,7 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(
     const int* __restrict__ q_lens, const int* __restrict__ w_starts,
     const int* __restrict__ w_flats, T* __restrict__ out, int n_tok, int H,
     int Hk, int D, int P, int page, int W, int QB, int chunk, float scale) {
-  using S = Stored<T, Q8>;
+  using S = Stored<PT, Q8>;
   constexpr int E = 16 / (int)sizeof(S);   // elements per 16-byte vector
   constexpr int kVec = kVecPerCol * COLS;  // vectors a thread fetches
   const int KS = D + 1;            // padded row stride of q_s and k_s
@@ -745,7 +761,7 @@ size_t attention_smem(int D, int chunk) {
                           kQTile * chunk + 3 * kQTile);
 }
 
-template <bool ROPE, bool Q8, typename T>
+template <bool ROPE, bool Q8, typename T, typename PT = T>
 int launch_write(const void* new_k, const void* new_v, void* k_pages,
                  void* v_pages, void* k_scale, void* v_scale, const Meta& m,
                  int R, int n_tok, int Hk, int D, int P, int page, int W,
@@ -754,14 +770,14 @@ int launch_write(const void* new_k, const void* new_v, void* k_pages,
   if (items == 0) return 0;
   const unsigned blocks =
       (unsigned)((items + kWriteWarps - 1) / kWriteWarps);
-  kv_write_kernel<ROPE, Q8, T><<<blocks, 32 * kWriteWarps, 0, stream>>>(
+  kv_write_kernel<ROPE, Q8, T, PT><<<blocks, 32 * kWriteWarps, 0, stream>>>(
       (const T*)new_k, (const T*)new_v, k_pages, v_pages, (float*)k_scale,
       (float*)v_scale, m.sin_tab, m.cos_tab, m.tables, m.kv_lens, m.q_starts,
       m.q_lens, m.w_starts, m.w_flats, R, n_tok, Hk, D, P, page, W);
   return (int)cudaGetLastError();
 }
 
-template <bool ROPE, bool Q8, typename T, int COLS>
+template <bool ROPE, bool Q8, typename T, typename PT, int COLS>
 int launch_attention_cols(const void* q, const void* k_pages,
                           const void* v_pages, const void* k_scale,
                           const void* v_scale, const Meta& m, void* out,
@@ -769,18 +785,18 @@ int launch_attention_cols(const void* q, const void* k_pages,
                           int page, int W, int QB, float scale,
                           cudaStream_t stream) {
   const int chunk =
-      chunk_slots(page, D, (int)sizeof(Stored<T, Q8>), COLS);
+      chunk_slots(page, D, (int)sizeof(Stored<PT, Q8>), COLS);
   const size_t smem = attention_smem(D, chunk);
   if (smem > 48 * 1024) {
     // above 48 KB only after an explicit opt-in; a refused launch never
     // runs and is reported only by cudaGetLastError
     const cudaError_t e = cudaFuncSetAttribute(
-        ragged_attention_kernel<ROPE, Q8, T, COLS>,
+        ragged_attention_kernel<ROPE, Q8, T, PT, COLS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int tiles = (QB * (H / Hk) + kQTile - 1) / kQTile;
-  ragged_attention_kernel<ROPE, Q8, T, COLS>
+  ragged_attention_kernel<ROPE, Q8, T, PT, COLS>
       <<<dim3(R, Hk, tiles), kThreads, smem, stream>>>(
           (const T*)q, k_pages, v_pages, (const float*)k_scale,
           (const float*)v_scale, m.sin_tab, m.cos_tab, m.tables, m.kv_lens,
@@ -789,7 +805,7 @@ int launch_attention_cols(const void* q, const void* k_pages,
   return (int)cudaGetLastError();
 }
 
-template <bool ROPE, bool Q8, typename T>
+template <bool ROPE, bool Q8, typename T, typename PT = T>
 int launch_attention(const void* q, const void* k_pages, const void* v_pages,
                      const void* k_scale, const void* v_scale, const Meta& m,
                      void* out, int R, int n_tok, int H, int Hk, int D, int P,
@@ -797,19 +813,52 @@ int launch_attention(const void* q, const void* k_pages, const void* v_pages,
                      cudaStream_t stream) {
   // one output column a thread up to D = 128, two up to 256
   if (D <= kThreads)
-    return launch_attention_cols<ROPE, Q8, T, 1>(
+    return launch_attention_cols<ROPE, Q8, T, PT, 1>(
         q, k_pages, v_pages, k_scale, v_scale, m, out, R, n_tok, H, Hk, D, P,
         page, W, QB, scale, stream);
-  return launch_attention_cols<ROPE, Q8, T, 2>(
+  return launch_attention_cols<ROPE, Q8, T, PT, 2>(
       q, k_pages, v_pages, k_scale, v_scale, m, out, R, n_tok, H, Hk, D, P,
       page, W, QB, scale, stream);
 }
 
+// the C code of a float dtype: 0 bf16, 1 f16, 2 f32
 template <typename T>
-int write_for(int rope, int q8, const void* new_k, const void* new_v,
-              void* k_pages, void* v_pages, void* k_scale, void* v_scale,
-              const Meta& m, int R, int n_tok, int Hk, int D, int P, int page,
-              int W, cudaStream_t s) {
+constexpr int kCode = std::is_same<T, bf16>::value
+                          ? 0
+                          : (std::is_same<T, __half>::value ? 1 : 2);
+
+// the rope write over float pools of another dtype (code `pool`) than the
+// fresh K/V's T: K roped and cast through T, then both cast to the pools'
+// dtype
+template <typename T>
+int write_rope_mixed(int pool, const void* new_k, const void* new_v,
+                     void* k_pages, void* v_pages, const Meta& m, int R,
+                     int n_tok, int Hk, int D, int P, int page, int W,
+                     cudaStream_t s) {
+  if (pool == 0)
+    return launch_write<true, false, T, bf16>(new_k, new_v, k_pages, v_pages,
+                                              nullptr, nullptr, m, R, n_tok,
+                                              Hk, D, P, page, W, s);
+  if (pool == 1)
+    return launch_write<true, false, T, __half>(new_k, new_v, k_pages,
+                                                v_pages, nullptr, nullptr, m,
+                                                R, n_tok, Hk, D, P, page, W,
+                                                s);
+  return launch_write<true, false, T, float>(new_k, new_v, k_pages, v_pages,
+                                             nullptr, nullptr, m, R, n_tok,
+                                             Hk, D, P, page, W, s);
+}
+
+template <typename T>
+int write_for(int rope, int q8, int pool, const void* new_k,
+              const void* new_v, void* k_pages, void* v_pages, void* k_scale,
+              void* v_scale, const Meta& m, int R, int n_tok, int Hk, int D,
+              int P, int page, int W, cudaStream_t s) {
+  if (!q8 && pool != kCode<T>) {
+    if (!rope) return (int)cudaErrorInvalidValue;
+    return write_rope_mixed<T>(pool, new_k, new_v, k_pages, v_pages, m, R,
+                               n_tok, Hk, D, P, page, W, s);
+  }
   if (rope && q8)
     return launch_write<true, true, T>(new_k, new_v, k_pages, v_pages,
                                        k_scale, v_scale, m, R, n_tok, Hk, D,
@@ -827,12 +876,43 @@ int write_for(int rope, int q8, const void* new_k, const void* new_v,
                                        P, page, W, s);
 }
 
+// the general attention over float pools of another dtype (code `pool`,
+// type PT) than the model's T
+template <typename T, typename PT>
+int attention_mixed(int rope, const void* q, const void* k_pages,
+                    const void* v_pages, const Meta& m, void* out, int R,
+                    int n_tok, int H, int Hk, int D, int P, int page, int W,
+                    int QB, float scale, cudaStream_t s) {
+  if (rope)
+    return launch_attention<true, false, T, PT>(q, k_pages, v_pages, nullptr,
+                                                nullptr, m, out, R, n_tok, H,
+                                                Hk, D, P, page, W, QB, scale,
+                                                s);
+  return launch_attention<false, false, T, PT>(q, k_pages, v_pages, nullptr,
+                                               nullptr, m, out, R, n_tok, H,
+                                               Hk, D, P, page, W, QB, scale,
+                                               s);
+}
+
 template <typename T>
-int attention_for(int rope, int q8, const void* q, const void* k_pages,
-                  const void* v_pages, const void* k_scale,
-                  const void* v_scale, const Meta& m, void* out, int R,
-                  int n_tok, int H, int Hk, int D, int P, int page, int W,
-                  int QB, float scale, cudaStream_t s) {
+int attention_for(int rope, int q8, int pool, const void* q,
+                  const void* k_pages, const void* v_pages,
+                  const void* k_scale, const void* v_scale, const Meta& m,
+                  void* out, int R, int n_tok, int H, int Hk, int D, int P,
+                  int page, int W, int QB, float scale, cudaStream_t s) {
+  if (!q8 && pool != kCode<T>) {
+    if (pool == 0)
+      return attention_mixed<T, bf16>(rope, q, k_pages, v_pages, m, out, R,
+                                      n_tok, H, Hk, D, P, page, W, QB, scale,
+                                      s);
+    if (pool == 1)
+      return attention_mixed<T, __half>(rope, q, k_pages, v_pages, m, out, R,
+                                        n_tok, H, Hk, D, P, page, W, QB,
+                                        scale, s);
+    return attention_mixed<T, float>(rope, q, k_pages, v_pages, m, out, R,
+                                     n_tok, H, Hk, D, P, page, W, QB, scale,
+                                     s);
+  }
   if (rope && q8)
     return launch_attention<true, true, T>(q, k_pages, v_pages, k_scale,
                                            v_scale, m, out, R, n_tok, H, Hk,
@@ -991,19 +1071,6 @@ __device__ __forceinline__ void store2(T* dst, float a, float b) {
 __device__ __forceinline__ void store2(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
 }
-template <typename T>
-__device__ __forceinline__ void store4(T* dst, float a, float b, float c,
-                                       float d) {
-  dst[0] = from_f32<T>(a);
-  dst[1] = from_f32<T>(b);
-  dst[2] = from_f32<T>(c);
-  dst[3] = from_f32<T>(d);
-}
-__device__ __forceinline__ void store4(float* dst, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-}
-
 // Accumulator layout of m16n8k16 (f32): c0, c1 are row g = lane / 4,
 // columns 2t, 2t + 1 (t = lane % 4) of the n-tile; c2, c3 row g + 8. S's
 // n-tiles 2kk and 2kk + 1 are the A fragment of P V for keys 16kk .. 16kk+15.
@@ -1012,11 +1079,7 @@ __device__ __forceinline__ void store4(float* dst, float a, float b, float c,
 // and odd columns of each 16-column group b (n-tiles 2b, 2b + 1): a thread
 // holds columns 16b + 4t .. 16b + 4t + 3 of its rows.
 // the thread's values of row hr divided by `l` (0 where l is 0: a row that
-// saw no key), or as they are (partials: l < 0)
-__device__ __forceinline__ float over(float x, float l) {
-  return l < 0.f ? x : (l > 0.f ? x / l : 0.f);
-}
-
+// saw no key), or as they are (partials: l < 0), by `over`
 template <bool Q8, int NT, typename OT>
 __device__ __forceinline__ void store_rows(OT* dst, const float (&o)[NT][4],
                                            int hr, float l, int D, int t) {
@@ -1033,61 +1096,6 @@ __device__ __forceinline__ void store_rows(OT* dst, const float (&o)[NT][4],
         store4(dst + 16 * b + 4 * t, over(o[2 * b][2 * hr], l),
                over(o[2 * b + 1][2 * hr], l), over(o[2 * b][2 * hr + 1], l),
                over(o[2 * b + 1][2 * hr + 1], l));
-  }
-}
-
-// One warp merges the n splits of a flattened row (partial rows prow,
-// prow + stride, ...) into dst, in split order: lane j holds the (max, sum)
-// of splits j, j + 32, ...; the columns walk the splits with the weights
-// broadcast from their lanes. The partials come from other blocks: read
-// past L1.
-template <typename T>
-__device__ __forceinline__ void merge_row(const float* part_o,
-                                          const float* part_ml, T* dst,
-                                          size_t prow, int stride, int n,
-                                          int D, int lane) {
-  auto row = [&](int s) { return prow + (size_t)s * stride; };
-  float mmax = kNegInf;
-  for (int s = lane; s < n; s += 32)
-    mmax = fmaxf(mmax, __ldcg(part_ml + 2 * row(s)));
-  for (int o = 16; o > 0; o >>= 1)
-    mmax = fmaxf(mmax, __shfl_xor_sync(0xffffffffu, mmax, o));
-  float lsum = 0.f;
-  float4 acc[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
-                   make_float4(0.f, 0.f, 0.f, 0.f)};
-  for (int s0 = 0; s0 < n; s0 += 32) {
-    float w = 0.f, wl = 0.f;
-    if (s0 + lane < n) {
-      w = expf(__ldcg(part_ml + 2 * row(s0 + lane)) - mmax);
-      wl = w * __ldcg(part_ml + 2 * row(s0 + lane) + 1);
-    }
-    for (int o = 16; o > 0; o >>= 1)
-      wl += __shfl_xor_sync(0xffffffffu, wl, o);
-    lsum += wl;
-    const int m = n - s0 < 32 ? n - s0 : 32;
-#pragma unroll 4
-    for (int j = 0; j < m; ++j) {
-      const float wj = __shfl_sync(0xffffffffu, w, j);
-      const float* src = part_o + row(s0 + j) * D;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int d0 = 4 * lane + 128 * c;
-        if (d0 < D) {
-          const float4 x = __ldcg(reinterpret_cast<const float4*>(src + d0));
-          acc[c].x += wj * x.x;
-          acc[c].y += wj * x.y;
-          acc[c].z += wj * x.z;
-          acc[c].w += wj * x.w;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int d0 = 4 * lane + 128 * c;
-    if (d0 < D)
-      store4(dst + d0, over(acc[c].x, lsum), over(acc[c].y, lsum),
-             over(acc[c].z, lsum), over(acc[c].w, lsum));
   }
 }
 
@@ -1654,10 +1662,13 @@ int attention_for(int rope, int q8, const void* q, const void* k_pages,
 }  // namespace
 
 // C interface, loaded with ctypes. `dtype` is the model's: 0 bf16, 1 f16,
-// 2 f32, the type of q, new_k, new_v, out and of float pools; the pools are
-// that type (q8 = 0) or int8 with f32 [P, Hk, page, 1] scale sidecars
-// (q8 = 1; null otherwise); the rope tables f32 [T, D] (rope = 1; null
-// otherwise); the metadata int32. With rope = 0 the attention takes q
+// 2 f32, the type of q and out (for the write: of the fresh K/V); the pools
+// are float of code `pool` (q8 = 0) or int8 with f32 [P, Hk, page, 1] scale
+// sidecars (q8 = 1; null otherwise, and `pool` is ignored); the rope tables
+// f32 [T, D] (rope = 1; null otherwise); the metadata int32. Over float
+// pools of another dtype than the model's, the write takes the rope launch
+// only (without rope the caller casts the fresh K/V to the pools' dtype and
+// passes it as the model's), and the attention the general instance only. With rope = 0 the attention takes q
 // row-blocked [R, QB, H, D] and needs no w_starts/w_flats. The write reads
 // new_k, new_v and the rope tables as 16-byte vectors (16-byte aligned). The
 // attention's
@@ -1676,7 +1687,7 @@ const char* rpa_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int rpa_kv_write(int dtype, int rope, int q8, const void* new_k,
+int rpa_kv_write(int dtype, int pool, int rope, int q8, const void* new_k,
                  const void* new_v, void* k_pages, void* v_pages,
                  void* k_scale, void* v_scale, const void* sin_tab,
                  const void* cos_tab, const void* tables, const void* kv_lens,
@@ -1684,26 +1695,30 @@ int rpa_kv_write(int dtype, int rope, int q8, const void* new_k,
                  const void* w_starts, const void* w_flats, int R, int n_tok,
                  int Hk, int D, int P, int page, int W, void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not a stale one
-  if (D % 8 || D > 256 || page % 8) return (int)cudaErrorInvalidValue;
+  if (D % 8 || D > 256 || page % 8 || pool < 0 || pool > 2)
+    return (int)cudaErrorInvalidValue;
   const Meta m{(const float*)sin_tab, (const float*)cos_tab,
                (const int*)tables,    (const int*)kv_lens,
                (const int*)q_starts,  (const int*)q_lens,
                (const int*)w_starts,  (const int*)w_flats};
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return write_for<bf16>(rope, q8, new_k, new_v, k_pages, v_pages, k_scale,
-                           v_scale, m, R, n_tok, Hk, D, P, page, W, s);
+    return write_for<bf16>(rope, q8, pool, new_k, new_v, k_pages, v_pages,
+                           k_scale, v_scale, m, R, n_tok, Hk, D, P, page, W,
+                           s);
   if (dtype == 1)
-    return write_for<__half>(rope, q8, new_k, new_v, k_pages, v_pages,
+    return write_for<__half>(rope, q8, pool, new_k, new_v, k_pages, v_pages,
                              k_scale, v_scale, m, R, n_tok, Hk, D, P, page, W,
                              s);
   if (dtype == 2)
-    return write_for<float>(rope, q8, new_k, new_v, k_pages, v_pages, k_scale,
-                            v_scale, m, R, n_tok, Hk, D, P, page, W, s);
+    return write_for<float>(rope, q8, pool, new_k, new_v, k_pages, v_pages,
+                            k_scale, v_scale, m, R, n_tok, Hk, D, P, page, W,
+                            s);
   return (int)cudaErrorInvalidValue;
 }
 
-int rpa_attention(int instance, int dtype, int rope, int q8, const void* q,
+int rpa_attention(int instance, int dtype, int pool, int rope, int q8,
+                  const void* q,
                   const void* k_pages, const void* v_pages,
                   const void* k_scale, const void* v_scale,
                   const void* sin_tab, const void* cos_tab, const void* tables,
@@ -1714,14 +1729,15 @@ int rpa_attention(int instance, int dtype, int rope, int q8, const void* q,
                   int P, int page, int W, int QB, int slab_rows, float scale,
                   void* stream) {
   (void)cudaGetLastError();
-  if (D % 8 || D > 256 || page % 8) return (int)cudaErrorInvalidValue;
+  if (D % 8 || D > 256 || page % 8 || pool < 0 || pool > 2)
+    return (int)cudaErrorInvalidValue;
   const Meta m{(const float*)sin_tab, (const float*)cos_tab,
                (const int*)tables,    (const int*)kv_lens,
                (const int*)q_starts,  (const int*)q_lens,
                (const int*)w_starts,  (const int*)w_flats};
   const cudaStream_t s = (cudaStream_t)stream;
   if (instance == 0) {
-    if (D % 16) return (int)cudaErrorInvalidValue;
+    if (D % 16 || (!q8 && pool != dtype)) return (int)cudaErrorInvalidValue;
     const tc::Scratch sc{(float*)part_o, (float*)part_ml, (int*)tickets,
                          slab_rows};
     if (dtype == 0)
@@ -1736,15 +1752,15 @@ int rpa_attention(int instance, int dtype, int rope, int q8, const void* q,
   }
   if (instance != 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return attention_for<bf16>(rope, q8, q, k_pages, v_pages, k_scale,
+    return attention_for<bf16>(rope, q8, pool, q, k_pages, v_pages, k_scale,
                                v_scale, m, out, R, n_tok, H, Hk, D, P, page,
                                W, QB, scale, s);
   if (dtype == 1)
-    return attention_for<__half>(rope, q8, q, k_pages, v_pages, k_scale,
-                                 v_scale, m, out, R, n_tok, H, Hk, D, P, page,
-                                 W, QB, scale, s);
+    return attention_for<__half>(rope, q8, pool, q, k_pages, v_pages,
+                                 k_scale, v_scale, m, out, R, n_tok, H, Hk, D,
+                                 P, page, W, QB, scale, s);
   if (dtype == 2)
-    return attention_for<float>(rope, q8, q, k_pages, v_pages, k_scale,
+    return attention_for<float>(rope, q8, pool, q, k_pages, v_pages, k_scale,
                                 v_scale, m, out, R, n_tok, H, Hk, D, P, page,
                                 W, QB, scale, s);
   return (int)cudaErrorInvalidValue;

@@ -1,6 +1,7 @@
 // Hopper copy and barrier helpers shared by the kernels that stream tiles
 // with TMA (csrc/flash_attention.cu, csrc/dequant_matmul.cu,
-// csrc/fused_linear_cross_entropy.cu, csrc/grouped_gemm.cu): shared-memory
+// csrc/fused_linear_cross_entropy.cu, csrc/grouped_gemm.cu,
+// csrc/paged_attention.cu): shared-memory
 // addresses, mbarriers, named barriers, 2-D and 3-D tensor maps and their
 // loads, and
 // cuTensorMapEncodeTiled found in libcuda at run time. Internal linkage: each

@@ -72,6 +72,10 @@ class PageAllocator:
         self._refs: dict[int, int] = {}     # page -> refcount (allocated)
         self._tables: dict[int, list[int]] = {}
         self._lens: dict[int, int] = {}
+        # seq -> [its table list, the list's prefix as int32, prefix
+        # length] for batch_views; extend only appends, and the other
+        # mutations of a table drop its entry
+        self._rows: dict[int, list] = {}
         self.cow_count = 0
         self.double_free_count = 0
         self._lock = threading.Lock()
@@ -156,6 +160,7 @@ class PageAllocator:
                     f"cannot roll back {n_tokens} tokens of sequence "
                     f"{seq_id} (length {ln})")
             table = self._tables[seq_id]
+            self._rows.pop(seq_id, None)
             new_len = ln - n_tokens
             need = max(1, math.ceil(new_len / self.page_size))
             freed = 0
@@ -181,6 +186,7 @@ class PageAllocator:
         :class:`RuntimeWarning`."""
         with self._lock:
             table = self._tables.pop(seq_id, None)
+            self._rows.pop(seq_id, None)
             if table is None:
                 self.double_free_count += 1
                 warnings.warn(
@@ -272,6 +278,7 @@ class PageAllocator:
                     "paged cache exhausted on copy-on-write")
             new = self._pop_free()
             table[idx] = new
+            self._rows.pop(seq_id, None)
             self._refs[p] -= 1
             self.cow_count += 1
             return (p, new)
@@ -287,20 +294,42 @@ class PageAllocator:
         page_ids = np.asarray([table[p] for p in pos // self.page_size])
         return page_ids, pos % self.page_size
 
+    def _table_row(self, seq_id):
+        """A sequence's block table as int32, converted from its list once
+        per page (extend appends to the cached prefix)."""
+        table = self._tables[seq_id]
+        row = self._rows.get(seq_id)
+        if row is None or row[0] is not table:
+            row = self._rows[seq_id] = [table, np.empty(0, np.int32), 0]
+        n = len(table)
+        if n > row[2]:
+            if n > row[1].size:
+                grown = np.empty(max(n, 2 * row[1].size), np.int32)
+                grown[:row[2]] = row[1][:row[2]]
+                row[1] = grown
+            row[1][row[2]:n] = table[row[2]:]
+            row[2] = n
+        return row[1][:n]
+
     def batch_views(self, seq_ids, width=None, fill_page=0, device=None):
         """(block_tables [B, width] int32, context_lens [B] int32) for a
         batch, as tensors on ``device`` (default ``cuda``). Unused tail
-        entries point at ``fill_page``."""
+        entries point at ``fill_page``. Both are filled in one host
+        buffer (pinned for a card) and reach the device in one copy."""
         width = width or max(len(self._tables[s]) for s in seq_ids)
-        tables = np.full((len(seq_ids), width), fill_page, np.int32)
-        lens = np.zeros((len(seq_ids),), np.int32)
-        for i, s in enumerate(seq_ids):
-            t = self._tables[s]
-            tables[i, :len(t)] = t
-            lens[i] = self._lens[s]
+        b = len(seq_ids)
         dev = resolve_device(device)
-        return (torch.from_numpy(tables).to(dev),
-                torch.from_numpy(lens).to(dev))
+        host = torch.empty((b * (width + 1),), dtype=torch.int32,
+                           pin_memory=dev.type == "cuda")
+        buf = host.numpy()
+        tables = buf[:b * width].reshape(b, width)
+        tables.fill(fill_page)
+        for i, s in enumerate(seq_ids):
+            row = self._table_row(s)
+            tables[i, :row.size] = row
+        buf[b * width:] = [self._lens[s] for s in seq_ids]
+        out = host.to(dev, non_blocking=True)
+        return out[:b * width].view(b, width), out[b * width:]
 
 
 class PagedKVCache(PageAllocator):

@@ -235,21 +235,32 @@ class LlamaServingEngine:
     (None/"bf16": the model as it is; "int8": weight-only int8),
     ``weight_block``, ``kv_dtype`` (None: the model's dtype; "int8"),
     ``fused_kv`` and ``fused_rope`` (see the module docstring) mean what
-    they mean in the reference engine, environment knobs included;
-    ``prefix_cache``, ``spec_k`` and ``kv_tier`` (and the reference's
-    ``PADDLE_TPU_SPEC_K`` / ``PADDLE_TPU_KV_TIER``) are accepted only at
-    their off values (later slices); ``prefix_cache`` defaults off here
-    until the prefix cache is ported (ROADMAP A4)."""
+    they mean in the reference engine, environment knobs included. The
+    arguments are the reference's, in its order; ``burst`` is its alias
+    of ``decode_ticks``. ``sampling`` (None: ``PADDLE_TPU_SAMPLING``,
+    default on) and ``sample_slots`` are stored as the reference stores
+    them, but the engine decodes greedily and a sampled request raises
+    (ROADMAP A1). The knobs of later slices (``prewarm``, the prefix
+    cache's, ``admit_retries``, ``admit_backoff``, ``stuck_*``, the
+    speculative decoder's and the KV tier's, with the reference's env
+    knobs ``PADDLE_TPU_SERVING_PREWARM``, ``PADDLE_TPU_SPEC_K``,
+    ``PADDLE_TPU_KV_TIER``) raise :class:`NotImplementedError` naming
+    their ROADMAP A item when set off their defaults; ``prefix_cache``
+    defaults off here until the prefix cache is ported (A4)."""
 
     #: decode steps between admission checks while prompts are pending
     DECODE_TICKS = 16
 
     def __init__(self, model, max_batch=16, page_size=16, num_pages=None,
                  max_pages_per_seq=None, chunk_budget=None,
-                 chunk_block=None, decode_ticks=None, prefix_cache=False,
-                 spec_k=None, kv_dtype=None, weight_dtype=None,
-                 weight_block=None, kv_tier=None, fused_kv=None,
-                 fused_rope=None):
+                 chunk_block=None, decode_ticks=None, burst=None,
+                 admit_retries=0, admit_backoff=0.005, stuck_factor=8.0,
+                 stuck_min_timeout=30.0, prefix_cache=False,
+                 prefix_cache_pages=None, prewarm=None, kv_dtype=None,
+                 spec_k=None, spec_ngram=3, drafter_factory=None,
+                 sampling=None, sample_slots=8, fused_kv=None,
+                 fused_rope=None, weight_dtype=None, weight_block=None,
+                 kv_tier=None, kv_tier_bytes=None):
         # the reference's fleet knobs, read as it reads them: a fleet that
         # sets them is told, not silently served without the feature
         if spec_k is None:
@@ -257,14 +268,34 @@ class LlamaServingEngine:
         if kv_tier is None:
             kv_tier = os.environ.get(
                 "PADDLE_TPU_KV_TIER", "0").lower() in ("1", "true", "on")
-        later = {"prefix_cache": (prefix_cache, "A4"),
+        if prewarm is None:
+            prewarm = os.environ.get(
+                "PADDLE_TPU_SERVING_PREWARM", "0").lower() \
+                in ("1", "true", "on", "auto")
+        later = {"prewarm / PADDLE_TPU_SERVING_PREWARM": (prewarm, "A3"),
+                 "prefix_cache": (prefix_cache, "A4"),
+                 "prefix_cache_pages": (prefix_cache_pages is not None,
+                                        "A4"),
+                 "admit_retries": (admit_retries != 0, "A5"),
+                 "admit_backoff": (admit_backoff != 0.005, "A5"),
+                 "stuck_factor": (stuck_factor != 8.0, "A5"),
+                 "stuck_min_timeout": (stuck_min_timeout != 30.0, "A5"),
                  "spec_k / PADDLE_TPU_SPEC_K": (int(spec_k) > 0, "A6"),
-                 "kv_tier / PADDLE_TPU_KV_TIER": (kv_tier, "A7")}
+                 "spec_ngram": (spec_ngram != 3, "A6"),
+                 "drafter_factory": (drafter_factory is not None, "A6"),
+                 "kv_tier / PADDLE_TPU_KV_TIER": (kv_tier, "A7"),
+                 "kv_tier_bytes": (kv_tier_bytes is not None, "A7")}
         asked = [f"{k} (ROADMAP item {item})"
                  for k, (on, item) in later.items() if on]
         if asked:
             raise NotImplementedError(
                 f"{', '.join(asked)}: not ported yet (ROADMAP queue A)")
+        # the reference's sampling switch; this engine decodes greedily
+        # either way, and a sampled request raises (Request, item A1)
+        if sampling is None:
+            sampling = _env_flag("PADDLE_TPU_SAMPLING", "1")
+        self.sample_enabled = bool(sampling)
+        self.sample_slots = max(1, int(sample_slots))
         if weight_dtype is None:
             weight_dtype = os.environ.get("PADDLE_TPU_WEIGHT_DTYPE",
                                           "") or None
@@ -299,6 +330,8 @@ class LlamaServingEngine:
         budget = int(chunk_budget) if chunk_budget \
             else max(64, 4 * max_batch)
         self.chunk_budget = max(budget, 2 * max_batch, self.chunk_block)
+        if decode_ticks is None and burst is not None:
+            decode_ticks = burst      # the reference's legacy alias
         self.decode_ticks = int(decode_ticks) if decode_ticks \
             else self.DECODE_TICKS
         # every live sequence may hold one decode row; the remaining

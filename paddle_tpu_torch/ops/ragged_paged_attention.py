@@ -326,7 +326,8 @@ def _check_fused(q, new_k, new_v, k_pages, v_pages, block_tables, meta,
         # the kernels read every row operand but w_ends
         _check_kernel(q, k_pages, v_pages, k_scale, v_scale,
                       (block_tables, *meta[:5]), (new_k, new_v),
-                      (rope_sin, rope_cos) if rope_sin is not None else ())
+                      (rope_sin, rope_cos) if rope_sin is not None else (),
+                      written=True)
 
 
 def check_geometry(page_size, head_dim, dtype, kv_int8=False):
@@ -349,27 +350,32 @@ def check_geometry(page_size, head_dim, dtype, kv_int8=False):
             + (" (int8 pools)" if kv_int8 else ""))
 
 
-def attention_instance(dtype, head_dim):
-    """The CUDA attention instance that takes a model of ``dtype`` at
-    ``head_dim`` (:func:`check_geometry`'s domain; float or int8 pools
-    alike): ``"tensor-core"`` for bf16 and f16 at ``head_dim % 16 ==
-    0`` (mma.sync, the keys split over the sequence), ``"general"`` (f32
-    FMAs) for f32 models and head_dims off multiples of 16. Raises
-    :class:`ValueError` outside the domain."""
+def attention_instance(dtype, head_dim, kv_dtype=None):
+    """The CUDA attention instance that takes a model (q) of ``dtype``
+    at ``head_dim`` (:func:`check_geometry`'s domain) over pools of
+    ``kv_dtype`` (default: the model's; int8 pools count as the
+    model's): ``"tensor-core"`` for bf16 and f16 at ``head_dim % 16 ==
+    0`` over pools of the model's dtype or int8 (mma.sync, the keys split
+    over the sequence), ``"general"`` (f32 FMAs) for f32 models, head_dims
+    off multiples of 16, and float pools of another dtype than the
+    model's. Raises :class:`ValueError` outside the domain."""
     check_geometry(8, head_dim, dtype)
-    if dtype in (torch.bfloat16, torch.float16) and head_dim % 16 == 0:
+    mixed = kv_dtype not in (None, torch.int8, dtype)
+    if dtype in (torch.bfloat16, torch.float16) and head_dim % 16 == 0 \
+            and not mixed:
         return "tensor-core"
     return "general"
 
 
-def _check_instance(instance, dtype, head_dim):
+def _check_instance(instance, dtype, head_dim, kv_dtype=None):
     """Refuse a launch of ``instance`` on any pairing the rule of
     :func:`attention_instance` does not give it."""
-    want = attention_instance(dtype, head_dim)
+    want = attention_instance(dtype, head_dim, kv_dtype)
     if instance != want:
         raise ValueError(
             f"the {instance} attention instance does not take a {dtype} "
-            f"model at head_dim {head_dim} (the rule gives {want})")
+            f"model at head_dim {head_dim} over {kv_dtype or dtype} pools "
+            f"(the rule gives {want})")
     return _INSTANCES[instance]
 
 
@@ -444,41 +450,66 @@ def tc_scratch_rows(width, page_size):
 
 
 def _check_kernel(q, k_pages, v_pages, k_scale, v_scale, rows, fresh=(),
-                  tables=()):
+                  tables=(), written=False):
     """The kernels' own limits on CUDA operands, past the contract
     (:func:`_check_pools` ties int8 pools to their sidecars): the
-    geometry of :func:`check_geometry`; q, fresh rows and float pools of
-    one dtype; f32 sidecars, int32 rows, f32 rope tables; contiguous,
-    16-byte aligned pools, fresh rows and rope tables."""
+    geometry of :func:`check_geometry`; q, fresh K/V and float pools in
+    bf16, f16 or f32 (of any mix); integer rows, float scales and rope
+    tables. The launch converts the rest as the reference does
+    (:func:`_readable`). What it cannot convert, it refuses: pools and
+    sidecars that a fused call writes in place (``written``) must be
+    contiguous and 16-byte aligned, the sidecars f32; the rope-fused call
+    reads fresh K and V as one dtype (V in K's, exactly: K's dtype is
+    V's or f32)."""
     q8 = k_scale is not None
     p, hk, page_size, d = k_pages.shape
     check_geometry(page_size, d, q.dtype, q8)
-    if any(a.dtype != q.dtype for a in fresh) \
-            or not (q8 or k_pages.dtype == q.dtype):
+    floats = (*fresh, *((k_pages,) if not q8 else ()))
+    if any(a.dtype not in _DTYPES for a in floats):
         raise ValueError(
-            "the CUDA kernel takes q, fresh K/V and float pools of one "
-            f"dtype, or int8 pools with scales; got q {q.dtype}, pools "
-            f"{k_pages.dtype}/{v_pages.dtype}"
-            + (f", fresh {fresh[0].dtype}" if fresh else "")
-            + (" with scales" if q8 else ""))
-    if q8 and (k_scale.dtype != torch.float32
-               or v_scale.dtype != torch.float32):
-        raise ValueError("the CUDA kernel takes float32 scale sidecars")
-    if any(a.dtype != torch.int32 for a in rows) \
-            or any(a.dtype != torch.float32 for a in tables):
-        raise ValueError("block tables and row metadata must be int32, "
-                         "rope tables float32")
-    ops = (q, k_pages, v_pages, *rows, *fresh, *tables) \
-        + ((k_scale, v_scale) if q8 else ())
-    if not all(a.is_contiguous() for a in ops):
-        raise ValueError("the CUDA kernel takes contiguous operands")
-    tc = attention_instance(q.dtype, d) == "tensor-core"
-    vec = (k_pages, v_pages, *fresh, *tables) \
-        + ((k_scale, v_scale) if q8 else ()) + ((q,) if tc else ())
-    if any(a.data_ptr() % 16 for a in vec):
-        raise ValueError("the CUDA kernel fetches 16-byte vectors from "
-                         "16-byte aligned q, pools, sidecars, fresh K/V and "
-                         "rope tables")
+            "the CUDA kernels take q, fresh K/V and float pools in "
+            "bfloat16, float16 or float32 (any mix), or int8 pools with "
+            f"scales; got q {q.dtype}, pools {k_pages.dtype}"
+            + (f", fresh {fresh[0].dtype}/{fresh[1].dtype}" if fresh else ""))
+    if tables and fresh[1].dtype != fresh[0].dtype \
+            and fresh[0].dtype != torch.float32:
+        raise ValueError(
+            "the rope-fused call reads fresh K and V as one dtype: V in "
+            f"K's ({fresh[0].dtype}) exactly, so K must be V's dtype or "
+            f"float32; got V {fresh[1].dtype}")
+    if any(a.dtype.is_floating_point or a.dtype.is_complex
+           or a.dtype == torch.bool for a in rows):
+        raise ValueError("block tables and row metadata must be integers")
+    if any(not a.dtype.is_floating_point
+           for a in (*tables, *((k_scale, v_scale) if q8 else ()))):
+        raise ValueError("scale sidecars and rope tables must be floats")
+    if written:
+        pools = (k_pages, v_pages) + ((k_scale, v_scale) if q8 else ())
+        if q8 and (k_scale.dtype != torch.float32
+                   or v_scale.dtype != torch.float32):
+            raise ValueError(
+                "a fused call writes the scale sidecars in place, so it "
+                "takes float32 sidecars (it cannot convert them)")
+        if not all(a.is_contiguous() for a in pools) \
+                or any(a.data_ptr() % 16 for a in pools):
+            raise ValueError(
+                "a fused call writes the pools and sidecars in place, so it "
+                "takes them contiguous and 16-byte aligned (it cannot copy "
+                "them)")
+
+
+def _readable(t, dtype=None, align=True):
+    """``t`` as a kernel reads it: in ``dtype`` (if given), contiguous,
+    16-byte aligned where ``align`` (the operands read as 16-byte
+    vectors); a copy only where ``t`` is not. For operands the kernels
+    only read: q, rows, fresh K/V, read-only pools, sidecars and rope
+    tables."""
+    if t is None:
+        return None
+    if dtype is not None:
+        t = t.to(dtype)
+    t = t.contiguous()
+    return t if not align or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _passes(check, *args):
@@ -520,9 +551,9 @@ def _lib():
     lib = _build.load("ragged_paged_attention")
     if not getattr(lib, "_rpa_typed", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rpa_kv_write.argtypes = [i32] * 3 + [vp] * 14 + [i32] * 7 + [vp]
+        lib.rpa_kv_write.argtypes = [i32] * 4 + [vp] * 14 + [i32] * 7 + [vp]
         lib.rpa_kv_write.restype = i32
-        lib.rpa_attention.argtypes = [i32] * 4 + [vp] * 17 + [i32] * 10 \
+        lib.rpa_attention.argtypes = [i32] * 5 + [vp] * 17 + [i32] * 10 \
             + [ctypes.c_float, vp]
         lib.rpa_attention.restype = i32
         lib.rpa_error_string.argtypes = [i32]
@@ -537,6 +568,11 @@ def _raise_on(lib, rc, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
+def _pool_code(k_pages):
+    """The C code of float pools (int8 pools: 0, unread)."""
+    return _DTYPES.get(k_pages.dtype, 0)
+
+
 def _attend(lib, rope, q, k_pages, v_pages, k_scale, v_scale, sin, cos,
             block_tables, meta, n_tok, qb, scale, what):
     """The attention launch; ``meta`` is (kv_lens, q_starts, q_lens,
@@ -544,8 +580,8 @@ def _attend(lib, rope, q, k_pages, v_pages, k_scale, v_scale, sin, cos,
     r, w = block_tables.shape
     h, d = q.shape[-2:]
     p, hk, page_size, _ = k_pages.shape
-    inst = attention_instance(q.dtype, d)
-    code = _check_instance(inst, q.dtype, d)
+    inst = attention_instance(q.dtype, d, k_pages.dtype)
+    code = _check_instance(inst, q.dtype, d, k_pages.dtype)
     out = torch.empty((r, qb, h, d), dtype=q.dtype, device=q.device)
     if r == 0:
         return out
@@ -564,8 +600,8 @@ def _attend(lib, rope, q, k_pages, v_pages, k_scale, v_scale, sin, cos,
         tickets = _build.tickets(q.device, r * hk * tiles)
     ptrs = (q, k_pages, v_pages, k_scale, v_scale, sin, cos, block_tables,
             *meta, out, part_o, part_ml, tickets)
-    rc = lib.rpa_attention(code, _DTYPES[q.dtype], int(rope),
-                           int(k_scale is not None),
+    rc = lib.rpa_attention(code, _DTYPES[q.dtype], _pool_code(k_pages),
+                           int(rope), int(k_scale is not None),
                            *map(_build.data_ptr, ptrs), r, n_tok, h, hk, d,
                            p, page_size, w, qb, slab, float(scale), stream)
     _raise_on(lib, rc, what)
@@ -577,6 +613,12 @@ def _attend(lib, rope, q, k_pages, v_pages, k_scale, v_scale, sin, cos,
 def _launch_ragged(q, k_pages, v_pages, block_tables, meta, scale, k_scale,
                    v_scale):
     what = "ragged_q8" if k_scale is not None else "ragged"
+    # read only: every operand may be converted or copied
+    q, k_pages, v_pages = map(_readable, (q, k_pages, v_pages))
+    k_scale, v_scale = (_readable(x, torch.float32)
+                        for x in (k_scale, v_scale))
+    block_tables, *meta = (_readable(x, torch.int32, align=False)
+                           for x in (block_tables, *meta))
     return _attend(_lib(), False, q, k_pages, v_pages, k_scale, v_scale,
                    None, None, block_tables, tuple(meta) + (None, None), 0,
                    q.shape[1], scale, what)
@@ -585,6 +627,24 @@ def _launch_ragged(q, k_pages, v_pages, block_tables, meta, scale, k_scale,
 def _fused_form(rope_sin, k_scale):
     return ("fused_rope" if rope_sin is not None else "fused") \
         + ("_q8" if k_scale is not None else "")
+
+
+def _fresh(new_k, new_v, k_pages, rope):
+    """The fresh K/V as the write launch reads them, cast where the
+    reference casts them. Without rope: both in the float pools' dtype,
+    or in f32 (exact) over int8 pools where their dtypes differ. With
+    rope, K stays in its own dtype (it is roped and cast through it
+    before the pools' cast or quantizer) and V is read in K's, which
+    :func:`_check_kernel` lets through only where it is exact (V in K's
+    dtype already, or K in f32); the kernel casts both to float pools'
+    dtype."""
+    if not rope:
+        dt = k_pages.dtype if k_pages.dtype != torch.int8 else (
+            new_k.dtype if new_v.dtype == new_k.dtype else torch.float32)
+        new_k, new_v = new_k.to(dt), new_v.to(dt)
+    else:
+        new_v = new_v.to(new_k.dtype)
+    return _readable(new_k), _readable(new_v)
 
 
 def _launch_write(lib, new_k, new_v, k_pages, v_pages, block_tables, meta,
@@ -598,7 +658,8 @@ def _launch_write(lib, new_k, new_v, k_pages, v_pages, block_tables, meta,
     what = _fused_form(rope_sin, k_scale)
     ptrs = (new_k, new_v, k_pages, v_pages, k_scale, v_scale, rope_sin,
             rope_cos, block_tables, *meta)
-    rc = lib.rpa_kv_write(_DTYPES[new_k.dtype], int(rope_sin is not None),
+    rc = lib.rpa_kv_write(_DTYPES[new_k.dtype], _pool_code(k_pages),
+                          int(rope_sin is not None),
                           int(k_scale is not None),
                           *map(_build.data_ptr, ptrs), r, t, hk, d, p,
                           page_size, w,
@@ -613,13 +674,21 @@ def _launch_fused(q, new_k, new_v, k_pages, v_pages, block_tables, meta,
     what = _fused_form(rope_sin, k_scale)
     lib = _lib()
     qb = int(qblock) if rope else q.shape[1]
+    # the pools and sidecars are written in place (checked, never
+    # copied); every other operand is read only
+    q = _readable(q)
+    new_k, new_v = _fresh(new_k, new_v, k_pages, rope)
+    rope_sin, rope_cos = (_readable(x, torch.float32)
+                          for x in (rope_sin, rope_cos))
+    block_tables, *meta = (_readable(x, torch.int32, align=False)
+                           for x in (block_tables, *meta))
     if block_tables.shape[0]:
         _launch_write(lib, new_k, new_v, k_pages, v_pages, block_tables,
                       meta, k_scale, v_scale, rope_sin, rope_cos)
     # the attention reads the written pools, so it needs no fresh rows
     return _attend(lib, rope, q, k_pages, v_pages, k_scale, v_scale,
                    rope_sin, rope_cos, block_tables,
-                   meta if rope else tuple(meta[:3]) + (None, None),
+                   tuple(meta) if rope else tuple(meta[:3]) + (None, None),
                    new_k.shape[0], qb, scale, what)
 
 
@@ -642,9 +711,10 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, kv_lens,
     docstring for shapes). Pass ``k_scale``/``v_scale`` sidecars with
     int8 pools. Returns ``out [R, QB, H, D]``.
 
-    CUDA tensors launch the hand-written attention kernel (q in bf16,
-    f16 or f32; pools in q's dtype, or int8 pools with f32 sidecars) and
-    raise if they cannot;
+    CUDA tensors launch the hand-written attention kernel (q and float
+    pools in bf16, f16 or f32, any mix, or int8 pools with float
+    sidecars; integer rows; operands converted and copied as
+    :func:`_readable` says) and raise if they cannot;
     CPU tensors run :func:`ragged_paged_attention_ref`."""
     meta = (kv_lens, q_starts, q_lens)
     _check_ragged(q, k_pages, v_pages, block_tables, meta, k_scale, v_scale)
@@ -669,9 +739,12 @@ def fused_ragged_paged_attention(q, new_k, new_v, k_pages, v_pages,
     scales) land in the pools IN PLACE; the dump page is never written.
 
     CUDA tensors launch the hand-written write and attention kernels
-    (bf16, f16 or f32 q, fresh K/V and float pools of one dtype, or int8
-    pools; they raise if they cannot); CPU tensors, of any float dtype,
-    run :func:`fused_ragged_paged_attention_ref`."""
+    (q, fresh K/V and float pools in bf16, f16 or f32, any mix, or int8
+    pools; the read-only operands converted as the reference converts
+    them; the pools and f32 sidecars, written in place, contiguous and
+    16-byte aligned, :func:`_check_kernel`) and raise if they cannot;
+    CPU tensors, of any float dtype, run
+    :func:`fused_ragged_paged_attention_ref`."""
     meta = (kv_lens, q_starts, q_lens, w_starts, w_flats)
     _check_fused(q, new_k, new_v, k_pages, v_pages, block_tables,
                  meta + (w_ends,), dump_page, k_scale, v_scale, rope_sin,

@@ -19,11 +19,12 @@ multi-chunk rows, an inactive row and poisoned table tails, the write
 launch alone bitwise against the plain write (pages of 8 to 256 slots,
 head dims 8 to 256, a 600-token chunk, decode-only), and the engine's
 geometry check at construction; the decode paged attention
-kernel over bf16, f16 and f32 pools (q in the pools' dtype or f32) at
-GQA groups 1, 4, 6 and 32, head dims 16 to 256 and pages of 8, 16 and
-32 slots, with inactive and one-token rows, poisoned table tails and
-contexts past the table, rows bitwise the same alone and in a batch,
-and ``PagedKVCache`` on the card.
+kernel over bf16, f16, f32 and raw int8 pools (q in any float dtype) at
+GQA groups 1, 4, 6, 32 and 512, head dims 16 to 256 and pages of 8, 16
+and 32 slots, with inactive and one-token rows, poisoned table tails,
+contexts past the table, int64 tables and lens and a strided q, rows of
+one split and of many bitwise the same alone and in a batch, and
+``PagedKVCache`` on the card.
 
 Every test needs an NVIDIA card and ``nvcc`` and skips without one; on
 the card this file runs on its own, without the jax-importing conftest:
@@ -778,19 +779,51 @@ def test_ragged_attention_widened_domain(dev, case, variant):
     _check_family(dev, case[:-1], variant, case[-1])
 
 
-def _check_family(dev, case, variant, dtype):
+ROWS = ("block_tables", "kv_lens", "q_starts", "q_lens", "w_starts",
+        "w_flats", "w_ends")
+
+
+def _retyped(a, model=None, forms=False):
+    """A call's arguments in the reference's other operand forms: q and
+    the fresh K/V in the ``model`` dtype; with ``forms``, int64 rows, f64
+    rope tables, bf16 read-only scale sidecars and a strided read-only
+    q."""
+    a = dict(a)
+    if model is not None:
+        for k in ("q", "new_k", "new_v"):
+            if k in a:
+                a[k] = a[k].to(model)
+    if forms:
+        for k in ROWS:
+            if k in a:
+                a[k] = a[k].long()
+        for k in ("rope_sin", "rope_cos"):
+            if k in a:
+                a[k] = a[k].double()
+        if "new_k" not in a:        # read only
+            if "k_scale" in a:
+                a["k_scale"] = a["k_scale"].bfloat16()
+                a["v_scale"] = a["v_scale"].bfloat16()
+            q = a["q"]
+            a["q"] = torch.cat([q, q], dim=-1)[..., :q.shape[-1]]
+    return a
+
+
+def _check_family(dev, case, variant, dtype, model=None, forms=False):
     kw, written, num_pages = _rpa_case(dev, *case, seed=len(case[-1]),
                                        dtype=dtype)
     read_only = variant.startswith("ragged")
     fn, ref = (RP.ragged_paged_attention, RP.ragged_paged_attention_ref) \
         if read_only else (RP.fused_ragged_paged_attention,
                            RP.fused_ragged_paged_attention_ref)
-    a_k, a_r = _variant_args(kw, variant), _variant_args(kw, variant)
+    a_k, a_r = (_retyped(_variant_args(kw, variant), model, forms)
+                for _ in range(2))
     before = RP.launches[variant]
     out = fn(**a_k)
     assert RP.launches[variant] == before + (1 if read_only else 2)
     out_r = ref(**a_r)
     torch.cuda.synchronize()
+    assert out.dtype == a_k["q"].dtype
     _close_dtype(out, out_r)
     # padded query rows and the inactive row are exact zeros
     assert not out[-1].any()
@@ -802,9 +835,9 @@ def _check_family(dev, case, variant, dtype):
     keep = ~wr
     names = ("k_pages", "v_pages") + (("k_scale", "v_scale")
                                       if variant.endswith("q8") else ())
+    orig_args = _retyped(_variant_args(kw, variant), model, forms)
     for name in names:
-        got, want, orig = a_k[name], a_r[name], _variant_args(kw, variant)[
-            name]
+        got, want, orig = a_k[name], a_r[name], orig_args[name]
         assert torch.equal(got[keep], orig[keep]), name
         if read_only:
             assert torch.equal(got, orig), name
@@ -816,6 +849,31 @@ def _check_family(dev, case, variant, dtype):
             assert bool(((g - w).abs() <= ulp).all())
         else:
             assert torch.equal(got[wr], want[wr]), name
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("pools,model", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float16)])
+def test_ragged_attention_takes_mixed_dtypes(dev, variant, pools, model):
+    """q and the fresh K/V in another float dtype than the pools' (C9):
+    the reference computes in f32 from both and casts the fresh K/V to
+    the pools' dtype (with rope, K after its rope through the model's
+    dtype), so written slots stay the plain write's; the attention over
+    float pools of another dtype is the general instance."""
+    inst = "general" if not variant.endswith("q8") else \
+        RP.attention_instance(model, RPA[0][2])
+    before = RP.instance_launches[f"{variant}.{inst}"]
+    _check_family(dev, RPA[0], variant, pools, model=model)
+    assert RP.instance_launches[f"{variant}.{inst}"] == before + 1
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_ragged_attention_takes_the_reference_forms(dev, variant):
+    """int64 rows, f64 rope tables, bf16 read-only sidecars and a strided
+    read-only q, converted before the launch as the reference converts
+    them (C9)."""
+    _check_family(dev, RPA[1], variant, torch.bfloat16, forms=True)
 
 
 # the write launch alone: hk, group, d, page, qblock, seqs, dtype; pages
@@ -864,20 +922,39 @@ def test_kv_write_launch_matches_plain_write(dev, case, variant):
 
 
 def test_ragged_attention_rejects_what_it_cannot_take(dev):
+    """What the fused calls write in place they neither copy nor convert
+    (a stated difference): strided or misaligned pools and non-f32
+    sidecars raise before any launch; the read-only forms run (C9)."""
     kw, _, _ = _rpa_case(dev, *RPA[0], seed=1)
     a = _variant_args(kw, "fused_q8")
     with pytest.raises(ValueError, match="int8 pools with scales"):
         RP.fused_ragged_paged_attention(**dict(a, k_scale=None,
                                                v_scale=None))
-    # q of another dtype than the fresh K/V (f32 q is taken with f32 pools)
-    with pytest.raises(ValueError, match="one dtype"):
-        RP.fused_ragged_paged_attention(**dict(a, q=a["q"].float()))
     with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
         RP.check_geometry(16, 128, torch.float64)
+    before = dict(RP.launches)
+    with pytest.raises(ValueError, match="float32 sidecars"):
+        RP.fused_ragged_paged_attention(**dict(
+            a, k_scale=a["k_scale"].bfloat16(),
+            v_scale=a["v_scale"].bfloat16()))
+    f = _variant_args(kw, "fused")
+    wide = torch.cat([f["k_pages"], f["k_pages"]], dim=-1)
+    with pytest.raises(ValueError, match="in place"):
+        RP.fused_ragged_paged_attention(**dict(
+            f, k_pages=wide[..., :f["k_pages"].shape[-1]]))
+    flat = torch.empty(f["k_pages"].numel() + 1, dtype=torch.bfloat16,
+                       device=dev)
+    odd = flat[1:].view(f["k_pages"].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        RP.fused_ragged_paged_attention(**dict(f, k_pages=odd))
+    assert RP.launches == before
+    # a q of another dtype than the fresh K/V is taken now
+    out = RP.fused_ragged_paged_attention(**dict(a, q=a["q"].float()))
+    assert out.dtype == torch.float32
     b = _variant_args(kw, "ragged")
-    with pytest.raises(ValueError, match="contiguous"):
-        RP.ragged_paged_attention(**dict(b, q=b["q"].transpose(1, 2)
-                                         .contiguous().transpose(1, 2)))
+    out = RP.ragged_paged_attention(**dict(b, q=b["q"].transpose(1, 2)
+                                           .contiguous().transpose(1, 2)))
+    _close_dtype(out, RP.ragged_paged_attention_ref(**b))
 
 
 # the tensor-core instance (bf16 and f16 at head_dim % 16 == 0): rows
@@ -950,24 +1027,33 @@ def test_flash_dq_is_bitwise_across_calls(dev):
     assert torch.equal(dq1, dq2)
 
 
-PAGED = [  # h, hk, d, page, pool dtype, q in f32
-    (32, 8, 128, 16, torch.bfloat16, False),   # Llama-3-8B
-    (32, 8, 128, 16, torch.bfloat16, True),
-    (6, 1, 16, 8, torch.float32, False),       # the reference test's 6/1
-    (4, 4, 64, 32, torch.float16, False),      # group 1
-    (32, 1, 128, 16, torch.bfloat16, False),   # MQA, group 32
-    (12, 2, 256, 8, torch.float16, True),      # group 6, head_dim 256
-    (8, 2, 24, 16, torch.float32, False),
-    (64, 2, 256, 32, torch.float32, False),    # the most shared memory
+PAGED = [  # h, hk, d, page, pool dtype, q dtype (None: the pools'), form
+    (32, 8, 128, 16, torch.bfloat16, None, None),   # Llama-3-8B
+    (32, 8, 128, 16, torch.bfloat16, torch.float32, None),
+    (6, 1, 16, 8, torch.float32, None, None),       # the reference test's 6/1
+    (4, 4, 64, 32, torch.float16, None, None),      # group 1
+    (32, 1, 128, 16, torch.bfloat16, None, None),   # MQA, group 32: 2 tiles
+    (12, 2, 256, 8, torch.float16, torch.float32, None),  # group 6, d 256
+    (8, 2, 24, 16, torch.float32, None, None),
+    (64, 2, 256, 32, torch.float32, None, None),
+    (8, 2, 72, 8, torch.float16, None, None),       # d % 16 == 8 on mma
+    # the reference's operand forms (C9)
+    (32, 8, 128, 16, torch.bfloat16, None, "int64"),
+    (32, 8, 128, 16, torch.bfloat16, None, "strided q"),
+    (32, 8, 128, 16, torch.float32, torch.bfloat16, None),
+    (32, 8, 128, 16, torch.float16, torch.bfloat16, None),
+    (32, 8, 128, 16, torch.int8, torch.bfloat16, None),   # raw int8 pools
+    (8, 2, 40, 8, torch.int8, torch.float32, None),
+    (1024, 2, 256, 8, torch.float32, None, None),   # group 512
 ]
 
 
-def _paged_case(dev, h, hk, d, page, dtype, q_f32, seed, ctxs=None,
+def _paged_case(dev, h, hk, d, page, dtype, q_dtype, seed, ctxs=None,
                 width=6):
     """Decode rows over a pool with seeded, distinct live pages and
     table tails poisoned with ids outside [0, P): by default an inactive
     row, one token, a page, a ragged context, the whole table and a
-    context past it."""
+    context past it. int8 pools hold random values in [-127, 127]."""
     rng = np.random.RandomState(seed)
     if ctxs is None:
         ctxs = [0, 1, page, 3 * page + 5, width * page, width * page + 9,
@@ -982,15 +1068,20 @@ def _paged_case(dev, h, hk, d, page, dtype, q_f32, seed, ctxs=None,
         tables[i, :n] = perm[used:used + n]
         used += n
     g = torch.Generator(dev).manual_seed(seed)
-    qd = torch.float32 if q_f32 else dtype
-    return dict(
-        q=torch.randn(len(ctxs), h, d, device=dev, generator=g).to(qd),
-        k_pages=torch.randn(num_pages, hk, page, d, device=dev,
-                            generator=g).to(dtype),
-        v_pages=torch.randn(num_pages, hk, page, d, device=dev,
-                            generator=g).to(dtype),
-        block_tables=torch.from_numpy(tables).to(dev),
-        context_lens=torch.tensor(ctxs, dtype=torch.int32, device=dev))
+
+    def pool():
+        shape = (num_pages, hk, page, d)
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, device=dev, generator=g,
+                                 dtype=torch.int8)
+        return torch.randn(*shape, device=dev, generator=g).to(dtype)
+    q = torch.randn(len(ctxs), h, d, device=dev, generator=g)
+    if dtype == torch.int8:
+        q = q / 16          # scores of int8 keys stay within exp's range
+    return dict(q=q.to(q_dtype or dtype), k_pages=pool(), v_pages=pool(),
+                block_tables=torch.from_numpy(tables).to(dev),
+                context_lens=torch.tensor(ctxs, dtype=torch.int32,
+                                          device=dev))
 
 
 def _close_paged(got, ref):
@@ -1006,9 +1097,23 @@ def _close_paged(got, ref):
         _close_any(got, ref)
 
 
+def _paged_form(a, form):
+    """The operands in one of the reference's other forms: int64 tables
+    and lens, or q a strided view."""
+    if form == "int64":
+        return dict(a, block_tables=a["block_tables"].long(),
+                    context_lens=a["context_lens"].long())
+    if form == "strided q":
+        q = a["q"]
+        return dict(a, q=torch.cat([q, q], dim=-1)[..., :q.shape[-1]])
+    return a
+
+
 @pytest.mark.parametrize("case", PAGED)
 def test_paged_attention_matches_plain(dev, case):
-    a = _paged_case(dev, *case, seed=case[0] + case[2])
+    *geom, form = case
+    a = _paged_form(_paged_case(dev, *geom, seed=case[0] + case[2]), form)
+    assert form != "strided q" or not a["q"].is_contiguous()
     before = PA.launches["paged"]
     out = PA.paged_attention(**a)
     assert PA.launches["paged"] == before + 1
@@ -1026,46 +1131,52 @@ def test_paged_attention_matches_plain(dev, case):
                  PA.paged_attention_ref(**a, scale=0.05))
 
 
-def test_paged_attention_rows_are_independent(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_rows_are_independent(dev, dtype):
     """A row's output is bit for bit the same alone and inside a batch
-    of 32, and from call to call."""
+    of 32, and from call to call, rows of one split and of many (splits
+    of 128 keys up to 512, of 256 up to 1024, of 512 past) alike."""
     rng = np.random.RandomState(3)
-    ctxs = [0, 1] + rng.randint(1, 700, 30).tolist()
-    a = _paged_case(dev, 32, 8, 128, 16, torch.bfloat16, False, 3, ctxs,
-                    width=44)
+    ctxs = [0, 1, 257, 1025, 3000] + rng.randint(1, 700, 27).tolist()
+    a = _paged_case(dev, 32, 8, 128, 16, dtype, None, 3, ctxs, width=200)
     out = PA.paged_attention(**a)
     assert torch.equal(PA.paged_attention(**a), out)
-    for i in (0, 1, 7, 31):
+    for i in (0, 1, 2, 3, 4, 7, 31):
         alone = PA.paged_attention(
             a["q"][i:i + 1], a["k_pages"], a["v_pages"],
             a["block_tables"][i:i + 1], a["context_lens"][i:i + 1])
         assert torch.equal(alone[0], out[i]), i
-    _close(out, PA.paged_attention_ref(**a))
+    _close_any(out, PA.paged_attention_ref(**a))
 
 
 def test_paged_attention_rejects_what_it_cannot_take(dev):
-    a = _paged_case(dev, 32, 8, 128, 16, torch.bfloat16, False, 1)
+    """Outside the reference's rule the call raises before any launch;
+    every form the reference converts runs in one launch (C9)."""
+    a = _paged_case(dev, 32, 8, 128, 16, torch.bfloat16, None, 1)
     before = PA.launches["paged"]
     with pytest.raises(ValueError, match="preconditions not met"):
         PA.paged_attention(**dict(a, q=a["q"][:, :31]))
-    with pytest.raises(ValueError, match="float32 pools"):
-        PA.paged_attention(**dict(a, q=a["q"].half()))
-    with pytest.raises(ValueError, match="float32 pools"):
-        q8 = a["k_pages"].to(torch.int8)
-        PA.paged_attention(**dict(a, k_pages=q8, v_pages=q8))
-    with pytest.raises(ValueError, match="int32"):
-        PA.paged_attention(**dict(a, block_tables=a["block_tables"].long()))
-    with pytest.raises(ValueError, match="contiguous"):
-        PA.paged_attention(**dict(a, q=a["q"].transpose(1, 2).contiguous()
-                                  .transpose(1, 2)))
-    big = torch.zeros(2, 1024, 256, device=dev)
-    pool = torch.zeros(4, 2, 8, 256, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        PA.paged_attention(big, pool, pool, a["block_tables"][:2],
-                           a["context_lens"][:2])
-    assert not PA.supported(big, pool, pool, a["block_tables"][:2],
-                            a["context_lens"][:2])
+    with pytest.raises(ValueError, match="integers"):
+        PA.paged_attention(**dict(a, block_tables=a["block_tables"].float()))
+    with pytest.raises(ValueError, match="one dtype"):
+        PA.paged_attention(**dict(a, v_pages=a["v_pages"].half()))
     assert PA.launches["paged"] == before
+    q8 = a["k_pages"].to(torch.int8)
+    big = torch.randn(2, 1024, 256, device=dev)
+    pool = torch.randn(4, 2, 8, 256, device=dev)
+    for kw in (dict(a, q=a["q"].half()),
+               dict(a, k_pages=q8, v_pages=q8),
+               dict(a, block_tables=a["block_tables"].long()),
+               dict(a, q=a["q"].transpose(1, 2).contiguous()
+                    .transpose(1, 2)),
+               dict(q=big, k_pages=pool, v_pages=pool,
+                    block_tables=a["block_tables"][:2] % 4,
+                    context_lens=a["context_lens"][:2])):
+        assert PA.supported(**kw)
+        out = PA.paged_attention(**kw)
+        assert PA.launches["paged"] == before + 1
+        before += 1
+        _close_paged(out, PA.paged_attention_ref(**kw))
 
 
 def test_paged_kv_cache_on_the_card(dev):

@@ -361,3 +361,110 @@ def test_attend_takes_the_reference_use_pallas():
             ct.attend([0], q, **kw)
     # positional, as a reference caller passes it
     assert torch.equal(ct.attend([0], q, None, False), base)
+
+
+# the reference's other operand forms (C9): the port's CPU path against
+# the reference's Pallas kernel (interpret mode) on the same numpy values;
+# q dtype, pool dtype
+FORMS = {
+    "int64 tables and lens": (jnp.float32, jnp.float32, torch.float32,
+                              torch.float32, np.int64),
+    "bf16 q over f32 pools": (jnp.bfloat16, jnp.float32, torch.bfloat16,
+                              torch.float32, np.int32),
+    "f32 q over bf16 pools": (jnp.float32, jnp.bfloat16, torch.float32,
+                              torch.bfloat16, np.int32),
+    "raw int8 pools": (jnp.float32, jnp.int8, torch.float32, torch.int8,
+                       np.int32),
+}
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_reference_operand_forms_match_reference(form):
+    jq, jkv, tq, tkv, ints = FORMS[form]
+    b, h, hk, d, p, page, tables, lens = CASES["llama3_geometry"]
+    rng = np.random.RandomState(11)
+    a = _inputs(rng, b, h, hk, d, p, page, tables, lens)
+    if tkv == torch.int8:
+        a["k_pages"] = rng.randint(-127, 128, a["k_pages"].shape)
+        a["v_pages"] = rng.randint(-127, 128, a["v_pages"].shape)
+        a["q"] = a["q"] / 16
+    # the values each side holds: q and pools rounded to their dtypes once
+    qv = _np(jnp.asarray(a["q"], jq))
+    kv = {k: _np(jnp.asarray(a[k], jkv)) for k in ("k_pages", "v_pages")}
+    argj = [jnp.asarray(qv, jq), *(jnp.asarray(kv[k], jkv)
+                                   for k in ("k_pages", "v_pages")),
+            *(jnp.asarray(a[k]) for k in INTS)]
+    argt = [torch.from_numpy(qv.copy()).to(tq),
+            *(torch.from_numpy(kv[k].copy()).to(tkv) for k in ("k_pages",
+                                                             "v_pages")),
+            *(torch.from_numpy(a[k].astype(ints)) for k in INTS)]
+    assert PJ.supported(*argj) and PT.supported(*argt)
+    got, want = PT.paged_attention(*argt), PJ.paged_attention(*argj)
+    assert got.dtype == tq and tuple(got.shape) == (b, h, d)
+    g, w = _np(got), _np(want)
+    # f32: the file's 1e-5, taken relative to the pools' value scale (V up
+    # to 127 in int8 pools: the outputs are sums of such values)
+    vmax = 127.0 if tkv == torch.int8 else 1.0
+    if tq == torch.bfloat16:
+        assert (np.abs(g - w) <= _ulp_bf16(w)).all()
+    else:
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * vmax)
+    # the XLA path rounds its bf16 out once too: within one bf16 ulp
+    x = _np(PJ.paged_attention_xla(*argj))
+    if tq == torch.bfloat16:
+        assert (np.abs(g - x) <= _ulp_bf16(x)).all()
+    else:
+        np.testing.assert_allclose(g, x, rtol=1e-5, atol=1e-5 * vmax)
+
+
+def test_group_512_matches_reference():
+    """The widest group the reference's rule takes at head_dim 256 (H
+    1024 over Hk 2), which the CUDA kernel tiles: the port against the
+    reference's Pallas kernel and XLA path."""
+    a = _inputs(np.random.RandomState(5), 2, 1024, 2, 256, 6, 8,
+                [[0, 3, 1], [5, 2, 4]], [20, 9])
+    ref, wrap, pallas, xla = map(_np, _run(a))
+    np.testing.assert_array_equal(ref, wrap)
+    np.testing.assert_allclose(ref, pallas, **TOL)
+    np.testing.assert_allclose(ref, xla, **TOL)
+
+
+# contexts: none, one token, page multiples, a ragged one, past the
+# table, Llama-3-8B's full context; table widths (pages) and page sizes
+PLAN_CTXS = [0, 1, 16, 255, 256, 257, 1024, 1025, 4096, 5000, 8192, 9000]
+
+
+@pytest.mark.parametrize("width,page", [(512, 16), (64, 8), (3, 64),
+                                        (600, 16), (1, 8)])
+def test_split_plan_covers_each_key_once(width, page):
+    """Every key a row attends (its context, at most the table's width x
+    page slots) lies in exactly one split, splits of SPLIT_UNIT keys (of
+    half that up to LONG_KEYS / 2, twice that past LONG_KEYS), and no row
+    takes more splits than the
+    grid holds."""
+    for ctx in PLAN_CTXS:
+        n = max(0, min(ctx, width * page))
+        plan = PT.split_plan(ctx, width, page)
+        keys = [k for lo, hi in plan for k in range(lo, hi)]
+        assert keys == list(range(n)), (ctx, width, page)
+        unit = 2 * PT.SPLIT_UNIT if n > PT.LONG_KEYS else (
+            PT.SPLIT_UNIT if n > PT.LONG_KEYS // 2 else PT.SPLIT_UNIT // 2)
+        assert all(hi - lo == unit for lo, hi in plan[:-1])
+        assert len(plan) <= PT.grid_splits(width, page)
+    assert PT.split_plan(-3, width, page) == []
+
+
+def test_split_plan_depends_on_the_row_alone():
+    """A row's plan is a function of its own context and the table's
+    capacity: the same in any batch, and the same for any width that
+    holds the row's keys."""
+    for ctx in PLAN_CTXS:
+        for width in (600, 1000):
+            assert PT.split_plan(ctx, width, 16) \
+                == PT.split_plan(min(ctx, 600 * 16), 600, 16)
+    # the reference's rule picks the instance by the pools' dtype alone
+    assert [PT.kernel_instance(t) for t in (
+        torch.bfloat16, torch.float16, torch.float32, torch.int8)] \
+        == ["tensor-core", "tensor-core", "general", "general"]
+    with pytest.raises(ValueError, match="no CUDA instance"):
+        PT.kernel_instance(torch.float64)

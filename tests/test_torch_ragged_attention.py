@@ -295,6 +295,50 @@ def test_read_only_matches_reference(name, ref, q8):
     assert not np.abs(got[-1]).any()
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["read_only",
+                                                      "fused_rope"])
+def test_reference_operand_forms_match_reference(fused):
+    """C9's forms the reference converts (int64 row metadata; bf16
+    read-only scale sidecars; f64 rope tables) give the reference's
+    results: the read-only int8 call (#9) and the rope-fused call (#12)
+    against the Pallas kernels in interpret mode, at 1e-5 of scale."""
+    seqs, qb = CASES["mixed"]
+    rng = np.random.RandomState(21 + fused)
+    c = _case(rng, seqs, qb)
+    ints = ("block_tables", "kv_lens", "q_starts", "q_lens", "w_starts",
+            "w_flats", "w_ends")
+    if not fused:
+        c = _int8_pools(_row_blocked(c), rng)
+        # sidecars as bf16 holds them: both sides read the same values
+        for k in ("k_scale", "v_scale"):
+            c[k] = np.asarray(jnp.asarray(c[k], jnp.bfloat16), np.float32)
+    t = {k: torch.from_numpy(np.array(v)) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    for k in ints:
+        t[k] = t[k].long()
+    j = {k: jnp.asarray(c[k]) for k in c if isinstance(c[k], np.ndarray)}
+    if fused:
+        t["rope_sin"], t["rope_cos"] = t["rope_sin"].double(), \
+            t["rope_cos"].double()
+        got = RT.fused_ragged_paged_attention(
+            *(t[k] for k in ORDER), DUMP, rope_sin=t["rope_sin"],
+            rope_cos=t["rope_cos"], qblock=c["qblock"])
+        want = RJ.fused_ragged_paged_attention(
+            *(j[k] for k in ORDER), DUMP, rope_sin=j["rope_sin"],
+            rope_cos=j["rope_cos"], qblock=c["qblock"])[0]
+    else:
+        args = ("q", "k_pages", "v_pages", "block_tables", "kv_lens",
+                "q_starts", "q_lens")
+        ks, vs = (t[k].bfloat16() for k in ("k_scale", "v_scale"))
+        got = RT.ragged_paged_attention(*(t[k] for k in args), k_scale=ks,
+                                        v_scale=vs)
+        want = RJ.ragged_paged_attention(
+            *(j[k] for k in args),
+            k_scale=jnp.asarray(c["k_scale"], jnp.bfloat16),
+            v_scale=jnp.asarray(c["v_scale"], jnp.bfloat16))
+    _close(got.float().numpy(), np.asarray(getattr(want, "_data", want)))
+
+
 def test_int8_dequant_is_scale_times_value():
     """The plain read of an int8 pool is ``int8.float() * scale``: the
     same attention as over the pools dequantized first."""
@@ -445,9 +489,12 @@ def test_widened_domain_matches_reference(monkeypatch, point, kind, ref):
 
 
 def test_kernel_geometry_rule_and_messages():
-    """The CUDA kernels' rule is the reference's shape rule; what they
-    still refuse is named: a dtype outside bf16/f16/f32, q and pools of
-    two dtypes, non-contiguous or unaligned operands."""
+    """The CUDA kernels' rule is the reference's shape rule; the launch
+    converts what the reference converts (mixed float dtypes, integer
+    rows, float sidecars, strided read-only operands), and what it still
+    refuses is named: a dtype outside bf16/f16/f32, and pools or
+    sidecars a fused call writes in place that it would have to copy or
+    convert."""
     for page, d, dt, q8 in ((64, 256, torch.float32, False),
                             (16, 72, torch.bfloat16, True),
                             (8, 8, torch.float16, False),
@@ -464,13 +511,26 @@ def test_kernel_geometry_rule_and_messages():
     rows = [torch.zeros(2, 3, dtype=torch.int32)] + [
         torch.zeros(2, dtype=torch.int32)] * 3
     RT._check_kernel(q, pools, pools, None, None, rows)
-    with pytest.raises(ValueError, match="one dtype"):
-        RT._check_kernel(q.bfloat16(), pools, pools, None, None, rows)
-    with pytest.raises(ValueError, match="contiguous"):
-        RT._check_kernel(q.transpose(1, 2).contiguous().transpose(1, 2)
-                         .expand(2, 1, 4, 256)[:, :, :, :],
-                         pools[:, :, ::2], pools[:, :, ::2], None, None,
-                         rows)
+    # converted by the launch: a q of another dtype, int64 rows, strided
+    # read-only pools
+    RT._check_kernel(q.bfloat16(), pools, pools, None, None,
+                     [r.long() for r in rows])
+    RT._check_kernel(q, pools[:, :, ::2], pools[:, :, ::2], None, None, rows)
+    with pytest.raises(ValueError, match="any mix"):
+        RT._check_kernel(q, pools.double(), pools.double(), None, None, rows)
+    with pytest.raises(ValueError, match="integers"):
+        RT._check_kernel(q, pools, pools, None, None,
+                         [r.float() for r in rows])
+    # written in place: never copied, never converted
+    fresh = (torch.zeros(3, 2, 256),) * 2
+    with pytest.raises(ValueError, match="in place"):
+        RT._check_kernel(q, pools[:, :, ::2], pools[:, :, ::2], None, None,
+                         rows, fresh, written=True)
+    q8 = pools.to(torch.int8)
+    sc = torch.ones(6, 2, 64, 1, dtype=torch.bfloat16)
+    RT._check_kernel(q, q8, q8, sc, sc, rows)     # read only: converted
+    with pytest.raises(ValueError, match="float32 sidecars"):
+        RT._check_kernel(q, q8, q8, sc, sc, rows, fresh, written=True)
 
 
 # (dtype, head_dim) of every point the card tests and ``chip_smoke.py``

@@ -243,6 +243,60 @@ def test_request_takes_the_reference_signature():
                                     stop=(3,)).stop_set == {3, 11}
 
 
+def test_engine_takes_the_reference_signature(models):
+    want = inspect.signature(JaxEngine.__init__).parameters
+    got = inspect.signature(LlamaServingEngine.__init__).parameters
+    assert list(got) == list(want)
+    # prefix_cache defaults off until the prefix cache is ported (A4)
+    assert [(n, p.default) for n, p in got.items() if n != "prefix_cache"] \
+        == [(n, p.default) for n, p in want.items() if n != "prefix_cache"]
+    assert (want["prefix_cache"].default, got["prefix_cache"].default) \
+        == (True, False)
+    _, tm = models
+    # positional as the reference takes them: the ninth is burst, the
+    # alias of decode_ticks
+    te = LlamaServingEngine(tm, 4, 8, 64, None, 16, 8, None, 5)
+    assert te.decode_ticks == 5
+    assert LlamaServingEngine(tm, decode_ticks=3, burst=5,
+                              **GEOM).decode_ticks == 3
+    assert (te.sample_enabled, te.sample_slots) == (True, 8)
+    te = LlamaServingEngine(tm, sampling=False, sample_slots=0, **GEOM)
+    assert (te.sample_enabled, te.sample_slots) == (False, 1)
+
+
+def test_engine_sampling_switch_reads_the_env_as_reference(models,
+                                                           monkeypatch):
+    jm, tm = models
+    for value, on in (("0", False), ("off", False), ("1", True)):
+        monkeypatch.setenv("PADDLE_TPU_SAMPLING", value)
+        je = JaxEngine(jm, prefix_cache=False, **GEOM)
+        assert je.sample_enabled == on
+        je.close()
+        assert LlamaServingEngine(tm, **GEOM).sample_enabled == on
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"prewarm": True}, "A3"), ({"prefix_cache_pages": 4}, "A4"),
+    ({"admit_retries": 2}, "A5"), ({"admit_backoff": 0.01}, "A5"),
+    ({"stuck_factor": 4.0}, "A5"), ({"stuck_min_timeout": 5.0}, "A5"),
+    ({"spec_ngram": 4}, "A6"), ({"drafter_factory": object}, "A6"),
+    ({"kv_tier_bytes": 1 << 20}, "A7")])
+def test_engine_unported_knobs_raise(models, kw, item):
+    _, tm = models
+    with pytest.raises(NotImplementedError, match=item):
+        LlamaServingEngine(tm, **kw, **GEOM)
+
+
+def test_engine_prewarm_env_raises_as_reference_reads_it(models,
+                                                         monkeypatch):
+    _, tm = models
+    monkeypatch.setenv("PADDLE_TPU_SERVING_PREWARM", "auto")
+    with pytest.raises(NotImplementedError, match="A3"):
+        LlamaServingEngine(tm, **GEOM)
+    monkeypatch.setenv("PADDLE_TPU_SERVING_PREWARM", "0")
+    LlamaServingEngine(tm, **GEOM)
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"deadline": 5.0}, "A5"), ({"token_budget": 0.1}, "A5"),
     ({"priority": 2}, "A5"), ({"retry_budget": 0}, "A5"),
