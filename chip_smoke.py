@@ -143,6 +143,35 @@ package is not beside it, and when any phase fails:
    tensor-core instance; mean ``attend`` time (host clock,
    synchronised), device time, the host's share, pool bytes and peak
    memory;
+3g. (run after 3c) the sampler's Gumbel pass (``gumbel_argmax`` and
+   ``gumbel_noise``) against its plain version at 8 and 64 rows of
+   Llama-3's (128256) and Mixtral's (32000) vocabularies, greedy, top-k,
+   top-p and constrained rows mixed, their scores and thresholds from the
+   sampler's own plain steps: bits and uniforms bit for bit, ``g`` within
+   ``GUMBEL_REL`` of max(|g|, 1), tokens equal but where the plain
+   version's top two perturbed scores lie within that tolerance (each such
+   row printed with its margin); the kernel's time (CUDA events and the
+   profiler's device time), the plain version's, the sampler's sort's and
+   the bound (the larger of the scores' bytes and ``GUMBEL_INT_OPS``
+   32-bit integer operations an element at the integer pipe's rate);
+11. (run after 4) phase 4's model and prompts with sampled rows: 2
+   greedy, 2 at temperature 0.8 / top_p 0.9, 2 at temperature 1.0 /
+   top_k 50, 1 with a ``logit_bias`` forcing a token and 1 with a
+   constraint hook; the greedy rows bitwise phase 4's tokens, a second
+   run with the same seeds identical, the forced and constrained rows
+   obeying their rules, the sampled tokens replayed through the model's
+   plain forward and the plain sampler at the same (seed, position) at
+   phase 4's share floor (the margins of the rows that differ printed),
+   exactly one ``gumbel_argmax`` launch and one sort per dispatch that
+   holds a sampled row, no plain version called; tokens/s beside phase
+   4's (phase 4 itself, all greedy, sorts nothing);
+12. (run after 11) ``LlamaForCausalLM.generate`` at Llama-3-8B's full
+   width and depth over its static KV cache: 4 prompts of 128 tokens, 32
+   new tokens, greedy (tokens held against the plain forward at phase 4's
+   floors, and their share equal to the engine's greedy tokens printed)
+   and ``do_sample`` (top_k 50, top_p 0.9, fixed seed: one
+   ``gumbel_argmax`` launch a step, no plain version called), each with
+   its time per step;
 
 then a JSON line of kernel results and the final result line.
 """
@@ -228,6 +257,26 @@ FULL_CTX = 8192          # Llama-3-8B's context (max_position_embeddings)
 # 768 MiB of pools), 32 sequences, then half of them replaced
 CACHE_PAGES, CACHE_ROWS, CACHE_PROMPT = 12288, 32, 8160
 CACHE_STEPS, CACHE_REFILL_STEPS = 32, 8
+# the sampler (phases 3g, 11, 12): no Pallas kernel; the line of the
+# reference's Gumbel-max argmax it replaces
+SM_SOURCE = "paddle_tpu_torch/csrc/sampling.cu"
+SM_REPLACES = "paddle_tpu/inference/sampling.py:234"
+SAMPLER_VOCABS = {"llama3": 128256, "mixtral": 32000}
+SAMPLER_ROWS = (8, 64)
+# 32-bit integer operations an element: 20 threefry rounds of add, rotate
+# and xor, 5 key injections, the 64-bit counter and the uniform's shift/or
+GUMBEL_INT_OPS = 85
+# the integer pipe: 64 lanes an SM against the 128 f32 lanes whose FMAs
+# (2 operations) make F32_FLOPS, so a quarter of that rate
+INT32_OPS = F32_FLOPS / 4
+SAMPLED_ROWS = (None, None, dict(temperature=0.8, top_p=0.9),
+                dict(temperature=0.8, top_p=0.9),
+                dict(temperature=1.0, top_k=50), dict(temperature=1.0,
+                                                      top_k=50),
+                "forced", "constrained")
+FORCED_TOKEN = 1234
+ALLOWED = (11, 22, 33, 44, 55, 66, 77, 88)
+GEN_PROMPTS, GEN_LEN, GEN_NEW = 4, 128, 32
 
 
 def fail(msg):
@@ -695,9 +744,10 @@ def reset_launches():
     from paddle_tpu_torch.ops import paged_attention as PA
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.quant import kernels as QK
+    from paddle_tpu_torch.ops import sampling as SM
     for counts in (rpa.launches, GG.launches, FT.launches, PA.launches,
                    PA.instance_launches, FT.instance_launches,
-                   GG.instance_launches,
+                   GG.instance_launches, SM.launches,
                    QK.instance_launches, FC.instance_launches):
         for key in counts:
             counts[key] = 0
@@ -735,8 +785,8 @@ def serve(dev, kv_dtype=None, bf16_outs=None, label=None, **workload):
     quantizer and back for phase 8). ``workload`` (layers, page_size,
     dtype, weight_dtype) goes to :func:`serving_workload` (phase 9b); with
     int8 weights every projection launches the dequant matmul and the
-    plain forward takes its plain version too. Returns (launches,
-    outputs)."""
+    plain forward takes its plain version too. All its rows are greedy,
+    so nothing is sorted. Returns (launches, outputs, tokens/s)."""
     import torch
     from paddle_tpu_torch.inference import Request
     from paddle_tpu_torch.models import llama
@@ -752,7 +802,8 @@ def serve(dev, kv_dtype=None, bf16_outs=None, label=None, **workload):
     reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    with count_calls(serving_plain_versions()) as plain_calls:
+    with count_calls(serving_plain_versions()
+                     + [(torch, "sort")]) as plain_calls:
         reset_launches()
         d0 = engine._dispatch_count
         t0 = time.perf_counter()
@@ -763,6 +814,9 @@ def serve(dev, kv_dtype=None, bf16_outs=None, label=None, **workload):
         dq_launches = dict(QK.instance_launches)
     dispatches = engine._dispatch_count - d0
     hook.remove()
+    if "sort" in plain_calls:
+        fail(f"{label}: an all-greedy run sorted "
+             f"{plain_calls.count('sort')} times")
     if plain_calls:
         fail(f"{label}: plain versions ran on the card: "
              f"{sorted(set(plain_calls))}")
@@ -826,7 +880,7 @@ def serve(dev, kv_dtype=None, bf16_outs=None, label=None, **workload):
     if worst > TIE_TOL:
         fail(f"{label}: served token {worst:.3f} below the plain forward's "
              "argmax")
-    return launches[key], outs
+    return launches[key], outs, n_tok / wall
 
 
 # phase 9's engine paths: keyword arguments, launches per layer per
@@ -893,7 +947,7 @@ def serve_domain(dev):
     import torch
     launches = 0
     for label, workload in SERVE_DOMAIN.items():
-        n, _ = serve(dev, label=label, **dict(dict(layers=LADDER_LAYERS),
+        n, _, _ = serve(dev, label=label, **dict(dict(layers=LADDER_LAYERS),
                                               **workload))
         launches += n
         torch.cuda.empty_cache()
@@ -2515,6 +2569,335 @@ def serve_mixtral_bf16(dev):
                      {"grouped_gemm": 3})
 
 
+# ----------------------------------------------------------------------
+# the sampler: phases 3g, 11, 12
+# ----------------------------------------------------------------------
+
+def sampler_rows(dev, n, v, seed):
+    """``n`` rows of the sampler's per-row arrays at vocabulary ``v``,
+    greedy, top-k 50, top-p 0.9 and constrained rows in turn, seeded
+    logits ``[n, v]`` (std 3) on the card. Returns (logits, arrays)."""
+    import torch
+    g = torch.Generator(dev).manual_seed(seed)
+    logits = torch.randn((n, v), device=dev, generator=g) * 3
+    kind = torch.arange(n, device=dev) % 4
+    temps = torch.where(kind == 0, 0.0, torch.where(kind == 2, 0.8, 1.0))
+    top_ps = torch.where(kind == 2, 0.9, 1.0)
+    top_ks = torch.where(kind == 1, 50, 0).int()
+    seeds = torch.randint(0, 2 ** 31, (n,), device=dev, generator=g).int()
+    positions = torch.randint(0, 8192, (n,), device=dev, generator=g).int()
+    slot_ids = torch.full((n, 8), -1, dtype=torch.int32, device=dev)
+    slot_ids[kind == 3] = torch.tensor(ALLOWED, dtype=torch.int32,
+                                       device=dev)
+    slot_vals = torch.zeros((n, 8), device=dev)
+    cmodes = (kind == 3).int()
+    return logits, (temps, top_ps, top_ks, seeds, positions, slot_ids,
+                    slot_vals, cmodes)
+
+
+def sampler_bound(n, v):
+    """(ms, "bytes" | "operations"): the scores read once (and the per-row
+    operands) against GUMBEL_INT_OPS integer operations an element."""
+    nbytes = n * v * 4 + n * (4 + 4 + 8 + 4 + 8)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = GUMBEL_INT_OPS * n * v / INT32_OPS * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes \
+        else (by_bytes, "bytes")
+
+
+def check_sampler(dev):
+    """Phase 3g: ``gumbel_argmax`` / ``gumbel_noise`` against the plain
+    version at the sampler's shapes. Returns the JSON entry (without
+    ``launches``), timed at 8 rows of Llama-3's vocabulary."""
+    import torch
+    from paddle_tpu_torch.inference.sampling import (biased_logits,
+                                                     scaled_scores)
+    from paddle_tpu_torch.ops import sampling as SM
+    entry, g_err = None, 0.0
+    for name, v in SAMPLER_VOCABS.items():
+        for n in SAMPLER_ROWS:
+            label = f"gumbel {name} n={n}"
+            logits, arrays = sampler_rows(dev, n, v, seed=n + v)
+            temps, top_ps, top_ks, seeds, positions, slot_ids, slot_vals, \
+                cmodes = arrays
+            ls, thr = scaled_scores(
+                biased_logits(logits, slot_ids, slot_vals, cmodes), temps,
+                top_ps, top_ks)
+            bases = torch.zeros(n, dtype=torch.int64, device=dev)
+            args = (ls, seeds, positions, bases, thr)
+            with count_calls([(SM, "gumbel_argmax_ref"),
+                              (SM, "gumbel_noise_ref")]) as plain_calls:
+                l0 = dict(SM.launches)
+                bits, u, g = SM.gumbel_noise(seeds, positions, bases, v)
+                got = SM.gumbel_argmax(*args)
+                torch.cuda.synchronize()
+            if plain_calls or SM.launches["gumbel_noise"] != \
+                    l0["gumbel_noise"] + 1 or SM.launches["gumbel_argmax"] \
+                    != l0["gumbel_argmax"] + 1:
+                fail(f"{label}: launches {SM.launches} from {l0}, plain "
+                     f"calls {plain_calls}")
+            rb, ru, rg = SM.gumbel_noise_ref(seeds, positions, bases, v)
+            if not torch.equal(bits, rb) or not torch.equal(
+                    u.view(torch.int32), ru.view(torch.int32)):
+                fail(f"{label}: bits or uniforms differ from the plain "
+                     "version's")
+            rel = float(((g - rg).abs() / rg.abs().clamp_min(1.0)).max())
+            g_err = max(g_err, float((g - rg).abs().max()))
+            if rel > SM.GUMBEL_REL:
+                fail(f"{label}: g off by {rel:.3e} (tol {SM.GUMBEL_REL})")
+            z = SM.perturbed_scores(*args)
+            want = z.argmax(dim=-1)
+            tol = 2 * SM.GUMBEL_REL * 17.0
+            for i in torch.nonzero(got != want)[:, 0].tolist():
+                margin = float(z[i, want[i]] - z[i, got[i]])
+                print(f"{label}: row {i} token {int(got[i])} vs plain "
+                      f"{int(want[i])}, margin {margin:.3e}", flush=True)
+                if not 0.0 <= margin <= tol + 1e-5 * float(z[i, want[i]]
+                                                           .abs()):
+                    fail(f"{label}: row {i} differs beyond the tolerance")
+            if not all(int(t) in ALLOWED for t in got[cmodes == 1]):
+                fail(f"{label}: a constrained row left its allowed set")
+            ms = time_ms(lambda: SM.gumbel_argmax(*args))
+            dev_ms = device_ms(lambda: SM.gumbel_argmax(*args))
+            plain_ms = time_ms(lambda: SM.gumbel_argmax_ref(*args), iters=5,
+                               warmup=1)
+            sort_ms = time_ms(lambda: torch.sort(ls, dim=-1,
+                                                 descending=True))
+            bound_ms, bound_by = sampler_bound(n, v)
+            print(f"kernel check ({label}): rows={n} vocab={v} bits and u "
+                  f"bitwise, g_rel_err={rel:.3e} (tol {SM.GUMBEL_REL:.3e}) "
+                  f"tokens_equal={int((got == want).sum())}/{n} ms={ms:.4f} "
+                  f"device_ms={dev_ms:.4f} plain_ms={plain_ms:.3f} "
+                  f"sort_ms={sort_ms:.4f} bound_ms={bound_ms:.5f} "
+                  f"({bound_by})", flush=True)
+            if entry is None:
+                entry = dict(name="gumbel_argmax", route="cuda",
+                             source=SM_SOURCE, replaces=SM_REPLACES, ms=ms,
+                             device_ms=dev_ms, plain_ms=plain_ms,
+                             sort_ms=sort_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None)
+    entry["max_abs_err"] = g_err
+    return entry
+
+
+@contextlib.contextmanager
+def sampled_dispatches(engine):
+    """Count ``engine``'s dispatches that hold a sampled row and the
+    ``gumbel_argmax`` launches and sorts of each: yields a list of
+    ``(sampled, launches, sorts)``, one per dispatch."""
+    import torch
+    from paddle_tpu_torch.ops import sampling as SM
+    seen, sorts = [], []
+    real_sort, dispatch = torch.sort, engine._dispatch_rows
+
+    def counted_sort(*a, **k):
+        sorts.append(1)
+        return real_sort(*a, **k)
+
+    def wrapper(rows):
+        sampled = any(r.sampling is not None and r.sampling.temperature > 0
+                      for r, *_ in rows)
+        l0, s0 = SM.launches["gumbel_argmax"], len(sorts)
+        out = dispatch(rows)
+        seen.append((sampled, SM.launches["gumbel_argmax"] - l0,
+                     len(sorts) - s0))
+        return out
+    torch.sort, engine._dispatch_rows = counted_sort, wrapper
+    try:
+        yield seen
+    finally:
+        torch.sort, engine._dispatch_rows = real_sort, dispatch
+
+
+def sampled_requests(prompts):
+    """Phase 11's requests over phase 4's prompts (SAMPLED_ROWS), each
+    sampled one with its own fixed seed."""
+    from paddle_tpu_torch.inference import Request, SamplingParams
+    reqs = []
+    for i, (p, kind) in enumerate(zip(prompts, SAMPLED_ROWS)):
+        if kind is None:
+            sp = None
+        elif kind == "forced":
+            sp = SamplingParams(temperature=1.0, seed=1000 + i,
+                                logit_bias={FORCED_TOKEN: 1e9})
+        elif kind == "constrained":
+            sp = SamplingParams(temperature=1.0, seed=1000 + i,
+                                constraint=lambda a, b: ALLOWED)
+        else:
+            sp = SamplingParams(seed=1000 + i, **kind)
+        reqs.append(Request(p, max_new_tokens=NEW, sampling=sp))
+    return reqs
+
+
+def replay_sampled(engine, model, dev, req, out):
+    """Replay one sampled request: the model's plain forward over its
+    prompt and tokens, then the plain sampler at each emitted token's
+    (seed, position) with the rows the engine packs. Returns (tokens,
+    ``(position, margin, replay token's and served token's scaled logit
+    over the replay's keep threshold)`` where they differ: a token near a
+    top-k or top-p boundary can be kept by one side only)."""
+    import torch
+    from paddle_tpu_torch.inference.sampling import (biased_logits,
+                                                     scaled_scores)
+    from paddle_tpu_torch.ops import sampling as SM
+    p = list(req.prompt_ids)
+    ids = torch.tensor([p + out[:-1]], device=dev)
+    with torch.no_grad():
+        lg = model(ids)[0, len(p) - 1:].float()
+    rows = [(req, req.seq_id, len(p) + j - 1, 1, (0,), True)
+            for j in range(len(out))]
+    arrays, _ = engine._sample_arrays(rows)
+    temps, top_ps, top_ks, seeds, positions, slot_ids, slot_vals, cmodes = \
+        [torch.from_numpy(a).to(dev) for a in arrays]
+    ls, thr = scaled_scores(biased_logits(lg, slot_ids, slot_vals, cmodes),
+                            temps, top_ps, top_ks)
+    bases = torch.zeros_like(positions, dtype=torch.int64)
+    z = SM.perturbed_scores(ls, seeds, positions, bases, thr)
+    toks = z.argmax(dim=-1)
+    got = torch.tensor(out, device=dev)
+    margins = (z.gather(1, toks[:, None]) - z.gather(1, got[:, None]))[:, 0]
+    diff = torch.nonzero(toks != got)[:, 0].tolist()
+    return toks.tolist(), [(i, float(margins[i]),
+                            float(ls[i, toks[i]] - thr[i]),
+                            float(ls[i, got[i]] - thr[i])) for i in diff]
+
+
+def serve_sampled(dev, greedy_outs, greedy_tps):
+    """Phase 11: phase 4's model and prompts with sampled rows (see the
+    module docstring). Returns the ``gumbel_argmax`` launches."""
+    import torch
+    from paddle_tpu_torch.ops import sampling as SM
+    cfg, model, engine, prompts = serving_workload(dev)
+    runs = []
+    for _ in range(2):
+        reqs = sampled_requests(prompts)
+        with count_calls(serving_plain_versions()
+                         + [(SM, "gumbel_argmax_ref")]) as plain_calls, \
+                sampled_dispatches(engine) as seen:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = engine.generate(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs.append((reqs, outs, wall, seen, SM.launches["gumbel_argmax"]))
+        if plain_calls:
+            fail(f"serve sampled: plain versions ran on the card: "
+                 f"{sorted(set(plain_calls))}")
+    (reqs, outs, wall, seen, launches), second = runs[0], runs[1]
+    if second[1] != outs:
+        fail("serve sampled: a second run with the same seeds differs")
+    for sampled, n_launch, n_sort in seen:
+        if (n_launch, n_sort) != ((1, 1) if sampled else (0, 0)):
+            fail(f"serve sampled: a dispatch (sampled={sampled}) launched "
+                 f"gumbel_argmax {n_launch} times and sorted {n_sort} times")
+    n_sampled = sum(s for s, _, _ in seen)
+    if launches != n_sampled or not n_sampled:
+        fail(f"serve sampled: {launches} launches for {n_sampled} sampled "
+             "dispatches")
+    kinds = SAMPLED_ROWS
+    for i, (kind, o) in enumerate(zip(kinds, outs)):
+        if len(o) != NEW or not all(0 <= t < cfg.vocab_size for t in o):
+            fail(f"serve sampled: bad output {o}")
+        if kind is None and o != greedy_outs[i]:
+            fail(f"serve sampled: greedy row {i} differs from phase 4's")
+        if kind == "forced" and set(o) != {FORCED_TOKEN}:
+            fail(f"serve sampled: forced row {i} gave {sorted(set(o))}")
+        if kind == "constrained" and not set(o) <= set(ALLOWED):
+            fail(f"serve sampled: constrained row {i} left its set: {o}")
+    exact, n_tok, diffs = 0, 0, []
+    with plain_serving_paths():
+        for i, (r, o) in enumerate(zip(reqs, outs)):
+            if kinds[i] is None:
+                continue
+            toks, margins = replay_sampled(engine, model, dev, r, o)
+            exact += sum(a == b for a, b in zip(toks, o))
+            n_tok += len(o)
+            diffs += [(i,) + m for m in margins]
+    for i, pos, margin, over_r, over_s in diffs:
+        print(f"serve sampled: row {i} token {pos} differs from the plain "
+              f"replay, its margin there {margin:.4f} (over the keep "
+              f"threshold: replay's token {over_r:.4f}, served "
+              f"{over_s:.4f})", flush=True)
+    tps = len(prompts) * NEW / wall
+    print(f"serve sampled: requests={len(prompts)} new_tokens="
+          f"{len(prompts) * NEW} dispatches={len(seen)} sampled_dispatches="
+          f"{n_sampled} gumbel_launches={launches} wall_s={wall:.3f} "
+          f"tokens_per_s={tps:.1f} (phase 4 greedy: {greedy_tps:.1f}) "
+          f"second_run_wall_s={second[2]:.3f} plain_replay_exact={exact}/"
+          f"{n_tok}", flush=True)
+    if exact < EXACT_FLOOR * n_tok:
+        fail(f"serve sampled: only {exact}/{n_tok} sampled tokens are the "
+             f"plain replay's (floor {EXACT_FLOOR})")
+    return launches
+
+
+def generate_prompts(vocab):
+    import numpy as np
+    rng = np.random.RandomState(12)
+    return rng.randint(0, vocab, (GEN_PROMPTS, GEN_LEN)).tolist()
+
+
+def generate_phase(dev):
+    """Phase 12: ``LlamaForCausalLM.generate`` at Llama-3-8B's full width
+    and depth (see the module docstring). Returns the ``gumbel_argmax``
+    launches."""
+    import torch
+    from paddle_tpu_torch.inference import LlamaServingEngine
+    from paddle_tpu_torch.ops import sampling as SM
+    cfg, model = llama_model(dev)
+    prompts = generate_prompts(cfg.vocab_size)
+    ids = torch.tensor(prompts, device=dev)
+    model.generate(ids[:, :16], max_new_tokens=2)            # warm-up
+    timed = {}
+    for name, kw in (("greedy", {}),
+                     ("sampled", dict(do_sample=True, top_k=50, top_p=0.9,
+                                      seed=1234))):
+        with count_calls([(SM, "gumbel_argmax_ref")]) as plain_calls:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.generate(ids, max_new_tokens=GEN_NEW, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = SM.launches["gumbel_argmax"]
+        want = GEN_NEW if kw else 0
+        if plain_calls or launches != want:
+            fail(f"generate {name}: {launches} gumbel_argmax launches "
+                 f"(want {want}), plain calls {plain_calls}")
+        new = out[:, GEN_LEN:]
+        if tuple(out.shape) != (GEN_PROMPTS, GEN_LEN + GEN_NEW) or \
+                not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+            fail(f"generate {name}: bad output {tuple(out.shape)}")
+        timed[name] = (new.tolist(), wall, launches)
+    engine = LlamaServingEngine(model, max_batch=8, page_size=16)
+    served = engine.generate(prompts, max_new_tokens=GEN_NEW)
+    greedy = timed["greedy"][0]
+    same = sum(a == b for o, e in zip(greedy, served) for a, b in zip(o, e))
+    gaps = []
+    with plain_serving_paths():
+        for p, o in zip(prompts, greedy):
+            seq = torch.tensor([p + o[:-1]], device=dev)
+            with torch.no_grad():
+                lg = model(seq)[0, len(p) - 1:].float()
+            picked = lg.gather(1, torch.tensor(o, device=dev)[:, None])[:, 0]
+            gaps.append(lg.max(dim=1).values - picked)
+    gaps = torch.cat(gaps)
+    exact, worst = int((gaps == 0).sum()), float(gaps.max())
+    n_tok = GEN_PROMPTS * GEN_NEW
+    print(f"generate: prompts={GEN_PROMPTS}x{GEN_LEN} new={GEN_NEW} "
+          f"greedy_ms_per_step={1e3 * timed['greedy'][1] / GEN_NEW:.2f} "
+          f"sampled_ms_per_step={1e3 * timed['sampled'][1] / GEN_NEW:.2f} "
+          f"sampled_gumbel_launches={timed['sampled'][2]} "
+          f"greedy_equal_to_engine={same}/{n_tok} plain_forward_exact="
+          f"{exact}/{n_tok} worst_gap={worst:.4f}", flush=True)
+    if exact < EXACT_FLOOR * n_tok or worst > TIE_TOL:
+        fail(f"generate: greedy tokens {exact}/{n_tok} the plain forward's "
+             f"argmax, worst gap {worst:.3f} (floors {EXACT_FLOOR}, "
+             f"{TIE_TOL})")
+    return timed["sampled"][2]
+
+
 def main():
     try:
         import torch
@@ -2553,9 +2936,15 @@ def main():
     for e in moe_entries:
         e["max_abs_err"] = max(e["max_abs_err"], gemm_errs[e["name"]])
     torch.cuda.empty_cache()
-    entry["launches"], bf16_outs = serve(dev)      # phase 4
+    sampler = check_sampler(dev)                    # phase 3g
     torch.cuda.empty_cache()
-    kv8_launches, _ = serve(dev, "int8", bf16_outs)   # phase 8
+    entry["launches"], bf16_outs, bf16_tps = serve(dev)   # phase 4
+    torch.cuda.empty_cache()
+    sampler["launches"] = serve_sampled(dev, bf16_outs, bf16_tps)  # 11
+    torch.cuda.empty_cache()
+    sampler["launches"] += generate_phase(dev)      # phase 12
+    torch.cuda.empty_cache()
+    kv8_launches, _, _ = serve(dev, "int8", bf16_outs)   # phase 8
     torch.cuda.empty_cache()
     ladder = serve_ladder(dev)                      # phase 9
     torch.cuda.empty_cache()
@@ -2583,7 +2972,8 @@ def main():
     print(f"smoke_s={time.perf_counter() - t0:.1f} (build and every phase)",
           flush=True)
     print(json.dumps({"kernels": [entry] + family + [paged]
-                      + training_entries + moe_entries}), flush=True)
+                      + training_entries + moe_entries + [sampler]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

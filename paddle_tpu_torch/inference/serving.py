@@ -1,5 +1,5 @@
 """Continuous-batching serving engine for the Llama family (port of
-``paddle_tpu/inference/serving.py``, greedy).
+``paddle_tpu/inference/serving.py``).
 
 Every engine step is ONE mixed dispatch over a token-packed batch:
 prefill chunks of at most ``chunk_block`` tokens and single-token
@@ -24,7 +24,10 @@ paths, which give bitwise the same pools and greedy tokens:
 ``fused_rope`` needs ``fused_kv`` and an even head_dim; otherwise it is
 demoted to the fused-KV path. Everything around the attention
 (embedding, RMSNorm, projections, SwiGLU, the lm head at each row's last
-token and the greedy argmax) is plain PyTorch.
+token) is plain PyTorch, and so is the next-token rule: the greedy argmax
+or, where a dispatch holds a sampled, biased or constrained row,
+:func:`~paddle_tpu_torch.inference.sampling.sampled_next_tokens`, whose
+Gumbel-max pass is one kernel launch.
 
 Int8 KV pages: ``kv_dtype="int8"`` (or ``PADDLE_TPU_KV_DTYPE=int8``)
 stores the pools as int8 with one f32 scale per (page, head, slot) in
@@ -33,9 +36,22 @@ write, ``int8 * scale`` on read): a cached token costs about half its
 bf16 bytes, so the same pool holds about twice the batch or context.
 
 The row metadata is built on the host in numpy and copied to the device
-once per dispatch. The scheduler and its geometry (``chunk_block``
+once per dispatch, the sampler's per-row arrays with it (f32 fields as
+their raw bits). The scheduler and its geometry (``chunk_block``
 rounding, ``chunk_budget``, ``rows_cap``, the trash page) match the
 reference engine, so both schedule the same rows.
+
+Sampling (:class:`~paddle_tpu_torch.inference.sampling.SamplingParams`
+on a :class:`Request`): each row's draw is keyed by (request seed, the
+sampled token's position), so it does not depend on what else a dispatch
+holds, and a request without a seed gets one from the engine's LCG at
+admission, recorded on the request (``_seed``). A dispatch whose rows are
+all greedy, with no bias and no constraint, runs the greedy argmax alone;
+one with bias or constraint rows but no sampled row skips the sort and the
+Gumbel pass. Constraint hooks run on the host once per request per
+dispatch; a raising hook or an empty allowed set leaves the row
+unconstrained, and an allowed set wider than ``sample_slots`` is cut to
+its first ``sample_slots`` ids.
 
 Weight-only int8 serving: ``weight_dtype="int8"`` (or
 ``PADDLE_TPU_WEIGHT_DTYPE=int8``) quantizes the model in place with
@@ -44,12 +60,12 @@ quantized already; the mixed step calls the projections and the MLP as
 modules, so the int8 layers and the mixture-of-experts FFN need nothing
 else from the engine.
 
-Not in this slice (ROADMAP queue A, in order): sampling, the prefix
-cache, the request lifecycle (deadlines, cancel, drain, the degradation
-ladder, the watchdog), speculative decoding, CUDA-graph decode, the host
-KV tier. Admission therefore reserves each request's worst-case pages
-up front and raises :class:`AdmissionError` when they do not fit, and
-the engine is driven from one thread.
+Not in this slice (ROADMAP queue A, in order): the prefix cache, the
+request lifecycle (deadlines, cancel, drain, the degradation ladder, the
+watchdog), speculative decoding, CUDA-graph decode, the host KV tier.
+Admission therefore reserves each request's worst-case pages up front
+and raises :class:`AdmissionError` when they do not fit, and the engine
+is driven from one thread.
 """
 
 from __future__ import annotations
@@ -69,6 +85,7 @@ from ..ops.ragged_paged_attention import (check_geometry,
 from ..quant.format import (is_quantized, model_weight_block,
                             quantize_model, serving_weight_bytes)
 from .paged_cache import PageAllocator, quantize_kv_int8
+from .sampling import SamplingParams, sampled_next_tokens
 
 __all__ = ["LlamaServingEngine", "Request", "AdmissionError"]
 
@@ -162,9 +179,9 @@ class Request:
             and accepted only at their defaults (``None``, ``None``,
             ``0``, ``1``): deadlines, priorities and retries are ROADMAP
             item A5.
-        sampling: ``None`` or a greedy sampling spec (``temperature``
-            0, no ``logit_bias``, no ``constraint``), whose ``stop`` ids
-            merge with ``stop``; sampled decoding is ROADMAP item A1.
+        sampling: ``None`` (greedy) or a
+            :class:`~paddle_tpu_torch.inference.sampling.SamplingParams`,
+            whose ``stop`` ids merge with ``stop``.
         stop: token ids that end generation before being appended.
         on_token: optional ``fn(request, token)`` fired after each
             appended token (the streaming hook); it runs on the engine's
@@ -200,14 +217,11 @@ class Request:
             raise NotImplementedError(
                 f"{', '.join(asked)}: request deadlines, priorities and "
                 f"retries are not ported yet (ROADMAP item A5)")
-        if sampling is not None and (
-                float(getattr(sampling, "temperature", 0.0)) != 0.0
-                or getattr(sampling, "logit_bias", None)
-                or getattr(sampling, "constraint", None) is not None):
-            raise NotImplementedError(
-                "sampled decoding (temperature > 0, logit_bias, "
-                "constraint) is not ported yet (ROADMAP item A1); this "
-                "engine decodes greedily")
+        if sampling is not None and not isinstance(sampling,
+                                                  SamplingParams):
+            raise ValueError(
+                f"sampling must be a SamplingParams, got "
+                f"{type(sampling).__name__}")
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
         self.deadline = None
@@ -216,8 +230,9 @@ class Request:
         self.retry_budget = 1
         self.sampling = sampling
         self.stop_set = frozenset(int(t) for t in (stop or ())) \
-            | frozenset(int(t) for t in getattr(sampling, "stop", ()) or ())
+            | frozenset(sampling.stop if sampling else ())
         self.on_token = on_token
+        self._seed = None             # resolved at first admission
         self.output_ids: list[int] = []
         self.seq_id = None
         self.done = False
@@ -228,7 +243,7 @@ class Request:
 
 
 class LlamaServingEngine:
-    """Greedy continuous-batching engine over a
+    """Continuous-batching engine over a
     :class:`~paddle_tpu_torch.models.llama.LlamaForCausalLM`; it runs on
     the model's device, with page pools in the model's dtype, or int8
     with f32 scale sidecars. The geometry arguments, ``weight_dtype``
@@ -238,12 +253,12 @@ class LlamaServingEngine:
     they mean in the reference engine, environment knobs included. The
     arguments are the reference's, in its order; ``burst`` is its alias
     of ``decode_ticks``. ``sampling`` (None: ``PADDLE_TPU_SAMPLING``,
-    default on) and ``sample_slots`` are stored as the reference stores
-    them, but the engine decodes greedily and a sampled request raises
-    (ROADMAP A1). The knobs of later slices (``prewarm``, the prefix
-    cache's, ``admit_retries``, ``admit_backoff``, ``stuck_*``, the
-    speculative decoder's and the KV tier's, with the reference's env
-    knobs ``PADDLE_TPU_SERVING_PREWARM``, ``PADDLE_TPU_SPEC_K``,
+    default on; off, sampled requests are refused) and ``sample_slots``
+    (the bias/constraint slots of a row) are the reference's. The knobs
+    of later slices (``prewarm``, the prefix cache's, ``admit_retries``,
+    ``admit_backoff``, ``stuck_*``, the speculative decoder's and the KV
+    tier's, with the reference's env knobs
+    ``PADDLE_TPU_SERVING_PREWARM``, ``PADDLE_TPU_SPEC_K``,
     ``PADDLE_TPU_KV_TIER``) raise :class:`NotImplementedError` naming
     their ROADMAP A item when set off their defaults; ``prefix_cache``
     defaults off here until the prefix cache is ported (A4)."""
@@ -290,12 +305,17 @@ class LlamaServingEngine:
         if asked:
             raise NotImplementedError(
                 f"{', '.join(asked)}: not ported yet (ROADMAP queue A)")
-        # the reference's sampling switch; this engine decodes greedily
-        # either way, and a sampled request raises (Request, item A1)
+        # the reference's sampling switch: off, sampled requests are
+        # refused at admission (_validate)
         if sampling is None:
             sampling = _env_flag("PADDLE_TPU_SAMPLING", "1")
         self.sample_enabled = bool(sampling)
+        # bias/constraint slots per row
         self.sample_slots = max(1, int(sample_slots))
+        # auto-seed LCG for sampled requests that didn't pin a seed
+        # (recorded on the request so the draw stays reproducible)
+        self._auto_seed = int.from_bytes(os.urandom(4), "little") \
+            % (2 ** 31)
         if weight_dtype is None:
             weight_dtype = os.environ.get("PADDLE_TPU_WEIGHT_DTYPE",
                                           "") or None
@@ -395,14 +415,17 @@ class LlamaServingEngine:
     @torch.no_grad()
     def _mixed_forward(self, tokens, pos, flat_idx, last_idx, tables,
                        kv_lens, q_starts, q_lens, w_starts, w_flats,
-                       w_ends, page_ids, offs, row_tok, qb):
+                       w_ends, page_ids, offs, row_tok, qb, sample=None):
         """ONE token-packed model step over ``T`` real tokens (prefill
         chunks and decode tokens back to back) and ``R`` rows; returns
-        the greedy next token of each row ``[R]`` (argmax at the row's
-        last position). tokens/pos/flat_idx [T]; tables [R, W];
-        last_idx and the row metadata [R]; page_ids/offs [T] (the
-        two-op scatter's targets) and row_tok [R, qb] (each row-block
-        entry's packed token), which the rope-fused path leaves empty."""
+        the next token of each row ``[R]`` at the row's last position.
+        tokens/pos/flat_idx [T]; tables [R, W]; last_idx and the row
+        metadata [R]; page_ids/offs [T] (the two-op scatter's targets)
+        and row_tok [R, qb] (each row-block entry's packed token), which
+        the rope-fused path leaves empty. ``sample``: None (every row
+        greedy, no bias: the argmax) or ``(arrays, any_sampled)``, the
+        per-row arguments of :func:`sampled_next_tokens` after the
+        logits and whether a row is sampled."""
         m = self.model.model
         cfg = self.model.config
         t, r_rows = tokens.shape[0], tables.shape[0]
@@ -458,7 +481,10 @@ class LlamaServingEngine:
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         x = m.norm(x)
         logits = self.model._logits(x[last_idx.long()])    # [R, V]
-        return logits.argmax(dim=-1)
+        if sample is None:
+            return logits.argmax(dim=-1)
+        arrays, any_sampled = sample
+        return sampled_next_tokens(logits, *arrays, any_sampled=any_sampled)
 
     def _schedule_rows(self):
         """One mixed step's rows: a decode row for every fully
@@ -491,6 +517,64 @@ class LlamaServingEngine:
                 off += n
                 budget -= n
         return rows
+
+    def _sample_arrays(self, rows):
+        """The sampler's per-row arrays of one dispatch (numpy: temps,
+        top_ps, top_ks, seeds, positions, slot_ids, slot_vals, cmodes)
+        and whether any row is sampled, or None when every row is greedy
+        with no bias and no constraint (as is every dispatch of an engine
+        built with ``sampling=False``, which admits greedy requests only
+        and ignores their bias, as the reference does). Constraint hooks
+        run HERE, once per request: a raising hook or an empty allowed set
+        leaves the row unconstrained, an allowed set wider than
+        ``sample_slots`` is cut to its first ``sample_slots`` ids."""
+        reqs = [row[0] for row in rows]
+        if not self.sample_enabled or not any(r.sampling is not None and (
+                r.sampling.temperature > 0 or r.sampling.logit_bias
+                or r.sampling.constraint is not None) for r in reqs):
+            return None
+        r_n, b = len(rows), self.sample_slots
+        temps = np.zeros((r_n,), np.float32)
+        top_ps = np.ones((r_n,), np.float32)
+        top_ks = np.zeros((r_n,), np.int32)
+        seeds = np.zeros((r_n,), np.int32)
+        # the sampled token's position: the row's last position + 1
+        positions = np.array([start + n for _, _, start, n, _, _ in rows],
+                             np.int32)
+        slot_ids = np.full((r_n, b), -1, np.int32)
+        slot_vals = np.zeros((r_n, b), np.float32)
+        cmodes = np.zeros((r_n,), np.int32)
+        allowed_of = {}
+        for i, r in enumerate(reqs):
+            sp = r.sampling
+            if sp is None:
+                continue
+            temps[i] = sp.temperature
+            top_ps[i] = sp.top_p
+            top_ks[i] = sp.top_k
+            seeds[i] = r._seed or 0
+            bias = sp.logit_bias or {}
+            if sp.constraint is not None and id(r) not in allowed_of:
+                try:
+                    allowed = sp.constraint(r.prompt_ids,
+                                            tuple(r.output_ids))
+                    allowed = None if allowed is None \
+                        else [int(tk) for tk in allowed][:b]
+                except Exception:
+                    allowed = None       # the hook never kills a dispatch
+                allowed_of[id(r)] = allowed
+            ids = allowed_of.get(id(r))
+            if ids:
+                cmodes[i] = 1
+                slot_ids[i, :len(ids)] = ids
+                slot_vals[i, :len(ids)] = [bias.get(tk, 0.0) for tk in ids]
+            elif bias:
+                items = list(bias.items())[:b]
+                slot_ids[i, :len(items)] = [tk for tk, _ in items]
+                slot_vals[i, :len(items)] = [v for _, v in items]
+        arrays = (temps, top_ps, top_ks, seeds, positions, slot_ids,
+                  slot_vals, cmodes)
+        return arrays, bool((temps > 0).any())
 
     def _dispatch_rows(self, rows):
         """Dispatch ONE mixed step over a scheduled row list and apply
@@ -540,15 +624,26 @@ class LlamaServingEngine:
             meta[5, i] = seq_last[sid]
         parts = [tokens, pos, flat_idx, last_idx, tables.reshape(-1),
                  meta.reshape(-1), page_ids, offs, row_tok.reshape(-1)]
+        samp = self._sample_arrays(rows)
+        if samp is not None:
+            # the sampler's rows ride the same copy, f32 fields as bits
+            parts += [a.reshape(-1).view(np.int32) for a in samp[0]]
         dev = torch.from_numpy(np.concatenate(parts)).to(self.device)
         (tok_d, pos_d, flat_d, last_d, tables_d, meta_d, pid_d, off_d,
-         rt_d) = dev.split([p.size for p in parts])
+         rt_d, *samp_d) = dev.split([p.size for p in parts])
         tables_d = tables_d.view(r_n, self.width)
         kv_d, qs_d, ql_d, ws_d, wf_d, we_d = meta_d.view(6, r_n).unbind(0)
         rt_d = rt_d.view(-1, qb).long()
+        sample = None
+        if samp is not None:
+            t_d, p_d, k_d, s_d, ps_d, si_d, sv_d, c_d = samp_d
+            sample = ((t_d.view(torch.float32), p_d.view(torch.float32), k_d,
+                       s_d, ps_d, si_d.view(r_n, -1),
+                       sv_d.view(torch.float32).view(r_n, -1), c_d),
+                      samp[1])
         nxt = self._mixed_forward(tok_d, pos_d, flat_d, last_d, tables_d,
                                   kv_d, qs_d, ql_d, ws_d, wf_d, we_d, pid_d,
-                                  off_d, rt_d, qb)
+                                  off_d, rt_d, qb, sample)
         out = nxt.tolist()
         for r, sid, start, n, _, is_dec in rows:
             if not is_dec and r.seq_id == sid:
@@ -573,6 +668,34 @@ class LlamaServingEngine:
         n = len(req.prompt_ids) + req.max_new_tokens - 1
         return max(1, -(-n // self.page_size))
 
+    def _validate(self, req):
+        """The reference's sampling checks: a sampled request needs
+        ``sampling`` on, and its bias must fit ``sample_slots``."""
+        sp = req.sampling
+        if sp is not None:
+            if not sp.is_greedy and not self.sample_enabled:
+                raise ValueError(
+                    "request asks for sampled decoding but this engine "
+                    "was built with sampling=False; rebuild with "
+                    "sampling=True (or unset PADDLE_TPU_SAMPLING=0)")
+            if sp.logit_bias and len(sp.logit_bias) > self.sample_slots:
+                raise ValueError(
+                    f"logit_bias has {len(sp.logit_bias)} entries but "
+                    f"this engine packs sample_slots={self.sample_slots}"
+                    f" per row; raise sample_slots or trim the bias")
+
+    def _seed(self, req):
+        """Resolve the request's seed once: its own, else the next draw
+        of the engine's LCG (recorded on the request)."""
+        if req._seed is None:
+            sp = req.sampling
+            if sp is not None and sp.seed is not None:
+                req._seed = sp.seed
+            else:
+                self._auto_seed = (self._auto_seed * 1103515245
+                                   + 12345) % (2 ** 31)
+                req._seed = self._auto_seed
+
     def _admit(self, req):
         """Admit one request, reserving its worst-case pages against
         what the live set may still draw. Raises :class:`ValueError`
@@ -580,6 +703,8 @@ class LlamaServingEngine:
         when it does not fit now."""
         if req.done:
             return req.seq_id
+        self._validate(req)
+        self._seed(req)
         need = self._pages_needed(req)
         cap = min(self.alloc.max_pages_per_seq, self.alloc.num_pages)
         if need > cap:

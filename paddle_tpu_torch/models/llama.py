@@ -12,6 +12,15 @@ returns the loss, by default through the fused linear cross-entropy.
 The serving engine never runs this forward; :func:`plain_attention`
 stays beside it as the model's own plain reference.
 
+``LlamaForCausalLM.generate`` decodes over static ``[B, max_len, Hk, D]``
+KV buffers (the ``cache`` / ``cache_len`` arguments of the attention,
+layer and model forwards): each step writes its K/V in place at
+``cache_len`` and attends the valid prefix under a bool mask, through the
+plain masked attention (:func:`masked_attention`), as the reference's
+masked attention takes XLA. Sampled steps draw with the reference's
+threefry key ``fold_in(key(seed), step)`` through one launch of
+:func:`~paddle_tpu_torch.ops.sampling.gumbel_argmax`.
+
 ``moe_num_experts > 0`` selects the mixture-of-experts FFN
 (:class:`LlamaMoEMLP`, Mixtral-style): dropless top-k routing and three
 grouped GEMMs over the stacked expert weights, float or, after
@@ -33,6 +42,7 @@ from ..incubate.nn import functional as FI
 from ..nn import functional as F
 from ..ops.fused_linear_cross_entropy import fused_linear_cross_entropy
 from ..ops.grouped_gemm import grouped_gemm, grouped_gemm_q8
+from ..ops.sampling import gumbel_argmax
 from ..quant.format import effective_block, quantize_weight
 from ..quant.layers import keep_f32
 
@@ -95,6 +105,30 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return FI.rms_norm(x, self.weight, self.epsilon)
+
+
+def _kv_cache_update(buf, new, start):
+    """Write ``new [B, s, Hk, D]`` into the static buffer ``buf [B,
+    max_len, Hk, D]`` at sequence offset ``start`` (an int or a 0-d
+    integer tensor), IN PLACE, cast to the buffer's dtype; returns
+    ``buf``. A write past the buffer raises."""
+    s, max_len = new.shape[1], buf.shape[1]
+    st = int(start)
+    if st + s > max_len:
+        raise ValueError(
+            f"KV cache overflow: writing {s} tokens at offset "
+            f"{st} exceeds the static buffer ({max_len})")
+    buf[:, st:st + s] = new.to(buf.dtype)
+    return buf
+
+
+def _decode_mask(length, s, max_len, device=None):
+    """Bool ``[1, 1, s, max_len]``: query i (absolute position
+    ``length + i``) sees key j iff ``j <= length + i`` — causal over the
+    valid prefix of a static buffer."""
+    qpos = torch.arange(s, device=device) + length
+    kpos = torch.arange(max_len, device=device)
+    return (kpos[None, :] <= qpos[:, None])[None, None]
 
 
 def _linear(n_in, n_out, factory):
@@ -268,6 +302,13 @@ def causal_attention(q, k, v):
     return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
 
+def masked_attention(q, k, v, mask):
+    """The cached forward's attention: ``[B, s, H, D]`` q over the whole
+    static ``[B, max_len, Hk, D]`` buffers under the bool ``mask``, the
+    plain composition (a masked call never takes the flash kernels)."""
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
 class LlamaAttention(nn.Module):
     """GQA attention with rotary embeddings, ``[B, S, H, D]``
     throughout."""
@@ -285,17 +326,40 @@ class LlamaAttention(nn.Module):
         self.v_proj = _linear(n, hk * d, factory)
         self.o_proj = _linear(h * d, n, factory)
 
-    def forward(self, x, position_ids=None):
+    def forward(self, x, position_ids=None, cache=None, cache_len=None,
+                attn_mask=None):
+        """Without ``cache``: causal attention over ``x``'s own tokens.
+        With ``cache = (k_buf, v_buf)`` (static ``[B, max_len, Hk, D]``)
+        and ``cache_len`` (the tokens cached before ``x``): writes x's
+        K/V at ``cache_len`` in place, attends the buffers under
+        ``attn_mask`` (default :func:`_decode_mask`) and returns ``(out,
+        (k_buf, v_buf))``."""
         b, s = x.shape[0], x.shape[1]
         h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.q_proj(x).reshape(b, s, h, d)
         k = self.k_proj(x).reshape(b, s, hk, d)
         v = self.v_proj(x).reshape(b, s, hk, d)
+        if cache is not None and cache_len is None:
+            raise ValueError(
+                "cache_len (scalar int Tensor) is required when a KV "
+                "cache is passed — the static buffer needs the write "
+                "offset")
+        if position_ids is None and cache is not None:
+            # rope continues after the cached prefix
+            position_ids = (torch.arange(s, device=x.device)
+                            + cache_len)[None]
         q, k, v = FI.fused_rotary_position_embedding(
             q, k, v, position_ids=position_ids,
             rotary_emb_base=self.config.rope_theta)
-        out = causal_attention(q, k, v)
-        return self.o_proj(out.reshape(b, s, h * d))
+        if cache is None:
+            out = causal_attention(q, k, v)
+            return self.o_proj(out.reshape(b, s, h * d))
+        k_buf = _kv_cache_update(cache[0], k, cache_len)
+        v_buf = _kv_cache_update(cache[1], v, cache_len)
+        if attn_mask is None:
+            attn_mask = _decode_mask(cache_len, s, k_buf.shape[1], x.device)
+        out = masked_attention(q, k_buf, v_buf, attn_mask)
+        return self.o_proj(out.reshape(b, s, h * d)), (k_buf, v_buf)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -309,9 +373,17 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMoEMLP(config, **factory) if config.moe_num_experts \
             else LlamaMLP(config, **factory)
 
-    def forward(self, x, position_ids=None):
-        x = x + self.self_attn(self.input_layernorm(x), position_ids)
-        return x + self.mlp(self.post_attention_layernorm(x))
+    def forward(self, x, position_ids=None, cache=None, cache_len=None,
+                attn_mask=None):
+        h = self.input_layernorm(x)
+        if cache is not None:
+            attn, cache = self.self_attn(h, position_ids, cache, cache_len,
+                                         attn_mask)
+        else:
+            attn = self.self_attn(h, position_ids)
+        x = x + attn
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x if cache is None else (x, cache)
 
 
 class LlamaModel(nn.Module):
@@ -326,8 +398,28 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             **factory)
 
-    def forward(self, input_ids, position_ids=None):
+    def forward(self, input_ids, position_ids=None, caches=None,
+                cache_len=None):
+        """``[B, S]`` ids -> the final hidden states; with ``caches`` (one
+        ``(k_buf, v_buf)`` per layer) and ``cache_len``, ``(hidden,
+        caches)``, the buffers written in place."""
         x = self.embed_tokens(input_ids)
+        if caches is not None:
+            if cache_len is None:
+                raise ValueError(
+                    "cache_len is required when caches are passed")
+            s = input_ids.shape[1]
+            if position_ids is None:
+                position_ids = (torch.arange(s, device=x.device)
+                                + cache_len)[None]
+            # the same for every layer: built once
+            mask = _decode_mask(cache_len, s, caches[0][0].shape[1],
+                                x.device)
+            new_caches = []
+            for layer, cache in zip(self.layers, caches):
+                x, cache = layer(x, position_ids, cache, cache_len, mask)
+                new_caches.append(cache)
+            return self.norm(x), new_caches
         remat = self.config.recompute and torch.is_grad_enabled() \
             and x.requires_grad
         policy = "dots" if self.config.recompute == "dots" else None
@@ -407,6 +499,99 @@ class LlamaForCausalLM(nn.Module):
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
+
+    @staticmethod
+    def _pick_token(logits, key, sampler):
+        """The next-token rule on ``[B, 1, V]`` logits: the argmax, or
+        with ``do_sample`` temperature, then top-k, then top-p (a stable
+        sort of the probabilities), then a categorical draw: one launch
+        of :func:`gumbel_argmax` under ``key = (seed, fold)``, counters
+        ``b * V + j``. ``sampler`` is ``(do_sample, top_k, top_p,
+        temperature)``. Returns int64 ``[B, 1]``."""
+        do_sample, top_k, top_p, temperature = sampler
+        if not do_sample:
+            return logits.argmax(dim=-1)
+        b, _, v = logits.shape
+        dev = logits.device
+        # an elementwise division (a scalar divisor may become a product
+        # by its reciprocal)
+        temp = torch.full((b, 1), max(float(temperature), 1e-6),
+                          dtype=torch.float32, device=dev)
+        lg = logits[:, 0, :].float() / temp
+        masked = torch.full_like(lg, -1e30)
+        if top_k:   # None or 0 disables the filter
+            k = min(int(top_k), v)
+            kth = torch.sort(lg, dim=-1).values[:, v - k, None]
+            lg = torch.where(lg >= kth, lg, masked)
+        if top_p is not None:
+            # nucleus over the (possibly top-k-restricted) softmax
+            probs = torch.softmax(lg, dim=-1)
+            order = torch.argsort(-probs, dim=-1, stable=True)
+            sp = probs.gather(1, order)
+            cum_before = torch.cumsum(sp, dim=-1) - sp
+            keep = torch.zeros_like(lg, dtype=torch.bool).scatter(
+                1, order, cum_before < float(top_p))
+            lg = torch.where(keep, lg, masked)
+        seed, fold = key
+        rows = torch.arange(b, device=dev)
+        nxt = gumbel_argmax(
+            lg, torch.full((b,), seed, dtype=torch.int32, device=dev),
+            torch.full((b,), fold, dtype=torch.int32, device=dev), rows * v,
+            torch.full((b,), float("-inf"), device=dev))
+        return nxt[:, None]
+
+    def _decode_step(self, tokens, cache_len, caches, key=None,
+                     sampler=(False, None, None, 1.0)):
+        """One generation step: ``(next_token [B, 1], new_cache_len,
+        caches)``; the buffers are written in place."""
+        hidden, caches = self.model(tokens, None, caches, cache_len)
+        logits = self._logits(hidden[:, -1:])
+        nxt = self._pick_token(logits, key, sampler)
+        return nxt, cache_len + tokens.shape[1], caches
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=16, max_length=None,
+                 do_sample=False, top_k=None, top_p=None, temperature=1.0,
+                 seed=None, generator=None):
+        """Decode ``max_new_tokens`` after ``input_ids [B, S]`` over a
+        static KV cache of ``max_length`` positions (default: prompt +
+        new tokens rounded up to a multiple of 64). Greedy by default;
+        ``do_sample=True`` draws each step (temperature -> top-k -> top-p
+        -> categorical) under the key ``fold_in(key(seed), step)``, the
+        reference's. With ``seed=None`` the seed is drawn from
+        ``generator`` (a CPU :class:`torch.Generator`; torch's default one
+        if None), where the reference takes the next key of its global
+        stream. Returns int64 ``[B, S + max_new_tokens]``."""
+        b, s = input_ids.shape
+        need = s + max_new_tokens
+        max_len = max_length if max_length is not None \
+            else ((need + 63) // 64) * 64
+        if max_len < need:
+            raise ValueError(
+                f"max_length={max_len} < prompt + max_new_tokens "
+                f"({need})")
+        if seed is None:
+            seed = int(torch.randint(0, 2 ** 31, (1,), generator=generator))
+        if not -2 ** 31 <= int(seed) < 2 ** 31:
+            raise ValueError(f"seed must be in [-2**31, 2**31), got {seed}")
+        sampler = (bool(do_sample), top_k, top_p, float(temperature))
+        caches = self._empty_caches(b, max_len)
+        cache_len, tokens, new_tokens = 0, input_ids, []
+        for i in range(max_new_tokens):
+            tokens, cache_len, caches = self._decode_step(
+                tokens, cache_len, caches, (int(seed), i), sampler)
+            new_tokens.append(tokens)
+        return torch.cat([input_ids.long()] + new_tokens, dim=1)
+
+    def _empty_caches(self, batch, max_len):
+        """One zeroed ``(k_buf, v_buf)`` pair ``[batch, max_len, Hk, D]``
+        per layer, in the embedding's dtype and on its device."""
+        cfg = self.config
+        w = self.model.embed_tokens.weight
+        shape = (batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        return [(torch.zeros(shape, dtype=w.dtype, device=w.device),
+                 torch.zeros(shape, dtype=w.dtype, device=w.device))
+                for _ in range(cfg.num_hidden_layers)]
 
     def flops_per_token(self, seq_len):
         """Approximate training FLOPs per token: 6 x the matmul

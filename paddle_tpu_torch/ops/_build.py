@@ -38,7 +38,8 @@ SOURCES = {"ragged_paged_attention": "ragged_paged_attention.cu",
            "fused_linear_cross_entropy": "fused_linear_cross_entropy.cu",
            "grouped_gemm": "grouped_gemm.cu",
            "dequant_matmul": "dequant_matmul.cu",
-           "paged_attention": "paged_attention.cu"}
+           "paged_attention": "paged_attention.cu",
+           "sampling": "sampling.cu"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -24,7 +24,12 @@ GQA groups 1, 4, 6, 32 and 512, head dims 16 to 256 and pages of 8, 16
 and 32 slots, with inactive and one-token rows, poisoned table tails,
 contexts past the table, int64 tables and lens and a strided q, rows of
 one split and of many bitwise the same alone and in a batch, and
-``PagedKVCache`` on the card.
+``PagedKVCache`` on the card; the sampler's Gumbel pass (``gumbel_noise``
+bits and uniforms bit for bit the plain version's at vocabularies 1 to
+128256, bases past 2^32 and negative seeds; ``gumbel_argmax`` tokens on
+kept and cut rows, rows that keep nothing, NaN and -0 scores, more rows
+than one grid column, bf16 and strided scores, rows alone and batched,
+two calls bitwise).
 
 Every test needs an NVIDIA card and ``nvcc`` and skips without one; on
 the card this file runs on its own, without the jax-importing conftest:
@@ -41,7 +46,9 @@ Attention: written int8 slots, their scales and V slots bit for bit the
 plain version's, roped bf16 K slots within 1 bf16 ulp, untouched slots
 unchanged. Decode paged attention: outputs in f16 within 1 f16 ulp plus
 2^-10 of the head vector's largest value, bf16 as above, f32 as the f32
-products.
+products. The Gumbel noise within ``GUMBEL_REL`` (2^-13) of max(|g|, 1);
+a token may differ from the plain version's only where the plain
+version's top two perturbed scores lie within that tolerance.
 """
 
 import math
@@ -55,6 +62,7 @@ from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
 from paddle_tpu_torch.ops import grouped_gemm as GG
 from paddle_tpu_torch.ops import paged_attention as PA
 from paddle_tpu_torch.ops import ragged_paged_attention as RP
+from paddle_tpu_torch.ops import sampling as SM
 from paddle_tpu_torch.quant import kernels as QK
 from paddle_tpu_torch.quant.format import quantize_weight
 
@@ -1217,3 +1225,93 @@ def test_engine_checks_the_kernel_geometry_at_construction(dev):
     before = dict(RP.launches)
     out = engine.generate([[1, 2, 3, 4, 5]], max_new_tokens=3)
     assert len(out[0]) == 3 and RP.launches != before
+
+
+# ----------------------------------------------------------------------
+# the sampler's Gumbel pass
+# ----------------------------------------------------------------------
+
+def _gumbel_rows(dev, n, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (n,), generator=g)
+    folds = torch.randint(0, 2 ** 31, (n,), generator=g)
+    return seeds.to(dev), folds.to(dev)
+
+
+@pytest.mark.parametrize("v", [1, 2047, 2048, 2049, 32000, 128256])
+def test_gumbel_noise_bit_for_bit(dev, v):
+    seeds, folds = _gumbel_rows(dev, 5, v)
+    bases = torch.tensor([0, v, 2 ** 32 - 3, 2 ** 33 + 5, 7 * v],
+                         device=dev)
+    before = SM.launches["gumbel_noise"]
+    bits, u, g = SM.gumbel_noise(seeds, folds, bases, v)
+    assert SM.launches["gumbel_noise"] == before + 1
+    rb, ru, rg = SM.gumbel_noise_ref(seeds, folds, bases, v)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, rb)
+    assert torch.equal(u.view(torch.int32), ru.view(torch.int32))
+    err = ((g - rg).abs() / rg.abs().clamp_min(1.0)).max()
+    assert float(err) <= SM.GUMBEL_REL
+
+
+def _tokens_ok(got, scores, seeds, folds, bases, thr):
+    """Kernel tokens against the plain version's: equal, or within the
+    Gumbel tolerance of the plain version's best perturbed score."""
+    z = SM.perturbed_scores(scores, seeds, folds, bases, thr)
+    want = z.argmax(dim=-1)
+    rows = torch.nonzero(got != want)[:, 0]
+    for i in rows.tolist():
+        a, b = float(z[i, want[i]]), float(z[i, got[i]])
+        assert 0.0 <= a - b <= 2 * SM.GUMBEL_REL * 17.0 + 1e-5 * abs(a), \
+            (i, a, b)
+    return want
+
+
+@pytest.mark.parametrize("n,v", [(1, 5), (8, 32000), (8, 128256),
+                                 (70, 4099), (300, 1000)])
+def test_gumbel_argmax_against_the_plain_version(dev, n, v):
+    g = torch.Generator(dev).manual_seed(n + v)
+    scores = torch.randn((n, v), device=dev, generator=g) * 3
+    seeds, folds = _gumbel_rows(dev, n, n)
+    bases = torch.arange(n, device=dev) * v
+    # thresholds: keep all, keep the top part, keep nothing
+    q = scores.quantile(0.9, dim=-1) if v > 1 else scores[:, 0]
+    thr = torch.where(torch.arange(n, device=dev) % 3 == 0,
+                      torch.full_like(q, float("-inf")), q)
+    thr[n - 1] = float("inf")
+    scores[0, v // 2] = float("nan")         # never kept
+    scores[n // 2, 0] = -0.0
+    before = SM.launches["gumbel_argmax"]
+    got = SM.gumbel_argmax(scores, seeds, folds, bases, thr)
+    again = SM.gumbel_argmax(scores, seeds, folds, bases, thr)
+    assert SM.launches["gumbel_argmax"] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _tokens_ok(got, scores, seeds, folds, bases, thr)
+    assert int(got[n - 1]) == 0               # nothing kept
+    # every row alone is the row in the batch
+    for i in {0, n // 2, n - 1}:
+        one = SM.gumbel_argmax(scores[i:i + 1], seeds[i:i + 1],
+                               folds[i:i + 1], bases[i:i + 1],
+                               thr[i:i + 1])
+        assert int(one) == int(got[i])
+
+
+def test_gumbel_argmax_converts_its_operands(dev):
+    """bf16 and strided scores, int64 seeds and folds: converted, one
+    launch each, the same tokens as the f32 contiguous call."""
+    g = torch.Generator(dev).manual_seed(3)
+    wide = torch.randn((6, 2 * 3000), device=dev, generator=g)
+    scores = wide[:, ::2]
+    seeds, folds = _gumbel_rows(dev, 6, 4)
+    bases = torch.zeros(6, dtype=torch.int32, device=dev)
+    thr = torch.full((6,), float("-inf"), device=dev)
+    want = SM.gumbel_argmax(scores.contiguous(), seeds, folds, bases, thr)
+    assert torch.equal(SM.gumbel_argmax(scores, seeds, folds, bases, thr),
+                       want)
+    lb = scores.bfloat16()
+    assert torch.equal(SM.gumbel_argmax(lb, seeds, folds, bases, thr),
+                       SM.gumbel_argmax(lb.float(), seeds, folds, bases,
+                                        thr))
+    with pytest.raises(ValueError, match="integers"):
+        SM.gumbel_argmax(scores, seeds.float(), folds, bases, thr)

@@ -16,6 +16,8 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.models.llama", "paddle_tpu_torch.models.convert",
            "paddle_tpu_torch.inference.paged_cache",
            "paddle_tpu_torch.inference.serving",
+           "paddle_tpu_torch.inference.sampling",
+           "paddle_tpu_torch.ops.sampling",
            "paddle_tpu_torch.ops.ragged_paged_attention",
            "paddle_tpu_torch.ops.paged_attention",
            "paddle_tpu_torch.ops._build",

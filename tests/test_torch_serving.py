@@ -26,6 +26,8 @@ from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models import tiny_llama_config as jax_tiny
 from paddle_tpu.quant import quality
 
+from paddle_tpu_torch.inference.sampling import \
+    SamplingParams as TSamplingParams
 from paddle_tpu_torch.inference.serving import (AdmissionError,
                                                 LlamaServingEngine, Request)
 from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
@@ -131,8 +133,9 @@ def test_admission_and_unported_options(models):
         te._admit(Request([1] * 20, max_new_tokens=10))  # 4 more: 9 > 8
     with pytest.raises(ValueError, match="pages per sequence"):
         te._admit(Request([1] * 100, max_new_tokens=10))
-    with pytest.raises(NotImplementedError, match="A1"):
-        Request([1, 2], sampling=SamplingParams(temperature=0.7))
+    # sampled requests are served since A1: the port's own spec is taken
+    r = Request([1, 2], sampling=TSamplingParams(temperature=0.7))
+    assert te._admit(r) is not None and r._seed is not None
     for kw in ({"prefix_cache": True}, {"spec_k": 2}, {"kv_tier": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LlamaServingEngine(tm, **kw)
@@ -237,8 +240,8 @@ def test_request_takes_the_reference_signature():
         r = cls(p, 4, 9, None, None, 0, 1, None, (3,), None)
         assert (r.max_new_tokens, r.eos_token_id, r.stop_set) == (
             4, 9, frozenset({3}))
-    # a greedy sampling spec is taken, its stop ids merged
-    r = Request(p, sampling=SamplingParams(stop=(11,)), stop=(3,))
+    # a sampling spec is taken, its stop ids merged
+    r = Request(p, sampling=TSamplingParams(stop=(11,)), stop=(3,))
     assert r.stop_set == JaxRequest(p, sampling=SamplingParams(stop=(11,)),
                                     stop=(3,)).stop_set == {3, 11}
 
@@ -305,6 +308,17 @@ def test_engine_prewarm_env_raises_as_reference_reads_it(models,
     ({"sampling": SamplingParams(constraint=lambda p, o: None)}, "A1")])
 def test_request_unported_knobs_raise(kw, item):
     JaxRequest([1, 2], **kw)          # the reference takes each of them
+    if item == "A1":
+        # sampling is ported: the port takes its own SamplingParams of the
+        # same fields and, as the reference refuses anything but its own
+        # class, refuses the reference's
+        sp = kw["sampling"]
+        mine = TSamplingParams(sp.temperature, sp.top_p, sp.top_k, sp.seed,
+                               sp.stop, sp.logit_bias, sp.constraint)
+        assert Request([1, 2], sampling=mine).sampling is mine
+        with pytest.raises(ValueError, match="SamplingParams"):
+            Request([1, 2], **kw)
+        return
     with pytest.raises(NotImplementedError, match=item):
         Request([1, 2], **kw)
 
