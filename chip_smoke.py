@@ -69,9 +69,32 @@ package is not beside it, and when any phase fails:
 4. serving Llama-3-8B at full width and depth (random bf16 weights from
    a seeded generator on the card) through
    ``LlamaServingEngine.generate``: 8 prompts of 64-512 tokens, 32 new
-   tokens each, with every launch of the kernels counted and the plain
-   attention never called; every served token is checked against the
-   model's own plain forward;
+   tokens each, twice over one model: graphed (the default: decode
+   scans whose ticks replay a CUDA graph, every tick mode's graph
+   captured by ``prewarm``) and with ``decode_ticks=1`` (single mixed
+   steps, the reference's way to take no scan), each with every launch
+   of the kernels counted (2 a layer a dispatch or tick) and the plain
+   attention never called, finite logits (read from the tick graph's own
+   tensors after each replay); every token of the graphed run is checked
+   against the model's own plain forward, the share equal to the
+   single-step run's printed (rows retire at other ticks there, so it
+   multiplies fewer rows than the padded tick), the graphed launches
+   counted again by the profiler over a second run's scans, a window a
+   scan, and held (the wrappers' counts of a replay are its capture's;
+   the eager dispatches' wrappers count where they launch); no plain
+   version called while the tick graphs are captured; tokens/s, TTFT,
+   dispatch and tick times (host clock) of both runs;
+4b. (run after 4) the tick graph against the same tick run eagerly: on a
+   fresh engine with 8 live requests (greedy, biased and sampled rows),
+   for each tick mode (greedy, bias only, sampled) one tick replayed
+   from its graph, then from the same carry and pools the tick function
+   called directly on the same static buffers: next tokens, lens and
+   every pool slot (and scale) bit for bit equal; the launches of one
+   replay counted by the profiler (a write and an attention a layer) and
+   by the wrappers, its device time; the same for phase 8's int8 KV, for
+   the three attention paths of phase 9 (greedy), and, at phase 7's cut,
+   for the bf16 and the int8 Mixtral FFN (#6, then #7 and #8 under
+   capture);
 5. training at Llama-3-8B width cut to 8 layers (random f32 weights from
    a seeded generator on the card) through
    ``examples.llama_pretrain.train``: bf16 ``auto_cast``, AdamW, batch 2
@@ -105,11 +128,15 @@ package is not beside it, and when any phase fails:
 6. serving Mixtral-8x7B at full width and depth with int8 weights (built
    layer by layer from a seeded generator on the card, each layer
    quantized as it is made: 93 GB of bf16 never exist at once) through
-   ``LlamaServingEngine(weight_dtype="int8")``: phase 4's prompts, every
-   launch counted (per dispatch: the attention kernel's two launches,
-   four dequant matmuls and three int8 grouped GEMMs per layer), no
-   plain version called, every served token checked against the model's
-   own forward through the plain versions of all kernels;
+   ``LlamaServingEngine(weight_dtype="int8")``: phase 4's prompts,
+   graphed and with ``decode_ticks=1`` as phase 4, every launch counted
+   (per dispatch or tick: the attention kernel's two launches, four
+   dequant matmuls and three int8 grouped GEMMs per layer), no plain
+   version called, every token of the graphed run checked against the
+   model's own forward through the plain versions of all kernels, the
+   experts it chose replayed (recorded from its dispatches and from the
+   tick graph's routing tensors after each replay); a second graphed
+   run's launches counted by the profiler as phase 4's and held;
 7. the same for the bf16 MoE FFN at 4 layers (32 need two cards) with
    ``weight_dtype=None``: three float grouped GEMMs per layer;
 8. (run after 4) Llama-3-8B at full width and depth with int8 KV pages,
@@ -118,20 +145,23 @@ package is not beside it, and when any phase fails:
    called, the KV pool's bytes beside phase 4's, every served token
    checked against the model's own plain forward with K and V through
    ``quantize_kv_int8`` and back (phase 4's floors), and the share of
-   tokens equal to phase 4's printed;
+   tokens equal to phase 4's printed; graphed and single steps as phase
+   4, and phase 4b on int8 pools;
 9. (run after 8) the engine's three attention paths at Llama-3-8B width
    cut to 4 layers, both KV dtypes, phase 4's prompts: rope-fused (#12 /
    #13), ``fused_rope=False`` (#11a / #11b) and ``fused_kv=False`` (the
-   PyTorch scatter, then #10 / #9): identical greedy tokens; pools,
-   sidecars and attention outputs bitwise equal after the first (mixed)
-   dispatch, pools after the whole run; launches counted per path (2 a
-   layer a dispatch fused, 1 two-op), no plain version called;
+   PyTorch scatter, then #10 / #9), each with ``decode_ticks=1`` and
+   graphed: identical greedy tokens; with single steps pools, sidecars
+   and attention outputs bitwise equal after the first (mixed) dispatch;
+   pools after the whole run, both ways; launches counted per path (2 a
+   layer a dispatch or tick fused, 1 two-op), no plain version called;
 9b. (run after 9) the engine at Llama-3-8B width cut to 4 layers,
    phase 4's prompts, at 64-slot pages (bf16) and as an f32 model, and
    cut to 2 layers as an f16 model with ``weight_dtype="int8"`` (the
    dequant matmul on f16 x): every #12 and dequant launch counted, no
    plain version called, tokens held against the plain forward (with the
-   plain dequant matmul) at phase 4's floors;
+   plain dequant matmul) at phase 4's floors, graphed and single steps
+   as phase 4;
 10. (run after 9b) ``PagedKVCache`` at Llama-3-8B attention width on the
    card (12288 pages of 16 tokens, bf16): 32 sequences admitted with
    seeded prompts of 1-8160 tokens and their K/V written, 32 decode
@@ -163,15 +193,26 @@ package is not beside it, and when any phase fails:
    plain forward and the plain sampler at the same (seed, position) at
    phase 4's share floor (the margins of the rows that differ printed),
    exactly one ``gumbel_argmax`` launch and one sort per dispatch that
-   holds a sampled row, no plain version called; tokens/s beside phase
-   4's (phase 4 itself, all greedy, sorts nothing);
+   holds a sampled row, no plain version called (all with
+   ``decode_ticks=1``: the constraint pins the engine to single steps);
+   then graphed with the constrained row made greedy: the sampled tick
+   graph replayed, one launch a sampled dispatch or tick, the greedy
+   rows bitwise phase 4's graphed tokens, the forced row obeying, the
+   sampled rows replayed through the plain forward and sampler at the
+   same floor;
+   tokens/s beside phase 4's (phase 4 itself, all greedy, sorts nothing);
 12. (run after 11) ``LlamaForCausalLM.generate`` at Llama-3-8B's full
    width and depth over its static KV cache: 4 prompts of 128 tokens, 32
    new tokens, greedy (tokens held against the plain forward at phase 4's
    floors, and their share equal to the engine's greedy tokens printed)
    and ``do_sample`` (top_k 50, top_p 0.9, fixed seed: one
-   ``gumbel_argmax`` launch a step, no plain version called), each with
-   its time per step;
+   ``gumbel_argmax`` launch a step, no plain version called), each step
+   after the prefill a replay of the step's CUDA graph, its tokens bit
+   for bit the same loop's run eagerly (same batch and buffer), the time
+   per step of both, and one replay's launches and device time;
+13. a capture that fails (a host read under capture) raises, leaves the
+   current stream as it was, and the next capture replays right; no
+   phase catches a capture's error, so one ends the run;
 
 then a JSON line of kernel results and the final result line.
 """
@@ -711,19 +752,54 @@ def llama_model(dev, layers=None, dtype="bfloat16"):
     return cfg, model
 
 
+def serving_engine(model, kv_dtype=None, page_size=16, weight_dtype=None,
+                   decode_ticks=None, **kw):
+    """``LlamaServingEngine(max_batch=8)`` over ``model``: by default
+    decode scans whose ticks replay CUDA graphs; ``decode_ticks=1`` takes
+    single mixed steps only, as the reference does with it."""
+    from paddle_tpu_torch.inference import LlamaServingEngine
+    return LlamaServingEngine(model, max_batch=8, page_size=page_size,
+                              kv_dtype=kv_dtype, weight_dtype=weight_dtype,
+                              decode_ticks=decode_ticks, **kw)
+
+
+def warm_up(engine, prompts):
+    """``engine.prewarm`` of its two dispatch shapes and, unless it takes
+    single steps only, its scans (every tick mode's graph captured), then
+    one short request, 2 new tokens (a prefill and a scan of 4 ticks).
+    The tick graphs are captured here: a plain version captured into one
+    would run at every replay with no Python call, so one called here
+    fails the phase (:func:`captured_kernels_only`)."""
+    scans = [engine.decode_ticks] if engine.decode_ticks > 1 else []
+    with captured_kernels_only("warm-up"):
+        engine.prewarm([engine.chunk_budget, engine.max_batch], scans)
+        engine.generate([prompts[0][:16]], max_new_tokens=2)
+
+
+@contextlib.contextmanager
+def captured_kernels_only(label):
+    """Fail if a plain version of the serving path or of the sampler is
+    called in the context (where tick graphs are captured)."""
+    from paddle_tpu_torch.ops import sampling as SM
+    with count_calls(serving_plain_versions()
+                     + [(SM, "gumbel_argmax_ref")]) as plain_calls:
+        yield
+    if plain_calls:
+        fail(f"{label}: plain versions ran on the card (and into a tick "
+             f"graph if captured): {sorted(set(plain_calls))}")
+
+
 def serving_workload(dev, kv_dtype=None, layers=None, page_size=16,
-                     dtype="bfloat16", weight_dtype=None):
+                     dtype="bfloat16", weight_dtype=None, decode_ticks=None):
     """Llama-3-8B at full width (and depth, unless ``layers``; random
     weights in ``dtype`` from a seeded generator on the card) behind
-    ``LlamaServingEngine(max_batch=8, page_size=page_size,
-    kv_dtype=kv_dtype, weight_dtype=weight_dtype)``, warmed up, and 8
-    prompts of 64-512 tokens. Returns (cfg, model, engine, prompts)."""
-    from paddle_tpu_torch.inference import LlamaServingEngine
+    :func:`serving_engine`, warmed up, and 8 prompts of 64-512 tokens.
+    Returns (cfg, model, engine, prompts)."""
     cfg, model = llama_model(dev, layers, dtype)
-    engine = LlamaServingEngine(model, max_batch=8, page_size=page_size,
-                                kv_dtype=kv_dtype, weight_dtype=weight_dtype)
+    engine = serving_engine(model, kv_dtype, page_size, weight_dtype,
+                            decode_ticks)
     prompts = serving_prompts(cfg.vocab_size)
-    engine.generate([prompts[0][:16]], max_new_tokens=2)   # warm-up
+    warm_up(engine, prompts)
     return cfg, model, engine, prompts
 
 
@@ -737,21 +813,12 @@ def serving_prompts(vocab):
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0."""
-    from paddle_tpu_torch.ops import flash_attention as FT
-    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
-    from paddle_tpu_torch.ops import grouped_gemm as GG
-    from paddle_tpu_torch.ops import paged_attention as PA
-    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
-    from paddle_tpu_torch.quant import kernels as QK
-    from paddle_tpu_torch.ops import sampling as SM
-    for counts in (rpa.launches, GG.launches, FT.launches, PA.launches,
-                   PA.instance_launches, FT.instance_launches,
-                   GG.instance_launches, SM.launches,
-                   QK.instance_launches, FC.instance_launches):
+    """Set every kernel's launch count to 0 (every counter is registered
+    in ``ops._build.COUNTERS``)."""
+    from paddle_tpu_torch.ops import _build
+    for counts in _build.COUNTERS:
         for key in counts:
             counts[key] = 0
-    QK.launches = FC.launches = 0
 
 
 def serving_plain_versions():
@@ -776,44 +843,335 @@ def kv8_attention(q, k, v):
     return llama.plain_attention(q.float(), kd, vd).to(q.dtype)
 
 
-def serve(dev, kv_dtype=None, bf16_outs=None, label=None, **workload):
-    """Phase 4 (``kv_dtype=None``) and phase 8 (``"int8"``): serve
-    Llama-3-8B at full depth through the engine's entry point, every
-    launch of the rope-fused attention (#12, or #13 on int8 pools)
-    counted and no plain version called; every served token checked
-    against the model's own plain forward (its K and V through the int8
-    quantizer and back for phase 8). ``workload`` (layers, page_size,
-    dtype, weight_dtype) goes to :func:`serving_workload` (phase 9b); with
-    int8 weights every projection launches the dequant matmul and the
-    plain forward takes its plain version too. All its rows are greedy,
-    so nothing is sorted. Returns (launches, outputs, tokens/s)."""
+# ----------------------------------------------------------------------
+# CUDA-graph decode: taps, launches per replay, the tick replay check
+# ----------------------------------------------------------------------
+
+class TickTaps:
+    """What :func:`tick_taps` records: ``records``, one ``(rows,
+    {tag: [tensor, ...]})`` per mixed dispatch and per tick (a
+    dispatch's rows ``(req, start, n)``; a tick's rows one token each at
+    its position), in the order they ran."""
+
+    def __init__(self):
+        self.records = []
+        self.captured = {}        # tick mode -> [(tag, tensor)] of a capture
+        self.mode = None          # the tick mode running or being captured
+        self.pending = None       # the tags of the dispatch or tick running
+        self.scan = None          # the scan's (live, starts)
+        self.tick = 0
+
+    def tap(self, tag, t):
+        """Called by a forward hook with a tensor the forward computed."""
+        import torch
+        if torch.cuda.is_current_stream_capturing():
+            self.captured.setdefault(self.mode, []).append((tag, t))
+        elif self.pending is not None:
+            self.pending.setdefault(tag, []).append(t)
+        # else: a capture's warm-up tick on the padding rows
+
+
+@contextlib.contextmanager
+def tick_taps(engine):
+    """Record every mixed dispatch of ``engine`` and every tick it runs
+    (:class:`TickTaps`). A forward hook runs when a tick graph is
+    captured, not when it is replayed: a tensor tapped during a capture
+    is the graph's own, rewritten by each replay, so it is cloned after
+    every replay (no host read). Enter before the engine captures."""
+    taps = TickTaps()
+    names = ("_dispatch_rows", "_tick", "_load_scan", "_run_tick")
+    dispatch, tick, load, run = (getattr(engine, n) for n in names)
+
+    def on_dispatch(rows):
+        taps.pending = {}
+        try:
+            return dispatch(rows)
+        finally:
+            taps.records.append(([(r, start, n) for r, _, start, n, _, _
+                                  in rows], taps.pending))
+            taps.pending = None
+
+    def on_tick(mode):
+        taps.mode = mode
+        try:
+            return tick(mode)
+        finally:
+            taps.mode = None
+
+    def on_load(live, starts, mode):
+        taps.scan, taps.tick = (list(live), list(starts)), 0
+        return load(live, starts, mode)
+
+    def on_run(mode):
+        live, starts = taps.scan
+        rows = [(r, s + taps.tick, 1) for r, s in zip(live, starts)]
+        taps.tick += 1
+        if not engine._graphs.cuda:        # the CPU runs the tick itself
+            taps.pending = {}
+            out = run(mode)
+            taps.records.append((rows, taps.pending))
+            taps.pending = None
+            return out
+        out = run(mode)
+        tags = {}
+        for tag, t in taps.captured.get(mode, ()):
+            tags.setdefault(tag, []).append(t.clone())
+        taps.records.append((rows, tags))
+        return out
+    with instance_attrs(engine, **dict(zip(names, (
+            on_dispatch, on_tick, on_load, on_run)))):
+        yield taps
+
+
+@contextlib.contextmanager
+def finite_taps(model, taps):
+    """Tap whether each forward's lm head logits are all finite."""
+    import torch
+    hook = model.lm_head.register_forward_hook(
+        lambda mod, inp, out: taps.tap("finite", torch.isfinite(out).all()))
+    try:
+        yield
+    finally:
+        hook.remove()
+
+
+def all_finite(records):
+    return all(bool(f) for _, tags in records for f in tags.get("finite", ()))
+
+
+# kernel families counted by the profiler: a fragment of the kernel's name
+# -> the family; a ragged family call launches a write and an attention
+KERNEL_FRAGMENTS = {"kv_write_kernel": "write", "attention_tc": "attention",
+                    "ragged_attention_kernel": "attention",
+                    "gumbel_argmax_kernel": "gumbel",
+                    "dq_cluster_kernel": "dequant",
+                    "dequant_matmul::": "dequant",
+                    "q8_cluster_kernel": "grouped",
+                    "float_cluster_kernel": "grouped",
+                    "grouped_gemm::": "grouped"}
+
+
+def profiled_launches(fn):
+    """Run ``fn`` under ``torch.profiler`` and count the device launches
+    of the port's kernels by family (``KERNEL_FRAGMENTS``), graph
+    replays' kernels included. Returns (fn's result, ``{family: n}``,
+    the device time of all its kernels and copies in ms)."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = collections.Counter()
+    busy = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        busy += e.time_range.end - e.time_range.start
+        fam = next((f for k, f in KERNEL_FRAGMENTS.items() if k in e.name),
+                   None)
+        if fam:
+            counts[fam] += 1
+    return out, dict(counts), busy / 1e3
+
+
+@contextlib.contextmanager
+def profiled_scans(engine):
+    """Profile each decode scan of ``engine`` in a ``torch.profiler``
+    window of its own; yields ``(prof, py)``, the launches of the port's
+    kernels by family summed over the scans, by the profiler and by the
+    wrappers (:func:`python_launches`). A replay's wrapper counts are its
+    capture's, so the profiler's are the ones that show what the card
+    ran. The mixed dispatches are eager: their wrappers count where they
+    launch, and CUPTI has dropped records of them (4 writes and 3
+    attentions of one of 188 dispatch windows; none of 92 replay
+    windows)."""
+    import collections
+    prof, py = collections.Counter(), collections.Counter()
+    scan = engine._decode_scan
+
+    def windowed(n):
+        py0 = python_launches()
+        out, c, _ = profiled_launches(lambda: scan(n))
+        prof.update(c)
+        py.update({k: v - py0[k] for k, v in python_launches().items()})
+        return out
+    with instance_attrs(engine, _decode_scan=windowed):
+        yield prof, py
+
+
+def hold_profiled(label, prof, py):
+    """Fail unless the profiler's launches ``prof`` (by family) are the
+    wrappers' ``py`` (:func:`python_launches` over the same run): a
+    ragged family call launches a write and an attention."""
+    if prof.get("write", 0) + prof.get("attention", 0) \
+            != py.get("ragged", 0) or not prof.get("attention"):
+        fail(f"{label}: profiler {prof} against the wrappers' {py}")
+    for fam in ("gumbel", "dequant", "grouped"):
+        if prof.get(fam, 0) != py.get(fam, 0):
+            fail(f"{label}: {fam} launches, profiler {prof} against the "
+                 f"wrappers' {py}")
+
+
+def python_launches():
+    """The wrappers' launch counts of the serving path by family (a fused
+    call counts its write and attention launches)."""
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops import sampling as SM
+    from paddle_tpu_torch.quant import kernels as QK
+    return {"ragged": sum(rpa.launches.values()),
+            "gumbel": SM.launches["gumbel_argmax"],
+            "dequant": QK.launches, "grouped": sum(GG.launches.values())}
+
+
+def tick_state(engine):
+    """Everything a tick writes: the scan's carry, its out buffer and
+    tick counter, the pools and the scale sidecars."""
+    g = engine._graphs.buffers
+    return [g[k] for k in ("tokens", "lens", "out", "tick")] \
+        + engine.k_pools + engine.v_pools + engine.k_scales + engine.v_scales
+
+
+# phase 4b: the tick modes and the sampling of each request of the check
+TICK_MODES = ("greedy", "bias", "sampled")
+
+
+def tick_requests(prompts):
+    """8 requests over the first 48 tokens of ``prompts``: 4 greedy, 1
+    with a logit bias, 3 sampled (each tick mode finds its rows)."""
+    from paddle_tpu_torch.inference import Request, SamplingParams
+    sps = [None] * 4 + [SamplingParams(logit_bias={FORCED_TOKEN: 3.0})] + [
+        SamplingParams(temperature=0.8, top_p=0.9, seed=2000 + i)
+        for i in range(3)]
+    return [Request(p[:48], max_new_tokens=NEW, sampling=sp)
+            for p, sp in zip(prompts, sps)]
+
+
+def check_tick_replay(engine, label, prompts, modes=("greedy",)):
+    """Phase 4b on ``engine`` (fresh, warmed or not): admit and prefill
+    :func:`tick_requests`, then for each tick mode take one tick both
+    ways from the same state: its CUDA graph replayed (its launches
+    counted by the profiler and by the wrappers), then, with the carry
+    and pools restored, the tick function called directly on the same
+    static buffers. Next tokens, lens and every pool slot and scale must
+    be bit for bit equal (same shapes). Returns the profiler's launches
+    per replay of each mode."""
+    import torch
+    for r in tick_requests(prompts):
+        engine.add_request(r)
+    live = [r for r in engine._live.values() if not r.done]
+    per_replay = {}
+    for mode in modes:
+        with captured_kernels_only(f"tick replay {label} {mode} capture"):
+            engine._ensure_tick(mode)
+        starts = [engine.alloc.extend(r.seq_id, 1) for r in live]
+        engine._load_scan(live, starts, mode)
+        state = tick_state(engine)
+        before = [t.clone() for t in state]
+        py0 = python_launches()
+        _, prof, dev_ms = profiled_launches(
+            lambda: engine._run_tick(mode))
+        py = {k: v - py0[k] for k, v in python_launches().items() if v != py0[k]}
+        replayed = [t.clone() for t in state]
+        for t, b in zip(state, before):
+            t.copy_(b)
+        engine._tick(mode)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(replayed, state)]
+        per_replay[mode] = prof
+        print(f"tick replay {label} {mode}: replay == eager tick bitwise "
+              f"over {len(same)} tensors (tokens, lens, out, tick, pools"
+              f"{', scales' if engine.kv_quant else ''}) {all(same)}; "
+              f"launches per replay, profiler {prof}, wrappers {py}; "
+              f"device_ms per replay {dev_ms:.3f}",
+              flush=True)
+        if not all(same):
+            fail(f"tick replay {label} {mode}: the replayed tick differs "
+                 f"from the eager tick in tensors "
+                 f"{[i for i, x in enumerate(same) if not x]}")
+        hold_profiled(f"tick replay {label} {mode}", prof, py)
+    return per_replay
+
+
+@contextlib.contextmanager
+def instance_attrs(obj, **attrs):
+    """Set attributes on ``obj`` for the context, then put back what was
+    there (an instance attribute, or none)."""
+    had = {n: obj.__dict__[n] for n in attrs if n in obj.__dict__}
+    for n, v in attrs.items():
+        setattr(obj, n, v)
+    try:
+        yield
+    finally:
+        for n in attrs:
+            if n in had:
+                setattr(obj, n, had[n])
+            else:
+                delattr(obj, n)
+
+
+@contextlib.contextmanager
+def timed_dispatches(engine):
+    """Time each of ``engine``'s mixed dispatches and scans on the host
+    clock (each ends in its read-back, so synchronised) and count its
+    ticks by mode; yields ``{"mixed": [s], "decode": [s], "scan": [(s,
+    ticks)], "ticks": {mode: n}}``."""
+    import collections
+    times = collections.defaultdict(list)
+    times["ticks"] = collections.Counter()
+    dispatch, scan, run = (engine._dispatch_rows, engine._decode_scan,
+                           engine._run_tick)
+
+    def counted_tick(mode):
+        times["ticks"][mode] += 1
+        return run(mode)
+
+    def timed_dispatch(rows):
+        t0 = time.perf_counter()
+        out = dispatch(rows)
+        mixed = any(n > 1 or not dec for _, _, _, n, _, dec in rows)
+        times["mixed" if mixed else "decode"].append(time.perf_counter()
+                                                     - t0)
+        return out
+
+    def timed_scan(n):
+        t0 = time.perf_counter()
+        out = scan(n)
+        times["scan"].append((time.perf_counter() - t0, n))
+        return out
+    with instance_attrs(engine, _dispatch_rows=timed_dispatch,
+                        _decode_scan=timed_scan, _run_tick=counted_tick):
+        yield times
+
+
+def served_run(engine, prompts, label, key, layers, taps):
+    """One timed run of phase 4's requests through ``engine.generate``,
+    every launch counted and no plain version called: returns (reqs,
+    outs, wall, launches, mixed dispatches, ticks, times, the dequant
+    matmul's launches)."""
     import torch
     from paddle_tpu_torch.inference import Request
-    from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.quant import kernels as QK
-    label = label or ("serve int8-kv" if kv_dtype else "serve")
-    key = "fused_rope_q8" if kv_dtype else "fused_rope"
-    cfg, model, engine, prompts = serving_workload(dev, kv_dtype,
-                                                   **workload)
-    finite = []
-    hook = model.lm_head.register_forward_hook(
-        lambda mod, inp, out: finite.append(torch.isfinite(out).all()))
     reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
+    n0 = len(taps.records)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     with count_calls(serving_plain_versions()
-                     + [(torch, "sort")]) as plain_calls:
+                     + [(torch, "sort")]) as plain_calls, \
+            timed_dispatches(engine) as times:
         reset_launches()
-        d0 = engine._dispatch_count
         t0 = time.perf_counter()
         outs = engine.generate(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(rpa.launches)
         dq_launches = dict(QK.instance_launches)
-    dispatches = engine._dispatch_count - d0
-    hook.remove()
+    ticks = sum(times["ticks"].values())
+    mixed = len(times["mixed"]) + len(times["decode"])
     if "sort" in plain_calls:
         fail(f"{label}: an all-greedy run sorted "
              f"{plain_calls.count('sort')} times")
@@ -821,30 +1179,108 @@ def serve(dev, kv_dtype=None, bf16_outs=None, label=None, **workload):
         fail(f"{label}: plain versions ran on the card: "
              f"{sorted(set(plain_calls))}")
     want = {k: 0 for k in launches}
-    want[key] = 2 * cfg.num_hidden_layers * dispatches
-    if launches != want or not dispatches:
+    want[key] = 2 * layers * (mixed + ticks)
+    if launches != want or not mixed:
         fail(f"{label}: kernel launches {launches} != {want} (2 x layers x "
-             f"dispatches of {key})")
-    int8_weights = workload.get("weight_dtype") == "int8"
-    per = cfg.num_hidden_layers * dispatches
+             f"(dispatches + ticks) of {key})")
+    per = layers * (mixed + ticks)
     n_dq = sum(dq_launches.values())
-    if int8_weights != bool(n_dq) or n_dq % per:
-        fail(f"{label}: dequant matmul launches {dq_launches} for "
-             f"{per} layer dispatches")
-    if n_dq:
-        print(f"{label}: dequant matmul launches {dq_launches} "
-              f"({n_dq // per} a layer a dispatch)", flush=True)
-    if not all(bool(f) for f in finite):
+    if n_dq % per:
+        fail(f"{label}: dequant matmul launches {dq_launches} for {per} "
+             "layer dispatches")
+    if not all_finite(taps.records[n0:]):
         fail(f"{label}: non-finite logits in the serving run")
     for o in outs:
-        if len(o) != NEW or not all(0 <= t < cfg.vocab_size for t in o):
+        if len(o) != NEW or not all(0 <= t < engine.model.config.vocab_size
+                                    for t in o):
             fail(f"{label}: bad output {o}")
+    return reqs, outs, wall, launches[key], mixed, ticks, times, dq_launches
+
+
+def run_line(reqs, wall, mixed, ticks, times):
+    """tokens/s, TTFT and the host-clock dispatch and tick times of one
+    run, as printed."""
+    ttft = sorted(r.ttft for r in reqs)
+    n_tok = sum(len(r.output_ids) for r in reqs)
+    scans = times.get("scan", [])
+    tick_s = sum(s for s, _ in scans) / max(sum(n for _, n in scans), 1)
+    mean = {k: 1e3 * sum(times.get(k, ())) / max(len(times.get(k, ())), 1)
+            for k in ("mixed", "decode")}
+    return (f"dispatches={mixed} ticks={ticks} (scans={len(scans)}) "
+            f"wall_s={wall:.3f} tokens_per_s={n_tok / wall:.1f} "
+            f"ttft_ms_p50={1e3 * ttft[len(ttft) // 2]:.1f} ttft_ms_max="
+            f"{1e3 * ttft[-1]:.1f} mixed_dispatch_ms="
+            f"{mean.get('mixed', 0):.2f} decode_dispatch_ms="
+            f"{mean.get('decode', 0):.2f} (n={len(times.get('decode', []))})"
+            f" tick_ms={1e3 * tick_s:.2f}")
+
+
+def serve(dev, kv_dtype=None, bf16=None, label=None, tick_check=False,
+          **workload):
+    """Phase 4 (``kv_dtype=None``) and phase 8 (``"int8"``): serve
+    Llama-3-8B at full depth through the engine's entry point, twice over
+    one model: the default engine (decode scans, each tick a replayed CUDA
+    graph) and one with ``decode_ticks=1`` (single mixed steps, the
+    reference's way to take no scan). Each: every launch of the
+    rope-fused attention (#12, or #13 on int8 pools) counted (2 a layer a
+    dispatch or tick) and no plain version called, finite logits (read
+    from the tick graphs' own tensors after each replay). The graphed
+    run's tokens are held against the model's own plain forward (its K
+    and V through the int8 quantizer and back for phase 8) at the floors;
+    its replays' launches are counted by the profiler too, over a second
+    graphed run's scans; the share of its tokens equal to the single-step
+    run's is printed (rows retire at other ticks there, so the eager run
+    multiplies fewer rows than the padded tick and cuBLAS may round
+    another way). ``workload`` (layers, page_size, dtype, weight_dtype)
+    shapes the model and engines (phase 9b); with int8 weights every
+    projection launches the dequant matmul and the plain forward takes
+    its plain version too. ``tick_check``: phase 4b on a third engine.
+    All rows are greedy, so nothing is sorted. ``bf16``: phase 4's
+    result, for phase 8's share of equal tokens. Returns a dict:
+    launches, outs, single_outs, tps, single_tps."""
+    import torch
+    from paddle_tpu_torch.inference import Request
+    from paddle_tpu_torch.models import llama
+    label = label or ("serve int8-kv" if kv_dtype else "serve")
+    key = "fused_rope_q8" if kv_dtype else "fused_rope"
+    cfg, model = llama_model(dev, workload.get("layers"),
+                             workload.get("dtype", "bfloat16"))
+    layers = cfg.num_hidden_layers
+    prompts = serving_prompts(cfg.vocab_size)
+    kw = dict(kv_dtype=kv_dtype, page_size=workload.get("page_size", 16),
+              weight_dtype=workload.get("weight_dtype"))
+    runs = {}
+    for name, ticks in (("single", 1), ("graphed", None)):
+        engine = serving_engine(model, decode_ticks=ticks, **kw)
+        with tick_taps(engine) as taps, finite_taps(model, taps):
+            warm_up(engine, prompts)
+            runs[name] = served_run(engine, prompts, f"{label} {name}", key,
+                                    layers, taps)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if name == "graphed":
+            # the profiler's count of a second run's replays, a window a
+            # scan
+            with timed_dispatches(engine) as ptimes, \
+                    profiled_scans(engine) as (prof, py):
+                engine.generate([Request(p, max_new_tokens=NEW)
+                                 for p in prompts])
+            p_ticks = sum(ptimes["ticks"].values())
+            graphed_engine = engine
+        del engine
+        torch.cuda.empty_cache()
+    reqs, outs, wall, launches, mixed, ticks, times, dq = runs["graphed"]
+    sreqs, souts, swall, slaunches, smixed, _, stimes, _ = runs["single"]
+    want = {"write": layers * p_ticks, "attention": layers * p_ticks}
+    if not p_ticks:
+        fail(f"{label}: the second graphed run took no tick")
+    int8_weights = workload.get("weight_dtype") == "int8"
+    if int8_weights != bool(sum(dq.values())):
+        fail(f"{label}: dequant matmul launches {dq}")
     kv_bytes = sum(t.numel() * t.element_size()
-                   for t in engine.k_pools + engine.v_pools
-                   + engine.k_scales + engine.v_scales)
-    # every served token against the model's own plain forward (no
-    # cache, plain attention) fed the same tokens: most must be its
-    # argmax, the rest near-ties of it
+                   for t in graphed_engine.k_pools + graphed_engine.v_pools
+                   + graphed_engine.k_scales + graphed_engine.v_scales)
+    kv_per_token = graphed_engine.kv_bytes_per_token
+    del graphed_engine
     gaps = []
     with plain_serving_paths():
         if kv_dtype:
@@ -858,29 +1294,43 @@ def serve(dev, kv_dtype=None, bf16_outs=None, label=None, **workload):
     gaps = torch.cat(gaps)
     exact, worst = int((gaps == 0).sum()), float(gaps.max())
     n_tok = len(prompts) * NEW
-    ttft = sorted(r.ttft for r in reqs)
+    eq = sum(a == b for o, ob in zip(outs, souts) for a, b in zip(o, ob))
     same = ""
-    if bf16_outs is not None:
-        eq = sum(a == b for o, ob in zip(outs, bf16_outs)
-                 for a, b in zip(o, ob))
-        same = f" same_as_bf16_kv={eq}/{n_tok}"
+    if bf16 is not None:
+        eqb = sum(a == b for o, ob in zip(outs, bf16["outs"])
+                  for a, b in zip(o, ob))
+        same = f" same_as_bf16_kv={eqb}/{n_tok}"
     print(f"{label}: requests={len(prompts)} prompt_tokens="
-          f"{sum(map(len, prompts))} new_tokens={n_tok} dispatches="
-          f"{dispatches} launches={launches[key]} wall_s={wall:.3f} "
-          f"tokens_per_s={n_tok / wall:.1f} ttft_ms_p50="
-          f"{1e3 * ttft[len(ttft) // 2]:.1f} ttft_ms_max={1e3 * ttft[-1]:.1f}"
-          f" peak_mem_gb={torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
-          f" kv_pool_bytes={kv_bytes} kv_bytes_per_token="
-          f"{engine.kv_bytes_per_token} plain_forward_exact={exact}/{n_tok} "
-          f"worst_gap={worst:.4f} gap_p90={float(gaps.quantile(0.9)):.4f}"
-          f"{same}", flush=True)
+          f"{sum(map(len, prompts))} new_tokens={n_tok} launches={launches}"
+          f" peak_mem_gb={peak:.2f} kv_pool_bytes={kv_bytes} "
+          f"kv_bytes_per_token={kv_per_token}", flush=True)
+    print(f"{label} graphed: {run_line(reqs, wall, mixed, ticks, times)} "
+          f"plain_forward_exact={exact}/{n_tok} worst_gap={worst:.4f} "
+          f"gap_p90={float(gaps.quantile(0.9)):.4f} "
+          f"equal_to_single_steps={eq}/{n_tok}{same}", flush=True)
+    print(f"{label} single steps (decode_ticks=1): "
+          f"{run_line(sreqs, swall, smixed, 0, stimes)} launches={slaunches}",
+          flush=True)
+    print(f"{label} graphed, profiler over a second run's scans (a window "
+          f"a scan): launches {dict(prof)} (want {want}, a write and an "
+          f"attention a layer a tick, {p_ticks} ticks; the wrappers' "
+          f"{dict(py)})", flush=True)
+    hold_profiled(f"{label} graphed, profiled scans", prof, py)
+    if any(prof.get(k) != n for k, n in want.items()):
+        fail(f"{label} graphed, profiled run: launches {dict(prof)}, want "
+             f"{want}")
     if exact < EXACT_FLOOR * n_tok:
         fail(f"{label}: only {exact}/{n_tok} served tokens are the plain "
              f"forward's argmax (floor {EXACT_FLOOR})")
     if worst > TIE_TOL:
         fail(f"{label}: served token {worst:.3f} below the plain forward's "
              "argmax")
-    return launches[key], outs, n_tok / wall
+    if tick_check:
+        torch.cuda.empty_cache()
+        check_tick_replay(serving_engine(model, **kw), label, prompts,
+                          TICK_MODES)
+    return dict(launches=launches + slaunches, outs=outs, single_outs=souts,
+                tps=n_tok / wall, single_tps=n_tok / swall)
 
 
 # phase 9's engine paths: keyword arguments, launches per layer per
@@ -947,26 +1397,64 @@ def serve_domain(dev):
     import torch
     launches = 0
     for label, workload in SERVE_DOMAIN.items():
-        n, _, _ = serve(dev, label=label, **dict(dict(layers=LADDER_LAYERS),
-                                              **workload))
-        launches += n
+        launches += serve(dev, label=label, **dict(
+            dict(layers=LADDER_LAYERS), **workload))["launches"]
         torch.cuda.empty_cache()
     return launches
+
+
+def ladder_run(engine, prompts, label, key, per_layer, first=None):
+    """One run of phase 4's requests through ``engine.generate`` with
+    every launch counted (``per_layer`` a layer a dispatch or tick) and
+    no plain version called; ``first``: a store for
+    :func:`recorded_attention`. Returns (outs, pools, wall, dispatches,
+    ticks, launches)."""
+    import torch
+    from paddle_tpu_torch.inference import Request
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
+    record = recorded_attention(engine, first) if first is not None \
+        else contextlib.nullcontext()
+    with count_calls(serving_plain_versions()) as plain_calls, record, \
+            timed_dispatches(engine) as times:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = engine.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(rpa.launches)
+    ticks = sum(times["ticks"].values())
+    dispatches = len(times["mixed"]) + len(times["decode"])
+    if plain_calls:
+        fail(f"{label}: plain versions ran on the card: "
+             f"{sorted(set(plain_calls))}")
+    want = {k: 0 for k in launches}
+    want[key] = per_layer * LADDER_LAYERS * (dispatches + ticks)
+    if launches != want or (first is not None and not first.get("mixed")):
+        fail(f"{label}: kernel launches {launches} != {want}, or the first "
+             "dispatch was not a mixed one")
+    pools = engine.k_pools + engine.v_pools + engine.k_scales \
+        + engine.v_scales
+    return outs, pools, wall, dispatches, ticks, launches[key]
 
 
 def serve_ladder(dev):
     """Phase 9: Llama-3-8B width at LADDER_LAYERS layers serves phase 4's
     prompts through the engine's three attention paths (rope-fused #12 /
     #13, ``fused_rope=False`` #11a / #11b, ``fused_kv=False`` #10 / #9
-    after the PyTorch scatter) for both KV dtypes. Per dtype the greedy
-    tokens must be identical, and the pools, the sidecars and every
-    layer's attention output after the first (mixed) dispatch, and the
-    pools after the whole run, bitwise equal; every launch counted (2 a
-    layer a dispatch fused, 1 two-op) and no plain version called.
-    Returns the launches of each path by its launch-count key."""
+    after the PyTorch scatter) for both KV dtypes, each path twice: with
+    ``decode_ticks=1`` (single mixed steps, whose first dispatch's
+    attention outputs and pools are recorded) and graphed (decode scans
+    replaying each path's tick graph). Per dtype and per way, the greedy
+    tokens must be identical across the paths and the final pools and
+    sidecars bitwise equal; with ``decode_ticks=1`` also every layer's
+    attention output and the pools after the first (mixed) dispatch.
+    Every launch counted (2 a layer a dispatch or tick fused, 1 two-op)
+    and no plain version called; then phase 4b's tick check (greedy) on
+    each path. Returns the launches of each path by its launch-count
+    key."""
     import torch
-    from paddle_tpu_torch.inference import LlamaServingEngine, Request
-    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     cfg, model = llama_model(dev, LADDER_LAYERS)
     prompts = serving_prompts(cfg.vocab_size)
     counts = {}
@@ -974,56 +1462,52 @@ def serve_ladder(dev):
         runs = {}
         for path, (kw, per_layer, key) in LADDER.items():
             key += "_q8" if kv_dtype else ""
-            engine = LlamaServingEngine(model, max_batch=8, page_size=16,
-                                        kv_dtype=kv_dtype, **kw)
-            reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
-            with count_calls(serving_plain_versions()) as plain_calls, \
-                    recorded_attention(engine, {}) as first:
-                reset_launches()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                outs = engine.generate(reqs)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                launches = dict(rpa.launches)
-            dispatches = engine._dispatch_count
             label = f"ladder {kv_dtype or 'bf16'} {path}"
-            if plain_calls:
-                fail(f"{label}: plain versions ran on the card: "
-                     f"{sorted(set(plain_calls))}")
-            want = {k: 0 for k in launches}
-            want[key] = per_layer * LADDER_LAYERS * dispatches
-            if launches != want or not first.get("mixed"):
-                fail(f"{label}: kernel launches {launches} != {want}, or "
-                     "the first dispatch was not a mixed one")
-            counts[key] = launches[key]
-            pools = engine.k_pools + engine.v_pools + engine.k_scales \
-                + engine.v_scales
-            runs[path] = (outs, first, pools)
-            print(f"{label}: dispatches={dispatches} launches="
-                  f"{launches[key]} wall_s={wall:.3f} tokens_per_s="
-                  f"{len(prompts) * NEW / wall:.1f}", flush=True)
-        outs0, first0, pools0 = runs["rope-fused"]
+            single = serving_engine(model, kv_dtype, decode_ticks=1, **kw)
+            first = {}
+            souts, spools, swall, sdisp, _, sl = ladder_run(
+                single, prompts, f"{label} single", key, per_layer, first)
+            graphed = serving_engine(model, kv_dtype, **kw)
+            warm_up(graphed, prompts)
+            outs, pools, wall, disp, ticks, gl = ladder_run(
+                graphed, prompts, f"{label} graphed", key, per_layer)
+            counts[key] = sl + gl
+            runs[path] = (souts, first, spools, outs, pools)
+            print(f"{label}: single steps dispatches={sdisp} wall_s="
+                  f"{swall:.3f} tokens_per_s={len(prompts) * NEW / swall:.1f}"
+                  f"; graphed dispatches={disp} ticks={ticks} wall_s="
+                  f"{wall:.3f} tokens_per_s={len(prompts) * NEW / wall:.1f}"
+                  f"; launches {sl} + {gl}", flush=True)
+            check_tick_replay(serving_engine(model, kv_dtype, **kw), label,
+                              prompts)
+            del single, graphed
+            torch.cuda.empty_cache()
+        souts0, first0, spools0, outs0, pools0 = runs["rope-fused"]
         for path in ("fused-kv", "two-op"):
-            outs, first, pools = runs[path]
+            souts, first, spools, outs, pools = runs[path]
             label = f"ladder {kv_dtype or 'bf16'} {path}"
-            if outs != outs0:
+            if souts != souts0 or outs != outs0:
                 fail(f"{label}: greedy tokens differ from the rope-fused "
-                     "path's")
+                     "path's (single steps or graphed)")
             for what, a, b in (("first-dispatch attention", first["attn"],
                                 first0["attn"]),
                                ("first-dispatch pools", first["pools"],
                                 first0["pools"]),
-                               ("final pools", pools, pools0)):
+                               ("final pools, single steps", spools,
+                                spools0),
+                               ("final pools, graphed", pools, pools0)):
                 if len(a) != len(b) or not all(torch.equal(x, y)
                                                for x, y in zip(a, b)):
                     fail(f"{label}: {what} differ from the rope-fused "
                          "path's bit for bit")
         n_attn = len(first0["attn"])
-        print(f"ladder {kv_dtype or 'bf16'}: greedy tokens identical, "
-              f"first mixed dispatch's attention outputs ({n_attn} layers) "
-              f"and pools ({len(pools0)} tensors) bitwise equal across the "
-              "three paths; final pools bitwise equal", flush=True)
+        eq = sum(a == b for o, ob in zip(outs0, souts0) for a, b in zip(o, ob))
+        print(f"ladder {kv_dtype or 'bf16'}: greedy tokens identical across "
+              f"the three paths, single steps and graphed; first mixed "
+              f"dispatch's attention outputs ({n_attn} layers) and pools "
+              f"({len(pools0)} tensors) bitwise equal; final pools bitwise "
+              f"equal, single steps and graphed; graphed tokens equal to "
+              f"single steps' {eq}/{len(prompts) * NEW}", flush=True)
     return counts
 
 
@@ -1808,9 +2292,7 @@ def train(dev):
           flush=True)
     torch.cuda.reset_peak_memory_stats()
     with counted_plain_versions() as plain_calls:
-        for key in FT.launches:
-            FT.launches[key] = 0
-        FC.launches = 0
+        reset_launches()
         res = llama_pretrain.train(
             model, TRAIN_STEPS, TRAIN_B, TRAIN_S, lr=3e-4, weight_decay=0.1,
             use_amp=True, source=itertools.repeat(ids),
@@ -2324,45 +2806,51 @@ def kernel_launches():
 
 
 @contextlib.contextmanager
-def recorded_routes(engine, layers):
-    """Record, for every dispatch of ``engine``, its rows and each MoE
-    layer's expert choices; yields ``choices(req, n)``, the ``[L, n, k]``
-    experts the engine chose at positions ``0..n-1`` of ``req``."""
+def route_taps(taps):
+    """Tap each MoE layer's expert choices (``[n, k]``) into ``taps``."""
     from paddle_tpu_torch.models.llama import LlamaMoEMLP
-    route, dispatch = LlamaMoEMLP.route, engine._dispatch_rows
-    picks, rows_of = [], []
+    route = LlamaMoEMLP.route
 
-    def recording_route(self, x2d):
+    def tapped(self, x2d):
         out = route(self, x2d)
-        picks.append(out[1])
+        taps.tap("route", out[1])
         return out
-
-    def recording_dispatch(rows):
-        rows_of.append([(r, start, n) for r, _, start, n, _, _ in rows])
-        return dispatch(rows)
-
-    def choices(req, n):
-        import torch
-        out = torch.full((layers, n, picks[0].shape[1]), -1,
-                         dtype=torch.long, device=picks[0].device)
-        for d, rows in enumerate(rows_of):
-            t = 0
-            for r, start, m in rows:
-                if r is req:
-                    for li in range(layers):
-                        out[li, start:start + m] = \
-                            picks[d * layers + li][t:t + m]
-                t += m
-        if bool((out < 0).any()):
-            fail("a position of a served request was never routed")
-        return out
-    LlamaMoEMLP.route = recording_route
-    engine._dispatch_rows = recording_dispatch
+    LlamaMoEMLP.route = tapped
     try:
-        yield choices
+        yield
     finally:
         LlamaMoEMLP.route = route
-        del engine._dispatch_rows
+
+
+def route_choices(records, layers):
+    """``choices(req, n)``: the ``[L, n, k]`` experts the engine chose at
+    positions ``0..n-1`` of ``req``, from the route taps of ``records``
+    (:func:`tick_taps`; a tick's choices hold its padding rows past the
+    live ones, and a row that retired mid-scan runs on past ``n``)."""
+    import torch
+
+    def choices(req, n):
+        k = next(tags["route"][0].shape[1] for _, tags in records
+                 if tags.get("route"))
+        out = None
+        for rows, tags in records:
+            picks = tags.get("route")
+            if not picks:
+                continue
+            if out is None:
+                out = torch.full((layers, n, k), -1, dtype=torch.long,
+                                 device=picks[0].device)
+            t = 0
+            for r, start, m in rows:
+                if r is req and start < n:
+                    m2 = min(m, n - start)
+                    for li in range(layers):
+                        out[li, start:start + m2] = picks[li][t:t + m2]
+                t += m
+        if out is None or bool((out < 0).any()):
+            fail("a position of a served request was never routed")
+        return out
+    return choices
 
 
 @contextlib.contextmanager
@@ -2408,78 +2896,106 @@ def replayed_routes(model, stats):
         LlamaMoEMLP.route = route
 
 
+def moe_run(engine, model, prompts, label, per_layer):
+    """One run of phase 4's requests through ``engine.generate`` with its
+    dispatches and ticks tapped (finite logits, expert choices), every
+    kernel launch counted (``per_layer`` a layer a dispatch or tick; the
+    attention kernel's two always) and no plain version called. Returns
+    (reqs, outs, wall, launches, dispatches, ticks, times, choices)."""
+    import torch
+    from paddle_tpu_torch.inference import Request
+    layers = model.config.num_hidden_layers
+    reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
+    with tick_taps(engine) as taps, finite_taps(model, taps), \
+            route_taps(taps):
+        warm_up(engine, prompts)
+        n0 = len(taps.records)
+        reset_launches()
+        torch.cuda.synchronize()
+        with count_calls(serving_plain_versions()) as plain_calls, \
+                timed_dispatches(engine) as times:
+            t0 = time.perf_counter()
+            outs = engine.generate(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_launches()
+    records = taps.records[n0:]
+    ticks = sum(times["ticks"].values())
+    dispatches = len(times["mixed"]) + len(times["decode"])
+    if plain_calls:
+        fail(f"{label}: plain versions ran on the card: "
+             f"{sorted(set(plain_calls))}")
+    want = {k: per_layer.get(k, 0) * layers * (dispatches + ticks)
+            for k in launches}
+    want["attention fused_rope"] = 2 * layers * (dispatches + ticks)
+    if launches != want or not dispatches:
+        fail(f"{label}: kernel launches {launches} != {want} "
+             f"({dispatches} dispatches, {ticks} ticks)")
+    if not all_finite(records):
+        fail(f"{label}: non-finite logits in the serving run")
+    for o in outs:
+        if len(o) != NEW or not all(0 <= t < model.config.vocab_size
+                                    for t in o):
+            fail(f"{label}: bad output {o}")
+    return (reqs, outs, wall, launches, dispatches, ticks, times,
+            route_choices(records, layers))
+
+
 def serve_moe(dev, label, model, weight_dtype, per_layer):
     """Phases 6 and 7: serve phase 4's prompts through
     ``LlamaServingEngine(max_batch=8, page_size=16, weight_dtype=...)``
-    with every kernel launch counted (``per_layer``: launches of each
-    kernel per layer per dispatch; the attention kernel's two always) and
-    no plain version called; then every served token against the
-    model's own forward through the plain versions.
+    twice: graphed (decode scans replaying the tick graph) and with
+    ``decode_ticks=1`` (single mixed steps), every kernel launch counted
+    (``per_layer``: launches of each kernel per layer per dispatch or
+    tick; the attention kernel's two always) and no plain version called;
+    then every token of the graphed run against the model's own forward
+    through the plain versions, and the share equal to the single-step
+    run's printed.
 
     Routing is discontinuous: two paths whose sums round differently
     pick different experts where the router's top-k is a near-tie, and
     on random weights at full depth those flips cascade (the first chip
     run matched 36/256 tokens this way). So the plain forward replays
-    the experts the engine chose at every (position, layer), with the
-    weights its own router gives them. The paths drift apart with depth
-    as the dense model's do (phase 4's logits), and the replayed choices
-    drift from the plain router's own top-k with them: the line prints
-    how often and how far, per quarter of the layers. At layer 0 the
-    two paths' router inputs differ only by the rounding of the
-    attention and projection kernels, so there every replayed choice
-    must be within ROUTE_TOL router logits of the plain top-k: an
-    engine that routed wrongly would fail there, or in the token check.
-    Returns the launches."""
+    the experts the engine chose at every (position, layer), recorded
+    from its dispatches and, after every replay, from the tick graph's
+    own routing tensors, with the weights its own router gives them. The
+    paths drift apart with depth as the dense model's do (phase 4's
+    logits), and the replayed choices drift from the plain router's own
+    top-k with them: the line prints how often and how far, per quarter
+    of the layers. At layer 0 the two paths' router inputs differ only by
+    the rounding of the attention and projection kernels, so there every
+    replayed choice must be within ROUTE_TOL router logits of the plain
+    top-k: an engine that routed wrongly would fail there, or in the
+    token check. A second graphed run's scans are counted by the
+    profiler, a window a scan, and held against the wrappers'. Returns
+    the launches of both runs."""
     import torch
-    from paddle_tpu_torch.inference import LlamaServingEngine, Request
+    from paddle_tpu_torch.inference import Request
     cfg = model.config
     layers = cfg.num_hidden_layers
-    engine = LlamaServingEngine(model, max_batch=8, page_size=16,
-                                weight_dtype=weight_dtype)
     prompts = serving_prompts(cfg.vocab_size)
-    engine.generate([prompts[0][:16]], max_new_tokens=2)   # warm-up
-    finite, steps = [], []
-    hook = model.lm_head.register_forward_hook(
-        lambda mod, inp, out: finite.append(torch.isfinite(out).all()))
-    forward = engine._mixed_forward
-
-    def timed(*a):
-        t0 = time.perf_counter()
-        out = forward(*a)
-        torch.cuda.synchronize()
-        steps.append((a[-1], time.perf_counter() - t0))
-        return out
-    engine._mixed_forward = timed
-    reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    d0 = engine._dispatch_count
-    with count_calls(serving_plain_versions()) as plain_calls, \
-            recorded_routes(engine, layers) as choices:
-        t0 = time.perf_counter()
-        outs = engine.generate(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = kernel_launches()
-        replay = [choices(r, len(p) + NEW - 1) for r, p in zip(reqs, prompts)]
-    dispatches = engine._dispatch_count - d0
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    del engine._mixed_forward
-    hook.remove()
-    if plain_calls:
-        fail(f"{label}: plain versions ran on the card: "
-             f"{sorted(set(plain_calls))}")
-    want = {k: per_layer.get(k, 0) * layers * dispatches for k in launches}
-    want["attention fused_rope"] = 2 * layers * dispatches
-    if launches != want or not dispatches:
-        fail(f"{label}: kernel launches {launches} != {want} "
-             f"({dispatches} dispatches)")
-    if not all(bool(f) for f in finite):
-        fail(f"{label}: non-finite logits in the serving run")
-    for o in outs:
-        if len(o) != NEW or not all(0 <= t < cfg.vocab_size for t in o):
-            fail(f"{label}: bad output {o}")
+    runs = {}
+    for name, ticks in (("single", 1), ("graphed", None)):
+        engine = serving_engine(model, weight_dtype=weight_dtype,
+                                decode_ticks=ticks)
+        torch.cuda.reset_peak_memory_stats()
+        runs[name] = moe_run(engine, model, prompts, f"{label} {name}",
+                             per_layer)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if name == "graphed":
+            # the profiler's count of a second run's replays, a window a
+            # scan, held against the wrappers' count
+            with timed_dispatches(engine) as ptimes, \
+                    profiled_scans(engine) as (prof, py):
+                engine.generate([Request(p, max_new_tokens=NEW)
+                                 for p in prompts])
+            p_ticks = sum(ptimes["ticks"].values())
+        del engine
+        torch.cuda.empty_cache()
+    reqs, outs, wall, launches, dispatches, ticks, times, choices = \
+        runs["graphed"]
+    sreqs, souts, swall, slaunches, sdisp, _, stimes, _ = runs["single"]
+    replay = [choices(r, len(p) + NEW - 1) for r, p in zip(reqs, prompts)]
     gaps = []
     stats = dict(deficits=[[] for _ in range(layers)], flips=[0] * layers,
                  routes=[0] * layers)
@@ -2505,23 +3021,27 @@ def serve_moe(dev, label, model, weight_dtype, per_layer):
     worst_route = [round(max(deficits[i:i + quarter]), 4)
                    for i in range(0, layers, quarter)]
     n_tok = len(prompts) * NEW
-    ttft = sorted(r.ttft for r in reqs)
-    dec = [s for qb, s in steps if qb == 1]
-    mixed = [s for qb, s in steps if qb != 1]
-    print(f"serve {label}: layers={layers} requests={len(prompts)} "
+    eq = sum(a == b for o, ob in zip(outs, souts) for a, b in zip(o, ob))
+    print(f"serve {label} graphed: layers={layers} requests={len(prompts)} "
           f"prompt_tokens={sum(map(len, prompts))} new_tokens={n_tok} "
-          f"dispatches={dispatches} launches={launches} wall_s={wall:.3f} "
-          f"tokens_per_s={n_tok / wall:.1f} ttft_ms_p50="
-          f"{1e3 * ttft[len(ttft) // 2]:.1f} ttft_ms_max={1e3 * ttft[-1]:.1f}"
-          f" decode_dispatch_ms={1e3 * sum(dec) / max(len(dec), 1):.2f} "
-          f"(n={len(dec)}) mixed_dispatch_ms="
-          f"{1e3 * sum(mixed) / max(len(mixed), 1):.2f} (n={len(mixed)}) "
-          f"peak_mem_gb={peak:.2f} plain_forward_exact={exact}/{n_tok} "
-          f"worst_gap={worst:.4f} gap_p90={float(gaps.quantile(0.9)):.4f} "
-          f"route_flips_by_layer_quarter={flips} route_deficit_max_by_"
-          f"layer_quarter={worst_route} layer0_route_flips="
+          f"{run_line(reqs, wall, dispatches, ticks, times)} "
+          f"launches={launches} peak_mem_gb={peak:.2f} plain_forward_exact="
+          f"{exact}/{n_tok} worst_gap={worst:.4f} gap_p90="
+          f"{float(gaps.quantile(0.9)):.4f} equal_to_single_steps={eq}/"
+          f"{n_tok} route_flips_by_layer_quarter={flips} route_deficit_max_"
+          f"by_layer_quarter={worst_route} layer0_route_flips="
           f"{stats['flips'][0]}/{stats['routes'][0]} layer0_route_deficit="
           f"{deficits[0]:.4f}", flush=True)
+    print(f"serve {label} single steps (decode_ticks=1): "
+          f"{run_line(sreqs, swall, sdisp, 0, stimes)} launches={slaunches}",
+          flush=True)
+    print(f"serve {label} graphed, profiler over a second run's scans (a "
+          f"window a scan, {p_ticks} ticks): launches {dict(prof)}, the "
+          f"wrappers' {dict(py)}", flush=True)
+    hold_profiled(f"{label} graphed, profiled scans", prof, py)
+    if not p_ticks or prof.get("attention") != layers * p_ticks:
+        fail(f"{label} graphed, profiled scans: {dict(prof)} for {p_ticks} "
+             "ticks")
     if deficits[0] > ROUTE_TOL:
         fail(f"{label}: at layer 0 an expert the engine chose is "
              f"{deficits[0]:.3f} router logits below the plain router's "
@@ -2532,7 +3052,7 @@ def serve_moe(dev, label, model, weight_dtype, per_layer):
     if worst > TIE_TOL:
         fail(f"{label}: served token {worst:.3f} below the plain forward's "
              "argmax")
-    return launches
+    return {k: launches[k] + slaunches[k] for k in launches}
 
 
 def serve_mixtral_int8(dev):
@@ -2565,8 +3085,16 @@ def serve_mixtral_bf16(dev):
     print(f"model: mixtral_8x7b bf16 layers={FLOAT_MOE_LAYERS} params="
           f"{model.num_params()} init_s={time.perf_counter() - t0:.1f}",
           flush=True)
-    return serve_moe(dev, "mixtral bf16", model.eval(), None,
-                     {"grouped_gemm": 3})
+    launches = serve_moe(dev, "mixtral bf16", model.eval(), None,
+                         {"grouped_gemm": 3})
+    # phase 4b on this cut: #6 under capture, then, the model quantized in
+    # place by the engine, #7 and #8
+    prompts = serving_prompts(cfg.vocab_size)
+    check_tick_replay(serving_engine(model), "mixtral bf16", prompts)
+    torch.cuda.empty_cache()
+    check_tick_replay(serving_engine(model, weight_dtype="int8"),
+                      "mixtral int8 (4 layers)", prompts)
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -2709,12 +3237,12 @@ def sampled_dispatches(engine):
         torch.sort, engine._dispatch_rows = real_sort, dispatch
 
 
-def sampled_requests(prompts):
-    """Phase 11's requests over phase 4's prompts (SAMPLED_ROWS), each
-    sampled one with its own fixed seed."""
+def sampled_requests(prompts, kinds=SAMPLED_ROWS):
+    """Phase 11's requests over phase 4's prompts (``kinds``, by default
+    SAMPLED_ROWS), each sampled one with its own fixed seed."""
     from paddle_tpu_torch.inference import Request, SamplingParams
     reqs = []
-    for i, (p, kind) in enumerate(zip(prompts, SAMPLED_ROWS)):
+    for i, (p, kind) in enumerate(zip(prompts, kinds)):
         if kind is None:
             sp = None
         elif kind == "forced":
@@ -2762,12 +3290,18 @@ def replay_sampled(engine, model, dev, req, out):
                             float(ls[i, got[i]] - thr[i])) for i in diff]
 
 
-def serve_sampled(dev, greedy_outs, greedy_tps):
+def serve_sampled(dev, greedy):
     """Phase 11: phase 4's model and prompts with sampled rows (see the
-    module docstring). Returns the ``gumbel_argmax`` launches."""
+    module docstring), first with ``decode_ticks=1`` (a constraint hook
+    pins the engine to single steps anyway, and each dispatch's launches
+    and sorts are counted), then graphed, the constrained row made greedy
+    so that the sampled tick graph runs: its greedy rows bitwise phase 4's
+    graphed tokens (same schedule, same shapes), the forced row obeying.
+    ``greedy``: phase 4's result. Returns the ``gumbel_argmax``
+    launches."""
     import torch
     from paddle_tpu_torch.ops import sampling as SM
-    cfg, model, engine, prompts = serving_workload(dev)
+    cfg, model, engine, prompts = serving_workload(dev, decode_ticks=1)
     runs = []
     for _ in range(2):
         reqs = sampled_requests(prompts)
@@ -2799,8 +3333,9 @@ def serve_sampled(dev, greedy_outs, greedy_tps):
     for i, (kind, o) in enumerate(zip(kinds, outs)):
         if len(o) != NEW or not all(0 <= t < cfg.vocab_size for t in o):
             fail(f"serve sampled: bad output {o}")
-        if kind is None and o != greedy_outs[i]:
-            fail(f"serve sampled: greedy row {i} differs from phase 4's")
+        if kind is None and o != greedy["single_outs"][i]:
+            fail(f"serve sampled: greedy row {i} differs from phase 4's "
+                 "single steps'")
         if kind == "forced" and set(o) != {FORCED_TOKEN}:
             fail(f"serve sampled: forced row {i} gave {sorted(set(o))}")
         if kind == "constrained" and not set(o) <= set(ALLOWED):
@@ -2820,16 +3355,72 @@ def serve_sampled(dev, greedy_outs, greedy_tps):
               f"threshold: replay's token {over_r:.4f}, served "
               f"{over_s:.4f})", flush=True)
     tps = len(prompts) * NEW / wall
-    print(f"serve sampled: requests={len(prompts)} new_tokens="
-          f"{len(prompts) * NEW} dispatches={len(seen)} sampled_dispatches="
-          f"{n_sampled} gumbel_launches={launches} wall_s={wall:.3f} "
-          f"tokens_per_s={tps:.1f} (phase 4 greedy: {greedy_tps:.1f}) "
-          f"second_run_wall_s={second[2]:.3f} plain_replay_exact={exact}/"
-          f"{n_tok}", flush=True)
+    print(f"serve sampled (decode_ticks=1): requests={len(prompts)} "
+          f"new_tokens={len(prompts) * NEW} dispatches={len(seen)} "
+          f"sampled_dispatches={n_sampled} gumbel_launches={launches} "
+          f"wall_s={wall:.3f} tokens_per_s={tps:.1f} (phase 4 single "
+          f"steps: {greedy['single_tps']:.1f}) second_run_wall_s="
+          f"{second[2]:.3f} plain_replay_exact={exact}/{n_tok}", flush=True)
     if exact < EXACT_FLOOR * n_tok:
         fail(f"serve sampled: only {exact}/{n_tok} sampled tokens are the "
              f"plain replay's (floor {EXACT_FLOOR})")
-    return launches
+    # graphed, the constrained row greedy
+    del engine
+    torch.cuda.empty_cache()
+    engine = serving_engine(model)
+    warm_up(engine, prompts)
+    gkinds = tuple(None if k == "constrained" else k for k in SAMPLED_ROWS)
+    with count_calls(serving_plain_versions()
+                     + [(SM, "gumbel_argmax_ref")]) as plain_calls, \
+            sampled_dispatches(engine) as seen, \
+            timed_dispatches(engine) as times:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greqs = sampled_requests(prompts, gkinds)
+        gouts = engine.generate(greqs)
+        torch.cuda.synchronize()
+        gwall = time.perf_counter() - t0
+        glaunches = SM.launches["gumbel_argmax"]
+    replays = dict(times["ticks"])
+    want = sum(s for s, _, _ in seen) + replays.get("sampled", 0)
+    if plain_calls or glaunches != want or not replays.get("sampled"):
+        fail(f"serve sampled graphed: {glaunches} gumbel_argmax launches "
+             f"(want {want}: sampled dispatches and sampled ticks {replays})"
+             f", plain calls {plain_calls}")
+    for i, (kind, o) in enumerate(zip(gkinds, gouts)):
+        if kind is None and o != greedy["outs"][i]:
+            fail(f"serve sampled graphed: greedy row {i} differs from phase "
+                 "4's graphed tokens")
+        if kind == "forced" and set(o) != {FORCED_TOKEN}:
+            fail(f"serve sampled graphed: forced row {i} gave "
+                 f"{sorted(set(o))}")
+    # the sampled tick's rows (a sampler position or seed wrong in the
+    # tick would show here) against the plain forward and plain sampler
+    gexact, gn_tok = 0, 0
+    with plain_serving_paths():
+        for i, (r, o) in enumerate(zip(greqs, gouts)):
+            if gkinds[i] is None:
+                continue
+            toks, margins = replay_sampled(engine, model, dev, r, o)
+            gexact += sum(a == b for a, b in zip(toks, o))
+            gn_tok += len(o)
+            for pos, margin, over_r, over_s in margins:
+                print(f"serve sampled graphed: row {i} token {pos} differs "
+                      f"from the plain replay, its margin there "
+                      f"{margin:.4f} (over the keep threshold: replay's "
+                      f"token {over_r:.4f}, served {over_s:.4f})",
+                      flush=True)
+    print(f"serve sampled graphed (row 7 greedy): dispatches={len(seen)} "
+          f"ticks={replays} gumbel_launches={glaunches} wall_s={gwall:.3f} "
+          f"tokens_per_s={len(prompts) * NEW / gwall:.1f} (phase 4 graphed: "
+          f"{greedy['tps']:.1f}) plain_replay_exact={gexact}/{gn_tok}; "
+          "greedy rows bitwise phase 4's graphed tokens, the forced row "
+          "obeys", flush=True)
+    if gexact < EXACT_FLOOR * gn_tok:
+        fail(f"serve sampled graphed: only {gexact}/{gn_tok} sampled tokens "
+             f"are the plain replay's (floor {EXACT_FLOOR})")
+    return launches + second[4] + glaunches
 
 
 def generate_prompts(vocab):
@@ -2838,21 +3429,39 @@ def generate_prompts(vocab):
     return rng.randint(0, vocab, (GEN_PROMPTS, GEN_LEN)).tolist()
 
 
+def eager_generate(model, ids, new, sampler, seed):
+    """``generate``'s decode loop run eagerly, over host ints: the same
+    ``_decode_step`` on the same buffer length, no graph."""
+    import torch
+    b, s = ids.shape
+    caches = model._empty_caches(b, ((s + new + 63) // 64) * 64)
+    length, tokens, out = 0, ids, []
+    with torch.no_grad():
+        for i in range(new):
+            tokens, length, caches = model._decode_step(
+                tokens, length, caches, (seed, i), sampler)
+            out.append(tokens)
+    return torch.cat([ids.long()] + out, dim=1)
+
+
 def generate_phase(dev):
     """Phase 12: ``LlamaForCausalLM.generate`` at Llama-3-8B's full width
-    and depth (see the module docstring). Returns the ``gumbel_argmax``
-    launches."""
+    and depth (see the module docstring), each sampler warmed up first
+    (its step graph captured), then timed, then its decode loop run
+    eagerly at the same batch and buffer: tokens bit for bit equal, ms a
+    step for both. Returns the ``gumbel_argmax`` launches."""
     import torch
-    from paddle_tpu_torch.inference import LlamaServingEngine
     from paddle_tpu_torch.ops import sampling as SM
     cfg, model = llama_model(dev)
     prompts = generate_prompts(cfg.vocab_size)
     ids = torch.tensor(prompts, device=dev)
-    model.generate(ids[:, :16], max_new_tokens=2)            # warm-up
     timed = {}
-    for name, kw in (("greedy", {}),
-                     ("sampled", dict(do_sample=True, top_k=50, top_p=0.9,
-                                      seed=1234))):
+    for name, kw, sampler in (
+            ("greedy", {}, (False, None, None, 1.0)),
+            ("sampled", dict(do_sample=True, top_k=50, top_p=0.9, seed=1234),
+             (True, 50, 0.9, 1.0))):
+        with captured_kernels_only(f"generate {name} capture"):
+            model.generate(ids, max_new_tokens=GEN_NEW, **kw)
         with count_calls([(SM, "gumbel_argmax_ref")]) as plain_calls:
             reset_launches()
             torch.cuda.synchronize()
@@ -2869,8 +3478,27 @@ def generate_phase(dev):
         if tuple(out.shape) != (GEN_PROMPTS, GEN_LEN + GEN_NEW) or \
                 not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
             fail(f"generate {name}: bad output {tuple(out.shape)}")
-        timed[name] = (new.tolist(), wall, launches)
-    engine = LlamaServingEngine(model, max_batch=8, page_size=16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = eager_generate(model, ids, GEN_NEW, sampler,
+                               kw.get("seed", 0))
+        torch.cuda.synchronize()
+        eager_wall = time.perf_counter() - t0
+        if not torch.equal(out, eager):
+            fail(f"generate {name}: the graphed steps' tokens differ from "
+                 f"the eager steps' ({int((out != eager).sum())} of "
+                 f"{out.numel()})")
+        max_len = (GEN_LEN + GEN_NEW + 63) // 64 * 64
+        key, steps = model._decode_state
+        if key[1:] != (sampler, GEN_PROMPTS, max_len):
+            fail(f"generate {name}: the kept step graph is {key[1:]}")
+        _, prof, _ = profiled_launches(lambda: steps.replay("step"))
+        _, _, step_ms = profiled_launches(
+            lambda: [steps.replay("step") for _ in range(5)])
+        print(f"generate {name}: one replay of the step, profiler launches "
+              f"{prof}, device_ms per step {step_ms / 5:.3f}", flush=True)
+        timed[name] = (new.tolist(), wall, launches, eager_wall)
+    engine = serving_engine(model)
     served = engine.generate(prompts, max_new_tokens=GEN_NEW)
     greedy = timed["greedy"][0]
     same = sum(a == b for o, e in zip(greedy, served) for a, b in zip(o, e))
@@ -2885,17 +3513,51 @@ def generate_phase(dev):
     gaps = torch.cat(gaps)
     exact, worst = int((gaps == 0).sum()), float(gaps.max())
     n_tok = GEN_PROMPTS * GEN_NEW
+    ms = {k: (1e3 * v[1] / GEN_NEW, 1e3 * v[3] / GEN_NEW)
+          for k, v in timed.items()}
     print(f"generate: prompts={GEN_PROMPTS}x{GEN_LEN} new={GEN_NEW} "
-          f"greedy_ms_per_step={1e3 * timed['greedy'][1] / GEN_NEW:.2f} "
-          f"sampled_ms_per_step={1e3 * timed['sampled'][1] / GEN_NEW:.2f} "
-          f"sampled_gumbel_launches={timed['sampled'][2]} "
-          f"greedy_equal_to_engine={same}/{n_tok} plain_forward_exact="
-          f"{exact}/{n_tok} worst_gap={worst:.4f}", flush=True)
+          f"greedy_ms_per_step={ms['greedy'][0]:.2f} (eager "
+          f"{ms['greedy'][1]:.2f}) sampled_ms_per_step="
+          f"{ms['sampled'][0]:.2f} (eager {ms['sampled'][1]:.2f}) "
+          f"graphed_tokens_bitwise_eager=True sampled_gumbel_launches="
+          f"{timed['sampled'][2]} greedy_equal_to_engine={same}/{n_tok} "
+          f"plain_forward_exact={exact}/{n_tok} worst_gap={worst:.4f}",
+          flush=True)
     if exact < EXACT_FLOOR * n_tok or worst > TIE_TOL:
         fail(f"generate: greedy tokens {exact}/{n_tok} the plain forward's "
              f"argmax, worst gap {worst:.3f} (floors {EXACT_FLOOR}, "
              f"{TIE_TOL})")
     return timed["sampled"][2]
+
+
+def check_capture_failure(dev):
+    """A step that reads the device on the host cannot be captured: the
+    capture helper raises what the capture raised (no phase catches it
+    around a real step, so such a failure ends the run), leaves the
+    current stream as it was, and a good step still captures and replays
+    after it."""
+    import torch
+    from paddle_tpu_torch.ops._graphs import StepGraphs
+    steps = StepGraphs(dev)
+    x = steps.buffer("x", (8,), torch.float32)
+    stream = torch.cuda.current_stream(dev)
+    try:
+        steps.capture("host read", lambda: x.add_(float(x.sum().item())))
+    except RuntimeError as e:
+        err = str(e).strip().splitlines()[0]
+    else:
+        fail("a capture whose step reads the device on the host did not "
+             "raise")
+    if torch.cuda.current_stream(dev) != stream or "host read" in steps:
+        fail("a failed capture left its stream current or its graph kept")
+    x.fill_(1.0)
+    steps.capture("good", lambda: x.mul_(2.0))
+    steps.replay("good")
+    torch.cuda.synchronize()
+    if not torch.equal(x, torch.full_like(x, 4.0)):
+        fail(f"a capture after a failed one replayed wrong: {x.tolist()}")
+    print(f"capture failure: a host read under capture raised ({err}); the "
+          "next capture and replay are right", flush=True)
 
 
 def main():
@@ -2938,13 +3600,14 @@ def main():
     torch.cuda.empty_cache()
     sampler = check_sampler(dev)                    # phase 3g
     torch.cuda.empty_cache()
-    entry["launches"], bf16_outs, bf16_tps = serve(dev)   # phase 4
+    bf16 = serve(dev, tick_check=True)              # phases 4, 4b
+    entry["launches"] = bf16["launches"]
     torch.cuda.empty_cache()
-    sampler["launches"] = serve_sampled(dev, bf16_outs, bf16_tps)  # 11
+    sampler["launches"] = serve_sampled(dev, bf16)  # phase 11
     torch.cuda.empty_cache()
     sampler["launches"] += generate_phase(dev)      # phase 12
     torch.cuda.empty_cache()
-    kv8_launches, _, _ = serve(dev, "int8", bf16_outs)   # phase 8
+    kv8_launches = serve(dev, "int8", bf16, tick_check=True)["launches"]  # 8
     torch.cuda.empty_cache()
     ladder = serve_ladder(dev)                      # phase 9
     torch.cuda.empty_cache()
@@ -2969,6 +3632,7 @@ def main():
     for e, counts in zip(moe_entries, (float_launches, int8_launches,
                                        int8_launches)):
         e["launches"] = counts[e["name"]]
+    check_capture_failure(dev)
     print(f"smoke_s={time.perf_counter() - t0:.1f} (build and every phase)",
           flush=True)
     print(json.dumps({"kernels": [entry] + family + [paged]

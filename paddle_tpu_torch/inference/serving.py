@@ -60,12 +60,28 @@ quantized already; the mixed step calls the projections and the MLP as
 modules, so the int8 layers and the mixture-of-experts FFN need nothing
 else from the engine.
 
+Decode scans (the reference's ``lax.scan`` decode): once no live prompt
+is still prefilling, :meth:`LlamaServingEngine.decode_many` runs scans of
+``decode_ticks`` ticks, then of ``max(decode_ticks // 4, 2)``, then single
+mixed steps, as the reference does. A tick is :meth:`_mixed_forward` at the
+decode-only shape (``max_batch`` rows of one token, rows past the live ones
+padded as the reference pads them: tables full of the trash page, ``lens``
+1, token 0) over static buffers, with its write positions, rope tables and
+the sampler's positions derived on the device from the carry (tokens,
+lens). On the card each tick mode (greedy argmax, bias only, sampled) is
+one CUDA graph (:mod:`paddle_tpu_torch.ops._graphs`), captured once and
+replayed every tick; a scan reads its tokens back once. The scan's inputs
+go to the card in one copy. ``decode_ticks=1`` takes single
+steps only. ``prewarm`` captures the tick graphs and runs a dummy mixed
+dispatch ahead of traffic.
+
 Not in this slice (ROADMAP queue A, in order): the prefix cache, the
 request lifecycle (deadlines, cancel, drain, the degradation ladder, the
-watchdog), speculative decoding, CUDA-graph decode, the host KV tier.
-Admission therefore reserves each request's worst-case pages up front
-and raises :class:`AdmissionError` when they do not fit, and the engine
-is driven from one thread.
+watchdog), speculative decoding, the host KV tier. Admission therefore
+reserves each request's worst-case pages up front and raises
+:class:`AdmissionError` when they do not fit; a scan never draws a page
+another live request was promised (:meth:`_scan_fits`); the engine is
+driven from one thread.
 """
 
 from __future__ import annotations
@@ -78,6 +94,7 @@ import numpy as np
 import torch
 
 from ..incubate.nn.functional import fused_rotary_position_embedding
+from ..ops._graphs import StepGraphs
 from ..ops.ragged_paged_attention import (check_geometry,
                                           fused_ragged_paged_attention,
                                           fused_rope_geometry_ok,
@@ -254,14 +271,16 @@ class LlamaServingEngine:
     arguments are the reference's, in its order; ``burst`` is its alias
     of ``decode_ticks``. ``sampling`` (None: ``PADDLE_TPU_SAMPLING``,
     default on; off, sampled requests are refused) and ``sample_slots``
-    (the bias/constraint slots of a row) are the reference's. The knobs
-    of later slices (``prewarm``, the prefix cache's, ``admit_retries``,
-    ``admit_backoff``, ``stuck_*``, the speculative decoder's and the KV
-    tier's, with the reference's env knobs
-    ``PADDLE_TPU_SERVING_PREWARM``, ``PADDLE_TPU_SPEC_K``,
-    ``PADDLE_TPU_KV_TIER``) raise :class:`NotImplementedError` naming
-    their ROADMAP A item when set off their defaults; ``prefix_cache``
-    defaults off here until the prefix cache is ported (A4)."""
+    (the bias/constraint slots of a row) are the reference's.
+    ``prewarm`` (None: ``PADDLE_TPU_SERVING_PREWARM``, on for 1, true,
+    on or auto) calls :meth:`prewarm` at the end of construction, as the
+    reference does. The knobs of later slices (the prefix cache's,
+    ``admit_retries``, ``admit_backoff``, ``stuck_*``, the speculative
+    decoder's and the KV tier's, with the reference's env knobs
+    ``PADDLE_TPU_SPEC_K``, ``PADDLE_TPU_KV_TIER``) raise
+    :class:`NotImplementedError` naming their ROADMAP A item when set off
+    their defaults; ``prefix_cache`` defaults off here until the prefix
+    cache is ported (A4)."""
 
     #: decode steps between admission checks while prompts are pending
     DECODE_TICKS = 16
@@ -283,12 +302,7 @@ class LlamaServingEngine:
         if kv_tier is None:
             kv_tier = os.environ.get(
                 "PADDLE_TPU_KV_TIER", "0").lower() in ("1", "true", "on")
-        if prewarm is None:
-            prewarm = os.environ.get(
-                "PADDLE_TPU_SERVING_PREWARM", "0").lower() \
-                in ("1", "true", "on", "auto")
-        later = {"prewarm / PADDLE_TPU_SERVING_PREWARM": (prewarm, "A3"),
-                 "prefix_cache": (prefix_cache, "A4"),
+        later = {"prefix_cache": (prefix_cache, "A4"),
                  "prefix_cache_pages": (prefix_cache_pages is not None,
                                         "A4"),
                  "admit_retries": (admit_retries != 0, "A5"),
@@ -408,6 +422,15 @@ class LlamaServingEngine:
         self._live: dict[int, Request] = {}
         self._next_id = 0
         self._dispatch_count = 0
+        # the decode scan's static buffers and, on the card, its tick graphs
+        self._graphs = StepGraphs(self.device)
+        self.prewarmed = None         # prewarm() summary, or None
+        if prewarm is None:
+            prewarm = os.environ.get(
+                "PADDLE_TPU_SERVING_PREWARM", "0").lower() \
+                in ("1", "true", "on", "auto")
+        if prewarm:
+            self.prewarm()
 
     # ------------------------------------------------------------------
     # the mixed step: prefill chunks + decode rows, one dispatch
@@ -518,32 +541,38 @@ class LlamaServingEngine:
                 budget -= n
         return rows
 
-    def _sample_arrays(self, rows):
-        """The sampler's per-row arrays of one dispatch (numpy: temps,
-        top_ps, top_ks, seeds, positions, slot_ids, slot_vals, cmodes)
-        and whether any row is sampled, or None when every row is greedy
-        with no bias and no constraint (as is every dispatch of an engine
-        built with ``sampling=False``, which admits greedy requests only
-        and ignores their bias, as the reference does). Constraint hooks
-        run HERE, once per request: a raising hook or an empty allowed set
-        leaves the row unconstrained, an allowed set wider than
-        ``sample_slots`` is cut to its first ``sample_slots`` ids."""
-        reqs = [row[0] for row in rows]
-        if not self.sample_enabled or not any(r.sampling is not None and (
-                r.sampling.temperature > 0 or r.sampling.logit_bias
-                or r.sampling.constraint is not None) for r in reqs):
-            return None
-        r_n, b = len(rows), self.sample_slots
-        temps = np.zeros((r_n,), np.float32)
-        top_ps = np.ones((r_n,), np.float32)
-        top_ks = np.zeros((r_n,), np.int32)
-        seeds = np.zeros((r_n,), np.int32)
-        # the sampled token's position: the row's last position + 1
-        positions = np.array([start + n for _, _, start, n, _, _ in rows],
-                             np.int32)
-        slot_ids = np.full((r_n, b), -1, np.int32)
-        slot_vals = np.zeros((r_n, b), np.float32)
-        cmodes = np.zeros((r_n,), np.int32)
+    def _sample_mode(self, reqs):
+        """The next-token rule a dispatch or scan of ``reqs`` needs:
+        ``"greedy"`` (every row greedy with no bias and no constraint, as
+        is every row of an engine built with ``sampling=False``, which
+        admits greedy requests only and ignores their bias, as the
+        reference does: the argmax alone), ``"sampled"`` (a row samples)
+        or ``"bias"`` (bias or constraint rows, none sampled: no sort and
+        no Gumbel pass)."""
+        sps = [r.sampling for r in reqs if r.sampling is not None] \
+            if self.sample_enabled else []
+        if any(sp.temperature > 0 for sp in sps):
+            return "sampled"
+        if any(sp.logit_bias or sp.constraint is not None for sp in sps):
+            return "bias"
+        return "greedy"
+
+    def _sample_params(self, reqs, r_cap):
+        """The sampler's per-row arrays of ``reqs`` (numpy: temps, top_ps,
+        top_ks, seeds, slot_ids, slot_vals, cmodes), ``r_cap`` rows, the
+        rows past ``reqs`` inert greedy ones as the reference pads them.
+        Constraint hooks run HERE, once per request: a raising hook or an
+        empty allowed set leaves the row unconstrained, an allowed set
+        wider than ``sample_slots`` is cut to its first ``sample_slots``
+        ids."""
+        b = self.sample_slots
+        temps = np.zeros((r_cap,), np.float32)
+        top_ps = np.ones((r_cap,), np.float32)
+        top_ks = np.zeros((r_cap,), np.int32)
+        seeds = np.zeros((r_cap,), np.int32)
+        slot_ids = np.full((r_cap, b), -1, np.int32)
+        slot_vals = np.zeros((r_cap, b), np.float32)
+        cmodes = np.zeros((r_cap,), np.int32)
         allowed_of = {}
         for i, r in enumerate(reqs):
             sp = r.sampling
@@ -572,9 +601,26 @@ class LlamaServingEngine:
                 items = list(bias.items())[:b]
                 slot_ids[i, :len(items)] = [tk for tk, _ in items]
                 slot_vals[i, :len(items)] = [v for _, v in items]
+        return temps, top_ps, top_ks, seeds, slot_ids, slot_vals, cmodes
+
+    def _sample_arrays(self, rows):
+        """The sampler's per-row arrays of one dispatch (numpy: temps,
+        top_ps, top_ks, seeds, positions, slot_ids, slot_vals, cmodes)
+        and whether any row is sampled, or None where
+        :meth:`_sample_mode` says greedy (:meth:`_sample_params` runs the
+        constraint hooks)."""
+        reqs = [row[0] for row in rows]
+        mode = self._sample_mode(reqs)
+        if mode == "greedy":
+            return None
+        temps, top_ps, top_ks, seeds, slot_ids, slot_vals, cmodes = \
+            self._sample_params(reqs, len(rows))
+        # the sampled token's position: the row's last position + 1
+        positions = np.array([start + n for _, _, start, n, _, _ in rows],
+                             np.int32)
         arrays = (temps, top_ps, top_ks, seeds, positions, slot_ids,
                   slot_vals, cmodes)
-        return arrays, bool((temps > 0).any())
+        return arrays, mode == "sampled"
 
     def _dispatch_rows(self, rows):
         """Dispatch ONE mixed step over a scheduled row list and apply
@@ -668,6 +714,12 @@ class LlamaServingEngine:
         n = len(req.prompt_ids) + req.max_new_tokens - 1
         return max(1, -(-n // self.page_size))
 
+    def _owed_pages(self, req):
+        """Pages admission reserved for a live request that it has not
+        drawn yet (0 once a scan's overshoot took it past them)."""
+        return max(0, self._pages_needed(req)
+                   - len(self.alloc._tables[req.seq_id]))
+
     def _validate(self, req):
         """The reference's sampling checks: a sampled request needs
         ``sampling`` on, and its bias must fit ``sample_slots``."""
@@ -714,8 +766,7 @@ class LlamaServingEngine:
                 f"beyond this engine's {cap} pages per sequence; size "
                 f"the pool up (num_pages/max_pages_per_seq)")
         live = [r for r in self._live.values() if not r.done]
-        owed = sum(self._pages_needed(r)
-                   - len(self.alloc._tables[r.seq_id]) for r in live)
+        owed = sum(self._owed_pages(r) for r in live)
         reason = None
         if len(live) >= self.max_batch:
             reason = "engine full"
@@ -785,17 +836,307 @@ class LlamaServingEngine:
             return 0, 0
         return len(rows), self._dispatch_rows(rows)
 
-    def decode_many(self, n):
-        """``n`` mixed steps for the current live set (chunks of
-        still-prefilling prompts ride along). Returns tokens emitted."""
+    # ------------------------------------------------------------------
+    # decode scan: n all-decode ticks, one read-back
+    # ------------------------------------------------------------------
+    def _scan_width(self):
+        """The most ticks one scan takes: decode_many's longest chunk,
+        ``decode_ticks`` or ``max(decode_ticks // 4, 2)``."""
+        return max(self.decode_ticks, 2)
+
+    # the scan's inputs, packed in this order into one int32 buffer (f32
+    # fields as bits); a greedy scan fills the first three only
+    _SCAN_IN = ("tables", "lens", "tokens", "temps", "top_ps", "top_ks",
+                "seeds", "slot_ids", "slot_vals", "cmodes")
+    _SCAN_F32 = ("temps", "top_ps", "slot_vals")
+
+    def _scan_shapes(self):
+        b, w, s = self.max_batch, self.width, self.sample_slots
+        return {"tables": (b, w), "slot_ids": (b, s), "slot_vals": (b, s)}
+
+    def _scan_buffers(self):
+        """The scan's static buffers (allocated once; the tick graphs bake
+        their addresses): the inputs, views of one int32 buffer
+        ``scan_in`` that :meth:`_load_scan` fills in one copy (the carry:
+        tables, lens, tokens; then the sampler's arrays), the tokens out
+        ``[max_batch, scan width]`` and the tick counter, with the row
+        ids and ones a tick reads."""
+        g = self._graphs
+        if "scan_in" not in g.buffers:
+            b, i32 = self.max_batch, torch.int32
+            shapes = self._scan_shapes()
+            sizes = [math.prod(shapes.get(n, (b,))) for n in self._SCAN_IN]
+            packed = g.buffer("scan_in", (sum(sizes),), i32)
+            for name, part in zip(self._SCAN_IN, packed.split(sizes)):
+                part = part.view(shapes.get(name, (b,)))
+                g.buffers[name] = part.view(torch.float32) \
+                    if name in self._SCAN_F32 else part
+            g.buffer("out", (b, self._scan_width()), torch.int64)
+            g.buffer("tick", (1,), torch.int64)
+            g.buffer("rows", (b,), i32).copy_(torch.arange(b))
+            g.buffer("ones", (b,), i32).fill_(1)
+            g.buffer("row_tok", (b, 1), torch.int64).copy_(
+                torch.arange(b)[:, None])
+        return g.buffers
+
+    @torch.no_grad()
+    def _tick(self, mode):
+        """ONE decode tick on the scan's static buffers (the body of the
+        reference's ``_decode_scan_fn``): :meth:`_mixed_forward` at the
+        decode-only shape, ``T == R == max_batch``, qblock 1. From the
+        carry, on the device: each row writes its token at ``start = lens -
+        1`` (page and slot from the row's table for the two-op scatter),
+        attends ``lens`` keys, and samples at position ``lens``; the next
+        token lands in ``out[:, tick]``, then ``tokens``, ``lens`` and
+        ``tick`` advance. ``mode`` is the next-token rule
+        (:meth:`_sample_mode`); the sampler's arrays are the scan's
+        invariants. Nothing is read back to the host."""
+        g = self._scan_buffers()
+        lens, tables, rows = g["lens"], g["tables"], g["rows"]
+        start = lens - 1
+        if self.fused_kv:
+            page_ids = offs = start[:0]       # the fused calls write
+        else:
+            col = torch.div(start, self.page_size, rounding_mode="floor")
+            page_ids = tables.gather(
+                1, col.clamp(0, self.width - 1).long()[:, None])[:, 0]
+            offs = start % self.page_size
+        sample = None
+        if mode != "greedy":
+            sample = ((g["temps"], g["top_ps"], g["top_ks"], g["seeds"],
+                       lens, g["slot_ids"], g["slot_vals"], g["cmodes"]),
+                      mode == "sampled")
+        # the fused write of a decode tick: each row writes exactly its own
+        # token, so its span starts at the token's position, its packed
+        # index is the row's, and every row is its sequence's last
+        nxt = self._mixed_forward(g["tokens"], start, rows, rows, tables,
+                                  lens, start, g["ones"], start, rows, lens,
+                                  page_ids, offs, g["row_tok"], 1, sample)
+        g["out"].index_copy_(1, g["tick"], nxt[:, None])
+        g["tokens"].copy_(nxt)
+        lens.add_(1)
+        g["tick"].add_(1)
+
+    def _load_scan(self, live, starts, mode):
+        """Fill the scan's input buffers in place for ``live``, whose next
+        tokens land at positions ``starts`` (rows past them padded:
+        tables of the trash page, lens 1, token 0, inert greedy sampler
+        rows), in ONE host-to-device copy, and zero the tick counter."""
+        b = self.max_batch
+        tables = np.full((b, self.width), self.trash_page, np.int32)
+        lens = np.ones((b,), np.int32)
+        tokens = np.zeros((b,), np.int32)
+        for i, (r, start) in enumerate(zip(live, starts)):
+            t = self.alloc._tables[r.seq_id]
+            tables[i, :len(t)] = t
+            lens[i] = start + 1                # first new token included
+            tokens[i] = r.output_ids[-1] if r.output_ids \
+                else int(r.prompt_ids[-1])
+        parts = [tables, lens, tokens]
+        if mode != "greedy":
+            parts += self._sample_params(live, b)
+        host = np.concatenate([a.reshape(-1).view(np.int32) for a in parts])
+        g = self._scan_buffers()
+        g["scan_in"][:host.size].copy_(torch.from_numpy(host))
+        g["tick"].zero_()
+
+    def _ensure_tick(self, mode):
+        """On the card, capture the tick graph of ``mode`` unless it is
+        captured: on the padding state, whose writes land in the trash
+        page only, so the warm-up and the capture touch no request."""
+        if not self._graphs.cuda or mode in self._graphs:
+            return
+        self._load_scan([], [], mode)
+        self._graphs.capture(mode, lambda: self._tick(mode))
+
+    def _run_tick(self, mode):
+        """One tick: the captured graph on the card, the tick function
+        itself on the CPU."""
+        if self._graphs.cuda:
+            self._graphs.replay(mode)
+        else:
+            self._tick(mode)
+
+    def _decode_scan(self, n):
+        """Decode ``n`` tokens for every live, fully prefilled request:
+        ``n`` ticks and one read-back. Pages for all ``n`` tokens are
+        reserved first; tokens a request emits after it retires mid-scan
+        (EOS, stop, budget) are discarded. The port has no degradation
+        ladder (A5) and no prefix cache (A4): ``n`` comes from
+        :meth:`_scan_fits`, so every reservation fits."""
+        if n <= 0 or not any(not r.done for r in self._live.values()):
+            return 0
+        if n > self._scan_width():
+            raise ValueError(f"a scan takes at most {self._scan_width()} "
+                             f"ticks (decode_ticks), got {n}")
+        self._dispatch_count += 1
+        live = [r for r in self._live.values() if not r.done
+                and r._prefilled >= len(r.prompt_ids)]
+        if not live:
+            return 0
+        sids = [r.seq_id for r in live]
+        starts = [self.alloc.extend(sid, n) for sid in sids]
+        mode = self._sample_mode(live)
+        self._ensure_tick(mode)
+        self._load_scan(live, starts, mode)
+        for _ in range(n):
+            self._run_tick(mode)
+        all_tokens = self._graphs.buffers["out"][:len(live), :n].tolist()
         served = 0
-        while n > 0:
-            rows, emitted = self._mixed_step()
-            if rows == 0:
-                break
-            served += emitted
-            n -= 1
+        for i, r in enumerate(live):
+            for t in range(n):
+                # retired mid-scan: the tail is discarded
+                if r.done or r.seq_id != sids[i]:
+                    break
+                self._emit(r, int(all_tokens[i][t]))
+                served += 1
         return served
+
+    def _scan_fits(self, live, n):
+        """Largest scan <= n whose page reservations fit the pool and no
+        sequence's per-seq table cap, as the reference sizes it. Admission
+        here promised every live request its worst-case pages (there is no
+        ladder to take them back, A5), so a scan may draw beyond a
+        request's own promise only from pages no live request is owed: an
+        overshoot of ``exact=False`` never takes another's page."""
+        page = self.page_size
+        for r in live:
+            headroom = self.alloc.max_pages_per_seq * page \
+                - self.alloc._lens[r.seq_id]
+            if headroom < n:
+                n = max(1, headroom)
+        owed = {r.seq_id: self._owed_pages(r)
+                for r in self._live.values() if not r.done}
+        spare = self.alloc.free_pages - sum(owed.values())
+        while n > 1:
+            extra = sum(max(0, -(-(self.alloc._lens[r.seq_id] + n) // page)
+                            - len(self.alloc._tables[r.seq_id])
+                            - owed.get(r.seq_id, 0))
+                        for r in live)
+            if extra <= spare:
+                break
+            n //= 2
+        return n
+
+    def decode_many(self, n, exact=True):
+        """``n`` decode steps for the current live set. While a live
+        prompt still has chunks to prefill, or a live request has a
+        constraint hook (host work each step), the engine takes single
+        mixed steps; otherwise scans of :attr:`decode_ticks` ticks, then
+        of ``max(decode_ticks // 4, 2)``, then single steps, as the
+        reference does. With ``exact=False`` the tail may overshoot by up
+        to ``decode_ticks // 4 - 1`` ticks (callers use it when every live
+        request retires by step ``n``; the overshot tokens are
+        discarded). Returns tokens served."""
+        served = 0
+        small = max(self.decode_ticks // 4, 2)
+        while n > 0:
+            live = [r for r in self._live.values() if not r.done]
+            if not live:
+                break
+            prefilling = any(r._prefilled < len(r.prompt_ids)
+                             for r in live)
+            constrained = any(r.sampling is not None
+                              and r.sampling.constraint is not None
+                              for r in live)
+            # speculative decoding (spec_k) is not ported (A6): its
+            # branches of the reference's policy never apply
+            if prefilling or constrained:
+                chunk = 1
+            elif n >= self.decode_ticks:
+                chunk = self._scan_fits(live, self.decode_ticks)
+            elif n >= small or not exact:
+                chunk = self._scan_fits(live, small)
+            else:
+                chunk = 1
+            if chunk > 1:
+                served += self._decode_scan(chunk)
+                n -= chunk
+            else:
+                rows, emitted = self._mixed_step()
+                if rows == 0:
+                    break
+                served += emitted
+                n -= 1
+        return served
+
+    # ------------------------------------------------------------------
+    # prewarm: build, load and capture ahead of traffic
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _warm_mixed(self, t_cap):
+        """One mixed dispatch of ``t_cap`` tokens with every row inactive
+        (kv_len 0: nothing is written, the attention gives zeros; the
+        two-op scatter writes the trash page only) and its tokens
+        discarded, so no request state is touched: it builds and loads the
+        kernels' libraries and the library handles of the shape. Returns
+        False for a token count that is not one of this engine's two
+        dispatch shapes."""
+        t_cap = int(t_cap)
+        if t_cap == self.chunk_budget:
+            r_cap, qb = self.rows_cap, self.chunk_block
+        elif t_cap == self.max_batch:
+            r_cap, qb = self.max_batch, 1
+        else:
+            return False
+        dev, i32 = self.device, torch.int32
+        z_t = torch.zeros((t_cap,), dtype=i32, device=dev)
+        z_r = torch.zeros((r_cap,), dtype=i32, device=dev)
+        tables = torch.full((r_cap, self.width), self.trash_page, dtype=i32,
+                            device=dev)
+        fallback = not self.fused_rope
+        page_ids = torch.full((t_cap if fallback else 0,), self.trash_page,
+                              dtype=i32, device=dev)
+        offs = torch.zeros_like(page_ids)
+        row_tok = torch.zeros((r_cap if fallback else 0, qb),
+                              dtype=torch.int64, device=dev)
+        sample = None
+        if self.sample_enabled:
+            # the sampled tail, on inert rows: the sampler's kernel loads too
+            arrays = self._sample_params([], r_cap)
+            arrays = arrays[:4] + (np.zeros((r_cap,), np.int32),) \
+                + arrays[4:]
+            sample = (tuple(torch.from_numpy(a).to(dev) for a in arrays),
+                      True)
+        self._mixed_forward(z_t, z_t, z_t, z_r, tables, z_r, z_r, z_r, z_r,
+                            z_r, z_r, page_ids, offs, row_tok, qb, sample)
+        return True
+
+    def _warm_scan(self, n):
+        """Make the decode scan ready: on the card, capture the tick
+        graph of every mode this engine can run (greedy, and with
+        ``sampling`` on, bias only and sampled); on the CPU, run one tick
+        of each on the padding state. One tick graph serves every scan
+        length ``n``."""
+        del n
+        modes = ("greedy", "bias", "sampled") if self.sample_enabled \
+            else ("greedy",)
+        for mode in modes:
+            if self._graphs.cuda:
+                self._ensure_tick(mode)
+            else:
+                self._load_scan([], [], mode)
+                self._tick(mode)
+
+    def prewarm(self, mixed=None, scans=None):
+        """Build, load and capture this engine's dispatch programs before
+        traffic arrives: ``mixed`` token counts (``chunk_budget`` and
+        ``max_batch`` are this engine's; others are skipped) by a dummy
+        dispatch each, and ``scans`` (tick counts) by capturing the tick
+        graphs. With no arguments the recipe is empty: the reference reads
+        it from its compile cache's shape registry, empty without a cache
+        directory, and the port has no registry yet (``compile_watch``,
+        ROADMAP A8). Returns ``{"mixed": [...], "scan": [...]}``, what was
+        warmed (also kept on ``self.prewarmed``)."""
+        done = {"mixed": [], "scan": []}
+        for t_cap in sorted(set(mixed or ())):
+            if self._warm_mixed(int(t_cap)):
+                done["mixed"].append(int(t_cap))
+        for n in sorted(set(scans or ())):
+            self._warm_scan(int(n))
+            done["scan"].append(int(n))
+        self.prewarmed = done
+        return done
 
     def generate(self, prompts, max_new_tokens=16, eos_token_id=None):
         """Admit all prompts (continuous batching handles ragged finish
@@ -823,10 +1164,12 @@ class LlamaServingEngine:
             if any(r._prefilled < len(r.prompt_ids) for r in live):
                 self.step()
                 continue
-            # decode until the earliest possible retirement; with EOS or
-            # pending admissions, re-check admission every decode_ticks
+            # scan until the earliest possible retirement; with EOS or
+            # pending admissions, re-check admission every decode_ticks.
+            # The tail may overshoot (exact=False): every live request
+            # retires by then, so overshot ticks are discarded
             run = min(r.max_new_tokens - len(r.output_ids) for r in live)
             if pending or eos_token_id is not None:
                 run = min(run, self.decode_ticks)
-            self.decode_many(max(1, run))
+            self.decode_many(max(1, run), exact=False)
         return [r.output_ids for r in reqs]

@@ -19,7 +19,11 @@ layer and model forwards): each step writes its K/V in place at
 plain masked attention (:func:`masked_attention`), as the reference's
 masked attention takes XLA. Sampled steps draw with the reference's
 threefry key ``fold_in(key(seed), step)`` through one launch of
-:func:`~paddle_tpu_torch.ops.sampling.gumbel_argmax`.
+:func:`~paddle_tpu_torch.ops.sampling.gumbel_argmax`. The prefill runs
+eagerly; every later step is one function of static buffers (``cache_len``
+and the step index are device scalars), which on the card is a CUDA graph
+captured once per (parameters, sampler, batch, max_len), as the reference
+compiles its step once per shape, and replayed each step.
 
 ``moe_num_experts > 0`` selects the mixture-of-experts FFN
 (:class:`LlamaMoEMLP`, Mixtral-style): dropless top-k routing and three
@@ -40,6 +44,7 @@ from ..distributed.recompute import recompute
 from ..incubate.moe import top_k_routing
 from ..incubate.nn import functional as FI
 from ..nn import functional as F
+from ..ops._graphs import StepGraphs
 from ..ops.fused_linear_cross_entropy import fused_linear_cross_entropy
 from ..ops.grouped_gemm import grouped_gemm, grouped_gemm_q8
 from ..ops.sampling import gumbel_argmax
@@ -107,19 +112,40 @@ class RMSNorm(nn.Module):
         return FI.rms_norm(x, self.weight, self.epsilon)
 
 
-def _kv_cache_update(buf, new, start):
-    """Write ``new [B, s, Hk, D]`` into the static buffer ``buf [B,
-    max_len, Hk, D]`` at sequence offset ``start`` (an int or a 0-d
-    integer tensor), IN PLACE, cast to the buffer's dtype; returns
-    ``buf``. A write past the buffer raises."""
-    s, max_len = new.shape[1], buf.shape[1]
-    st = int(start)
-    if st + s > max_len:
+def _check_cache_room(start, s, max_len):
+    """The reference's overflow check of a cache write, on a host int."""
+    if start + s > max_len:
         raise ValueError(
             f"KV cache overflow: writing {s} tokens at offset "
-            f"{st} exceeds the static buffer ({max_len})")
+            f"{start} exceeds the static buffer ({max_len})")
+
+
+def _kv_cache_update(buf, new, start):
+    """Write ``new [B, s, Hk, D]`` into the static buffer ``buf [B,
+    max_len, Hk, D]`` at sequence offset ``start``, IN PLACE, cast to the
+    buffer's dtype; returns ``buf``. An int ``start`` is checked first (a
+    write past the buffer raises). A tensor ``start`` (one integer, on the
+    buffer's device) is never read on the host, as the reference's traced
+    offset is not: the write is an index copy at ``start + arange(s)``,
+    and its caller checks the room on its own host counter (an index past
+    the buffer is an indexing error)."""
+    s, max_len = new.shape[1], buf.shape[1]
+    if isinstance(start, torch.Tensor):
+        idx = start.reshape(()).long() + torch.arange(s, device=buf.device)
+        buf.index_copy_(1, idx, new.to(buf.dtype))
+        return buf
+    st = int(start)
+    _check_cache_room(st, s, max_len)
     buf[:, st:st + s] = new.to(buf.dtype)
     return buf
+
+
+def _row_ints(x, b, device):
+    """``[b]`` int32 copies of ``x``: an int, or a one-element integer
+    tensor, read on the device."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(1).to(torch.int32).expand(b)
+    return torch.full((b,), x, dtype=torch.int32, device=device)
 
 
 def _decode_mask(length, s, max_len, device=None):
@@ -505,9 +531,10 @@ class LlamaForCausalLM(nn.Module):
         """The next-token rule on ``[B, 1, V]`` logits: the argmax, or
         with ``do_sample`` temperature, then top-k, then top-p (a stable
         sort of the probabilities), then a categorical draw: one launch
-        of :func:`gumbel_argmax` under ``key = (seed, fold)``, counters
-        ``b * V + j``. ``sampler`` is ``(do_sample, top_k, top_p,
-        temperature)``. Returns int64 ``[B, 1]``."""
+        of :func:`gumbel_argmax` under ``key = (seed, fold)`` (ints, or
+        one-element tensors read on the device), counters ``b * V + j``.
+        ``sampler`` is ``(do_sample, top_k, top_p, temperature)``. Returns
+        int64 ``[B, 1]``."""
         do_sample, top_k, top_p, temperature = sampler
         if not do_sample:
             return logits.argmax(dim=-1)
@@ -535,8 +562,7 @@ class LlamaForCausalLM(nn.Module):
         seed, fold = key
         rows = torch.arange(b, device=dev)
         nxt = gumbel_argmax(
-            lg, torch.full((b,), seed, dtype=torch.int32, device=dev),
-            torch.full((b,), fold, dtype=torch.int32, device=dev), rows * v,
+            lg, _row_ints(seed, b, dev), _row_ints(fold, b, dev), rows * v,
             torch.full((b,), float("-inf"), device=dev))
         return nxt[:, None]
 
@@ -561,7 +587,9 @@ class LlamaForCausalLM(nn.Module):
         reference's. With ``seed=None`` the seed is drawn from
         ``generator`` (a CPU :class:`torch.Generator`; torch's default one
         if None), where the reference takes the next key of its global
-        stream. Returns int64 ``[B, S + max_new_tokens]``."""
+        stream. The prefill runs eagerly; the decode steps replay the
+        step's CUDA graph on the card (see the module docstring). Returns
+        int64 ``[B, S + max_new_tokens]``."""
         b, s = input_ids.shape
         need = s + max_new_tokens
         max_len = max_length if max_length is not None \
@@ -575,13 +603,78 @@ class LlamaForCausalLM(nn.Module):
         if not -2 ** 31 <= int(seed) < 2 ** 31:
             raise ValueError(f"seed must be in [-2**31, 2**31), got {seed}")
         sampler = (bool(do_sample), top_k, top_p, float(temperature))
-        caches = self._empty_caches(b, max_len)
-        cache_len, tokens, new_tokens = 0, input_ids, []
-        for i in range(max_new_tokens):
-            tokens, cache_len, caches = self._decode_step(
-                tokens, cache_len, caches, (int(seed), i), sampler)
-            new_tokens.append(tokens)
-        return torch.cat([input_ids.long()] + new_tokens, dim=1)
+        steps = self._decode_graph(b, max_len, sampler)
+        g = steps.buffers
+        for name, buf in g.items():
+            if name == "seed":
+                buf.fill_(int(seed))
+            else:
+                buf.zero_()
+        # the prefill: eager, once a call (the prompt's own shape)
+        self._graph_step(steps, sampler, input_ids)
+        length = s
+        for _ in range(1, max_new_tokens):
+            _check_cache_room(length, 1, max_len)
+            if steps.cuda:
+                steps.replay("step")
+            else:
+                self._graph_step(steps, sampler)
+            length += 1
+        return torch.cat([input_ids.long(), g["out"][:, :max_new_tokens]],
+                         dim=1)
+
+    def _graph_step(self, steps, sampler, tokens=None):
+        """One step of ``generate`` on its static buffers: the cached
+        forward of ``tokens`` (default: the buffer of the last step's
+        tokens) at the device offset ``cache_len``, the next token under
+        the key ``(seed, fold)`` written at ``out[:, fold]`` and into the
+        tokens buffer, then ``cache_len`` and ``fold`` advance. Nothing
+        is read back to the host."""
+        g = steps.buffers
+        tokens = g["tokens"] if tokens is None else tokens
+        caches = [(g[f"k{i}"], g[f"v{i}"])
+                  for i in range(self.config.num_hidden_layers)]
+        nxt, _, _ = self._decode_step(tokens, g["cache_len"], caches,
+                                      (g["seed"], g["fold"]), sampler)
+        g["out"].index_copy_(1, g["fold"], nxt)
+        g["tokens"].copy_(nxt)
+        g["cache_len"].add_(tokens.shape[1])
+        g["fold"].add_(1)
+
+    def _decode_graph(self, batch, max_len, sampler):
+        """The :class:`~paddle_tpu_torch.ops._graphs.StepGraphs` of
+        ``generate``'s decode step at (weights, sampler, batch, max_len),
+        the reference's ``param_key`` and shape: the KV caches
+        (:meth:`_empty_caches`), the tokens, the out buffer ``[batch,
+        max_len]`` and the ``cache_len``, ``fold`` and ``seed`` scalars,
+        and on the card the step's graph, captured when the set is made
+        (its warm-up writes the zeroed buffers, which each call zeroes
+        again). A graph reads the weights at the addresses it was
+        captured with, so the key holds every parameter's and buffer's
+        storage (address, dtype, device, shape), not the objects: after
+        ``model.half()``, ``.to(...)`` or ``p.data = ...`` the next call
+        captures anew. One set is kept a model, the last one used: a call
+        at another key frees the old set's caches and graph."""
+        key = (tuple((t.data_ptr(), t.dtype, t.device, tuple(t.shape))
+                     for t in (*self.parameters(), *self.buffers())),
+               sampler, batch, max_len)
+        kept = self.__dict__.get("_decode_state")
+        if kept is not None and kept[0] == key:
+            return kept[1]
+        self.__dict__.pop("_decode_state", None)   # frees the old set
+        w = self.model.embed_tokens.weight
+        steps = StepGraphs(w.device)
+        for i, (kb, vb) in enumerate(self._empty_caches(batch, max_len)):
+            steps.buffers[f"k{i}"], steps.buffers[f"v{i}"] = kb, vb
+        steps.buffer("tokens", (batch, 1), torch.int64)
+        steps.buffer("out", (batch, max_len), torch.int64)
+        steps.buffer("cache_len", (1,), torch.int64)
+        steps.buffer("fold", (1,), torch.int64)
+        steps.buffer("seed", (1,), torch.int64)
+        if steps.cuda:
+            steps.capture("step", lambda: self._graph_step(steps, sampler))
+        self.__dict__["_decode_state"] = (key, steps)
+        return steps
 
     def _empty_caches(self, batch, max_len):
         """One zeroed ``(k_buf, v_buf)`` pair ``[batch, max_len, Hk, D]``

@@ -23,8 +23,8 @@ import threading
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "data_ptr", "load",
-           "ptxas_report", "sm_count", "tickets"]
+__all__ = ["COUNTERS", "NVCC_FLAGS", "SOURCES", "build_all", "counter",
+           "data_ptr", "load", "ptxas_report", "sm_count", "tickets"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -45,6 +45,20 @@ _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 _SMS: dict = {}             # device -> its SM count
 _TICKETS: dict = {}         # (device, stream) -> the zeroed ticket buffer
+#: every launch counter of the kernels' wrappers (:func:`counter`), in
+#: the order they were made
+COUNTERS: list[dict] = []
+
+
+def counter(keys):
+    """A launch counter ``{key: 0}`` of a kernel module, registered in
+    :data:`COUNTERS`. A wrapper adds one to it where it launches its
+    kernel; a CUDA-graph capture (``ops._graphs``) launches nothing, so
+    it takes back what every registered counter counted and adds it
+    again at each replay."""
+    c = dict.fromkeys(keys, 0)
+    COUNTERS.append(c)
+    return c
 
 
 def _nvcc():

@@ -55,11 +55,10 @@ BLOCK_K = 128
 NEG_INF = -1e30
 
 #: kernel launches on the CUDA path, one count per TPU kernel
-launches = {"forward": 0, "dq": 0, "dkv": 0}
+launches = _build.counter(("forward", "dq", "dkv"))
 #: the same launches by kernel and instance (:func:`kernel_instance`)
-instance_launches = {f"{k}.{i}": 0 for k, i in (
-    ("forward", "wgmma"), ("forward", "general"), ("dq", "wgmma"),
-    ("dq", "general"), ("dkv", "wgmma"), ("dkv", "general"))}
+instance_launches = _build.counter(f"{k}.{i}" for k in launches
+                                   for i in ("wgmma", "general"))
 
 _TC_HEAD_DIMS = (64, 128)   # bf16 head_dims of the tensor-core instance
 # the C entries' codes

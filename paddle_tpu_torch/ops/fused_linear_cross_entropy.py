@@ -46,14 +46,19 @@ from . import _build
 __all__ = ["fused_linear_cross_entropy", "fused_linear_cross_entropy_ref",
            "default_chunk", "kernel_instance", "split_plan"]
 
-#: kernel launches on the CUDA path
-launches = 0
-#: the same launches by instance (``kernel_instance``)
-instance_launches = {"tensor-core": 0, "general": 0}
+#: kernel launches on the CUDA path by instance (``kernel_instance``);
+#: ``launches`` is their sum
+instance_launches = _build.counter(("tensor-core", "general"))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _INSTANCES = {"tensor-core": 0, "general": 1}
 TILE_ROWS = 128     # rows of a tensor-core block
 TILE_COLS = 128     # vocab columns of a tensor-core tile
+
+
+def __getattr__(name):
+    if name == "launches":
+        return sum(instance_launches.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def default_chunk():
@@ -130,7 +135,6 @@ def _launch(h2d, w, labels):
     """The instance :func:`kernel_instance` picks. Raises only for what
     no instance takes: other dtypes than f32, bf16 and f16, and
     misaligned hidden or weight on the tensor-core instance."""
-    global launches
     n, d = h2d.shape
     v = w.shape[0]
     inst = kernel_instance(h2d.dtype, w.dtype, d)
@@ -160,7 +164,6 @@ def _launch(h2d, w, labels):
         msg = lib.ce_error_string(rc).decode()
         raise RuntimeError(f"cross-entropy launch failed: CUDA error {rc} "
                            f"({msg})")
-    launches += 1
     instance_launches[inst] += 1
     return lse, pick
 

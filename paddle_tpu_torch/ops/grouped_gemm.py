@@ -54,10 +54,10 @@ __all__ = ["grouped_gemm", "grouped_gemm_ref", "grouped_gemm_dw",
            "supported_q8"]
 
 #: kernel launches on the CUDA path, per kernel
-launches = {"grouped_gemm": 0, "grouped_gemm_q8": 0}
+launches = _build.counter(("grouped_gemm", "grouped_gemm_q8"))
 #: the same launches by kernel and instance (``gemm_instance``)
-instance_launches = {f"{k}.{i}": 0 for k in launches
-                     for i in INSTANCES[k]}
+instance_launches = _build.counter(f"{k}.{i}" for k in launches
+                                   for i in INSTANCES[k])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 def _geometry(x, w, group_sizes):

@@ -62,9 +62,9 @@ __all__ = ["supported", "kernel_instance", "split_plan",
            "paged_attention_ref", "paged_attention"]
 
 #: kernel launches on the CUDA path, one per call
-launches = {"paged": 0}
+launches = _build.counter(("paged",))
 #: the launches by instance (:func:`kernel_instance`)
-instance_launches = {"tensor-core": 0, "general": 0}
+instance_launches = _build.counter(("tensor-core", "general"))
 
 #: the C entry's code for each pool dtype, by instance
 _KV_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2,

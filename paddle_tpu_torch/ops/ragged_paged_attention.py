@@ -78,12 +78,12 @@ NEG_INF = -1e30
 
 #: kernel launches on the CUDA path, by the TPU kernel each call replaces:
 #: two per fused call (write, then attention), one per read-only call
-launches = {"fused_rope": 0, "fused_rope_q8": 0, "fused": 0, "fused_q8": 0,
-            "ragged": 0, "ragged_q8": 0}
+launches = _build.counter(("fused_rope", "fused_rope_q8", "fused",
+                           "fused_q8", "ragged", "ragged_q8"))
 #: the attention launches by call form and instance
 #: (:func:`attention_instance`), keyed ``"<call form>.<instance>"``
-instance_launches = {f"{v}.{i}": 0 for v in launches
-                     for i in ("tensor-core", "general")}
+instance_launches = _build.counter(f"{v}.{i}" for v in launches
+                                   for i in ("tensor-core", "general"))
 
 #: the model dtypes of the CUDA instances (q, fresh K/V, out, float
 #: pools), by their C code

@@ -49,7 +49,7 @@ __all__ = ["GUMBEL_REL", "threefry2x32", "fold_key", "random_bits",
            "gumbel_argmax_ref", "gumbel_noise", "gumbel_argmax"]
 
 #: kernel launches on the CUDA path, one per call of each wrapper
-launches = {"gumbel_argmax": 0, "gumbel_noise": 0}
+launches = _build.counter(("gumbel_argmax", "gumbel_noise"))
 
 #: how far ``g`` may lie from the reference's (or the kernel's from the
 #: plain version's), relative to ``max(|g|, 1)``: the two ``log`` calls'

@@ -30,11 +30,17 @@ from .format import dequant_blocks, effective_block
 
 __all__ = ["dequant_matmul", "dequant_matmul_ref", "supported"]
 
-#: kernel launches on the CUDA path
-launches = 0
-#: the same launches by instance (``ops._tile_gemm.gemm_instance``)
-instance_launches = {f"dequant_matmul.{i}": 0
-                     for i in INSTANCES["dequant_matmul"]}
+#: kernel launches on the CUDA path by instance
+#: (``ops._tile_gemm.gemm_instance``); ``launches`` is their sum
+instance_launches = _build.counter(f"dequant_matmul.{i}"
+                                   for i in INSTANCES["dequant_matmul"])
+
+
+def __getattr__(name):
+    if name == "launches":
+        return sum(instance_launches.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -84,7 +90,6 @@ def _launch(x2, q, scales, block):
     K]``. Raises for operands no instance takes: other dtypes than
     float x, int8 q and f32 scales ``[ceil(K/B), N]``; strided or
     misaligned operands of the cluster and tile instances."""
-    global launches
     m, k = x2.shape
     n = q.shape[1]
     inst = gemm_instance("dequant_matmul", x2.dtype, k, n, block)
@@ -111,7 +116,6 @@ def _launch(x2, q, scales, block):
     if rc:
         raise RuntimeError(f"dequant_matmul launch failed: CUDA error {rc} "
                            f"({lib.dq_error_string(rc).decode()})")
-    launches += 1
     instance_launches[f"dequant_matmul.{inst}"] += 1
     return y
 

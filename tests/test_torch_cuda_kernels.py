@@ -1315,3 +1315,128 @@ def test_gumbel_argmax_converts_its_operands(dev):
                                         thr))
     with pytest.raises(ValueError, match="integers"):
         SM.gumbel_argmax(scores, seeds.float(), folds, bases, thr)
+
+
+# ----------------------------------------------------------------------
+# CUDA-graph decode: the engine's tick and generate's step
+# ----------------------------------------------------------------------
+
+def _tick_state(engine):
+    """Everything a tick writes: the scan's carry, out and tick counter,
+    the pools and the scale sidecars."""
+    g = engine._graphs.buffers
+    return [g[k] for k in ("tokens", "lens", "out", "tick")] \
+        + engine.k_pools + engine.v_pools + engine.k_scales + engine.v_scales
+
+
+def _replayed_and_eager_tick(engine, mode):
+    """One tick of ``mode`` over the engine's live requests: replayed from
+    its graph, then (from the same state) the tick function run eagerly on
+    the same static buffers. Returns both end states."""
+    live = [r for r in engine._live.values() if not r.done]
+    engine._ensure_tick(mode)
+    starts = [engine.alloc.extend(r.seq_id, 1) for r in live]
+    engine._load_scan(live, starts, mode)
+    state = _tick_state(engine)
+    before = [t.clone() for t in state]
+    engine._run_tick(mode)
+    replayed = [t.clone() for t in state]
+    for t, b in zip(state, before):
+        t.copy_(b)
+    engine._tick(mode)
+    torch.cuda.synchronize()
+    return replayed, [t.clone() for t in state]
+
+
+@pytest.mark.parametrize("kw", [{}, {"fused_rope": False},
+                                {"fused_kv": False}, {"kv_dtype": "int8"}])
+def test_decode_tick_graph_is_the_eager_tick(dev, kw):
+    """A replayed tick graph is bit for bit the tick function run eagerly
+    at the same padded shape, in each mode (greedy, bias only, sampled):
+    next tokens, lens and every pool slot and scale."""
+    from paddle_tpu_torch.inference import SamplingParams
+    from paddle_tpu_torch.inference.serving import LlamaServingEngine, Request
+    from paddle_tpu_torch.models import LlamaForCausalLM, tiny_llama_config
+    model = LlamaForCausalLM(tiny_llama_config(), device=dev,
+                             dtype=torch.bfloat16,
+                             generator=torch.Generator(dev).manual_seed(0))
+    engine = LlamaServingEngine(model, max_batch=4, page_size=8,
+                                num_pages=48, **kw)
+    sps = (None, SamplingParams(logit_bias={5: 3.0}),
+           SamplingParams(temperature=0.9, top_p=0.9, seed=3))
+    for i, sp in enumerate(sps):
+        engine.add_request(Request(list(range(3 + 5 * i)), 20, sampling=sp))
+    for mode in ("greedy", "bias", "sampled"):
+        replayed, eager = _replayed_and_eager_tick(engine, mode)
+        for a, b in zip(replayed, eager):
+            assert torch.equal(a, b), mode
+    assert all(m in engine._graphs for m in ("greedy", "bias", "sampled"))
+
+
+def test_failed_capture_raises_and_leaves_the_stream(dev):
+    """A step that reads the device on the host cannot be captured: the
+    helper raises what the capture raised, restores the current stream,
+    and a good step still captures and replays."""
+    from paddle_tpu_torch.ops._graphs import StepGraphs
+    steps = StepGraphs(dev)
+    x = steps.buffer("x", (8,), torch.float32)
+    stream = torch.cuda.current_stream(dev)
+    with pytest.raises(RuntimeError):
+        steps.capture("bad", lambda: x.add_(float(x.sum().item())))
+    assert torch.cuda.current_stream(dev) == stream and "bad" not in steps
+    x.fill_(1.0)
+    steps.capture("good", lambda: x.mul_(2.0))   # the warm-up runs: 2
+    steps.replay("good")
+    steps.replay("good")
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full_like(x, 8.0))
+
+
+def test_generate_graph_is_the_eager_step(dev):
+    """``generate``'s replayed decode step gives the tokens of the decode
+    loop run eagerly over host ints, bit for bit, greedy and sampled."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, tiny_llama_config
+    model = LlamaForCausalLM(tiny_llama_config(), device=dev,
+                             dtype=torch.bfloat16,
+                             generator=torch.Generator(dev).manual_seed(1))
+    ids = torch.randint(0, 128, (3, 9), device=dev,
+                        generator=torch.Generator(dev).manual_seed(2))
+    for kw, sampler in ((dict(), (False, None, None, 1.0)),
+                        (dict(do_sample=True, top_k=8, top_p=0.9, seed=4),
+                         (True, 8, 0.9, 1.0))):
+        got = model.generate(ids, max_new_tokens=12, **kw)
+        caches = model._empty_caches(3, 64)
+        tokens, length, out = ids, 0, []
+        with torch.no_grad():
+            for i in range(12):
+                tokens, length, caches = model._decode_step(
+                    tokens, length, caches, (kw.get("seed", 0), i), sampler)
+                out.append(tokens)
+        assert torch.equal(got, torch.cat([ids] + out, dim=1))
+
+
+def test_generate_graph_follows_the_weights(dev):
+    """After ``model.float()`` (the same parameter objects over new
+    storage) ``generate`` captures its step anew: its tokens are the
+    decode loop's run eagerly on the float weights, bit for bit, and the
+    graph of the bf16 weights is freed."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, tiny_llama_config
+    model = LlamaForCausalLM(tiny_llama_config(), device=dev,
+                             dtype=torch.bfloat16,
+                             generator=torch.Generator(dev).manual_seed(5))
+    ids = torch.randint(0, 128, (2, 7), device=dev,
+                        generator=torch.Generator(dev).manual_seed(6))
+    model.generate(ids, max_new_tokens=10)
+    _, bf16 = model._decode_state
+    model.float()
+    got = model.generate(ids, max_new_tokens=10)
+    _, f32 = model._decode_state
+    assert f32 is not bf16 and f32.buffers["k0"].dtype == torch.float32
+    caches = model._empty_caches(2, 64)
+    tokens, length, out = ids, 0, []
+    with torch.no_grad():
+        for i in range(10):
+            tokens, length, caches = model._decode_step(
+                tokens, length, caches, (0, i), (False, None, None, 1.0))
+            out.append(tokens)
+    assert torch.equal(got, torch.cat([ids] + out, dim=1))

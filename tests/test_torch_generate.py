@@ -169,3 +169,83 @@ def test_generate_seed_from_generator(fitted):
     assert torch.equal(a, tm.generate(ids, seed=seed, **kw))
     with pytest.raises(ValueError, match="seed"):
         tm.generate(ids, seed=2 ** 31, **kw)
+
+
+def test_kv_cache_update_at_a_device_offset():
+    """A tensor offset is an index write read on the device: the slots of
+    an int offset's write, the same buffer returned; past the buffer it
+    is an indexing error (``generate`` checks the room on its own host
+    counter first, with the reference's message)."""
+    rng = np.random.RandomState(1)
+    new = torch.from_numpy(rng.randn(2, 3, 2, 8).astype(np.float32))
+    for start in (0, 5, 13):
+        a = torch.zeros(2, 16, 2, 8, dtype=torch.bfloat16)
+        b = torch.zeros_like(a)
+        assert tllama._kv_cache_update(a, new, torch.tensor([start])) is a
+        tllama._kv_cache_update(b, new, start)
+        assert torch.equal(a, b)
+    with pytest.raises((IndexError, RuntimeError)):
+        tllama._kv_cache_update(torch.zeros(2, 16, 2, 8), new,
+                                torch.tensor([14]))
+    with pytest.raises(ValueError, match="KV cache overflow"):
+        tllama._check_cache_room(14, 3, 16)
+
+
+def _eager_generate(tm, ids, new, sampler, seed):
+    """The decode loop over host ints: ``_decode_step`` with ``cache_len``
+    and the fold as Python ints, one fresh cache a call."""
+    b, s = ids.shape
+    caches = tm._empty_caches(b, ((s + new + 63) // 64) * 64)
+    cache_len, tokens, out = 0, ids, []
+    with torch.no_grad():
+        for i in range(new):
+            tokens, cache_len, caches = tm._decode_step(
+                tokens, cache_len, caches, (seed, i), sampler)
+            out.append(tokens)
+    return torch.cat([ids.long()] + out, dim=1)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_generate_step_state_is_static(fitted, name):
+    """``generate`` keeps one set of static buffers, at (weights,
+    sampler, batch, max_len), as the reference keeps one compiled step a
+    shape; a second call at the same key reuses and re-zeroes it, a call
+    at another sampler replaces it, and the tokens are the decode loop's
+    over host ints, bit for bit, greedy and sampled."""
+    _, tm = fitted[name]
+    ids = torch.from_numpy(_ids(6, 2, 7))
+    for kw, sampler in ((dict(), (False, None, None, 1.0)),
+                        (dict(do_sample=True, top_k=6, temperature=0.9,
+                              seed=17), (True, 6, None, 0.9))):
+        first = tm.generate(ids, max_new_tokens=9, **kw)
+        key, steps = tm._decode_state
+        assert key[1:] == (sampler, 2, 64)
+        again = tm.generate(ids, max_new_tokens=9, **kw)
+        assert tm._decode_state[1] is steps and torch.equal(first, again)
+        assert torch.equal(first, _eager_generate(tm, ids, 9, sampler,
+                                                  kw.get("seed", 0)))
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_generate_step_state_follows_the_weights(fitted, name):
+    """A step graph reads the weights where it was captured, so the kept
+    step state is keyed on their storage, not on the parameter objects:
+    after ``.to(dtype)`` (same objects, new storage) the next call builds
+    its caches in the new dtype and gives the decode loop's tokens there;
+    after ``p.data = ...`` it is built anew too."""
+    import copy
+    tm = copy.deepcopy(fitted[name][1])
+    ids = torch.from_numpy(_ids(6, 2, 7))
+    greedy = (False, None, None, 1.0)
+    tm.generate(ids, max_new_tokens=9)
+    _, steps = tm._decode_state
+    assert steps.buffers["k0"].dtype == torch.float32
+    tm.to(torch.bfloat16)
+    got = tm.generate(ids, max_new_tokens=9)
+    key, bf16 = tm._decode_state
+    assert bf16 is not steps and bf16.buffers["k0"].dtype == torch.bfloat16
+    assert torch.equal(got, _eager_generate(tm, ids, 9, greedy, 0))
+    w = tm.model.embed_tokens.weight
+    w.data = w.data.clone()
+    tm.generate(ids, max_new_tokens=9)
+    assert tm._decode_state[1] is not bf16 and tm._decode_state[0] != key

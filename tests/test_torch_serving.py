@@ -279,7 +279,7 @@ def test_engine_sampling_switch_reads_the_env_as_reference(models,
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"prewarm": True}, "A3"), ({"prefix_cache_pages": 4}, "A4"),
+    ({"prefix_cache_pages": 4}, "A4"),
     ({"admit_retries": 2}, "A5"), ({"admit_backoff": 0.01}, "A5"),
     ({"stuck_factor": 4.0}, "A5"), ({"stuck_min_timeout": 5.0}, "A5"),
     ({"spec_ngram": 4}, "A6"), ({"drafter_factory": object}, "A6"),
@@ -288,16 +288,6 @@ def test_engine_unported_knobs_raise(models, kw, item):
     _, tm = models
     with pytest.raises(NotImplementedError, match=item):
         LlamaServingEngine(tm, **kw, **GEOM)
-
-
-def test_engine_prewarm_env_raises_as_reference_reads_it(models,
-                                                         monkeypatch):
-    _, tm = models
-    monkeypatch.setenv("PADDLE_TPU_SERVING_PREWARM", "auto")
-    with pytest.raises(NotImplementedError, match="A3"):
-        LlamaServingEngine(tm, **GEOM)
-    monkeypatch.setenv("PADDLE_TPU_SERVING_PREWARM", "0")
-    LlamaServingEngine(tm, **GEOM)
 
 
 @pytest.mark.parametrize("kw,item", [

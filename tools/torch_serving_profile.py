@@ -3,7 +3,7 @@
 
     python3 tools/torch_serving_profile.py
         [--model llama3-8b|llama3-8b-kv8|mixtral-int8|mixtral-bf16]
-        [--out PATH]
+        [--decode-ticks N] [--out PATH]
 
 ``llama3-8b`` (the default) is the workload of ``chip_smoke.py`` phase
 4, taken from its ``serving_workload``: random bf16 Llama-3-8B weights
@@ -16,10 +16,13 @@ layer by ``chip_smoke.mixtral_int8``, behind
 7's: Mixtral-8x7B width cut to 4 bf16 layers (seeded random weights on
 the card, ``chip_smoke.FLOAT_MOE_LAYERS``) behind the engine's default
 float weights, the float grouped GEMM #6 in every FFN. All serve 8 prompts of
-64-512 tokens, 32 new tokens each, ``max_batch=8``, ``page_size=16``:
+64-512 tokens, 32 new tokens each, ``max_batch=8``, ``page_size=16``,
+``decode_ticks`` the engine's (``--decode-ticks``; by default decode scans
+whose ticks replay CUDA graphs, 1 for single mixed steps only):
 once to warm up, then twice: once timing every dispatch on the host
 clock (with a device synchronise after each, split into mixed
-prefill+decode dispatches and decode-only ones), once under
+prefill+decode dispatches, decode-only ones and decode scans, whose time
+is given per tick), once under
 ``torch.profiler`` for the device time by kernel and by kernel family,
 and the share of wall time with no kernel running (only kernels and
 copies count as device time). Prints one JSON object; ``--out`` also
@@ -72,45 +75,46 @@ def family(name):
     return "other (elementwise, reductions, indexing)"
 
 
-def moe_workload(dev):
-    from chip_smoke import mixtral_int8, serving_prompts
-    from paddle_tpu_torch.inference import LlamaServingEngine
+def moe_workload(dev, decode_ticks):
+    from chip_smoke import (mixtral_int8, serving_engine, serving_prompts,
+                            warm_up)
     model = mixtral_int8(dev)
-    engine = LlamaServingEngine(model, max_batch=8, page_size=16,
-                                weight_dtype="int8")
+    engine = serving_engine(model, weight_dtype="int8",
+                            decode_ticks=decode_ticks)
     prompts = serving_prompts(model.config.vocab_size)
-    engine.generate([prompts[0][:16]], max_new_tokens=2)   # warm-up
+    warm_up(engine, prompts)
     return model.config, model, engine, prompts
 
 
-def moe_bf16_workload(dev):
+def moe_bf16_workload(dev, decode_ticks):
     import dataclasses
     import torch
-    from chip_smoke import FLOAT_MOE_LAYERS, MIXTRAL, serving_prompts
-    from paddle_tpu_torch.inference import LlamaServingEngine
+    from chip_smoke import (FLOAT_MOE_LAYERS, MIXTRAL, serving_engine,
+                            serving_prompts, warm_up)
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     cfg = dataclasses.replace(LlamaConfig(**MIXTRAL),
                               num_hidden_layers=FLOAT_MOE_LAYERS)
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
                              generator=torch.Generator(dev).manual_seed(0))
-    engine = LlamaServingEngine(model.eval(), max_batch=8, page_size=16)
+    engine = serving_engine(model.eval(), decode_ticks=decode_ticks)
     prompts = serving_prompts(cfg.vocab_size)
-    engine.generate([prompts[0][:16]], max_new_tokens=2)   # warm-up
+    warm_up(engine, prompts)
     return cfg, model, engine, prompts
 
 
-def workload(name):
+def workload(name, decode_ticks=None):
     import torch
     from chip_smoke import NEW, serving_workload
     from paddle_tpu_torch.inference import Request
     dev = torch.device("cuda")
     if name == "mixtral-int8":
-        cfg, _, engine, prompts = moe_workload(dev)
+        cfg, _, engine, prompts = moe_workload(dev, decode_ticks)
     elif name == "mixtral-bf16":
-        cfg, _, engine, prompts = moe_bf16_workload(dev)
+        cfg, _, engine, prompts = moe_bf16_workload(dev, decode_ticks)
     else:
         cfg, _, engine, prompts = serving_workload(
-            dev, "int8" if name == "llama3-8b-kv8" else None)
+            dev, "int8" if name == "llama3-8b-kv8" else None,
+            decode_ticks=decode_ticks)
 
     def run():
         reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
@@ -121,10 +125,19 @@ def workload(name):
 
 
 def dispatch_times(engine, run):
-    """Host-clock time of each dispatch, synchronised, by kind."""
+    """Host-clock time of each dispatch, synchronised, by kind, and of
+    each decode scan with its tick count (``times["scan"]``)."""
     import torch
     times = collections.defaultdict(list)
-    inner = engine._dispatch_rows
+    inner, scan = engine._dispatch_rows, engine._decode_scan
+
+    def timed_scan(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = scan(n)
+        torch.cuda.synchronize()
+        times["scan"].append((time.perf_counter() - t0, n))
+        return out
 
     def timed(rows):
         torch.cuda.synchronize()
@@ -135,11 +148,11 @@ def dispatch_times(engine, run):
         times["mixed" if mixed else "decode"].append(
             time.perf_counter() - t0)
         return out
-    engine._dispatch_rows = timed
+    engine._dispatch_rows, engine._decode_scan = timed, timed_scan
     t0 = time.perf_counter()
     reqs = run()
     wall = time.perf_counter() - t0
-    engine._dispatch_rows = inner
+    del engine._dispatch_rows, engine._decode_scan
     return times, wall, reqs
 
 
@@ -186,6 +199,9 @@ def main():
     ap.add_argument("--model", choices=("llama3-8b", "llama3-8b-kv8",
                                         "mixtral-int8", "mixtral-bf16"),
                     default="llama3-8b")
+    ap.add_argument("--decode-ticks", type=int, default=None,
+                    help="the engine's decode_ticks (default: its own; 1 "
+                    "takes single mixed steps only)")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     import torch
@@ -195,17 +211,21 @@ def main():
         os.path.abspath(__file__))))
     from chip_smoke import card_line
     card = card_line()
-    cfg, engine, run = workload(args.model)
+    cfg, engine, run = workload(args.model, args.decode_ticks)
     times, wall, reqs = dispatch_times(engine, run)
     by_name, busy_us, window_us, prof_wall = profile(run)
     total = sum(by_name.values()) or 1.0
     by_family = collections.Counter()
     for k, v in by_name.items():
         by_family[family(k)] += v
-    n_disp = sum(len(v) for v in times.values()) or 1
+    scans = times.pop("scan", [])
+    ticks = sum(n for _, n in scans)
+    # a tick is a decode-only step of all max_batch rows
+    n_disp = sum(len(v) for v in times.values()) + ticks or 1
     res = {
         "card": card, "model": args.model,
         "layers": cfg.num_hidden_layers,
+        "decode_ticks": engine.decode_ticks,
         "wall_s": wall, "generated_tokens": sum(len(r.output_ids)
                                                 for r in reqs),
         "tokens_per_s": sum(len(r.output_ids) for r in reqs) / wall,
@@ -214,6 +234,10 @@ def main():
         "dispatch_ms_mean": {k: 1e3 * sum(v) / len(v)
                              for k, v in times.items()},
         "dispatch_s_total": {k: sum(v) for k, v in times.items()},
+        "scans": len(scans), "ticks": ticks,
+        "tick_ms_mean": 1e3 * sum(s for s, _ in scans) / ticks
+        if ticks else None,
+        "scan_s_total": sum(s for s, _ in scans),
         "profiled_wall_s": prof_wall,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": (1 - busy_us / (prof_wall * 1e6))
@@ -225,7 +249,7 @@ def main():
                                 for k, v in by_family.most_common()},
         "device_share_by_family": {k: v / total
                                    for k, v in by_family.most_common()},
-        "device_ms_per_dispatch_by_family": {
+        "device_ms_per_dispatch_or_tick_by_family": {
             k: v / 1e3 / n_disp for k, v in by_family.most_common()},
         "top_kernels_ms": {k: v / 1e3 for k, v in by_name.most_common(15)},
     }
