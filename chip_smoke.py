@@ -210,9 +210,62 @@ package is not beside it, and when any phase fails:
    after the prefill a replay of the step's CUDA graph, its tokens bit
    for bit the same loop's run eagerly (same batch and buffer), the time
    per step of both, and one replay's launches and device time;
-13. a capture that fails (a host read under capture) raises, leaves the
-   current stream as it was, and the next capture replays right; no
-   phase catches a capture's error, so one ends the run;
+13. (run after 10) shared-prefix serving: Llama-3-8B at full width and
+   depth, bf16, behind ``LlamaServingEngine(max_batch=8, page_size=16,
+   num_pages=400)``, graphed; one seeded 512-token prefix (32 pages) and
+   8 prompts of it plus seeded suffixes of 16-128 tokens, 32 new tokens
+   each, greedy; request 0 by ``add_request`` (cold: its pages are
+   pinned when its prefill ends), then the other 7, then decoding to the
+   end; twice on one model, with the prefix cache (the engine's default)
+   and without. Held exactly over the phase's requests: 8 lookups, 7
+   hits, 3584 saved prefill tokens; 1088 prompt tokens dispatched with
+   the cache against 4672 without; the 32 shared pages' K/V in every
+   layer bit for bit unchanged from the end of request 0's prefill to
+   the end of the run; free plus cached pages the usable pages at the
+   end, no table left. Every token of both runs at phase 4's floors
+   against the plain forward; the share equal between the runs printed;
+   per-request TTFT, mixed dispatches and their time, tokens/s and peak
+   pages in use of both runs. Then the copy-on-write check: a sequence
+   admitted on the cached pages made to write into a shared one, so the
+   engine's ``_copy_page`` runs: the new page bit for bit the old in
+   every layer, every pool at its address, and after a replayed tick
+   wrote the new page the old one unchanged;
+13b. phase 13 with ``kv_dtype="int8"`` (67,584 bytes a token): the same,
+   the scale sidecars of the shared pages and of the copy included, the
+   plain forward's K and V through the int8 quantizer;
+13c. phase 13's traffic with the cache at Llama-3-8B width cut to 4
+   layers through the three attention paths (rope-fused #12 / #13,
+   ``fused_rope=False`` #11a / #11b, ``fused_kv=False`` #10 / #9), both
+   KV dtypes, graphed: phase 13's holds on each path, and the warm
+   requests' tokens, the pools and the sidecars bit for bit equal across
+   the paths;
+14a. (run after 13b) the degradation ladder under decode pressure: phase
+   13's model, graphed, on 152 pages (151 usable); a completed 256-token
+   request leaves 15 pages in the cache; then 8 seeded prompts of 256
+   tokens (128 pages), 128 new tokens each, priorities 0, 0, 1, 1, 2, 2,
+   3, 3, retry budget 1 but 0 for the second: the cache gives its pages
+   back before any live request is evicted, then the ladder evicts by
+   (priority, tokens emitted), requeues and re-admits; the evictions,
+   re-admissions, statuses and output lengths held equal to the CPU
+   schedule's (``PRESSURE_EVENTS``, ``PRESSURE_END``), the evicted
+   requests' typed ``AdmissionError``, the completed requests' tokens at
+   phase 4's floors, the allocator consistent, launches counted (one
+   tick replay's by the profiler too, as phase 4b), no plain version
+   called;
+14b. retirement, on a pool that holds everything with
+   ``admit_retries=2``: 8 of phase 4's prompts admitted; a 9th admission
+   shed as "engine full" after two backoffs with a ``retry_after``; one
+   request with a 1 ms deadline expired at the next boundary; one
+   cancelled from its own ``on_token`` at its 8th token; one cancelled
+   from a second thread while a graphed scan is in flight (its release
+   deferred past the scan), and a fresh request admitted on the pages it
+   released; statuses and lengths held equal to the CPU schedule's
+   (``LIFECYCLE_END``; the deadline's and the thread-cancel's by status
+   alone), tokens at the floors, the allocator consistent, launches as
+   14a;
+4c. (run last) a capture that fails (a host read under capture) raises,
+   leaves the current stream as it was, and the next capture replays
+   right; no phase catches a capture's error, so one ends the run;
 
 then a JSON line of kernel results and the final result line.
 """
@@ -350,27 +403,72 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+# torch.profiler keeps only the device records whose CUPTI timestamps
+# fall inside its window on the host's clock, and the two clocks were up
+# to 254 us apart on the H100 (tools/torch_profiler_drops.py: a kernel
+# put before its own launch). Records of kernels near an edge of a tight
+# window were left out: 41 of 6000 spin kernels over 300 windows, two
+# windows empty, and none over 600 windows paused 20 ms at each edge.
+PROFILE_PAD_S = 0.02
+
+
+@contextlib.contextmanager
+def profiled():
+    """A ``torch.profiler`` window over the card, paused
+    ``PROFILE_PAD_S`` on the host after it opens and again after the
+    card is idle, before it closes, so no record of its kernels falls
+    outside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
+def device_events(prof):
+    """The device records (kernels and copies) of a closed window."""
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_ms_by_kernel(fn, iters=20):
     """Mean device time per call of each kernel (and copy) ``fn``
     launches, ``{name: ms}``, from ``torch.profiler``: unlike
     :func:`time_ms` it leaves out the host's time between launches,
-    which is longer than the kernels' at small shapes."""
+    which is longer than the kernels' at small shapes. A window whose
+    most-recorded name has fewer records than calls (an empty one
+    included) is measured again once, saying so, then fails: never an
+    empty sum. A name recorded a part-number of times a call is printed
+    beside the reading."""
     import collections
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = collections.Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and not getattr(e, "is_user_annotation", False):
-            by_name[e.name] += (e.time_range.end - e.time_range.start) \
+    for _ in range(2):
+        with profiled() as prof:
+            for _ in range(iters):
+                fn()
+        ms, seen = collections.Counter(), collections.Counter()
+        for e in device_events(prof):
+            ms[e.name] += (e.time_range.end - e.time_range.start) \
                 / iters / 1e3
-    return by_name
+            seen[e.name] += 1
+        if max(seen.values(), default=0) >= iters:
+            part = {k[:60]: n for k, n in seen.items() if n % iters}
+            if part:
+                print(f"device_ms: records of {part} over {iters} calls, "
+                      "not a whole number a call; their time is what was "
+                      "recorded", flush=True)
+            return ms
+        print(f"device_ms: the profiler recorded {dict(seen)} over "
+              f"{iters} calls; measuring again", flush=True)
+    fail(f"device_ms: the profiler recorded {dict(seen)} over {iters} "
+         "calls twice; no device time to report")
 
 
 def device_ms(fn, iters=20):
@@ -753,14 +851,20 @@ def llama_model(dev, layers=None, dtype="bfloat16"):
 
 
 def serving_engine(model, kv_dtype=None, page_size=16, weight_dtype=None,
-                   decode_ticks=None, **kw):
+                   decode_ticks=None, prefix_cache=False, **kw):
     """``LlamaServingEngine(max_batch=8)`` over ``model``: by default
     decode scans whose ticks replay CUDA graphs; ``decode_ticks=1`` takes
-    single mixed steps only, as the reference does with it."""
+    single mixed steps only, as the reference does with it. The prefix
+    cache (the engine's default) is off unless asked for: with it on every
+    finished prompt pins its full pages, which changes the pool state the
+    phases before 13 measure (and their numbers' meaning against earlier
+    runs), and a second run of the same prompts on one engine would hit;
+    phases 13 and 14 drive it."""
     from paddle_tpu_torch.inference import LlamaServingEngine
     return LlamaServingEngine(model, max_batch=8, page_size=page_size,
                               kv_dtype=kv_dtype, weight_dtype=weight_dtype,
-                              decode_ticks=decode_ticks, **kw)
+                              decode_ticks=decode_ticks,
+                              prefix_cache=prefix_cache, **kw)
 
 
 def warm_up(engine, prompts):
@@ -882,10 +986,10 @@ def tick_taps(engine):
     names = ("_dispatch_rows", "_tick", "_load_scan", "_run_tick")
     dispatch, tick, load, run = (getattr(engine, n) for n in names)
 
-    def on_dispatch(rows):
+    def on_dispatch(rows, cow=()):
         taps.pending = {}
         try:
-            return dispatch(rows)
+            return dispatch(rows, cow)
         finally:
             taps.records.append(([(r, start, n) for r, _, start, n, _, _
                                   in rows], taps.pending))
@@ -898,9 +1002,9 @@ def tick_taps(engine):
         finally:
             taps.mode = None
 
-    def on_load(live, starts, mode):
+    def on_load(live, starts, mode, *snapshot):
         taps.scan, taps.tick = (list(live), list(starts)), 0
-        return load(live, starts, mode)
+        return load(live, starts, mode, *snapshot)
 
     def on_run(mode):
         live, starts = taps.scan
@@ -952,23 +1056,18 @@ KERNEL_FRAGMENTS = {"kv_write_kernel": "write", "attention_tc": "attention",
 
 
 def profiled_launches(fn):
-    """Run ``fn`` under ``torch.profiler`` and count the device launches
-    of the port's kernels by family (``KERNEL_FRAGMENTS``), graph
-    replays' kernels included. Returns (fn's result, ``{family: n}``,
-    the device time of all its kernels and copies in ms)."""
+    """Run ``fn`` under ``torch.profiler`` (:func:`profiled`) and count
+    the device launches of the port's kernels by family
+    (``KERNEL_FRAGMENTS``), graph replays' kernels included. Returns
+    (fn's result, ``{family: n}``, the device time of all its kernels
+    and copies in ms). Callers hold the counts against the wrappers'
+    (:func:`hold_profiled`)."""
     import collections
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         out = fn()
-        torch.cuda.synchronize()
     counts = collections.Counter()
     busy = 0.0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA \
-                or getattr(e, "is_user_annotation", False):
-            continue
+    for e in device_events(prof):
         busy += e.time_range.end - e.time_range.start
         fam = next((f for k, f in KERNEL_FRAGMENTS.items() if k in e.name),
                    None)
@@ -985,9 +1084,8 @@ def profiled_scans(engine):
     wrappers (:func:`python_launches`). A replay's wrapper counts are its
     capture's, so the profiler's are the ones that show what the card
     ran. The mixed dispatches are eager: their wrappers count where they
-    launch, and CUPTI has dropped records of them (4 writes and 3
-    attentions of one of 188 dispatch windows; none of 92 replay
-    windows)."""
+    launch, so only the scans are windowed (each window is paused at its
+    edges, :func:`profiled`; the run that holds them is not timed)."""
     import collections
     prof, py = collections.Counter(), collections.Counter()
     scan = engine._decode_scan
@@ -1068,7 +1166,7 @@ def check_tick_replay(engine, label, prompts, modes=("greedy",)):
         with captured_kernels_only(f"tick replay {label} {mode} capture"):
             engine._ensure_tick(mode)
         starts = [engine.alloc.extend(r.seq_id, 1) for r in live]
-        engine._load_scan(live, starts, mode)
+        engine._load_scan(live, starts, mode, *engine._scan_rows(live))
         state = tick_state(engine)
         before = [t.clone() for t in state]
         py0 = python_launches()
@@ -1129,9 +1227,9 @@ def timed_dispatches(engine):
         times["ticks"][mode] += 1
         return run(mode)
 
-    def timed_dispatch(rows):
+    def timed_dispatch(rows, cow=()):
         t0 = time.perf_counter()
-        out = dispatch(rows)
+        out = dispatch(rows, cow)
         mixed = any(n > 1 or not dec for _, _, _, n, _, dec in rows)
         times["mixed" if mixed else "decode"].append(time.perf_counter()
                                                      - t0)
@@ -1358,8 +1456,8 @@ def recorded_attention(engine, store):
             return out
         return wrapper
 
-    def first_dispatch(rows):
-        out = dispatch(rows)
+    def first_dispatch(rows, cow=()):
+        out = dispatch(rows, cow)
         if "pools" not in store:
             store["mixed"] = any(n > 1 for _, _, _, n, _, _ in rows)
             store["pools"] = [t.clone() for t in engine.k_pools
@@ -3222,11 +3320,11 @@ def sampled_dispatches(engine):
         sorts.append(1)
         return real_sort(*a, **k)
 
-    def wrapper(rows):
+    def wrapper(rows, cow=()):
         sampled = any(r.sampling is not None and r.sampling.temperature > 0
                       for r, *_ in rows)
         l0, s0 = SM.launches["gumbel_argmax"], len(sorts)
-        out = dispatch(rows)
+        out = dispatch(rows, cow)
         seen.append((sampled, SM.launches["gumbel_argmax"] - l0,
                      len(sorts) - s0))
         return out
@@ -3530,6 +3628,650 @@ def generate_phase(dev):
     return timed["sampled"][2]
 
 
+# ----------------------------------------------------------------------
+# phases 13-14: the shared-prefix cache and the request lifecycle
+# ----------------------------------------------------------------------
+
+PREFIX_TOKENS = 512                       # phase 13's shared prefix: 32 pages
+PREFIX_SUFFIXES = tuple(range(16, 129, 16))
+# pages: 838,860,800 bytes of bf16 pools at 32 layers
+PREFIX_POOL = 400
+# phase 14a: 151 usable pages; a completed request pins 15 of them in the
+# cache, 8 prompts of 256 tokens take 128 and decode runs short
+PRESSURE_POOL, PRESSURE_PROMPT, PRESSURE_NEW = 152, 256, 128
+# what phase 14a's schedule gives, the same for both engines on the CPU at
+# tiny width (page arithmetic; tests/test_torch_prefix_cache.py): the
+# evictions (request, tokens it had emitted) and re-admissions in order,
+# then each request's status and output length
+PRESSURE_EVENTS = (("evict", 1, 53), ("evict", 0, 68), ("readmit", 0),
+                   ("evict", 0, 39), ("evict", 3, 108), ("readmit", 3))
+PRESSURE_END = (("evicted", 39), ("evicted", 53)) \
+    + (("completed", PRESSURE_NEW),) * 6
+# phase 14b: which request has the 1 ms deadline, which cancels itself
+# from its on_token hook at its 8th token, which a second thread cancels
+# while a scan is in flight; the statuses and lengths that gives (None:
+# timing decides the length; tests/test_torch_serving_lifecycle.py)
+LC_DEADLINE, LC_SELF_CANCEL, LC_THREAD_CANCEL, LC_SELF_AT = 2, 5, 7, 8
+LIFECYCLE_END = tuple(
+    ("deadline_exceeded", None) if i == LC_DEADLINE
+    else ("cancelled", LC_SELF_AT) if i == LC_SELF_CANCEL
+    else ("cancelled", None) if i == LC_THREAD_CANCEL
+    else ("completed", NEW) for i in range(8))
+
+
+def prefix_traffic(vocab):
+    """Phase 13's traffic: one seeded 512-token prefix and 8 prompts, the
+    prefix followed by seeded suffixes of 16, 32, ..., 128 tokens."""
+    import numpy as np
+    rng = np.random.RandomState(13)
+    prefix = rng.randint(0, vocab, PREFIX_TOKENS).tolist()
+    return prefix, [prefix + rng.randint(0, vocab, n).tolist()
+                    for n in PREFIX_SUFFIXES]
+
+
+def pressure_prompts(vocab):
+    """Phase 14a's traffic: a seeded 256-token prompt served first, then
+    8 seeded prompts of 256 tokens."""
+    import numpy as np
+    rng = np.random.RandomState(14)
+    other = rng.randint(0, vocab, PRESSURE_PROMPT).tolist()
+    return other, [rng.randint(0, vocab, PRESSURE_PROMPT).tolist()
+                   for _ in range(8)]
+
+
+def pool_pages(engine):
+    """The engine's pools and scale sidecars, every layer."""
+    return engine.k_pools + engine.v_pools + engine.k_scales \
+        + engine.v_scales
+
+
+def hold_allocator(label, engine):
+    """Fail unless the engine is idle and its pages all accounted for:
+    free pages plus the cache's pinned ones make the usable pages, no
+    table is left, no page was released twice."""
+    alloc = engine.alloc
+    cached = engine.prefix.pages if engine.prefix is not None else 0
+    if alloc.free_pages + cached != alloc.num_pages or alloc._tables \
+            or alloc.double_free_count or engine._live:
+        fail(f"{label}: allocator not consistent at the end: free "
+             f"{alloc.free_pages} + cached {cached} of {alloc.num_pages}, "
+             f"tables {sorted(alloc._tables)}, double frees "
+             f"{alloc.double_free_count}, live {sorted(engine._live)}")
+
+
+def token_gaps(model, dev, prompts, outs, kv8=False):
+    """Each served token's logit gap below the model's own plain forward's
+    argmax (with K and V through the int8 quantizer and back for int8
+    pages), over every request with output."""
+    import torch
+    from paddle_tpu_torch.models import llama
+    gaps = []
+    with plain_serving_paths():
+        if kv8:
+            llama.causal_attention = kv8_attention
+        for p, o in zip(prompts, outs):
+            if not o:
+                continue
+            ids = torch.tensor([list(p) + list(o[:-1])], device=dev)
+            with torch.no_grad():
+                lg = model(ids)[0, len(p) - 1:].float()
+            picked = lg.gather(1, torch.tensor(o, device=dev)[:, None])[:, 0]
+            gaps.append(lg.max(dim=1).values - picked)
+    return torch.cat(gaps)
+
+
+def hold_floor(label, gaps):
+    """Hold the served tokens' gaps to phase 4's floors; returns the
+    printed summary."""
+    n, exact, worst = gaps.numel(), int((gaps == 0).sum()), float(gaps.max())
+    if exact < EXACT_FLOOR * n:
+        fail(f"{label}: only {exact}/{n} served tokens are the plain "
+             f"forward's argmax (floor {EXACT_FLOOR})")
+    if worst > TIE_TOL:
+        fail(f"{label}: served token {worst:.3f} below the plain forward's "
+             "argmax")
+    return f"plain_forward_exact={exact}/{n} worst_gap={worst:.4f}"
+
+
+@contextlib.contextmanager
+def pool_watch(engine):
+    """Count the prompt tokens ``engine`` dispatches and the most pages in
+    use (the cache's pins included) once a dispatch or scan has its pages;
+    yields ``{"prefill": n, "peak": pages}``."""
+    seen = {"prefill": 0, "peak": 0}
+    dispatch, load = engine._dispatch_rows, engine._load_scan
+
+    def note():
+        seen["peak"] = max(seen["peak"],
+                           engine.alloc.num_pages - engine.alloc.free_pages)
+
+    def on_dispatch(rows, cow=()):
+        seen["prefill"] += sum(n for _, _, _, n, _, dec in rows if not dec)
+        note()
+        return dispatch(rows, cow)
+
+    def on_load(*a):
+        note()
+        return load(*a)
+    with instance_attrs(engine, _dispatch_rows=on_dispatch,
+                        _load_scan=on_load):
+        yield seen
+
+
+def prefix_run(engine, prompts, label, per_layer, key, keep_pools=False):
+    """One run of phase 13's traffic through ``engine``'s entry points:
+    request 0 by ``add_request`` (cold with the cache on: its full pages
+    are pinned when its prefill ends), then the other 7, then decoding to
+    the end. Every launch of the path's kernel counted (``per_layer`` a
+    layer a dispatch or tick) and no plain version called; with the cache
+    on, the 32 shared pages' K/V (and scales) of every layer held bit for
+    bit unchanged from the end of request 0's prefill to the end; the
+    allocator consistent at the end. Returns the run's readings."""
+    import torch
+    from paddle_tpu_torch.inference import Request
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    layers = engine.model.config.num_hidden_layers
+    reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
+    cache = engine.prefix
+    stats0 = cache.stats() if cache is not None else None
+    pools = pool_pages(engine)
+    torch.cuda.synchronize()
+    with count_calls(serving_plain_versions()) as plain_calls, \
+            timed_dispatches(engine) as times, pool_watch(engine) as seen:
+        reset_launches()
+        t0 = time.perf_counter()
+        engine.add_request(reqs[0])
+        shared = engine.alloc._tables[reqs[0].seq_id][
+            :PREFIX_TOKENS // engine.page_size]
+        snap = [t[shared].clone() for t in pools] if cache else None
+        for r in reqs[1:]:
+            engine.add_request(r)
+        while not all(r.done for r in reqs):
+            engine.decode_many(NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(rpa.launches)
+    outs = [list(r.output_ids) for r in reqs]
+    if plain_calls:
+        fail(f"{label}: plain versions ran on the card: "
+             f"{sorted(set(plain_calls))}")
+    ticks = sum(times["ticks"].values())
+    mixed = len(times["mixed"]) + len(times["decode"])
+    want = {k: 0 for k in launches}
+    want[key] = per_layer * layers * (mixed + ticks)
+    if launches != want:
+        fail(f"{label}: kernel launches {launches} != {want} ({per_layer} "
+             f"x layers x (dispatches + ticks) of {key})")
+    if any(len(o) != NEW for o in outs) \
+            or any(r.status != "completed" for r in reqs):
+        fail(f"{label}: statuses {[r.status for r in reqs]}, lengths "
+             f"{[len(o) for o in outs]}")
+    res = dict(outs=outs, wall=wall, prefill=seen["prefill"],
+               peak=seen["peak"], mixed=mixed, ticks=ticks,
+               mixed_ms=1e3 * sum(times["mixed"]) / max(len(times["mixed"]),
+                                                        1),
+               ttft=[r.ttft for r in reqs], cached=[r._cached_tokens
+                                                   for r in reqs],
+               launches=launches[key], stats=None)
+    if cache is not None:
+        s = cache.stats()
+        res["stats"] = {k: s[k] - stats0[k] for k in ("lookups", "hits",
+                                                      "saved_tokens")}
+        same = [torch.equal(t[shared], b) for t, b in zip(pools, snap)]
+        if not all(same):
+            fail(f"{label}: the shared prefix pages changed in tensors "
+                 f"{[i for i, x in enumerate(same) if not x]}")
+    hold_allocator(label, engine)
+    if keep_pools:
+        res["pools"] = [t.clone() for t in pools]
+    return res
+
+
+def check_cow(engine, prefix, label):
+    """The engine's copy-on-write on the card: admit a sequence on the
+    cached prefix pages, ``ensure_writable`` at a position inside the last
+    shared page, so ``_copy_page`` runs. The new page must be bit for bit
+    the old in every layer (scales too), every pool and sidecar at its
+    address (the tick graphs bake them). Then a replayed tick writes the
+    sequence's token into the new page: the old page stays unchanged."""
+    import torch
+    from paddle_tpu_torch.inference import Request
+    page, vocab = engine.page_size, engine.model.config.vocab_size
+    pos = PREFIX_TOKENS - page // 2
+    # a last token unlike the prefix's at that position: the tick's write
+    # differs from what the copy holds
+    r = Request(prefix + [(prefix[pos] + 1) % vocab], max_new_tokens=4)
+    engine._admit(r)
+    if r._cached_tokens != PREFIX_TOKENS:
+        fail(f"{label} cow: the sequence matched {r._cached_tokens} cached "
+             f"tokens, not {PREFIX_TOKENS}")
+    pools = pool_pages(engine)
+    ptrs = [t.data_ptr() for t in pools]
+    cp = engine.alloc.ensure_writable(r.seq_id, pos)
+    if cp is None:
+        fail(f"{label} cow: position {pos} is not in a shared page")
+    old, new = cp
+    before = [t[old].clone() for t in pools]
+    engine._copy_page(old, new)
+    torch.cuda.synchronize()
+    copied = all(torch.equal(t[new], t[old]) for t in pools)
+    in_place = [t.data_ptr() for t in pool_pages(engine)] == ptrs
+    engine._ensure_tick("greedy")
+    engine._load_scan([r], [pos], "greedy", *engine._scan_rows([r]))
+    engine._run_tick("greedy")
+    torch.cuda.synchronize()
+    kept = all(torch.equal(t[old], b) for t, b in zip(pools, before))
+    written = not torch.equal(engine.k_pools[0][new], engine.k_pools[0][old])
+    engine.cancel(r)
+    print(f"{label} cow: page {old} -> {new} copied bitwise over "
+          f"{len(pools)} tensors {copied}, in place {in_place}; after a "
+          f"replayed tick wrote position {pos} into page {new} "
+          f"(changed {written}), page {old} unchanged {kept}", flush=True)
+    if not (copied and in_place and kept and written):
+        fail(f"{label} cow: copied {copied} in place {in_place} old kept "
+             f"{kept} new written {written}")
+    hold_allocator(f"{label} cow", engine)
+
+
+def serve_prefix(dev, model, kv_dtype=None):
+    """Phase 13 (bf16 pools) and 13b (``kv_dtype="int8"``): Llama-3-8B at
+    full width and depth behind ``LlamaServingEngine(max_batch=8,
+    page_size=16, num_pages=400)``, graphed, serving phase 13's traffic
+    (:func:`prefix_traffic`, 32 new tokens each, greedy) twice on one
+    model: with the prefix cache (the engine's default), then without.
+    Held: over the phase's 8 requests 8 lookups, 7 hits and 7 x 512 saved
+    prefill tokens; 1088 prompt tokens dispatched with the cache against
+    4672 without; the shared pages unchanged (:func:`prefix_run`); every
+    token at phase 4's floors against the plain forward, both runs; then
+    the copy-on-write check on the cached engine. Returns the launches of
+    #12 (#13 on int8 pools)."""
+    import torch
+    label = "prefix int8-kv" if kv_dtype else "prefix"
+    key = "fused_rope_q8" if kv_dtype else "fused_rope"
+    prefix, prompts = prefix_traffic(model.config.vocab_size)
+    runs = {}
+    for on in (True, False):
+        engine = serving_engine(model, kv_dtype, prefix_cache=on,
+                                num_pages=PREFIX_POOL)
+        warm_up(engine, prompts)
+        run_label = f"{label} cache={'on' if on else 'off'}"
+        runs[on] = prefix_run(engine, prompts, run_label, 2, key)
+        res = runs[on]
+        res["floor"] = hold_floor(run_label, token_gaps(
+            model, dev, prompts, res["outs"], kv8=bool(kv_dtype)))
+        kv_bytes = sum(t.numel() * t.element_size()
+                       for t in pool_pages(engine))
+        if on:
+            check_cow(engine, prefix, label)
+        del engine
+        torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    want = {"lookups": 8, "hits": 7,
+            "saved_tokens": 7 * PREFIX_TOKENS}
+    full = sum(map(len, prompts))
+    cold = len(prompts[0]) + sum(n for n in PREFIX_SUFFIXES[1:])
+    n_tok = len(prompts) * NEW
+    eq = sum(a == b for o, ob in zip(on["outs"], off["outs"])
+             for a, b in zip(o, ob))
+    print(f"{label}: kv_pool_bytes={kv_bytes} requests={len(prompts)} "
+          f"prompt_tokens={full} shared_prefix={PREFIX_TOKENS} new_tokens="
+          f"{n_tok}; cache stats over the phase {on['stats']} (want "
+          f"{want}); prompt tokens dispatched {on['prefill']} with the "
+          f"cache, {off['prefill']} without (want {cold}, {full}); "
+          f"tokens equal between the runs {eq}/{n_tok}", flush=True)
+    for name, res in (("cache on", on), ("cache off", off)):
+        print(f"{label} {name}: dispatches={res['mixed']} ticks="
+              f"{res['ticks']} mixed_dispatch_ms={res['mixed_ms']:.2f} "
+              f"wall_s={res['wall']:.3f} tokens_per_s="
+              f"{n_tok / res['wall']:.1f} peak_pages={res['peak']} "
+              f"ttft_ms={[round(1e3 * t, 1) for t in res['ttft']]} "
+              f"cached_tokens={res['cached']} launches={res['launches']} "
+              f"{res['floor']}", flush=True)
+    if on["stats"] != want or on["prefill"] != cold \
+            or off["prefill"] != full:
+        fail(f"{label}: cache stats {on['stats']} (want {want}), prompt "
+             f"tokens dispatched {on['prefill']} / {off['prefill']} (want "
+             f"{cold} / {full})")
+    return on["launches"] + off["launches"]
+
+
+def serve_prefix_paths(dev):
+    """Phase 13c: phase 13's traffic with the prefix cache at Llama-3-8B
+    width cut to 4 layers through the engine's three attention paths
+    (rope-fused #12 / #13, ``fused_rope=False`` #11a / #11b,
+    ``fused_kv=False`` #10 / #9), both KV dtypes, graphed: every path's
+    checks of :func:`prefix_run` and the same cache stats, and the warm
+    requests' tokens, the pools and the sidecars bit for bit equal across
+    the paths. Returns the launches of each path by its launch-count
+    key."""
+    import torch
+    cfg, model = llama_model(dev, LADDER_LAYERS)
+    prefix, prompts = prefix_traffic(cfg.vocab_size)
+    want = {"lookups": 8, "hits": 7, "saved_tokens": 7 * PREFIX_TOKENS}
+    counts = {}
+    for kv_dtype in (None, "int8"):
+        runs = {}
+        for path, (kw, per_layer, key) in LADDER.items():
+            key += "_q8" if kv_dtype else ""
+            label = f"prefix paths {kv_dtype or 'bf16'} {path}"
+            engine = serving_engine(model, kv_dtype, prefix_cache=True,
+                                    num_pages=PREFIX_POOL, **kw)
+            warm_up(engine, prompts)
+            res = prefix_run(engine, prompts, label, per_layer, key,
+                             keep_pools=True)
+            if res["stats"] != want:
+                fail(f"{label}: cache stats {res['stats']}, want {want}")
+            counts[key] = res["launches"]
+            runs[path] = res
+            del engine
+            torch.cuda.empty_cache()
+        base = runs["rope-fused"]
+        for path in ("fused-kv", "two-op"):
+            res = runs[path]
+            label = f"prefix paths {kv_dtype or 'bf16'} {path}"
+            if res["outs"] != base["outs"]:
+                fail(f"{label}: warm tokens differ from the rope-fused "
+                     "path's")
+            if not all(torch.equal(a, b) for a, b in zip(res["pools"],
+                                                        base["pools"])):
+                fail(f"{label}: pools or sidecars differ from the "
+                     "rope-fused path's bit for bit")
+        print(f"prefix paths {kv_dtype or 'bf16'}: the three paths' warm "
+              f"tokens identical, pools and sidecars "
+              f"({len(base['pools'])} tensors) bitwise equal; cache stats "
+              f"{base['stats']}; prompt tokens dispatched "
+              f"{base['prefill']}; launches "
+              f"{ {p: r['launches'] for p, r in runs.items()} }", flush=True)
+    return counts
+
+
+def pressure_schedule(engine, req_cls, other, prompts):
+    """Phase 14a's schedule on ``engine`` (either package's engine: the
+    CPU tests run it on both): ``other`` served to completion, its full
+    pages pinned by the cache; then 8 requests of ``prompts``,
+    PRESSURE_NEW new tokens each, priorities 0, 0, 1, 1, 2, 2, 3, 3,
+    retry budget 1 but 0 for the second, each by ``add_request``; then
+    decoding to the end. Returns (the requests, the evictions and
+    re-admissions in order, the cache's pages after ``other``, the cache's
+    evictions when the first live request was evicted)."""
+    events, reqs, first = [], [], {}
+    evict, admit = engine._evict, engine._admit_locked
+
+    def index(r):
+        return next((i for i, x in enumerate(reqs) if x is r), -1)
+
+    def on_evict(v):
+        first.setdefault("cache_evictions", engine.prefix.evictions)
+        events.append(("evict", index(v), len(v.output_ids)))
+        return evict(v)
+
+    def on_admit(req, quiet_retry=False):
+        out = admit(req, quiet_retry=quiet_retry)
+        if quiet_retry and req.status == "live":
+            events.append(("readmit", index(req)))
+        return out
+    with instance_attrs(engine, _evict=on_evict, _admit_locked=on_admit):
+        w = req_cls(other, max_new_tokens=4)
+        engine.add_request(w)
+        while not w.done:
+            engine.step()
+        cached = engine.prefix.pages
+        reqs.extend(req_cls(p, max_new_tokens=PRESSURE_NEW, priority=i // 2,
+                            retry_budget=0 if i == 1 else 1)
+                    for i, p in enumerate(prompts))
+        for r in reqs:
+            engine.add_request(r)
+        while not all(r.done for r in reqs):
+            engine.decode_many(engine.decode_ticks)
+    return reqs, tuple(events), cached, first.get("cache_evictions")
+
+
+def lifecycle_schedule(engine, req_cls, prompts, in_scan):
+    """Phase 14b's schedule on ``engine`` (either package's), a pool that
+    holds everything: 8 requests of ``prompts`` (NEW new tokens) admitted,
+    request LC_DEADLINE last with a 1 ms deadline, LC_SELF_CANCEL
+    cancelling itself from its ``on_token`` hook at its LC_SELF_AT-th
+    token; then a 9th admission, priority 0, into the full engine (it
+    backs off ``admit_retries`` times and is shed); ``in_scan(engine,
+    fn)`` arranges for ``fn`` to run once inside the next decode scan, and
+    ``fn`` cancels LC_THREAD_CANCEL from a second thread there; once that
+    request is done a fresh request of its prompt is admitted on what it
+    released; then decoding to the end. Returns (the 8 requests, the
+    shed's error or None, the fresh request, what ``fn`` saw)."""
+    import threading
+    reqs = []
+    for i, p in enumerate(prompts):
+        kw = {}
+        if i == LC_DEADLINE:
+            kw["deadline"] = 1e-3
+        if i == LC_SELF_CANCEL:
+            kw["on_token"] = lambda r, t: len(r.output_ids) == LC_SELF_AT \
+                and engine.cancel(r)
+        reqs.append(req_cls(p, max_new_tokens=NEW, **kw))
+    for i in [i for i in range(len(reqs)) if i != LC_DEADLINE] \
+            + [LC_DEADLINE]:
+        engine._admit(reqs[i])
+    shed = None
+    try:
+        engine._admit(req_cls(prompts[0], max_new_tokens=NEW, priority=0))
+    except MemoryError as e:          # either package's AdmissionError
+        shed = e
+    victim, seen = reqs[LC_THREAD_CANCEL], {}
+
+    def cancel_from_thread():
+        seen["table"] = list(engine.alloc._tables[victim.seq_id])
+        t = threading.Thread(target=engine.cancel, args=(victim,))
+        t.start()
+        t.join(timeout=60)
+        if t.is_alive():
+            raise RuntimeError("the second thread's cancel did not return")
+        seen["deferred"] = list(engine._deferred_release)
+        seen["tables"] = victim.seq_id in engine.alloc._tables
+    in_scan(engine, cancel_from_thread)
+    fresh = None
+    while not all(r.done for r in reqs) \
+            or (fresh is not None and not fresh.done):
+        engine.decode_many(engine.decode_ticks)
+        if victim.done and fresh is None:
+            fresh = req_cls(prompts[LC_THREAD_CANCEL], max_new_tokens=NEW)
+            engine.add_request(fresh)
+            seen["fresh_table"] = list(engine.alloc._tables.get(
+                fresh.seq_id, ()))
+    return reqs, shed, fresh, seen
+
+
+def in_first_tick(engine, fn):
+    """Run ``fn`` once, right after the next scan's first tick is
+    launched (the scan is in flight; its pages are held)."""
+    run = engine._run_tick
+
+    def once(mode):
+        engine._run_tick = run
+        out = run(mode)
+        fn()
+        return out
+    engine._run_tick = once
+
+
+@contextlib.contextmanager
+def profiled_tick(engine):
+    """Count the launches of ``engine``'s first tick replay in the context
+    as phase 4b does: the profiler over that one replay and the wrappers
+    (its capture's counts); yields ``{"prof": {family: n}, "py": {family:
+    n}, "s": host seconds in the profiler's window}`` once it ran (a
+    timed run's wall holds those seconds, ``PROFILE_PAD_S`` twice
+    included)."""
+    seen = {}
+    run = engine._run_tick
+
+    def first(mode):
+        if seen:
+            return run(mode)
+        py0 = python_launches()
+        t0 = time.perf_counter()
+        out, seen["prof"], _ = profiled_launches(lambda: run(mode))
+        seen["s"] = time.perf_counter() - t0
+        seen["py"] = {k: v - py0[k] for k, v in python_launches().items()
+                      if v != py0[k]}
+        return out
+    with instance_attrs(engine, _run_tick=first):
+        yield seen
+
+
+def hold_replay(label, replay, layers):
+    """Hold one replay's launches (:func:`profiled_tick`): the profiler's
+    the wrappers', a write and an attention a layer."""
+    if not replay:
+        fail(f"{label}: no tick was replayed")
+    hold_profiled(f"{label} one replay", replay["prof"], replay["py"])
+    if replay["prof"].get("write") != layers \
+            or replay["prof"].get("attention") != layers:
+        fail(f"{label}: one replay launched {replay['prof']}, want a write "
+             f"and an attention a layer ({layers})")
+
+
+def serve_pressure(dev, model):
+    """Phase 14a: phase 13's model, graphed, on a pool of 152 pages (151
+    usable), :func:`pressure_schedule` with phase 14a's prompts. Held:
+    the cache pins 15 pages after the first request, gives back at least
+    those before any live request is evicted, the evictions and
+    re-admissions and every request's status and output length are
+    PRESSURE_EVENTS / PRESSURE_END (the CPU schedule's), the evicted
+    requests carry their typed AdmissionError, every completed request's
+    tokens hold phase 4's floors, the allocator is consistent at the end,
+    no plain version runs, every launch is counted (2 a layer a dispatch
+    or tick) and one tick replay counted by the profiler and the
+    wrappers, as phase 4b counts it. Returns the
+    launches of #12."""
+    import torch
+    from paddle_tpu_torch.inference import AdmissionError, Request
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    label = "pressure"
+    layers = model.config.num_hidden_layers
+    other, prompts = pressure_prompts(model.config.vocab_size)
+    engine = serving_engine(model, prefix_cache=True,
+                            num_pages=PRESSURE_POOL)
+    warm_up(engine, prompts)
+    with count_calls(serving_plain_versions()) as plain_calls, \
+            timed_dispatches(engine) as times, \
+            profiled_tick(engine) as replay:
+        reset_launches()
+        t0 = time.perf_counter()
+        reqs, events, cached, cache_ev = pressure_schedule(
+            engine, Request, other, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(rpa.launches)
+    end = tuple((r.status, len(r.output_ids)) for r in reqs)
+    ticks = sum(times["ticks"].values())
+    mixed = len(times["mixed"]) + len(times["decode"])
+    want = {k: 0 for k in launches}
+    want["fused_rope"] = 2 * layers * (mixed + ticks)
+    done = [(p, r.output_ids) for p, r in zip(prompts, reqs)
+            if r.status == "completed"]
+    floor = hold_floor(label, token_gaps(model, dev, *zip(*done)))
+    n_tok = sum(len(r.output_ids) for r in reqs)
+    print(f"{label}: pool {engine.alloc.num_pages} usable pages, "
+          f"{cached} cached after the first request, cache evictions "
+          f"before the first live eviction {cache_ev}; events {events}; "
+          f"end {end}; dispatches={mixed} ticks={ticks} wall_s={wall:.3f} "
+          f"tokens_per_s={n_tok / wall:.1f} launches={launches['fused_rope']}"
+          f"; one replay (profiler window {replay.get('s', 0):.3f} s of the "
+          f"wall): profiler {replay.get('prof')}, wrappers "
+          f"{replay.get('py')}; {floor}", flush=True)
+    if plain_calls:
+        fail(f"{label}: plain versions ran on the card: "
+             f"{sorted(set(plain_calls))}")
+    if launches != want:
+        fail(f"{label}: kernel launches {launches} != {want}")
+    hold_replay(label, replay, layers)
+    if cached != PRESSURE_PROMPT // engine.page_size - 1 \
+            or cache_ev is None or cache_ev < cached:
+        fail(f"{label}: {cached} pages cached after the first request, "
+             f"{cache_ev} given back before the first live eviction")
+    if events != PRESSURE_EVENTS or end != PRESSURE_END:
+        fail(f"{label}: events {events} / end {end}, the CPU schedule's "
+             f"{PRESSURE_EVENTS} / {PRESSURE_END}")
+    for r in reqs:
+        if (r.status == "evicted") != isinstance(r.error, AdmissionError):
+            fail(f"{label}: status {r.status} with error {r.error!r}")
+    hold_allocator(label, engine)
+    return launches["fused_rope"]
+
+
+def serve_lifecycle(dev, model):
+    """Phase 14b: phase 13's model, graphed, ``admit_retries=2``, on a
+    pool that holds everything (400 pages), :func:`lifecycle_schedule`
+    with phase 4's prompts; the second-thread cancel lands after the
+    first tick of the first scan is launched. Held: the 9th admission
+    shed as "engine full" after 2 retries with a ``retry_after``; every
+    request's status (and, where timing does not decide it, its output
+    length) LIFECYCLE_END's; the thread-cancelled request's release
+    deferred past the scan (its table still held inside it); the fresh
+    request admitted on its released pages, completed, its tokens and the
+    completed requests' at phase 4's floors; the allocator consistent;
+    no plain version run; launches counted as phase 14a. Returns the
+    launches of #12."""
+    import torch
+    from paddle_tpu_torch.inference import AdmissionError, Request
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    label = "lifecycle"
+    layers = model.config.num_hidden_layers
+    prompts = serving_prompts(model.config.vocab_size)
+    engine = serving_engine(model, prefix_cache=True, num_pages=PREFIX_POOL,
+                            admit_retries=2)
+    warm_up(engine, prompts)
+    with count_calls(serving_plain_versions()) as plain_calls, \
+            timed_dispatches(engine) as times, \
+            profiled_tick(engine) as replay:
+        reset_launches()
+        t0 = time.perf_counter()
+        reqs, shed, fresh, seen = lifecycle_schedule(
+            engine, Request, prompts, in_first_tick)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(rpa.launches)
+    end = tuple((r.status, len(r.output_ids)) for r in reqs)
+    ticks = sum(times["ticks"].values())
+    mixed = len(times["mixed"]) + len(times["decode"])
+    want = {k: 0 for k in launches}
+    want["fused_rope"] = 2 * layers * (mixed + ticks)
+    reused = sorted(set(seen.get("table", ())) & set(seen.get(
+        "fresh_table", ())))
+    done = [(p, r.output_ids) for p, r in zip(prompts, reqs)
+            if r.status == "completed"]
+    done.append((prompts[LC_THREAD_CANCEL], fresh.output_ids))
+    floor = hold_floor(label, token_gaps(model, dev, *zip(*done)))
+    print(f"{label}: shed {shed!r}; end {end}; fresh request "
+          f"{fresh.status} {len(fresh.output_ids)} tokens on "
+          f"{len(reused)} pages of the cancelled one's {reused}; release "
+          f"deferred inside the scan {seen.get('deferred')} (table still "
+          f"held {seen.get('tables')}); dispatches={mixed} ticks={ticks} "
+          f"wall_s={wall:.3f} launches={launches['fused_rope']}; one replay "
+          f"(profiler window {replay.get('s', 0):.3f} s of the wall): "
+          f"profiler {replay.get('prof')}, wrappers {replay.get('py')}; "
+          f"{floor}", flush=True)
+    if plain_calls:
+        fail(f"{label}: plain versions ran on the card: "
+             f"{sorted(set(plain_calls))}")
+    if launches != want:
+        fail(f"{label}: kernel launches {launches} != {want}")
+    hold_replay(label, replay, layers)
+    if not isinstance(shed, AdmissionError) or shed.reason != "engine full" \
+            or shed.retries != 2 or not shed.retry_after:
+        fail(f"{label}: the 9th admission gave {shed!r}")
+    if any(s != w or (n is not None and n != m)
+           for (s, m), (w, n) in zip(end, LIFECYCLE_END)):
+        fail(f"{label}: end {end}, the CPU schedule's {LIFECYCLE_END}")
+    if not seen.get("tables") or reqs[LC_THREAD_CANCEL].seq_id \
+            not in seen.get("deferred", ()) or not reused \
+            or fresh.status != "completed" or len(fresh.output_ids) != NEW:
+        fail(f"{label}: the cancel in flight: {seen}, fresh "
+             f"{fresh.status} {fresh.output_ids}")
+    hold_allocator(label, engine)
+    return launches["fused_rope"]
+
+
 def check_capture_failure(dev):
     """A step that reads the device on the host cannot be captured: the
     capture helper raises what the capture raised (no phase catches it
@@ -3612,11 +4354,24 @@ def main():
     ladder = serve_ladder(dev)                      # phase 9
     torch.cuda.empty_cache()
     entry["launches"] += serve_domain(dev)          # phase 9b
+    torch.cuda.empty_cache()
+    paged["launches"] = decode_cache(dev)           # phase 10
+    torch.cuda.empty_cache()
+    _, model = llama_model(dev)                     # phases 13, 13b, 14
+    entry["launches"] += serve_prefix(dev, model)   # phase 13 (+ the COW)
+    kv8_launches += serve_prefix(dev, model, "int8")   # phase 13b
+    torch.cuda.empty_cache()
+    entry["launches"] += serve_pressure(dev, model)    # phase 14a
+    torch.cuda.empty_cache()
+    entry["launches"] += serve_lifecycle(dev, model)   # phase 14b
+    del model
+    torch.cuda.empty_cache()
+    paths = serve_prefix_paths(dev)                 # phase 13c
+    entry["launches"] += paths["fused_rope"]
     for e, key in zip(family, FAMILY):
         e["launches"] = kv8_launches if key == "fused_rope_q8" \
             else ladder[key]
-    torch.cuda.empty_cache()
-    paged["launches"] = decode_cache(dev)           # phase 10
+        e["launches"] += paths[key]
     torch.cuda.empty_cache()
     launches = train(dev)
     torch.cuda.empty_cache()

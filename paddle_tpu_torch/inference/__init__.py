@@ -1,6 +1,9 @@
 from .paged_cache import PageAllocator, PagedKVCache
+from .prefix_cache import PrefixCache
 from .sampling import GREEDY, SamplingParams
-from .serving import AdmissionError, LlamaServingEngine, Request
+from .serving import (AdmissionError, DeadlineExceeded, LlamaServingEngine,
+                      Request)
 
-__all__ = ["PageAllocator", "PagedKVCache", "GREEDY", "SamplingParams",
-           "AdmissionError", "LlamaServingEngine", "Request"]
+__all__ = ["PageAllocator", "PagedKVCache", "PrefixCache", "GREEDY",
+           "SamplingParams", "AdmissionError", "DeadlineExceeded",
+           "LlamaServingEngine", "Request"]

@@ -75,19 +75,48 @@ go to the card in one copy. ``decode_ticks=1`` takes single
 steps only. ``prewarm`` captures the tick graphs and runs a dummy mixed
 dispatch ahead of traffic.
 
-Not in this slice (ROADMAP queue A, in order): the prefix cache, the
-request lifecycle (deadlines, cancel, drain, the degradation ladder, the
-watchdog), speculative decoding, the host KV tier. Admission therefore
-reserves each request's worst-case pages up front and raises
-:class:`AdmissionError` when they do not fit; a scan never draws a page
-another live request was promised (:meth:`_scan_fits`); the engine is
-driven from one thread.
+Shared-prefix KV cache (``prefix_cache=True``, the default): page-aligned
+prompt prefixes are content-addressed (:mod:`.prefix_cache`). A prompt's
+full pages are pinned once its prefill completes, and a later prompt
+sharing that prefix admits against the cached pages (refcounted in
+:class:`~.paged_cache.PageAllocator`, copied on write into a shared page
+by :meth:`LlamaServingEngine._copy_page`), so only the un-cached suffix
+runs through the model. Under pool pressure cached pages go back to the
+pool before the degradation ladder touches a live request.
+
+Request lifecycle: ``status`` moves ``pending`` -> ``live`` -> one of
+``completed`` / ``deadline_exceeded`` / ``cancelled`` / ``requeued``
+(evicted under pressure, will retry) / ``evicted`` (retry budget spent);
+a terminal failure carries a typed error in ``req.error``. Deadlines
+(``Request(deadline=, token_budget=)``) are enforced at step and scan
+boundaries; :meth:`LlamaServingEngine.cancel` is thread-safe and
+idempotent; admission walks the degradation ladder (cache reclaim, trim,
+evict / requeue, backoff, shed with a ``retry_after`` hint) and decode
+boundaries relieve pressure the same way (:meth:`_relieve_pressure`);
+:meth:`drain` stops admission and finishes or expires the in-flight set;
+a stuck-dispatch watchdog guards warm dispatches. Fault points
+``serve.admit`` / ``serve.decode`` / ``serve.drain``
+(:mod:`~paddle_tpu_torch.testing.faults`) make each path reproducible.
+
+Page releases requested while a dispatch is in flight (a cancel from
+another thread, an expiry or eviction) are deferred past it. On the card
+the pools are written in place by kernels queued on one stream (the
+current stream, which the tick graphs' replays use too), so a released
+page handed to a new owner is only ever written after the old owner's
+kernels in stream order.
+
+Not in this slice (ROADMAP queue A, in order): speculative decoding, the
+host KV tier (and with it the ladder's pause rung), the metrics.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import math
 import os
+import signal as _signal
+import threading
 import time
 
 import numpy as np
@@ -101,10 +130,20 @@ from ..ops.ragged_paged_attention import (check_geometry,
                                           ragged_paged_attention, rope_tables)
 from ..quant.format import (is_quantized, model_weight_block,
                             quantize_model, serving_weight_bytes)
+from ..testing import faults as _faults
 from .paged_cache import PageAllocator, quantize_kv_int8
+from .prefix_cache import PrefixCache
 from .sampling import SamplingParams, sampled_next_tokens
 
-__all__ = ["LlamaServingEngine", "Request", "AdmissionError"]
+__all__ = ["LlamaServingEngine", "Request", "AdmissionError",
+           "DeadlineExceeded"]
+
+#: Cross-ENGINE dispatch serializer: each dispatch body takes it inside its
+#: own ``_dispatch_lock`` (own lock first, this one second: no cycle), as
+#: the reference does, so engine instances driven from different threads
+#: never interleave their dispatches. Re-entrant because a step's requeue
+#: pump may prefill.
+_CROSS_ENGINE_LOCK = threading.RLock()
 
 
 def _env_flag(name, default):
@@ -162,12 +201,17 @@ def _page_write_q8(pages, scales, new, page_ids, offs, last=None):
 
 class AdmissionError(MemoryError):
     """Typed admission rejection carrying queue/pool stats so callers
-    can shed load or retry once capacity frees up."""
+    can shed load or retry once capacity frees up. ``retry_after``
+    (seconds, may be None) estimates when capacity frees up: the live
+    set's shortest remaining token budget times the recent per-token
+    latency."""
 
     def __init__(self, reason, live, max_batch, free_pages, num_pages,
                  retries=0, retry_after=None):
         msg = (f"{reason} (live={live}/{max_batch}, "
                f"free_pages={free_pages}/{num_pages}, retries={retries})")
+        if retry_after is not None:
+            msg += f" — retry after {retry_after:.3f}s"
         super().__init__(msg)
         self.reason = reason
         self.live = live
@@ -183,6 +227,26 @@ class AdmissionError(MemoryError):
                              self.retry_after))
 
 
+class DeadlineExceeded(TimeoutError):
+    """Typed terminal result of a request that ran out of wall-clock
+    budget (TTL, per-token budget, or the drain grace window). The
+    partial output stays on ``request.output_ids``; this error on
+    ``request.error`` says why it is partial."""
+
+    def __init__(self, msg, seq_id=None, elapsed=None, tokens_emitted=0,
+                 reason="deadline"):
+        super().__init__(msg)
+        self.seq_id = seq_id
+        self.elapsed = elapsed
+        self.tokens_emitted = tokens_emitted
+        self.reason = reason
+
+    def __reduce__(self):
+        return (type(self), (self.args[0] if self.args else "",
+                             self.seq_id, self.elapsed,
+                             self.tokens_emitted, self.reason))
+
+
 class Request:
     """One generation request (``seq_id`` is assigned by the engine). The
     reference's signature and argument order.
@@ -191,11 +255,17 @@ class Request:
         prompt_ids: non-empty 1-D sequence of prompt token ids.
         max_new_tokens: generation budget, >= 1.
         eos_token_id: optional early-stop token (kept in the output).
-        deadline, token_budget, priority, retry_budget: the reference's
-            lifecycle knobs; validated as the reference validates them,
-            and accepted only at their defaults (``None``, ``None``,
-            ``0``, ``1``): deadlines, priorities and retries are ROADMAP
-            item A5.
+        deadline: wall-clock TTL in seconds, measured from admission.
+            Past it the request is expired at the next step/scan
+            boundary: its pages are released and ``error`` is set to a
+            :class:`DeadlineExceeded` (partial output kept).
+        token_budget: seconds allowed per generated token, an
+            alternative deadline of ``token_budget * max_new_tokens``
+            from admission; the tighter of the two wins.
+        priority: higher values win under pressure; the degradation
+            ladder only trims/evicts strictly lower-priority requests.
+        retry_budget: how many times the request may be evicted and
+            re-queued before it fails for good (status ``evicted``).
         sampling: ``None`` (greedy) or a
             :class:`~paddle_tpu_torch.inference.sampling.SamplingParams`,
             whose ``stop`` ids merge with ``stop``.
@@ -225,26 +295,18 @@ class Request:
         if int(retry_budget) < 0:
             raise ValueError(
                 f"retry_budget must be >= 0, got {retry_budget}")
-        lifecycle = {"deadline": deadline is not None,
-                     "token_budget": token_budget is not None,
-                     "priority": int(priority) != 0,
-                     "retry_budget": int(retry_budget) != 1}
-        asked = [k for k, v in lifecycle.items() if v]
-        if asked:
-            raise NotImplementedError(
-                f"{', '.join(asked)}: request deadlines, priorities and "
-                f"retries are not ported yet (ROADMAP item A5)")
+        self.max_new_tokens = int(max_new_tokens)
+        self.eos_token_id = eos_token_id
+        self.deadline = None if deadline is None else float(deadline)
+        self.token_budget = None if token_budget is None \
+            else float(token_budget)
+        self.priority = int(priority)
+        self.retry_budget = int(retry_budget)
         if sampling is not None and not isinstance(sampling,
                                                   SamplingParams):
             raise ValueError(
                 f"sampling must be a SamplingParams, got "
                 f"{type(sampling).__name__}")
-        self.max_new_tokens = int(max_new_tokens)
-        self.eos_token_id = eos_token_id
-        self.deadline = None
-        self.token_budget = None
-        self.priority = 0
-        self.retry_budget = 1
         self.sampling = sampling
         self.stop_set = frozenset(int(t) for t in (stop or ())) \
             | frozenset(sampling.stop if sampling else ())
@@ -254,8 +316,13 @@ class Request:
         self.seq_id = None
         self.done = False
         self.status = "pending"
+        self.error = None             # typed terminal failure, or None
+        self.trimmed = False          # budget cut by the ladder
         self.ttft = None              # seconds from admission to 1st token
-        self._t_admit = None
+        self._t_admit = None          # set at admission; drives TTFT
+        self._expires_at = None       # perf_counter stamp, or None
+        self._cancel_requested = False  # honored at (re-)admission
+        self._cached_tokens = 0       # prefix tokens served from cache
         self._prefilled = 0           # prompt tokens written to pages
 
 
@@ -274,13 +341,16 @@ class LlamaServingEngine:
     (the bias/constraint slots of a row) are the reference's.
     ``prewarm`` (None: ``PADDLE_TPU_SERVING_PREWARM``, on for 1, true,
     on or auto) calls :meth:`prewarm` at the end of construction, as the
-    reference does. The knobs of later slices (the prefix cache's,
-    ``admit_retries``, ``admit_backoff``, ``stuck_*``, the speculative
-    decoder's and the KV tier's, with the reference's env knobs
-    ``PADDLE_TPU_SPEC_K``, ``PADDLE_TPU_KV_TIER``) raise
-    :class:`NotImplementedError` naming their ROADMAP A item when set off
-    their defaults; ``prefix_cache`` defaults off here until the prefix
-    cache is ported (A4)."""
+    reference does. ``prefix_cache`` (default on) and
+    ``prefix_cache_pages`` (a cap on cached pages) are the shared-prefix
+    cache's; ``admit_retries`` / ``admit_backoff`` bound admission's
+    backoff before a shed; ``stuck_factor`` / ``stuck_min_timeout`` set
+    the stuck-dispatch watchdog's timeout (``stuck_factor`` x the warm
+    dispatches' P99, at least ``stuck_min_timeout``; 0 or None disables
+    it). The knobs of later slices (the speculative decoder's and the KV
+    tier's, with the reference's env knobs ``PADDLE_TPU_SPEC_K``,
+    ``PADDLE_TPU_KV_TIER``) raise :class:`NotImplementedError` naming
+    their ROADMAP A item when set off their defaults."""
 
     #: decode steps between admission checks while prompts are pending
     DECODE_TICKS = 16
@@ -289,7 +359,7 @@ class LlamaServingEngine:
                  max_pages_per_seq=None, chunk_budget=None,
                  chunk_block=None, decode_ticks=None, burst=None,
                  admit_retries=0, admit_backoff=0.005, stuck_factor=8.0,
-                 stuck_min_timeout=30.0, prefix_cache=False,
+                 stuck_min_timeout=30.0, prefix_cache=True,
                  prefix_cache_pages=None, prewarm=None, kv_dtype=None,
                  spec_k=None, spec_ngram=3, drafter_factory=None,
                  sampling=None, sample_slots=8, fused_kv=None,
@@ -302,14 +372,7 @@ class LlamaServingEngine:
         if kv_tier is None:
             kv_tier = os.environ.get(
                 "PADDLE_TPU_KV_TIER", "0").lower() in ("1", "true", "on")
-        later = {"prefix_cache": (prefix_cache, "A4"),
-                 "prefix_cache_pages": (prefix_cache_pages is not None,
-                                        "A4"),
-                 "admit_retries": (admit_retries != 0, "A5"),
-                 "admit_backoff": (admit_backoff != 0.005, "A5"),
-                 "stuck_factor": (stuck_factor != 8.0, "A5"),
-                 "stuck_min_timeout": (stuck_min_timeout != 30.0, "A5"),
-                 "spec_k / PADDLE_TPU_SPEC_K": (int(spec_k) > 0, "A6"),
+        later = {"spec_k / PADDLE_TPU_SPEC_K": (int(spec_k) > 0, "A6"),
                  "spec_ngram": (spec_ngram != 3, "A6"),
                  "drafter_factory": (drafter_factory is not None, "A6"),
                  "kv_tier / PADDLE_TPU_KV_TIER": (kv_tier, "A7"),
@@ -372,11 +435,24 @@ class LlamaServingEngine:
         # budget splits into chunk rows
         self.rows_cap = max_batch + -(-self.chunk_budget
                                       // self.chunk_block)
+        # admission backpressure: this many retries (exponential backoff
+        # from admit_backoff seconds) before a typed rejection; they help
+        # only when another thread drives the engine meanwhile
+        self.admit_retries = int(admit_retries)
+        self.admit_backoff = float(admit_backoff)
+        # the stuck-dispatch watchdog (_arm_watchdog)
+        self.stuck_factor = stuck_factor
+        self.stuck_min_timeout = float(stuck_min_timeout)
         # page num_pages-1 is the trash page no table references
         self.alloc = PageAllocator(num_pages - 1, page_size,
                                    max_pages_per_seq)
         self.width = self.alloc.max_pages_per_seq
         self.trash_page = num_pages - 1
+        # page-aligned prompt prefixes prefilled once, later admissions
+        # referencing the cached pages (refcounted in the allocator)
+        self.prefix = PrefixCache(self.alloc, page_size,
+                                  max_pages=prefix_cache_pages) \
+            if prefix_cache else None
         param = next(model.parameters())
         self.device = param.device
         # int8 KV pages: quantize on write, dequantize in the attention's
@@ -421,7 +497,29 @@ class LlamaServingEngine:
         self.kv_bytes_per_token = tok_bytes
         self._live: dict[int, Request] = {}
         self._next_id = 0
+        # lifecycle state: one re-entrant lock guards _live, the requeue,
+        # deferred releases and entry accounting, so cancel() and drain
+        # handlers may fire from any thread; the dispatch lock serializes
+        # step / scan bodies (re-entrant: a step's requeue pump prefills)
+        self._lock = threading.RLock()
+        self._dispatch_lock = threading.RLock()
+        self._requeue: collections.deque[Request] = collections.deque()
+        self._deferred_release: list[int] = []
+        self._in_dispatch = False
+        self._entry_depth = 0
+        self._entry_threads: dict[object, int] = {}   # thread -> depth
+        self._flushing = False
+        self._draining = False
+        self._drain_active = False
+        self._pending_drain = None    # (grace, exit_code, on_drained)
         self._dispatch_count = 0
+        self._warmed_keys: set = set()  # ("mixed", T) / ("scan", n) run
+        self._dispatch_times: collections.deque[float] = \
+            collections.deque(maxlen=256)
+        self._token_times: collections.deque[float] = \
+            collections.deque(maxlen=512)
+        self._wd = None
+        self._closed = False
         # the decode scan's static buffers and, on the card, its tick graphs
         self._graphs = StepGraphs(self.device)
         self.prewarmed = None         # prewarm() summary, or None
@@ -431,6 +529,157 @@ class LlamaServingEngine:
                 in ("1", "true", "on", "auto")
         if prewarm:
             self.prewarm()
+
+    # ------------------------------------------------------------------
+    # lifecycle plumbing
+    # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _entry(self):
+        """Depth accounting around public entry points. A SIGTERM that
+        lands while an entry is in flight defers its drain to the moment
+        the outermost entry returns; and every thread inside an entry is
+        recorded, so page releases requested while a DIFFERENT thread is
+        mid-entry are deferred past the whole entry (its step may still
+        read the allocator's tables for those sequences)."""
+        me = threading.current_thread()
+        with self._lock:
+            self._entry_depth += 1
+            self._entry_threads[me] = self._entry_threads.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._entry_depth -= 1
+                c = self._entry_threads.get(me, 1) - 1
+                if c:
+                    self._entry_threads[me] = c
+                else:
+                    self._entry_threads.pop(me, None)
+                at_boundary = self._entry_depth == 0
+                if at_boundary:
+                    # the SIGTERM handler keeps deferring its drain past
+                    # the flush below
+                    self._flushing = True
+            if at_boundary:
+                try:
+                    self._flush_deferred()
+                finally:
+                    with self._lock:
+                        self._flushing = False
+                        pending = None
+                        # a manual drain mid-flight runs it in its epilogue
+                        if self._entry_depth == 0 \
+                                and not self._drain_active:
+                            pending = self._pending_drain
+                            if pending is not None:
+                                self._pending_drain = None
+                    if pending is not None:
+                        grace, exit_code, on_drained = pending
+                        self._run_drain_and_exit(grace, exit_code,
+                                                 on_drained)
+
+    def _release_pages(self, seq_id):
+        """Release a sequence's pages, deferred while a dispatch is in
+        flight (its kernels, or a scan's tick tables, may still address
+        them) and while ANOTHER thread is inside an engine entry (its
+        setup may still read the allocator for this sequence)."""
+        if seq_id is None:
+            return
+        me = threading.current_thread()
+        with self._lock:
+            others_in_entry = any(t is not me for t in self._entry_threads)
+            if self._in_dispatch or others_in_entry:
+                self._deferred_release.append(seq_id)
+            else:
+                self.alloc.release(seq_id)
+
+    def _flush_deferred(self):
+        """Release the deferred sequences. Their pages may go to a new
+        owner at once: every later write into them (a copy-on-write copy,
+        a prefill chunk, a tick replay) is queued on the same stream after
+        the kernels that last used them, so stream order, not this host
+        call, keeps the old owner's reads whole."""
+        with self._lock:
+            if self._in_dispatch:
+                return      # the dispatch's own epilogue will flush
+            pending, self._deferred_release = self._deferred_release, []
+        for sid in pending:
+            # idempotent: racing a natural completion is a no-op
+            self.alloc.release(sid)
+
+    def _retire(self, req, status, error=None):
+        """Terminal transition: remove from the live set, free pages,
+        stamp status/error. Idempotent under the engine lock."""
+        with self._lock:
+            if req.done:
+                return False
+            req.done = True
+            req.status = status
+            req.error = error
+            if req.seq_id in self._live:
+                del self._live[req.seq_id]
+                self._release_pages(req.seq_id)
+            return True
+
+    def _expire(self, req, reason="deadline", now=None):
+        now = time.perf_counter() if now is None else now
+        elapsed = None if req._t_admit is None else now - req._t_admit
+        err = DeadlineExceeded(
+            f"request {req.seq_id} exceeded its {reason} after "
+            f"{0.0 if elapsed is None else elapsed:.3f}s "
+            f"({len(req.output_ids)}/{req.max_new_tokens} tokens "
+            f"emitted)", seq_id=req.seq_id, elapsed=elapsed,
+            tokens_emitted=len(req.output_ids), reason=reason)
+        self._retire(req, "deadline_exceeded", err)
+
+    def _expire_deadlines(self):
+        """Expire every live request past its deadline; called at step
+        and scan boundaries (the granularity that exists once a dispatch
+        is on the card)."""
+        now = time.perf_counter()
+        with self._lock:
+            expired = [r for r in self._live.values()
+                       if not r.done and r._expires_at is not None
+                       and now >= r._expires_at]
+        for r in expired:
+            self._expire(r, now=now)
+
+    def cancel(self, req):
+        """Cancel a live request (by :class:`Request` or seq_id).
+
+        Thread-safe and idempotent: wire it to a client-abandon callback.
+        The request retires with status ``"cancelled"`` and its partial
+        output intact; its pages return to the allocator (deferred past
+        any in-flight dispatch). Reaches requests parked on the eviction
+        requeue too, and one popped mid re-admission (the sticky flag is
+        honored there). Returns True if this call did the cancellation,
+        False if the request was already terminal or unknown."""
+        with self._entry():
+            with self._lock:
+                if isinstance(req, Request):
+                    r = req
+                    if r.done:
+                        return False
+                    r._cancel_requested = True
+                    if r in self._requeue:
+                        self._requeue.remove(r)
+                        r.done = True
+                        r.status = "cancelled"
+                        return True
+                    if r.seq_id is None \
+                            or self._live.get(r.seq_id) is not r:
+                        if r.status == "pending":
+                            # never admitted: terminal right away
+                            r.done = True
+                            r.status = "cancelled"
+                        # else: popped by the requeue pump mid
+                        # re-admission; the flag is honored there
+                        return True
+                else:
+                    r = self._live.get(req)
+                    if r is None or r.done:
+                        return False
+                return self._retire(r, "cancelled")
 
     # ------------------------------------------------------------------
     # the mixed step: prefill chunks + decode rows, one dispatch
@@ -509,29 +758,65 @@ class LlamaServingEngine:
         arrays, any_sampled = sample
         return sampled_next_tokens(logits, *arrays, any_sampled=any_sampled)
 
+    def _prefix_insert(self, reqs, sids):
+        """Pin freshly written full prompt pages in the prefix cache (one
+        allocator reference each) so they outlive the requests."""
+        with self._lock:
+            for r, sid in zip(reqs, sids):
+                if r.done or r.seq_id != sid:
+                    continue
+                table = self.alloc._tables.get(sid)
+                if table:
+                    self.prefix.insert(r.prompt_ids, table)
+
+    def _copy_page(self, old, new):
+        """Copy one page's K/V in every layer, the payload of a
+        :meth:`PageAllocator.ensure_writable` copy-on-write; int8 pools
+        copy their scale sidecars with the page. In place, on the current
+        stream: the tick graphs baked the pools' addresses, so a pool is
+        never rebound."""
+        for pools in (self.k_pools, self.v_pools, self.k_scales,
+                      self.v_scales):
+            for pool in pools:
+                pool[new].copy_(pool[old])
+
     def _schedule_rows(self):
-        """One mixed step's rows: a decode row for every fully
-        prefilled live sequence, then prompt chunks of at most
+        """One mixed step's rows (caller holds the engine lock): a decode
+        row for every fully prefilled live sequence that the pool can
+        grow (:meth:`_relieve_pressure`), then prompt chunks of at most
         ``chunk_block`` tokens FIFO by admission until the
-        ``chunk_budget`` (or ``rows_cap``) is spent. Each row is
-        ``(req, sid, start, n, toks, is_decode)``."""
+        ``chunk_budget`` (or ``rows_cap``) is spent. Returns ``(rows,
+        cow)``: each row is ``(req, sid, start, n, toks, is_decode)``,
+        ``cow`` the ``(old, new)`` page copies the rows' first write
+        positions need (a shared page is never written)."""
         live = [r for r in self._live.values() if not r.done]
         decode = [r for r in live if r._prefilled >= len(r.prompt_ids)]
         prefill = [r for r in live if r._prefilled < len(r.prompt_ids)]
-        rows = []
+        decode = self._relieve_pressure(decode, 1)
+        rows, cow = [], []
         budget = self.chunk_budget
         for r in decode:
-            # admission reserved this token's page (see _admit)
-            prev = self.alloc.extend(r.seq_id, 1)
+            sid = r.seq_id
+            prev = self.alloc.extend(sid, 1)
+            # copy-on-write backstop: the write position must never land
+            # in a page shared with the prefix cache
+            cp = self.alloc.ensure_writable(sid, prev)
+            if cp is not None:
+                cow.append(cp)
             tok = r.output_ids[-1] if r.output_ids \
                 else int(r.prompt_ids[-1])
-            rows.append((r, r.seq_id, prev, 1, (tok,), True))
+            rows.append((r, sid, prev, 1, (tok,), True))
             budget -= 1
         for r in prefill:
             if budget <= 0 or len(rows) >= self.rows_cap:
                 break
             off = int(r._prefilled)
             n_total = len(r.prompt_ids)
+            # page-aligned prefix matches continue into pages this
+            # sequence owns; a shared page stays immutable regardless
+            cp = self.alloc.ensure_writable(r.seq_id, off)
+            if cp is not None:
+                cow.append(cp)
             while off < n_total and budget > 0 \
                     and len(rows) < self.rows_cap:
                 n = min(self.chunk_block, n_total - off, budget)
@@ -539,7 +824,7 @@ class LlamaServingEngine:
                 rows.append((r, r.seq_id, off, n, toks, False))
                 off += n
                 budget -= n
-        return rows
+        return rows, cow
 
     def _sample_mode(self, reqs):
         """The next-token rule a dispatch or scan of ``reqs`` needs:
@@ -622,13 +907,19 @@ class LlamaServingEngine:
                   slot_vals, cmodes)
         return arrays, mode == "sampled"
 
-    def _dispatch_rows(self, rows):
-        """Dispatch ONE mixed step over a scheduled row list and apply
-        the results: prefill progress and emitted tokens. Returns tokens
-        emitted."""
+    def _dispatch_rows(self, rows, cow=()):
+        """Dispatch ONE mixed step over a scheduled row list (caller
+        holds the dispatch locks) after its copy-on-write page copies,
+        and apply the results: prefill progress, prefix-cache pins of
+        finished prompts, emitted tokens. Returns tokens emitted."""
         needs_mixed = any(n > 1 or not is_dec
                           for _, _, _, n, _, is_dec in rows)
         qb = self.chunk_block if needs_mixed else 1
+        for old, new in cow:
+            self._copy_page(old, new)
+        key = ("mixed", self.chunk_budget if needs_mixed
+               else self.max_batch)
+        cold = key not in self._warmed_keys
         r_n = len(rows)
         t_n = sum(n for _, _, _, n, _, _ in rows)
         tokens = np.zeros((t_n,), np.int32)
@@ -687,13 +978,42 @@ class LlamaServingEngine:
                        s_d, ps_d, si_d.view(r_n, -1),
                        sv_d.view(torch.float32).view(r_n, -1), c_d),
                       samp[1])
-        nxt = self._mixed_forward(tok_d, pos_d, flat_d, last_d, tables_d,
-                                  kv_d, qs_d, ql_d, ws_d, wf_d, we_d, pid_d,
-                                  off_d, rt_d, qb, sample)
-        out = nxt.tolist()
-        for r, sid, start, n, _, is_dec in rows:
-            if not is_dec and r.seq_id == sid:
+        self._arm_watchdog(cold)
+        with self._lock:
+            self._in_dispatch = True
+        t0 = time.perf_counter()
+        try:
+            nxt = self._mixed_forward(tok_d, pos_d, flat_d, last_d,
+                                      tables_d, kv_d, qs_d, ql_d, ws_d,
+                                      wf_d, we_d, pid_d, off_d, rt_d, qb,
+                                      sample)
+            out = nxt.tolist()          # the read-back: the step is done
+        finally:
+            with self._lock:
+                self._in_dispatch = False
+            dur = time.perf_counter() - t0
+            self._disarm_watchdog(dur, cold=cold)
+            self._warmed_keys.add(key)
+        self._flush_deferred()
+        if not cold and not needs_mixed:
+            # a decode-only dispatch is one token per live row
+            self._token_times.append(dur)
+        finished, fin_sids = [], []
+        with self._lock:
+            for r, sid, start, n, _, is_dec in rows:
+                # the seq_id check drops rows whose request was evicted
+                # and requeued mid-dispatch
+                if is_dec or r.done or r.seq_id != sid:
+                    continue
                 r._prefilled = max(r._prefilled, start + n)
+                if r._prefilled >= len(r.prompt_ids) \
+                        and r not in finished:
+                    finished.append(r)
+                    fin_sids.append(sid)
+        # pin finished prompts' pages BEFORE emitting: a request with one
+        # new token retires (and releases) at emit
+        if finished and self.prefix is not None:
+            self._prefix_insert(finished, fin_sids)
         emitted = 0
         for i, (r, sid, start, n, _, is_dec) in enumerate(rows):
             if r.done or r.seq_id != sid:
@@ -706,23 +1026,63 @@ class LlamaServingEngine:
         return emitted
 
     # ------------------------------------------------------------------
-    # admission, emission, driving
+    # the stuck-dispatch watchdog
     # ------------------------------------------------------------------
-    def _pages_needed(self, req):
-        """Worst-case pages of a request: its prompt plus every decode
-        token it may write (the last emitted token is never written)."""
-        n = len(req.prompt_ids) + req.max_new_tokens - 1
-        return max(1, -(-n // self.page_size))
+    def _arm_watchdog(self, cold):
+        """Arm the watchdog for one dispatch: timeout = max(
+        stuck_min_timeout, stuck_factor x P99 of the warm dispatches).
+        The first dispatch of a shape (building kernels, capturing
+        graphs) never arms, nor any before 8 warm samples."""
+        if cold or not self.stuck_factor or self._closed:
+            return
+        times = self._dispatch_times
+        if len(times) < 8:
+            return
+        s = sorted(times)
+        p99 = s[min(len(s) - 1, int(math.ceil(0.99 * len(s))) - 1)]
+        if self._wd is None:
+            from ..distributed.watchdog import StepWatchdog
+            self._wd = StepWatchdog(timeout=float("inf"),
+                                    name="serving.decode").start()
+        self._wd.arm(max(self.stuck_min_timeout, self.stuck_factor * p99))
 
-    def _owed_pages(self, req):
-        """Pages admission reserved for a live request that it has not
-        drawn yet (0 once a scan's overshoot took it past them)."""
-        return max(0, self._pages_needed(req)
-                   - len(self.alloc._tables[req.seq_id]))
+    def _disarm_watchdog(self, duration=None, cold=False):
+        if duration is not None and not cold:
+            self._dispatch_times.append(duration)
+        if self._wd is not None:
+            self._wd.disarm()
+
+    def close(self):
+        """Stop the watchdog's thread. Idempotent; the engine stays
+        usable but unwatched (later dispatches do not restart it)."""
+        self._closed = True
+        if self._wd is not None:
+            self._wd.stop()
+            self._wd = None
+
+    # ------------------------------------------------------------------
+    # admission: prefix match, the degradation ladder
+    # ------------------------------------------------------------------
+    def prefill_backlog(self):
+        """Prompt tokens admitted but not yet written to pages: the
+        chunked scheduler's pending prefill work (a load signal)."""
+        with self._lock:
+            return sum(max(0, len(r.prompt_ids) - r._prefilled)
+                       for r in self._live.values() if not r.done)
 
     def _validate(self, req):
-        """The reference's sampling checks: a sampled request needs
-        ``sampling`` on, and its bias must fit ``sample_slots``."""
+        """The reference's checks: a prompt must fit one sequence's KV
+        capacity; a sampled request needs ``sampling`` on, and its bias
+        must fit ``sample_slots``."""
+        cap_pages = min(self.alloc.max_pages_per_seq, self.alloc.num_pages)
+        max_prompt = cap_pages * self.page_size
+        n = len(req.prompt_ids)
+        if n > max_prompt:
+            raise ValueError(
+                f"prompt of {n} tokens exceeds this engine's KV capacity "
+                f"of {max_prompt} tokens ({cap_pages} pages x "
+                f"{self.page_size} slots); split the prompt or size the "
+                f"pool up (num_pages/max_pages_per_seq)")
         sp = req.sampling
         if sp is not None:
             if not sp.is_greedy and not self.sample_enabled:
@@ -736,63 +1096,299 @@ class LlamaServingEngine:
                     f"this engine packs sample_slots={self.sample_slots}"
                     f" per row; raise sample_slots or trim the bias")
 
-    def _seed(self, req):
-        """Resolve the request's seed once: its own, else the next draw
-        of the engine's LCG (recorded on the request)."""
-        if req._seed is None:
-            sp = req.sampling
-            if sp is not None and sp.seed is not None:
-                req._seed = sp.seed
-            else:
-                self._auto_seed = (self._auto_seed * 1103515245
-                                   + 12345) % (2 ** 31)
-                req._seed = self._auto_seed
+    def _retry_after(self):
+        """Seconds until capacity plausibly frees: the live set's
+        shortest remaining token budget x the recent median per-token
+        latency; one backoff quantum without history."""
+        with self._lock:
+            live = [r for r in self._live.values() if not r.done]
+            times = sorted(self._token_times)
+        if not live or not times:
+            return max(self.admit_backoff, 0.005)
+        remaining = min(max(1, r.max_new_tokens - len(r.output_ids))
+                        for r in live)
+        return round(remaining * times[len(times) // 2], 4)
+
+    def _try_reserve(self, req):
+        """One admission attempt: capacity check, prefix match, page
+        reservation and live-set insertion as ONE transition under the
+        engine lock (two admitting threads never push the live set past
+        ``max_batch``). Returns a failure reason or None."""
+        try:
+            # outside the lock: a hang fault must not wedge it; an
+            # injected MemoryError takes the pool-exhausted path
+            _faults.fire("serve.admit", step=self._dispatch_count)
+        except MemoryError:
+            return "KV page pool exhausted"
+        with self._lock:
+            if self._draining:
+                return "draining"
+            if len(self._live) >= self.max_batch:
+                return "engine full"
+            n = len(req.prompt_ids)
+            cached = 0
+            val_retries = 0
+            evicted_cache = False
+            recorded = False
+            while True:
+                shared, cached = ([], 0)
+                if self.prefix is not None:
+                    # stats recorded once per admission, not per retry
+                    shared, cached = self.prefix.match(
+                        req.prompt_ids, record=not recorded)
+                    recorded = True
+                try:
+                    self.alloc.admit(req.seq_id, n, shared_pages=shared)
+                    break
+                except ValueError:
+                    # a concurrent eviction freed the matched pages
+                    # between match and admit: re-match (with NO shared
+                    # pages it is a real validation error)
+                    if shared and val_retries < 2:
+                        val_retries += 1
+                        continue
+                    raise
+                except MemoryError:
+                    # cached prefixes are never a reason to shed: give
+                    # cold cache pages back and retry once (re-matching)
+                    if evicted_cache or self.prefix is None:
+                        return "KV page pool exhausted"
+                    evicted_cache = True
+                    need = max(1, math.ceil(n / self.page_size))
+                    while self.alloc.free_pages < need \
+                            and self.prefix.pages:
+                        self.prefix.evict_pages(need
+                                                - self.alloc.free_pages)
+                    if self.alloc.free_pages < need:
+                        return "KV page pool exhausted"
+            req._cached_tokens = cached
+            # the prefill cursor is stamped BEFORE the request is visible
+            # in _live: no dispatch may see a warm request at 0 and write
+            # chunks over its shared prefix pages
+            req._prefilled = cached
+            self._live[req.seq_id] = req
+            req.status = "live"
+        return None
+
+    def _degrade_trim(self, req, tried):
+        """Ladder rung 1: retire the lowest-priority victim that has
+        output NOW, its budget cut to what it produced (``completed``,
+        ``trimmed=True``)."""
+        with self._lock:
+            victims = [r for r in self._live.values()
+                       if not r.done and r.priority < req.priority
+                       and r.output_ids and r.seq_id not in tried]
+            if not victims:
+                return False
+            v = min(victims, key=lambda r: (r.priority, len(r.output_ids)))
+            tried.add(v.seq_id)
+            self._trim(v)
+        return True
+
+    def _trim(self, v):
+        """Truncate the victim's budget to what it produced and retire it
+        (partial output kept, ``trimmed=True``). Caller holds the lock."""
+        v.max_new_tokens = max(1, len(v.output_ids))
+        v.trimmed = True
+        self._retire(v, "completed")
+
+    def _evict(self, v):
+        """Reclaim the victim's pages and re-queue it against its
+        ``retry_budget`` (re-admission restarts it from scratch) or fail
+        it typed. A victim that turned terminal or was requeued since
+        selection is left alone."""
+        with self._lock:
+            if v.done or v.seq_id is None:
+                return
+            if v.seq_id in self._live:
+                del self._live[v.seq_id]
+            self._release_pages(v.seq_id)
+            self._requeue_or_fail(v)
+
+    def _requeue_or_fail(self, v):
+        """Park the victim for a from-scratch retry, or fail it typed
+        when its retry budget is spent. Caller holds the lock and has
+        released the victim's pages."""
+        if v.retry_budget > 0:
+            v.retry_budget -= 1
+            v.output_ids = []
+            v.status = "requeued"
+            v._t_admit = None
+            v._expires_at = None
+            v._cached_tokens = 0    # re-matched at re-admission
+            v._prefilled = 0        # KV is gone; prefill restarts
+            # a fresh seq_id on re-admission: the old id may still have
+            # a deferred page release in flight
+            v.seq_id = None
+            self._requeue.append(v)
+        else:
+            v.done = True
+            v.status = "evicted"
+            v.error = AdmissionError(
+                "evicted under pressure; retry budget exhausted",
+                live=len(self._live), max_batch=self.max_batch,
+                free_pages=self.alloc.free_pages,
+                num_pages=self.alloc.num_pages, retries=0)
+
+    def _degrade_evict(self, req):
+        """Ladder rung 2: evict the lowest-priority victim (then the
+        least progressed)."""
+        with self._lock:
+            victims = [r for r in self._live.values()
+                       if not r.done and r.priority < req.priority]
+            if not victims:
+                return False
+            v = min(victims, key=lambda r: (r.priority, len(r.output_ids)))
+            self._evict(v)
+        return True
+
+    def _degrade_pause(self, req):
+        """The pause rung between cache reclaim and trim needs the host
+        KV tier (ROADMAP A7); without one it frees nothing."""
+        del req
+        return False
+
+    def _relieve_pressure(self, live, n):
+        """Decode-boundary rung of the ladder: when the pool cannot hold
+        the next ``n`` tokens of every live sequence, give cold prefix
+        pages back, then evict the lowest-priority (then least
+        progressed) victim until the rest fit; a sequence at its per-seq
+        table cap is trimmed. Returns the surviving list. Caller holds
+        the engine lock."""
+        page = self.page_size
+        live = list(live)
+        for r in list(live):
+            need_pages = -(-(self.alloc._lens[r.seq_id] + n) // page)
+            if need_pages > self.alloc.max_pages_per_seq:
+                live.remove(r)
+                self._trim(r)
+        # while another thread is mid-entry, victim releases would be
+        # deferred and free nothing: victims are only POSTPONED from
+        # this dispatch (no state change)
+        me = threading.current_thread()
+        deferrals_blocked = self._in_dispatch \
+            or any(t is not me for t in self._entry_threads)
+        while live:
+            need = sum(
+                max(0, -(-(self.alloc._lens[r.seq_id] + n) // page)
+                    - len(self.alloc._tables[r.seq_id]))
+                for r in live)
+            if need <= self.alloc.free_pages:
+                break
+            if self.prefix is not None and self.prefix.pages \
+                    and self.prefix.evict_pages(
+                        need - self.alloc.free_pages):
+                continue
+            v = min(live, key=lambda r: (r.priority, len(r.output_ids)))
+            live.remove(v)
+            if not deferrals_blocked:
+                self._evict(v)
+        return live
+
+    def _pump_requeue(self):
+        """Re-admission at step boundaries: requests the ladder parked
+        rejoin the batch as capacity allows; their prompts prefill as
+        ordinary chunks of the next dispatches."""
+        while True:
+            with self._lock:
+                if self._draining or not self._requeue \
+                        or len(self._live) >= self.max_batch:
+                    break
+                nxt = self._requeue.popleft()
+            if nxt.done:
+                continue
+            try:
+                # no backoff sleeps inside the dispatch lock
+                self._admit_locked(nxt, quiet_retry=True)
+            except AdmissionError:
+                with self._lock:
+                    self._requeue.appendleft(nxt)
+                break
 
     def _admit(self, req):
-        """Admit one request, reserving its worst-case pages against
-        what the live set may still draw. Raises :class:`ValueError`
-        for a request that can never fit and :class:`AdmissionError`
-        when it does not fit now."""
+        """Admit one request, walking the degradation ladder under
+        pressure: trim -> evict -> (bounded backoff) -> shed with a
+        ``retry_after`` hint. Raises :class:`ValueError` for a request
+        that can never fit and :class:`AdmissionError` for transient
+        pressure."""
+        with self._entry():
+            return self._admit_locked(req)
+
+    def _admit_locked(self, req, quiet_retry=False):
+        with self._lock:
+            if req._cancel_requested and not req.done:
+                # a client abandon raced an eviction / re-admission
+                req.done = True
+                req.status = "cancelled"
+                return req.seq_id
         if req.done:
             return req.seq_id
         self._validate(req)
-        self._seed(req)
-        need = self._pages_needed(req)
-        cap = min(self.alloc.max_pages_per_seq, self.alloc.num_pages)
-        if need > cap:
-            raise ValueError(
-                f"prompt of {len(req.prompt_ids)} tokens + "
-                f"{req.max_new_tokens} new tokens needs {need} pages, "
-                f"beyond this engine's {cap} pages per sequence; size "
-                f"the pool up (num_pages/max_pages_per_seq)")
-        live = [r for r in self._live.values() if not r.done]
-        owed = sum(self._owed_pages(r) for r in live)
-        reason = None
-        if len(live) >= self.max_batch:
-            reason = "engine full"
-        elif need + owed > self.alloc.free_pages:
-            reason = "KV page pool exhausted"
-        if reason:
-            raise AdmissionError(reason, live=len(live),
-                                 max_batch=self.max_batch,
-                                 free_pages=self.alloc.free_pages,
-                                 num_pages=self.alloc.num_pages)
-        req.seq_id = self._next_id
-        self._next_id += 1
-        self.alloc.admit(req.seq_id, len(req.prompt_ids))
-        req._prefilled = 0
-        req.status = "live"
-        req._t_admit = time.perf_counter()
-        self._live[req.seq_id] = req
+        self._expire_deadlines()      # expired requests free capacity
+        with self._lock:
+            if req.seq_id is None:
+                req.seq_id = self._next_id
+                self._next_id += 1
+            if req._seed is None:
+                sp = req.sampling
+                if sp is not None and sp.seed is not None:
+                    req._seed = sp.seed
+                else:
+                    # once per request (stable across re-admissions) and
+                    # recorded, so the draw is reproducible
+                    self._auto_seed = (self._auto_seed * 1103515245
+                                       + 12345) % (2 ** 31)
+                    req._seed = self._auto_seed
+        attempt = 0
+        trim_tried: set[int] = set()
+        while True:
+            reason = self._try_reserve(req)
+            if reason is None:
+                break
+            # while a dispatch is in flight or another thread is
+            # mid-entry, victim releases are deferred: trimming or
+            # evicting could free no page, so fall through to backoff
+            me = threading.current_thread()
+            with self._lock:
+                pages_blocked = (
+                    reason == "KV page pool exhausted"
+                    and (self._in_dispatch
+                         or any(t is not me
+                                for t in self._entry_threads)))
+            if reason != "draining" and not pages_blocked:
+                # rung order: cache reclaim (in _try_reserve), pause,
+                # trim, evict, backoff, shed
+                if self._degrade_pause(req):
+                    continue
+                if self._degrade_trim(req, trim_tried):
+                    continue
+                if self._degrade_evict(req):
+                    continue
+            if reason != "draining" and not quiet_retry \
+                    and attempt < self.admit_retries:
+                # bounded backoff: another thread's step may retire a
+                # request and release its pages meanwhile
+                attempt += 1
+                time.sleep(self.admit_backoff * (2 ** (attempt - 1)))
+                continue
+            raise AdmissionError(
+                reason, live=len(self._live),
+                max_batch=self.max_batch,
+                free_pages=self.alloc.free_pages,
+                num_pages=self.alloc.num_pages, retries=attempt,
+                retry_after=self._retry_after())
+        # _try_reserve made the request live; stamp the clocks
+        now = time.perf_counter()
+        with self._lock:
+            req._t_admit = now
+            ttl = None
+            if req.deadline is not None:
+                ttl = req.deadline
+            if req.token_budget is not None:
+                budget = req.token_budget * req.max_new_tokens
+                ttl = budget if ttl is None else min(ttl, budget)
+            req._expires_at = None if ttl is None else now + ttl
         return req.seq_id
-
-    def _retire(self, req, status):
-        if req.done:
-            return
-        req.done = True
-        req.status = status
-        if self._live.pop(req.seq_id, None) is not None:
-            self.alloc.release(req.seq_id)
 
     def add_request(self, req):
         """Admit a request and drive its chunked prefill through to its
@@ -801,7 +1397,7 @@ class LlamaServingEngine:
         sid = self._admit(req)
         while not req.done and req._prefilled < len(req.prompt_ids):
             if self.step() == 0:
-                break
+                break       # nothing dispatchable (drained / expired)
         return sid
 
     def _emit(self, req, token):
@@ -828,14 +1424,28 @@ class LlamaServingEngine:
         return self._mixed_step()[0]
 
     def _mixed_step(self):
-        if not any(not r.done for r in self._live.values()):
-            return 0, 0
-        self._dispatch_count += 1
-        rows = self._schedule_rows()
-        if not rows:
-            return 0, 0
-        return len(rows), self._dispatch_rows(rows)
-
+        """One mixed dispatch. Returns (rows dispatched, tokens
+        emitted)."""
+        with self._entry(), self._dispatch_lock, _CROSS_ENGINE_LOCK:
+            self._expire_deadlines()
+            self._pump_requeue()
+            with self._lock:
+                if not any(not r.done for r in self._live.values()):
+                    return 0, 0
+            # before any allocator change: an injected raise aborts the
+            # dispatch cleanly
+            _faults.fire("serve.decode", step=self._dispatch_count)
+            self._dispatch_count += 1
+            with self._lock:
+                # rows snapshotted, and the decode extends made, under
+                # the lock: no concurrent admission takes the pages
+                # _relieve_pressure proved free
+                rows, cow = self._schedule_rows()
+            if not rows:
+                return 0, 0
+            emitted = self._dispatch_rows(rows, cow)
+            self._expire_deadlines()
+            return len(rows), emitted
     # ------------------------------------------------------------------
     # decode scan: n all-decode ticks, one read-back
     # ------------------------------------------------------------------
@@ -917,21 +1527,30 @@ class LlamaServingEngine:
         lens.add_(1)
         g["tick"].add_(1)
 
-    def _load_scan(self, live, starts, mode):
+    @staticmethod
+    def _scan_rows(live):
+        """The seq ids and last tokens of a scan's rows ``live``, as the
+        scan snapshots them under the lock."""
+        return ([r.seq_id for r in live],
+                [r.output_ids[-1] if r.output_ids else int(r.prompt_ids[-1])
+                 for r in live])
+
+    def _load_scan(self, live, starts, mode, sids, last):
         """Fill the scan's input buffers in place for ``live``, whose next
         tokens land at positions ``starts`` (rows past them padded:
         tables of the trash page, lens 1, token 0, inert greedy sampler
-        rows), in ONE host-to-device copy, and zero the tick counter."""
+        rows), in ONE host-to-device copy, and zero the tick counter.
+        ``sids`` / ``last``: the rows' seq ids and last tokens
+        (:meth:`_scan_rows`, snapshotted by the scan)."""
         b = self.max_batch
         tables = np.full((b, self.width), self.trash_page, np.int32)
         lens = np.ones((b,), np.int32)
         tokens = np.zeros((b,), np.int32)
-        for i, (r, start) in enumerate(zip(live, starts)):
-            t = self.alloc._tables[r.seq_id]
+        for i, (sid, start) in enumerate(zip(sids, starts)):
+            t = self.alloc._tables[sid]
             tables[i, :len(t)] = t
             lens[i] = start + 1                # first new token included
-            tokens[i] = r.output_ids[-1] if r.output_ids \
-                else int(r.prompt_ids[-1])
+            tokens[i] = last[i]
         parts = [tables, lens, tokens]
         if mode != "greedy":
             parts += self._sample_params(live, b)
@@ -946,7 +1565,7 @@ class LlamaServingEngine:
         page only, so the warm-up and the capture touch no request."""
         if not self._graphs.cuda or mode in self._graphs:
             return
-        self._load_scan([], [], mode)
+        self._load_scan([], [], mode, [], [])
         self._graphs.capture(mode, lambda: self._tick(mode))
 
     def _run_tick(self, mode):
@@ -960,60 +1579,96 @@ class LlamaServingEngine:
     def _decode_scan(self, n):
         """Decode ``n`` tokens for every live, fully prefilled request:
         ``n`` ticks and one read-back. Pages for all ``n`` tokens are
-        reserved first; tokens a request emits after it retires mid-scan
-        (EOS, stop, budget) are discarded. The port has no degradation
-        ladder (A5) and no prefix cache (A4): ``n`` comes from
-        :meth:`_scan_fits`, so every reservation fits."""
-        if n <= 0 or not any(not r.done for r in self._live.values()):
-            return 0
+        reserved first (the ladder makes room, :meth:`_relieve_pressure`),
+        and a scan's first write position is made private
+        (copy-on-write); tokens a request emits after it retires mid-scan
+        (EOS, stop, budget, cancel, deadline) are discarded. Pages
+        released mid-scan are released after its read-back: the tick
+        tables still address them."""
         if n > self._scan_width():
             raise ValueError(f"a scan takes at most {self._scan_width()} "
                              f"ticks (decode_ticks), got {n}")
-        self._dispatch_count += 1
-        live = [r for r in self._live.values() if not r.done
-                and r._prefilled >= len(r.prompt_ids)]
-        if not live:
-            return 0
-        sids = [r.seq_id for r in live]
-        starts = [self.alloc.extend(sid, n) for sid in sids]
-        mode = self._sample_mode(live)
-        self._ensure_tick(mode)
-        self._load_scan(live, starts, mode)
-        for _ in range(n):
-            self._run_tick(mode)
-        all_tokens = self._graphs.buffers["out"][:len(live), :n].tolist()
-        served = 0
-        for i, r in enumerate(live):
-            for t in range(n):
-                # retired mid-scan: the tail is discarded
-                if r.done or r.seq_id != sids[i]:
-                    break
-                self._emit(r, int(all_tokens[i][t]))
-                served += 1
-        return served
+        with self._entry(), self._dispatch_lock, _CROSS_ENGINE_LOCK:
+            self._expire_deadlines()
+            self._pump_requeue()
+            with self._lock:
+                if n <= 0 or not any(not r.done
+                                     for r in self._live.values()):
+                    return 0
+            # as in a step: fire before any allocator change
+            _faults.fire("serve.decode", step=self._dispatch_count)
+            self._dispatch_count += 1
+            with self._lock:
+                live = [r for r in self._live.values() if not r.done
+                        and r._prefilled >= len(r.prompt_ids)]
+                live = self._relieve_pressure(live, n)
+                sids, last = self._scan_rows(live)
+                # the whole scan reserved under the lock (see a step)
+                starts = [self.alloc._lens[sid] for sid in sids]
+                cow = []
+                for sid, start in zip(sids, starts):
+                    self.alloc.extend(sid, n)
+                    # only the scan's FIRST write position can sit in a
+                    # pre-existing (possibly shared) page
+                    cp = self.alloc.ensure_writable(sid, start)
+                    if cp is not None:
+                        cow.append(cp)
+            if not live:
+                return 0
+            for old, new in cow:
+                self._copy_page(old, new)
+            mode = self._sample_mode(live)
+            self._ensure_tick(mode)
+            self._load_scan(live, starts, mode, sids, last)
+            key = ("scan", n)
+            cold = key not in self._warmed_keys
+            self._arm_watchdog(cold)
+            with self._lock:
+                self._in_dispatch = True
+            t0 = time.perf_counter()
+            try:
+                for _ in range(n):
+                    self._run_tick(mode)
+                all_tokens = self._graphs.buffers["out"][
+                    :len(live), :n].tolist()       # one read-back
+            finally:
+                with self._lock:
+                    self._in_dispatch = False
+                dur = time.perf_counter() - t0
+                self._disarm_watchdog(dur, cold=cold)
+                self._warmed_keys.add(key)
+            self._flush_deferred()
+            if not cold:
+                self._token_times.append(dur / n)
+            served = 0
+            for i, r in enumerate(live):
+                for t in range(n):
+                    # retired mid-scan, or evicted and requeued under a
+                    # fresh seq_id: the tail is discarded
+                    if r.done or r.seq_id != sids[i]:
+                        break
+                    self._emit(r, int(all_tokens[i][t]))
+                    served += 1
+            self._expire_deadlines()
+            return served
 
     def _scan_fits(self, live, n):
         """Largest scan <= n whose page reservations fit the pool and no
-        sequence's per-seq table cap, as the reference sizes it. Admission
-        here promised every live request its worst-case pages (there is no
-        ladder to take them back, A5), so a scan may draw beyond a
-        request's own promise only from pages no live request is owed: an
-        overshoot of ``exact=False`` never takes another's page."""
+        sequence's per-seq table cap, as the reference sizes it."""
         page = self.page_size
         for r in live:
             headroom = self.alloc.max_pages_per_seq * page \
                 - self.alloc._lens[r.seq_id]
             if headroom < n:
+                # a fully capped sequence (headroom <= 0) is trimmed at
+                # the next boundary by _relieve_pressure
                 n = max(1, headroom)
-        owed = {r.seq_id: self._owed_pages(r)
-                for r in self._live.values() if not r.done}
-        spare = self.alloc.free_pages - sum(owed.values())
         while n > 1:
-            extra = sum(max(0, -(-(self.alloc._lens[r.seq_id] + n) // page)
-                            - len(self.alloc._tables[r.seq_id])
-                            - owed.get(r.seq_id, 0))
-                        for r in live)
-            if extra <= spare:
+            need = sum(
+                max(0, -(-(self.alloc._lens[r.seq_id] + n) // page)
+                    - len(self.alloc._tables[r.seq_id]))
+                for r in live)
+            if need <= self.alloc.free_pages:
                 break
             n //= 2
         return n
@@ -1027,28 +1682,32 @@ class LlamaServingEngine:
         reference does. With ``exact=False`` the tail may overshoot by up
         to ``decode_ticks // 4 - 1`` ticks (callers use it when every live
         request retires by step ``n``; the overshot tokens are
-        discarded). Returns tokens served."""
+        discarded). Requests parked on the requeue are pumped back in by
+        the steps. Returns tokens served."""
         served = 0
         small = max(self.decode_ticks // 4, 2)
         while n > 0:
-            live = [r for r in self._live.values() if not r.done]
-            if not live:
-                break
-            prefilling = any(r._prefilled < len(r.prompt_ids)
-                             for r in live)
-            constrained = any(r.sampling is not None
-                              and r.sampling.constraint is not None
-                              for r in live)
-            # speculative decoding (spec_k) is not ported (A6): its
-            # branches of the reference's policy never apply
-            if prefilling or constrained:
-                chunk = 1
-            elif n >= self.decode_ticks:
-                chunk = self._scan_fits(live, self.decode_ticks)
-            elif n >= small or not exact:
-                chunk = self._scan_fits(live, small)
-            else:
-                chunk = 1
+            with self._lock:
+                # _scan_fits reads the allocator's per-seq state: under
+                # the lock, so a concurrent evict cannot null a seq_id
+                live = [r for r in self._live.values() if not r.done]
+                if not live and not self._requeue:
+                    break
+                prefilling = any(r._prefilled < len(r.prompt_ids)
+                                 for r in live)
+                constrained = any(r.sampling is not None
+                                  and r.sampling.constraint is not None
+                                  for r in live)
+                # speculative decoding (spec_k) is not ported (A6): its
+                # branches of the reference's policy never apply
+                if not live or prefilling or constrained:
+                    chunk = 1       # (with nothing live: pump the requeue)
+                elif n >= self.decode_ticks:
+                    chunk = self._scan_fits(live, self.decode_ticks)
+                elif n >= small or not exact:
+                    chunk = self._scan_fits(live, small)
+                else:
+                    chunk = 1
             if chunk > 1:
                 served += self._decode_scan(chunk)
                 n -= chunk
@@ -1115,7 +1774,7 @@ class LlamaServingEngine:
             if self._graphs.cuda:
                 self._ensure_tick(mode)
             else:
-                self._load_scan([], [], mode)
+                self._load_scan([], [], mode, [], [])
                 self._tick(mode)
 
     def prewarm(self, mixed=None, scans=None):
@@ -1140,36 +1799,171 @@ class LlamaServingEngine:
 
     def generate(self, prompts, max_new_tokens=16, eos_token_id=None):
         """Admit all prompts (continuous batching handles ragged finish
-        times), run to completion, return output id lists in order. A
-        prompt that does not fit yet waits for live requests to retire;
-        one that does not fit an idle engine raises. An entry of
-        ``prompts`` may also be a :class:`Request` (its own budget
-        applies), so the caller can read its ``ttft`` afterwards."""
+        times), run to completion, return output id lists in order. Every
+        pending request that fits is admitted; requests the ladder
+        re-queued are re-admitted ahead of new ones; a shed admission of
+        a new request raises its :class:`AdmissionError`, as the
+        reference's does. An entry of ``prompts`` may also be a
+        :class:`Request` (its own budget applies), so the caller can read
+        its ``ttft`` afterwards."""
         reqs = [p if isinstance(p, Request)
                 else Request(p, max_new_tokens, eos_token_id)
                 for p in prompts]
         pending = list(reqs)
         while pending or any(not r.done for r in reqs):
-            while pending and len(self._live) < self.max_batch:
-                try:
-                    self._admit(pending[0])
-                except AdmissionError:
-                    if not self._live:
-                        raise
+            while True:
+                with self._lock:
+                    if len(self._live) >= self.max_batch:
+                        break
+                    # decide AND pop under the lock: a second stepping
+                    # thread's requeue pump races these pops
+                    from_requeue = bool(self._requeue)
+                    nxt = self._requeue.popleft() if from_requeue \
+                        else (pending.pop(0) if pending else None)
+                if nxt is None:
                     break
-                pending.pop(0)
-            live = [r for r in self._live.values() if not r.done]
-            if not live:
+                if nxt.done:
+                    continue
+                try:
+                    self._admit(nxt)
+                except AdmissionError:
+                    if from_requeue:
+                        # still under pressure: park it again, never
+                        # stranded in a non-terminal 'requeued'
+                        with self._lock:
+                            self._requeue.appendleft(nxt)
+                        break
+                    raise
+            with self._lock:
+                live = [r for r in self._live.values() if not r.done]
+                prefilling = any(r._prefilled < len(r.prompt_ids)
+                                 for r in live)
+            if live:
+                if prefilling:
+                    # mixed steps until every admitted prompt is in
+                    self.step()
+                    continue
+                # scan until the earliest possible retirement; with EOS
+                # or pending admissions, re-check admission every
+                # decode_ticks. The tail may overshoot (exact=False):
+                # every live request retires by then, so overshot ticks
+                # are discarded
+                run = min(r.max_new_tokens - len(r.output_ids)
+                          for r in live)
+                if pending or eos_token_id is not None:
+                    run = min(run, self.decode_ticks)
+                self.decode_many(max(1, run), exact=False)
                 continue
-            if any(r._prefilled < len(r.prompt_ids) for r in live):
-                self.step()
-                continue
-            # scan until the earliest possible retirement; with EOS or
-            # pending admissions, re-check admission every decode_ticks.
-            # The tail may overshoot (exact=False): every live request
-            # retires by then, so overshot ticks are discarded
-            run = min(r.max_new_tokens - len(r.output_ids) for r in live)
-            if pending or eos_token_id is not None:
-                run = min(run, self.decode_ticks)
-            self.decode_many(max(1, run), exact=False)
+            if not pending and all(r.done for r in reqs):
+                break
         return [r.output_ids for r in reqs]
+
+    # ------------------------------------------------------------------
+    # graceful drain and readiness
+    # ------------------------------------------------------------------
+    def drain(self, timeout=30.0):
+        """Stop admission and retire the in-flight set: decode until
+        every live request completes or the grace ``timeout`` elapses,
+        then expire the stragglers with a :class:`DeadlineExceeded` and
+        release their pages. Admission stays closed afterwards
+        (:class:`AdmissionError` reason ``"draining"``) until
+        :meth:`resume_admission`. Returns ``{"seconds", "completed",
+        "expired"}`` over the requests live at entry."""
+        with self._lock:
+            self._draining = True
+            already = self._drain_active
+            if not already:
+                self._drain_active = True
+        if already:
+            # another thread's drain is mid-flight: wait it out within
+            # this call's own budget
+            t0 = time.perf_counter()
+            while self._drain_active \
+                    and time.perf_counter() - t0 < timeout:
+                time.sleep(0.01)
+            return {"seconds": time.perf_counter() - t0,
+                    "completed": 0, "expired": 0}
+        t0 = time.perf_counter()
+        try:
+            _faults.fire("serve.drain")
+            with self._lock:
+                start = [r for r in self._live.values() if not r.done]
+            while True:
+                self._expire_deadlines()
+                with self._lock:
+                    live = [r for r in self._live.values() if not r.done]
+                if not live:
+                    break
+                if time.perf_counter() - t0 >= timeout:
+                    for r in live:
+                        self._expire(r, reason="drain grace window")
+                    break
+                self.step()
+            # admission is closed, so requeued requests can never run
+            # again: expire them typed rather than strand them
+            with self._lock:
+                requeued = list(self._requeue)
+                self._requeue.clear()
+            for r in requeued:
+                if not r.done:
+                    self._expire(r, reason="drain grace window")
+            dur = time.perf_counter() - t0
+            completed = sum(1 for r in start if r.status == "completed")
+            expired = sum(1 for r in start
+                          if r.status == "deadline_exceeded")
+            return {"seconds": dur, "completed": completed,
+                    "expired": expired}
+        finally:
+            with self._lock:
+                self._drain_active = False
+                pending = self._pending_drain
+                self._pending_drain = None
+            if pending is not None:
+                # a preemption signal arrived while this drain ran
+                self._run_drain_and_exit(*pending)
+
+    def resume_admission(self):
+        """Reopen admission after a :meth:`drain`."""
+        with self._lock:
+            self._draining = False
+
+    def is_ready(self):
+        """Readiness (not liveness): False while draining or closed, so
+        a load balancer stops sending before :meth:`drain` finishes."""
+        with self._lock:
+            return not (self._draining or self._closed)
+
+    def _run_drain_and_exit(self, grace, exit_code, on_drained):
+        stats = self.drain(grace)
+        if on_drained is not None:
+            try:
+                on_drained(stats)
+            except Exception:
+                pass        # exiting anyway; the drain itself succeeded
+        os._exit(exit_code)
+
+    def install_drain_handler(self, grace=30.0,
+                              signals=(_signal.SIGTERM,), exit_code=0,
+                              on_drained=None):
+        """Hook preemption signals (default SIGTERM) for a graceful
+        drain: admission stops at once; in-flight requests finish or
+        expire within ``grace`` seconds; then the process exits with
+        ``exit_code``. A signal landing while an entry is in flight
+        defers the drain to the entry's boundary, so engine state is
+        never torn mid-update. ``on_drained(stats)`` runs just before
+        exit. Must be called from the main thread (CPython's signal
+        rule). Returns ``{signum: previous_handler}``."""
+        prev = {}
+
+        def _handler(signum, frame):
+            with self._lock:
+                self._draining = True
+                if self._drain_active or self._entry_depth > 0 \
+                        or self._flushing:
+                    self._pending_drain = (grace, exit_code, on_drained)
+                    return
+            self._run_drain_and_exit(grace, exit_code, on_drained)
+
+        for s in signals:
+            prev[s] = _signal.signal(s, _handler)
+        return prev

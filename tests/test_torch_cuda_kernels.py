@@ -1336,7 +1336,7 @@ def _replayed_and_eager_tick(engine, mode):
     live = [r for r in engine._live.values() if not r.done]
     engine._ensure_tick(mode)
     starts = [engine.alloc.extend(r.seq_id, 1) for r in live]
-    engine._load_scan(live, starts, mode)
+    engine._load_scan(live, starts, mode, *engine._scan_rows(live))
     state = _tick_state(engine)
     before = [t.clone() for t in state]
     engine._run_tick(mode)

@@ -10,13 +10,9 @@ single steps of both engines is recorded and compared, and so are the
 tokens, on tiny models fitted with ``fit_on_prompts`` (a random-init
 model's logits are near-ties). The reference engine is its two-op path
 (``fused_kv=False``) with the prefix cache off, the port's every path.
-
-One stated difference (ROADMAP C): admission here promises each request
-its worst-case pages, so ``_scan_fits`` never lets a scan draw a page a
-live request was promised, which in a tight pool can make the port take
-fewer ticks than the reference; the parity grid holds requests whose
-promises are drawn, and ``test_scan_keeps_owed_pages_free`` the tight
-pool.
+Both admit against prompt pages only and relieve pressure with the same
+ladder, so a tight pool scans alike too
+(``test_scan_tight_pool_matches_reference``).
 """
 
 import numpy as np
@@ -37,7 +33,8 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
                                      tiny_llama_config)
 
 GEOM = dict(max_batch=4, page_size=8, num_pages=64, chunk_block=8,
-            chunk_budget=16)
+            chunk_budget=16,
+            prefix_cache=False)
 CONFIGS = {"dense": {}, "moe": dict(moe_num_experts=4, moe_top_k=2)}
 # four requests: three prefilled by add_request, the last admitted only
 # (its chunks pin the engine to single steps first); budgets that retire
@@ -122,7 +119,7 @@ def _drive(engine, req_cls, params_cls, n, exact, kind="greedy"):
 def _both(fitted, n, exact, kind="greedy", name="dense", port_kw=None,
           ref_kw=None):
     jm, tm = _models(fitted, name)
-    je = JaxEngine(jm, fused_kv=False, prefix_cache=False,
+    je = JaxEngine(jm, fused_kv=False,
                    sampling=kind != "greedy", **(ref_kw or {}), **GEOM)
     want = _drive(je, JaxRequest, jsampling.SamplingParams, n, exact, kind)
     je.close()
@@ -196,13 +193,12 @@ def test_scan_tokens_equal_single_steps(fitted, kv_dtype):
 
 def _scan_fits_state(fitted, page, usable, cap, lens, grow):
     """Both engines with the same allocator state: requests of prompt
-    ``lens`` admitted (budget 1: admission's promise is drawn at once),
-    each then grown by ``grow`` tokens; None if either refuses."""
+    ``lens`` admitted (budget 1), each then grown by ``grow`` tokens;
+    None if either refuses."""
     jm, tm = _models(fitted)
     geom = dict(max_batch=4, page_size=page, num_pages=usable + 1,
                 max_pages_per_seq=cap, chunk_block=8, chunk_budget=16)
-    je = JaxEngine(jm, fused_kv=False, prefix_cache=False, sampling=False,
-                   **geom)
+    je = JaxEngine(jm, fused_kv=False, sampling=False, **geom)
     te = LlamaServingEngine(tm, **geom)
     prompts = _prompts(len(lens) + page, lens)
     live = ([], [])
@@ -241,20 +237,21 @@ def test_scan_fits_matches_reference(fitted, page, usable, cap):
     assert seen == {True, False}
 
 
-def test_scan_keeps_owed_pages_free(fitted):
+def test_scan_tight_pool_matches_reference(fitted):
     """A tight pool: request A retires next step (budget 2) one slot
-    before a page boundary, B was promised 4 more pages at admission and
-    none is spare. The reference scans 4 ticks, A's overshoot taking a
-    page promised to B; the port takes a single step, and every page
-    still owed stays free after every dispatch. Both serve the same
-    tokens."""
+    before a page boundary, B needs 4 more pages and none is spare. Both
+    engines admit against prompt pages only, so both scan 4 ticks, A's
+    overshoot taking a page B will need, and the ladder makes room when
+    B runs short: the chunk sequence, the tokens, the statuses and the
+    allocator (free list, tables, refcounts) are the reference's after
+    every ``decode_many`` call."""
     jm, tm = _models(fitted)
     geom = dict(max_batch=2, page_size=8, num_pages=7, chunk_block=8,
-                chunk_budget=16)
+                chunk_budget=16, prefix_cache=False)
     prompts = _prompts(9, (7, 4))
-    outs = []
-    for e, req_cls in ((JaxEngine(jm, fused_kv=False, prefix_cache=False,
-                                  sampling=False, **geom), JaxRequest),
+    runs = []
+    for e, req_cls in ((JaxEngine(jm, fused_kv=False, sampling=False,
+                                  **geom), JaxRequest),
                        (LlamaServingEngine(tm, **geom), Request)):
         reqs = [req_cls(prompts[0], 2), req_cls(prompts[1], 33)]
         for r in reqs:
@@ -263,17 +260,19 @@ def test_scan_keeps_owed_pages_free(fitted):
         assert e.alloc.free_pages == 4
         n = e._scan_fits(reqs, 4)
         calls = _record(e)
+        states = []
         while not all(r.done for r in reqs):
             e.decode_many(1, exact=False)
-            if isinstance(e, LlamaServingEngine):
-                owed = sum(e._owed_pages(r) for r in reqs if not r.done)
-                assert e.alloc.free_pages >= owed
-        outs.append((n, calls[0], [r.output_ids for r in reqs]))
+            states.append((list(e.alloc._free),
+                           {k: list(v) for k, v in e.alloc._tables.items()},
+                           dict(e.alloc._refs),
+                           [(r.status, len(r.output_ids)) for r in reqs]))
+        runs.append((n, calls, states, [r.output_ids for r in reqs]))
         if isinstance(e, JaxEngine):
             e.close()
-    (jn, jfirst, want), (tn, tfirst, got) = outs
-    assert (jn, jfirst) == (4, 4) and (tn, tfirst) == (1, 1)
-    assert got == want
+    assert runs[0][0] == runs[1][0] == 4
+    assert runs[0][1][0] == 4
+    assert runs[1] == runs[0]
 
 
 PREWARM = [(None, None), ([16, 4], [16]), ([4, 7, 16, 4], [4, 16, 4]),
@@ -288,7 +287,7 @@ def test_prewarm_returns_what_the_reference_warms(fitted, mixed, scans):
     arguments, no recipe (the reference without a compile-cache
     directory)."""
     jm, tm = _models(fitted)
-    je = JaxEngine(jm, fused_kv=False, prefix_cache=False, **GEOM)
+    je = JaxEngine(jm, fused_kv=False, **GEOM)
     je._cache_dir = None
     want = je.prewarm(mixed, scans)
     je.close()
@@ -304,7 +303,7 @@ def test_prewarm_reads_the_knob_and_env_as_reference(fitted, monkeypatch):
     for env, kw in (("auto", {}), ("1", {}), ("0", {}), ("0",
                                                          {"prewarm": True})):
         monkeypatch.setenv("PADDLE_TPU_SERVING_PREWARM", env)
-        je = JaxEngine(jm, fused_kv=False, prefix_cache=False, **kw, **GEOM)
+        je = JaxEngine(jm, fused_kv=False, **kw, **GEOM)
         te = LlamaServingEngine(tm, **kw, **GEOM)
         assert te.prewarmed == je.prewarmed
         je.close()
@@ -344,7 +343,7 @@ def test_scan_inputs_are_one_buffer_loaded_in_one_copy(fitted):
     for r in reqs:
         te.add_request(r)
     starts = [te.alloc.extend(r.seq_id, 1) for r in reqs]
-    te._load_scan(reqs, starts, "sampled")
+    te._load_scan(reqs, starts, "sampled", *te._scan_rows(reqs))
     g = te._graphs.buffers
     base = g["scan_in"].untyped_storage().data_ptr()
     for name in LlamaServingEngine._SCAN_IN:
@@ -356,7 +355,8 @@ def test_scan_inputs_are_one_buffer_loaded_in_one_copy(fitted):
     assert g["top_ks"].tolist() == [0, 3, 0, 0]
     assert g["seeds"][1].item() == reqs[1]._seed
     temps = g["temps"].clone()
-    te._load_scan(reqs[:1], starts[:1], "greedy")
+    te._load_scan(reqs[:1], starts[:1], "greedy",
+                  *te._scan_rows(reqs[:1]))
     assert g["lens"].tolist() == [starts[0] + 1, 1, 1, 1]
     assert torch.equal(g["temps"], temps) and g["tick"].item() == 0
 

@@ -17,6 +17,9 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.inference.paged_cache",
            "paddle_tpu_torch.inference.serving",
            "paddle_tpu_torch.inference.sampling",
+           "paddle_tpu_torch.inference.prefix_cache",
+           "paddle_tpu_torch.testing", "paddle_tpu_torch.testing.faults",
+           "paddle_tpu_torch.distributed.watchdog",
            "paddle_tpu_torch.ops.sampling",
            "paddle_tpu_torch.ops.ragged_paged_attention",
            "paddle_tpu_torch.ops.paged_attention",

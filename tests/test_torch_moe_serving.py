@@ -28,7 +28,8 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
 from paddle_tpu_torch.quant import WeightOnlyLinear
 
 GEOM = dict(max_batch=4, page_size=8, num_pages=64, chunk_block=8,
-            chunk_budget=16)
+            chunk_budget=16,
+            prefix_cache=False)
 CONFIGS = {"moe": dict(moe_num_experts=4, moe_top_k=2), "dense": {}}
 
 
@@ -64,7 +65,7 @@ def _prompts(seed, lens):
 def test_generate_matches_reference_engine(fitted, name, weight_dtype):
     jm, tm = _models(fitted, name)
     prompts = _prompts(7, (21, 5, 30, 12, 9))
-    je = JaxEngine(jm, fused_kv=False, prefix_cache=False, sampling=False,
+    je = JaxEngine(jm, fused_kv=False, sampling=False,
                    weight_dtype=weight_dtype, **GEOM)
     want = je.generate(prompts, max_new_tokens=8)
     je.close()

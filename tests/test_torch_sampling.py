@@ -43,7 +43,8 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
 from paddle_tpu_torch.ops import sampling as S
 
 GEOM = dict(max_batch=4, page_size=8, num_pages=48, chunk_block=8,
-            chunk_budget=16)
+            chunk_budget=16,
+            prefix_cache=False)
 LLAMA3_V = 128256
 SEEDS = (0, 123, 2 ** 31 - 1)
 
@@ -520,7 +521,7 @@ def test_sampled_tokens_match_reference_engine(models):
             engine.step()
         return [r.output_ids for r in rs]
 
-    je = JaxEngine(jm, fused_kv=False, prefix_cache=False, **geom)
+    je = JaxEngine(jm, fused_kv=False, **geom)
     want = serve(je, reqs(JaxRequest, jsampling.SamplingParams))
     je.close()
     got = serve(LlamaServingEngine(tm, **geom), reqs(Request, SamplingParams))

@@ -4,9 +4,11 @@ A tiny model is fitted first (``quant.quality.fit_on_prompts``): a
 random-init model's logits are near-ties, and greedy matching on it
 would measure tie-breaking noise. Its weights are carried into the port
 with ``load_numpy_state``. The reference engine is the two-op path
-(``fused_kv=False``) with the prefix cache and sampling off: the greedy
-tokens of both engines must be identical for ragged prompts longer than
-one ``chunk_budget``. With ``kv_dtype="int8"`` the oracle is the
+(``fused_kv=False``) with the prefix cache and sampling off, and so is
+the port's where the two are compared (``GEOM``; the cache's own parity
+tests are ``tests/test_torch_prefix_cache.py``): the greedy tokens of
+both engines must be identical for ragged prompts longer than one
+``chunk_budget``. With ``kv_dtype="int8"`` the oracle is the
 reference engine's int8 two-op path. Across the port's own three paths
 (rope-fused, ``fused_rope=False``, ``fused_kv=False``) the tokens and
 the pools (and scale sidecars) must be bitwise equal.
@@ -34,7 +36,8 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
                                      tiny_llama_config)
 
 GEOM = dict(max_batch=4, page_size=8, num_pages=64, chunk_block=8,
-            chunk_budget=16)
+            chunk_budget=16,
+            prefix_cache=False)
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +62,7 @@ def _prompts(seed, lens):
 def test_generate_matches_reference_engine(models, lens, new):
     jm, tm = models
     prompts = _prompts(len(lens), lens)
-    je = JaxEngine(jm, fused_kv=False, prefix_cache=False, sampling=False,
+    je = JaxEngine(jm, fused_kv=False, sampling=False,
                    **GEOM)
     want = je.generate(prompts, max_new_tokens=new)
     je.close()
@@ -77,20 +80,20 @@ def test_schedule_matches_reference(models):
     """Both schedulers pack the same rows for the same live set."""
     jm, tm = models
     prompts = _prompts(3, (30, 3, 19))
-    je = JaxEngine(jm, fused_kv=False, prefix_cache=False, sampling=False,
-                   **GEOM)
+    je = JaxEngine(jm, fused_kv=False, sampling=False, **GEOM)
     te = LlamaServingEngine(tm, **GEOM)
     for p in prompts:
         je._admit(JaxRequest(p, 4))
         te._admit(Request(p, 4))
     for _ in range(3):
         with je._lock:
-            jrows, _ = je._schedule_rows()
-        trows = te._schedule_rows()
+            jrows, jcow = je._schedule_rows()
+        with te._lock:
+            trows, tcow = te._schedule_rows()
         strip = [[row[1:] for row in rows] for rows in (jrows, trows)]
-        assert strip[0] == strip[1]
-        je._dispatch_rows(jrows, [])
-        te._dispatch_rows(trows)
+        assert strip[0] == strip[1] and tcow == jcow == []
+        je._dispatch_rows(jrows, jcow)
+        te._dispatch_rows(trows, tcow)
     je.close()
 
 
@@ -126,17 +129,33 @@ def test_add_request_prefills_to_first_token(models):
 
 
 def test_admission_and_unported_options(models):
-    _, tm = models
-    te = LlamaServingEngine(tm, max_batch=2, page_size=8, num_pages=9)
-    te._admit(Request([1] * 30, max_new_tokens=10))     # 5 pages
-    with pytest.raises(AdmissionError, match="KV page pool exhausted"):
-        te._admit(Request([1] * 20, max_new_tokens=10))  # 4 more: 9 > 8
-    with pytest.raises(ValueError, match="pages per sequence"):
-        te._admit(Request([1] * 100, max_new_tokens=10))
-    # sampled requests are served since A1: the port's own spec is taken
-    r = Request([1, 2], sampling=TSamplingParams(temperature=0.7))
-    assert te._admit(r) is not None and r._seed is not None
-    for kw in ({"prefix_cache": True}, {"spec_k": 2}, {"kv_tier": True}):
+    """Admission reserves prompt pages only, as the reference's: what
+    fits, what is shed (and the error's fields), what can never fit."""
+    jm, tm = models
+    geom = dict(max_batch=2, page_size=8, num_pages=9)
+    errors = []
+    for e, req_cls, sp_cls in (
+            (JaxEngine(jm, fused_kv=False, **geom), JaxRequest,
+             SamplingParams),
+            (LlamaServingEngine(tm, **geom), Request, TSamplingParams)):
+        e._admit(req_cls([1] * 30, max_new_tokens=10))     # 4 pages
+        # each package's own AdmissionError, a MemoryError
+        with pytest.raises(MemoryError, match="KV page pool exhausted") \
+                as ei:
+            e._admit(req_cls([2] * 40, max_new_tokens=10))  # 5 more: > 8
+        err = ei.value
+        errors.append((err.reason, err.live, err.max_batch, err.free_pages,
+                       err.num_pages, err.retries, err.retry_after))
+        with pytest.raises(ValueError, match="KV capacity"):
+            e._admit(req_cls([1] * 100, max_new_tokens=10))
+        # sampled requests are served since A1
+        r = req_cls([1, 2], sampling=sp_cls(temperature=0.7))
+        assert e._admit(r) is not None and r._seed is not None
+        assert e.alloc.free_pages == 3
+        e.close()
+    assert errors[0] == errors[1]
+    assert isinstance(ei.value, AdmissionError)
+    for kw in ({"spec_k": 2}, {"kv_tier": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LlamaServingEngine(tm, **kw)
 
@@ -162,8 +181,8 @@ def test_eos_and_stop_tokens(models):
 def test_int8_kv_matches_reference_engine(models, lens, new):
     jm, tm = models
     prompts = _prompts(len(lens) + 100, lens)
-    je = JaxEngine(jm, kv_dtype="int8", fused_kv=False, prefix_cache=False,
-                   sampling=False, **GEOM)
+    je = JaxEngine(jm, kv_dtype="int8", fused_kv=False, sampling=False,
+                   **GEOM)
     want = je.generate(prompts, max_new_tokens=new)
     je.close()
     te = LlamaServingEngine(tm, kv_dtype="int8", **GEOM)
@@ -219,7 +238,7 @@ def test_env_knobs_parse_as_reference(models, monkeypatch, env, kw):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
         monkeypatch.setenv(name, value)
-    je = JaxEngine(jm, prefix_cache=False, sampling=False, **kw, **GEOM)
+    je = JaxEngine(jm, sampling=False, **kw, **GEOM)
     te = LlamaServingEngine(tm, **kw, **GEOM)
     assert (te.kv_quant, te.fused_kv, te.fused_rope) == (
         je.kv_quant, je.fused_kv, je.fused_rope)
@@ -250,11 +269,9 @@ def test_engine_takes_the_reference_signature(models):
     want = inspect.signature(JaxEngine.__init__).parameters
     got = inspect.signature(LlamaServingEngine.__init__).parameters
     assert list(got) == list(want)
-    # prefix_cache defaults off until the prefix cache is ported (A4)
-    assert [(n, p.default) for n, p in got.items() if n != "prefix_cache"] \
-        == [(n, p.default) for n, p in want.items() if n != "prefix_cache"]
-    assert (want["prefix_cache"].default, got["prefix_cache"].default) \
-        == (True, False)
+    assert [(n, p.default) for n, p in got.items()] \
+        == [(n, p.default) for n, p in want.items()]
+    assert got["prefix_cache"].default is True
     _, tm = models
     # positional as the reference takes them: the ninth is burst, the
     # alias of decode_ticks
@@ -272,16 +289,13 @@ def test_engine_sampling_switch_reads_the_env_as_reference(models,
     jm, tm = models
     for value, on in (("0", False), ("off", False), ("1", True)):
         monkeypatch.setenv("PADDLE_TPU_SAMPLING", value)
-        je = JaxEngine(jm, prefix_cache=False, **GEOM)
+        je = JaxEngine(jm, **GEOM)
         assert je.sample_enabled == on
         je.close()
         assert LlamaServingEngine(tm, **GEOM).sample_enabled == on
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"prefix_cache_pages": 4}, "A4"),
-    ({"admit_retries": 2}, "A5"), ({"admit_backoff": 0.01}, "A5"),
-    ({"stuck_factor": 4.0}, "A5"), ({"stuck_min_timeout": 5.0}, "A5"),
     ({"spec_ngram": 4}, "A6"), ({"drafter_factory": object}, "A6"),
     ({"kv_tier_bytes": 1 << 20}, "A7")])
 def test_engine_unported_knobs_raise(models, kw, item):
@@ -290,26 +304,65 @@ def test_engine_unported_knobs_raise(models, kw, item):
         LlamaServingEngine(tm, **kw, **GEOM)
 
 
+@pytest.mark.parametrize("kw", [
+    {"prefix_cache": True}, {"prefix_cache_pages": 4},
+    {"admit_retries": 2}, {"admit_backoff": 0.01}, {"stuck_factor": 4.0},
+    {"stuck_min_timeout": 5.0}])
+def test_engine_lifecycle_knobs_work(models, kw):
+    """The prefix cache's and the lifecycle's knobs are taken and stored
+    as the reference stores them."""
+    jm, tm = models
+    geom = {**GEOM, "prefix_cache": True, **kw}
+    je = JaxEngine(jm, fused_kv=False, sampling=False, **geom)
+    te = LlamaServingEngine(tm, **geom)
+    for e in (je, te):
+        assert e.prefix is not None and e.prefix.alloc is e.alloc
+    assert te.prefix.max_pages == je.prefix.max_pages \
+        == kw.get("prefix_cache_pages")
+    names = ("admit_retries", "admit_backoff", "stuck_factor",
+             "stuck_min_timeout")
+    assert [getattr(te, n) for n in names] == [getattr(je, n) for n in names]
+    je.close()
+    te.close()
+
+
+@pytest.mark.parametrize("kw", [
+    {"deadline": 5.0}, {"token_budget": 0.1}, {"priority": 2},
+    {"retry_budget": 0}])
+def test_request_lifecycle_knobs_work(models, kw):
+    """Deadlines, priorities and retry budgets are taken as the
+    reference takes them; admission stamps the same expiry."""
+    jm, tm = models
+    names = ("deadline", "token_budget", "priority", "retry_budget",
+             "error", "trimmed", "_cancel_requested", "_cached_tokens")
+    got = []
+    for e, req_cls in ((JaxEngine(jm, fused_kv=False, sampling=False,
+                                  **GEOM), JaxRequest),
+                       (LlamaServingEngine(tm, **GEOM), Request)):
+        r = req_cls([1, 2, 3], max_new_tokens=4, **kw)
+        assert r._expires_at is None
+        e._admit(r)
+        ttl = None if r._expires_at is None else round(
+            r._expires_at - r._t_admit, 9)
+        got.append([getattr(r, n) for n in names] + [ttl, r.status])
+        e.close()
+    assert got[0] == got[1]
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"deadline": 5.0}, "A5"), ({"token_budget": 0.1}, "A5"),
-    ({"priority": 2}, "A5"), ({"retry_budget": 0}, "A5"),
     ({"sampling": SamplingParams(temperature=0.5)}, "A1"),
     ({"sampling": SamplingParams(logit_bias={1: 2.0})}, "A1"),
     ({"sampling": SamplingParams(constraint=lambda p, o: None)}, "A1")])
 def test_request_unported_knobs_raise(kw, item):
     JaxRequest([1, 2], **kw)          # the reference takes each of them
-    if item == "A1":
-        # sampling is ported: the port takes its own SamplingParams of the
-        # same fields and, as the reference refuses anything but its own
-        # class, refuses the reference's
-        sp = kw["sampling"]
-        mine = TSamplingParams(sp.temperature, sp.top_p, sp.top_k, sp.seed,
-                               sp.stop, sp.logit_bias, sp.constraint)
-        assert Request([1, 2], sampling=mine).sampling is mine
-        with pytest.raises(ValueError, match="SamplingParams"):
-            Request([1, 2], **kw)
-        return
-    with pytest.raises(NotImplementedError, match=item):
+    # sampling is ported (A1): the port takes its own SamplingParams of
+    # the same fields and, as the reference refuses anything but its own
+    # class, refuses the reference's
+    sp = kw["sampling"]
+    mine = TSamplingParams(sp.temperature, sp.top_p, sp.top_k, sp.seed,
+                           sp.stop, sp.logit_bias, sp.constraint)
+    assert Request([1, 2], sampling=mine).sampling is mine
+    with pytest.raises(ValueError, match="SamplingParams"):
         Request([1, 2], **kw)
 
 
@@ -347,7 +400,7 @@ def test_on_token_sees_every_token_in_order(models):
 def test_fleet_env_knobs_raise(models, monkeypatch, env, value):
     jm, tm = models
     monkeypatch.setenv(env, value)
-    je = JaxEngine(jm, prefix_cache=False, sampling=False, **GEOM)
+    je = JaxEngine(jm, sampling=False, **GEOM)
     assert je.spec_k > 0 or je.tier is not None   # the reference reads it
     je.close()
     with pytest.raises(NotImplementedError, match=env):

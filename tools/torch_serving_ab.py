@@ -3,21 +3,33 @@
 one card, in alternating order.
 
     python3 tools/torch_serving_ab.py TREE [TREE ...] [--rounds N]
-        [--reps K] [--model llama3-8b|mixtral-int8] [--out PATH]
+        [--reps K] [--model llama3-8b|mixtral-int8]
+        [--engines E[,E...]] [--out PATH]
 
 Each TREE is the root of a checkout holding ``chip_smoke.py`` and
 ``paddle_tpu_torch/``. A round runs the trees in the given order and then
 in reverse (A B B A for two trees), each in a process of its own that
 imports that tree's code: it builds the tree's ``chip_smoke.py`` phase 4
-workload (``serving_workload``: Llama-3-8B at full width and depth, random
-bf16 weights from a seeded generator on the card, ``max_batch=8``,
-``page_size=16``) or, with ``--model mixtral-int8``, phase 6's
-(``mixtral_int8``: Mixtral-8x7B at full width and depth with int8 weights,
-the same engine geometry), serves the 8 prompts of 64-512 tokens once to warm up,
-then ``--reps`` times more, 32 new tokens each, and reports the tokens/s
-of each pass (new tokens over the wall time of ``generate``, synchronised,
-as phase 4 reads it). Prints one JSON object with every reading, by tree
-and in run order; ``--out`` also writes it to a file. Needs one card.
+model (``llama_model``: Llama-3-8B at full width and depth, random bf16
+weights from a seeded generator on the card) or, with ``--model
+mixtral-int8``, phase 6's (``mixtral_int8``: Mixtral-8x7B at full width
+and depth with int8 weights), and behind it, one after another, each
+engine of ``--engines`` (default ``bf16-graphed``): ``max_batch=8``,
+``page_size=16``, the prefix cache off, ``bf16`` or ``int8kv`` (phase 8's
+int8 KV) pools, ``graphed`` (the default decode scans) or ``single``
+(``decode_ticks=1``). Each engine is warmed up as the smoke warms it,
+serves the 8 prompts of 64-512 tokens once more, then ``--reps`` times,
+32 new tokens each, and reports the tokens/s of each pass (new tokens
+over the wall time of ``generate``, synchronised, as phase 4 reads it).
+Then one more pass, timed apart and never counted in tokens/s, reads the
+mean mixed and decode-only dispatch ms and graphed tick ms (synchronised
+around each, as phase 4 reads them) and the host ms that each of the request lifecycle's
+steps took, summed over the pass, where the tree has them
+(``_expire_deadlines``, ``_pump_requeue``, ``_relieve_pressure``,
+``_flush_deferred``, ``_arm_watchdog``, ``_disarm_watchdog``), with the
+pass's count of mixed dispatches and scans. Prints one JSON object with
+every reading, by tree and in run order; ``--out`` also writes it to a
+file. Needs one card.
 """
 
 import argparse
@@ -28,31 +40,100 @@ import sys
 import time
 
 
-def child(reps, model):
+ENGINES = {"bf16-graphed": (None, None), "bf16-single": (None, 1),
+           "int8kv-graphed": ("int8", None), "int8kv-single": ("int8", 1)}
+LIFECYCLE = ("_expire_deadlines", "_pump_requeue", "_relieve_pressure",
+             "_flush_deferred", "_arm_watchdog", "_disarm_watchdog")
+
+
+def instrumented(engine, run):
+    """One pass of ``run`` with the engine's mixed dispatches and scans
+    timed (synchronised) and its lifecycle steps' host time summed."""
+    import torch
+    spent = {k: 0.0 for k in LIFECYCLE if hasattr(engine, k)}
+    times, ticks = {"mixed": [], "decode": []}, []
+    dispatch, scan = engine._dispatch_rows, engine._decode_scan
+
+    def timer(name, fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return wrapped
+
+    def timed_dispatch(rows, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dispatch(rows, *a)
+        torch.cuda.synchronize()
+        mixed = any(n > 1 or not dec for _, _, _, n, _, dec in rows)
+        times["mixed" if mixed else "decode"].append(
+            time.perf_counter() - t0)
+        return out
+
+    def timed_scan(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = scan(n)
+        torch.cuda.synchronize()
+        if out:
+            ticks.append((time.perf_counter() - t0, n))
+        return out
+    patches = {k: timer(k, getattr(engine, k)) for k in spent}
+    patches.update(_dispatch_rows=timed_dispatch, _decode_scan=timed_scan)
+    for k, v in patches.items():
+        setattr(engine, k, v)
+    try:
+        run()
+    finally:
+        for k in patches:
+            delattr(engine, k)
+    n_ticks = sum(n for _, n in ticks)
+    mean_ms = {k: 1e3 * sum(v) / max(len(v), 1) for k, v in times.items()}
+    return {"mixed_dispatch_ms": mean_ms["mixed"],
+            "decode_dispatch_ms": mean_ms["decode"],
+            "tick_ms": 1e3 * sum(t for t, _ in ticks) / max(n_ticks, 1),
+            "dispatches": sum(map(len, times.values())),
+            "scans": len(ticks),
+            "lifecycle_host_ms": {k: 1e3 * v for k, v in spent.items()}}
+
+
+def child(reps, model, engines):
     """One process's readings for the tree it runs in: a JSON line."""
     sys.path.insert(0, os.getcwd())
     import torch
     import chip_smoke as cs
-    from paddle_tpu_torch.inference import LlamaServingEngine, Request
+    from paddle_tpu_torch.inference import Request
     NEW = cs.NEW
     dev = torch.device("cuda")
     if model == "mixtral-int8":
-        moe = cs.mixtral_int8(dev)
-        engine = LlamaServingEngine(moe, max_batch=8, page_size=16,
-                                    weight_dtype="int8")
-        prompts = cs.serving_prompts(moe.config.vocab_size)
+        net = cs.mixtral_int8(dev)
+        weight_dtype = "int8"
     else:
-        _, _, engine, prompts = cs.serving_workload(dev)
+        _, net = cs.llama_model(dev)
+        weight_dtype = None
+    prompts = cs.serving_prompts(net.config.vocab_size)
+    out = {"tokens_per_s": {}, "pass": {}}
+    for name in engines:
+        kv_dtype, ticks = ENGINES[name]
+        engine = cs.serving_engine(net, kv_dtype, 16, weight_dtype, ticks)
+        cs.warm_up(engine, prompts)
 
-    def run():
-        reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.generate(reqs)
-        torch.cuda.synchronize()
-        return len(prompts) * NEW / (time.perf_counter() - t0)
-    run()                                        # warm-up
-    print(json.dumps({"tokens_per_s": [run() for _ in range(reps)]}))
+        def run():
+            reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.generate(reqs)
+            torch.cuda.synchronize()
+            return len(prompts) * NEW / (time.perf_counter() - t0)
+        run()                                        # warm-up
+        out["tokens_per_s"][name] = [run() for _ in range(reps)]
+        out["pass"][name] = instrumented(engine, run)
+        del engine
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
 
 
 def main():
@@ -62,11 +143,17 @@ def main():
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--model", choices=("llama3-8b", "mixtral-int8"),
                     default="llama3-8b")
+    ap.add_argument("--engines", default="bf16-graphed",
+                    help=f"comma-separated, of {sorted(ENGINES)}")
     ap.add_argument("--out", default="")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    engines = args.engines.split(",")
+    for name in engines:
+        if name not in ENGINES:
+            ap.error(f"unknown engine {name!r}; one of {sorted(ENGINES)}")
     if args.child:
-        child(args.reps, args.model)
+        child(args.reps, args.model, engines)
         return
     if not args.trees:
         ap.error("name at least one tree")
@@ -76,7 +163,8 @@ def main():
     for tree in order:
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", "--reps",
-             str(args.reps), "--model", args.model], cwd=tree,
+             str(args.reps), "--model", args.model, "--engines",
+             args.engines], cwd=tree,
             capture_output=True, text=True)
         if res.returncode != 0:
             sys.stderr.write(res.stdout + res.stderr)
@@ -84,8 +172,9 @@ def main():
         reading = json.loads(res.stdout.strip().splitlines()[-1])
         runs.append({"tree": tree, **reading})
         print(f"{tree}: tokens_per_s={reading['tokens_per_s']}", flush=True)
-    by_tree = {t: [x for r in runs if r["tree"] == t
-                   for x in r["tokens_per_s"]] for t in trees}
+    by_tree = {t: {e: [x for r in runs if r["tree"] == t
+                       for x in r["tokens_per_s"][e]] for e in engines}
+               for t in trees}
     text = json.dumps({"runs": runs, "tokens_per_s_by_tree": by_tree},
                       indent=1)
     print(text)

@@ -139,10 +139,10 @@ def dispatch_times(engine, run):
         times["scan"].append((time.perf_counter() - t0, n))
         return out
 
-    def timed(rows):
+    def timed(rows, cow=()):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = inner(rows)
+        out = inner(rows, cow)
         torch.cuda.synchronize()
         mixed = any(n > 1 or not dec for _, _, _, n, _, dec in rows)
         times["mixed" if mixed else "decode"].append(
