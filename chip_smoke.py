@@ -263,6 +263,40 @@ package is not beside it, and when any phase fails:
    (``LIFECYCLE_END``; the deadline's and the thread-cancel's by status
    alone), tokens at the floors, the allocator consistent, launches as
    14a;
+15. (run after 14b) speculative decoding: phase 13's model (Llama-3-8B at
+   full width and depth, bf16), ``max_batch=8``, page 16, phase 4's pool;
+   8 prompts of 64-512 tokens, each a seeded 16-token block repeated (the
+   prompt-lookup traffic the n-gram drafter exists for), 32 new tokens
+   each, greedy; four runs: no speculation graphed, no speculation with
+   ``decode_ticks=1``, ``spec_k=4`` with the n-gram drafter, ``spec_k=4``
+   with an oracle drafter that proposes the single-step run's tokens,
+   then its own last pass's tokens until 90% of its drafts are accepted
+   (at most 6 passes: on random weights the card's rounding at another
+   GEMM M flips near-ties, after which a request's first proposals are
+   stale). Each: every #12 launch counted (2 a layer a dispatch or tick: a verify
+   row is a multi-token decode row of the same call), no plain version
+   called and nothing sorted, the drafts scheduled equal to
+   ``spec_stats()``'s proposed count and accepted at most proposed, the
+   allocator consistent (no double free, no table left), every token at
+   phase 4's floors against the model's own plain forward; printed:
+   dispatches, verify dispatches and rows, tokens per verify row,
+   acceptance, mixed dispatch ms, tokens/s and the share of tokens equal
+   to the single-step run's;
+15b. phase 11's graphed rows (greedy, temperature / top-p, temperature /
+   top-k, a forcing bias) over phase 4's prompts and model with
+   ``spec_k=4``, an oracle drafter proposing a non-speculative run's
+   tokens at the same seeds and the n-gram drafter: phase 15's holds,
+   one ``gumbel_argmax`` launch and one sort per dispatch that holds a
+   sampled row, over every packed token (``[T, V]``) on a chunk-shaped
+   dispatch, the forced row obeying, the sampled tokens replayed through
+   the plain forward and sampler at the same (seed, position) at phase
+   4's floor;
+15c. (run after 13c) phase 13c's 4-layer cut through the three attention
+   paths, both KV dtypes, ``spec_k=3`` with a garbage drafter (every
+   draft the model does not emit rejected, its verify row rolled back)
+   over phase 15's prompts: phase 15's holds on each path, and tokens,
+   pools, sidecars and ``spec_stats()`` bit for bit equal across the
+   paths;
 4c. (run last) a capture that fails (a host read under capture) raises,
    leaves the current stream as it was, and the next capture replays
    right; no phase catches a capture's error, so one ends the run;
@@ -4272,6 +4306,387 @@ def serve_lifecycle(dev, model):
     return launches["fused_rope"]
 
 
+# ----------------------------------------------------------------------
+# phases 15-15c: speculative decoding
+# ----------------------------------------------------------------------
+
+SPEC_K = 4          # phases 15, 15b: the most drafts a verify row carries
+SPEC_PATHS_K = 3    # phase 15c
+SPEC_BLOCK = 16     # phase 15's prompts: a seeded 16-token block repeated
+# phase 15: the oracle re-proposes its last pass's tokens until it has
+# this acceptance, at most this many times
+SPEC_ORACLE_GOAL, SPEC_ORACLE_PASSES = 0.9, 6
+
+
+def spec_prompts(vocab):
+    """Phase 15's traffic: 8 prompts of 64, 128, ..., 512 tokens, each a
+    seeded 16-token block of its own repeated (the prompt-lookup traffic
+    the n-gram drafter exists for: code, few-shot scaffolding)."""
+    import numpy as np
+    rng = np.random.RandomState(15)
+    lens = np.linspace(64, 512, 8).astype(int)
+    return [rng.randint(0, vocab, SPEC_BLOCK).tolist() * (n // SPEC_BLOCK)
+            for n in lens]
+
+
+class OracleDrafter:
+    """Proposes a given run's tokens for the prompt it drafts (``wants``:
+    prompt tuple -> tokens)."""
+
+    def __init__(self, wants):
+        self.wants = wants
+        self.want, self.n = (), 0
+
+    def sync(self, prompt_ids, output_ids):
+        self.want = self.wants[tuple(int(t) for t in prompt_ids)]
+        self.n = len(output_ids)
+
+    def propose(self, k):
+        return list(self.want[self.n:self.n + int(k)])
+
+
+class GarbageDrafter:
+    """Proposes one token, ``k`` times, whatever the history."""
+
+    def __init__(self, bad):
+        self.bad = bad
+
+    def sync(self, prompt_ids, output_ids):
+        pass
+
+    def propose(self, k):
+        return [self.bad] * int(k)
+
+
+def oracle_of(prompts, outs):
+    wants = {tuple(p): list(o) for p, o in zip(prompts, outs)}
+    return lambda: OracleDrafter(wants)
+
+
+@contextlib.contextmanager
+def spec_watch(engine):
+    """Count ``engine``'s verify dispatches, verify rows and the drafts
+    scheduled on them; yields ``{"verify_dispatches", "verify_rows",
+    "drafts"}``."""
+    seen = {"verify_dispatches": 0, "verify_rows": 0, "drafts": 0}
+    dispatch = engine._dispatch_rows
+
+    def on_dispatch(rows, cow=()):
+        drafts = [n - 1 for _, _, _, n, _, dec in rows if dec and n > 1]
+        seen["verify_dispatches"] += bool(drafts)
+        seen["verify_rows"] += len(drafts)
+        seen["drafts"] += sum(drafts)
+        return dispatch(rows, cow)
+    with instance_attrs(engine, _dispatch_rows=on_dispatch):
+        yield seen
+
+
+def spec_run(engine, reqs, label, key="fused_rope", per_layer=2,
+             sampled=False):
+    """One run of ``reqs`` through ``engine.generate``: every launch of
+    ``key`` counted (``per_layer`` a layer a dispatch or tick), no plain
+    version called (and, all greedy, nothing sorted), the drafts
+    scheduled equal to ``spec_stats()``'s proposed ones, accepted at most
+    proposed, the allocator consistent at the end. Returns the run's
+    readings."""
+    import torch
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops import sampling as SM
+    layers = engine.model.config.num_hidden_layers
+    s0 = engine.spec_stats()
+    plain = serving_plain_versions() + [(SM, "gumbel_argmax_ref")] \
+        + ([] if sampled else [(torch, "sort")])
+    torch.cuda.synchronize()
+    with count_calls(plain) as plain_calls, \
+            timed_dispatches(engine) as times, spec_watch(engine) as seen:
+        reset_launches()
+        t0 = time.perf_counter()
+        outs = engine.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(rpa.launches)
+        gumbel = SM.launches["gumbel_argmax"]
+    s = engine.spec_stats()
+    proposed = s["proposed"] - s0["proposed"]
+    accepted = s["accepted"] - s0["accepted"]
+    if plain_calls:
+        fail(f"{label}: plain versions (or a sort) ran on the card: "
+             f"{sorted(set(plain_calls))}")
+    ticks = sum(times["ticks"].values())
+    mixed = len(times["mixed"]) + len(times["decode"])
+    want = {k: 0 for k in launches}
+    want[key] = per_layer * layers * (mixed + ticks)
+    if launches != want:
+        fail(f"{label}: kernel launches {launches} != {want} ({per_layer} "
+             f"x layers x (dispatches + ticks) of {key})")
+    if proposed != seen["drafts"] or not 0 <= accepted <= proposed:
+        fail(f"{label}: spec_stats proposed {proposed} accepted {accepted}"
+             f" against {seen['drafts']} drafts scheduled")
+    if any(len(o) != NEW for o in outs) \
+            or any(r.status != "completed" for r in reqs):
+        fail(f"{label}: statuses {[r.status for r in reqs]}, lengths "
+             f"{[len(o) for o in outs]}")
+    hold_allocator(label, engine)
+    rows = seen["verify_rows"]
+    return dict(outs=[list(o) for o in outs], wall=wall, mixed=mixed,
+                ticks=ticks, times=times, proposed=proposed,
+                accepted=accepted, verify=seen["verify_dispatches"],
+                rows=rows, per_row=(rows + accepted) / rows if rows else 0,
+                launches=launches[key], gumbel=gumbel, reqs=reqs)
+
+
+def spec_line(res, ref_outs):
+    """What phase 15 prints of one run: dispatches, verify dispatches,
+    tokens per verify row, acceptance, mixed dispatch ms, tokens/s and
+    the share of tokens equal to ``ref_outs``."""
+    n_tok = sum(map(len, res["outs"]))
+    eq = sum(a == b for o, ob in zip(res["outs"], ref_outs)
+             for a, b in zip(o, ob))
+    times = res["times"]
+    mixed_ms = 1e3 * sum(times["mixed"]) / max(len(times["mixed"]), 1)
+    rate = res["accepted"] / res["proposed"] if res["proposed"] else 0.0
+    return (f"dispatches={res['mixed']} ticks={res['ticks']} "
+            f"verify_dispatches={res['verify']} verify_rows={res['rows']} "
+            f"proposed={res['proposed']} accepted={res['accepted']} "
+            f"acceptance={rate:.4f} tokens_per_verify_row="
+            f"{res['per_row']:.3f} mixed_dispatch_ms={mixed_ms:.2f} "
+            f"(n={len(times['mixed'])}) wall_s={res['wall']:.3f} "
+            f"tokens_per_s={n_tok / res['wall']:.1f} "
+            f"equal_to_single_steps={eq}/{n_tok}")
+
+
+def serve_spec(dev, model):
+    """Phase 15: Llama-3-8B at full width and depth, bf16, ``max_batch=8``,
+    page 16, phase 4's pool, phase 15's prompts (:func:`spec_prompts`),
+    32 new tokens each, greedy, four runs on one model: no speculation
+    graphed, no speculation with ``decode_ticks=1``, ``spec_k=4`` with the
+    n-gram drafter and ``spec_k=4`` with an oracle drafter that proposes
+    the single-step run's tokens, then proposes its own last pass's tokens
+    until SPEC_ORACLE_GOAL of its drafts are accepted (at most
+    SPEC_ORACLE_PASSES passes). Held on every run
+    (:func:`spec_run`): #12's launches, no plain call, the drafts
+    scheduled equal to the proposed count, accepted at most proposed, the
+    allocator consistent, the tokens at phase 4's floors against the
+    model's own plain forward; the oracle's run verifies (the n-gram
+    drafter proposes only once the history repeats, which random weights
+    may never do: then the engine scans as without speculation). Returns
+    the launches of #12."""
+    import torch
+    from paddle_tpu_torch.inference import Request
+    prompts = spec_prompts(model.config.vocab_size)
+    runs, launches = {}, 0
+
+    def run(engine, name):
+        nonlocal launches
+        res = spec_run(engine, [Request(p, max_new_tokens=NEW)
+                                for p in prompts], f"spec {name}")
+        res["floor"] = hold_floor(f"spec {name}", token_gaps(
+            model, dev, prompts, res["outs"]))
+        runs[name] = res
+        launches += res["launches"]
+        return res
+
+    for name, kw in (("graphed", {}), ("single", dict(decode_ticks=1)),
+                     ("ngram", dict(spec_k=SPEC_K))):
+        engine = serving_engine(model, **kw)
+        warm_up(engine, prompts)
+        run(engine, name)
+        del engine
+        torch.cuda.empty_cache()
+    engine = serving_engine(model, spec_k=SPEC_K, drafter_factory=oracle_of(
+        prompts, runs["single"]["outs"]))
+    warm_up(engine, prompts)
+    res = run(engine, "oracle")
+    if not res["verify"]:
+        fail("spec oracle: no verify dispatch")
+    # after the first near-tie that the card's rounding at another M
+    # flips, an oracle's proposals for that request are stale: proposing
+    # each pass's own tokens again converges on the engine's own
+    for k in range(1, SPEC_ORACLE_PASSES + 1):
+        if res["accepted"] >= SPEC_ORACLE_GOAL * res["proposed"]:
+            break
+        engine._drafter_factory = oracle_of(prompts, res["outs"])
+        res = run(engine, f"oracle pass {k}")
+    del engine
+    torch.cuda.empty_cache()
+    print(f"spec: requests={len(prompts)} prompt_tokens="
+          f"{sum(map(len, prompts))} new_tokens={len(prompts) * NEW} "
+          f"spec_k={SPEC_K}", flush=True)
+    for name, res in runs.items():
+        print(f"spec {name}: {spec_line(res, runs['single']['outs'])} "
+              f"launches={res['launches']} {res['floor']}", flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def gumbel_rows(engine):
+    """Record, for each of ``engine``'s mixed dispatches, its packed
+    tokens, rows, whether it is chunk-shaped, and the rows of each
+    ``gumbel_argmax`` call in it; yields the list."""
+    from paddle_tpu_torch.inference import sampling as S
+    seen, inside = [], []
+    real, dispatch = S.gumbel_argmax, engine._dispatch_rows
+
+    def counted(scores, *a, **k):
+        if inside:
+            seen[-1][3].append(scores.shape[0])
+        return real(scores, *a, **k)
+
+    def on_dispatch(rows, cow=()):
+        chunk = any(n > 1 or not dec for _, _, _, n, _, dec in rows)
+        seen.append((sum(n for _, _, _, n, _, _ in rows), len(rows), chunk,
+                     []))
+        inside.append(1)
+        try:
+            return dispatch(rows, cow)
+        finally:
+            inside.pop()
+    S.gumbel_argmax = counted
+    try:
+        with instance_attrs(engine, _dispatch_rows=on_dispatch):
+            yield seen
+    finally:
+        S.gumbel_argmax = real
+
+
+def serve_spec_sampled(dev, model):
+    """Phase 15b: phase 11's graphed rows (greedy, temperature / top-p,
+    temperature / top-k, a forcing bias) over phase 4's prompts and
+    model, ``spec_k=4``, with an oracle drafter proposing a
+    non-speculative run's tokens (the same seeds, single steps) and with
+    the n-gram drafter. Held: :func:`spec_run`'s holds; one
+    ``gumbel_argmax`` launch and one sort per dispatch that holds a
+    sampled row, over every packed token (``[T, V]``) on a chunk-shaped
+    dispatch and over the rows (``[R, V]``) on a decode-only one, plus one
+    a sampled tick; the forced row obeying; the sampled tokens replayed
+    through the plain forward and sampler at the same (seed, position)
+    at phase 4's floor. Returns (the launches of #12, of
+    ``gumbel_argmax``)."""
+    import torch
+    prompts = serving_prompts(model.config.vocab_size)
+    kinds = tuple(None if k == "constrained" else k for k in SAMPLED_ROWS)
+    engine = serving_engine(model, decode_ticks=1)
+    warm_up(engine, prompts)
+    base = spec_run(engine, sampled_requests(prompts, kinds),
+                    "spec sampled, no speculation", sampled=True)
+    del engine
+    launches, glaunches = base["launches"], base["gumbel"]
+    for name, factory in (("oracle", oracle_of(prompts, base["outs"])),
+                          ("ngram", None)):
+        label = f"spec sampled {name}"
+        engine = serving_engine(model, spec_k=SPEC_K,
+                                drafter_factory=factory)
+        warm_up(engine, prompts)
+        reqs = sampled_requests(prompts, kinds)
+        with sampled_dispatches(engine) as seen, \
+                gumbel_rows(engine) as shapes:
+            res = spec_run(engine, reqs, label, sampled=True)
+        replays = dict(res["times"]["ticks"])
+        want = sum(s for s, _, _ in seen) + replays.get("sampled", 0)
+        if res["gumbel"] != want or not want:
+            fail(f"{label}: {res['gumbel']} gumbel_argmax launches, want "
+                 f"{want} (sampled dispatches and sampled ticks {replays})")
+        for (sampled, n_launch, n_sort), (t, r, chunk, calls) \
+                in zip(seen, shapes):
+            if (n_launch, n_sort) != ((1, 1) if sampled else (0, 0)) \
+                    or calls != ([t if chunk else r] if sampled else []):
+                fail(f"{label}: a dispatch (sampled={sampled}, T={t}, R={r},"
+                     f" chunk-shaped={chunk}) launched gumbel_argmax over "
+                     f"{calls} rows and sorted {n_sort} times")
+        for i, (kind, o) in enumerate(zip(kinds, res["outs"])):
+            if kind == "forced" and set(o) != {FORCED_TOKEN}:
+                fail(f"{label}: forced row {i} gave {sorted(set(o))}")
+        exact, n_tok = 0, 0
+        with plain_serving_paths():
+            for i, (r, o) in enumerate(zip(reqs, res["outs"])):
+                if kinds[i] is None:
+                    continue
+                toks, margins = replay_sampled(engine, model, dev, r, o)
+                exact += sum(a == b for a, b in zip(toks, o))
+                n_tok += len(o)
+                for pos, margin, over_r, over_s in margins:
+                    print(f"{label}: row {i} token {pos} differs from the "
+                          f"plain replay, its margin there {margin:.4f} "
+                          f"(over the keep threshold: replay's token "
+                          f"{over_r:.4f}, served {over_s:.4f})", flush=True)
+        greedy = [(p, o) for p, o, k in zip(prompts, res["outs"], kinds)
+                  if k is None]
+        floor = hold_floor(label, token_gaps(model, dev, *zip(*greedy)))
+        print(f"{label}: {spec_line(res, base['outs'])} sampled_dispatches="
+              f"{sum(s for s, _, _ in seen)} gumbel_launches={res['gumbel']}"
+              f" gumbel_rows_per_chunk_dispatch="
+              f"{sorted({c[0] for *_, ch, c in shapes if ch and c})} "
+              f"plain_replay_exact={exact}/{n_tok}; greedy rows {floor}",
+              flush=True)
+        if exact < EXACT_FLOOR * n_tok:
+            fail(f"{label}: only {exact}/{n_tok} sampled tokens are the "
+                 f"plain replay's (floor {EXACT_FLOOR})")
+        launches += res["launches"]
+        glaunches += res["gumbel"]
+        del engine
+        torch.cuda.empty_cache()
+    print(f"spec sampled, no speculation (decode_ticks=1): "
+          f"{spec_line(base, base['outs'])}", flush=True)
+    return launches, glaunches
+
+
+def serve_spec_paths(dev):
+    """Phase 15c: phase 13c's 4-layer cut through the three attention
+    paths, both KV dtypes, ``spec_k=3`` with a garbage drafter (one token
+    proposed whatever the history: every draft the model does not emit
+    is rejected and its verify row rolled back) over phase 15's prompts:
+    :func:`spec_run`'s holds on each path, and the tokens, the pools and
+    sidecars and ``spec_stats()`` bit for bit equal across the paths.
+    Returns the launches of each path by its launch-count key."""
+    import torch
+    from paddle_tpu_torch.inference import Request
+    cfg, model = llama_model(dev, LADDER_LAYERS)
+    prompts = spec_prompts(cfg.vocab_size)
+    bad = cfg.vocab_size - 1
+    counts = {}
+    for kv_dtype in (None, "int8"):
+        runs = {}
+        for path, (kw, per_layer, key) in LADDER.items():
+            key += "_q8" if kv_dtype else ""
+            label = f"spec paths {kv_dtype or 'bf16'} {path}"
+            engine = serving_engine(
+                model, kv_dtype, spec_k=SPEC_PATHS_K,
+                drafter_factory=lambda: GarbageDrafter(bad), **kw)
+            warm_up(engine, prompts)
+            res = spec_run(engine, [Request(p, max_new_tokens=NEW)
+                                    for p in prompts], label, key,
+                           per_layer)
+            if not res["verify"] or res["accepted"] >= res["proposed"]:
+                fail(f"{label}: {res['verify']} verify dispatches, "
+                     f"{res['accepted']} of {res['proposed']} drafts "
+                     "accepted: nothing rolled back")
+            res["pools"] = [t.clone() for t in pool_pages(engine)]
+            res["stats"] = engine.spec_stats()
+            counts[key] = res["launches"]
+            runs[path] = res
+            del engine
+            torch.cuda.empty_cache()
+        base = runs["rope-fused"]
+        for path in ("fused-kv", "two-op"):
+            res = runs[path]
+            label = f"spec paths {kv_dtype or 'bf16'} {path}"
+            if res["outs"] != base["outs"] or res["stats"] != base["stats"]:
+                fail(f"{label}: tokens or spec_stats {res['stats']} differ "
+                     f"from the rope-fused path's {base['stats']}")
+            if not all(torch.equal(a, b) for a, b in zip(res["pools"],
+                                                        base["pools"])):
+                fail(f"{label}: pools or sidecars differ from the "
+                     "rope-fused path's bit for bit")
+        print(f"spec paths {kv_dtype or 'bf16'}: the three paths' tokens, "
+              f"spec_stats {base['stats']} and pools and sidecars "
+              f"({len(base['pools'])} tensors) bitwise equal after "
+              f"{base['rows']} verify rows ({base['verify']} dispatches, "
+              f"{base['proposed'] - base['accepted']} drafts rolled back); "
+              f"launches { {p: r['launches'] for p, r in runs.items()} }",
+              flush=True)
+    return counts
+
+
 def check_capture_failure(dev):
     """A step that reads the device on the host cannot be captured: the
     capture helper raises what the capture raised (no phase catches it
@@ -4357,21 +4772,28 @@ def main():
     torch.cuda.empty_cache()
     paged["launches"] = decode_cache(dev)           # phase 10
     torch.cuda.empty_cache()
-    _, model = llama_model(dev)                     # phases 13, 13b, 14
+    _, model = llama_model(dev)                     # phases 13-15b
     entry["launches"] += serve_prefix(dev, model)   # phase 13 (+ the COW)
     kv8_launches += serve_prefix(dev, model, "int8")   # phase 13b
     torch.cuda.empty_cache()
     entry["launches"] += serve_pressure(dev, model)    # phase 14a
     torch.cuda.empty_cache()
     entry["launches"] += serve_lifecycle(dev, model)   # phase 14b
+    torch.cuda.empty_cache()
+    entry["launches"] += serve_spec(dev, model)     # phase 15
+    torch.cuda.empty_cache()
+    spec_launches, spec_gumbel = serve_spec_sampled(dev, model)  # 15b
+    entry["launches"] += spec_launches
+    sampler["launches"] += spec_gumbel
     del model
     torch.cuda.empty_cache()
     paths = serve_prefix_paths(dev)                 # phase 13c
-    entry["launches"] += paths["fused_rope"]
+    spec_paths = serve_spec_paths(dev)              # phase 15c
+    entry["launches"] += paths["fused_rope"] + spec_paths["fused_rope"]
     for e, key in zip(family, FAMILY):
         e["launches"] = kv8_launches if key == "fused_rope_q8" \
             else ladder[key]
-        e["launches"] += paths[key]
+        e["launches"] += paths[key] + spec_paths[key]
     torch.cuda.empty_cache()
     launches = train(dev)
     torch.cuda.empty_cache()

@@ -3,7 +3,8 @@ from .prefix_cache import PrefixCache
 from .sampling import GREEDY, SamplingParams
 from .serving import (AdmissionError, DeadlineExceeded, LlamaServingEngine,
                       Request)
+from .speculative import NGramDrafter
 
 __all__ = ["PageAllocator", "PagedKVCache", "PrefixCache", "GREEDY",
            "SamplingParams", "AdmissionError", "DeadlineExceeded",
-           "LlamaServingEngine", "Request"]
+           "LlamaServingEngine", "Request", "NGramDrafter"]

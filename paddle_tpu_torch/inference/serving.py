@@ -105,8 +105,24 @@ current stream, which the tick graphs' replays use too), so a released
 page handed to a new owner is only ever written after the old owner's
 kernels in stream order.
 
-Not in this slice (ROADMAP queue A, in order): speculative decoding, the
-host KV tier (and with it the ladder's pause rung), the metrics.
+Speculative decoding (``spec_k > 0``, or ``PADDLE_TPU_SPEC_K``): every
+fully prefilled decoder may carry up to ``spec_k`` draft tokens from a
+per-sequence drafter (:class:`~.speculative.NGramDrafter` over the
+request's own prompt and output, or ``drafter_factory``'s). The scheduler
+packs the row into the mixed step as a ``q_len = 1 + drafts`` decode row,
+written through the ragged kernels like a prefill chunk; the dispatch
+reads the next token at EVERY packed position (the greedy argmax, or the
+draw keyed by that position, so speculation never changes a seeded draw)
+and accepts the longest prefix of drafts that equals it. The rejected
+tail's pages roll back on the host (:meth:`.paged_cache.PageAllocator
+.rollback`): its slots stay written in kept pages, masked by ``kv_len``
+until the next dispatch overwrites them. :meth:`LlamaServingEngine
+.decode_many` rides speculation on single mixed steps while the drafter
+proposes and falls back to short, then full decode scans when it does
+not.
+
+Not in this slice (ROADMAP queue A, in order): the host KV tier (and
+with it the ladder's pause rung), the metrics.
 """
 
 from __future__ import annotations
@@ -134,6 +150,7 @@ from ..testing import faults as _faults
 from .paged_cache import PageAllocator, quantize_kv_int8
 from .prefix_cache import PrefixCache
 from .sampling import SamplingParams, sampled_next_tokens
+from .speculative import NGramDrafter
 
 __all__ = ["LlamaServingEngine", "Request", "AdmissionError",
            "DeadlineExceeded"]
@@ -347,10 +364,14 @@ class LlamaServingEngine:
     backoff before a shed; ``stuck_factor`` / ``stuck_min_timeout`` set
     the stuck-dispatch watchdog's timeout (``stuck_factor`` x the warm
     dispatches' P99, at least ``stuck_min_timeout``; 0 or None disables
-    it). The knobs of later slices (the speculative decoder's and the KV
-    tier's, with the reference's env knobs ``PADDLE_TPU_SPEC_K``,
-    ``PADDLE_TPU_KV_TIER``) raise :class:`NotImplementedError` naming
-    their ROADMAP A item when set off their defaults."""
+    it). ``spec_k`` (None: ``PADDLE_TPU_SPEC_K``, default 0 = off; capped
+    at ``chunk_block - 1``) is the most draft tokens a decode row carries,
+    ``spec_ngram`` the n of the default :class:`~.speculative.NGramDrafter`
+    and ``drafter_factory`` a zero-argument callable making one drafter a
+    sequence in its place (see the module docstring). The KV tier's knobs
+    (``kv_tier``, with the reference's env knob ``PADDLE_TPU_KV_TIER``,
+    and ``kv_tier_bytes``) raise :class:`NotImplementedError` naming their
+    ROADMAP A item when set off their defaults."""
 
     #: decode steps between admission checks while prompts are pending
     DECODE_TICKS = 16
@@ -372,10 +393,7 @@ class LlamaServingEngine:
         if kv_tier is None:
             kv_tier = os.environ.get(
                 "PADDLE_TPU_KV_TIER", "0").lower() in ("1", "true", "on")
-        later = {"spec_k / PADDLE_TPU_SPEC_K": (int(spec_k) > 0, "A6"),
-                 "spec_ngram": (spec_ngram != 3, "A6"),
-                 "drafter_factory": (drafter_factory is not None, "A6"),
-                 "kv_tier / PADDLE_TPU_KV_TIER": (kv_tier, "A7"),
+        later = {"kv_tier / PADDLE_TPU_KV_TIER": (kv_tier, "A7"),
                  "kv_tier_bytes": (kv_tier_bytes is not None, "A7")}
         asked = [f"{k} (ROADMAP item {item})"
                  for k, (on, item) in later.items() if on]
@@ -393,6 +411,12 @@ class LlamaServingEngine:
         # (recorded on the request so the draw stays reproducible)
         self._auto_seed = int.from_bytes(os.urandom(4), "little") \
             % (2 ** 31)
+        self._drafter_factory = drafter_factory or \
+            (lambda: NGramDrafter(n=spec_ngram))
+        self._spec_state: dict[int, object] = {}   # seq_id -> drafter
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_idle = 0     # consecutive no-proposal probes
         if weight_dtype is None:
             weight_dtype = os.environ.get("PADDLE_TPU_WEIGHT_DTYPE",
                                           "") or None
@@ -424,6 +448,8 @@ class LlamaServingEngine:
         qb = int(chunk_block) if chunk_block else min(
             32, max(8, 2 * page_size))
         self.chunk_block = -(-qb // align) * align
+        # a verify row (one guaranteed token + drafts) fits one row block
+        self.spec_k = max(0, min(int(spec_k), self.chunk_block - 1))
         budget = int(chunk_budget) if chunk_budget \
             else max(64, 4 * max_batch)
         self.chunk_budget = max(budget, 2 * max_batch, self.chunk_block)
@@ -616,6 +642,7 @@ class LlamaServingEngine:
             req.done = True
             req.status = status
             req.error = error
+            self._spec_state.pop(req.seq_id, None)
             if req.seq_id in self._live:
                 del self._live[req.seq_id]
                 self._release_pages(req.seq_id)
@@ -689,15 +716,20 @@ class LlamaServingEngine:
                        kv_lens, q_starts, q_lens, w_starts, w_flats,
                        w_ends, page_ids, offs, row_tok, qb, sample=None):
         """ONE token-packed model step over ``T`` real tokens (prefill
-        chunks and decode tokens back to back) and ``R`` rows; returns
-        the next token of each row ``[R]`` at the row's last position.
-        tokens/pos/flat_idx [T]; tables [R, W]; last_idx and the row
-        metadata [R]; page_ids/offs [T] (the two-op scatter's targets)
+        chunks, decode and verify tokens back to back) and ``R`` rows;
+        returns the next token of each row ``[R]`` at the row's last
+        position or, on a speculative engine's chunk-shaped dispatch
+        (``spec_k > 0`` and ``qb > 1``), the next token after EVERY
+        packed position ``[T]``, what verification compares drafts
+        against. tokens/pos/flat_idx [T]; tables [R, W]; last_idx and the
+        row metadata [R]; page_ids/offs [T] (the two-op scatter's targets)
         and row_tok [R, qb] (each row-block entry's packed token), which
         the rope-fused path leaves empty. ``sample``: None (every row
         greedy, no bias: the argmax) or ``(arrays, any_sampled)``, the
         per-row arguments of :func:`sampled_next_tokens` after the
-        logits and whether a row is sampled."""
+        logits and whether a row is sampled; by position, each token's
+        row parameters are gathered through ``flat_idx // qb`` and the
+        positions are per token ``[T]``."""
         m = self.model.model
         cfg = self.model.config
         t, r_rows = tokens.shape[0], tables.shape[0]
@@ -752,10 +784,19 @@ class LlamaServingEngine:
             x = x + att.o_proj(attn.reshape(t, -1))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         x = m.norm(x)
-        logits = self.model._logits(x[last_idx.long()])    # [R, V]
+        by_pos = bool(self.spec_k) and qb > 1
+        # verification reads every position; otherwise the lm head runs
+        # at each row's last token only
+        logits = self.model._logits(x if by_pos else x[last_idx.long()])
         if sample is None:
             return logits.argmax(dim=-1)
         arrays, any_sampled = sample
+        if by_pos:
+            # token t belongs to row flat_idx[t] // qb; the positions are
+            # per token already
+            row = flat // qb
+            arrays = tuple(a if j == 4 else a[row]
+                           for j, a in enumerate(arrays))
         return sampled_next_tokens(logits, *arrays, any_sampled=any_sampled)
 
     def _prefix_insert(self, reqs, sids):
@@ -780,10 +821,55 @@ class LlamaServingEngine:
             for pool in pools:
                 pool[new].copy_(pool[old])
 
+    def _draft(self, r, kcap):
+        """Up to ``kcap`` draft tokens for a live decoder from its
+        per-sequence drafter (made lazily, synced to the committed prompt
+        and output only, never to rejected drafts). A proposal outside
+        the vocabulary stops the drafts at the first offender.
+        Constrained requests never draft: the hook runs once per
+        dispatch, so it cannot be consulted at draft positions."""
+        if r.sampling is not None and r.sampling.constraint is not None:
+            return ()
+        st = self._spec_state.get(r.seq_id)
+        if st is None:
+            st = self._spec_state[r.seq_id] = self._drafter_factory()
+        st.sync(r.prompt_ids, r.output_ids)
+        v = self.model.config.vocab_size
+        out = []
+        for t in st.propose(kcap):
+            t = int(t)
+            if not 0 <= t < v:
+                break
+            out.append(t)
+        return tuple(out[:int(kcap)])
+
+    def _spec_worth(self, live):
+        """Probe (caller holds the engine lock): does a live decoder have
+        at least one draft to verify? A proposal is pure (``sync`` folds
+        committed tokens only), so a probe never skews the drafter. When
+        nothing proposes, a speculative step would be a one-token step,
+        and :meth:`decode_many` scans instead."""
+        for r in live:
+            if r.max_new_tokens - len(r.output_ids) <= 1:
+                continue
+            if self._draft(r, 1):
+                return True
+        return False
+
+    def spec_stats(self):
+        """Cumulative speculative-decoding counters: draft tokens
+        proposed and accepted, and the acceptance rate."""
+        with self._lock:
+            p, a = self._spec_proposed, self._spec_accepted
+        return {"k": self.spec_k, "proposed": p, "accepted": a,
+                "accept_rate": a / p if p else 0.0}
+
     def _schedule_rows(self):
         """One mixed step's rows (caller holds the engine lock): a decode
         row for every fully prefilled live sequence that the pool can
-        grow (:meth:`_relieve_pressure`), then prompt chunks of at most
+        grow (:meth:`_relieve_pressure`), with up to ``spec_k`` drafts
+        where the drafter proposes and pages and budget allow (a verify
+        row of ``1 + drafts`` tokens), then prompt chunks of at most
         ``chunk_block`` tokens FIFO by admission until the
         ``chunk_budget`` (or ``rows_cap``) is spent. Returns ``(rows,
         cow)``: each row is ``(req, sid, start, n, toks, is_decode)``,
@@ -795,18 +881,57 @@ class LlamaServingEngine:
         decode = self._relieve_pressure(decode, 1)
         rows, cow = [], []
         budget = self.chunk_budget
-        for r in decode:
+        page = self.page_size
+        # page headroom for drafts: _relieve_pressure proved ONE token a
+        # decode row fits; drafts spend only what is left after that, so
+        # speculation never evicts or sheds
+        spare = 0
+        if self.spec_k:
+            reserved = sum(
+                max(0, -(-(self.alloc._lens[r.seq_id] + 1) // page)
+                    - len(self.alloc._tables[r.seq_id]))
+                for r in decode)
+            spare = self.alloc.free_pages - reserved
+        n_dec = len(decode)
+        # drafts never starve waiting prompts: a chunk_block of budget
+        # stays theirs
+        reserve = self.chunk_block if prefill else 0
+        for i, r in enumerate(decode):
             sid = r.seq_id
-            prev = self.alloc.extend(sid, 1)
+            drafts = ()
+            if self.spec_k:
+                # one budget token for every remaining decode row, and
+                # never past the request's own budget
+                kcap = min(self.spec_k, self.chunk_block - 1,
+                           budget - reserve - (n_dec - i),
+                           r.max_new_tokens - len(r.output_ids) - 1)
+                if kcap > 0:
+                    drafts = self._draft(r, kcap)
+                if drafts:
+                    # cut drafts from the end until their pages fit
+                    ln = self.alloc._lens[sid]
+                    cur = len(self.alloc._tables[sid])
+                    base = max(0, -(-(ln + 1) // page) - cur)
+                    while drafts:
+                        need = max(0, -(-(ln + 1 + len(drafts)) // page)
+                                   - cur)
+                        if need - base <= spare and cur + need \
+                                <= self.alloc.max_pages_per_seq:
+                            spare -= need - base
+                            break
+                        drafts = drafts[:-1]
+            n = 1 + len(drafts)
+            prev = self.alloc.extend(sid, n)
             # copy-on-write backstop: the write position must never land
-            # in a page shared with the prefix cache
+            # in a page shared with the prefix cache (positions past
+            # ``prev`` sit in the same page or in pages just allocated)
             cp = self.alloc.ensure_writable(sid, prev)
             if cp is not None:
                 cow.append(cp)
             tok = r.output_ids[-1] if r.output_ids \
                 else int(r.prompt_ids[-1])
-            rows.append((r, sid, prev, 1, (tok,), True))
-            budget -= 1
+            rows.append((r, sid, prev, n, (tok,) + drafts, True))
+            budget -= n
         for r in prefill:
             if budget <= 0 or len(rows) >= self.rows_cap:
                 break
@@ -888,21 +1013,29 @@ class LlamaServingEngine:
                 slot_vals[i, :len(items)] = [v for _, v in items]
         return temps, top_ps, top_ks, seeds, slot_ids, slot_vals, cmodes
 
-    def _sample_arrays(self, rows):
+    def _sample_arrays(self, rows, by_pos=False):
         """The sampler's per-row arrays of one dispatch (numpy: temps,
         top_ps, top_ks, seeds, positions, slot_ids, slot_vals, cmodes)
         and whether any row is sampled, or None where
         :meth:`_sample_mode` says greedy (:meth:`_sample_params` runs the
-        constraint hooks)."""
+        constraint hooks). ``by_pos``: every packed token is sampled (a
+        speculative engine's chunk-shaped dispatch), so the positions
+        are per token, in packed order."""
         reqs = [row[0] for row in rows]
         mode = self._sample_mode(reqs)
         if mode == "greedy":
             return None
         temps, top_ps, top_ks, seeds, slot_ids, slot_vals, cmodes = \
             self._sample_params(reqs, len(rows))
-        # the sampled token's position: the row's last position + 1
-        positions = np.array([start + n for _, _, start, n, _, _ in rows],
-                             np.int32)
+        # the sampled token's position: the sampled-after token's + 1,
+        # so a draw never depends on how it was dispatched
+        if by_pos:
+            positions = np.concatenate(
+                [start + 1 + np.arange(n) for _, _, start, n, _, _ in rows]
+            ).astype(np.int32)
+        else:
+            positions = np.array(
+                [start + n for _, _, start, n, _, _ in rows], np.int32)
         arrays = (temps, top_ps, top_ks, seeds, positions, slot_ids,
                   slot_vals, cmodes)
         return arrays, mode == "sampled"
@@ -911,10 +1044,18 @@ class LlamaServingEngine:
         """Dispatch ONE mixed step over a scheduled row list (caller
         holds the dispatch locks) after its copy-on-write page copies,
         and apply the results: prefill progress, prefix-cache pins of
-        finished prompts, emitted tokens. Returns tokens emitted."""
+        finished prompts, speculative verification (the longest prefix
+        of drafts equal to the model's tokens accepted, the rejected
+        tail's pages rolled back), emitted tokens. Returns tokens
+        emitted."""
+        # verify rows are multi-token decode rows: chunk-shaped, as
+        # prefill chunks are
         needs_mixed = any(n > 1 or not is_dec
                           for _, _, _, n, _, is_dec in rows)
         qb = self.chunk_block if needs_mixed else 1
+        # a speculative engine's chunk-shaped dispatch gives a token at
+        # every packed position ([T]); otherwise one a row ([R])
+        by_pos = bool(self.spec_k) and needs_mixed
         for old, new in cow:
             self._copy_page(old, new)
         key = ("mixed", self.chunk_budget if needs_mixed
@@ -940,6 +1081,7 @@ class LlamaServingEngine:
         page_ids = np.zeros((t_n if fallback else 0,), np.int32)
         offs = np.zeros_like(page_ids)
         row_tok = np.zeros((r_n if fallback else 0, qb), np.int32)
+        flat_start = []         # each row's first packed index
         t = 0
         for i, (r, sid, start, n, toks, is_dec) in enumerate(rows):
             tb = self.alloc._tables[sid]
@@ -954,6 +1096,7 @@ class LlamaServingEngine:
                 row_tok[i, :n] = np.arange(t, t + n)
             seq_first.setdefault(sid, (start, t))
             seq_last[sid] = start + n
+            flat_start.append(t)
             t += n
             last_idx[i] = t - 1
         for i, (_, sid, *_) in enumerate(rows):
@@ -961,7 +1104,7 @@ class LlamaServingEngine:
             meta[5, i] = seq_last[sid]
         parts = [tokens, pos, flat_idx, last_idx, tables.reshape(-1),
                  meta.reshape(-1), page_ids, offs, row_tok.reshape(-1)]
-        samp = self._sample_arrays(rows)
+        samp = self._sample_arrays(rows, by_pos)
         if samp is not None:
             # the sampler's rows ride the same copy, f32 fields as bits
             parts += [a.reshape(-1).view(np.int32) for a in samp[0]]
@@ -994,6 +1137,9 @@ class LlamaServingEngine:
             dur = time.perf_counter() - t0
             self._disarm_watchdog(dur, cold=cold)
             self._warmed_keys.add(key)
+        # a request cancelled, expired or evicted mid-dispatch is released
+        # here, once; verification below skips its row (no rollback of a
+        # released table)
         self._flush_deferred()
         if not cold and not needs_mixed:
             # a decode-only dispatch is one token per live row
@@ -1014,15 +1160,59 @@ class LlamaServingEngine:
         # new token retires (and releases) at emit
         if finished and self.prefix is not None:
             self._prefix_insert(finished, fin_sids)
-        emitted = 0
+        # verification BEFORE any emission: out[f + j] is the token after
+        # packed token f + j (the argmax, or the draw keyed by its
+        # position), so a verify row's window holds what the sequential
+        # engine would emit after the pending token and after each draft.
+        # Accepting the longest prefix where draft j + 1 equals out[f + j]
+        # is rejection sampling for a point-mass drafter and keeps seeded
+        # draws the same with speculation on or off. The rejected tail
+        # rolls back now, while the sequence is live (an emission below
+        # may retire it and release everything)
+        accepted: dict[int, int] = {}
+        if any(is_dec and n > 1 for _, _, _, n, _, is_dec in rows):
+            with self._lock:
+                for i, (r, sid, start, n, toks, is_dec) in enumerate(rows):
+                    if not is_dec or n <= 1:
+                        continue
+                    f = flat_start[i]
+                    acc = 0
+                    while acc < n - 1 \
+                            and int(toks[1 + acc]) == int(out[f + acc]):
+                        acc += 1
+                    accepted[i] = acc
+                    self._spec_proposed += n - 1
+                    self._spec_accepted += acc
+                    rejected = (n - 1) - acc
+                    if rejected and not r.done and r.seq_id == sid:
+                        # a request that turned terminal or was requeued
+                        # mid-dispatch is released wholesale instead
+                        self.alloc.rollback(sid, rejected)
+        emitted = dec_tokens = 0
         for i, (r, sid, start, n, _, is_dec) in enumerate(rows):
             if r.done or r.seq_id != sid:
                 continue
-            # decode rows emit; a prompt's FINAL chunk emits its first
-            # token; a mid-prompt chunk's argmax is discarded
-            if is_dec or start + n >= len(r.prompt_ids):
-                self._emit(r, int(out[i]))
+            f = flat_start[i]
+            if is_dec:
+                # the guaranteed token plus every accepted draft; _emit
+                # retires at EOS, a stop token or max_new_tokens, and the
+                # rest is dropped
+                for j in range(accepted.get(i, 0) + 1):
+                    if r.done:
+                        break
+                    self._emit(r, int(out[f + j] if by_pos else out[i]))
+                    emitted += 1
+                    dec_tokens += 1
+            elif start + n >= len(r.prompt_ids):
+                # a prompt's FINAL chunk emits its first token; a
+                # mid-prompt chunk's tokens are discarded
+                self._emit(r, int(out[f + n - 1] if by_pos else out[i]))
                 emitted += 1
+        if not cold and needs_mixed and dec_tokens \
+                and all(is_dec for _, _, _, _, _, is_dec in rows):
+            # a pure decode and verify dispatch: its time over what it
+            # committed, as a scan's, keeps _retry_after live
+            self._token_times.append(dur / dec_tokens)
         return emitted
 
     # ------------------------------------------------------------------
@@ -1202,6 +1392,7 @@ class LlamaServingEngine:
                 return
             if v.seq_id in self._live:
                 del self._live[v.seq_id]
+            self._spec_state.pop(v.seq_id, None)
             self._release_pages(v.seq_id)
             self._requeue_or_fail(v)
 
@@ -1679,7 +1870,10 @@ class LlamaServingEngine:
         constraint hook (host work each step), the engine takes single
         mixed steps; otherwise scans of :attr:`decode_ticks` ticks, then
         of ``max(decode_ticks // 4, 2)``, then single steps, as the
-        reference does. With ``exact=False`` the tail may overshoot by up
+        reference does. A speculative engine probes its drafters first:
+        while one proposes, it takes single mixed steps (verify rows);
+        else it scans, short scans until two probes in a row found
+        nothing. With ``exact=False`` the tail may overshoot by up
         to ``decode_ticks // 4 - 1`` ticks (callers use it when every live
         request retires by step ``n``; the overshot tokens are
         discarded). Requests parked on the requeue are pumped back in by
@@ -1698,11 +1892,25 @@ class LlamaServingEngine:
                 constrained = any(r.sampling is not None
                                   and r.sampling.constraint is not None
                                   for r in live)
-                # speculative decoding (spec_k) is not ported (A6): its
-                # branches of the reference's policy never apply
+                spec_now = False
+                if self.spec_k and not prefilling and live:
+                    spec_now = self._spec_worth(live)
+                    # the probe paces the scans' escalation below
+                    self._spec_idle = 0 if spec_now \
+                        else self._spec_idle + 1
                 if not live or prefilling or constrained:
                     chunk = 1       # (with nothing live: pump the requeue)
-                elif n >= self.decode_ticks:
+                elif spec_now:
+                    # speculation rides single mixed steps: one dispatch
+                    # verifies 1 + drafts tokens a row, where a tick
+                    # takes one
+                    chunk = 1
+                elif n >= self.decode_ticks and (not self.spec_k
+                                                 or self._spec_idle >= 2):
+                    # a speculative engine starts with SHORT scans, so a
+                    # repetition's onset is caught within ticks/4
+                    # tokens; two empty probes in a row escalate to full
+                    # scans
                     chunk = self._scan_fits(live, self.decode_ticks)
                 elif n >= small or not exact:
                     chunk = self._scan_fits(live, small)
@@ -1728,9 +1936,11 @@ class LlamaServingEngine:
         (kv_len 0: nothing is written, the attention gives zeros; the
         two-op scatter writes the trash page only) and its tokens
         discarded, so no request state is touched: it builds and loads the
-        kernels' libraries and the library handles of the shape. Returns
-        False for a token count that is not one of this engine's two
-        dispatch shapes."""
+        kernels' libraries and the library handles of the shape. On a
+        speculative engine the chunk shape's lm head and sampler run over
+        every one of its ``t_cap`` positions, as a verify dispatch does,
+        so warm-ups differ with ``spec_k``. Returns False for a token
+        count that is not one of this engine's two dispatch shapes."""
         t_cap = int(t_cap)
         if t_cap == self.chunk_budget:
             r_cap, qb = self.rows_cap, self.chunk_block
@@ -1753,7 +1963,8 @@ class LlamaServingEngine:
         if self.sample_enabled:
             # the sampled tail, on inert rows: the sampler's kernel loads too
             arrays = self._sample_params([], r_cap)
-            arrays = arrays[:4] + (np.zeros((r_cap,), np.int32),) \
+            n_pos = t_cap if self.spec_k and qb > 1 else r_cap
+            arrays = arrays[:4] + (np.zeros((n_pos,), np.int32),) \
                 + arrays[4:]
             sample = (tuple(torch.from_numpy(a).to(dev) for a in arrays),
                       True)

@@ -155,9 +155,13 @@ def test_admission_and_unported_options(models):
         e.close()
     assert errors[0] == errors[1]
     assert isinstance(ei.value, AdmissionError)
-    for kw in ({"spec_k": 2}, {"kv_tier": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LlamaServingEngine(tm, **kw)
+    # spec_k is served since A6 (capped at chunk_block - 1, as the
+    # reference stores it); the KV tier still raises
+    je = JaxEngine(jm, fused_kv=False, spec_k=2, **geom)
+    assert LlamaServingEngine(tm, spec_k=2, **geom).spec_k == je.spec_k
+    je.close()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LlamaServingEngine(tm, kv_tier=True)
 
 
 def test_eos_and_stop_tokens(models):
@@ -299,9 +303,24 @@ def test_engine_sampling_switch_reads_the_env_as_reference(models,
     ({"spec_ngram": 4}, "A6"), ({"drafter_factory": object}, "A6"),
     ({"kv_tier_bytes": 1 << 20}, "A7")])
 def test_engine_unported_knobs_raise(models, kw, item):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match=item):
-        LlamaServingEngine(tm, **kw, **GEOM)
+    """A7's knob raises naming its item; A6's (ported) are taken and
+    stored as the reference stores them: the drafter factory, or one
+    making the n-gram drafter of ``spec_ngram``."""
+    jm, tm = models
+    if item != "A6":
+        with pytest.raises(NotImplementedError, match=item):
+            LlamaServingEngine(tm, **kw, **GEOM)
+        return
+    je = JaxEngine(jm, fused_kv=False, spec_k=3, **kw, **GEOM)
+    te = LlamaServingEngine(tm, spec_k=3, **kw, **GEOM)
+    assert te.spec_k == je.spec_k == 3
+    if "drafter_factory" in kw:
+        assert te._drafter_factory is je._drafter_factory is object
+    else:
+        assert te._drafter_factory().n == je._drafter_factory().n == 4
+    assert (te._spec_state, te._spec_proposed, te._spec_accepted,
+            te._spec_idle) == ({}, 0, 0, 0)
+    je.close()
 
 
 @pytest.mark.parametrize("kw", [
@@ -398,13 +417,18 @@ def test_on_token_sees_every_token_in_order(models):
     ("PADDLE_TPU_SPEC_K", "2"), ("PADDLE_TPU_KV_TIER", "1"),
     ("PADDLE_TPU_KV_TIER", "true"), ("PADDLE_TPU_KV_TIER", "ON")])
 def test_fleet_env_knobs_raise(models, monkeypatch, env, value):
+    """PADDLE_TPU_KV_TIER raises naming itself; PADDLE_TPU_SPEC_K is
+    served since A6 and read as the reference reads it."""
     jm, tm = models
     monkeypatch.setenv(env, value)
     je = JaxEngine(jm, sampling=False, **GEOM)
     assert je.spec_k > 0 or je.tier is not None   # the reference reads it
     je.close()
-    with pytest.raises(NotImplementedError, match=env):
-        LlamaServingEngine(tm, **GEOM)
+    if env == "PADDLE_TPU_SPEC_K":
+        assert LlamaServingEngine(tm, **GEOM).spec_k == je.spec_k
+    else:
+        with pytest.raises(NotImplementedError, match=env):
+            LlamaServingEngine(tm, **GEOM)
     # off values, as the reference parses them, serve as before
     monkeypatch.setenv(env, "0")
     LlamaServingEngine(tm, **GEOM)
