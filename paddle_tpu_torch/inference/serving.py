@@ -86,13 +86,14 @@ pool before the degradation ladder touches a live request.
 
 Request lifecycle: ``status`` moves ``pending`` -> ``live`` -> one of
 ``completed`` / ``deadline_exceeded`` / ``cancelled`` / ``requeued``
-(evicted under pressure, will retry) / ``evicted`` (retry budget spent);
-a terminal failure carries a typed error in ``req.error``. Deadlines
-(``Request(deadline=, token_budget=)``) are enforced at step and scan
-boundaries; :meth:`LlamaServingEngine.cancel` is thread-safe and
-idempotent; admission walks the degradation ladder (cache reclaim, trim,
-evict / requeue, backoff, shed with a ``retry_after`` hint) and decode
-boundaries relieve pressure the same way (:meth:`_relieve_pressure`);
+(evicted under pressure, will retry) / ``paused`` (pages parked in the
+host KV tier, resumes without re-prefill) / ``evicted`` (retry budget
+spent); a terminal failure carries a typed error in ``req.error``.
+Deadlines (``Request(deadline=, token_budget=)``) are enforced at step
+and scan boundaries; :meth:`LlamaServingEngine.cancel` is thread-safe and
+idempotent; admission walks the degradation ladder (cache reclaim, pause,
+trim, evict / requeue, backoff, shed with a ``retry_after`` hint) and
+decode boundaries relieve pressure the same way (:meth:`_relieve_pressure`);
 :meth:`drain` stops admission and finishes or expires the in-flight set;
 a stuck-dispatch watchdog guards warm dispatches. Fault points
 ``serve.admit`` / ``serve.decode`` / ``serve.drain``
@@ -121,8 +122,23 @@ until the next dispatch overwrites them. :meth:`LlamaServingEngine
 proposes and falls back to short, then full decode scans when it does
 not.
 
-Not in this slice (ROADMAP queue A, in order): the host KV tier (and
-with it the ladder's pause rung), the metrics.
+Host KV tier (``kv_tier=True`` or ``PADDLE_TPU_KV_TIER=1``; off by
+default, as the reference): the ladder's pause rung copies a victim's
+pages into a bounded host pool (:mod:`.kv_tier`, ``kv_tier_bytes`` or
+``PADDLE_TPU_KV_TIER_BYTES``, default 256 MiB), releases them and parks
+the request ``paused`` on the requeue; the requeue pump restores them IN
+PLACE into fresh pages (the pools are never rebound) and the request goes
+on bitwise as if never paused. Any tier failure is typed and falls back
+to the evict rung. Cold prefix-cache pages demote into the same pool and
+promote back on a match. A pause from another thread while a dispatch
+holding the request is in flight exports the tokens the request has
+committed: the dispatch's later tokens for its row are dropped.
+
+Metrics: the ladder's counters (``serving_paused_total``,
+``serving_resumed_total``, ``serving_pressure_postponed_total``,
+``serving_degraded_total{rung}``) and the tier's four, on the port's
+registry (:mod:`~paddle_tpu_torch.observability.metrics`). The rest of
+the reference's serving metrics is ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -139,6 +155,7 @@ import numpy as np
 import torch
 
 from ..incubate.nn.functional import fused_rotary_position_embedding
+from ..observability import metrics as _om
 from ..ops._graphs import StepGraphs
 from ..ops.ragged_paged_attention import (check_geometry,
                                           fused_ragged_paged_attention,
@@ -147,8 +164,9 @@ from ..ops.ragged_paged_attention import (check_geometry,
 from ..quant.format import (is_quantized, model_weight_block,
                             quantize_model, serving_weight_bytes)
 from ..testing import faults as _faults
+from .kv_tier import KvPageTier, TierError
 from .paged_cache import PageAllocator, quantize_kv_int8
-from .prefix_cache import PrefixCache
+from .prefix_cache import PrefixCache, chain_keys
 from .sampling import SamplingParams, sampled_next_tokens
 from .speculative import NGramDrafter
 
@@ -161,6 +179,33 @@ __all__ = ["LlamaServingEngine", "Request", "AdmissionError",
 #: never interleave their dispatches. Re-entrant because a step's requeue
 #: pump may prefill.
 _CROSS_ENGINE_LOCK = threading.RLock()
+
+
+def _serving_metrics():
+    """The degradation ladder's part of the reference's serving metric
+    set, with its names and help (no-ops when ``PADDLE_TPU_METRICS=0``;
+    counters aggregate across engines in the process). The rest of the
+    set is ROADMAP A8."""
+    return {
+        "degraded": _om.counter(
+            "serving_degraded_total",
+            "degradation-ladder actions under admission pressure",
+            labelnames=("rung",)),
+        "paused": _om.counter(
+            "serving_paused_total",
+            "requests paused into the host-DRAM KV tier under pool "
+            "pressure (pages D2H-copied, request parked)"),
+        "resumed": _om.counter(
+            "serving_resumed_total",
+            "paused requests resumed by H2D page restore (no "
+            "re-prefill)"),
+        "postponed": _om.counter(
+            "serving_pressure_postponed_total",
+            "decode rows dropped from ONE dispatch because victim "
+            "page releases were deferred (cross-thread entry in "
+            "flight); no state change — the rows rejoin at the next "
+            "boundary"),
+    }
 
 
 def _env_flag(name, default):
@@ -290,6 +335,11 @@ class Request:
         on_token: optional ``fn(request, token)`` fired after each
             appended token (the streaming hook); it runs on the engine's
             dispatch thread, and what it raises is swallowed.
+
+    ``status`` is ``pending``, ``live``, ``requeued`` (evicted, will
+    retry from its prompt), ``paused`` (its pages parked in the engine's
+    host KV tier: it resumes where it stopped) or terminal:
+    ``completed``, ``deadline_exceeded``, ``cancelled``, ``evicted``.
     """
 
     def __init__(self, prompt_ids, max_new_tokens=16, eos_token_id=None,
@@ -341,6 +391,8 @@ class Request:
         self._cancel_requested = False  # honored at (re-)admission
         self._cached_tokens = 0       # prefix tokens served from cache
         self._prefilled = 0           # prompt tokens written to pages
+        self._tier_key = None         # host-tier handle while paused
+        self._tier_tokens = 0         # context length of the parked KV
 
 
 class LlamaServingEngine:
@@ -368,10 +420,11 @@ class LlamaServingEngine:
     at ``chunk_block - 1``) is the most draft tokens a decode row carries,
     ``spec_ngram`` the n of the default :class:`~.speculative.NGramDrafter`
     and ``drafter_factory`` a zero-argument callable making one drafter a
-    sequence in its place (see the module docstring). The KV tier's knobs
-    (``kv_tier``, with the reference's env knob ``PADDLE_TPU_KV_TIER``,
-    and ``kv_tier_bytes``) raise :class:`NotImplementedError` naming their
-    ROADMAP A item when set off their defaults."""
+    sequence in its place (see the module docstring). ``kv_tier`` (None:
+    ``PADDLE_TPU_KV_TIER``, default off) turns the host KV tier on, its
+    pool bounded by ``kv_tier_bytes`` (None: ``PADDLE_TPU_KV_TIER_BYTES``,
+    default 256 MiB), read as the reference reads them; the tier is
+    ``self.tier`` (None when off)."""
 
     #: decode steps between admission checks while prompts are pending
     DECODE_TICKS = 16
@@ -393,13 +446,9 @@ class LlamaServingEngine:
         if kv_tier is None:
             kv_tier = os.environ.get(
                 "PADDLE_TPU_KV_TIER", "0").lower() in ("1", "true", "on")
-        later = {"kv_tier / PADDLE_TPU_KV_TIER": (kv_tier, "A7"),
-                 "kv_tier_bytes": (kv_tier_bytes is not None, "A7")}
-        asked = [f"{k} (ROADMAP item {item})"
-                 for k, (on, item) in later.items() if on]
-        if asked:
-            raise NotImplementedError(
-                f"{', '.join(asked)}: not ported yet (ROADMAP queue A)")
+        if kv_tier_bytes is None:
+            kv_tier_bytes = int(os.environ.get(
+                "PADDLE_TPU_KV_TIER_BYTES", str(256 << 20)))
         # the reference's sampling switch: off, sampled requests are
         # refused at admission (_validate)
         if sampling is None:
@@ -479,6 +528,13 @@ class LlamaServingEngine:
         self.prefix = PrefixCache(self.alloc, page_size,
                                   max_pages=prefix_cache_pages) \
             if prefix_cache else None
+        self._m = _serving_metrics()
+        # the host KV tier: the ladder pauses victims into it instead of
+        # destroying their work, and cold prefix pages demote into it
+        self.tier = KvPageTier(max_bytes=kv_tier_bytes) \
+            if kv_tier else None
+        if self.tier is not None and self.prefix is not None:
+            self.prefix.demote = self._demote_prefix_page
         param = next(model.parameters())
         self.device = param.device
         # int8 KV pages: quantize on write, dequantize in the attention's
@@ -668,8 +724,19 @@ class LlamaServingEngine:
             expired = [r for r in self._live.values()
                        if not r.done and r._expires_at is not None
                        and now >= r._expires_at]
+            # a paused request's deadline keeps ticking on the requeue;
+            # expired, its host copy is freed too
+            parked = [r for r in self._requeue
+                      if not r.done and r._tier_key is not None
+                      and r._expires_at is not None
+                      and now >= r._expires_at]
+            for r in parked:
+                self._requeue.remove(r)
         for r in expired:
             self._expire(r, now=now)
+        for r in parked:
+            self._expire(r, now=now)
+            self._tier_discard(r)
 
     def cancel(self, req):
         """Cancel a live request (by :class:`Request` or seq_id).
@@ -692,6 +759,8 @@ class LlamaServingEngine:
                         self._requeue.remove(r)
                         r.done = True
                         r.status = "cancelled"
+                        # a paused request's host copy dies with it
+                        self._tier_discard(r)
                         return True
                     if r.seq_id is None \
                             or self._live.get(r.seq_id) is not r:
@@ -1243,12 +1312,15 @@ class LlamaServingEngine:
             self._wd.disarm()
 
     def close(self):
-        """Stop the watchdog's thread. Idempotent; the engine stays
-        usable but unwatched (later dispatches do not restart it)."""
+        """Stop the watchdog's thread and the host tier's staging thread.
+        Idempotent; the engine stays usable but unwatched (later
+        dispatches do not restart the watchdog)."""
         self._closed = True
         if self._wd is not None:
             self._wd.stop()
             self._wd = None
+        if self.tier is not None:
+            self.tier.close()
 
     # ------------------------------------------------------------------
     # admission: prefix match, the degradation ladder
@@ -1316,6 +1388,10 @@ class LlamaServingEngine:
             if len(self._live) >= self.max_batch:
                 return "engine full"
             n = len(req.prompt_ids)
+            if self.tier is not None and self.prefix is not None:
+                # demoted prefix pages promote back BEFORE the match, so
+                # a prefix that rode out pressure on the host is a hit
+                self._promote_prefix(req.prompt_ids, n)
             cached = 0
             val_retries = 0
             evicted_cache = False
@@ -1380,7 +1456,8 @@ class LlamaServingEngine:
         (partial output kept, ``trimmed=True``). Caller holds the lock."""
         v.max_new_tokens = max(1, len(v.output_ids))
         v.trimmed = True
-        self._retire(v, "completed")
+        if self._retire(v, "completed"):
+            self._m["degraded"].labels("trim").inc()
 
     def _evict(self, v):
         """Reclaim the victim's pages and re-queue it against its
@@ -1398,8 +1475,9 @@ class LlamaServingEngine:
 
     def _requeue_or_fail(self, v):
         """Park the victim for a from-scratch retry, or fail it typed
-        when its retry budget is spent. Caller holds the lock and has
-        released the victim's pages."""
+        when its retry budget is spent (the evict rung's epilogue, and
+        the host tier's failed-restore fallback). Caller holds the lock
+        and has released the victim's pages."""
         if v.retry_budget > 0:
             v.retry_budget -= 1
             v.output_ids = []
@@ -1420,6 +1498,7 @@ class LlamaServingEngine:
                 live=len(self._live), max_batch=self.max_batch,
                 free_pages=self.alloc.free_pages,
                 num_pages=self.alloc.num_pages, retries=0)
+        self._m["degraded"].labels("evict").inc()
 
     def _degrade_evict(self, req):
         """Ladder rung 2: evict the lowest-priority victim (then the
@@ -1433,19 +1512,203 @@ class LlamaServingEngine:
             self._evict(v)
         return True
 
+    # ------------------------------------------------------------------
+    # the host KV tier: the pause rung
+    # ------------------------------------------------------------------
+    def _committed_extent(self, v, table, n_tokens):
+        """What a pause exports of ``v``'s table: the allocator's pages and
+        length, cut to the tokens ``v`` has committed when they are fewer.
+        They are fewer while a dispatch that reserved positions for ``v``
+        is in flight or emitting from another thread: the pause drops the
+        tokens it has not emitted, so their positions are not ``v``'s.
+        A decoder has committed its prompt and every emitted token but
+        the last (written by its next row)."""
+        if v._prefilled < len(v.prompt_ids) or not v.output_ids:
+            return table, n_tokens
+        n = min(n_tokens, len(v.prompt_ids) + len(v.output_ids) - 1)
+        return table[:-(-n // self.page_size)], n
+
+    def _pause(self, v):
+        """The ladder's pause rung: copy the victim's pages into the host
+        tier, release the device pages, and park the request ``paused``
+        on the requeue: the evict rung minus the destroyed work (output,
+        prefill progress, seed and retry budget all survive; the deadline
+        clock keeps ticking while parked; the drafter is rebuilt after
+        the resume). Any tier failure is typed and degrades to
+        :meth:`_evict`. Caller holds the engine lock."""
+        if self.tier is None:
+            self._evict(v)
+            return
+        with self._lock:
+            if v.done or v.seq_id is None:
+                return
+            try:
+                table, n_tokens = self.alloc.export_table(v.seq_id)
+            except KeyError:
+                self._evict(v)
+                return
+            table, n_tokens = self._committed_extent(v, table, n_tokens)
+            try:
+                key = self.tier.export_seq(
+                    self.k_pools, self.v_pools, self.k_scales,
+                    self.v_scales, table, n_tokens,
+                    step=self._dispatch_count)
+            except TierError:
+                self._evict(v)
+                return
+            if v.seq_id in self._live:
+                del self._live[v.seq_id]
+            self._spec_state.pop(v.seq_id, None)
+            self._release_pages(v.seq_id)
+            v._tier_key = key
+            v._tier_tokens = n_tokens
+            v.status = "paused"
+            # a fresh seq_id at resume: the old id may still have a
+            # deferred page release in flight (as in _evict)
+            v.seq_id = None
+            self._requeue.append(v)
+            self._m["paused"].inc()
+            self._m["degraded"].labels("pause").inc()
+
     def _degrade_pause(self, req):
-        """The pause rung between cache reclaim and trim needs the host
-        KV tier (ROADMAP A7); without one it frees nothing."""
-        del req
-        return False
+        """Ladder rung between cache reclaim and trim (needs the host
+        tier): pause the lowest-priority victim, freeing its batch slot
+        and pages without destroying its work. True when a victim left
+        the live set (even if its export failed and the pause degraded
+        to an evict: capacity was freed either way)."""
+        if self.tier is None:
+            return False
+        with self._lock:
+            victims = [r for r in self._live.values()
+                       if not r.done and r.priority < req.priority]
+            if not victims:
+                return False
+            v = min(victims,
+                    key=lambda r: (r.priority, len(r.output_ids)))
+            self._pause(v)
+        return True
+
+    def _tier_discard(self, req):
+        """Free a parked request's host copy (a cancel, deadline expiry
+        or drain ended its pause). Idempotent."""
+        key = req._tier_key
+        if key is None or self.tier is None:
+            return
+        req._tier_key = None
+        req._tier_tokens = 0
+        self.tier.free(key)
+
+    def _try_resume(self, req):
+        """Resume one paused request at a boundary: fresh exclusively
+        owned pages (:meth:`PageAllocator.import_table`), the host copy
+        restored into them in place (CRC-verified per page), and the
+        request live again with its output and prefill progress intact.
+        False when capacity is short: the request is re-parked at the
+        FRONT and the pump stops for this boundary. A failed or torn
+        restore gives the pages back and falls to the evict -> requeue
+        path (host copy freed, from-scratch retry against the retry
+        budget)."""
+        with self._lock:
+            if req._cancel_requested and not req.done:
+                req.done = True
+                req.status = "cancelled"
+            if req.done:
+                self._tier_discard(req)
+                return True
+            expired = (req._expires_at is not None
+                       and time.perf_counter() >= req._expires_at)
+        if expired:
+            self._expire(req)
+            self._tier_discard(req)
+            return True
+        with self._lock:
+            if len(self._live) >= self.max_batch:
+                self._requeue.appendleft(req)
+                return False
+            sid = self._next_id
+            try:
+                self.alloc.import_table(sid, req._tier_tokens)
+            except MemoryError:
+                self._requeue.appendleft(req)
+                return False
+            self._next_id += 1
+            table = list(self.alloc._tables[sid])
+            try:
+                # in place: the pools keep their addresses
+                self.tier.restore_seq(
+                    req._tier_key, self.k_pools, self.v_pools,
+                    self.k_scales, self.v_scales, table,
+                    step=self._dispatch_count)
+            except TierError:
+                self._release_pages(sid)
+                req._tier_key = None
+                req._tier_tokens = 0
+                self._requeue_or_fail(req)
+                return True
+            req._tier_key = None
+            req._tier_tokens = 0
+            req.seq_id = sid
+            req.status = "live"
+            self._live[sid] = req
+            self._m["resumed"].inc()
+        return True
+
+    def _demote_prefix_page(self, key, parent, page):
+        """Prefix-cache evict hook: copy ONE cold cached page into the
+        host tier before its last reference drops, so a hot prefix
+        survives pool pressure without re-prefill. Raises
+        :class:`TierError` on a failed copy; the cache swallows it."""
+        self.tier.put_prefix(
+            key.hex(), parent.hex() if parent is not None else None,
+            self.k_pools, self.v_pools, self.k_scales, self.v_scales,
+            page, step=self._dispatch_count)
+
+    def _promote_prefix(self, prompt_ids, n_tokens):
+        """Extend this prompt's cached chain with demoted pages the host
+        tier still holds, each restored in place into a page of its own
+        and pinned in the cache. Best-effort: only SURPLUS pages are
+        spent (the admission's own need plus one stays free), and a tier
+        failure leaves the cold path (the chain re-prefills). Caller
+        holds the engine lock."""
+        tier = self.tier
+        if tier is None or self.prefix is None:
+            return
+        keys = chain_keys(prompt_ids, self.page_size)
+        if not keys:
+            return
+        cached_pages, _ = self.prefix.match(prompt_ids, record=False)
+        j = len(cached_pages)
+        need = max(1, math.ceil(n_tokens / self.page_size))
+        while j < len(keys):
+            key = keys[j]
+            if not tier.has_prefix(key.hex()):
+                break
+            if self.alloc.free_pages <= need + 1:
+                break
+            try:
+                page = self.alloc.take_pages(1)[0]
+            except MemoryError:
+                break
+            try:
+                tier.restore_prefix(
+                    key.hex(), self.k_pools, self.v_pools, self.k_scales,
+                    self.v_scales, page, step=self._dispatch_count)
+            except TierError:
+                self.alloc.decref(page)
+                break
+            if not self.prefix.pin(key, page, parent=keys[j - 1]
+                                   if j > 0 else None, depth=j):
+                # re-cached meanwhile: the cached page wins
+                self.alloc.decref(page)
+            j += 1
 
     def _relieve_pressure(self, live, n):
         """Decode-boundary rung of the ladder: when the pool cannot hold
         the next ``n`` tokens of every live sequence, give cold prefix
-        pages back, then evict the lowest-priority (then least
-        progressed) victim until the rest fit; a sequence at its per-seq
-        table cap is trimmed. Returns the surviving list. Caller holds
-        the engine lock."""
+        pages back, then pause (host tier on) or evict the lowest-priority
+        (then least progressed) victim until the rest fit; a sequence at
+        its per-seq table cap is trimmed. Returns the surviving list.
+        Caller holds the engine lock."""
         page = self.page_size
         live = list(live)
         for r in list(live):
@@ -1473,13 +1736,22 @@ class LlamaServingEngine:
             v = min(live, key=lambda r: (r.priority, len(r.output_ids)))
             live.remove(v)
             if not deferrals_blocked:
-                self._evict(v)
+                if self.tier is not None:
+                    self._pause(v)
+                else:
+                    self._evict(v)
+            else:
+                # postponed: no state change, the row rejoins at the next
+                # boundary
+                self._m["postponed"].inc()
         return live
 
     def _pump_requeue(self):
         """Re-admission at step boundaries: requests the ladder parked
-        rejoin the batch as capacity allows; their prompts prefill as
-        ordinary chunks of the next dispatches."""
+        rejoin the batch as capacity allows; a paused one resumes from
+        the host tier (:meth:`_try_resume`), an evicted one's prompt
+        prefills as ordinary chunks of the next dispatches. Then the
+        tier is told the next paused request, to stage its restore."""
         while True:
             with self._lock:
                 if self._draining or not self._requeue \
@@ -1487,6 +1759,12 @@ class LlamaServingEngine:
                     break
                 nxt = self._requeue.popleft()
             if nxt.done:
+                self._tier_discard(nxt)
+                continue
+            if nxt._tier_key is not None:
+                # paused: a restore into fresh pages, not a re-admission
+                if not self._try_resume(nxt):
+                    break
                 continue
             try:
                 # no backoff sleeps inside the dispatch lock
@@ -1495,11 +1773,18 @@ class LlamaServingEngine:
                 with self._lock:
                     self._requeue.appendleft(nxt)
                 break
+        if self.tier is not None:
+            with self._lock:
+                head = next((r for r in self._requeue
+                             if not r.done and r._tier_key is not None),
+                            None)
+            if head is not None:
+                self.tier.stage(head._tier_key)
 
     def _admit(self, req):
         """Admit one request, walking the degradation ladder under
-        pressure: trim -> evict -> (bounded backoff) -> shed with a
-        ``retry_after`` hint. Raises :class:`ValueError` for a request
+        pressure: pause (host tier on) -> trim -> evict -> (bounded
+        backoff) -> shed with a ``retry_after`` hint. Raises :class:`ValueError` for a request
         that can never fit and :class:`AdmissionError` for transient
         pressure."""
         with self._entry():
@@ -1562,6 +1847,10 @@ class LlamaServingEngine:
                 attempt += 1
                 time.sleep(self.admit_backoff * (2 ** (attempt - 1)))
                 continue
+            if reason != "draining" and not quiet_retry:
+                # only real pressure is a shed (not drain gating, not the
+                # requeue pump's boundary probes)
+                self._m["degraded"].labels("shed").inc()
             raise AdmissionError(
                 reason, live=len(self._live),
                 max_batch=self.max_batch,
@@ -2034,6 +2323,14 @@ class LlamaServingEngine:
                 if nxt is None:
                     break
                 if nxt.done:
+                    self._tier_discard(nxt)
+                    continue
+                if nxt._tier_key is not None:
+                    # paused: resumed from the host tier where it stopped
+                    # (the reference re-admits it from its prompt)
+                    with self._entry(), self._dispatch_lock:
+                        if not self._try_resume(nxt):
+                            break
                     continue
                 try:
                     self._admit(nxt)
@@ -2118,6 +2415,8 @@ class LlamaServingEngine:
             for r in requeued:
                 if not r.done:
                     self._expire(r, reason="drain grace window")
+                # a paused request's host copy goes with it
+                self._tier_discard(r)
             dur = time.perf_counter() - t0
             completed = sum(1 for r in start if r.status == "completed")
             expired = sum(1 for r in start

@@ -600,8 +600,9 @@ class LlamaForCausalLM(nn.Module):
                 f"({need})")
         if seed is None:
             seed = int(torch.randint(0, 2 ** 31, (1,), generator=generator))
-        if not -2 ** 31 <= int(seed) < 2 ** 31:
-            raise ValueError(f"seed must be in [-2**31, 2**31), got {seed}")
+        # any int keys on its low 32 bits, as the reference's key does:
+        # the int32 with those bits
+        seed = (int(seed) + 2 ** 31) % 2 ** 32 - 2 ** 31
         sampler = (bool(do_sample), top_k, top_p, float(temperature))
         steps = self._decode_graph(b, max_len, sampler)
         g = steps.buffers

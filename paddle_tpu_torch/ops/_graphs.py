@@ -26,15 +26,28 @@ replay.
 
 On the CPU there is nothing to capture: the callers run the step
 function itself on the same buffers.
+
+Every capture holds :data:`CAPTURE_LOCK`. PyTorch captures in CUDA's
+global capture mode, in which another thread's allocation, synchronize
+or legacy-stream launch breaks the capture (or fails itself); device
+work made from another thread than the dispatching one (the host KV
+tier's page export, restore and staging) holds the same lock, so it
+never overlaps a capture.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from . import _build
 
-__all__ = ["StepGraphs"]
+__all__ = ["StepGraphs", "CAPTURE_LOCK"]
+
+#: held by every capture, and by device work that may run on another
+#: thread than the captures' (see the module docstring)
+CAPTURE_LOCK = threading.RLock()
 
 
 def _take_back(before):
@@ -98,25 +111,26 @@ class StepGraphs:
         if not self.cuda:
             raise RuntimeError("CUDA graphs need a CUDA device; on the CPU "
                                "the step function runs as it is")
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            fn()
-        torch.cuda.synchronize(self.device)
-        graph = torch.cuda.CUDAGraph()
-        before = [dict(c) for c in _build.COUNTERS]
-        try:
+        with CAPTURE_LOCK:
+            cur = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(cur)
             with torch.cuda.stream(self.stream):
-                graph.capture_begin(self.pool)
-                try:
-                    fn()
-                except BaseException:
-                    self._abandon(graph)
-                    raise
-                graph.capture_end()
-        finally:
-            counts = _take_back(before)
-        cur.wait_stream(self.stream)
+                fn()
+            torch.cuda.synchronize(self.device)
+            graph = torch.cuda.CUDAGraph()
+            before = [dict(c) for c in _build.COUNTERS]
+            try:
+                with torch.cuda.stream(self.stream):
+                    graph.capture_begin(self.pool)
+                    try:
+                        fn()
+                    except BaseException:
+                        self._abandon(graph)
+                        raise
+                    graph.capture_end()
+            finally:
+                counts = _take_back(before)
+            cur.wait_stream(self.stream)
         # the kernels' ticket buffers of the capture stream, as the graph
         # knows them: a later launch there may replace one with a larger
         # buffer, and this graph keeps writing the old one

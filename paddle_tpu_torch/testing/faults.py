@@ -44,8 +44,13 @@ Rule fields (all optional except ``point`` and ``action``):
   stamp refresh with ``path`` = the replica id and ``step`` = the beat
   ordinal, so a ``hang``/``sleep`` rule freezes heartbeats and the
   replica silently ages out of membership, driving TTL death detection
-  and, repeated, the circuit breaker). The serving engine fires
-  ``serve.admit``, ``serve.decode`` and ``serve.drain``.
+  and, repeated, the circuit breaker), and the host KV tier's copies
+  (``tier.d2h`` / ``tier.h2d``, fired through :func:`fire_copy` per
+  paused-sequence copy with ``path="seq"`` and per demoted prefix page
+  with ``path="prefix"``: ``sleep`` = a slow copy, ``raise`` = a failed
+  one, ``bitflip`` = a torn one). The serving engine fires
+  ``serve.admit``, ``serve.decode`` and ``serve.drain``, its host tier
+  ``tier.d2h`` and ``tier.h2d``.
 - ``action``: one of ``crash`` (``os._exit``), ``sigkill``, ``sigterm``
   (signal self), ``hang`` (sleep ~forever), ``sleep`` (slow-down, then
   continue), ``raise`` (``OSError`` by default; see ``exc``),
@@ -66,12 +71,11 @@ Rule fields (all optional except ``point`` and ``action``):
 - ``exit_code``: for ``crash`` (default 23).
 
 The reference's message points (``rpc.send``, ``rpc.reply``,
-``store.heartbeat``), socket points (``store.connect``,
-``store.frame``) and tier copy points (``tier.d2h``, ``tier.h2d``)
-have no call site in the port yet: their hooks (``fire_network``,
-``fire_store``, ``fire_copy``) and ``rename`` come with the modules that
-call them (ROADMAP A7, A9), and a plan rule at a message or socket
-point is refused at parse time until then.
+``store.heartbeat``) and socket points (``store.connect``,
+``store.frame``) have no call site in the port yet: their hooks
+(``fire_network``, ``fire_store``) come with the modules that call them
+(ROADMAP A9), and a plan rule at a message or socket point is refused at
+parse time until then.
 
 Plans are VALIDATED at parse time: an unknown rule key, an unknown
 action, or a point name that no instrumented call site registers
@@ -88,7 +92,7 @@ import signal
 import time
 
 __all__ = ["PLAN_ENV", "FaultRule", "FaultPlan", "plan", "reset", "active",
-           "fire", "bitflip", "PROCESS_POINTS", "NETWORK_POINTS",
+           "fire", "fire_copy", "bitflip", "PROCESS_POINTS", "NETWORK_POINTS",
            "STORE_POINTS"]
 
 #: environment variable holding the JSON fault plan
@@ -213,7 +217,7 @@ class FaultPlan:
                 raise ValueError(
                     f"fault point {r['point']!r} has no call site in the "
                     "port yet: message and socket points come with "
-                    "ROADMAP A7 and A9")
+                    "ROADMAP A9")
             self.rules.append(r if isinstance(r, FaultRule)
                               else FaultRule(r))
 
@@ -221,6 +225,20 @@ class FaultPlan:
         for rule in self.rules:
             if rule.matches(point, step, path):
                 rule.perform(point, step, path)
+
+    def fire_copy(self, point, step=None, path=None):
+        torn = False
+        for rule in self.rules:
+            if not rule.matches(point, step, path):
+                continue
+            if rule.action == "bitflip":
+                # an in-memory copy has no file to flip: consume the
+                # rule and report the tear back for the caller
+                rule.fired += 1
+                torn = True
+            else:
+                rule.perform(point, step, path)
+        return torn
 
 
 _plan: "FaultPlan | None" = None
@@ -257,6 +275,18 @@ def fire(point, step=None, path=None):
     p = plan()
     if p is not None:
         p.fire(point, step=step, path=path)
+
+
+def fire_copy(point, step=None, path=None):
+    """Copy-point hook (``tier.d2h`` / ``tier.h2d``): like :func:`fire`
+    for every matching rule EXCEPT ``bitflip`` — an in-flight
+    device<->host copy has no file to flip, so a matching bitflip rule is
+    consumed and reported back (returns True) for the CALLER to tear
+    the in-memory buffer it is copying. ``sleep`` rules model a slow
+    copy, ``raise`` a failed one, ``bitflip`` a torn one."""
+    p = plan()
+    return p.fire_copy(point, step=step, path=path) \
+        if p is not None else False
 
 
 def bitflip(path, offset=None, mask=0xFF):

@@ -167,8 +167,16 @@ def test_generate_seed_from_generator(fitted):
                              generator=torch.Generator().manual_seed(1)))
     assert torch.equal(a, b)
     assert torch.equal(a, tm.generate(ids, seed=seed, **kw))
-    with pytest.raises(ValueError, match="seed"):
-        tm.generate(ids, seed=2 ** 31, **kw)
+    # a seed outside the int32 range keys on its low 32 bits, as the
+    # reference's: 2**31 is -2**31, 2**32 + 5 is 5, and each is the
+    # reference's tokens at that seed
+    jm, _ = fitted["dense"]
+    for big, same in ((2 ** 31, -2 ** 31), (2 ** 32 + 5, 5)):
+        got = tm.generate(ids, seed=big, **kw)
+        assert torch.equal(got, tm.generate(ids, seed=same, **kw))
+        want = np.asarray(jm.generate(paddle.to_tensor(ids.numpy()),
+                                      seed=big, **kw)._data)
+        assert np.array_equal(got.numpy(), want)
 
 
 def test_kv_cache_update_at_a_device_offset():

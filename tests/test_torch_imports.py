@@ -18,6 +18,9 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.inference.serving",
            "paddle_tpu_torch.inference.sampling",
            "paddle_tpu_torch.inference.prefix_cache",
+           "paddle_tpu_torch.inference.kv_tier",
+           "paddle_tpu_torch.observability",
+           "paddle_tpu_torch.observability.metrics",
            "paddle_tpu_torch.testing", "paddle_tpu_torch.testing.faults",
            "paddle_tpu_torch.distributed.watchdog",
            "paddle_tpu_torch.ops.sampling",

@@ -13,8 +13,9 @@ the copy-on-write and double-free counts, the cache's stats and entries,
 every request's status, output and prefill cursor. They run in float and
 int8 KV, on the port's three attention paths, driven by single steps and
 by ``decode_many`` scans. Phase 14a of ``chip_smoke.py`` (the ladder under
-decode pressure with the cache giving its pages back first) runs here at
-tiny width on both engines and must give the values the card is held to.
+decode pressure with the cache giving its pages back first) and phase 14c
+(the same with the host KV tier on) run here at tiny width on both engines
+and must give the values the card is held to.
 """
 
 import pathlib
@@ -639,3 +640,48 @@ def test_pressure_schedule_gives_the_card_s_values():
         e.close()
     assert runs[0] == runs[1]
     assert isinstance(reqs[1].error, AdmissionError)
+
+
+def test_pause_schedule_gives_the_card_s_values():
+    """Phase 14c: phase 14a's schedule with the host tier on, its cap
+    ``PAUSE_TIER_PAGES`` pages of each engine's KV bytes, on both engines
+    at tiny width: the pauses, the pause the tier could not hold, the
+    resume and the re-admission in order, and every request's status and
+    output length are both engines' and the values ``chip_smoke.py``
+    holds the card to (a cap in pages: width does not enter); the tier's
+    stats equal, no paused copy left, the allocator consistent, the
+    tokens equal."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    paddle.seed(0)
+    jm = JaxLlama(jax_tiny(max_position_embeddings=512))
+    jm.eval()
+    arrays = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
+    tm = load_numpy_state(LlamaForCausalLM(
+        tiny_llama_config(max_position_embeddings=512), device="cpu"),
+        arrays).eval()
+    other, prompts = cs.pressure_prompts(128)
+    runs = []
+    for e, req_cls in ((JaxEngine(jm, fused_kv=False, sampling=False,
+                                  max_batch=8, page_size=16, kv_tier=True,
+                                  num_pages=cs.PRESSURE_POOL), JaxRequest),
+                       (LlamaServingEngine(tm, max_batch=8, page_size=16,
+                                           kv_tier=True,
+                                           num_pages=cs.PRESSURE_POOL),
+                        Request)):
+        e.tier.max_bytes = cs.PAUSE_TIER_PAGES * e.page_size \
+            * e.kv_bytes_per_token
+        e.generate([prompts[0][:16]], max_new_tokens=2)    # the warm-up's
+        reqs, events, cached, cache_ev = cs.pressure_schedule(
+            e, req_cls, other, prompts)
+        end = tuple((r.status, len(r.output_ids)) for r in reqs)
+        assert cached == 15 and cache_ev >= cached
+        assert events == cs.PAUSE_EVENTS and end == cs.PAUSE_END
+        st = e.tier.stats()
+        assert st["seqs"] == 0 and st["capacity_rejections"] >= 1
+        assert e.alloc.free_pages + e.prefix.pages == e.alloc.num_pages
+        assert not e.alloc._tables and not e._live
+        assert e.alloc.double_free_count == 0
+        runs.append(([r.output_ids for r in reqs], e.prefix.stats(), st))
+        e.close()
+    assert runs[0] == runs[1]

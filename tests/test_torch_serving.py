@@ -156,12 +156,16 @@ def test_admission_and_unported_options(models):
     assert errors[0] == errors[1]
     assert isinstance(ei.value, AdmissionError)
     # spec_k is served since A6 (capped at chunk_block - 1, as the
-    # reference stores it); the KV tier still raises
+    # reference stores it), the KV tier since A7 (its pool bounded as the
+    # reference bounds it)
     je = JaxEngine(jm, fused_kv=False, spec_k=2, **geom)
     assert LlamaServingEngine(tm, spec_k=2, **geom).spec_k == je.spec_k
     je.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaServingEngine(tm, kv_tier=True)
+    je = JaxEngine(jm, fused_kv=False, kv_tier=True, **geom)
+    te = LlamaServingEngine(tm, kv_tier=True, **geom)
+    assert te.tier is not None and te.tier.max_bytes == je.tier.max_bytes
+    je.close()
+    te.close()
 
 
 def test_eos_and_stop_tokens(models):
@@ -303,13 +307,18 @@ def test_engine_sampling_switch_reads_the_env_as_reference(models,
     ({"spec_ngram": 4}, "A6"), ({"drafter_factory": object}, "A6"),
     ({"kv_tier_bytes": 1 << 20}, "A7")])
 def test_engine_unported_knobs_raise(models, kw, item):
-    """A7's knob raises naming its item; A6's (ported) are taken and
-    stored as the reference stores them: the drafter factory, or one
-    making the n-gram drafter of ``spec_ngram``."""
+    """Knobs of items once unported, now taken as the reference takes
+    them: A7's ``kv_tier_bytes`` with the tier off builds no tier and
+    raises nothing; A6's are stored as the reference stores them: the
+    drafter factory, or one making the n-gram drafter of
+    ``spec_ngram``."""
     jm, tm = models
-    if item != "A6":
-        with pytest.raises(NotImplementedError, match=item):
-            LlamaServingEngine(tm, **kw, **GEOM)
+    if item == "A7":
+        je = JaxEngine(jm, fused_kv=False, **kw, **GEOM)
+        te = LlamaServingEngine(tm, **kw, **GEOM)
+        assert te.tier is None and je.tier is None
+        je.close()
+        te.close()
         return
     je = JaxEngine(jm, fused_kv=False, spec_k=3, **kw, **GEOM)
     te = LlamaServingEngine(tm, spec_k=3, **kw, **GEOM)
@@ -417,18 +426,19 @@ def test_on_token_sees_every_token_in_order(models):
     ("PADDLE_TPU_SPEC_K", "2"), ("PADDLE_TPU_KV_TIER", "1"),
     ("PADDLE_TPU_KV_TIER", "true"), ("PADDLE_TPU_KV_TIER", "ON")])
 def test_fleet_env_knobs_raise(models, monkeypatch, env, value):
-    """PADDLE_TPU_KV_TIER raises naming itself; PADDLE_TPU_SPEC_K is
-    served since A6 and read as the reference reads it."""
+    """PADDLE_TPU_SPEC_K (served since A6) and PADDLE_TPU_KV_TIER (since
+    A7) are read as the reference reads them."""
     jm, tm = models
     monkeypatch.setenv(env, value)
     je = JaxEngine(jm, sampling=False, **GEOM)
     assert je.spec_k > 0 or je.tier is not None   # the reference reads it
     je.close()
+    te = LlamaServingEngine(tm, **GEOM)
     if env == "PADDLE_TPU_SPEC_K":
-        assert LlamaServingEngine(tm, **GEOM).spec_k == je.spec_k
+        assert te.spec_k == je.spec_k
     else:
-        with pytest.raises(NotImplementedError, match=env):
-            LlamaServingEngine(tm, **GEOM)
+        assert te.tier is not None and te.tier.max_bytes == je.tier.max_bytes
+    te.close()
     # off values, as the reference parses them, serve as before
     monkeypatch.setenv(env, "0")
     LlamaServingEngine(tm, **GEOM)
