@@ -321,6 +321,31 @@ package is not beside it, and when any phase fails:
    over phase 15's prompts: phase 15's holds on each path, and tokens,
    pools, sidecars and ``spec_stats()`` bit for bit equal across the
    paths;
+16. (run after 15b) observability: phase 13's model (Llama-3-8B at full
+   width and depth, bf16) and traffic (8 prompts of a 512-token prefix
+   plus 16-128-token suffixes, 32 new each, graphed) through a fresh
+   engine with metrics on, the host tier on, and no warm-up of the
+   smoke's own: the engine warms each cold dispatch shape itself. Held:
+   admitted 8, completed 8, generated 256; the prefill-token, prefix
+   lookup, hit and saved counters equal to the engine's own records and
+   to the CPU schedule's (1088 prompt tokens, 8 lookups, 7 hits, 3584
+   saved); ``serving_ttft_seconds``'s count 8 and
+   ``serving_token_latency_seconds``'s the decode tokens of warm
+   dispatches and scans; ``serving.mixed_step`` / ``serving.decode_scan``
+   spans one a dispatch and a scan, a ``serving.first_token`` span under
+   each request's trace; a warm-up of both shapes (#12's write launch)
+   leaving every page bitwise (the trash page put back) and a paused
+   request's host copy CRC-equal; the same traffic on an engine built under
+   ``PADDLE_TPU_METRICS=0`` bitwise the same tokens with an empty
+   registry, no span and no warm-up; a raise forced inside ``step``
+   leaving one loadable post-mortem whose ``env.json`` names
+   ``serving.step`` and holds ``memory_stats``; a stalled dispatch under
+   the engine's watchdog counting one ``watchdog_timeouts_total``; a
+   restarted engine's ``prewarm()`` with no arguments warming the
+   recorded shapes. Printed: tokens/s of a second pass with metrics on and
+   off (host clock, synchronised), the host ms a dispatch the metrics
+   add, and the builds, loads, cache hits and captures the compile
+   watcher saw over the whole run;
 4c. (run last) a capture that fails (a host read under capture) raises,
    leaves the current stream as it was, and the next capture replays
    right; no phase catches a capture's error, so one ends the run;
@@ -1628,6 +1653,7 @@ def serve_ladder(dev):
             key += "_q8" if kv_dtype else ""
             label = f"ladder {kv_dtype or 'bf16'} {path}"
             single = serving_engine(model, kv_dtype, decode_ticks=1, **kw)
+            single.prewarm([single.chunk_budget, single.max_batch], [])
             first = {}
             souts, spools, swall, sdisp, _, sl = ladder_run(
                 single, prompts, f"{label} single", key, per_layer, first)
@@ -5264,6 +5290,379 @@ def serve_spec_paths(dev):
     return counts
 
 
+OBS_STALL_S = 2.0       # phase 16: a stalled dispatch, past the 1 s poll
+
+
+@contextlib.contextmanager
+def dispatch_watch(engine):
+    """Phase 16's tap of ``engine``: the mixed dispatches and scans that
+    ran, the dispatch shapes used (each one warm-up dispatch with metrics
+    on), and the per-token latency samples the engine should take (one a
+    decode-only dispatch; a scan's ticks when its tick count was warm
+    before it ran); yields ``{"mixed", "scans", "shapes", "tpot"}``."""
+    seen = {"mixed": 0, "scans": 0, "shapes": set(), "tpot": 0}
+    dispatch, scan = engine._dispatch_rows, engine._decode_scan
+
+    def on_dispatch(rows, cow=()):
+        seen["mixed"] += 1
+        if not any(n > 1 or not dec for _, _, _, n, _, dec in rows):
+            seen["tpot"] += 1
+            seen["shapes"].add(engine.max_batch)
+        else:
+            seen["shapes"].add(engine.chunk_budget)
+        return dispatch(rows, cow)
+
+    def on_scan(n):
+        warm = ("scan", n) in engine._warmed_keys
+        out = scan(n)
+        if out:
+            seen["scans"] += 1
+            seen["tpot"] += n if warm else 0
+        return out
+    with instance_attrs(engine, _dispatch_rows=on_dispatch,
+                        _decode_scan=on_scan):
+        yield seen
+
+
+#: the engine's metric calls a dispatch or scan makes apart from its
+#: inline counter updates (phase 16 times them)
+METRIC_HOOKS = ("_set_pool_gauges", "_note_perf", "_note_mixed_bytes",
+                "_record_shape")
+
+
+def observed_pass(engine, prompts, traced=False):
+    """Phase 13's traffic once through ``engine`` (request 0 by
+    ``add_request``, then the rest, then decoding to the end), every
+    request traced when ``traced``: returns (requests, wall seconds,
+    mean mixed-dispatch host ms, the host ms of the engine's
+    ``METRIC_HOOKS`` per dispatch or scan)."""
+    import torch
+    from paddle_tpu_torch.inference import Request
+    from paddle_tpu_torch.observability import tracing as otracing
+    reqs = [Request(p, max_new_tokens=NEW) for p in prompts]
+    if traced:
+        for r in reqs:
+            r._trace = otracing.mint()
+    spent = [0.0]
+
+    def timed(fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return wrapper
+    hooks = {n: timed(getattr(engine, n)) for n in METRIC_HOOKS}
+    torch.cuda.synchronize()
+    with timed_dispatches(engine) as times, instance_attrs(engine, **hooks):
+        t0 = time.perf_counter()
+        engine.add_request(reqs[0])
+        for r in reqs[1:]:
+            engine.add_request(r)
+        while not all(r.done for r in reqs):
+            engine.decode_many(NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    mixed = times["mixed"] + times["decode"]
+    calls = len(mixed) + len(times["scan"])
+    return (reqs, wall, 1e3 * sum(mixed) / max(len(mixed), 1),
+            1e3 * spent[0] / max(calls, 1))
+
+
+def compile_seen():
+    """What the compile watcher counted so far in this process: loads by
+    library, captures by graph set, builds, cache hits and misses."""
+    from paddle_tpu_torch.observability import metrics as om
+    reg = om.default_registry()
+    out = {}
+    m = reg.get("paddle_tpu_xla_compile_total")
+    if m is not None:
+        out["compiles"] = {v[0]: int(leaf.value) for v, leaf in m.samples()}
+    for name in ("paddle_tpu_xla_backend_compile_total",
+                 "compile_cache_hit_total", "compile_cache_miss_total"):
+        m = reg.get(name)
+        out[name] = 0 if m is None else int(m.value)
+    return out
+
+
+def check_warm_pages(engine, label):
+    """Phase 16's page check: a request paused into the host tier, both
+    dispatch shapes warmed up again (#12's write launch, the trash page
+    put back after), then every page of every pool and scale bitwise as
+    before (the cached prefix pages among them) and the paused host copy
+    CRC-equal to its export. The paused request is cancelled after."""
+    import torch
+    from paddle_tpu_torch.inference import Request
+    from paddle_tpu_torch.inference.kv_tier import _page_crcs
+    prefix, prompts = prefix_traffic(engine.model.config.vocab_size)
+    parked = Request(prompts[3], max_new_tokens=4)
+    engine.add_request(parked)
+    with engine._lock:
+        engine._pause(parked)
+    if parked.status != "paused":
+        fail(f"{label}: the request was not paused ({parked.status})")
+    ent = engine.tier._seqs[parked._tier_key]
+    pools = pool_pages(engine)
+    before = [t.clone() for t in pools]
+    cached = engine.prefix.pages
+    keys = set(engine._warmed_keys)
+    engine._warmed_keys.clear()
+    with count_calls(serving_plain_versions()) as plain_calls:
+        warmed = [engine._warm_mixed(t) for t in (engine.chunk_budget,
+                                                  engine.max_batch)]
+        torch.cuda.synchronize()
+    engine._warmed_keys |= keys
+    same = [torch.equal(b, a) for b, a in zip(before, pools)]
+    host = _page_crcs(ent.arrays, ent.n_pages) == ent.crcs
+    print(f"{label}: warm-up of both shapes ({warmed}) with {cached} "
+          f"cached prefix pages and a request of {ent.n_pages} pages "
+          f"paused to the host: every page bitwise over {len(pools)} pools "
+          f"{all(same)}, the host copy CRC-equal {host}", flush=True)
+    if not (all(warmed) and all(same) and host) or plain_calls:
+        fail(f"{label}: the warm-up changed pages (tensors "
+             f"{[i for i, x in enumerate(same) if not x]}), the "
+             f"host copy (CRC equal {host}), or ran plain versions "
+             f"{sorted(set(plain_calls))}")
+    engine.cancel(parked)
+
+
+def serve_observed(dev, model):
+    """Phase 16 (see the module docstring): the engine with metrics on
+    over phase 13's model and traffic, held against its own records, the
+    CPU schedule's values and a metrics-off engine; then the fatal path,
+    the watchdog and the restarted engine's prewarm. Returns #12's
+    launches over the phase's runs (the path's kernel, 2 a layer a
+    dispatch or tick)."""
+    import shutil
+    import tempfile
+    import torch
+    from paddle_tpu_torch.inference import Request
+    from paddle_tpu_torch.observability import compile_watch as ocw
+    from paddle_tpu_torch.observability import flight_recorder as ofr
+    from paddle_tpu_torch.observability import metrics as om
+    from paddle_tpu_torch.observability import trace as otrace
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    label = "observed"
+    whole_run = compile_seen()
+    prefix, prompts = prefix_traffic(model.config.vocab_size)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    env0 = {k: os.environ.get(k) for k in ("PADDLE_TPU_METRICS",
+                                           "PADDLE_TPU_SHAPE_REGISTRY")}
+    launches = 0
+    try:
+        os.environ["PADDLE_TPU_SHAPE_REGISTRY"] = os.path.join(
+            tmp, "shapes.json")
+        ocw._shape_registry = None
+        om.default_registry().clear()
+        otrace.clear()
+        engine = serving_engine(model, prefix_cache=True,
+                                num_pages=PREFIX_POOL, kv_tier=True)
+        reg = om.default_registry()
+        stats0 = engine.prefix.stats()
+        with count_calls(serving_plain_versions()) as plain_calls, \
+                dispatch_watch(engine) as seen, \
+                pool_watch(engine) as pages:
+            reset_launches()
+            reqs, _, _, _ = observed_pass(engine, prompts, traced=True)
+            launches += rpa.launches["fused_rope"]
+        if plain_calls:
+            fail(f"{label}: plain versions ran on the card: "
+                 f"{sorted(set(plain_calls))}")
+        on_run = compile_seen()
+        outs = [list(r.output_ids) for r in reqs]
+        cache = {k: v - stats0[k] for k, v in engine.prefix.stats().items()
+                 if k in ("lookups", "hits", "saved_tokens")}
+
+        def value(name):
+            m = reg.get(name)
+            return None if m is None else m.value
+        got = {"admitted": value("serving_requests_admitted_total"),
+               "completed": value("serving_requests_completed_total"),
+               "generated": value("serving_generated_tokens_total"),
+               "prefill": value("serving_prefill_tokens_total"),
+               "lookups": value("serving_prefix_cache_lookup_total"),
+               "hits": value("serving_prefix_cache_hit_total"),
+               "saved": value("serving_prefix_saved_prefill_tokens_total"),
+               "ttft": reg.get("serving_ttft_seconds").count,
+               "tpot": reg.get("serving_token_latency_seconds").count}
+        cold = len(prompts[0]) + sum(PREFIX_SUFFIXES[1:])
+        want = {"admitted": 8, "completed": 8, "generated": 8 * NEW,
+                "prefill": cold, "lookups": 8, "hits": 7,
+                "saved": 7 * PREFIX_TOKENS, "ttft": 8, "tpot": seen["tpot"]}
+        own = {"generated": sum(map(len, outs)), "prefill": pages["prefill"],
+               "lookups": cache["lookups"], "hits": cache["hits"],
+               "saved": cache["saved_tokens"]}
+        events = [ev["name"] for ev in otrace.get_events()]
+        spans = {n: events.count(n) for n in (
+            "serving.mixed_step", "serving.decode_scan",
+            "serving.first_token")}
+        want_spans = {"serving.mixed_step": seen["mixed"],
+                      "serving.decode_scan": seen["scans"],
+                      "serving.first_token": 8}
+        print(f"{label}: counters {got} (want {want}; the engine's own "
+              f"records {own}); spans {spans} (want {want_spans}); "
+              f"warm-up dispatches {engine._warm_dispatches} (dispatch "
+              f"shapes used {sorted(seen['shapes'])}); "
+              f"mixed_hbm_bytes {value('serving_mixed_hbm_bytes'):.0f}",
+              flush=True)
+        warm_want = len(seen["shapes"])
+        if got != want or any(got[k] != v for k, v in own.items()) \
+                or spans != want_spans \
+                or engine._warm_dispatches != warm_want \
+                or any(r.status != "completed" for r in reqs):
+            fail(f"{label}: counters {got} != {want} or the engine's "
+                 f"records {own}, spans {spans} != {want_spans}, warm-ups "
+                 f"{engine._warm_dispatches} != {warm_want} (one a "
+                 f"dispatch shape used), statuses "
+                 f"{[r.status for r in reqs]}")
+        check_warm_pages(engine, label)
+        hold_allocator(label, engine)
+        recorded = ocw.shape_registry().lookup(engine._shape_key)
+        _, wall_on, ms_on, hooks_on = observed_pass(engine, prompts)
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+
+        os.environ["PADDLE_TPU_METRICS"] = "0"
+        om.default_registry().clear()
+        otrace.clear()
+        off = serving_engine(model, prefix_cache=True, num_pages=PREFIX_POOL,
+                             kv_tier=True)
+        with count_calls(serving_plain_versions()) as plain_calls:
+            reset_launches()
+            off_reqs, _, _, _ = observed_pass(off, prompts)
+            _, wall_off, ms_off, hooks_off = observed_pass(off, prompts)
+            launches += rpa.launches["fused_rope"]
+        off_outs = [list(r.output_ids) for r in off_reqs]
+        empty = om.default_registry().collect() == [] \
+            and otrace.get_events() == []
+        print(f"{label} metrics off: tokens bitwise the metrics-on run's "
+              f"{off_outs == outs}, registry and spans empty {empty}, "
+              f"warm-up dispatches {off._warm_dispatches}", flush=True)
+        if off_outs != outs or not empty or off._warm_dispatches \
+                or plain_calls:
+            fail(f"{label}: metrics off changed tokens ({off_outs != outs}),"
+                 f" registered or recorded (empty {empty}), warmed "
+                 f"{off._warm_dispatches} or ran plain versions "
+                 f"{sorted(set(plain_calls))}")
+        off.close()
+        del off
+        torch.cuda.empty_cache()
+        if env0["PADDLE_TPU_METRICS"] is None:
+            del os.environ["PADDLE_TPU_METRICS"]
+        else:
+            os.environ["PADDLE_TPU_METRICS"] = env0["PADDLE_TPU_METRICS"]
+        n_tok = len(prompts) * NEW
+        print(f"{label}: second pass tokens_per_s={n_tok / wall_on:.1f} "
+              f"with metrics, {n_tok / wall_off:.1f} without; mixed "
+              f"dispatch host ms {ms_on:.3f} with, {ms_off:.3f} without "
+              f"({ms_on - ms_off:.3f} apart); the engine's metric calls "
+              f"({', '.join(METRIC_HOOKS)}) {hooks_on:.4f} host ms a "
+              f"dispatch or scan with metrics, {hooks_off:.4f} without "
+              f"(the metrics add {hooks_on - hooks_off:.4f})", flush=True)
+
+        # the fatal path, the watchdog, the restarted engine's prewarm
+        om.default_registry().clear()
+        ofr.install(log_dir=tmp)
+        engine = serving_engine(model, prefix_cache=True,
+                                num_pages=PREFIX_POOL)
+        done = engine.prewarm()
+        want_recipe = (sorted(recorded.get("mixed", ())),
+                       sorted(recorded.get("scan", ())))
+        if (done["mixed"], done["scan"]) != want_recipe \
+                or not done["mixed"] or not done["scan"] \
+                or engine._warm_dispatches != len(done["mixed"]) \
+                + len(done["scan"]):
+            fail(f"{label}: a restarted engine's prewarm() warmed {done} "
+                 f"({engine._warm_dispatches} warm-ups), the registry "
+                 f"recorded {recorded}")
+        r = Request(prompts[1], max_new_tokens=2)
+        engine.add_request(r)
+
+        def explode(*a, **k):
+            raise RuntimeError("observed: forced fault in step")
+        with instance_attrs(engine, _mixed_forward=explode):
+            try:
+                engine.step()
+            except RuntimeError as e:
+                if "forced fault" not in str(e):
+                    raise
+            else:
+                fail(f"{label}: the forced fault in step did not raise")
+        root = os.path.join(tmp, "postmortem")
+        bundles = sorted(os.listdir(root)) if os.path.isdir(root) else []
+        env_doc = {}
+        if len(bundles) == 1:
+            with open(os.path.join(root, bundles[0], "env.json")) as f:
+                env_doc = json.load(f)
+            for part in ("trace.json", "metrics.json"):
+                with open(os.path.join(root, bundles[0], part)) as f:
+                    json.load(f)
+        print(f"{label}: forced fault in step: {len(bundles)} post-mortem "
+              f"bundle(s), reason {env_doc.get('reason')!r}, "
+              f"{len(env_doc.get('memory_stats') or {})} memory_stats keys,"
+              f" mem_get_info {env_doc.get('mem_get_info')}", flush=True)
+        if len(bundles) != 1 or env_doc.get("reason") != "serving.step" \
+                or not env_doc.get("memory_stats"):
+            fail(f"{label}: the forced fault left {bundles}, env {env_doc}")
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+        engine = serving_engine(model, prefix_cache=True,
+                                num_pages=PREFIX_POOL, decode_ticks=1)
+        engine.prewarm([engine.chunk_budget, engine.max_batch], [])
+        r = Request(prompts[2], max_new_tokens=NEW)
+        engine.add_request(r)
+        engine.step()
+        # the watchdog arms on 8 warm samples: a 50 ms floor over 1 ms
+        # dispatches, so the stall fires at its first poll (1 s)
+        engine._dispatch_times.clear()
+        engine._dispatch_times.extend([0.001] * 16)
+        engine.stuck_min_timeout = 0.05
+        before = reg_value = 0.0
+        fam = om.default_registry().get("watchdog_timeouts_total")
+        if fam is not None and fam.peek("serving.decode") is not None:
+            before = fam.peek("serving.decode").value
+        forward = engine._mixed_forward
+
+        def stalled(*a, **k):
+            time.sleep(OBS_STALL_S)
+            return forward(*a, **k)
+        with instance_attrs(engine, _mixed_forward=stalled):
+            engine.step()
+        fam = om.default_registry().get("watchdog_timeouts_total")
+        reg_value = fam.labels("serving.decode").value if fam else 0.0
+        print(f"{label}: a dispatch stalled {OBS_STALL_S}s under the "
+              f"watchdog: watchdog_timeouts_total {before} -> {reg_value}",
+              flush=True)
+        if reg_value != before + 1:
+            fail(f"{label}: the stalled dispatch counted "
+                 f"{reg_value - before} watchdog timeouts, not 1")
+        while not r.done:
+            engine.step()
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+        print(f"{label}: the compile watcher before this phase "
+              f"{whole_run}; over its metrics-on run {on_run}", flush=True)
+        saw = {**whole_run.get("compiles", {}), **on_run.get("compiles", {})}
+        if not any(k.startswith("kernel:") for k in saw) \
+                or not on_run.get("compiles", {}).get("serving.decode_tick"):
+            fail(f"{label}: the compile watcher saw no library load or no "
+                 f"tick capture of the fresh engine: {whole_run}, {on_run}")
+    finally:
+        ofr.uninstall()
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        ocw._shape_registry = None
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def check_capture_failure(dev):
     """A step that reads the device on the host cannot be captured: the
     capture helper raises what the capture raised (no phase catches it
@@ -5307,6 +5706,12 @@ def main():
     except ImportError as e:
         fail(f"paddle_tpu_torch is not beside chip_smoke.py ({e})")
     dev = torch.device("cuda")
+    # the engines' shape registry (compile_watch) in a directory of the
+    # run's own, removed at the end
+    import shutil
+    import tempfile
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["PADDLE_TPU_COMPILE_CACHE_DIR"] = cache_dir
     print(card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -5365,6 +5770,8 @@ def main():
     spec_launches, spec_gumbel = serve_spec_sampled(dev, model)  # 15b
     entry["launches"] += spec_launches
     sampler["launches"] += spec_gumbel
+    torch.cuda.empty_cache()
+    entry["launches"] += serve_observed(dev, model)  # phase 16
     del model
     torch.cuda.empty_cache()
     paths = serve_prefix_paths(dev)                 # phase 13c
@@ -5392,8 +5799,11 @@ def main():
                                        int8_launches)):
         e["launches"] = counts[e["name"]]
     check_capture_failure(dev)
+    shutil.rmtree(cache_dir, ignore_errors=True)
     print(f"smoke_s={time.perf_counter() - t0:.1f} (build and every phase)",
           flush=True)
+    # again at the end: a reader of the output's tail finds the card there
+    print(card_line(), flush=True)
     print(json.dumps({"kernels": [entry] + family + [paged]
                       + training_entries + moe_entries + [sampler]}),
           flush=True)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observability import metrics as _om
 from ..ops import paged_attention as _pa
 
 __all__ = ["PageAllocator", "PagedKVCache", "quantize_kv_int8"]
@@ -61,7 +62,9 @@ class PageAllocator:
     :meth:`ensure_writable` (copy-on-write).
 
     ``cow_count`` and ``double_free_count`` are plain counters of
-    copy-on-write copies and of ignored (idempotent) releases."""
+    copy-on-write copies and of ignored (idempotent) releases; the same
+    events count in the registry's ``kv_page_cow_total`` and
+    ``kv_page_double_free_total``."""
 
     def __init__(self, num_pages, page_size, max_pages_per_seq=None):
         self.num_pages = num_pages
@@ -76,8 +79,18 @@ class PageAllocator:
         # length] for batch_views; extend only appends, and the other
         # mutations of a table drop its entry
         self._rows: dict[int, list] = {}
+        # copy-on-write copies and ignored (idempotent) releases, as plain
+        # counts and as the reference's registry counters
         self.cow_count = 0
+        self._m_cow = _om.counter(
+            "kv_page_cow_total",
+            "copy-on-write page copies triggered by a write into a "
+            "shared page")
         self.double_free_count = 0
+        self._m_double_free = _om.counter(
+            "kv_page_double_free_total",
+            "release() calls ignored because the sequence or page was "
+            "already free")
         self._lock = threading.Lock()
 
     @property
@@ -168,6 +181,7 @@ class PageAllocator:
                 p = table.pop()
                 if p in self._free_set or p not in self._refs:
                     self.double_free_count += 1
+                    self._m_double_free.inc()
                     warnings.warn(
                         f"rollback of sequence {seq_id} found page {p} "
                         f"already free; skipping", RuntimeWarning,
@@ -189,6 +203,7 @@ class PageAllocator:
             self._rows.pop(seq_id, None)
             if table is None:
                 self.double_free_count += 1
+                self._m_double_free.inc()
                 warnings.warn(
                     f"release of unknown or already-released sequence "
                     f"{seq_id} ignored", RuntimeWarning, stacklevel=2)
@@ -197,6 +212,7 @@ class PageAllocator:
             for p in table:
                 if p in self._free_set or p not in self._refs:
                     self.double_free_count += 1
+                    self._m_double_free.inc()
                     warnings.warn(
                         f"page {p} of sequence {seq_id} already free; "
                         f"skipping double insert", RuntimeWarning,
@@ -228,6 +244,7 @@ class PageAllocator:
         with self._lock:
             if page in self._free_set or page not in self._refs:
                 self.double_free_count += 1
+                self._m_double_free.inc()
                 warnings.warn(f"decref of free page {page} ignored",
                               RuntimeWarning, stacklevel=2)
                 return False
@@ -281,6 +298,7 @@ class PageAllocator:
             self._rows.pop(seq_id, None)
             self._refs[p] -= 1
             self.cow_count += 1
+            self._m_cow.inc()
             return (p, new)
 
     def context_len(self, seq_id):

@@ -134,17 +134,34 @@ promote back on a match. A pause from another thread while a dispatch
 holding the request is in flight exports the tokens the request has
 committed: the dispatch's later tokens for its row are dropped.
 
-Metrics: the ladder's counters (``serving_paused_total``,
-``serving_resumed_total``, ``serving_pressure_postponed_total``,
-``serving_degraded_total{rung}``) and the tier's four, on the port's
-registry (:mod:`~paddle_tpu_torch.observability.metrics`). The rest of
-the reference's serving metrics is ROADMAP A8.
+Observability (:mod:`~paddle_tpu_torch.observability`): the reference's
+whole serving metric set (:func:`_serving_metrics`: admissions,
+completions, sheds, deadlines, cancels, the ladder, TTFT and per-token
+latency, prefill and generated tokens, the prefix cache, speculation,
+constraints, the pool and byte gauges), the allocator's and the
+watchdog's, on the port's registry; the ``serving.mixed_step``,
+``serving.decode_scan``, ``serving.prewarm`` and (under a request's
+trace context) ``serving.first_token`` spans; the perf recorder's
+``serving.mixed_step`` / ``serving.mixed_scan[n]`` samples; and a
+flight-recorder post-mortem when ``step``, a scan, ``generate`` or
+``drain`` raises. A tick graph runs its Python once, at capture, so
+every per-token count and latency sample is taken on the host after the
+scan's read-back. With metrics on, a dispatch at a cold shape is
+preceded by a dummy warm-up dispatch (:meth:`LlamaServingEngine
+._warm_mixed`: no page changes) that takes the kernel loads and the
+library handles' first-use cost out of the TTFT and per-token samples;
+under ``PADDLE_TPU_METRICS=0`` nothing is registered or recorded, no
+warm-up runs and the tokens are bitwise the same. The dispatch shapes
+the engine runs are recorded in the shape registry (``compile_watch``)
+for a restarted replica's :meth:`~LlamaServingEngine.prewarm`.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
+import hashlib
 import math
 import os
 import signal as _signal
@@ -155,7 +172,12 @@ import numpy as np
 import torch
 
 from ..incubate.nn.functional import fused_rotary_position_embedding
+from ..observability import compile_watch as _cw
+from ..observability import flight_recorder as _fr
 from ..observability import metrics as _om
+from ..observability import perf as _perf
+from ..observability import tracing as _tracing
+from ..observability.trace import span as _span
 from ..ops._graphs import StepGraphs
 from ..ops.ragged_paged_attention import (check_geometry,
                                           fused_ragged_paged_attention,
@@ -181,12 +203,36 @@ __all__ = ["LlamaServingEngine", "Request", "AdmissionError",
 _CROSS_ENGINE_LOCK = threading.RLock()
 
 
+#: latency buckets tuned for serving (TTFT / per-token): 1ms .. 10s
+_LATENCY_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                    0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
+
 def _serving_metrics():
-    """The degradation ladder's part of the reference's serving metric
-    set, with its names and help (no-ops when ``PADDLE_TPU_METRICS=0``;
-    counters aggregate across engines in the process). The rest of the
-    set is ROADMAP A8."""
+    """The reference's serving metric set on the default registry, with
+    its names, help, labels and buckets (no-ops when
+    ``PADDLE_TPU_METRICS=0``). Counters aggregate across engines in the
+    process; gauges reflect the engine that last updated them."""
     return {
+        "admitted": _om.counter(
+            "serving_requests_admitted_total",
+            "requests admitted into the continuous batch"),
+        "completed": _om.counter(
+            "serving_requests_completed_total",
+            "requests retired (EOS or max_new_tokens)"),
+        "evicted": _om.counter(
+            "serving_requests_evicted_total",
+            "admission rejections (engine full / KV pages exhausted)"),
+        "admit_retries": _om.counter(
+            "serving_admission_retries_total",
+            "admission attempts retried after backoff while waiting "
+            "for capacity"),
+        "deadline_exceeded": _om.counter(
+            "serving_deadline_exceeded_total",
+            "requests expired by TTL / token budget / drain grace"),
+        "cancelled": _om.counter(
+            "serving_cancelled_total",
+            "requests cancelled by the client before completion"),
         "degraded": _om.counter(
             "serving_degraded_total",
             "degradation-ladder actions under admission pressure",
@@ -205,7 +251,105 @@ def _serving_metrics():
             "page releases were deferred (cross-thread entry in "
             "flight); no state change — the rows rejoin at the next "
             "boundary"),
+        "drain_seconds": _om.gauge(
+            "serving_drain_seconds",
+            "duration of the last graceful drain"),
+        "queue_depth": _om.gauge(
+            "serving_queue_depth", "live requests in the engine"),
+        "kv_util": _om.gauge(
+            "serving_kv_page_utilization",
+            "fraction of KV-cache pages in use (0 when idle)"),
+        "ttft": _om.histogram(
+            "serving_ttft_seconds",
+            "admission -> first emitted token", buckets=_LATENCY_BUCKETS),
+        "tpot": _om.histogram(
+            "serving_token_latency_seconds",
+            "per-token decode latency (scan dispatches amortized)",
+            buckets=_LATENCY_BUCKETS),
+        "prefill_tokens": _om.counter(
+            "serving_prefill_tokens_total", "prompt tokens prefilled"),
+        "generated": _om.counter(
+            "serving_generated_tokens_total", "tokens emitted by decode"),
+        "prefix_lookups": _om.counter(
+            "serving_prefix_cache_lookup_total",
+            "admissions that consulted the shared-prefix cache"),
+        "prefix_hits": _om.counter(
+            "serving_prefix_cache_hit_total",
+            "admissions that reused cached prefix pages"),
+        "prefix_saved": _om.counter(
+            "serving_prefix_saved_prefill_tokens_total",
+            "prompt tokens NOT prefilled because their pages were "
+            "served from the shared-prefix cache"),
+        "prefix_pages": _om.gauge(
+            "serving_prefix_cache_pages",
+            "KV pages currently pinned by the shared-prefix cache"),
+        "prefill_backlog": _om.gauge(
+            "serving_prefill_backlog_tokens",
+            "prompt tokens admitted but not yet prefilled (the "
+            "chunked-prefill queue; load-routing signal)"),
+        "spec_proposed": _om.counter(
+            "serving_spec_proposed_tokens_total",
+            "draft tokens proposed by the speculative drafter"),
+        "spec_accepted": _om.counter(
+            "serving_spec_accepted_tokens_total",
+            "draft tokens accepted by batched verification"),
+        "spec_rate": _om.gauge(
+            "serving_spec_accept_rate",
+            "cumulative fraction of proposed draft tokens accepted"),
+        "spec_tpd": _om.gauge(
+            "serving_spec_tokens_per_dispatch",
+            "decode tokens emitted per speculative dispatch, averaged "
+            "over its decode rows (1.0 = speculation gaining nothing)"),
+        "kv_bytes": _om.gauge(
+            "kv_page_bytes_per_token",
+            "HBM bytes one cached token costs across all layers (K+V "
+            "data plus any int8 scale sidecars)"),
+        "weight_bytes": _om.gauge(
+            "serving_weight_bytes_per_param",
+            "bytes per model weight element as served (int8 weights + "
+            "f32 scale sidecars land near 1; bf16 weights at 2; f32 "
+            "at 4)"),
+        "stop_hits": _om.counter(
+            "serving_stop_token_hits_total",
+            "requests retired by a per-request stop token (the stop "
+            "token itself is excluded from the output)"),
+        "constraint_truncated": _om.counter(
+            "serving_constraint_truncated_total",
+            "constraint-hook allowed sets truncated to the engine's "
+            "sample_slots width"),
+        "constraint_errors": _om.counter(
+            "serving_constraint_errors_total",
+            "constraint hooks that raised (the step proceeds "
+            "unconstrained)"),
+        "mixed_hbm": _om.gauge(
+            "serving_mixed_hbm_bytes",
+            "static cost_analysis bytes accessed of the mixed-program "
+            "executable most recently dispatched (fused KV writes show "
+            "as a strict decrease vs PADDLE_TPU_FUSED_KV=0)"),
     }
+
+
+def _fatal_guard(origin):
+    """Decorator: a crash inside an engine entry point dumps a
+    flight-recorder post-mortem (when one is installed) before the
+    exception reaches the caller. Each exception dumps at most once.
+    A :class:`MemoryError` (admission: engine full, pages exhausted) is
+    a routine rejection and never dumps; a device out-of-memory
+    (``torch.cuda.OutOfMemoryError``) is a :class:`RuntimeError` and
+    does."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            try:
+                return fn(*args, **kwargs)
+            except MemoryError:
+                raise
+            except Exception as e:
+                _fr.on_fatal(origin, e)
+                raise
+        return wrapper
+
+    return deco
 
 
 def _env_flag(name, default):
@@ -577,6 +721,8 @@ class LlamaServingEngine:
         if self.kv_quant:
             tok_bytes += 2 * hk * 4 * n_layers       # the scale sidecars
         self.kv_bytes_per_token = tok_bytes
+        self._m["kv_bytes"].set(tok_bytes)
+        self._m["weight_bytes"].set(self.weight_bytes_per_param)
         self._live: dict[int, Request] = {}
         self._next_id = 0
         # lifecycle state: one re-entrant lock guards _live, the requeue,
@@ -596,6 +742,8 @@ class LlamaServingEngine:
         self._pending_drain = None    # (grace, exit_code, on_drained)
         self._dispatch_count = 0
         self._warmed_keys: set = set()  # ("mixed", T) / ("scan", n) run
+        self._warm_dispatches = 0       # dummy warm-up dispatches
+        self._mixed_bytes: dict[int, float] = {}  # t_cap -> bytes
         self._dispatch_times: collections.deque[float] = \
             collections.deque(maxlen=256)
         self._token_times: collections.deque[float] = \
@@ -603,7 +751,14 @@ class LlamaServingEngine:
         self._wd = None
         self._closed = False
         # the decode scan's static buffers and, on the card, its tick graphs
-        self._graphs = StepGraphs(self.device)
+        self._graphs = StepGraphs(self.device, name="serving.decode_tick")
+        # warm restart: the cache directory (None under
+        # PADDLE_TPU_COMPILE_CACHE=0) and the shape registry's key; the
+        # dispatch shapes this geometry runs are recorded there so the
+        # next process's prewarm() warms them before traffic
+        self._cache_dir = _cw.enable_persistent_cache()
+        self._recorded_shapes: set = set()
+        self._shape_key = self._compute_shape_key()
         self.prewarmed = None         # prewarm() summary, or None
         if prewarm is None:
             prewarm = os.environ.get(
@@ -713,7 +868,8 @@ class LlamaServingEngine:
             f"({len(req.output_ids)}/{req.max_new_tokens} tokens "
             f"emitted)", seq_id=req.seq_id, elapsed=elapsed,
             tokens_emitted=len(req.output_ids), reason=reason)
-        self._retire(req, "deadline_exceeded", err)
+        if self._retire(req, "deadline_exceeded", err):
+            self._m["deadline_exceeded"].inc()
 
     def _expire_deadlines(self):
         """Expire every live request past its deadline; called at step
@@ -759,6 +915,7 @@ class LlamaServingEngine:
                         self._requeue.remove(r)
                         r.done = True
                         r.status = "cancelled"
+                        self._m["cancelled"].inc()
                         # a paused request's host copy dies with it
                         self._tier_discard(r)
                         return True
@@ -768,6 +925,7 @@ class LlamaServingEngine:
                             # never admitted: terminal right away
                             r.done = True
                             r.status = "cancelled"
+                            self._m["cancelled"].inc()
                         # else: popped by the requeue pump mid
                         # re-admission; the flag is honored there
                         return True
@@ -775,7 +933,10 @@ class LlamaServingEngine:
                     r = self._live.get(req)
                     if r is None or r.done:
                         return False
-                return self._retire(r, "cancelled")
+                if self._retire(r, "cancelled"):
+                    self._m["cancelled"].inc()
+                    return True
+                return False
 
     # ------------------------------------------------------------------
     # the mixed step: prefill chunks + decode rows, one dispatch
@@ -878,6 +1039,7 @@ class LlamaServingEngine:
                 table = self.alloc._tables.get(sid)
                 if table:
                     self.prefix.insert(r.prompt_ids, table)
+            self._m["prefix_pages"].set(self.prefix.pages)
 
     def _copy_page(self, old, new):
         """Copy one page's K/V in every layer, the payload of a
@@ -1067,9 +1229,17 @@ class LlamaServingEngine:
                     allowed = sp.constraint(r.prompt_ids,
                                             tuple(r.output_ids))
                     allowed = None if allowed is None \
-                        else [int(tk) for tk in allowed][:b]
+                        else [int(tk) for tk in allowed]
                 except Exception:
+                    self._m["constraint_errors"].inc()
                     allowed = None       # the hook never kills a dispatch
+                if allowed is not None:
+                    if not allowed:
+                        # no valid continuation: unconstrained instead
+                        self._m["constraint_errors"].inc()
+                    elif len(allowed) > b:
+                        self._m["constraint_truncated"].inc()
+                        allowed = allowed[:b]
                 allowed_of[id(r)] = allowed
             ids = allowed_of.get(id(r))
             if ids:
@@ -1127,9 +1297,29 @@ class LlamaServingEngine:
         by_pos = bool(self.spec_k) and needs_mixed
         for old, new in cow:
             self._copy_page(old, new)
-        key = ("mixed", self.chunk_budget if needs_mixed
-               else self.max_batch)
+        t_cap = self.chunk_budget if needs_mixed else self.max_batch
+        key = ("mixed", t_cap)
         cold = key not in self._warmed_keys
+        if cold and self._m["ttft"] is not _om.NULL:
+            # the shape's first use (kernel loads, library handles and
+            # their heuristics) out of the TTFT and per-token windows: a
+            # warm-up dispatch (the trash page only, tokens discarded),
+            # and this dispatch's request clocks shifted past it. Under
+            # PADDLE_TPU_METRICS=0 it is skipped and the cold dispatch
+            # just goes unsampled
+            t_w = time.perf_counter()
+            self._warm_mixed(t_cap)
+            warm_dur = time.perf_counter() - t_w
+            with self._lock:
+                for r in {row[0] for row in rows}:
+                    if r._t_admit is not None:
+                        r._t_admit += warm_dur
+                    if r._expires_at is not None:
+                        # the deadline clock starts at admission; the
+                        # warm-up is engine overhead, not request time
+                        r._expires_at += warm_dur
+            cold = False
+        self._record_shape("mixed", t_cap)
         r_n = len(rows)
         t_n = sum(n for _, _, _, n, _, _ in rows)
         tokens = np.zeros((t_n,), np.int32)
@@ -1193,25 +1383,34 @@ class LlamaServingEngine:
         self._arm_watchdog(cold)
         with self._lock:
             self._in_dispatch = True
+        fenced = _perf.fence("serving.mixed_step", self.device)
         t0 = time.perf_counter()
         try:
-            nxt = self._mixed_forward(tok_d, pos_d, flat_d, last_d,
-                                      tables_d, kv_d, qs_d, ql_d, ws_d,
-                                      wf_d, we_d, pid_d, off_d, rt_d, qb,
-                                      sample)
-            out = nxt.tolist()          # the read-back: the step is done
+            with _span("serving.mixed_step", rows=r_n, tokens=t_n,
+                       prefill=needs_mixed):
+                nxt = self._mixed_forward(tok_d, pos_d, flat_d, last_d,
+                                          tables_d, kv_d, qs_d, ql_d, ws_d,
+                                          wf_d, we_d, pid_d, off_d, rt_d,
+                                          qb, sample)
+                if fenced is not None:
+                    fenced.stop()
+                out = nxt.tolist()      # the read-back: the step is done
         finally:
             with self._lock:
                 self._in_dispatch = False
             dur = time.perf_counter() - t0
             self._disarm_watchdog(dur, cold=cold)
             self._warmed_keys.add(key)
+        self._note_perf("serving.mixed_step", t0, fenced, t_n,
+                        t_n if by_pos else r_n)
+        self._note_mixed_bytes(t_cap)
         # a request cancelled, expired or evicted mid-dispatch is released
         # here, once; verification below skips its row (no rollback of a
         # released table)
         self._flush_deferred()
         if not cold and not needs_mixed:
             # a decode-only dispatch is one token per live row
+            self._m["tpot"].observe(dur)
             self._token_times.append(dur)
         finished, fin_sids = [], []
         with self._lock:
@@ -1220,6 +1419,7 @@ class LlamaServingEngine:
                 # and requeued mid-dispatch
                 if is_dec or r.done or r.seq_id != sid:
                     continue
+                self._m["prefill_tokens"].inc(n)
                 r._prefilled = max(r._prefilled, start + n)
                 if r._prefilled >= len(r.prompt_ids) \
                         and r not in finished:
@@ -1252,12 +1452,18 @@ class LlamaServingEngine:
                     accepted[i] = acc
                     self._spec_proposed += n - 1
                     self._spec_accepted += acc
+                    self._m["spec_proposed"].inc(n - 1)
+                    if acc:
+                        self._m["spec_accepted"].inc(acc)
                     rejected = (n - 1) - acc
                     if rejected and not r.done and r.seq_id == sid:
                         # a request that turned terminal or was requeued
                         # mid-dispatch is released wholesale instead
                         self.alloc.rollback(sid, rejected)
-        emitted = dec_tokens = 0
+                if self._spec_proposed:
+                    self._m["spec_rate"].set(
+                        self._spec_accepted / self._spec_proposed)
+        emitted = dec_rows = dec_tokens = 0
         for i, (r, sid, start, n, _, is_dec) in enumerate(rows):
             if r.done or r.seq_id != sid:
                 continue
@@ -1266,6 +1472,7 @@ class LlamaServingEngine:
                 # the guaranteed token plus every accepted draft; _emit
                 # retires at EOS, a stop token or max_new_tokens, and the
                 # rest is dropped
+                dec_rows += 1
                 for j in range(accepted.get(i, 0) + 1):
                     if r.done:
                         break
@@ -1277,11 +1484,16 @@ class LlamaServingEngine:
                 # mid-prompt chunk's tokens are discarded
                 self._emit(r, int(out[f + n - 1] if by_pos else out[i]))
                 emitted += 1
+        if accepted and dec_rows:
+            self._m["spec_tpd"].set(dec_tokens / dec_rows)
         if not cold and needs_mixed and dec_tokens \
                 and all(is_dec for _, _, _, _, _, is_dec in rows):
             # a pure decode and verify dispatch: its time over what it
-            # committed, as a scan's, keeps _retry_after live
-            self._token_times.append(dur / dec_tokens)
+            # committed, as a scan's, keeps tpot and _retry_after live
+            per = dur / dec_tokens
+            self._token_times.append(per)
+            for _ in range(dec_tokens):
+                self._m["tpot"].observe(per)
         return emitted
 
     # ------------------------------------------------------------------
@@ -1434,6 +1646,12 @@ class LlamaServingEngine:
             req._prefilled = cached
             self._live[req.seq_id] = req
             req.status = "live"
+            if self.prefix is not None:
+                self._m["prefix_lookups"].inc()
+                if cached:
+                    self._m["prefix_hits"].inc()
+                    self._m["prefix_saved"].inc(cached)
+                self._m["prefix_pages"].set(self.prefix.pages)
         return None
 
     def _degrade_trim(self, req, tried):
@@ -1457,6 +1675,7 @@ class LlamaServingEngine:
         v.max_new_tokens = max(1, len(v.output_ids))
         v.trimmed = True
         if self._retire(v, "completed"):
+            self._m["completed"].inc()
             self._m["degraded"].labels("trim").inc()
 
     def _evict(self, v):
@@ -1612,6 +1831,7 @@ class LlamaServingEngine:
             if req._cancel_requested and not req.done:
                 req.done = True
                 req.status = "cancelled"
+                self._m["cancelled"].inc()
             if req.done:
                 self._tier_discard(req)
                 return True
@@ -1796,6 +2016,7 @@ class LlamaServingEngine:
                 # a client abandon raced an eviction / re-admission
                 req.done = True
                 req.status = "cancelled"
+                self._m["cancelled"].inc()
                 return req.seq_id
         if req.done:
             return req.seq_id
@@ -1845,11 +2066,13 @@ class LlamaServingEngine:
                 # bounded backoff: another thread's step may retire a
                 # request and release its pages meanwhile
                 attempt += 1
+                self._m["admit_retries"].inc()
                 time.sleep(self.admit_backoff * (2 ** (attempt - 1)))
                 continue
             if reason != "draining" and not quiet_retry:
                 # only real pressure is a shed (not drain gating, not the
                 # requeue pump's boundary probes)
+                self._m["evicted"].inc()
                 self._m["degraded"].labels("shed").inc()
             raise AdmissionError(
                 reason, live=len(self._live),
@@ -1868,6 +2091,8 @@ class LlamaServingEngine:
                 budget = req.token_budget * req.max_new_tokens
                 ttl = budget if ttl is None else min(ttl, budget)
             req._expires_at = None if ttl is None else now + ttl
+        self._m["admitted"].inc()
+        self._set_pool_gauges()
         return req.seq_id
 
     def add_request(self, req):
@@ -1883,12 +2108,24 @@ class LlamaServingEngine:
     def _emit(self, req, token):
         if not req.output_ids and req._t_admit is not None:
             req.ttft = time.perf_counter() - req._t_admit
+            self._m["ttft"].observe(req.ttft)
+            # a zero-width marker in the request's distributed trace
+            # (where a caller activated one): where the first token landed
+            rctx = getattr(req, "_trace", None)
+            if rctx is not None:
+                with _tracing.activate(rctx), \
+                        _span("serving.first_token",
+                              ttft_seconds=round(req.ttft, 6)):
+                    pass
         # stop tokens end generation before they are appended; eos is
         # appended, then ends it
         if token in req.stop_set:
-            self._retire(req, "completed")
+            if self._retire(req, "completed"):
+                self._m["completed"].inc()
+                self._m["stop_hits"].inc()
             return
         req.output_ids.append(token)
+        self._m["generated"].inc()
         if req.on_token is not None:
             try:
                 req.on_token(req, token)
@@ -1896,13 +2133,15 @@ class LlamaServingEngine:
                 pass        # a streaming hook never kills a dispatch
         if (req.eos_token_id is not None and token == req.eos_token_id) \
                 or len(req.output_ids) >= req.max_new_tokens:
-            self._retire(req, "completed")
+            if self._retire(req, "completed"):
+                self._m["completed"].inc()
 
     def step(self):
         """Advance the engine by ONE mixed dispatch. Returns the number
         of rows dispatched (0 = nothing live)."""
         return self._mixed_step()[0]
 
+    @_fatal_guard("serving.step")
     def _mixed_step(self):
         """One mixed dispatch. Returns (rows dispatched, tokens
         emitted)."""
@@ -1925,6 +2164,7 @@ class LlamaServingEngine:
                 return 0, 0
             emitted = self._dispatch_rows(rows, cow)
             self._expire_deadlines()
+            self._set_pool_gauges()
             return len(rows), emitted
     # ------------------------------------------------------------------
     # decode scan: n all-decode ticks, one read-back
@@ -2056,6 +2296,7 @@ class LlamaServingEngine:
         else:
             self._tick(mode)
 
+    @_fatal_guard("serving.decode_scan")
     def _decode_scan(self, n):
         """Decode ``n`` tokens for every live, fully prefilled request:
         ``n`` ticks and one read-back. Pages for all ``n`` tokens are
@@ -2100,26 +2341,42 @@ class LlamaServingEngine:
             mode = self._sample_mode(live)
             self._ensure_tick(mode)
             self._load_scan(live, starts, mode, sids, last)
+            self._record_shape("scan", n)
             key = ("scan", n)
             cold = key not in self._warmed_keys
             self._arm_watchdog(cold)
             with self._lock:
                 self._in_dispatch = True
+            name = f"serving.mixed_scan[{n}]"
+            fenced = _perf.fence(name, self.device)
             t0 = time.perf_counter()
             try:
-                for _ in range(n):
-                    self._run_tick(mode)
-                all_tokens = self._graphs.buffers["out"][
-                    :len(live), :n].tolist()       # one read-back
+                with _span("serving.decode_scan", live=len(live), ticks=n):
+                    for _ in range(n):
+                        self._run_tick(mode)
+                    if fenced is not None:
+                        fenced.stop()
+                    all_tokens = self._graphs.buffers["out"][
+                        :len(live), :n].tolist()       # one read-back
             finally:
                 with self._lock:
                     self._in_dispatch = False
                 dur = time.perf_counter() - t0
                 self._disarm_watchdog(dur, cold=cold)
                 self._warmed_keys.add(key)
+            # a tick graph ran its Python once, at capture: every count
+            # and latency sample of the scan is taken here, after the
+            # read-back
+            self._note_perf(name, t0, fenced, self.max_batch, self.max_batch,
+                            ticks=n)
             self._flush_deferred()
             if not cold:
-                self._token_times.append(dur / n)
+                # one tick serves every live row: per-token latency is
+                # the scan's wall time over its ticks
+                tick = dur / n
+                self._token_times.append(tick)
+                for _ in range(n):
+                    self._m["tpot"].observe(tick)
             served = 0
             for i, r in enumerate(live):
                 for t in range(n):
@@ -2130,6 +2387,7 @@ class LlamaServingEngine:
                     self._emit(r, int(all_tokens[i][t]))
                     served += 1
             self._expire_deadlines()
+            self._set_pool_gauges()
             return served
 
     def _scan_fits(self, live, n):
@@ -2223,8 +2481,9 @@ class LlamaServingEngine:
     def _warm_mixed(self, t_cap):
         """One mixed dispatch of ``t_cap`` tokens with every row inactive
         (kv_len 0: nothing is written, the attention gives zeros; the
-        two-op scatter writes the trash page only) and its tokens
-        discarded, so no request state is touched: it builds and loads the
+        two-op scatter writes the trash page only, which is put back after)
+        and its tokens discarded, so no request state and no page is
+        touched: it builds and loads the
         kernels' libraries and the library handles of the shape. On a
         speculative engine the chunk shape's lm head and sampler run over
         every one of its ``t_cap`` positions, as a verify dispatch does,
@@ -2257,8 +2516,18 @@ class LlamaServingEngine:
                 + arrays[4:]
             sample = (tuple(torch.from_numpy(a).to(dev) for a in arrays),
                       True)
+        # the trash page as it was: the two-op scatter writes the dummy
+        # tokens' K/V there, and the pools stay bitwise as they were
+        pools = self.k_pools + self.v_pools + self.k_scales + self.v_scales
+        kept = [pool[self.trash_page].clone() for pool in pools]
         self._mixed_forward(z_t, z_t, z_t, z_r, tables, z_r, z_r, z_r, z_r,
                             z_r, z_r, page_ids, offs, row_tok, qb, sample)
+        for pool, page in zip(pools, kept):
+            pool[self.trash_page].copy_(page)
+        self._warmed_keys.add(("mixed", t_cap))
+        self._warm_dispatches += 1
+        self._record_shape("mixed", t_cap)
+        self._note_mixed_bytes(t_cap)
         return True
 
     def _warm_scan(self, n):
@@ -2267,7 +2536,6 @@ class LlamaServingEngine:
         ``sampling`` on, bias only and sampled); on the CPU, run one tick
         of each on the padding state. One tick graph serves every scan
         length ``n``."""
-        del n
         modes = ("greedy", "bias", "sampled") if self.sample_enabled \
             else ("greedy",)
         for mode in modes:
@@ -2276,27 +2544,198 @@ class LlamaServingEngine:
             else:
                 self._load_scan([], [], mode, [], [])
                 self._tick(mode)
+        self._warmed_keys.add(("scan", int(n)))
+        self._warm_dispatches += 1
 
     def prewarm(self, mixed=None, scans=None):
         """Build, load and capture this engine's dispatch programs before
         traffic arrives: ``mixed`` token counts (``chunk_budget`` and
         ``max_batch`` are this engine's; others are skipped) by a dummy
         dispatch each, and ``scans`` (tick counts) by capturing the tick
-        graphs. With no arguments the recipe is empty: the reference reads
-        it from its compile cache's shape registry, empty without a cache
-        directory, and the port has no registry yet (``compile_watch``,
-        ROADMAP A8). Returns ``{"mixed": [...], "scan": [...]}``, what was
-        warmed (also kept on ``self.prewarmed``)."""
+        graphs. With no arguments the recipe comes from the shape registry
+        (``compile_watch.shape_registry()``): the token counts and tick
+        counts an engine of this geometry dispatched before, in this
+        process or an earlier one sharing the cache directory; empty under
+        ``PADDLE_TPU_COMPILE_CACHE=0``, as the reference's. Returns
+        ``{"mixed": [...], "scan": [...]}``, what was warmed (also kept on
+        ``self.prewarmed``)."""
+        if mixed is None and scans is None:
+            recipe = {}
+            try:
+                recipe = _cw.shape_registry().lookup(self._shape_key) \
+                    if self._cache_dir is not None else {}
+            except Exception:
+                recipe = {}
+            mixed = recipe.get("mixed", ())
+            scans = recipe.get("scan", ())
         done = {"mixed": [], "scan": []}
-        for t_cap in sorted(set(mixed or ())):
-            if self._warm_mixed(int(t_cap)):
-                done["mixed"].append(int(t_cap))
-        for n in sorted(set(scans or ())):
-            self._warm_scan(int(n))
-            done["scan"].append(int(n))
+        with self._dispatch_lock, _CROSS_ENGINE_LOCK, \
+                _span("serving.prewarm", mixed=len(mixed or ()),
+                      scan=len(scans or ())):
+            for t_cap in sorted(set(mixed or ())):
+                if self._warm_mixed(int(t_cap)):
+                    done["mixed"].append(int(t_cap))
+            for n in sorted(set(scans or ())):
+                self._warm_scan(int(n))
+                done["scan"].append(int(n))
         self.prewarmed = done
         return done
 
+    # ------------------------------------------------------------------
+    # warm restart: the shape registry; the analytic dispatch cost
+    # ------------------------------------------------------------------
+    def _compute_shape_key(self):
+        """Stable identity of this engine's dispatch surface: every
+        dimension that shapes a dispatch (model dims, batch geometry, pool
+        layout and dtypes, the attention path, sampling, speculation,
+        weight quantization). Two engines with the same key run the same
+        kernels at the same shapes, so one's recorded shapes are the
+        other's warm-up recipe. Prefixed apart from the reference's keys,
+        whose programs are not these."""
+        cfg = self.model.config
+        dt = str(next(self.model.parameters()).dtype)
+        parts = (cfg.vocab_size, cfg.hidden_size, cfg.intermediate_size,
+                 cfg.num_hidden_layers, cfg.num_attention_heads,
+                 cfg.num_key_value_heads, cfg.head_dim,
+                 getattr(cfg, "moe_num_experts", 0),
+                 getattr(cfg, "moe_top_k", 0),
+                 getattr(cfg, "moe_intermediate_size", None) or 0,
+                 float(cfg.rope_theta), self.max_batch, self.page_size,
+                 self.width, self.chunk_budget, self.chunk_block,
+                 tuple(self.k_pools[0].shape) if self.k_pools else (), dt,
+                 str(self.k_pools[0].dtype) if self.k_pools else dt,
+                 bool(self.spec_k), bool(self.sample_enabled),
+                 self.sample_slots, bool(self.fused_kv),
+                 bool(self.fused_rope), bool(self.weight_quant),
+                 int(self.weight_block), self.device.type)
+        return "torch-llama:" + hashlib.sha1(
+            repr(parts).encode()).hexdigest()[:16]
+
+    def _record_shape(self, kind, value):
+        """Record one dispatched shape in the persistent shape registry
+        (one file write per distinct value per engine; a no-op without a
+        cache directory)."""
+        if self._cache_dir is None:
+            return
+        k = (kind, value)
+        if k in self._recorded_shapes:
+            return
+        self._recorded_shapes.add(k)
+        try:
+            _cw.shape_registry().record(self._shape_key, kind, value)
+        except Exception:
+            pass            # registry IO must never fail a dispatch
+
+    def _note_perf(self, name, t0, fenced, t, lm_rows, ticks=1):
+        """Feed one dispatch (``ticks`` ticks of ``t`` tokens, the lm head
+        on ``lm_rows`` rows) to the perf recorder: its host time, and with
+        a ``fenced`` sample its device time and analytic cost."""
+        flops = nbytes = None
+        if fenced is not None:
+            flops, nbytes = self._dispatch_cost(t, lm_rows)
+            flops, nbytes = ticks * flops, ticks * nbytes
+        _perf.note_dispatch(name, t0, fenced, flops, nbytes)
+
+    def _dispatch_cost(self, t, lm_rows):
+        """``(FLOPs, bytes)`` of one mixed dispatch of ``t`` packed tokens
+        whose lm head runs on ``lm_rows`` rows, counted analytically from
+        the shapes (the port has no compiled program to ask): the products'
+        FLOPs (projections, FFN, lm head; attention left out, its work
+        depends on the rows' context lengths), and the bytes of the
+        weights (all of them, the embedding as ``t`` gathered rows unless
+        tied), every activation written once and read once, the step's
+        K/V written into the pages, and what the fallback paths add: the
+        separate rope op and the row-block gather of q without
+        ``fused_rope``, the scatter's read of the fresh K/V and the
+        attention's re-read of the written slots without ``fused_kv``."""
+        c = self._cost_consts()
+        a, p, d = c["act"], c["pool"], c["head_dim"]
+        h, hq, hk, layers = c["hidden"], c["heads"], c["kv_heads"], \
+            c["layers"]
+        flops = 2.0 * t * c["matmul_params"] \
+            + 2.0 * lm_rows * h * c["vocab"]
+        kv = layers * t * 2 * hk * (d * p + c["scale"])
+        nbytes = c["weight_bytes"] + t * c["embed_row"] \
+            + layers * t * c["act_elems"] * a \
+            + lm_rows * c["vocab"] * a * 2 + kv
+        if not self.fused_rope:
+            # rope as its own op over q and k, then q gathered into the
+            # [R, qb] row blocks (each written and read)
+            nbytes += layers * t * 2 * (hq + hk) * d * a * 2
+        if not self.fused_kv:
+            # the scatter reads the fresh K/V; the attention re-reads the
+            # slots the scatter wrote
+            nbytes += layers * t * 2 * hk * d * a + kv
+        return flops, float(nbytes)
+
+    def _cost_consts(self):
+        """The model's constants of :meth:`_dispatch_cost`, made once."""
+        c = getattr(self, "_cost", None)
+        if c is not None:
+            return c
+        cfg = self.model.config
+        h, d = cfg.hidden_size, cfg.head_dim
+        hq, hk = cfg.num_attention_heads, cfg.num_key_value_heads
+        if getattr(cfg, "moe_num_experts", 0):
+            ffn = (cfg.moe_intermediate_size or cfg.intermediate_size) \
+                * min(cfg.moe_top_k, cfg.moe_num_experts)
+        else:
+            ffn = cfg.intermediate_size
+        a = next(self.model.parameters()).element_size()
+        embed = self.model.model.embed_tokens.weight
+        state, _, _ = serving_weight_bytes(self.model)
+        tied = bool(getattr(cfg, "tie_word_embeddings", False))
+        c = self._cost = {
+            "act": a, "pool": 1 if self.kv_quant else a, "head_dim": d,
+            "hidden": h, "heads": hq, "kv_heads": hk, "vocab": cfg.vocab_size,
+            "layers": cfg.num_hidden_layers,
+            "scale": 4 if self.kv_quant else 0,
+            "matmul_params": cfg.num_hidden_layers
+            * (h * (hq + 2 * hk) * d + hq * d * h + 3 * h * ffn),
+            # the table is read as gathered rows unless the lm head reads it
+            "weight_bytes": state - (0 if tied else embed.numel()
+                                     * embed.element_size()),
+            "embed_row": 0 if tied else h * embed.element_size(),
+            # per token and layer, each written once and read once: the
+            # two norms' outputs, q/k/v, the attention output, the o
+            # projection, the two residual sums, gate, up, their product,
+            # the down projection
+            "act_elems": 2 * (6 * h + (2 * hq + 2 * hk) * d + 3 * ffn),
+        }
+        return c
+
+    def _note_mixed_bytes(self, t_cap):
+        """Refresh ``serving_mixed_hbm_bytes`` with the analytic bytes of a
+        dispatch at token shape ``t_cap`` (:meth:`_dispatch_cost` at that
+        shape's rows), computed once per shape; a no-op under
+        ``PADDLE_TPU_METRICS=0``."""
+        if not _om.enabled():
+            return
+        nbytes = self._mixed_bytes.get(t_cap)
+        if nbytes is None:
+            by_pos = bool(self.spec_k) and t_cap == self.chunk_budget
+            rows = self.rows_cap if t_cap == self.chunk_budget \
+                else self.max_batch
+            _, nbytes = self._dispatch_cost(t_cap, t_cap if by_pos
+                                            else rows)
+            self._mixed_bytes[t_cap] = nbytes
+        self._m["mixed_hbm"].set(nbytes)
+
+    def _set_pool_gauges(self):
+        """The pool gauges (queue depth, prefill backlog, KV utilisation)
+        and, with metrics on, the throttled device-memory sample and the
+        flight recorder's rate-limited snapshot; nothing under
+        ``PADDLE_TPU_METRICS=0`` (the gauges are no-ops then)."""
+        if self._m["queue_depth"] is _om.NULL:
+            return
+        self._m["queue_depth"].set(len(self._live))
+        self._m["prefill_backlog"].set(self.prefill_backlog())
+        self._m["kv_util"].set(
+            1.0 - self.alloc.free_pages / self.alloc.num_pages)
+        _cw.sample_device_memory(min_interval=1.0)
+        _fr.periodic_snapshot()
+
+    @_fatal_guard("serving.generate")
     def generate(self, prompts, max_new_tokens=16, eos_token_id=None):
         """Admit all prompts (continuous batching handles ragged finish
         times), run to completion, return output id lists in order. Every
@@ -2369,6 +2808,7 @@ class LlamaServingEngine:
     # ------------------------------------------------------------------
     # graceful drain and readiness
     # ------------------------------------------------------------------
+    @_fatal_guard("serving.drain")
     def drain(self, timeout=30.0):
         """Stop admission and retire the in-flight set: decode until
         every live request completes or the grace ``timeout`` elapses,
@@ -2418,6 +2858,8 @@ class LlamaServingEngine:
                 # a paused request's host copy goes with it
                 self._tier_discard(r)
             dur = time.perf_counter() - t0
+            self._m["drain_seconds"].set(dur)
+            self._set_pool_gauges()
             completed = sum(1 for r in start if r.status == "completed")
             expired = sum(1 for r in start
                           if r.status == "deadline_exceeded")

@@ -664,7 +664,7 @@ class LlamaForCausalLM(nn.Module):
             return kept[1]
         self.__dict__.pop("_decode_state", None)   # frees the old set
         w = self.model.embed_tokens.weight
-        steps = StepGraphs(w.device)
+        steps = StepGraphs(w.device, name="generate.decode_step")
         for i, (kb, vb) in enumerate(self._empty_caches(batch, max_len)):
             steps.buffers[f"k{i}"], steps.buffers[f"v{i}"] = kb, vb
         steps.buffer("tokens", (batch, 1), torch.int64)
@@ -673,7 +673,8 @@ class LlamaForCausalLM(nn.Module):
         steps.buffer("fold", (1,), torch.int64)
         steps.buffer("seed", (1,), torch.int64)
         if steps.cuda:
-            steps.capture("step", lambda: self._graph_step(steps, sampler))
+            steps.capture("step", lambda: self._graph_step(steps, sampler),
+                          signature=(sampler, batch, max_len))
         self.__dict__["_decode_state"] = (key, steps)
         return steps
 

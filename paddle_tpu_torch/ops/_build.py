@@ -9,6 +9,14 @@ source rebuilds and an unchanged one is reused. A missing ``nvcc`` or a failed b
 Each build keeps the compiler's output (``ptxas -v``: registers, shared
 memory and spills of every kernel) beside its library; :func:`ptxas_report`
 reads it back.
+
+Builds and loads report to the compile watcher
+(:mod:`~paddle_tpu_torch.observability.compile_watch`): the build
+directory is the port's persistent compile cache, so a library found
+built when this process first asks for it is a cache hit and one that
+``nvcc`` compiles a miss (and a backend compile); each library's first
+load (its build included) is one compile of the callable
+``kernel:<library>``, its source hash the signature.
 """
 
 from __future__ import annotations
@@ -20,8 +28,11 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
+
+from ..observability import compile_watch as _cw
 
 __all__ = ["COUNTERS", "NVCC_FLAGS", "SOURCES", "build_all", "counter",
            "data_ptr", "load", "ptxas_report", "sm_count", "tickets"]
@@ -94,10 +105,14 @@ def build_all(names=None):
     names = list(SOURCES) if names is None else list(names)
     paths = {n: _lib_path(n) for n in names}
     todo = [n for n in names if not os.path.exists(paths[n])]
+    for n in names:
+        if n not in todo:
+            _cw.note_library(n, built=False)
     if not todo:
         return paths
     nvcc = _nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for n in todo:
         os.makedirs(os.path.dirname(paths[n]), exist_ok=True)
         tmp = f"{paths[n]}.{os.getpid()}.tmp"
@@ -113,6 +128,8 @@ def build_all(names=None):
             with open(paths[n] + ".log", "w") as f:
                 f.write(log)
             os.replace(tmp, paths[n])
+            _cw.note_library(n, built=True)
+            _cw.note_build(n, time.perf_counter() - t0)
     if failed:
         raise RuntimeError("CUDA kernel build failed: "
                            + "\n".join(failed))
@@ -174,5 +191,10 @@ def load(name):
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(build_all([name])[name])
+            t0 = time.perf_counter()
+            path = build_all([name])[name]
+            lib = _libs[name] = ctypes.CDLL(path)
+            _cw._watch(f"kernel:{name}").record_compile(
+                time.perf_counter() - t0,
+                desc=(("source", os.path.basename(os.path.dirname(path))),))
         return lib

@@ -27,6 +27,13 @@ replay.
 On the CPU there is nothing to capture: the callers run the step
 function itself on the same buffers.
 
+Each capture reports to the compile watcher
+(:mod:`~paddle_tpu_torch.observability.compile_watch`): one compile of
+the callable named by the set (``name``), its wall time the warm-up run
+plus the capture, its signature the graph's (the key, or what the caller
+gives), so a set that keeps capturing new graphs trips the recompile-storm
+counter.
+
 Every capture holds :data:`CAPTURE_LOCK`. PyTorch captures in CUDA's
 global capture mode, in which another thread's allocation, synchronize
 or legacy-stream launch breaks the capture (or fails itself); device
@@ -38,9 +45,11 @@ never overlaps a capture.
 from __future__ import annotations
 
 import threading
+import time
 
 import torch
 
+from ..observability import compile_watch as _cw
 from . import _build
 
 __all__ = ["StepGraphs", "CAPTURE_LOCK"]
@@ -75,8 +84,9 @@ class StepGraphs:
     """Static buffers, and on CUDA the captured graphs, of one engine's or
     one model's decode steps (see the module docstring)."""
 
-    def __init__(self, device):
+    def __init__(self, device, name="graphs"):
         self.device = torch.device(device)
+        self.name = name
         self.buffers: dict[str, torch.Tensor] = {}
         self._graphs = {}              # key -> (CUDAGraph, counts, kept)
         self.cuda = self.device.type == "cuda"
@@ -102,15 +112,17 @@ class StepGraphs:
     def __contains__(self, key):
         return key in self._graphs
 
-    def capture(self, key, fn):
+    def capture(self, key, fn, signature=None):
         """Run ``fn`` once on the capture stream, then capture it as the
         graph ``key``. ``fn`` runs twice on the buffers' current values
         (the warm-up really runs, the capture records), so the caller puts
         them in a state where a step's writes do no harm. Raises what the
-        capture raised."""
+        capture raised. ``signature`` (default ``key``) is what the compile
+        watcher tells this set's captures apart by."""
         if not self.cuda:
             raise RuntimeError("CUDA graphs need a CUDA device; on the CPU "
                                "the step function runs as it is")
+        t0 = time.perf_counter()
         with CAPTURE_LOCK:
             cur = torch.cuda.current_stream(self.device)
             self.stream.wait_stream(cur)
@@ -137,6 +149,8 @@ class StepGraphs:
         kept = [buf for (_, s), buf in _build._TICKETS.items()
                 if s == self.stream.cuda_stream]
         self._graphs[key] = (graph, counts, kept)
+        _cw.note_capture(self.name, key if signature is None else signature,
+                         time.perf_counter() - t0)
 
     def _abandon(self, graph):
         """End a capture that ``fn`` broke; the caller raises ``fn``'s

@@ -32,6 +32,11 @@ from paddle_tpu_torch.inference.serving import LlamaServingEngine, Request
 from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
                                      tiny_llama_config)
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 GEOM = dict(max_batch=4, page_size=8, num_pages=64, chunk_block=8,
             chunk_budget=16,
             prefix_cache=False)
@@ -284,7 +289,7 @@ def test_prewarm_returns_what_the_reference_warms(fitted, mixed, scans):
     """The return value and ``prewarmed`` are the reference's: the
     engine's two dispatch shapes (``chunk_budget``, ``max_batch``) warmed,
     other token counts skipped, scans sorted and deduplicated; no
-    arguments, no recipe (the reference without a compile-cache
+    arguments, no recipe (both engines without a compile-cache
     directory)."""
     jm, tm = _models(fitted)
     je = JaxEngine(jm, fused_kv=False, **GEOM)
@@ -292,6 +297,7 @@ def test_prewarm_returns_what_the_reference_warms(fitted, mixed, scans):
     want = je.prewarm(mixed, scans)
     je.close()
     te = LlamaServingEngine(tm, **GEOM)
+    te._cache_dir = None
     assert te.prewarmed is None
     got = te.prewarm(mixed, scans)
     assert got == want and te.prewarmed == je.prewarmed == want

@@ -22,6 +22,11 @@ from paddle_tpu_torch import amp
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import flash_attention as FT
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 
 def _inputs(b, sq, sk, h, hk, d, seed=0):
     rng = np.random.RandomState(seed)

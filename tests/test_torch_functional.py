@@ -20,6 +20,11 @@ from paddle_tpu_torch.incubate.nn import functional as FT
 from paddle_tpu_torch.inference.paged_cache import PageAllocator
 from paddle_tpu_torch.ops import ragged_paged_attention as RT
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 

@@ -21,6 +21,11 @@ from paddle_tpu.ops.fused_linear_cross_entropy import (_kernel_parts,
 
 from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 
 def _case(n=24, d=32, v=48, seed=0, ignore=(), out_of_range=()):
     rng = np.random.RandomState(seed)

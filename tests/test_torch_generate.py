@@ -25,6 +25,11 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
                                      tiny_llama_config)
 from paddle_tpu_torch.models import llama as tllama
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 CONFIGS = {"dense": {}, "moe": dict(moe_num_experts=4, moe_top_k=2)}
 
 

@@ -25,6 +25,11 @@ from paddle_tpu.quant.format import quantize_weight as jax_quantize
 
 from paddle_tpu_torch.ops import grouped_gemm as GG
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 CASES = [  # e, c, k, n, group sizes

@@ -21,6 +21,14 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.inference.kv_tier",
            "paddle_tpu_torch.observability",
            "paddle_tpu_torch.observability.metrics",
+           "paddle_tpu_torch.observability.trace",
+           "paddle_tpu_torch.observability.tracing",
+           "paddle_tpu_torch.observability.slo",
+           "paddle_tpu_torch.observability.export",
+           "paddle_tpu_torch.observability.flight_recorder",
+           "paddle_tpu_torch.observability.compile_watch",
+           "paddle_tpu_torch.observability.perf",
+           "paddle_tpu_torch.ops._graphs",
            "paddle_tpu_torch.testing", "paddle_tpu_torch.testing.faults",
            "paddle_tpu_torch.distributed.watchdog",
            "paddle_tpu_torch.ops.sampling",

@@ -23,6 +23,11 @@ from paddle_tpu_torch.inference import serving as ST
 from paddle_tpu_torch.inference.paged_cache import (INV_127,
                                                     quantize_kv_int8)
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 
 def _both(x):
     """(port q, port scale, reference q, reference scale) as numpy."""

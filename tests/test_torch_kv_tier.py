@@ -671,6 +671,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (phase 14d's chaos drive and values)
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 
 def _tier_schedule(models, plan=None, kv_dtype=None,
                    retry_budget=cs.CHAOS_RETRIES):

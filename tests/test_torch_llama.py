@@ -15,6 +15,11 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
                                      tiny_llama_config)
 from paddle_tpu_torch.models.llama import llama3_8b_config
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 
 def _pair(seed=0, **cfg):
     paddle.seed(seed)

@@ -28,6 +28,11 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, LlamaMoEMLP,
 from paddle_tpu_torch.models.llama import LlamaMLP, router_logits
 from paddle_tpu_torch.quant import quantize_model
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 MOE = dict(moe_num_experts=4, moe_top_k=2)
 
 

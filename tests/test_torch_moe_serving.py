@@ -27,6 +27,11 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
                                      tiny_llama_config)
 from paddle_tpu_torch.quant import WeightOnlyLinear
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 GEOM = dict(max_batch=4, page_size=8, num_pages=64, chunk_block=8,
             chunk_budget=16,
             prefix_cache=False)

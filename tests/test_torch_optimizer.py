@@ -13,6 +13,11 @@ from paddle_tpu.framework.tensor import Parameter
 
 from paddle_tpu_torch import optimizer as topt
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 SHAPES = {"linear.weight": (4, 3), "linear.bias": (3,),
           "norm.weight": (5,), "conv.weight": (2, 2, 3)}
 

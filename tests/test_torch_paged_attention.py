@@ -28,6 +28,11 @@ from paddle_tpu_torch.inference import PagedKVCache as CacheT
 from paddle_tpu_torch.ops import paged_attention as PT
 from paddle_tpu_torch.ops import ragged_paged_attention as RT
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

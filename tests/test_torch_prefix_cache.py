@@ -18,6 +18,9 @@ decode pressure with the cache giving its pages back first) and phase 14c
 and must give the values the card is held to.
 """
 
+import fcntl
+import json
+import os
 import pathlib
 import sys
 
@@ -46,6 +49,11 @@ from paddle_tpu_torch.inference.serving import (AdmissionError,
                                                 LlamaServingEngine, Request)
 from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
                                      tiny_llama_config)
+
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKGS = {"reference": (JaxAllocator, JaxPrefixCache),
@@ -601,87 +609,107 @@ def test_copy_page_writes_the_pools_in_place(fitted, kv_dtype):
 # ---------------------------------------------------------------------
 # chip_smoke phase 14a's schedule at tiny width
 # ---------------------------------------------------------------------
-def test_pressure_schedule_gives_the_card_s_values():
+def _pair_result(tmp_path_factory, key, side, result):
+    """Record one engine's result of the cross-engine pair ``key`` in the
+    session's shared temporary directory (every xdist worker's base
+    directory sits under it) and return the other engine's, or None when
+    it has not run yet: the case that runs second compares, so the two
+    engines' cases may run on different workers at once."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    path = root / f"pair-{key}.json"
+    with open(root / f"pair-{key}.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        doc = json.loads(path.read_text()) if path.exists() else {}
+        doc[side] = result
+        path.write_text(json.dumps(doc))
+    return doc.get("port" if side == "reference" else "reference")
+
+
+def _schedule_engine(side, kv_tier=False):
+    """Phase 14a's engine of one package over a random-init f32 tiny model
+    with 512 positions (the same weights on both sides), and its request
+    class."""
+    import chip_smoke as cs
+    paddle.seed(0)
+    jm = JaxLlama(jax_tiny(max_position_embeddings=512))
+    jm.eval()
+    if side == "reference":
+        return JaxEngine(jm, fused_kv=False, sampling=False, max_batch=8,
+                         page_size=16, num_pages=cs.PRESSURE_POOL,
+                         kv_tier=kv_tier), JaxRequest
+    arrays = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
+    tm = load_numpy_state(LlamaForCausalLM(
+        tiny_llama_config(max_position_embeddings=512), device="cpu"),
+        arrays).eval()
+    return LlamaServingEngine(tm, max_batch=8, page_size=16,
+                              num_pages=cs.PRESSURE_POOL,
+                              kv_tier=kv_tier), Request
+
+
+@pytest.mark.parametrize("side", ["reference", "port"])
+def test_pressure_schedule_gives_the_card_s_values(side, tmp_path_factory):
     """Phase 14a (151 usable pages, a completed 256-token request cached,
     8 prompts of 256 tokens, 128 new each, priorities 0-3, one retry
-    budget of 0) on both engines at tiny width: the cache gives its 15
+    budget of 0) on each engine at tiny width: the cache gives its 15
     pages back before any live eviction, and the evictions,
-    re-admissions, statuses and output lengths are both engines' and the
-    values ``chip_smoke.py`` holds the card to (page arithmetic: width
-    does not enter). Tokens equal too (a random-init f32 model)."""
+    re-admissions, statuses and output lengths are the values
+    ``chip_smoke.py`` holds the card to (page arithmetic: width does not
+    enter). One case an engine, so the two run on two workers; the tokens
+    and cache stats of the two are equal (a random-init f32 model),
+    compared by the case that runs second."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
-    paddle.seed(0)
-    jm = JaxLlama(jax_tiny(max_position_embeddings=512))
-    jm.eval()
-    arrays = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
-    tm = load_numpy_state(LlamaForCausalLM(
-        tiny_llama_config(max_position_embeddings=512), device="cpu"),
-        arrays).eval()
     other, prompts = cs.pressure_prompts(128)
-    runs = []
-    for e, req_cls in ((JaxEngine(jm, fused_kv=False, sampling=False,
-                                  max_batch=8, page_size=16,
-                                  num_pages=cs.PRESSURE_POOL), JaxRequest),
-                       (LlamaServingEngine(tm, max_batch=8, page_size=16,
-                                           num_pages=cs.PRESSURE_POOL),
-                        Request)):
-        e.generate([prompts[0][:16]], max_new_tokens=2)    # the warm-up's
-        reqs, events, cached, cache_ev = cs.pressure_schedule(
-            e, req_cls, other, prompts)
-        end = tuple((r.status, len(r.output_ids)) for r in reqs)
-        assert cached == 15 and cache_ev >= cached
-        assert events == cs.PRESSURE_EVENTS and end == cs.PRESSURE_END
-        assert all((r.status == "evicted") == isinstance(r.error, MemoryError)
-                   for r in reqs)
-        assert e.alloc.free_pages + e.prefix.pages == e.alloc.num_pages
-        assert not e.alloc._tables and not e._live
-        runs.append(([r.output_ids for r in reqs], e.prefix.stats()))
-        e.close()
-    assert runs[0] == runs[1]
-    assert isinstance(reqs[1].error, AdmissionError)
+    e, req_cls = _schedule_engine(side)
+    e.generate([prompts[0][:16]], max_new_tokens=2)    # the warm-up's
+    reqs, events, cached, cache_ev = cs.pressure_schedule(
+        e, req_cls, other, prompts)
+    end = tuple((r.status, len(r.output_ids)) for r in reqs)
+    assert cached == 15 and cache_ev >= cached
+    assert events == cs.PRESSURE_EVENTS and end == cs.PRESSURE_END
+    assert all((r.status == "evicted") == isinstance(r.error, MemoryError)
+               for r in reqs)
+    assert e.alloc.free_pages + e.prefix.pages == e.alloc.num_pages
+    assert not e.alloc._tables and not e._live
+    if side == "port":
+        assert isinstance(reqs[1].error, AdmissionError)
+    mine = [[r.output_ids for r in reqs], e.prefix.stats()]
+    e.close()
+    theirs = _pair_result(tmp_path_factory, "pressure", side, mine)
+    assert theirs is None or theirs == json.loads(json.dumps(mine))
 
 
-def test_pause_schedule_gives_the_card_s_values():
+@pytest.mark.parametrize("side", ["reference", "port"])
+def test_pause_schedule_gives_the_card_s_values(side, tmp_path_factory):
     """Phase 14c: phase 14a's schedule with the host tier on, its cap
-    ``PAUSE_TIER_PAGES`` pages of each engine's KV bytes, on both engines
+    ``PAUSE_TIER_PAGES`` pages of each engine's KV bytes, on each engine
     at tiny width: the pauses, the pause the tier could not hold, the
     resume and the re-admission in order, and every request's status and
-    output length are both engines' and the values ``chip_smoke.py``
-    holds the card to (a cap in pages: width does not enter); the tier's
-    stats equal, no paused copy left, the allocator consistent, the
-    tokens equal."""
+    output length are the values ``chip_smoke.py`` holds the card to (a
+    cap in pages: width does not enter); no paused copy left, the
+    allocator consistent. One case an engine, as the pressure schedule's:
+    the tokens, cache stats and tier stats of the two are equal, compared
+    by the case that runs second."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
-    paddle.seed(0)
-    jm = JaxLlama(jax_tiny(max_position_embeddings=512))
-    jm.eval()
-    arrays = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
-    tm = load_numpy_state(LlamaForCausalLM(
-        tiny_llama_config(max_position_embeddings=512), device="cpu"),
-        arrays).eval()
     other, prompts = cs.pressure_prompts(128)
-    runs = []
-    for e, req_cls in ((JaxEngine(jm, fused_kv=False, sampling=False,
-                                  max_batch=8, page_size=16, kv_tier=True,
-                                  num_pages=cs.PRESSURE_POOL), JaxRequest),
-                       (LlamaServingEngine(tm, max_batch=8, page_size=16,
-                                           kv_tier=True,
-                                           num_pages=cs.PRESSURE_POOL),
-                        Request)):
-        e.tier.max_bytes = cs.PAUSE_TIER_PAGES * e.page_size \
-            * e.kv_bytes_per_token
-        e.generate([prompts[0][:16]], max_new_tokens=2)    # the warm-up's
-        reqs, events, cached, cache_ev = cs.pressure_schedule(
-            e, req_cls, other, prompts)
-        end = tuple((r.status, len(r.output_ids)) for r in reqs)
-        assert cached == 15 and cache_ev >= cached
-        assert events == cs.PAUSE_EVENTS and end == cs.PAUSE_END
-        st = e.tier.stats()
-        assert st["seqs"] == 0 and st["capacity_rejections"] >= 1
-        assert e.alloc.free_pages + e.prefix.pages == e.alloc.num_pages
-        assert not e.alloc._tables and not e._live
-        assert e.alloc.double_free_count == 0
-        runs.append(([r.output_ids for r in reqs], e.prefix.stats(), st))
-        e.close()
-    assert runs[0] == runs[1]
+    e, req_cls = _schedule_engine(side, kv_tier=True)
+    e.tier.max_bytes = cs.PAUSE_TIER_PAGES * e.page_size \
+        * e.kv_bytes_per_token
+    e.generate([prompts[0][:16]], max_new_tokens=2)    # the warm-up's
+    reqs, events, cached, cache_ev = cs.pressure_schedule(
+        e, req_cls, other, prompts)
+    end = tuple((r.status, len(r.output_ids)) for r in reqs)
+    assert cached == 15 and cache_ev >= cached
+    assert events == cs.PAUSE_EVENTS and end == cs.PAUSE_END
+    st = e.tier.stats()
+    assert st["seqs"] == 0 and st["capacity_rejections"] >= 1
+    assert e.alloc.free_pages + e.prefix.pages == e.alloc.num_pages
+    assert not e.alloc._tables and not e._live
+    assert e.alloc.double_free_count == 0
+    mine = [[r.output_ids for r in reqs], e.prefix.stats(), st]
+    e.close()
+    theirs = _pair_result(tmp_path_factory, "pause", side, mine)
+    assert theirs is None or theirs == json.loads(json.dumps(mine))

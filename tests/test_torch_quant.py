@@ -30,6 +30,11 @@ from paddle_tpu_torch.quant import (WeightOnlyLinear, dequant_matmul,
                                     quantize_weight, serving_weight_bytes)
 from paddle_tpu_torch.quant import kernels as QK
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -28,6 +28,11 @@ from paddle_tpu.ops import ragged_paged_attention as RJ
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import ragged_paged_attention as RT
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 HK, G, D, PAGE, NUM_PAGES = 2, 2, 16, 8, 40
 DUMP = NUM_PAGES - 1
 

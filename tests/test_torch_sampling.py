@@ -42,6 +42,11 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
                                      tiny_llama_config)
 from paddle_tpu_torch.ops import sampling as S
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 GEOM = dict(max_batch=4, page_size=8, num_pages=48, chunk_block=8,
             chunk_budget=16,
             prefix_cache=False)
@@ -474,7 +479,9 @@ def test_bias_wider_than_slots_rejected(models):
 def test_all_greedy_dispatch_skips_the_sampler(models, monkeypatch):
     """A dispatch of greedy rows without bias runs the argmax alone; a
     bias-only dispatch sorts nothing; a sampled one launches one Gumbel
-    pass."""
+    pass. (The engine is warmed first: a warm-up dispatch runs the
+    sampled tail on inert rows to load the sampler, which is not a
+    dispatch of these rows.)"""
     _, tm = models
     from paddle_tpu_torch.inference import serving as SV
     calls = []
@@ -484,9 +491,10 @@ def test_all_greedy_dispatch_skips_the_sampler(models, monkeypatch):
         calls.append(k["any_sampled"])
         return real(*a, **k)
 
-    monkeypatch.setattr(SV, "sampled_next_tokens", spy)
     p, = _prompts(18, (5,))
     e = _engine(tm)
+    e.prewarm([e.chunk_budget, e.max_batch], [])
+    monkeypatch.setattr(SV, "sampled_next_tokens", spy)
     _run(e, p, 3)
     assert calls == []
     _run(e, p, 3, SamplingParams(logit_bias={4: 1.0}))

@@ -7,8 +7,8 @@ watchdog, and the fault plans of ``testing/faults.py``.
 
 Every case runs on both packages' engines (``pkg``), which must behave
 alike; the lockstep cases hold the host state of both equal (statuses,
-errors' fields, requeue order, the allocator). The engines' metrics are
-not ported yet (ROADMAP A8), so no case reads them. Phase 14b of
+errors' fields, requeue order, the allocator). The engines' lifecycle
+counters are held equal in ``tests/test_torch_metrics_parity.py``. Phase 14b of
 ``chip_smoke.py`` (retirement under a shed, a deadline, two cancels)
 runs here at tiny width on both engines and must give the statuses the
 card is held to.
@@ -24,6 +24,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.distributed import watchdog as jax_watchdog
@@ -37,6 +38,11 @@ from paddle_tpu_torch.distributed import watchdog
 from paddle_tpu_torch.inference import paged_cache, serving
 from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
                                      tiny_llama_config)
+
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
 from paddle_tpu_torch.testing import faults
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -634,8 +640,9 @@ def test_step_watchdog_fires_once_per_stall(packages):
 
 
 def test_port_stall_is_logged(caplog):
-    """Until the flight recorder's post-mortem is ported, a stall of the
-    port's engine shows as one warning naming the watchdog."""
+    """A stall of the port's engine shows as one warning naming the
+    watchdog (beside the post-mortem, which needs an installed flight
+    recorder)."""
     wd = watchdog.StepWatchdog(timeout=0.05, poll=0.01,
                                name="serving.decode").start()
     with caplog.at_level(logging.WARNING, logger=watchdog.__name__):

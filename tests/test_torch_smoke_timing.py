@@ -12,6 +12,11 @@ import torch
 
 import chip_smoke as cs
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 ITERS = 5
 
 

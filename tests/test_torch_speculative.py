@@ -42,6 +42,11 @@ from paddle_tpu_torch.inference import serving
 from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
                                      tiny_llama_config)
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 GEOM = dict(max_batch=4, page_size=8, num_pages=64, chunk_block=8,
             chunk_budget=16)
 DRAFTERS = {"reference": JaxNGram, "port": NGramDrafter}

@@ -28,6 +28,11 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, load_numpy_state,
 from paddle_tpu_torch.ops import flash_attention as FT
 from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
 
+# One intra-op thread a process: the suite runs in parallel worker
+# processes (xdist), and OpenMP threads that spin for a core each
+# slow every small CPU op of the port many times over.
+torch.set_num_threads(1)
+
 B, S = 2, 128
 
 

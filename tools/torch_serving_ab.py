@@ -4,7 +4,7 @@ one card, in alternating order.
 
     python3 tools/torch_serving_ab.py TREE [TREE ...] [--rounds N]
         [--reps K] [--model llama3-8b|mixtral-int8]
-        [--engines E[,E...]] [--out PATH]
+        [--engines E[,E...]] [--metrics on|off|on,off] [--out PATH]
 
 Each TREE is the root of a checkout holding ``chip_smoke.py`` and
 ``paddle_tpu_torch/``. A round runs the trees in the given order and then
@@ -26,10 +26,18 @@ mean mixed and decode-only dispatch ms and graphed tick ms (synchronised
 around each, as phase 4 reads them) and the host ms that each of the request lifecycle's
 steps took, summed over the pass, where the tree has them
 (``_expire_deadlines``, ``_pump_requeue``, ``_relieve_pressure``,
-``_flush_deferred``, ``_arm_watchdog``, ``_disarm_watchdog``), with the
-pass's count of mixed dispatches and scans. Prints one JSON object with
-every reading, by tree and in run order; ``--out`` also writes it to a
-file. Needs one card.
+``_flush_deferred``, ``_arm_watchdog``, ``_disarm_watchdog``, and the
+metric calls ``_set_pool_gauges``, ``_note_perf``, ``_note_mixed_bytes``,
+``_record_shape``), with the pass's count of mixed dispatches and scans.
+``--metrics on,off`` runs every tree twice a round, with
+``PADDLE_TPU_METRICS=1`` and ``=0`` (the second half of a round in the
+reverse order: A-on A-off B-on B-off B-off B-on A-off A-on for two
+trees), so the host cost of the metrics reads within one call, on the
+parent and on the change; readings are keyed
+``TREE:on`` / ``TREE:off``. Prints the card's name and power limit
+first, then one JSON object with every reading (the card's too), by tree
+(and mode) and in run order; ``--out`` also writes it to a file. Needs
+one card.
 """
 
 import argparse
@@ -43,7 +51,10 @@ import time
 ENGINES = {"bf16-graphed": (None, None), "bf16-single": (None, 1),
            "int8kv-graphed": ("int8", None), "int8kv-single": ("int8", 1)}
 LIFECYCLE = ("_expire_deadlines", "_pump_requeue", "_relieve_pressure",
-             "_flush_deferred", "_arm_watchdog", "_disarm_watchdog")
+             "_flush_deferred", "_arm_watchdog", "_disarm_watchdog",
+             # the engine's metric calls apart from its inline counters
+             "_set_pool_gauges", "_note_perf", "_note_mixed_bytes",
+             "_record_shape")
 
 
 def instrumented(engine, run):
@@ -145,6 +156,8 @@ def main():
                     default="llama3-8b")
     ap.add_argument("--engines", default="bf16-graphed",
                     help=f"comma-separated, of {sorted(ENGINES)}")
+    ap.add_argument("--metrics", default="on",
+                    help="on, off or on,off: PADDLE_TPU_METRICS per run")
     ap.add_argument("--out", default="")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -157,26 +170,42 @@ def main():
         return
     if not args.trees:
         ap.error("name at least one tree")
+    modes = args.metrics.split(",")
+    for m in modes:
+        if m not in ("on", "off"):
+            ap.error(f"--metrics takes on, off or on,off, not {m!r}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"card: {card}", flush=True)
     trees = [os.path.abspath(t) for t in args.trees]
-    order = [t for _ in range(args.rounds) for t in trees + trees[::-1]]
+    half = [(t, m) for t in trees for m in modes]
+    order = [x for _ in range(args.rounds) for x in half + half[::-1]]
     runs = []
-    for tree in order:
+    for tree, mode in order:
+        env = dict(os.environ, PADDLE_TPU_METRICS="1" if mode == "on"
+                   else "0")
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", "--reps",
              str(args.reps), "--model", args.model, "--engines",
-             args.engines], cwd=tree,
+             args.engines], cwd=tree, env=env,
             capture_output=True, text=True)
         if res.returncode != 0:
             sys.stderr.write(res.stdout + res.stderr)
             sys.exit(f"the run in {tree} failed ({res.returncode})")
         reading = json.loads(res.stdout.strip().splitlines()[-1])
-        runs.append({"tree": tree, **reading})
-        print(f"{tree}: tokens_per_s={reading['tokens_per_s']}", flush=True)
-    by_tree = {t: {e: [x for r in runs if r["tree"] == t
-                       for x in r["tokens_per_s"][e]] for e in engines}
-               for t in trees}
-    text = json.dumps({"runs": runs, "tokens_per_s_by_tree": by_tree},
-                      indent=1)
+        runs.append({"tree": tree, "metrics": mode, **reading})
+        print(f"{tree} metrics={mode}: tokens_per_s="
+              f"{reading['tokens_per_s']}", flush=True)
+    keys = [(t, m) for t in trees for m in modes]
+    name = (lambda t, m: t) if len(modes) == 1 else \
+        (lambda t, m: f"{t}:{m}")
+    by_tree = {name(t, m): {e: [x for r in runs if r["tree"] == t
+                                and r["metrics"] == m
+                                for x in r["tokens_per_s"][e]]
+                            for e in engines} for t, m in keys}
+    text = json.dumps({"card": card, "runs": runs,
+                       "tokens_per_s_by_tree": by_tree}, indent=1)
     print(text)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
