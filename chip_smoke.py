@@ -346,6 +346,53 @@ package is not beside it, and when any phase fails:
    off (host clock, synchronised), the host ms a dispatch the metrics
    add, and the builds, loads, cache hits and captures the compile
    watcher saw over the whole run;
+17. (run after 7, before 4c, on phase 13's model built again from its
+   seed: its in-process profiler window opens on a server thread, after
+   every phase that counts profiler records) the serving stack over the
+   engine, its own seconds printed:
+17a. in process: a ``ServingCluster`` of two ``EngineReplica``s sharing
+   the model (each ``max_batch=8``, page 16, phase 13's pool, the prefix
+   cache on, prewarmed: every tick mode's graph captured; 16 decode ticks
+   a worker-loop tick), ``FileStore`` membership (TTL 30 s) in a temp
+   dir, behind a ``ServingFrontend`` on ``127.0.0.1:0`` with a
+   ``QosGate`` of a premium tenant and a batch tenant whose bucket starts
+   drained. Over HTTP: phase 13's 8 prompts (32 new tokens, greedy, one
+   streamed over SSE), one sampled request (temperature 0.8, top-p 0.9,
+   a seed) and 4 low-tenant requests; the replica that does not hold the
+   stream is killed once one of its requests is 2 tokens in. Held: every
+   request answered 200 and every flood request 429 with a
+   ``Retry-After``; the stream's chunks are its 32 tokens and end in
+   ``[DONE]``; every greedy token at phase 4's floors against the model's
+   plain forward; #12 launched 2 a layer an eager forward or a tick
+   replay (a capture's own pass excluded), no plain version called,
+   ``gumbel_argmax`` once a sampled forward or tick;
+   ``router_failovers_total`` the requests failed over (each completed),
+   one ``replica_deaths_total``, one replacement and no other death, the
+   prefix hits the engines' own, the tenants' admitted and shed counts
+   the traffic's; a second wave of 4 requests under
+   ``/debug/profile?seconds=1`` whose bundle's profiler started and holds
+   attention kernel records; ``/readyz`` 503 while both replicas drain.
+   Printed beside the card: tokens/s, TTFT, the failover's added
+   latency, the card's memory at the peak;
+17b. subprocesses: a ``ServingCluster`` of two ``SubprocessReplica``s
+   (``python -m paddle_tpu_torch.inference.replica_worker``), each
+   building Llama-3-8B from seed 0 in bf16 on the card (its weights'
+   digest in its log equal to the parent's model's), rpc over the native
+   ``TCPStore``, ``FileStore`` membership, their kernel build
+   directory (the compile cache) empty at the first spawn; phase 13's
+   traffic with the worker of the first request 2 tokens in SIGKILLed.
+   Held: every request completed, every token at phase 4's floors
+   against the parent's model; the first starts built the kernels
+   (cache misses), the replacement found them built (hits, no miss) and
+   its ``restart_ttft`` is below the victim's first; the merged scrape
+   holds both workers
+   (``paddle_tpu_xla_compile_total`` for
+   ``kernel:ragged_paged_attention`` under each ``replica``);
+   ``capture_profile(1.0)`` under a second wave (64 new tokens a
+   request, after a window of none in every process, which initialises
+   CUPTI) returns the router's and both workers' shards, each worker's
+   with CUDA records. Printed: cold and warm ``restart_ttft``, tokens/s,
+   each process's card memory, each window's profiler start latency;
 4c. (run last) a capture that fails (a host read under capture) raises,
    leaves the current stream as it was, and the next capture replays
    right; no phase catches a capture's error, so one ends the run;
@@ -5663,6 +5710,646 @@ def serve_observed(dev, model):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 17: the serving stack over the engine
+# ----------------------------------------------------------------------
+
+STACK_TTL = 30.0      # 17a's membership TTL: past any engine build's hold
+#                       of the cross-engine dispatch lock (its prewarm)
+STACK_WORKER_TTL = 20.0   # 17b's: worker heartbeats ride their own process
+STACK_BURST = 16      # decode ticks a replica's worker-loop tick runs
+STACK_FLOOD = 4       # 17a: low-tenant requests, every one shed with 429
+STACK_SAMPLED = {"temperature": 0.8, "top_p": 0.9, "seed": 1717}
+STACK_SECOND = 4      # 17a: the second wave, under the profiler window
+STACK_KILL_AT = 2     # output tokens a victim's request has when killed
+STACK_NEW2 = 2 * NEW  # 17b: the second wave's, decoding through the window
+
+
+def http_call(port, path, body=None, headers=None, timeout=600):
+    """(status, headers, parsed JSON body) of one request to the
+    front door on ``127.0.0.1:port``."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read() or b"null")
+
+
+def sse_call(port, body, headers=None, timeout=600):
+    """POST a streamed completion; returns (status, the ``data:`` chunks
+    parsed, whether the stream ended in ``[DONE]``, seconds to the first
+    chunk)."""
+    import socket
+    payload = json.dumps(body).encode()
+    hdrs = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
+    t0 = time.perf_counter()
+    sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    try:
+        sock.sendall(
+            f"POST /v1/completions HTTP/1.1\r\nHost: x\r\n{hdrs}"
+            f"Content-Type: application/json\r\n"
+            f"Content-Length: {len(payload)}\r\n\r\n".encode() + payload)
+        rf = sock.makefile("rb")
+        status = int(rf.readline().split()[1])
+        while rf.readline().strip():
+            pass
+        chunks, done, first = [], False, None
+        for line in rf:
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            if first is None:
+                first = time.perf_counter() - t0
+            if line == b"data: [DONE]":
+                done = True
+                break
+            chunks.append(json.loads(line[len(b"data: "):]))
+        rf.close()
+        return status, chunks, done, first
+    finally:
+        sock.close()
+
+
+def metric_values(snapshot, name):
+    """``{labels: value}`` of family ``name`` in a registry snapshot."""
+    fam = next((e for e in snapshot if e["name"] == name), None)
+    if fam is None:
+        return {}
+    return {tuple(s["labels"]): s.get("value") for s in fam["samples"]}
+
+
+def metric_deltas(before, after, names):
+    """Per family and labels, what ``after`` adds to ``before``."""
+    out = {}
+    for name in names:
+        b, a = metric_values(before, name), metric_values(after, name)
+        out[name] = {k: v - b.get(k, 0.0) for k, v in a.items()
+                     if v != b.get(k, 0.0)}
+    return out
+
+
+def stack_engine(model, counts, built):
+    """Phase 17a's replica factory: :func:`serving_engine` over the shared
+    model with the prefix cache on and phase 13's pool, prewarmed (both
+    dispatch shapes, every tick mode's graph captured) before it serves.
+    Its forward and tick are tapped before the prewarm: ``counts`` gets
+    the eager forwards (a capture's own pass is not a launch), the tick
+    graphs' replays, and of both those that ran the sampler; ``built``
+    every engine made."""
+    import torch
+    lock = counts["lock"]
+
+    def build():
+        engine = serving_engine(model, prefix_cache=True,
+                                num_pages=PREFIX_POOL)
+        fwd, run = engine._mixed_forward, engine._run_tick
+
+        def counted_forward(*a):
+            if not torch.cuda.is_current_stream_capturing():
+                sample = a[15] if len(a) > 15 else None
+                with lock:
+                    counts["forwards"] += 1
+                    counts["sampled"] += bool(sample is not None
+                                              and sample[1])
+            return fwd(*a)
+
+        def counted_tick(mode):
+            if engine._graphs.cuda:     # a replay (on the CPU the tick's
+                with lock:              # forward runs, and is counted)
+                    counts["ticks"] += 1
+                    counts["sampled"] += mode == "sampled"
+            return run(mode)
+        engine._mixed_forward = counted_forward
+        engine._run_tick = counted_tick
+        engine.prewarm([engine.chunk_budget, engine.max_batch],
+                       [engine.decode_ticks])
+        built.append(engine)
+        return engine
+    return build
+
+
+def live_prompts(engine):
+    """The prompts (tuples) of ``engine``'s live requests with their
+    output lengths, read from another thread."""
+    for _ in range(100):
+        try:
+            return {tuple(int(t) for t in r.prompt_ids): len(r.output_ids)
+                    for r in list(engine._live.values()) if not r.done}
+        except RuntimeError:        # the dict changed under the read
+            time.sleep(0.001)
+    return {}
+
+
+def card_memory():
+    """``torch.cuda.mem_get_info()`` in GiB, read holding the capture
+    lock (another thread may be capturing a tick graph)."""
+    import torch
+    from paddle_tpu_torch.ops._graphs import CAPTURE_LOCK
+    with CAPTURE_LOCK:
+        free, total = torch.cuda.mem_get_info()
+    return f"{(total - free) / 2**30:.2f} of {total / 2**30:.2f} GiB used"
+
+
+def serve_stack(dev, model):
+    """Phase 17a (see the module docstring): a ``ServingCluster`` of two
+    in-process ``EngineReplica``s over phase 13's model behind a
+    ``ServingFrontend`` with a two-tenant ``QosGate``; phase 13's traffic
+    over HTTP (one streamed), one sampled request and a shed flood; one
+    replica killed mid-run and replaced; a second wave under
+    ``/debug/profile``; ``/readyz`` while both drain. Returns #12's
+    launches over the phase."""
+    import tempfile
+    import threading
+    import torch
+    from paddle_tpu_torch.inference import (QosGate, ServingCluster,
+                                            ServingFrontend, Tenant)
+    from paddle_tpu_torch.observability import export as oexport
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops import sampling as SM
+    label = "stack in-process"
+    t_phase = time.perf_counter()
+    layers = model.config.num_hidden_layers
+    _, prompts = prefix_traffic(model.config.vocab_size)
+    counts = {"lock": threading.Lock(), "forwards": 0, "ticks": 0,
+              "sampled": 0}
+    built, creqs, failed_over, t_kill = [], [], [], []
+    names = ("router_failovers_total", "replica_deaths_total",
+             "router_replicas_replaced_total",
+             "serving_prefix_cache_hit_total",
+             "serving_tenant_admitted_total", "serving_tenant_shed_total",
+             "frontend_requests_total")
+    before = oexport.json_snapshot()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stack_")
+    gate = QosGate([Tenant("prem", tier="premium"),
+                    Tenant("flood", tier="batch", rate=1, burst=1)])
+    # the low tenant's bucket starts drained: its flood is all shed
+    gate.settle(gate.admit("flood"), completed_tokens=1000)
+    with count_calls(serving_plain_versions()
+                     + [(SM, "gumbel_argmax_ref")]) as plain_calls:
+        reset_launches()
+        cluster = ServingCluster(stack_engine(model, counts, built),
+                                 num_replicas=2, store_path=tmp,
+                                 ttl=STACK_TTL, burst=STACK_BURST)
+        fe = None
+        try:
+            cluster.start()
+            submit, failover = cluster.submit, cluster._failover
+
+            def recorded_submit(*a, **kw):
+                creq = submit(*a, **kw)
+                creqs.append(creq)
+                return creq
+
+            def recorded_failover(creq, dead_rid):
+                failed_over.append((creq, time.perf_counter()))
+                return failover(creq, dead_rid)
+            cluster.submit = recorded_submit
+            cluster._failover = recorded_failover
+            fe = ServingFrontend(cluster=cluster, qos=gate)
+            port = fe.start(port=0).port
+            t_built = time.perf_counter() - t_phase
+            results, threads = {}, []
+            prem = {"X-Tenant": "prem"}
+
+            def post(key, body):
+                t0 = time.perf_counter()
+                results[key] = http_call(port, "/v1/completions", body,
+                                         prem) + (time.perf_counter() - t0,)
+
+            def stream(key, body):
+                results[key] = sse_call(port, body, prem)
+            stream_i = 3
+            t0 = time.perf_counter()
+            for i, p in enumerate(prompts):
+                body = {"prompt": p, "max_tokens": NEW, "temperature": 0}
+                if i == stream_i:
+                    body["stream"] = True
+                threads.append(threading.Thread(
+                    target=stream if i == stream_i else post,
+                    args=(i, body)))
+            threads.append(threading.Thread(target=post, args=(
+                "sampled", {"prompt": prompts[0][:96], "max_tokens": NEW,
+                            **STACK_SAMPLED})))
+            for th in threads:
+                th.start()
+            floods = [http_call(port, "/v1/completions",
+                                {"prompt": prompts[0][:8], "max_tokens": 4},
+                                {"X-Tenant": "flood"})
+                      for _ in range(STACK_FLOOD)]
+            # the victim: the replica not holding the streamed request,
+            # once a request of its own is mid-decode
+            victim = None
+            deadline = time.monotonic() + 300
+            while victim is None and time.monotonic() < deadline:
+                lives = {rid: live_prompts(rep.engine)
+                         for rid, rep in cluster.replicas().items()}
+                for rid, live in lives.items():
+                    if tuple(prompts[stream_i]) in live:
+                        continue
+                    if any(n >= STACK_KILL_AT for n in live.values()):
+                        victim = rid
+                time.sleep(0.005)
+            if victim is None:
+                fail(f"{label}: no replica was mid-request within 300 s")
+            t_kill.append(time.perf_counter())
+            cluster.replicas()[victim].kill()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.perf_counter() - t0
+            peak_mem = card_memory()
+            # the replacement (the monitor rebuilds the victim)
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline and not (
+                    cluster._m["replaced"].value
+                    - metric_values(before, "router_replicas_replaced_total"
+                                    ).get((), 0.0) >= 1
+                    and all(r.ready() for r in cluster.replicas().values())):
+                time.sleep(0.02)
+            # a second wave under a profiler window
+            second, waves = {}, []
+
+            def post2(key, body):
+                second[key] = http_call(port, "/v1/completions", body, prem)
+            for i, p in enumerate(prompts[:STACK_SECOND]):
+                waves.append(threading.Thread(target=post2, args=(i, {
+                    "prompt": p, "max_tokens": NEW, "temperature": 0})))
+            for th in waves:
+                th.start()
+            time.sleep(0.2)
+            p_status, _, bundle = http_call(port, "/debug/profile?seconds=1")
+            for th in waves:
+                th.join(timeout=600)
+            for rep in cluster.replicas().values():
+                rep.begin_drain()
+            ready_status, _, _ = http_call(port, "/readyz")
+            deaths = {rid: len(st.deaths)
+                      for rid, st in cluster._restarts.items() if st.deaths}
+        finally:
+            if fe is not None:
+                fe.stop()
+            cluster.stop()
+        launches = dict(rpa.launches)
+        gumbel = SM.launches["gumbel_argmax"]
+    after = oexport.json_snapshot()
+    if plain_calls:
+        fail(f"{label}: plain versions ran on the card: "
+             f"{sorted(set(plain_calls))}")
+    # the traffic's results
+    bad = {k: r[0] for k, r in list(results.items()) + list(second.items())
+           if r[0] != 200}
+    if bad or len(results) != len(prompts) + 1 \
+            or len(second) != STACK_SECOND:
+        fail(f"{label}: statuses {bad}, results {sorted(map(str, results))}")
+    s_status, chunks, done, s_first = results[stream_i]
+    s_toks = [t for c in chunks for t in c["choices"][0]["token_ids"]]
+    outs = [results[i][2]["choices"][0]["token_ids"] if i != stream_i
+            else s_toks for i in range(len(prompts))]
+    outs2 = [second[i][2]["choices"][0]["token_ids"]
+             for i in range(STACK_SECOND)]
+    sampled = results["sampled"][2]["choices"][0]["token_ids"]
+    if not done or len(s_toks) != NEW \
+            or any(len(o) != NEW for o in outs + outs2 + [sampled]) \
+            or any(not 0 <= t < model.config.vocab_size for t in sampled):
+        fail(f"{label}: stream done={done} ({len(s_toks)} tokens), lengths "
+             f"{[len(o) for o in outs + outs2]}, sampled {sampled}")
+    flood_codes = [(f[0], f[1].get("Retry-After"),
+                    (f[2] or {}).get("error", {}).get("type"))
+                   for f in floods]
+    if any(c != (429, c[1], "rate_limit_exceeded") or not c[1]
+           or int(c[1]) < 1 for c in flood_codes):
+        fail(f"{label}: the flood was not shed with 429 and Retry-After: "
+             f"{flood_codes}")
+    # #12: two a layer an eager forward or a tick; the sampler once a
+    # sampled forward or tick
+    want = {k: 0 for k in launches}
+    want["fused_rope"] = 2 * layers * (counts["forwards"] + counts["ticks"])
+    if launches != want:
+        fail(f"{label}: kernel launches {launches} != {want} (2 x layers x "
+             f"({counts['forwards']} forwards + {counts['ticks']} ticks))")
+    if gumbel != counts["sampled"] or not counts["sampled"]:
+        fail(f"{label}: gumbel_argmax launched {gumbel} times for "
+             f"{counts['sampled']} sampled forwards and ticks")
+    # the counters against the traffic
+    d = metric_deltas(before, after, names)
+    fo = sum(d["router_failovers_total"].values())
+    hits = sum(d["serving_prefix_cache_hit_total"].values())
+    own_hits = sum(e.prefix.stats()["hits"] for e in built)
+    admitted = d["serving_tenant_admitted_total"]
+    shed = d["serving_tenant_shed_total"]
+    n_prem = len(prompts) + 1 + STACK_SECOND
+    print(f"{label}: counters router_failovers_total={fo} (requests failed "
+          f"over {len(failed_over)}), replica_deaths_total="
+          f"{sum(d['replica_deaths_total'].values())}, "
+          f"router_replicas_replaced_total="
+          f"{sum(d['router_replicas_replaced_total'].values())}, "
+          f"serving_prefix_cache_hit_total={hits} (the engines' own "
+          f"{own_hits}), tenant admitted {admitted} shed {shed}, frontend "
+          f"{d['frontend_requests_total']}; deaths by replica {deaths}; "
+          f"engines built {len(built)}", flush=True)
+    if fo != len(failed_over) or not failed_over \
+            or any(c.status != "completed" for c, _ in failed_over):
+        fail(f"{label}: failovers {fo} != {len(failed_over)} recorded, or "
+             f"none, or one not completed")
+    if sum(d["replica_deaths_total"].values()) != 1 \
+            or sum(d["router_replicas_replaced_total"].values()) != 1 \
+            or deaths != {victim: 1} or len(built) != 3:
+        fail(f"{label}: a replacement besides the forced one: deaths "
+             f"{deaths}, engines built {len(built)}")
+    if hits != own_hits or not hits:
+        fail(f"{label}: prefix hits {hits} != the engines' {own_hits}")
+    if admitted != {("prem",): float(n_prem), ("flood",): 1.0} \
+            or shed != {("flood",): float(STACK_FLOOD)}:
+        fail(f"{label}: tenants admitted {admitted}, shed {shed} (want prem "
+             f"{n_prem}, flood 1 then {STACK_FLOOD} shed)")
+    if ready_status != 503:
+        fail(f"{label}: /readyz answered {ready_status} while every "
+             "replica drained")
+    att = [e for e in bundle.get("traceEvents", [])
+           if e.get("ph") == "X" and ("attention_tc" in e.get("name", "")
+                                      or "ragged_attention_kernel"
+                                      in e.get("name", ""))]
+    prof = (bundle.get("capture") or {}).get("profiler", {}).get("router")
+    if p_status != 200 or not prof or not prof.get("ok") or not att:
+        fail(f"{label}: /debug/profile {p_status}, profiler {prof}, "
+             f"{len(att)} attention records")
+    floor = hold_floor(label, token_gaps(model, dev, prompts + [
+        p for p in prompts[:STACK_SECOND]], outs + outs2))
+    ttft = sorted(c.request.ttft for c in creqs
+                  if c.request is not None and c.request.ttft is not None)
+    walls = {id(c): c for c, _ in failed_over}
+    fo_wall = [results[i][3] for i, p in enumerate(prompts)
+               if i != stream_i and any(
+                   list(c.prompt_ids) == p for c in walls.values())]
+    other = [results[i][3] for i, p in enumerate(prompts)
+             if i != stream_i and not any(
+                 list(c.prompt_ids) == p for c in walls.values())]
+    detect = failed_over[0][1] - t_kill[0]
+    n_tok = NEW * (len(prompts) + 1)
+    print(f"{label}: {card_line()}; engines built in {t_built:.1f} s; "
+          f"wave 1 {len(prompts)} greedy (1 streamed) + 1 sampled, "
+          f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s "
+          f"(a replica killed mid-run); TTFT ms median "
+          f"{1e3 * ttft[len(ttft) // 2]:.1f} max {1e3 * ttft[-1]:.1f} "
+          f"(engine, {len(ttft)} attempts); stream first chunk "
+          f"{1e3 * s_first:.1f} ms; failover: {victim} killed, death "
+          f"handled {1e3 * detect:.1f} ms later, failed-over requests' "
+          f"wall {sum(fo_wall) / max(len(fo_wall), 1):.3f} s against "
+          f"{sum(other) / max(len(other), 1):.3f} s for the rest (added "
+          f"{sum(fo_wall) / max(len(fo_wall), 1) - sum(other) / max(len(other), 1):.3f} s); "
+          f"card memory at the peak {peak_mem}; profile window "
+          f"{len(att)} attention records, {prof.get('device_events')} "
+          f"device records; forwards {counts['forwards']} ticks "
+          f"{counts['ticks']} sampled {counts['sampled']} launches "
+          f"{launches['fused_rope']}; {floor}; phase_s="
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    return launches["fused_rope"]
+
+
+def stack_spec(cfg):
+    """Phase 17b's worker spec: Llama-3-8B (``cfg``) from seed 0 in bf16
+    on the card behind phase 13's engine geometry."""
+    return {"model": {"kind": "llama", "seed": 0,
+                      "config": dataclasses.asdict(cfg),
+                      "dtype": "bfloat16"},
+            "engine": {"max_batch": 8, "page_size": 16,
+                       "num_pages": PREFIX_POOL}}
+
+
+def worker_memory():
+    """``{pid: used MiB}`` of the processes on the card (``nvidia-smi``)."""
+    res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
+                          "used_memory", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    out = {}
+    for line in res.stdout.strip().splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            out[int(parts[0])] = parts[1]
+    return out
+
+
+def device_spans_ms(bundle):
+    """``{pid: ms}`` from a capture's first device record's start to its
+    last one's end, each process's."""
+    first, last = {}, {}
+    for e in bundle.get("traceEvents", []):
+        if e.get("ph") == "X" and e.get("tid") == "device":
+            pid = e["pid"]
+            first[pid] = min(first.get(pid, e["ts"]), e["ts"])
+            last[pid] = max(last.get(pid, 0.0), e["ts"] + e["dur"])
+    return {pid: round((last[pid] - first[pid]) / 1e3, 1) for pid in first}
+
+
+def stop_workers(cluster):
+    """Stop the supervisor, the workers' clean exits side by side, then
+    the cluster; SIGKILL any worker process still running."""
+    import threading
+    cluster._stop.set()
+    if cluster._monitor_thread is not None:
+        cluster._monitor_thread.join(timeout=5.0)
+    stoppers = [threading.Thread(target=rep.stop)
+                for rep in cluster.replicas().values()]
+    for th in stoppers:
+        th.start()
+    for th in stoppers:
+        th.join(timeout=60.0)
+    cluster.stop()
+    for rep in cluster.replicas().values():
+        p = rep._proc
+        if p is not None and p.poll() is None:
+            p.kill()
+            p.wait(timeout=30)
+
+
+def serve_stack_workers(dev, model):
+    """Phase 17b (see the module docstring): a ``ServingCluster`` of two
+    ``SubprocessReplica``s, each building Llama-3-8B from seed 0 on the
+    card, rpc over the native ``TCPStore`` and ``FileStore`` membership;
+    phase 13's traffic with one worker SIGKILLed mid-request; the warm
+    replacement; the one-pane scrape; a cluster-wide profile capture."""
+    import shutil
+    import tempfile
+    import torch
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.inference import ServingCluster
+    from paddle_tpu_torch.inference.replica_worker import weights_digest
+    label = "stack workers"
+    t_phase = time.perf_counter()
+    if not native.available():
+        from paddle_tpu_torch.native import build as nbuild
+        fail(f"{label}: the native TCP store did not build or load: "
+             f"{nbuild.load_error()}")
+    _, prompts = prefix_traffic(model.config.vocab_size)
+    digest = weights_digest(model)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_workers_")
+    log_dir = os.path.join(tmp, "logs")
+    cluster = ServingCluster(
+        engine_spec=stack_spec(model.config), num_replicas=2,
+        store_path=os.path.join(tmp, "members"), ttl=STACK_WORKER_TTL,
+        burst=STACK_BURST, spawn_grace=600.0, log_dir=log_dir,
+        subprocess_env={"PADDLE_TPU_SHAPE_REGISTRY":
+                        os.path.join(tmp, "shapes.json"),
+                        # the workers' compile cache starts empty: the
+                        # first two build the serving path's kernels
+                        # (a cold start), the replacement finds them built
+                        "PADDLE_TPU_KERNEL_BUILD_DIR":
+                        os.path.join(tmp, "kernels"),
+                        "PADDLE_TPU_TRACE_FLUSH": "0.5"})
+    try:
+        cluster.start()
+        reps = cluster.replicas()
+        deadline = time.monotonic() + 600
+        while not all(r.ready() for r in reps.values()):
+            if time.monotonic() > deadline or any(
+                    r._proc.poll() is not None for r in reps.values()):
+                logs = {f: open(os.path.join(log_dir, f)).read()[-2000:]
+                        for f in sorted(os.listdir(log_dir))
+                        if f.endswith(".log")}
+                fail(f"{label}: the workers did not come up: {logs}")
+            time.sleep(0.1)
+        t_up = time.perf_counter() - t_phase
+        cold = {rid: r.restart_ttft for rid, r in reps.items()}
+        cold_cache = {rid: r.cache_stats for rid, r in reps.items()}
+        mem_up = worker_memory()
+        logged = {}
+        for f in sorted(os.listdir(log_dir)):
+            if not f.endswith(".log"):
+                continue
+            for line in open(os.path.join(log_dir, f)):
+                if "weights_sha256=" in line:
+                    logged[f] = line.split("weights_sha256=")[1].strip()
+        if set(logged.values()) != {digest} or len(logged) != 2:
+            fail(f"{label}: worker weights {logged} differ from the "
+                 f"parent's {digest}")
+        # traffic, one worker SIGKILLed once a request of its own decodes
+        t0 = time.perf_counter()
+        creqs = [cluster.submit(p, max_new_tokens=NEW) for p in prompts]
+        deadline = time.monotonic() + 300
+        vid = None
+        while vid is None:
+            vid = next((c.replica_id for c in creqs if not c.done
+                        and len(c.partial_output()) >= STACK_KILL_AT), None)
+            if vid is None and time.monotonic() > deadline:
+                fail(f"{label}: no request was mid-decode within 300 s")
+            time.sleep(0.005)
+        victim = reps[vid]
+        proc0 = victim._proc
+        victim.kill()
+        outs = [c.result(timeout=600) for c in creqs]
+        wall = time.perf_counter() - t0
+        if proc0.wait(timeout=60) != -9:
+            fail(f"{label}: the victim exited {proc0.returncode}, not by "
+                 "SIGKILL")
+        if any(c.status != "completed" for c in creqs) \
+                or any(len(o) != NEW for o in outs):
+            fail(f"{label}: statuses {[c.status for c in creqs]}")
+        n_failed_over = sum(c.failovers > 0 for c in creqs)
+        routed = {rid: sum(c.replica_id == rid for c in creqs)
+                  for rid in reps}
+        deadline = time.monotonic() + 600
+        while not (victim._proc is not proc0 and victim.ready()):
+            if time.monotonic() > deadline:
+                fail(f"{label}: no replacement within 600 s")
+            time.sleep(0.1)
+        warm = victim.restart_ttft
+        if warm is None or warm >= cold[vid]:
+            fail(f"{label}: the replacement's restart_ttft {warm} s is not "
+                 f"below the victim's first {cold[vid]} s")
+        if not victim.cache_stats or victim.cache_stats["hits"] <= 0 \
+                or victim.cache_stats["misses"] \
+                or any(not c or c["misses"] <= 0
+                       for c in cold_cache.values()):
+            fail(f"{label}: the replacement's compile cache "
+                 f"{victim.cache_stats} (want hits, no build), the first "
+                 f"starts' {cold_cache} (want builds)")
+        # a second wave under a cluster-wide profile capture, its
+        # submissions spaced past a poll so the router sees each worker's
+        # load rise, and routed by load alone (the survivor's cache holds
+        # the shared prefix, whose affinity would draw the whole wave), so
+        # both workers serve
+        cluster.affinity_weight = 0.0
+        # a process's first profiler window initialises CUPTI first, for
+        # as long as a short wave takes to finish: a window of none in
+        # every process before the wave, whose start latency is printed,
+        # so the measured window opens while the wave decodes
+        warm_up = cluster.capture_profile(0.0)
+        warm_profs = (warm_up or {}).get("capture", {}).get("profiler", {})
+        creqs2 = []
+        for p in prompts:
+            creqs2.append(cluster.submit(p, max_new_tokens=STACK_NEW2))
+            time.sleep(0.12)
+        bundle = cluster.capture_profile(1.0)
+        pending2 = {rid: sum(c.replica_id == rid and not c.done
+                             for c in creqs2) for rid in reps}
+        outs2 = [c.result(timeout=600) for c in creqs2]
+        routed2 = {rid: sum(c.replica_id == rid for c in creqs2)
+                   for rid in reps}
+        snap = cluster.scrape()
+        mem_peak = worker_memory()
+    except BaseException:
+        # a failed check ends the run: no worker outlives it
+        for rep in cluster.replicas().values():
+            if rep._proc is not None and rep._proc.poll() is None:
+                rep._proc.kill()
+        cluster.stop()
+        raise
+    stop_workers(cluster)
+    shutil.rmtree(tmp, ignore_errors=True)
+    cap = bundle.get("capture", {}) if bundle else {}
+    profs = cap.get("profiler", {})
+    if sorted(cap.get("workers", [])) != ["replica-0", "replica-1",
+                                          "router"] \
+            or not all(p and p.get("ok") for p in profs.values()) \
+            or any(profs[r].get("device_events", 0) <= 0
+                   for r in ("replica-0", "replica-1")):
+        fail(f"{label}: capture_profile workers {cap.get('workers')}, "
+             f"profilers {profs} (the warm-up window's {warm_profs}), the "
+             f"wave's requests by replica {routed2}, of them unfinished "
+             f"when the capture returned {pending2}")
+    if any(o is None or len(o) != STACK_NEW2 for o in outs2):
+        fail(f"{label}: the second wave's statuses "
+             f"{[c.status for c in creqs2]}")
+    spans = device_spans_ms(bundle)
+    compiles = metric_values(snap, "paddle_tpu_xla_compile_total")
+    att_loads = {k[0]: v for k, v in compiles.items()
+                 if len(k) > 1 and k[1] == "kernel:ragged_paged_attention"}
+    gen = metric_values(snap, "serving_generated_tokens_total")
+    peaks = metric_values(snap, "paddle_tpu_device_peak_bytes_in_use")
+    if not {"replica-0", "replica-1"} <= set(att_loads) \
+            or not {("replica-0",), ("replica-1",)} <= set(gen):
+        fail(f"{label}: the merged scrape lacks a worker: kernel loads "
+             f"{att_loads}, generated {gen}")
+    floor = hold_floor(label, token_gaps(model, dev, prompts + prompts,
+                                         outs + outs2))
+    n_tok = NEW * len(prompts)
+    print(f"{label}: {card_line()}; workers up in {t_up:.1f} s; "
+          f"restart_ttft cold {cold} (compile cache {cold_cache}) warm "
+          f"{vid} {warm:.2f} s (cache {victim.cache_stats}); wave 1 {n_tok} tokens "
+          f"in {wall:.3f} s = {n_tok / wall:.1f} tokens/s with {vid} "
+          f"SIGKILLed ({n_failed_over} requests failed over; requests by "
+          f"replica {routed}, second wave {routed2}); kernel "
+          f"library loads of ragged_paged_attention by replica {att_loads}; "
+          f"generated tokens by replica {gen}; allocator peak bytes by "
+          f"replica {peaks}; card MiB by process after start {mem_up}, "
+          f"at the second wave {mem_peak}; profile shards "
+          f"{ {w: p.get('device_events') for w, p in profs.items()} } "
+          f"(device records over ms of the window {spans}; profiler start "
+          f"ms, first window "
+          f"{ {w: round(p.get('start_ms', -1), 1) for w, p in warm_profs.items()} }"
+          f", measured "
+          f"{ {w: round(p.get('start_ms', -1), 1) for w, p in profs.items()} }"
+          f"; unfinished at its return {pending2}); "
+          f"{floor}; phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
 def check_capture_failure(dev):
     """A step that reads the device on the host cannot be captured: the
     capture helper raises what the capture raised (no phase catches it
@@ -5798,6 +6485,17 @@ def main():
     for e, counts in zip(moe_entries, (float_launches, int8_launches,
                                        int8_launches)):
         e["launches"] = counts[e["name"]]
+    # phase 17 runs after every phase that counts profiler records: its
+    # /debug/profile window opens on a server thread
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    _, model = llama_model(dev)                     # phase 13's model again
+    entry["launches"] += serve_stack(dev, model)    # phase 17a
+    torch.cuda.empty_cache()
+    serve_stack_workers(dev, model)                 # phase 17b
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
     check_capture_failure(dev)
     shutil.rmtree(cache_dir, ignore_errors=True)
     print(f"smoke_s={time.perf_counter() - t0:.1f} (build and every phase)",

@@ -10,11 +10,12 @@ compile watcher and device-memory gauges (:mod:`.compile_watch`: kernel
 builds and loads, CUDA-graph captures, the caching allocator), the crash
 flight recorder (:mod:`.flight_recorder`) and the perf attribution layer
 (:mod:`.perf`: roofline gauges from CUDA-event-fenced device time, the
-EWMA perf sentinel). ``PADDLE_TPU_METRICS=0`` turns the whole layer into
+EWMA perf sentinel, the on-demand ``torch.profiler`` capture behind
+``/debug/profile``). ``PADDLE_TPU_METRICS=0`` turns the whole layer into
 no-ops. README's port section lists the metric names.
 
 Deferred, each raising with its ROADMAP item: ``watch`` / ``watched_jit``
-(A11, A13) and ``capture_local`` / ``capture_bundle`` (A9).
+(A11, A13).
 """
 
 from . import (  # noqa: F401

@@ -1,7 +1,6 @@
 """Exporters: Prometheus text format, JSON snapshots, HTTP serving (a
 copy of ``paddle_tpu/observability/export.py``; ``/debug/profile`` goes
-through :func:`.perf.capture_bundle`, which this port defers to ROADMAP
-A9 and which raises until then: the route answers 500 naming it).
+through :func:`.perf.capture_bundle`, a ``torch.profiler`` window).
 
 - :func:`json_snapshot` — a pure-data (JSON-serializable) dump of a
   registry; :func:`snapshot_to_prometheus` renders such a snapshot to

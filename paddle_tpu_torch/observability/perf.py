@@ -31,9 +31,13 @@ stream capturing, or another thread holding
 Everything obeys ``PADDLE_TPU_METRICS=0``; ``PADDLE_TPU_PERF=0`` turns
 off just the attribution layer while the rest of observability stays on.
 
-:func:`capture_local` / :func:`capture_bundle` (on-demand profiler
-capture) serve the cluster's ``/debug/profile``, which comes with the
-serving stack over the engine (ROADMAP A9): both raise naming it.
+:func:`capture_local` / :func:`capture_bundle` are the on-demand
+profiler capture behind ``/debug/profile`` and
+``ServingCluster.capture_profile``: a ``torch.profiler`` window whose
+records (the card's kernels and copies; the CPU's ops where there is no
+card) join the process's host spans on the span clock. The window opens
+and closes holding ``CAPTURE_LOCK``, so it never starts or stops inside
+a graph capture.
 """
 
 from __future__ import annotations
@@ -522,23 +526,168 @@ def ensure_build_info(registry=None):
 
 
 # ---------------------------------------------------------------------------
-# on-demand profiler capture: the serving stack's (ROADMAP A9)
+# on-demand profiler capture (the per-process half)
 # ---------------------------------------------------------------------------
+#: device records shipped per capture, bounded so a busy card can't
+#: balloon the rpc reply / HTTP body
+_MAX_DEVICE_EVENTS = 20000
+
+
+def _profiler_records(prof, cuda):
+    """``(name, start_us, dur_us, category)`` of a stopped
+    ``torch.profiler`` window, the start in microseconds since the window
+    opened (the profiler's own clock): its CUDA records (kernels inside a
+    replayed graph included) when ``cuda``, else its CPU op records."""
+    import torch
+
+    want = torch.autograd.DeviceType.CUDA if cuda \
+        else torch.autograd.DeviceType.CPU
+    out = []
+    for e in prof.events():
+        if e.device_type != want \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        out.append((e.name, float(e.time_range.start),
+                    float(e.time_range.elapsed_us()),
+                    "kernel" if cuda else "cpu_op"))
+    return out
+
+
+def _device_events(records, base_us, pid):
+    """Chrome-trace ``X`` events of profiler ``records`` (see
+    :func:`_profiler_records`), rebased so the window's start sits at
+    ``base_us`` on this process's span clock and stamped with this
+    process's pid, so ``tracing.merge_shards`` shifts them with the
+    process's host spans. Sorted by time, at most
+    ``_MAX_DEVICE_EVENTS``."""
+    events = [{"name": str(name), "ph": "X", "cat": str(cat),
+               "ts": base_us + float(start), "dur": float(dur),
+               "pid": pid, "tid": "device" if cat == "kernel" else "host"}
+              for name, start, dur, cat in records]
+    events.sort(key=lambda e: e["ts"])
+    return events[:_MAX_DEVICE_EVENTS]
+
+
+def _profiler_start(cuda):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops._graphs import CAPTURE_LOCK
+
+    if cuda:
+        # CUDA activity is recorded process-wide
+        prof = profile(activities=[ProfilerActivity.CUDA])
+    else:
+        # CPU ops are recorded on the profiler's own thread only, unless
+        # this PyTorch can watch every thread (the serving threads)
+        try:
+            from torch._C._profiler import _ExperimentalConfig
+            cfg = _ExperimentalConfig(profile_all_threads=True)
+        except (ImportError, TypeError):
+            cfg = None
+        prof = profile(activities=[ProfilerActivity.CPU],
+                       experimental_config=cfg)
+    with CAPTURE_LOCK:
+        if cuda:
+            torch.cuda.synchronize()
+        prof.start()
+        # the records' clock starts with the trace, at the end of start()
+        # (after the tracer's initialisation)
+        t_open = time.perf_counter()
+    return prof, t_open
+
+
+def _profiler_stop(prof, cuda):
+    import torch
+
+    from ..ops._graphs import CAPTURE_LOCK
+
+    with CAPTURE_LOCK:
+        if cuda:
+            torch.cuda.synchronize()
+        prof.stop()
+
+
 def capture_local(seconds, worker_name=None):
-    """The per-process half of the cluster's on-demand profiler capture,
-    whose callers (``ServingCluster.capture_profile``, the replica
-    worker) come with ROADMAP A9."""
-    raise NotImplementedError(
-        "perf.capture_local comes with the serving stack over the engine "
-        "(ROADMAP A9)")
+    """One on-demand profile window in THIS process: start a
+    ``torch.profiler`` window, let the caller's workload run for
+    ``seconds``, stop, and return a span-shard document (worker / pid /
+    epoch_unix / events — see :func:`~.tracing.local_shard`) whose
+    events are the process's host spans plus the profiler's device
+    records on the span clock, ready for :func:`~.tracing.merge_shards`.
+    ``profiler`` reports ``ok`` and, when the profiler could not start or
+    stop, the ``reason``.
+
+    Blocks the calling thread for the window (serving threads keep
+    running); returns an empty shard under ``PADDLE_TPU_METRICS=0``
+    (profiler never started)."""
+    from . import trace as _trace
+    from . import tracing as _tracing
+
+    name = worker_name or f"pid{os.getpid()}"
+    if not _metrics_enabled():
+        return {"worker": str(name), "pid": os.getpid(),
+                "epoch_unix": _trace.epoch_unix(), "events": [],
+                "profiler": {"ok": False, "reason": "metrics disabled"}}
+    seconds = max(0.0, float(seconds))
+    cuda = _cuda_ready()
+    prof = None
+    reason = None
+    t0 = t_open = time.perf_counter()
+    try:
+        prof, t_open = _profiler_start(cuda)
+    except Exception as e:          # reported in profiler.reason
+        reason = f"start: {type(e).__name__}: {e}"
+    # the first window of a process initialises the profiler's tracing
+    # (CUPTI on the card): that latency delays the window's opening
+    start_ms = (t_open - t0) * 1e3
+    time.sleep(seconds)
+    records = []
+    if prof is not None:
+        try:
+            _profiler_stop(prof, cuda)
+            records = _profiler_records(prof, cuda)
+        except Exception as e:      # reported in profiler.reason
+            prof = None
+            reason = f"stop: {type(e).__name__}: {e}"
+    shard = _tracing.local_shard(name)
+    # window start on this process's span clock: device records sit
+    # where the capture actually happened relative to host spans
+    device_events = _device_events(records,
+                                   (t_open - _trace._EPOCH) * 1e6,
+                                   os.getpid())
+    shard["events"] = shard["events"] + device_events
+    shard["profiler"] = {"ok": prof is not None, "seconds": seconds,
+                         "start_ms": start_ms,
+                         "device_events": len(device_events)}
+    if reason is not None:
+        shard["profiler"]["reason"] = reason
+    return shard
+
+
+def _cuda_ready():
+    """Whether this process drives the card (CUDA initialised): a window
+    there records the card's activity, else the CPU's."""
+    try:
+        import torch
+        return torch.cuda.is_available() and torch.cuda.is_initialized()
+    except Exception:
+        return False
 
 
 def capture_bundle(seconds, worker_name=None):
-    """The local ``/debug/profile`` capture: None under
-    ``PADDLE_TPU_METRICS=0`` (the route's 503), else it raises: it comes
-    with the serving stack over the engine (ROADMAP A9)."""
+    """Single-process convenience over :func:`capture_local`: the
+    merged Perfetto-loadable document (what the local ``/debug/profile``
+    route serves when no cluster is behind it). None under
+    ``PADDLE_TPU_METRICS=0``."""
     if not _metrics_enabled():
         return None
-    raise NotImplementedError(
-        "perf.capture_bundle comes with the serving stack over the engine "
-        "(ROADMAP A9)")
+    from . import tracing as _tracing
+
+    shard = capture_local(seconds, worker_name=worker_name)
+    merged = _tracing.merge_shards([shard])
+    merged["capture"] = {"seconds": float(seconds),
+                         "workers": [shard.get("worker")],
+                         "pids": [shard.get("pid")],
+                         "profiler": [shard.get("profiler")]}
+    return merged

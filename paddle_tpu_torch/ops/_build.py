@@ -3,7 +3,9 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with :mod:`ctypes`. Builds
 happen at first use, all sources at once (one ``nvcc`` process each),
-into ``paddle_tpu_torch/build/<hash>/``, keyed by a hash of the
+into ``paddle_tpu_torch/build/<hash>/`` (or ``$PADDLE_TPU_KERNEL_BUILD_DIR/
+<hash>/``, read at import: a deployment's shared cache, or an empty one
+for a cold start), keyed by a hash of the
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source rebuilds and an unchanged one is reused. A missing ``nvcc`` or a failed build raises.
 Each build keeps the compiler's output (``ptxas -v``: registers, shared
@@ -39,7 +41,8 @@ __all__ = ["COUNTERS", "NVCC_FLAGS", "SOURCES", "build_all", "counter",
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD = os.path.join(_PKG, "build")
+BUILD = os.environ.get("PADDLE_TPU_KERNEL_BUILD_DIR") \
+    or os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-ldl"]

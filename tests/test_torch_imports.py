@@ -31,6 +31,15 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.ops._graphs",
            "paddle_tpu_torch.testing", "paddle_tpu_torch.testing.faults",
            "paddle_tpu_torch.distributed.watchdog",
+           "paddle_tpu_torch.distributed",
+           "paddle_tpu_torch.distributed.net_store",
+           "paddle_tpu_torch.distributed.rpc",
+           "paddle_tpu_torch.native", "paddle_tpu_torch.native.build",
+           "paddle_tpu_torch.inference.qos",
+           "paddle_tpu_torch.inference.cluster",
+           "paddle_tpu_torch.inference.frontend",
+           "paddle_tpu_torch.inference.replica_worker",
+           "paddle_tpu_torch.examples.llama_serving",
            "paddle_tpu_torch.ops.sampling",
            "paddle_tpu_torch.ops.ragged_paged_attention",
            "paddle_tpu_torch.ops.paged_attention",
@@ -48,9 +57,14 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
 
 
 def test_import_leaves_jax_unloaded():
+    """Every module, the serving stack's lazy names included, imports with
+    neither jax nor any reference module loaded."""
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
+            "inf = importlib.import_module('paddle_tpu_torch.inference')\n"
+            "for name in inf._LAZY:\n"
+            "    getattr(inf, name)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
@@ -65,7 +79,7 @@ def test_import_leaves_jax_unloaded():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in PKG.rglob("*")
-    if p.suffix in (".py", ".cu", ".cuh")))
+    if p.suffix in (".py", ".cu", ".cuh", ".cc")))
 def test_source_names_neither_jax_nor_reference(path):
     text = (ROOT / path).read_text()
     assert not re.search(r"jax", text, re.IGNORECASE), path

@@ -143,10 +143,17 @@ class TestTierFaultPoints:
         with pytest.raises(ValueError, match="tier"):
             faults.FaultPlan([{"point": "tier.dh2", "action": "raise"}])
 
-    def test_message_points_wait_on_a9(self):
-        with pytest.raises(ValueError, match="ROADMAP A9") as e:
-            faults.FaultPlan([{"point": "rpc.send", "action": "drop"}])
-        assert "A7" not in str(e.value)
+    def test_message_points_wait_on_a9(self, clean_faults):
+        """The message points came with the serving stack (ROADMAP A9):
+        a network rule is accepted and fires, as in the reference."""
+        _plan([{"point": "rpc.send", "action": "drop", "src": "router",
+                "count": 1}])
+        for f in FAULTS.values():
+            v = f.fire_network("rpc.send", src="router", dst="replica-0")
+            assert v and v.drop
+            assert not f.fire_network("rpc.send", src="router",
+                                      dst="replica-0")
+            assert not f.fire_network("rpc.send", src="other")
 
     def test_fire_copy_as_reference(self, clean_faults):
         """bitflip is consumed and reported as torn; raise and path

@@ -240,18 +240,28 @@ class TestExport:
             srv.stop()
 
     def test_debug_profile_names_its_item(self, monkeypatch):
-        """The local profiler capture comes with ROADMAP A9: the route
-        says so (500), and under the kill switch answers 503 as the
-        reference."""
+        """The local profiler capture (ROADMAP A9, ported): the route
+        returns a merged bundle whose profiler started, 400 on a malformed
+        window, and 503 under the kill switch, as the reference."""
         srv = oexport.start_http_server(port=0, registry=_demo_registry())
         try:
-            url = f"http://127.0.0.1:{srv.port}/debug/profile?seconds=0"
+            base = f"http://127.0.0.1:{srv.port}/debug/profile"
+            with obs.span("unit.profiled"):
+                pass
+            bundle = json.loads(urllib.request.urlopen(
+                f"{base}?seconds=0").read())
+            assert bundle["capture"]["seconds"] == 0.0
+            assert bundle["capture"]["pids"] == [os.getpid()]
+            (prof,) = bundle["capture"]["profiler"]
+            assert prof["ok"] is True and "reason" not in prof
+            assert "unit.profiled" in {e.get("name")
+                                       for e in bundle["traceEvents"]}
             with pytest.raises(urllib.error.HTTPError) as e:
-                urllib.request.urlopen(url)
-            assert e.value.code == 500 and b"A9" in e.value.read()
+                urllib.request.urlopen(f"{base}?seconds=soon")
+            assert e.value.code == 400
             monkeypatch.setenv("PADDLE_TPU_METRICS", "0")
             with pytest.raises(urllib.error.HTTPError) as e:
-                urllib.request.urlopen(url)
+                urllib.request.urlopen(f"{base}?seconds=0")
             assert e.value.code == 503
         finally:
             srv.stop()
@@ -340,6 +350,29 @@ class TestCompileWatch:
         reg = om.default_registry()
         assert reg.get("compile_cache_hit_total").value == 1
         assert reg.get("paddle_tpu_xla_backend_compile_total") is None
+
+    def test_build_dir_follows_the_environment(self, tmp_path):
+        """``PADDLE_TPU_KERNEL_BUILD_DIR`` names the build directory (a
+        worker's compile cache), read at import; the package's
+        ``build/`` without it."""
+        import pathlib
+        import subprocess
+        root = pathlib.Path(__file__).resolve().parent.parent
+        code = ("from paddle_tpu_torch.ops import _build; "
+                "print(_build.BUILD); print(_build._lib_path('sampling'))")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = str(root)
+        outs = []
+        for extra in ({"PADDLE_TPU_KERNEL_BUILD_DIR": str(tmp_path)}, {}):
+            env.pop("PADDLE_TPU_KERNEL_BUILD_DIR", None)
+            res = subprocess.run([sys.executable, "-c", code],
+                                 env={**env, **extra}, capture_output=True,
+                                 text=True, timeout=120)
+            assert res.returncode == 0, res.stderr
+            outs.append(res.stdout.split())
+        assert outs[0][0] == str(tmp_path)
+        assert outs[0][1].startswith(str(tmp_path) + os.sep)
+        assert outs[1][0] == str(root / "paddle_tpu_torch" / "build")
 
     def test_captures_count_per_callable_and_signature(self):
         for key in ("greedy", "bias", "greedy"):
@@ -808,17 +841,46 @@ class TestPerf:
         assert perf.ensure_build_info() is None
 
     def test_capture_names_its_item(self, monkeypatch):
-        with pytest.raises(NotImplementedError, match="A9"):
-            obs.capture_local(0.1)
-        with pytest.raises(NotImplementedError, match="A9"):
-            obs.capture_bundle(0.1)
+        """``capture_local`` (ROADMAP A9, ported on ``torch.profiler``)
+        returns the reference's shard keys; its device records land on
+        the span clock from the window's start (fake records); under the
+        kill switch it returns an empty shard and ``capture_bundle``
+        None."""
+        from paddle_tpu.observability import perf as jax_perf
+        shard = obs.capture_local(0.05, worker_name="w0")
+        ref = jax_perf.capture_local(0.05, worker_name="w0")
+        assert set(shard) == set(ref) \
+            == {"worker", "pid", "epoch_unix", "events", "profiler"}
+        assert shard["worker"] == "w0" and shard["pid"] == os.getpid()
+        assert shard["profiler"]["ok"] is True
+        assert {"ok", "seconds", "start_ms", "device_events"} \
+            <= set(shard["profiler"])
+        assert shard["profiler"]["start_ms"] >= 0.0
+        evs = perf._device_events(
+            [("k2", 250.0, 5.0, "kernel"), ("k1", 10.0, 2.5, "kernel")],
+            1000.0, 42)
+        assert [(e["name"], e["ts"], e["dur"], e["pid"], e["ph"])
+                for e in evs] == [("k1", 1010.0, 2.5, 42, "X"),
+                                  ("k2", 1250.0, 5.0, 42, "X")]
+        from paddle_tpu_torch.observability import tracing as otracing
+        merged = otracing.merge_shards([
+            {"worker": "a", "pid": 1, "epoch_unix": 100.0,
+             "events": [dict(e, pid=1) for e in evs]},
+            {"worker": "b", "pid": 2, "epoch_unix": 100.5,
+             "events": [dict(evs[0], pid=2)]}])
+        xs = [e for e in merged["traceEvents"] if e["ph"] == "X"]
+        assert [(e["pid"], e["ts"]) for e in xs] \
+            == [(1, 1010.0), (1, 1250.0), (2, 1010.0 + 0.5e6)]
         monkeypatch.setenv("PADDLE_TPU_METRICS", "0")
+        off = obs.capture_local(0.1)
+        assert off["events"] == [] and off["profiler"]["ok"] is False
         assert obs.capture_bundle(0.1) is None
 
 
 def test_exports_are_the_reference_s_minus_the_deferred():
     """The package exports the reference's names (``NULL`` besides); the
-    deferred ones exist and raise naming their item."""
+    deferred ones (``watch``, ``watched_jit``) exist and raise naming their
+    item."""
     import paddle_tpu.observability as ref
     assert set(ref.__all__) <= set(obs.__all__)
     for name in ("watch", "watched_jit", "capture_local", "capture_bundle"):

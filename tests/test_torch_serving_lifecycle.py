@@ -703,13 +703,17 @@ def test_fault_plans_are_validated_as_the_reference(spec):
     {"point": "store.frame", "action": "slow", "seconds": 0.01},
 ])
 def test_network_and_store_rules_wait_for_their_call_sites(spec):
-    """A rule at a message or socket point, which the reference parses,
-    is refused by the port's plan: no module of the port fires one yet.
-    The process points are the reference's."""
-    jax_faults.FaultPlan([spec])
-    with pytest.raises(ValueError, match="no call site in the port"):
-        faults.FaultPlan([spec])
+    """A rule at a message or socket point parses in both packages since
+    their call sites came with the serving stack (ROADMAP A9): the rules
+    are the reference's, and so are the process, message and socket
+    points."""
+    plans = [mod.FaultPlan([spec]) for mod in (jax_faults, faults)]
+    kinds = [(len(p.rules), len(p.net_rules), len(p.store_rules))
+             for p in plans]
+    assert kinds[0] == kinds[1] and kinds[1][0] == 0
     assert faults.PROCESS_POINTS == jax_faults.PROCESS_POINTS
+    assert faults.NETWORK_POINTS == jax_faults.NETWORK_POINTS
+    assert faults.STORE_POINTS == jax_faults.STORE_POINTS
 
 
 def test_admission_error_retry_after_in_message(pkg):
