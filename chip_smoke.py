@@ -104,6 +104,26 @@ package is not beside it, and when any phase fails:
    then one step of a 2-layer model with the kernels against the same
    step with the plain versions (loss and gradients), under bf16
    ``auto_cast`` and again in f32 (the flash kernels' general instance);
+18. (run after 5b, 6 and 7) the pretraining recipe whole: (a) its entry point
+   ``examples.llama_pretrain.main`` at phase 5's model and shapes for 10
+   steps, the step compiled by ``jit.to_static`` into one CUDA graph
+   after an eager warm-up at [1, 128], batches from the native
+   ``TokenFeed`` over a seeded int32 corpus of 8 samples: the native
+   feed served them, one capture, each replay launches 8 of each flash
+   kernel and 1 loss kernel and the run one step's worth a call, no
+   plain version, finite and falling losses; the graphed step's time,
+   tokens/s, TFLOP/s and peak memory beside phase 5's eager step;
+   (b) the 2-layer cut with AdamW, ``LinearWarmup(CosineAnnealingDecay)``
+   and ``ClipGradByGlobalNorm(1.0)``, six compiled steps against six
+   eager ones: every loss, parameter and optimizer tensor bitwise equal,
+   the device learning rate after each replay ``float32(scheduler())``,
+   one capture; (c) the seven other optimizers on the tiny config, 3
+   compiled steps against 3 eager ones each, bitwise; (d) the recipe
+   with ``--ckpt-dir`` at the 2-layer cut, again with ``--resume``, then
+   ``CheckpointManager``'s async save during steps and ``restore_latest``
+   into a model built afresh: each restored state's digest equal to the
+   saved one's (host memory and disk read first, short ones fail the
+   phase), the snapshot, write, CRC and restore times printed;
 3c. (run after 3b) the mixture-of-experts and int8 kernels against their
    plain versions at Mixtral-8x7B serving shapes (hidden 4096, expert
    FFN 14336, 8 experts, top 2, block 128) for the two token counts of
@@ -402,6 +422,8 @@ then a JSON line of kernel results and the final result line.
 
 import contextlib
 import dataclasses
+import faulthandler
+import gc
 import itertools
 import json
 import math
@@ -2515,7 +2537,8 @@ def training_model(dev, layers):
 
 def train(dev):
     """Phase 5: train the 8-layer model through the recipe's entry
-    point; returns the launches of each kernel in that run."""
+    point; returns the launches of each kernel in that run and the mean
+    step time."""
     import torch
     from paddle_tpu_torch.examples import llama_pretrain
     from paddle_tpu_torch.ops import flash_attention as FT
@@ -2558,7 +2581,7 @@ def train(dev):
           f"3-{TRAIN_STEPS}) tokens_per_s={tokens / step_s:.0f} "
           f"tflops={tflops:.1f} peak_mem_gb={peak:.2f} launches={launches}",
           flush=True)
-    return launches
+    return launches, step_s
 
 
 def compare_step(dev, use_amp=True):
@@ -2611,6 +2634,426 @@ def compare_step(dev, use_amp=True):
           f", kernels vs plain; flash {','.join(ran)}): " + " ".join(line),
           flush=True)
 
+
+# phase 18: the pretraining recipe whole (8 samples of TRAIN_S + 1 tokens
+# in the corpus, so the feed cycles its epochs), the 2-layer cut of
+# phases 5b and 18b-18d, and the steps of 18b/18c
+PRETRAIN_SAMPLES = 8
+PRETRAIN_CUT = 2
+COMPARE_STEPS, OPT_STEPS = 6, 3
+# 18d: host memory and disk a checkpoint needs, x its bytes (the snapshot
+# in host memory beside the page cache; one committed copy on disk and
+# the next one's .tmp)
+CKPT_HOST, CKPT_DISK = 1.25, 2.1
+SMOKE_STACKS_S = 1140      # the run's stacks printed if it is still going
+
+
+def state_digest(tensors):
+    """``{name: (sum, weighted sum)}`` of every tensor's bits, computed on
+    the card: each element's 16- or 32-bit pattern as an integer, summed
+    plain and weighted by its position mod 65521, plus one."""
+    import torch
+    out = {}
+    for name, t in tensors.items():
+        t = t.detach().contiguous().view(-1)
+        bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32
+                      if t.element_size() == 4 else torch.int64)
+        acc = [0, 0]
+        for lo in range(0, bits.numel(), 1 << 26):
+            v = bits[lo:lo + (1 << 26)].to(torch.int64)
+            w = (torch.arange(lo, lo + v.numel(), device=v.device)
+                 % 65521) + 1
+            acc[0] += int(v.sum())
+            acc[1] += int((v * w).sum())
+        out[name] = tuple(acc)
+    return out
+
+
+def recipe_digest(model, opt):
+    """The digest of the recipe's checkpointed state, flat."""
+    d = {f"model.{k}": v for k, v in model.state_dict().items()}
+    d.update((f"opt.{k}", v) for k, v in opt.state_dict().items()
+             if hasattr(v, "shape"))
+    return state_digest(d)
+
+
+def corpus(dirname, vocab, samples=PRETRAIN_SAMPLES, seq=TRAIN_S, seed=7):
+    """A seeded int32 token corpus of ``samples`` samples of ``seq + 1``
+    ids in ``dirname``; returns its path."""
+    import numpy as np
+    path = os.path.join(dirname, "corpus.bin")
+    np.random.RandomState(seed).randint(
+        0, vocab, (samples, seq + 1)).astype(np.int32).tofile(path)
+    return path
+
+
+def recipe_args(path, layers, steps, *extra):
+    return ["--config", "8b", "--layers", str(layers), "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S), "--amp", "--steps",
+            str(steps), "--data", path, *extra]
+
+
+def replay_launches(step):
+    """The flash and loss kernels' launches one replay of the compiled
+    step ``step`` adds: ``{"forward", "dq", "dkv", "ce"}``."""
+    from paddle_tpu_torch.ops import flash_attention as FT
+    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+    (_, counts, _), = step._graphs._graphs.values()
+    per = dict.fromkeys(("forward", "dq", "dkv", "ce"), 0)
+    for c, d in counts:
+        if c is FT.launches:
+            per.update(d)
+        elif c is FC.instance_launches:
+            per["ce"] += sum(d.values())
+    return per
+
+
+def compiles_of(name):
+    from paddle_tpu_torch.observability import compile_watch as cw
+    return sum(1 for e in cw.recent_compile_events()
+               if e.get("kind") == "compile" and e.get("name") == name)
+
+
+def pretrain_compiled(dev, eager_step_s, path):
+    """Phase 18a: the recipe's entry point at Llama-3-8B width and
+    phase 5's cut, its step compiled into one CUDA graph, batches from
+    the native ``TokenFeed``; returns the run's kernel launches."""
+    import torch
+    from paddle_tpu_torch.examples import llama_pretrain
+    from paddle_tpu_torch.ops import flash_attention as FT
+    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = compiles_of("llama_pretrain.step")
+    with counted_plain_versions() as plain_calls:
+        reset_launches()
+        res = llama_pretrain.main(recipe_args(
+            path, TRAIN_LAYERS, TRAIN_STEPS))
+        torch.cuda.synchronize()
+        launches = dict(FT.launches, ce=FC.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if plain_calls:
+        fail(f"18a: plain versions ran: {sorted(set(plain_calls))}")
+    if res["feed"] != "paddle_tpu_torch.native.TokenFeed":
+        fail(f"18a: batches came from {res['feed']}, not the native feed")
+    step = res["step"]
+    captures = compiles_of("llama_pretrain.step") - before
+    if len(step._cache) != 1 or captures != 1:
+        fail(f"18a: {len(step._cache)} graphs, {captures} captures "
+             "(want one of each)")
+    per = replay_launches(step)
+    want = dict(forward=TRAIN_LAYERS, dq=TRAIN_LAYERS, dkv=TRAIN_LAYERS,
+                ce=1)
+    if per != want:
+        fail(f"18a: launches per replay {per} != {want}")
+    # the eager warm-up, the capture's warm-up step and the replays: one
+    # step each
+    total = {k: v * (TRAIN_STEPS + 1) for k, v in want.items()}
+    if launches != total:
+        fail(f"18a: launches {launches} != {total}")
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"18a: losses not finite and falling: {losses}")
+    steady = res["step_s"][2:]
+    step_s = sum(steady) / len(steady)
+    tokens = TRAIN_B * TRAIN_S
+    model = res["model"]
+    tflops = model.flops_per_token(TRAIN_S) * tokens / step_s / 1e12
+    print(f"18a compiled recipe: layers={TRAIN_LAYERS} batch={TRAIN_B} "
+          f"seq={TRAIN_S} steps={TRAIN_STEPS} feed={res['feed']} "
+          f"loss_first={losses[0]:.4f} loss_last={losses[-1]:.4f} "
+          f"step_ms={step_s * 1e3:.1f} (graphed, mean of steps "
+          f"3-{TRAIN_STEPS}) eager_step_ms={eager_step_s * 1e3:.1f} "
+          f"(phase 5, this run) tokens_per_s={tokens / step_s:.0f} "
+          f"tflops={tflops:.1f} peak_mem_gb={peak:.2f} "
+          f"launches_per_replay={per} captures={captures}", flush=True)
+    return launches
+
+
+def compare_loops(label, make, batches, use_amp):
+    """``make()`` -> ``(model, opt, sched)`` twice from one seed: one copy
+    stepped eagerly, the other through ``jit.to_static`` (its first call
+    eager, its second captured, the rest replays), over ``batches``; one
+    copy on the card at a time. Fails unless every loss and the digest of
+    every parameter and optimizer tensor are equal (each tensor that
+    differs named), the device learning rate after each replay is
+    ``float32(sched())``, and one graph was captured. Returns the
+    losses, the replays' lr values and the number of tensors held."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp, jit
+    runs = {}
+    for kind in ("eager", "compiled"):
+        model, opt, sched = make()
+
+        def step_fn(ids, labels, model=model, opt=opt):
+            with amp.auto_cast(enable=use_amp, dtype="bfloat16"):
+                loss, _ = model(ids, labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        name = f"chip_smoke.{label}"
+        step = step_fn if kind == "eager" else jit.to_static(
+            step_fn, state=[model, opt], name=name)
+        before = compiles_of(name)
+        losses, lrs = [], []
+        for i, ids in enumerate(batches):
+            x = torch.from_numpy(ids[:, :-1]).to(dev_of(model))
+            y = torch.from_numpy(ids[:, 1:]).to(dev_of(model))
+            losses.append(step(x, y).item())
+            if kind == "compiled" and i >= 2:
+                got = opt.lr_tensor().item()
+                if got != float(np.float32(opt.get_lr())):
+                    fail(f"{label}: device lr {got} after replay {i} != "
+                         f"float32({opt.get_lr()})")
+                lrs.append(got)
+            if sched is not None:
+                sched.step()
+        if kind == "compiled":
+            captures = compiles_of(name) - before
+            if len(step._cache) != 1 or captures != 1:
+                fail(f"{label}: {len(step._cache)} graphs, {captures} "
+                     "captures (want one)")
+        runs[kind] = (losses, recipe_digest(model, opt))
+        del model, opt, sched, step, step_fn, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+    (le, de), (lc, dc) = runs["eager"], runs["compiled"]
+    diffs = [] if le == lc else [f"losses {le} vs {lc}"]
+    diffs += [n for n in de if de[n] != dc.get(n)]
+    if diffs or sorted(de) != sorted(dc):
+        fail(f"{label}: compiled differs from eager: {diffs[:8]}")
+    return le, lrs, len(de)
+
+
+def dev_of(model):
+    return next(model.parameters()).device
+
+
+def compiled_equals_eager(dev):
+    """Phase 18b: AdamW with ``LinearWarmup(CosineAnnealingDecay)`` and
+    ``ClipGradByGlobalNorm(1.0)`` on the 2-layer full-width model,
+    compiled against eager over six batches, under bf16 ``auto_cast``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.examples.llama_pretrain import build_model
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    rng = np.random.RandomState(11)
+    vocab = 128256
+    batches = [rng.randint(0, vocab, (TRAIN_B, TRAIN_S + 1)).astype(np.int64)
+               for _ in range(COMPARE_STEPS)]
+
+    def make():
+        model = build_model("8b", PRETRAIN_CUT, dev, seed=0)
+        sched = lr.LinearWarmup(
+            lr.CosineAnnealingDecay(3e-4, T_max=COMPARE_STEPS),
+            warmup_steps=3, start_lr=3e-5, end_lr=3e-4)
+        opt = AdamW(learning_rate=sched, weight_decay=0.1,
+                    parameters=model.named_parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        return model, opt, sched
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with counted_plain_versions() as plain_calls:
+        losses, lrs, n = compare_loops("18b", make, batches, use_amp=True)
+    if plain_calls:
+        fail(f"18b: plain versions ran: {sorted(set(plain_calls))}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"18b compiled vs eager (2 layers, AdamW, warmup+cosine, global "
+          f"norm clip 1.0, bf16 auto_cast): {COMPARE_STEPS} steps bitwise "
+          f"equal (losses and the digests of {n} parameters and optimizer "
+          f"tensors); one "
+          f"capture; replay lrs {lrs} equal float32(scheduler()); losses "
+          f"{[round(x, 4) for x in losses]} peak_mem_gb={peak:.2f}",
+          flush=True)
+
+
+def optimizers_compiled(dev):
+    """Phase 18c: each optimizer other than Adam/AdamW captured for 3
+    steps against 3 eager steps on the tiny config, bitwise."""
+    import numpy as np
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.examples.llama_pretrain import build_model
+    kinds = {"SGD": dict(learning_rate=0.1),
+             "Momentum": dict(learning_rate=0.05, use_nesterov=True,
+                              weight_decay=0.01),
+             "Adagrad": dict(learning_rate=0.05),
+             "Adamax": dict(learning_rate=0.01),
+             "RMSProp": dict(learning_rate=0.01, centered=True,
+                             momentum=0.5),
+             "Adadelta": dict(learning_rate=1.0),
+             "Lamb": dict(learning_rate=0.01)}
+    rng = np.random.RandomState(12)
+    batches = [rng.randint(0, 128, (2, 129)).astype(np.int64)
+               for _ in range(OPT_STEPS)]
+    done = []
+    for kind, kw in kinds.items():
+        def make(kind=kind, kw=kw):
+            model = build_model("tiny", None, dev, seed=0)
+            return model, getattr(O, kind)(
+                parameters=model.named_parameters(), **kw), None
+        losses, _, n = compare_loops(f"18c.{kind}", make, batches,
+                                     use_amp=False)
+        done.append(f"{kind} ({n} tensors, loss {losses[-1]:.4f})")
+    print(f"18c optimizers compiled vs eager, {OPT_STEPS} steps each, "
+          f"bitwise: {', '.join(done)}", flush=True)
+
+
+def host_room(dirname, nbytes):
+    """Fail unless the host has ``CKPT_HOST`` x ``nbytes`` of memory
+    available and ``dirname``'s disk ``CKPT_DISK`` x ``nbytes`` free;
+    returns the two amounts."""
+    import shutil
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    free = shutil.disk_usage(dirname).free
+    if avail < CKPT_HOST * nbytes or free < CKPT_DISK * nbytes:
+        fail(f"18d: a {nbytes} byte checkpoint needs {CKPT_HOST}x host "
+             f"memory and {CKPT_DISK}x disk; the host has {avail} bytes "
+             f"available and {dirname} {free} bytes free")
+    return avail, free
+
+
+def checkpoint_resume(dev, path):
+    """Phase 18d: the recipe with ``--ckpt-dir`` and again with
+    ``--resume`` (2 layers at full width), then ``CheckpointManager``'s
+    async save during steps and ``restore_latest`` into a model built
+    afresh; each restored state's digest equal to the saved one's."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.distributed.checkpoint_manager import \
+        CheckpointManager
+    from paddle_tpu_torch.examples import llama_pretrain as LP
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        model = LP.build_model("8b", PRETRAIN_CUT, dev, seed=0)
+        # f32 weights and two AdamW moments
+        need = 3 * sum(p.numel() * 4 for p in model.parameters())
+        del model
+        torch.cuda.empty_cache()
+        avail, free = host_room(tmp, need)
+        recipe_dir = os.path.join(tmp, "recipe")
+        res = LP.main(recipe_args(path, PRETRAIN_CUT, 2, "--ckpt-dir",
+                                  recipe_dir))
+        saved = recipe_digest(res["model"], res["opt"])
+        line = [f"host_available={avail} disk_free={free}; recipe save: "
+                f"{res['ckpt_bytes']} bytes snapshot_s="
+                f"{res['snapshot_s']:.2f} write_s={res['write_s']:.2f}"]
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = LP.main(recipe_args(path, PRETRAIN_CUT, 0, "--ckpt-dir",
+                                  recipe_dir, "--resume"))
+        if "load_s" not in res:
+            fail("18d: --resume did not load the checkpoint")
+        if recipe_digest(res["model"], res["opt"]) != saved:
+            fail("18d: the state --resume restored differs from the saved")
+        line.append(f"--resume load_s={res['load_s']:.2f} (state equal)")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(recipe_dir)
+
+        def compiled_run():
+            model = LP.build_model("8b", PRETRAIN_CUT, dev, seed=3)
+            opt = LP.AdamW(learning_rate=3e-4, weight_decay=0.1,
+                           parameters=model.named_parameters())
+
+            def step_fn(ids, labels):
+                with amp.auto_cast(dtype="bfloat16"):
+                    loss, _ = model(ids, labels)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                return loss
+            step = jit.to_static(step_fn, state=[model, opt],
+                                 warmup="once")
+            return model, opt, step
+        model, opt, step = compiled_run()
+        rng = np.random.RandomState(13)
+
+        def batch(s):
+            ids = rng.randint(0, 128256, (TRAIN_B, s + 1))
+            return (torch.from_numpy(ids[:, :-1]).to(dev),
+                    torch.from_numpy(ids[:, 1:]).to(dev))
+        step(*batch(128))                       # the eager warm-up
+        for _ in range(2):
+            step(*batch(TRAIN_S)).item()
+        state = LP.train_state(model, opt)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in state["model"].values()) + sum(
+            t.numel() * t.element_size() for t in state["opt"].values()
+            if hasattr(t, "shape"))
+        want = recipe_digest(model, opt)
+        mgr = CheckpointManager(os.path.join(tmp, "mgr"), max_to_keep=2,
+                                async_save=True)
+        t0 = time.perf_counter()
+        mgr.save(state, 1, blocking=False)
+        t1 = time.perf_counter()
+        step(*batch(TRAIN_S)).item()            # a step during the write
+        t2 = time.perf_counter()
+        mgr.wait()
+        t3 = time.perf_counter()
+        mgr.verify_step(1)
+        t4 = time.perf_counter()
+        del model, opt, step, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, opt, step = compiled_run()
+        step(*batch(128))        # makes the optimizer state to restore into
+        t5 = time.perf_counter()
+        got = mgr.restore_latest(LP.train_state(model, opt))
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        if got != 1 or recipe_digest(model, opt) != want:
+            fail(f"18d: restore_latest gave step {got}; state equal: "
+                 f"{recipe_digest(model, opt) == want}")
+        line.append(
+            f"manager: {nbytes} bytes, snapshot_s={t1 - t0:.2f} (D2H, the step "
+            f"waits) step_during_write_s={t2 - t1:.2f} write_commit_s="
+            f"{t3 - t1:.2f} (write, fsync, CRC, rename) verify_crc_s="
+            f"{t4 - t3:.2f} restore_s={t6 - t5:.2f} (verify and load; "
+            "state equal)")
+        print("18d checkpoint and resume: " + "; ".join(line), flush=True)
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def pretrain_phase(dev, eager_step_s):
+    """Phase 18: 18a-18d; returns 18a's kernel launches."""
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 18: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of "
+          "the card held by earlier phases at its start", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    try:
+        path = corpus(tmp, 128256)
+        launches = pretrain_compiled(dev, eager_step_s, path)
+        for sub in (compiled_equals_eager, optimizers_compiled,
+                    lambda dev: checkpoint_resume(dev, path)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            sub(dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 def moe_bound(gs, c, k, n, w_bytes, scale_rows=0):
     """Bound of one grouped GEMM: the weights of experts with rows (and
@@ -6402,6 +6845,8 @@ def main():
     print(card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    # past the contract's 1200 s, every thread's stack goes to stderr
+    faulthandler.dump_traceback_later(SMOKE_STACKS_S)
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build_s={time.perf_counter() - t0:.1f}", flush=True)
@@ -6471,13 +6916,11 @@ def main():
             else ladder[key]
         e["launches"] += paths[key] + spec_paths[key] + pause_paths[key]
     torch.cuda.empty_cache()
-    launches = train(dev)
+    launches, eager_step_s = train(dev)
     torch.cuda.empty_cache()
     compare_step(dev)
     torch.cuda.empty_cache()
     compare_step(dev, use_amp=False)
-    for e, key in zip(training_entries, ("forward", "dq", "dkv", "ce")):
-        e["launches"] = launches[key]
     torch.cuda.empty_cache()
     int8_launches = serve_mixtral_int8(dev)
     torch.cuda.empty_cache()
@@ -6485,6 +6928,14 @@ def main():
     for e, counts in zip(moe_entries, (float_launches, int8_launches,
                                        int8_launches)):
         e["launches"] = counts[e["name"]]
+    # phase 18 runs after 5b, and after the phases whose profiler windows
+    # are held exactly (6, 7): in a run with phase 18 before them, a
+    # window of phase 6 lost a tick's records
+    torch.cuda.empty_cache()
+    print(f"phases before 18: {time.perf_counter() - t0:.1f} s", flush=True)
+    recipe = pretrain_phase(dev, eager_step_s)      # phase 18
+    for e, key in zip(training_entries, ("forward", "dq", "dkv", "ce")):
+        e["launches"] = launches[key] + recipe[key]
     # phase 17 runs after every phase that counts profiler records: its
     # /debug/profile window opens on a server thread
     torch.cuda.empty_cache()
@@ -6500,6 +6951,7 @@ def main():
     shutil.rmtree(cache_dir, ignore_errors=True)
     print(f"smoke_s={time.perf_counter() - t0:.1f} (build and every phase)",
           flush=True)
+    faulthandler.cancel_dump_traceback_later()
     # again at the end: a reader of the output's tail finds the card there
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [entry] + family + [paged]

@@ -17,7 +17,7 @@ its one dispatch seam. Here it takes two routes:
 The fused linear cross-entropy is on neither list, so it runs on the f32
 final-norm output and the f32 lm head, as in the reference. O2
 ``decorate`` and ``GradScaler`` are not ported yet (ROADMAP queue A,
-item 9).
+item 10).
 """
 
 from __future__ import annotations

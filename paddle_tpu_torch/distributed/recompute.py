@@ -21,7 +21,7 @@ def recompute(function, *args, preserve_rng_state=True, policy=None,
     if policy == "dots":
         raise NotImplementedError(
             "recompute policy 'dots' is not ported yet (ROADMAP queue A, "
-            "item 9)")
+            "item 10)")
     if policy is not None:
         raise ValueError(f"unknown recompute policy {policy!r}")
     return checkpoint.checkpoint(function, *args, use_reentrant=False,

@@ -1,3 +1,3 @@
-from .token_feed import DevicePrefetcher
+from .token_feed import DevicePrefetcher, PyTokenFeed, TokenFeed
 
-__all__ = ["DevicePrefetcher"]
+__all__ = ["TokenFeed", "PyTokenFeed", "DevicePrefetcher"]

@@ -1,5 +1,23 @@
-"""Asynchronous host-to-device batch prefetch (port of
-``DevicePrefetcher`` from the reference package's ``io/token_feed.py``).
+"""The pretraining input path (port of the reference package's
+``io/token_feed.py``): the token-corpus feed and the asynchronous
+host-to-device prefetch.
+
+``TokenFeed(path, sample_elems, batch_size)`` iterates ``[batch,
+sample_elems]`` numpy batches over a flat binary corpus of fixed-size
+samples: the native C++ feed (:class:`paddle_tpu_torch.native.TokenFeed`,
+``native/src/data_feed.cc``) when its library builds, else
+:class:`PyTokenFeed`, which serves the same contract from ``np.memmap``.
+Both visit each full sample once an epoch, drop the last partial batch,
+stop after ``epochs`` epochs when it is positive, and shuffle per epoch
+from ``seed`` (the native feed with mt19937, the numpy one with
+``RandomState(seed + epoch)``, so the two orders differ).
+
+:class:`DevicePrefetcher` moves the batches onto the card from a worker
+thread. Its device work (pinning, the copy, the event) holds
+:data:`paddle_tpu_torch.ops._graphs.CAPTURE_LOCK`, as the host KV tier's
+does: a CUDA-graph capture (a compiled train step's first full-shape
+call) holds the same lock, so no allocation or copy of the worker's
+lands inside a capture in CUDA's global capture mode.
 """
 
 from __future__ import annotations
@@ -11,9 +29,78 @@ import time
 import numpy as np
 import torch
 
+from .. import native as _native
 from ..device import resolve_device
 
-__all__ = ["DevicePrefetcher"]
+__all__ = ["TokenFeed", "PyTokenFeed", "DevicePrefetcher"]
+
+
+class PyTokenFeed:
+    """Pure-numpy feed with the native feed's contract (each full sample
+    once an epoch, drop-last, ``epochs``, a per-epoch order from
+    ``seed``); its shuffle is ``RandomState(seed + epoch)``, not the
+    native feed's mt19937."""
+
+    def __init__(self, path, sample_elems, batch_size, dtype=np.int32,
+                 shuffle=True, seed=0, prefetch_depth=4, epochs=-1):
+        self.dtype = np.dtype(dtype)
+        self.sample_elems = int(sample_elems)
+        self.batch_size = int(batch_size)
+        data = np.memmap(path, dtype=self.dtype, mode="r")
+        n = data.size // self.sample_elems
+        if n < self.batch_size:
+            raise ValueError(
+                f"TokenFeed: cannot open {path!r} (too small for one "
+                f"batch of {batch_size} x {sample_elems} {self.dtype})")
+        self._data = data[:n * self.sample_elems].reshape(
+            n, self.sample_elems)
+        self.shuffle, self.seed = shuffle, seed
+        self.epochs = epochs
+        self._epoch = 0
+        self._step = 0
+        self._order = self._epoch_order()
+
+    @property
+    def num_samples(self):
+        return self._data.shape[0]
+
+    @property
+    def batches_per_epoch(self):
+        return self.num_samples // self.batch_size
+
+    def _epoch_order(self):
+        if not self.shuffle:
+            return np.arange(self.num_samples)
+        return np.random.RandomState(
+            self.seed + self._epoch).permutation(self.num_samples)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._step >= self.batches_per_epoch:
+            self._epoch += 1
+            if self.epochs > 0 and self._epoch >= self.epochs:
+                raise StopIteration
+            self._step = 0
+            self._order = self._epoch_order()
+        idx = self._order[self._step * self.batch_size:
+                          (self._step + 1) * self.batch_size]
+        self._step += 1
+        return np.ascontiguousarray(self._data[idx])
+
+    def close(self):
+        pass
+
+
+def TokenFeed(path, sample_elems, batch_size, dtype=np.int32, shuffle=True,
+              seed=0, prefetch_depth=4, epochs=-1):
+    """The native prefetching feed when its library builds, else
+    :class:`PyTokenFeed`. Both yield ``[batch_size, sample_elems]``
+    arrays."""
+    cls = _native.TokenFeed if _native.available() else PyTokenFeed
+    return cls(path, sample_elems, batch_size, dtype=dtype, shuffle=shuffle,
+               seed=seed, prefetch_depth=prefetch_depth, epochs=epochs)
 
 
 def _map_arrays(fn, item):
@@ -79,7 +166,8 @@ class DevicePrefetcher:
         if self._stream is None:
             return _map_arrays(
                 lambda a: torch.from_numpy(np.array(a, copy=True)), item), None
-        with torch.cuda.stream(self._stream):
+        from ..ops._graphs import CAPTURE_LOCK
+        with CAPTURE_LOCK, torch.cuda.stream(self._stream):
             out = _map_arrays(
                 lambda a: torch.from_numpy(np.ascontiguousarray(a))
                 .pin_memory().to(self._device, non_blocking=True), item)

@@ -1,5 +1,5 @@
-"""The port's C++ control-plane pieces (a copy of the reference's
-``native`` package, its TCP store only).
+"""The port's C++ host pieces (a copy of the reference's ``native``
+package).
 
 :class:`TCPStore` is the rendezvous key-value store (master and
 clients) with blocking get/wait, atomic add and a counter-based barrier:
@@ -7,17 +7,23 @@ the rpc mailboxes of the serving cluster ride it. The library is built
 with g++ on first use (``build.py``) into ``lib/`` and bound with ctypes.
 ``available()`` is False when it cannot be built or loaded
 (``PADDLE_TPU_DISABLE_NATIVE=1`` too); callers then take their
-pure-Python paths. The reference's token feed (``data_feed.cc``) comes
-with the rest of the training path.
+pure-Python paths.
+
+:class:`TokenFeed` is the pretraining input: a C++ producer thread over
+an mmap of a flat token corpus (``src/data_feed.cc``), one
+``prefetch_depth`` of batches ahead of the train step.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+
+import numpy as np
 
 from . import build as _build
 
-__all__ = ["available", "TCPStore"]
+__all__ = ["available", "TCPStore", "TokenFeed"]
 
 
 def available():
@@ -28,7 +34,7 @@ def _lib():
     lib = _build.load()
     if lib is None:
         raise RuntimeError(
-            f"native control-plane library unavailable: "
+            f"native library unavailable: "
             f"{_build.load_error()}")
     return lib
 
@@ -133,6 +139,66 @@ class TCPStore:
         if getattr(self, "_server", None):
             self._lib.pts_store_server_stop(self._server)
             self._server = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class TokenFeed:
+    """Prefetching reader over a flat binary corpus of fixed-size samples.
+
+    Yields ``[batch, sample_elems]`` numpy arrays of ``dtype``. The C++
+    producer thread stays one ``prefetch_depth`` of batches ahead of the
+    training step; each epoch is a fresh (optionally shuffled, mt19937
+    seeded with ``seed + epoch``) permutation of all full samples, the
+    last partial batch dropped; ``epochs`` > 0 ends the iteration after
+    that many epochs.
+    """
+
+    def __init__(self, path, sample_elems, batch_size, dtype=np.int32,
+                 shuffle=True, seed=0, prefetch_depth=4, epochs=-1):
+        lib = _lib()
+        self._lib = lib
+        self.dtype = np.dtype(dtype)
+        self.sample_elems = int(sample_elems)
+        self.batch_size = int(batch_size)
+        self._h = lib.pts_feed_open(
+            os.fspath(path).encode(), self.sample_elems,
+            self.dtype.itemsize, self.batch_size, int(bool(shuffle)),
+            int(seed), int(prefetch_depth), int(epochs))
+        if not self._h:
+            raise ValueError(
+                f"TokenFeed: cannot open {path!r} (too small for one "
+                f"batch of {batch_size} x {sample_elems} {self.dtype})")
+
+    @property
+    def batches_per_epoch(self):
+        return self._lib.pts_feed_batches_per_epoch(self._h)
+
+    @property
+    def num_samples(self):
+        return self._lib.pts_feed_num_samples(self._h)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if not self._h:
+            raise StopIteration
+        out = np.empty((self.batch_size, self.sample_elems), self.dtype)
+        rc = self._lib.pts_feed_next(
+            self._h, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        if rc != 0:
+            raise StopIteration
+        return out
+
+    def close(self):
+        if getattr(self, "_h", None):
+            self._lib.pts_feed_close(self._h)
+            self._h = None
 
     def __del__(self):
         try:

@@ -1,7 +1,7 @@
 """Build and load the port's native control-plane library.
 
-The C++ sources under ``src/`` (the TCP store, ``src/tcp_store.cc``)
-compile into one shared object in ``lib/``, named by a hash of their
+The C++ sources under ``src/`` (the TCP store, ``src/tcp_store.cc``,
+and the token feed, ``src/data_feed.cc``) compile into one shared object in ``lib/``, named by a hash of their
 content, so the library is rebuilt exactly when a source changes. One
 ``g++ -shared`` call is the whole build: the library includes no PyTorch
 or CUDA header and takes seconds to build, at first use in a process
@@ -123,3 +123,16 @@ def _declare(lib):
     lib.pts_store_numkeys.argtypes = [c.c_void_p]
     lib.pts_buf_free.restype = None
     lib.pts_buf_free.argtypes = [u8p]
+
+    lib.pts_feed_open.restype = c.c_void_p
+    lib.pts_feed_open.argtypes = [c.c_char_p, c.c_uint64, c.c_uint32,
+                                  c.c_uint64, c.c_int, c.c_uint64, c.c_int,
+                                  c.c_int64]
+    lib.pts_feed_batches_per_epoch.restype = c.c_uint64
+    lib.pts_feed_batches_per_epoch.argtypes = [c.c_void_p]
+    lib.pts_feed_num_samples.restype = c.c_uint64
+    lib.pts_feed_num_samples.argtypes = [c.c_void_p]
+    lib.pts_feed_next.restype = c.c_int
+    lib.pts_feed_next.argtypes = [c.c_void_p, u8p]
+    lib.pts_feed_close.restype = None
+    lib.pts_feed_close.argtypes = [c.c_void_p]

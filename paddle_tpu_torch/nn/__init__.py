@@ -1,3 +1,6 @@
-from . import functional
+from . import clip, functional
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   clip_grad_norm_, clip_grad_value_)
 
-__all__ = ["functional"]
+__all__ = ["functional", "clip", "ClipGradByValue", "ClipGradByNorm",
+           "ClipGradByGlobalNorm", "clip_grad_norm_", "clip_grad_value_"]

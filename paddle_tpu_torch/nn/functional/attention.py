@@ -52,7 +52,7 @@ def _naive_attention(q, k, v, mask, is_causal, scale=None):
 def _no_dropout(dropout_p, training):
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP queue A, item 9: "
+            "attention dropout is not ported yet (ROADMAP queue A, item 10: "
             "flash dropout)")
 
 

@@ -1,11 +1,12 @@
-"""CUDA-graph capture for the decode loops (the counterpart of the
-reference's compiled decode programs: the serving engine's scanned decode
-tick and ``LlamaForCausalLM.generate``'s decode step).
+"""CUDA-graph capture for the decode loops and the train step (the
+counterpart of the reference's compiled programs: the serving engine's
+scanned decode tick, ``LlamaForCausalLM.generate``'s decode step, and
+``jit.to_static``'s train step, :mod:`paddle_tpu_torch.jit`).
 
-One :class:`StepGraphs` serves one engine, or one model's ``generate``:
-it holds the static buffers its steps read and write, a memory pool
-(``torch.cuda.graph_pool_handle()``) that all its graphs share, and the
-stream they are captured on. A step is a function of those buffers alone,
+One :class:`StepGraphs` serves one engine, one model's ``generate``, or
+one compiled function: it holds the static buffers its steps read and
+write, a memory pool (``torch.cuda.graph_pool_handle()``) that all its
+graphs share, and the stream they are captured on. A step is a function of those buffers alone,
 with no host read on its path. :meth:`StepGraphs.capture` runs it once on
 the capture stream first (every lazy piece of state, a kernel library's
 build and load, a ``cudaFuncSetAttribute``, cuBLAS's workspace, the
@@ -112,13 +113,16 @@ class StepGraphs:
     def __contains__(self, key):
         return key in self._graphs
 
-    def capture(self, key, fn, signature=None):
+    def capture(self, key, fn, signature=None, before_capture=None):
         """Run ``fn`` once on the capture stream, then capture it as the
         graph ``key``. ``fn`` runs twice on the buffers' current values
         (the warm-up really runs, the capture records), so the caller puts
         them in a state where a step's writes do no harm. Raises what the
         capture raised. ``signature`` (default ``key``) is what the compile
-        watcher tells this set's captures apart by."""
+        watcher tells this set's captures apart by. ``before_capture``,
+        when given, is called between the warm-up (synchronized) and the
+        capture: a train step frees the warm-up's cached blocks there and
+        checks what the capture needs."""
         if not self.cuda:
             raise RuntimeError("CUDA graphs need a CUDA device; on the CPU "
                                "the step function runs as it is")
@@ -129,6 +133,8 @@ class StepGraphs:
             with torch.cuda.stream(self.stream):
                 fn()
             torch.cuda.synchronize(self.device)
+            if before_capture is not None:
+                before_capture()
             graph = torch.cuda.CUDAGraph()
             before = [dict(c) for c in _build.COUNTERS]
             try:

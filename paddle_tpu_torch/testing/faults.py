@@ -141,7 +141,7 @@ import time
 __all__ = ["PLAN_ENV", "FaultRule", "NetworkRule", "NetworkVerdict",
            "StoreRule", "StoreVerdict", "FaultPlan", "plan", "reset",
            "active", "fire", "fire_copy", "fire_network", "fire_store",
-           "bitflip", "PROCESS_POINTS", "NETWORK_POINTS",
+           "rename", "bitflip", "PROCESS_POINTS", "NETWORK_POINTS",
            "STORE_POINTS"]
 
 #: environment variable holding the JSON fault plan
@@ -629,3 +629,12 @@ def bitflip(path, offset=None, mask=0xFF):
         f.write(bytes([b[0] ^ mask]))
         f.flush()
         os.fsync(f.fileno())
+
+
+def rename(src, dst, step=None):
+    """``os.rename`` with an injection point in front: a plan rule at
+    point ``"rename"`` can delay (``sleep``), fail (``raise``), or kill
+    the process (``sigkill``/``crash``) before the rename happens: the
+    torn-commit cases an atomic checkpoint must survive."""
+    fire("rename", step=step, path=dst)
+    os.rename(src, dst)

@@ -136,7 +136,7 @@ def test_sdpa_matches_reference(s):
 
 def test_sdpa_dropout_and_flash_api():
     q = torch.zeros(1, 128, 2, 16)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
     out, soft = F.flash_attention(q, q, q, causal=True)
     assert soft is None and out.shape == q.shape

@@ -49,6 +49,12 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.nn.functional", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.distributed.recompute",
            "paddle_tpu_torch.optimizer", "paddle_tpu_torch.io",
+           "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.regularizer",
+           "paddle_tpu_torch.nn", "paddle_tpu_torch.nn.clip",
+           "paddle_tpu_torch.io.token_feed",
+           "paddle_tpu_torch.distributed.checkpoint",
+           "paddle_tpu_torch.distributed.checkpoint_manager",
+           "paddle_tpu_torch.jit",
            "paddle_tpu_torch.examples.llama_pretrain",
            "paddle_tpu_torch.incubate.moe", "paddle_tpu_torch.ops.grouped_gemm",
            "paddle_tpu_torch.ops._tile_gemm",
@@ -65,6 +71,8 @@ def test_import_leaves_jax_unloaded():
             "inf = importlib.import_module('paddle_tpu_torch.inference')\n"
             "for name in inf._LAZY:\n"
             "    getattr(inf, name)\n"
+            "tf = importlib.import_module('paddle_tpu_torch.io.token_feed')\n"
+            "assert tf.TokenFeed and tf.PyTokenFeed\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
@@ -84,3 +92,10 @@ def test_source_names_neither_jax_nor_reference(path):
     text = (ROOT / path).read_text()
     assert not re.search(r"jax", text, re.IGNORECASE), path
     assert "paddle_tpu." not in text, path
+
+
+def test_scan_covers_native_sources():
+    """The C++ sources copied into the port (the TCP store and the token
+    feed) are among the files the scan above reads."""
+    scanned = {p.name for p in PKG.rglob("*.cc")}
+    assert {"tcp_store.cc", "data_feed.cc"} <= scanned

@@ -70,7 +70,7 @@ def test_linear_weights_are_transposed():
 def test_unported_features_raise():
     tm = LlamaForCausalLM(tiny_llama_config(recompute="dots"), device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         tm(ids, labels=ids)
 
 
