@@ -59,11 +59,14 @@ package is not beside it, and when any phase fails:
    kernel ran (the wgmma instances at the training batch, with dQ's,
    dK/dV's and the loss's registers); then the loss and its gradients
    through the public function at bf16 hidden and weight (the same
-   shape, timed too) and at D = 4100, f16 hidden and f32 weight (the
-   general instance), against the plain path;
-   then the flash kernels' general
+   shape, timed too), at f32 hidden with a bf16 and with an f16 weight
+   (the same shape: phase 19's O2 and GradScaler routes, the second
+   under the scaler's 2^16) and at D =
+   4100, f16 hidden and f32 weight (the general instance), against the
+   plain path; then the flash kernels' general
    instance at ``FLASH_DOMAIN``'s points (f32 head_dim 128, bf16 96 and
-   256, f16 64); the registers and spills of every flash instance, of the
+   256, f16 64, and f16 128 at the training batch, phase 19b(ii)'s
+   route); the registers and spills of every flash instance, of the
    ragged attention's tensor-core instance and of the dequant matmul's
    cluster instance (``ptxas -v``) are printed after the build;
 4. serving Llama-3-8B at full width and depth (random bf16 weights from
@@ -124,6 +127,37 @@ package is not beside it, and when any phase fails:
    into a model built afresh: each restored state's digest equal to the
    saved one's (host memory and disk read first, short ones fail the
    phase), the snapshot, write, CRC and restore times printed;
+19. (run after 18) training, the rest: (a) ``hapi.Model.fit`` over phase
+   5's model under O2 (``amp.decorate``: bf16 parameters but the norms,
+   f32 master weights and AdamW moments), the network returning the
+   final hidden states and the loss the fused linear cross-entropy over
+   the lm head, ``prepare(jit=True, amp_configs={"level": "O2"})``, a
+   2-worker ``DataLoader`` shuffled by an int generator over a seeded
+   int32 corpus, ``LRScheduler(by_step=True)`` (warm-up and cosine),
+   ``History`` and ``MetricsCallback``, 10 steps, then ``evaluate`` on 2
+   batches and ``predict`` on 1: one capture, each replay 8 / 8 / 8 / 1
+   launches, no plain version, finite and falling losses, every
+   non-norm parameter bf16 with an f32 master, ``train_steps_total`` the
+   steps, ``train_mfu`` in (0, 1]; the step's time, tokens/s, TFLOP/s and
+   peak memory beside 18a's O1 step; (b) at the 2-layer cut, one model
+   on the card at a time: (i) O2 ``fit`` with ``jit=True`` against
+   ``jit=False``, 4 steps bitwise (losses, parameters, masters,
+   moments); (ii) float16 O2 under ``GradScaler(2**16)``, eager and
+   compiled, a step forced to overflow: parameters bitwise, the scale
+   halved, the moments unchanged (eager) or decayed by their betas
+   (compiled, masked), later steps finite, the flash kernels' f16
+   instance and the loss's f16 weight counted; (iii) one step each with
+   recompute none / full / ``"dots"``: gradients within 1e-6 of none's,
+   the activations held for the backward printed, "dots" between; (iv)
+   ``scaled_dot_product_attention(dropout_p=0.1)`` at the model's
+   attention shape: no flash launch, the keep share within 5 sigma of
+   0.9, the mask bitwise the CPU plain version's for the key drawn,
+   ``training=False`` launching the flash forward again; (c) at the
+   tiny config: ``CheckpointCallback`` through ``fit`` and a restore,
+   ``Model.save`` / ``load`` bitwise, ``evaluate``'s Accuracy (top 1 and
+   5), Precision, Recall and Auc on the card equal to the same metrics on
+   the CPU from the same outputs, ``EarlyStopping`` stopping at the CPU
+   run's epoch;
 3c. (run after 3b) the mixture-of-experts and int8 kernels against their
    plain versions at Mixtral-8x7B serving shapes (hidden 4096, expert
    FFN 14336, 8 experts, top 2, block 128) for the two token counts of
@@ -2275,11 +2309,14 @@ def flash_case(dev, label, b, sq, sk, causal, seed, timed, d=D,
 
 
 # phase 3b: the general instance (f32 FMAs) at points of the reference's
-# domain past bf16 head_dim 64/128: label -> (b, sq, sk, causal, d, dtype)
+# domain past bf16 head_dim 64/128, the last at phase 19b(ii)'s float16
+# training batch: label -> (b, sq, sk, causal, d, dtype)
 FLASH_DOMAIN = {"f32 d128": (1, 512, 512, True, 128, "float32"),
                 "bf16 d96": (1, 512, 512, True, 96, "bfloat16"),
                 "bf16 d256": (1, 256, 256, False, 256, "bfloat16"),
-                "f16 d64": (1, 256, 384, True, 64, "float16")}
+                "f16 d64": (1, 256, 384, True, 64, "float16"),
+                "f16 train": (TRAIN_B, TRAIN_S, TRAIN_S, True, 128,
+                              "float16")}
 
 
 def check_flash(dev):
@@ -2310,22 +2347,23 @@ def check_flash(dev):
             for k in ("forward", "dq", "dkv")]
 
 
-def ce_point(dev, label, h, w, lab, want, timed=False):
+def ce_point(dev, label, h, w, lab, want, timed=False, loss_scale=1.0):
     """The loss and its gradients through the public function against
     the plain path on one set of inputs: the loss within LOSS_REL; f32
     gradients within GRAD_REL of their largest value, 16-bit ones within
     phase 3's bound (1 bf16 ulp plus 2^-10 of the row's largest value: a
     16-bit gradient rounds where an lse 1e-7 away rounds otherwise). The
-    forward must launch the ``want`` instance; with ``timed``, the
-    kernel's time by CUDA events and its device time. Returns the largest
-    lse/pick error and the times."""
+    gradients are those of ``loss_scale`` x the loss, as a GradScaler's
+    backward takes them. The forward must launch the ``want`` instance;
+    with ``timed``, the kernel's time by CUDA events and its device time.
+    Returns the largest lse/pick error and the times."""
     import torch
     from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
 
     def loss_and_grads():
         hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
         loss = FC.fused_linear_cross_entropy(hg, wg, lab)
-        loss.backward()
+        (loss * loss_scale).backward()
         return loss.detach(), hg.grad, wg.grad
     before = dict(FC.instance_launches)
     loss_k, dh_k, dw_k = loss_and_grads()
@@ -2355,7 +2393,8 @@ def ce_point(dev, label, h, w, lab, want, timed=False):
             check_close(f"loss {label}: {name} (row, column)", a, b)
     line = (f"loss check ({label}): N={h.shape[0]} D={h.shape[1]} "
             f"V={w.shape[0]} {h.dtype} hidden {w.dtype} weight "
-            f"instance={want} lse_pick_err={err:.3e} loss_rel={rel:.3e}")
+            f"loss_scale={loss_scale:g} instance={want} "
+            f"lse_pick_err={err:.3e} loss_rel={rel:.3e}")
     times = {}
     if timed:
         times = dict(ms=time_ms(lambda: FC._launch(h, w, lab), 3, 1),
@@ -2370,9 +2409,12 @@ def check_ce(dev):
     tensor-core instance) against the plain chunked version at N = D =
     4096, V = 128256 in f32, 5% of rows at ignore_index; then the loss
     and its gradients through the kernel path against the plain path;
-    then ``ce_point`` at bf16 hidden and weight (same shape, timed) and
-    at CE_GENERAL (D % 8 != 0: the general instance, f16 hidden, f32
-    weight). Returns the JSON entry (without ``launches``)."""
+    then ``ce_point`` at bf16 hidden and weight (same shape, timed), at
+    f32 hidden with a bf16 and with an f16 weight (same shape: phase 19's
+    O2 and GradScaler routes, the f16 one's loss scaled by SCALER_INIT)
+    and at CE_GENERAL (D % 8 != 0: the general
+    instance, f16 hidden, f32 weight). Returns the JSON entry (without
+    ``launches``)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import _build
@@ -2454,6 +2496,14 @@ def check_ce(dev):
           flush=True)
     err16, _ = ce_point(dev, "bf16", h.bfloat16(), w.bfloat16(), lab,
                         "tensor-core", timed=True)
+    # phase 19's routes: the f32 final-norm output against an O2 bf16
+    # head (19a) and a float16 one under 19b(ii)'s loss scale (unscaled,
+    # this loss's f16 head gradients, ~1e-7, are f16 subnormals, where
+    # an lse 1e-7 away rounds them a step of 2^-24 apart)
+    err_mixed = [ce_point(dev, f"f32 hidden, {dt} head", h, w.to(dt), lab,
+                          "tensor-core", loss_scale=scale)[0]
+                 for dt, scale in ((torch.bfloat16, 1.0),
+                                   (torch.float16, SCALER_INIT))]
     del h, w
     torch.cuda.empty_cache()
     n, d, v = CE_GENERAL
@@ -2465,7 +2515,7 @@ def check_ce(dev):
     return dict(name="fused_linear_cross_entropy_forward", route="cuda",
                 source="paddle_tpu_torch/csrc/fused_linear_cross_entropy.cu",
                 replaces="paddle_tpu/ops/fused_linear_cross_entropy.py:220",
-                max_abs_err=max(errs + [err16, err_g]), ms=ms,
+                max_abs_err=max(errs + err_mixed + [err16, err_g]), ms=ms,
                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, f32_bound_ms=f32_bound_ms,
                 library_ms=library_ms, instance=ran[0])
@@ -2768,7 +2818,7 @@ def pretrain_compiled(dev, eager_step_s, path):
           f"(phase 5, this run) tokens_per_s={tokens / step_s:.0f} "
           f"tflops={tflops:.1f} peak_mem_gb={peak:.2f} "
           f"launches_per_replay={per} captures={captures}", flush=True)
-    return launches
+    return launches, step_s
 
 
 def compare_loops(label, make, batches, use_amp):
@@ -3032,7 +3082,8 @@ def checkpoint_resume(dev, path):
 
 
 def pretrain_phase(dev, eager_step_s):
-    """Phase 18: 18a-18d; returns 18a's kernel launches."""
+    """Phase 18: 18a-18d; returns 18a's kernel launches and its graphed
+    step's seconds."""
     import shutil
     import tempfile
     import torch
@@ -3044,7 +3095,7 @@ def pretrain_phase(dev, eager_step_s):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
     try:
         path = corpus(tmp, 128256)
-        launches = pretrain_compiled(dev, eager_step_s, path)
+        launches, step_s = pretrain_compiled(dev, eager_step_s, path)
         for sub in (compiled_equals_eager, optimizers_compiled,
                     lambda dev: checkpoint_resume(dev, path)):
             gc.collect()
@@ -3053,7 +3104,705 @@ def pretrain_phase(dev, eager_step_s):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, step_s
+
+
+# phase 19: training, the rest: Model.fit under O2 (19a, 19b(i)), the
+# float16 GradScaler (19b(ii)), recompute (19b(iii)), attention dropout
+# (19b(iv)) and the callbacks, metrics and Model.save/load (19c)
+FIT_STEPS = 10           # 19a: Model.fit's batches (one epoch)
+FIT_VOCAB = 8192         # 19a/19b: the corpus' ids (a learnable marginal)
+FIT_EVAL, FIT_PREDICT = 2, 1     # 19a: evaluate and predict batches
+FIT_COMPARE_STEPS = 4    # 19b(i): O2 fit, jit=True against jit=False
+SCALER_STEPS, SCALER_OVERFLOW = 4, 2   # 19b(ii): steps, the forced one
+SCALER_INIT = 2.0 ** 16   # 19b(ii): GradScaler's init_loss_scaling
+DROPOUT_P = 0.1          # 19b(iv)
+DROPOUT_CHECKED = 1 << 22    # 19b(iv): mask elements held against the CPU
+EARLY_EPOCHS = 8         # 19c: EarlyStopping's epoch budget
+
+
+def fit_corpus(samples, seed):
+    """A seeded int32 corpus of ``samples`` rows of ``TRAIN_S + 1`` ids
+    below ``FIT_VOCAB``."""
+    import numpy as np
+    return np.random.RandomState(seed).randint(
+        0, FIT_VOCAB, (samples, TRAIN_S + 1)).astype(np.int32)
+
+
+def token_dataset(rows):
+    """A map-style ``io.Dataset`` of ``(ids, next ids)`` int64 pairs."""
+    import numpy as np
+    from paddle_tpu_torch.io import Dataset
+
+    class Tokens(Dataset):
+        def __len__(self):
+            return len(rows)
+
+        def __getitem__(self, i):
+            r = rows[i].astype(np.int64)
+            return r[:-1], r[1:]
+    return Tokens()
+
+
+def fit_loader(rows, workers=0, generator=19):
+    """``DataLoader`` over :func:`token_dataset` shuffled by a
+    ``RandomSampler`` with an int generator, ``TRAIN_B`` a batch."""
+    from paddle_tpu_torch import io
+    ds = token_dataset(rows)
+    return io.DataLoader(ds, batch_sampler=io.BatchSampler(
+        sampler=io.RandomSampler(ds, generator=generator),
+        batch_size=TRAIN_B), num_workers=workers)
+
+
+def hapi_llama(dev, layers, seed=0, level="O2", dtype="bfloat16", jit=True,
+               steps=FIT_STEPS):
+    """A Llama-3-8B-width model cut to ``layers`` as a ``hapi.Model``: the
+    network returns the final hidden states and the loss is the fused
+    linear cross-entropy over the lm head, as ``forward(labels=)``
+    computes it; AdamW with warm-up and cosine; ``amp.decorate`` at
+    ``level``. Returns ``(Model, lm, opt, sched)``."""
+    import torch
+    from paddle_tpu_torch import amp, hapi
+    from paddle_tpu_torch.examples.llama_pretrain import build_model
+    from paddle_tpu_torch.ops.fused_linear_cross_entropy import \
+        fused_linear_cross_entropy
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    lm = build_model("8b", layers, dev, seed=seed)
+
+    class Hidden(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lm = lm
+
+        def forward(self, ids):
+            return self.lm.model(ids)
+
+    def loss(hidden, labels):
+        return fused_linear_cross_entropy(hidden, lm.lm_head.weight, labels,
+                                          ignore_index=-100)
+    net = Hidden()
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=steps),
+                            warmup_steps=3, start_lr=3e-5, end_lr=3e-4)
+    opt = AdamW(learning_rate=sched, weight_decay=0.1,
+                parameters=net.named_parameters())
+    if level == "O2":
+        amp.decorate(net, opt, level="O2", dtype=dtype)
+    model = hapi.Model(net)
+    model.prepare(opt, loss, jit=jit,
+                  amp_configs={"level": level, "dtype": dtype})
+    return model, lm, opt, sched
+
+
+def step_recorder():
+    """A callback recording each train step's wall time (the step ends
+    with the loss read to the host) and loss."""
+    from paddle_tpu_torch.hapi import Callback
+
+    class Steps(Callback):
+        def __init__(self):
+            super().__init__()
+            self.s, self.losses = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.s.append(time.perf_counter() - self._t0)
+            self.losses.append(logs["loss"])
+    return Steps()
+
+
+def o2_state_ok(label, net, opt):
+    """Fail unless every parameter outside the norms is bf16 with an f32
+    master weight, and every norm weight f32 with none; returns the
+    parameters counted."""
+    import torch
+    masters = opt._accumulators["master_weight"]
+    n16 = 0
+    for name, p in net.named_parameters():
+        m = masters.get(id(p))
+        if "norm" in name:
+            ok = p.dtype == torch.float32 and m is None
+        else:
+            ok = p.dtype == torch.bfloat16 and m is not None and \
+                m.dtype == torch.float32
+            n16 += ok
+        if not ok:
+            fail(f"{label}: parameter {name} is {p.dtype} with master "
+                 f"{None if m is None else m.dtype}")
+    return n16
+
+
+def fit_o2(dev, o1_step_s):
+    """Phase 19a: ``Model.fit`` at Llama-3-8B width, 8 layers, O2 (bf16
+    parameters, f32 masters and moments), the step one CUDA graph, batches
+    from a shuffled 2-worker ``DataLoader``, the LR scheduler, History and
+    MetricsCallback; then ``evaluate`` and ``predict``. Returns the run's
+    kernel launches."""
+    import torch
+    from paddle_tpu_torch import hapi
+    from paddle_tpu_torch.observability import metrics as om
+    from paddle_tpu_torch.ops import flash_attention as FT
+    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+    t0 = time.perf_counter()
+    model, lm, opt, sched = hapi_llama(dev, TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rows = fit_corpus(FIT_STEPS * TRAIN_B + (FIT_EVAL + FIT_PREDICT)
+                      * TRAIN_B, seed=19)
+    train_rows = rows[:FIT_STEPS * TRAIN_B]
+    eval_rows = rows[FIT_STEPS * TRAIN_B:(FIT_STEPS + FIT_EVAL) * TRAIN_B]
+    pred_rows = rows[(FIT_STEPS + FIT_EVAL) * TRAIN_B:]
+    reg = om.MetricsRegistry()
+    fpt = lm.flops_per_token(TRAIN_S)
+    metrics_cb = hapi.MetricsCallback(
+        batch_size=TRAIN_B, flops_per_sample=fpt * TRAIN_S / 3,
+        peak_flops=BF16_FLOPS, registry=reg, sample_memory=False)
+    rec = step_recorder()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = compiles_of("hapi.train_step")
+    with counted_plain_versions() as plain_calls:
+        reset_launches()
+        hist = model.fit(fit_loader(train_rows, workers=2), epochs=1,
+                         verbose=0, callbacks=[
+                             hapi.LRScheduler(by_step=True), metrics_cb,
+                             rec])
+        torch.cuda.synchronize()
+        fit_launches = dict(FT.launches, ce=FC.launches)
+        eval_logs = model.evaluate(fit_loader(eval_rows), verbose=0)
+        preds = model.predict(fit_loader(pred_rows))
+        torch.cuda.synchronize()
+        launches = dict(FT.launches, ce=FC.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if plain_calls:
+        fail(f"19a: plain versions ran: {sorted(set(plain_calls))}")
+    step = model._train_step
+    captures = compiles_of("hapi.train_step") - before
+    if len(step._cache) != 1 or captures != 1:
+        fail(f"19a: {len(step._cache)} graphs, {captures} captures (want "
+             "one of each)")
+    per = replay_launches(step)
+    want = dict(forward=TRAIN_LAYERS, dq=TRAIN_LAYERS, dkv=TRAIN_LAYERS,
+                ce=1)
+    if per != want:
+        fail(f"19a: launches per replay {per} != {want}")
+    # the eager warm-up, the capture's real step and the replays: one step
+    # each; evaluate runs the forwards and the loss, predict the forwards
+    total = {k: v * FIT_STEPS for k, v in want.items()}
+    if fit_launches != total:
+        fail(f"19a: fit launches {fit_launches} != {total}")
+    total["forward"] += TRAIN_LAYERS * (FIT_EVAL + FIT_PREDICT)
+    total["ce"] += FIT_EVAL
+    if launches != total:
+        fail(f"19a: fit, evaluate and predict launches {launches} != "
+             f"{total}")
+    losses = rec.losses
+    if len(losses) != FIT_STEPS or not all(math.isfinite(x)
+                                           for x in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"19a: losses not {FIT_STEPS} finite and falling: {losses}")
+    if hist.history[-1]["loss"] != losses[-1]:
+        fail(f"19a: History {hist.history} != the last step's loss")
+    n16 = o2_state_ok("19a", model.network, opt)
+    steps_total = metrics_cb._steps.value
+    mfu = metrics_cb._mfu.value
+    if steps_total != FIT_STEPS or not 0.0 < mfu <= 1.0:
+        fail(f"19a: train_steps_total {steps_total} (want {FIT_STEPS}), "
+             f"train_mfu {mfu} (want in (0, 1])")
+    if not math.isfinite(eval_logs.get("loss", float("nan"))) or \
+            preds[0].shape != (TRAIN_B, TRAIN_S, lm.config.hidden_size) or \
+            not bool(torch.isfinite(torch.from_numpy(preds[0])).all()):
+        fail(f"19a: evaluate {eval_logs} / predict "
+             f"{[p.shape for p in preds]} not finite of the right shape")
+    steady = rec.s[2:]
+    step_s = sum(steady) / len(steady)
+    tokens = TRAIN_B * TRAIN_S
+    tflops = fpt * tokens / step_s / 1e12
+    print(f"19a Model.fit O2: layers={TRAIN_LAYERS} params="
+          f"{lm.num_params()} ({n16} bf16 with f32 masters) init_s="
+          f"{init_s:.1f} batch={TRAIN_B} seq={TRAIN_S} steps={FIT_STEPS} "
+          f"loss_first={losses[0]:.4f} loss_last={losses[-1]:.4f} "
+          f"step_ms={step_s * 1e3:.1f} (graphed, mean of steps "
+          f"3-{FIT_STEPS}) o1_step_ms={o1_step_s * 1e3:.1f} (18a, this run) "
+          f"tokens_per_s={tokens / step_s:.0f} tflops={tflops:.1f} "
+          f"train_mfu={mfu:.4f} peak_mem_gb={peak:.2f} "
+          f"launches_per_replay={per} captures={captures} "
+          f"eval_loss={eval_logs['loss']:.4f} lr_last={opt.get_lr():.3e}",
+          flush=True)
+    del model, lm, opt, sched, step, hist, preds, metrics_cb, rec
     return launches
+
+
+def fit_compare(dev):
+    """Phase 19b(i): O2 ``fit`` with ``jit=True`` against ``jit=False``
+    at the 2-layer cut, one model on the card at a time: losses,
+    parameters, master weights and moments bitwise."""
+    import torch
+    from paddle_tpu_torch import hapi
+    from paddle_tpu_torch.ops import flash_attention as FT
+    rows = fit_corpus(FIT_COMPARE_STEPS * TRAIN_B, seed=20)
+    runs = {}
+    for jit in (False, True):
+        model, lm, opt, sched = hapi_llama(dev, PRETRAIN_CUT, jit=jit,
+                                           steps=FIT_COMPARE_STEPS)
+        rec = step_recorder()
+        before = dict(FT.instance_launches)
+        model.fit(fit_loader(rows), epochs=1, verbose=0,
+                  callbacks=[hapi.LRScheduler(by_step=True), rec])
+        torch.cuda.synchronize()
+        ran = sorted(k for k, n in FT.instance_launches.items()
+                     if n > before[k])
+        if ran != ["dkv.wgmma", "dq.wgmma", "forward.wgmma"]:
+            fail(f"19b(i): flash instances {ran} under O2 bf16")
+        runs[jit] = (rec.losses, recipe_digest(model.network, opt))
+        del model, lm, opt, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+    (le, de), (lc, dc) = runs[False], runs[True]
+    diffs = [] if le == lc else [f"losses {le} vs {lc}"]
+    diffs += [n for n in de if de[n] != dc.get(n)]
+    if diffs or sorted(de) != sorted(dc):
+        fail(f"19b(i): jit=True differs from jit=False: {diffs[:8]}")
+    masters = sum(1 for n in de if n.endswith("_master_weight"))
+    print(f"19b(i) O2 fit jit=True vs jit=False (2 layers): "
+          f"{FIT_COMPARE_STEPS} steps bitwise (losses and the digests of "
+          f"{len(de)} tensors, {masters} master weights); losses "
+          f"{[round(x, 4) for x in le]}", flush=True)
+
+
+def scaler_run(dev, compiled):
+    """19b(ii)'s loop: float16 O2 at the 2-layer cut under
+    ``GradScaler(2**16)``, ``SCALER_STEPS`` steps, step
+    ``SCALER_OVERFLOW`` forced to overflow by a scale past f16's range
+    (set in place between steps), the scale put back after it. Returns
+    the losses and, around the overflow step, the digests of the
+    parameters and moments and the scales."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.examples.llama_pretrain import build_model
+    from paddle_tpu_torch.optimizer import AdamW
+    model = build_model("8b", PRETRAIN_CUT, dev, seed=1)
+    opt = AdamW(learning_rate=3e-4, weight_decay=0.1,
+                parameters=model.named_parameters())
+    amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=SCALER_INIT)
+
+    def step_fn(ids, labels):
+        with amp.auto_cast(level="O2", dtype="float16"):
+            loss, _ = model(ids, labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss
+    step = jit.to_static(step_fn, state=[model, opt, scaler],
+                         name=f"chip_smoke.19b.{compiled}") \
+        if compiled else step_fn
+    rows = fit_corpus(SCALER_STEPS * TRAIN_B, seed=21)
+    out = {"losses": []}
+
+    def moments():
+        return {f"{k}.{a}": t for a in ("moment1", "moment2")
+                for k, t in ((opt._names[pid], t) for pid, t in
+                             opt._accumulators[a].items())}
+    for i in range(SCALER_STEPS):
+        ids = torch.from_numpy(rows[i * TRAIN_B:(i + 1) * TRAIN_B]
+                               .astype(np.int64)).to(dev)
+        if i == SCALER_OVERFLOW:
+            scaler.set_init_loss_scaling(2.0 ** 126)
+            out["params_before"] = state_digest(dict(
+                model.named_parameters()))
+            out["moments_before"] = state_digest(moments())
+            # what a masked step must leave: each moment decayed by its
+            # beta under a zero gradient (one product at a time)
+            beta = {"moment1": opt._beta1, "moment2": opt._beta2}
+            out["moments_decayed"] = {
+                k: state_digest({k: t.mul(beta[k.rsplit(".", 1)[1]])})[k]
+                for k, t in moments().items()}
+        loss = step(ids[:, :-1], ids[:, 1:]).item()
+        out["losses"].append(loss)
+        if i == SCALER_OVERFLOW:
+            torch.cuda.synchronize()
+            out["scale_after"] = float(scaler.get_loss_scaling())
+            out["params_after"] = state_digest(dict(
+                model.named_parameters()))
+            out["moments_after"] = state_digest(moments())
+            scaler.set_init_loss_scaling(SCALER_INIT)
+    out["dtypes"] = sorted({str(p.dtype) for p in model.parameters()})
+    if compiled:
+        out["graphs"] = len(step._cache)
+    del model, opt, scaler, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def scaler_phase(dev):
+    """Phase 19b(ii): the float16 GradScaler loop eagerly and compiled;
+    the overflow step leaves the parameters bitwise, halves the scale and
+    leaves the moments as the reference's semantics for that call require
+    (eager: the hard skip, moments unchanged; compiled: the masked step,
+    moments decayed by their betas); the later steps resume finite.
+    The flash kernels run their f16 (general) instance and the loss its
+    f16 weight route, counted."""
+    import torch
+    from paddle_tpu_torch.models import llama as LM
+    from paddle_tpu_torch.ops import flash_attention as FT
+    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+    seen = set()
+    orig = LM.fused_linear_cross_entropy
+
+    def spy(h, w, *a, **k):
+        seen.add((str(h.dtype), str(w.dtype)))
+        return orig(h, w, *a, **k)
+    LM.fused_linear_cross_entropy = spy
+    res = {}
+    try:
+        with counted_plain_versions() as plain_calls:
+            for compiled in (False, True):
+                reset_launches()
+                res[compiled] = scaler_run(dev, compiled)
+                res[compiled]["flash"] = dict(FT.instance_launches)
+                res[compiled]["ce"] = FC.launches
+    finally:
+        LM.fused_linear_cross_entropy = orig
+    if plain_calls:
+        fail(f"19b(ii): plain versions ran: {sorted(set(plain_calls))}")
+    line = []
+    for compiled, r in res.items():
+        kind = "compiled" if compiled else "eager"
+        ok = math.isfinite(r["losses"][-1]) and all(
+            math.isfinite(x) for i, x in enumerate(r["losses"])
+            if i != SCALER_OVERFLOW)
+        want_m = r["moments_decayed"] if compiled else r["moments_before"]
+        flash = {k: v for k, v in r["flash"].items() if v}
+        want_flash = {f"{k}.general": PRETRAIN_CUT * SCALER_STEPS
+                      for k in ("forward", "dq", "dkv")}
+        if not ok or r["params_after"] != r["params_before"] or \
+                r["scale_after"] != 2.0 ** 125 or \
+                r["moments_after"] != want_m or flash != want_flash or \
+                r["ce"] != SCALER_STEPS or r["dtypes"] != [
+                    "torch.float16", "torch.float32"] or \
+                r.get("graphs", 1) != 1:
+            fail(f"19b(ii) {kind}: losses {r['losses']}, parameters "
+                 f"unchanged {r['params_after'] == r['params_before']}, "
+                 f"scale {r['scale_after']}, moments as required "
+                 f"{r['moments_after'] == want_m}, flash {flash}, ce "
+                 f"{r['ce']}, dtypes {r['dtypes']}")
+        line.append(f"{kind}: losses {[round(x, 4) for x in r['losses']]}")
+    if seen != {("torch.float32", "torch.float16")}:
+        fail(f"19b(ii): the loss took (hidden, weight) dtypes {seen}")
+    print(f"19b(ii) float16 O2 under GradScaler(2**16) (2 layers, step "
+          f"{SCALER_OVERFLOW} forced to overflow): parameters bitwise, "
+          f"scale 2**126 -> 2**125, moments unchanged (eager, hard skip) / "
+          f"decayed by their betas (compiled, masked); flash instances "
+          f"{sorted(k for k, v in res[True]['flash'].items() if v)}, loss "
+          f"on (hidden, weight) {sorted(seen)}; " + "; ".join(line),
+          flush=True)
+
+
+def recompute_phase(dev):
+    """Phase 19b(iii): one step (loss and gradients) of the 2-layer model
+    under bf16 ``auto_cast`` with recompute none, full and "dots": the
+    gradients against none's (max relative error printed; bitwise
+    expected); the activations the forward leaves for the backward (the
+    card's memory after the forward less before it), "dots" between the
+    other two, and the step's peak."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.examples.llama_pretrain import build_model
+    from paddle_tpu_torch.ops import flash_attention as FT
+    model = build_model("8b", PRETRAIN_CUT, dev, seed=2)
+    ids = torch.from_numpy(fit_corpus(TRAIN_B, seed=22).astype(np.int64)
+                           ).to(dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+    base, held, peaks, errs, fwd = None, {}, {}, {}, {}
+    for mode in (False, True, "dots"):
+        model.config.recompute = mode
+        model.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = FT.launches["forward"]
+        with amp.auto_cast(dtype="bfloat16"):
+            loss, _ = model(x, y)
+        torch.cuda.synchronize()
+        held[mode] = (torch.cuda.memory_allocated() - start) / 2 ** 30
+        loss.backward()
+        torch.cuda.synchronize()
+        peaks[mode] = (torch.cuda.max_memory_allocated() - start) / 2 ** 30
+        fwd[mode] = FT.launches["forward"] - before
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        del loss
+        if base is None:
+            base = grads
+            continue
+        rel = 0.0
+        for n, g in grads.items():
+            d = float((g.float() - base[n].float()).abs().max())
+            rel = max(rel, d / max(float(base[n].float().abs().max()),
+                                   1e-30))
+        errs[mode] = rel
+        del grads
+    want_fwd = {False: PRETRAIN_CUT, True: 2 * PRETRAIN_CUT,
+                "dots": 2 * PRETRAIN_CUT}
+    if any(e > 1e-6 for e in errs.values()) or fwd != want_fwd or \
+            not held[True] < held["dots"] < held[False]:
+        fail(f"19b(iii): max relative gradient errors {errs}, activations "
+             f"held {held} GiB, flash forwards {fwd}")
+    print(f"19b(iii) recompute (2 layers, one step, bf16 auto_cast): grads "
+          f"vs none: full max_rel={errs[True]:.3e} dots max_rel="
+          f"{errs['dots']:.3e}; GiB held for the backward: none="
+          f"{held[False]:.3f} dots={held['dots']:.3f} full={held[True]:.3f}"
+          f"; step peak GiB above its start: none={peaks[False]:.2f} dots="
+          f"{peaks['dots']:.2f} full={peaks[True]:.2f}; flash forwards a "
+          f"step {fwd}", flush=True)
+    del model, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dropout_phase(dev):
+    """Phase 19b(iv): ``scaled_dot_product_attention(dropout_p=0.1,
+    training=True)`` at the model's attention shape: no flash launch, the
+    keep share within 5 sigma of 0.9, the mask for the key it drew bitwise
+    the CPU plain version's over its first ``DROPOUT_CHECKED`` counters;
+    with ``training=False`` the flash forward launches again."""
+    import torch
+    from paddle_tpu_torch.models import llama3_8b_config
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.functional import attention as FA
+    from paddle_tpu_torch.ops import flash_attention as FT
+    cfg = llama3_8b_config()
+    h, hk, d = cfg.num_attention_heads, cfg.num_key_value_heads, \
+        cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(23)
+    q = torch.randn(TRAIN_B, TRAIN_S, h, d, device=dev, generator=g,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(TRAIN_B, TRAIN_S, hk, d, device=dev, generator=g,
+                        dtype=torch.bfloat16) for _ in range(2))
+    before = dict(FT.launches)
+    torch.cuda.manual_seed(19)
+    out = F.scaled_dot_product_attention(q, k, v, dropout_p=DROPOUT_P,
+                                         is_causal=True)
+    torch.cuda.synchronize()
+    if dict(FT.launches) != before or not bool(torch.isfinite(out).all()):
+        fail(f"19b(iv): flash launched with dropout on ({before} -> "
+             f"{dict(FT.launches)}) or a non-finite output")
+    torch.cuda.manual_seed(19)
+    key = FA.dropout_key(dev)
+    shape = (TRAIN_B, h, TRAIN_S, TRAIN_S)
+    keep = FA.dropout_keep_mask(key, shape, DROPOUT_P, dev)
+    n = keep.numel()
+    share = float(keep.float().mean())
+    sigma = (DROPOUT_P * (1 - DROPOUT_P) / n) ** 0.5
+    words = tuple(int(w) for w in key)
+    cpu = FA.dropout_keep_mask(words, (DROPOUT_CHECKED,), DROPOUT_P,
+                               torch.device("cpu"))
+    same = torch.equal(keep.reshape(-1)[:DROPOUT_CHECKED].cpu(), cpu)
+    # the same key on the card and the CPU, through the plain composition
+    # in f32 (the mask bitwise, the products f32-grade)
+    small = [t[:, :256].float() for t in (q, k, v)]
+    got = FA._naive_attention(*small, None, True, dropout_p=DROPOUT_P,
+                              key=key).cpu()
+    want = FA._naive_attention(*(t.cpu() for t in small), None, True,
+                               dropout_p=DROPOUT_P, key=words)
+    out_err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+        fail(f"19b(iv): the dropped attention at 256 tokens differs from "
+             f"the CPU's by {out_err}")
+    F.scaled_dot_product_attention(q, k, v, dropout_p=DROPOUT_P,
+                                   is_causal=True, training=False)
+    torch.cuda.synchronize()
+    relaunched = FT.launches["forward"] - before["forward"]
+    if abs(share - (1 - DROPOUT_P)) > 5 * sigma or not same or \
+            relaunched != 1:
+        fail(f"19b(iv): keep share {share} (0.9 +- 5 x {sigma:.2e}), mask "
+             f"equal to the CPU's {same}, flash forwards with training="
+             f"False {relaunched}, output vs CPU {out_err}")
+    print(f"19b(iv) attention dropout p={DROPOUT_P} at [{TRAIN_B}, "
+          f"{TRAIN_S}, {h}/{hk}, {d}] bf16 causal: no flash launch, keep "
+          f"share {share:.6f} over {n} (sigma {sigma:.2e}), mask bitwise "
+          f"the CPU plain version's over {DROPOUT_CHECKED} counters, "
+          f"f32 output at 256 tokens vs the CPU {out_err:.3e}; "
+          f"training=False "
+          f"launched the flash forward again", flush=True)
+    del q, k, v, out, keep
+
+
+def tiny_fit_model(dev, seed=0, classes=True):
+    """19c's network: the tiny Llama's last-position logits (``classes``,
+    for top-k accuracy) or one sigmoid score (for the binary metrics),
+    as a ``hapi.Model`` with AdamW; weights from a seeded CPU generator,
+    so a CPU and a card copy are equal."""
+    import torch
+    from paddle_tpu_torch import hapi
+    from paddle_tpu_torch.models import LlamaForCausalLM, tiny_llama_config
+    from paddle_tpu_torch.optimizer import AdamW
+    lm = LlamaForCausalLM(tiny_llama_config(), device="cpu",
+                          generator=torch.Generator().manual_seed(seed))
+    torch.manual_seed(seed)
+    head = torch.nn.Linear(lm.config.hidden_size, 1)
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lm, self.head = lm, head
+
+        def forward(self, ids):
+            if classes:
+                return self.lm(ids)[:, -1]
+            return torch.sigmoid(self.head(self.lm.model(ids)[:, -1]))
+    net = Net().to(dev)
+    model = hapi.Model(net)
+
+    def loss(out, label):
+        if classes:
+            return torch.nn.functional.cross_entropy(out, label)
+        return torch.nn.functional.binary_cross_entropy(
+            out.reshape(-1), label.float())
+    model.prepare(AdamW(learning_rate=1e-2, parameters=net.parameters()),
+                  loss, jit=False)
+    return model
+
+
+def tiny_rows(n, seed, binary=False):
+    """``n`` seeded samples of 128 ids (the flash kernels' length) and a
+    label (the next id, or its parity) as an ``io.Dataset``."""
+    import numpy as np
+    from paddle_tpu_torch.io import TensorDataset
+    ids = np.random.RandomState(seed).randint(0, 128, (n, 129))
+    lab = ids[:, -1] % 2 if binary else ids[:, -1]
+    return TensorDataset([ids[:, :-1].astype(np.int64),
+                          lab.astype(np.int64)])
+
+
+def tiny_checks(dev):
+    """Phase 19c at the tiny config: ``CheckpointCallback`` through
+    ``fit`` and a restore; ``Model.save`` / ``load`` bitwise; ``evaluate``
+    with Accuracy(topk=(1, 5)), Precision, Recall and Auc on the card
+    equal to the same metrics computed on the CPU from the same outputs;
+    ``EarlyStopping`` stopping at the epoch the CPU run stops at."""
+    import shutil
+    import tempfile
+    import torch
+    from paddle_tpu_torch import hapi, io, metric
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hapi_")
+    line = []
+    try:
+        # checkpoints through fit, then a restore into a fresh model
+        m = tiny_fit_model(dev)
+        cb = hapi.CheckpointCallback(dir=os.path.join(tmp, "ck"),
+                                     save_freq_steps=2, async_save=True,
+                                     on_preemption=False)
+        m.fit(tiny_rows(24, 1), batch_size=4, epochs=1, verbose=0,
+              shuffle=False, callbacks=[cb])
+        saved = state_digest(m.network.state_dict())
+        fresh = tiny_fit_model(dev, seed=5)
+        cb2 = hapi.CheckpointCallback(dir=os.path.join(tmp, "ck"),
+                                      save_freq_steps=100, async_save=False,
+                                      on_preemption=False)
+        cb2.set_model(fresh)
+        cb2.on_train_begin()
+        torch.cuda.synchronize()
+        if cb2.restored_step != 5 or cb.manager.committed_steps() != \
+                [1, 3, 5] or state_digest(fresh.network.state_dict()) != \
+                saved:
+            fail(f"19c: restored step {cb2.restored_step}, committed "
+                 f"{cb.manager.committed_steps()}, state equal "
+                 f"{state_digest(fresh.network.state_dict()) == saved}")
+        cb2.on_train_end()
+        line.append(f"checkpoint: committed {cb.manager.committed_steps()},"
+                    f" restored step {cb2.restored_step} (state equal)")
+        # Model.save / load
+        path = os.path.join(tmp, "model")
+        m.save(path)
+        other = tiny_fit_model(dev, seed=6)
+        other.fit(tiny_rows(4, 2), batch_size=4, epochs=1, verbose=0)
+        other.load(path)
+        opt_a, opt_b = m._optimizer.state_dict(), \
+            other._optimizer.state_dict()
+        if state_digest(other.network.state_dict()) != saved or \
+                state_digest({k: v for k, v in opt_a.items()
+                              if hasattr(v, "shape")}) != state_digest(
+                    {k: v for k, v in opt_b.items() if hasattr(v, "shape")}):
+            fail("19c: Model.load did not restore the saved state bitwise")
+        line.append("save/load bitwise")
+        # metrics on the card against the CPU on the same outputs
+        got = {}
+        for binary, mets in ((False, [metric.Accuracy(topk=(1, 5))]),
+                             (True, [metric.Precision(), metric.Recall(),
+                                     metric.Auc()])):
+            mm = tiny_fit_model(dev, classes=not binary)
+            mm.prepare(mm._optimizer, mm._loss, metrics=mets, jit=False)
+            outs = []
+            for mt in mets:
+                orig = mt.compute
+
+                def spy(pred, *labels, orig=orig, mt=mt):
+                    if mt is mets[0]:
+                        outs.append((pred.clone(), labels[0].clone()))
+                    return orig(pred, *labels)
+                mt.compute = spy
+            logs = mm.evaluate(tiny_rows(20, 3, binary), batch_size=8,
+                               verbose=0)
+            if not outs or any(p.device.type != dev.type for p, _ in outs):
+                fail("19c: the metrics did not get the card's outputs")
+            cpu = [type(mt)(**({"topk": (1, 5)} if not binary else {}))
+                   for mt in mets]
+            for pred, lab in outs:
+                for c in cpu:
+                    res = c.compute(pred.cpu(), lab.cpu())
+                    c.update(*res) if isinstance(res, tuple) else \
+                        c.update(res)
+            for mt, c in zip(mets, cpu):
+                if mt.accumulate() != c.accumulate():
+                    fail(f"19c: {mt.name()} on the card {mt.accumulate()} "
+                         f"!= the CPU's {c.accumulate()}")
+                got[str(mt.name())] = mt.accumulate()
+            del logs
+        line.append(f"metrics equal the CPU's: {got}")
+        # EarlyStopping on the card and on the CPU
+        stops = []
+        for d in (dev, torch.device("cpu")):
+            mm = tiny_fit_model(d)
+            es = hapi.EarlyStopping(monitor="loss", patience=1,
+                                    min_delta=0.05)
+            hist = mm.fit(io.DataLoader(tiny_rows(16, 4), batch_size=8),
+                          epochs=EARLY_EPOCHS, verbose=0, callbacks=[es])
+            stops.append((es.stopped_epoch, [round(h["loss"], 4)
+                                             for h in hist.history]))
+        if stops[0][0] != stops[1][0]:
+            fail(f"19c: EarlyStopping stopped at {stops[0]} on the card, "
+                 f"{stops[1]} on the CPU")
+        line.append(f"EarlyStopping stopped at epoch {stops[0][0]} on both "
+                    f"(card losses {stops[0][1]}, CPU {stops[1][1]})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("19c tiny config: " + "; ".join(line), flush=True)
+
+
+def fit_phase(dev, o1_step_s):
+    """Phase 19: 19a-19c; returns 19a's kernel launches."""
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 19: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of "
+          "the card held by earlier phases at its start", flush=True)
+    launches = fit_o2(dev, o1_step_s)
+    for sub in (fit_compare, scaler_phase, recompute_phase, dropout_phase,
+                tiny_checks):
+        gc.collect()
+        torch.cuda.empty_cache()
+        sub(dev)
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
 
 def moe_bound(gs, c, k, n, w_bytes, scale_rows=0):
     """Bound of one grouped GEMM: the weights of experts with rows (and
@@ -6933,9 +7682,11 @@ def main():
     # window of phase 6 lost a tick's records
     torch.cuda.empty_cache()
     print(f"phases before 18: {time.perf_counter() - t0:.1f} s", flush=True)
-    recipe = pretrain_phase(dev, eager_step_s)      # phase 18
+    recipe, o1_step_s = pretrain_phase(dev, eager_step_s)      # phase 18
+    torch.cuda.empty_cache()
+    fit = fit_phase(dev, o1_step_s)                 # phase 19
     for e, key in zip(training_entries, ("forward", "dq", "dkv", "ce")):
-        e["launches"] = launches[key] + recipe[key]
+        e["launches"] = launches[key] + recipe[key] + fit[key]
     # phase 17 runs after every phase that counts profiler records: its
     # /debug/profile window opens on a server thread
     torch.cuda.empty_cache()

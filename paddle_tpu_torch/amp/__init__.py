@@ -1,5 +1,5 @@
-"""Automatic mixed precision, level O1 (port of the reference package's
-``amp.auto_cast`` and its op lists).
+"""Automatic mixed precision (port of the reference package's ``amp``:
+``auto_cast`` and its op lists, O2 ``decorate``, ``GradScaler``).
 
 Inside ``auto_cast`` each op runs in the reference's dtype: white-list
 ops (matmul class, attention) in the autocast dtype, bf16 by default;
@@ -14,10 +14,14 @@ its one dispatch seam. Here it takes two routes:
   the loss functions) cast their inputs with :func:`cast_inputs` and run
   with ``torch.autocast`` off inside.
 
-The fused linear cross-entropy is on neither list, so it runs on the f32
-final-norm output and the f32 lm head, as in the reference. O2
-``decorate`` and ``GradScaler`` are not ported yet (ROADMAP queue A,
-item 10).
+The fused linear cross-entropy is on neither list, so under O1 it runs
+on the f32 final-norm output and the f32 lm head, as in the reference.
+
+O2 adds :func:`decorate`: the model's float32 parameters are cast to the
+16-bit dtype in place (the ``Parameter`` objects stay; norm layers keep
+f32) and the optimizers keep f32 master weights (``multi_precision``),
+made at the first step from the 16-bit parameters, as the reference
+makes them. :class:`GradScaler` scales the loss for float16.
 """
 
 from __future__ import annotations
@@ -28,8 +32,11 @@ import threading
 import torch
 
 from .amp_lists import BLACK_LIST, WHITE_LIST, black_list, white_list
+from .grad_scaler import AmpScaler, GradScaler
 
-__all__ = ["auto_cast", "cast_inputs", "op_dtype", "WHITE_LIST",
+__all__ = ["auto_cast", "amp_guard", "decorate", "amp_decorate",
+           "GradScaler", "AmpScaler", "is_bfloat16_supported",
+           "is_float16_supported", "cast_inputs", "op_dtype", "WHITE_LIST",
            "BLACK_LIST"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -79,13 +86,15 @@ def cast_inputs(name, *tensors):
 class auto_cast:
     """Context manager (or decorator) enabling autocast inside the
     region: ``auto_cast(enable=True, custom_white_list=None,
-    custom_black_list=None, level='O1', dtype='bfloat16')``, the
-    reference's signature. Nesting works; ``enable=False`` (or level
-    ``O0``) turns autocast off inside an enabled region. Level ``O2``
-    applies the same op policy (its model decoration is not ported)."""
+    custom_black_list=None, level='O1', dtype='bfloat16',
+    use_promote=True)``, the reference's signature. Nesting works;
+    ``enable=False`` (or level ``O0``) turns autocast off inside an
+    enabled region. Level ``O2`` applies the same op policy; its
+    parameters are cast once by :func:`decorate`."""
 
     def __init__(self, enable=True, custom_white_list=None,
-                 custom_black_list=None, level="O1", dtype="bfloat16"):
+                 custom_black_list=None, level="O1", dtype="bfloat16",
+                 use_promote=True):
         if level not in ("O0", "O1", "O2"):
             raise ValueError(f"level must be O0/O1/O2, got {level!r}")
         if str(dtype) not in _DTYPES:
@@ -127,3 +136,72 @@ class auto_cast:
             with self:
                 return fn(*args, **kwargs)
         return wrapped
+
+
+amp_guard = auto_cast  # the reference's legacy alias
+
+
+def is_bfloat16_supported(device=None):
+    return True
+
+
+def is_float16_supported(device=None):
+    """True where a card is present (the reference answers for its TPU
+    backend, False elsewhere; ROADMAP, stated differences)."""
+    return torch.cuda.is_available()
+
+
+def _norm_like(module):
+    """The layers whose parameters O2 keeps in f32: the reference's
+    ``_norm_like`` list (LayerNorm, RMSNorm, batch, group and instance
+    norms, LocalResponseNorm), as the port's and torch's classes."""
+    from torch.nn.modules.batchnorm import _BatchNorm
+    from torch.nn.modules.instancenorm import _InstanceNorm
+    from ..models.llama import RMSNorm
+    keep = (RMSNorm, torch.nn.LayerNorm, _BatchNorm, torch.nn.GroupNorm,
+            _InstanceNorm, torch.nn.LocalResponseNorm)
+    torch_rms = getattr(torch.nn, "RMSNorm", None)
+    if torch_rms is not None:
+        keep += (torch_rms,)
+    return isinstance(module, keep)
+
+
+def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
+             master_weight=None, save_dtype=None, **kwargs):
+    """O2 model decoration: every float32 parameter outside the norm
+    layers is cast to ``dtype`` in place (``p.data = p.data.to(dtype)``,
+    so the ``Parameter`` objects and what holds them stay), and each
+    optimizer's master weights are switched on (``multi_precision``),
+    unless ``master_weight=False``. Call it before the first optimizer
+    step. Level ``O1`` changes nothing. Returns ``models`` or ``(models,
+    optimizers)`` in the single-or-list structure given."""
+    if level not in ("O1", "O2"):
+        raise ValueError(f"decorate level must be O1/O2, got {level!r}")
+    model_list = models if isinstance(models, (list, tuple)) else [models]
+    opt_list = () if optimizers is None else (
+        optimizers if isinstance(optimizers, (list, tuple))
+        else [optimizers])
+    if level == "O2":
+        if str(dtype) not in _DTYPES:
+            raise ValueError(
+                f"decorate dtype must be float16/bfloat16, got {dtype}")
+        dt = _DTYPES[str(dtype)]
+        for m in model_list:
+            if not isinstance(m, torch.nn.Module):
+                raise TypeError("decorate expects torch.nn.Module models")
+            with torch.no_grad():
+                for sub in m.modules():
+                    if _norm_like(sub):
+                        continue
+                    for p in sub._parameters.values():
+                        if p is not None and p.dtype == torch.float32:
+                            p.data = p.data.to(dt)
+        for o in opt_list:
+            if master_weight is not False:
+                o._multi_precision = True
+    if optimizers is None:
+        return models
+    return models, optimizers
+
+
+amp_decorate = decorate

@@ -30,6 +30,7 @@ import os
 import numpy as np
 import torch
 
+from ..framework.io import from_numpy, to_numpy
 from ..testing import faults as _faults
 
 __all__ = ["save_state_dict", "load_state_dict", "collect_state_shards",
@@ -65,28 +66,6 @@ def _no_resharding(key, t):
             "yet (ROADMAP A13, distributed)")
 
 
-def _to_numpy(t):
-    """A host copy of ``t`` that later changes of ``t`` leave alone, as
-    ``(array, dtype name)``; bf16 as its uint16 view."""
-    t = t.detach()
-    bf16 = t.dtype == torch.bfloat16
-    if bf16:
-        t = t.view(torch.int16)
-    # from the card .cpu() copies; on the CPU it is the tensor itself
-    a = t.cpu().numpy() if t.device.type != "cpu" else t.numpy().copy()
-    if bf16:
-        return a.view(np.uint16), "bfloat16"
-    return a, str(a.dtype)
-
-
-def _from_numpy(a, dtype):
-    """A tensor over ``a`` (a shard's array as stored)."""
-    if dtype == "bfloat16":
-        return torch.from_numpy(
-            np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a))
-
-
 def _flatten(state_dict, prefix=""):
     """flat_key -> value, plus flat_key -> (owner dict, key) for
     writeback."""
@@ -120,7 +99,7 @@ def collect_state_shards(state_dict, process_index=None):
             meta.setdefault("objects", {})[key] = t
             continue
         _no_resharding(key, t)
-        arr, dt = _to_numpy(t)
+        arr, dt = to_numpy(t)
         name = f"{key}@0"
         data[name] = arr
         meta["tensors"][key] = {
@@ -202,7 +181,7 @@ def load_state_dict(state_dict, path):
         fname = sh["file"]
         if fname not in files:
             files[fname] = np.load(os.path.join(path, fname))
-        return _from_numpy(files[fname][sh["array"]], sh["dtype"])
+        return from_numpy(files[fname][sh["array"]], sh["dtype"])
 
     try:
         missing = []

@@ -40,9 +40,13 @@ failed capture raises: no call falls back to the eager step. On the CPU
 there is nothing to capture: every call after the warm-up runs the
 function eagerly on the same static buffers.
 
-The state a step changes (modules, optimizers, tensors) is found as the
-reference finds it: ``state=[...]``, the function's closure, its
-``__self__`` and the globals it names. Parameters and optimizer state
+The state a step changes (modules, optimizers, tensors, and the tensors
+an object lists in ``__state_tensors__()``, a ``GradScaler``'s) is found
+as the reference finds it: ``state=[...]``, the function's closure, its
+``__self__`` and the globals it names. Every call after the warm-up runs
+its Python as a compiled step (:func:`in_compiled_step`), where a
+``GradScaler`` masks an overflow step as the reference's traced step
+does. Parameters and optimizer state
 are updated in place, so ``donate`` and ``donate_inputs`` are accepted
 for the reference's signature and change nothing. ``jit.save`` and
 ``jit.load`` are not ported yet (ROADMAP A14).
@@ -50,8 +54,10 @@ for the reference's signature and change nothing. ``jit.save`` and
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
+import threading
 import types
 
 import torch
@@ -62,9 +68,27 @@ from ..ops._graphs import StepGraphs
 from ..optimizer import Optimizer
 
 __all__ = ["to_static", "not_to_static", "ignore_module", "StaticFunction",
-           "enable_to_static", "save", "load"]
+           "enable_to_static", "in_compiled_step", "save", "load"]
 
 _to_static_enabled = True
+_local = threading.local()
+
+
+def in_compiled_step():
+    """True while this thread runs a compiled step's Python: the capture
+    call's real step and its capture, and on the CPU every call after the
+    warm-up (the reference's traced calls). ``amp.GradScaler`` masks an
+    overflow step there instead of reading its flag on the host."""
+    return getattr(_local, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _compiled():
+    _local.depth = getattr(_local, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _local.depth -= 1
 
 
 def enable_to_static(flag: bool):
@@ -262,10 +286,12 @@ class StaticFunction:
                     buf.copy_(a)
 
     def _run(self, index, leaves, spec):
-        """The function on the static buffers of signature ``index``."""
+        """The function on the static buffers of signature ``index``, as a
+        compiled step (:func:`in_compiled_step`)."""
         args, kwargs = pytree.tree_unflatten(self._buffers(index, leaves),
                                              spec)
-        return self._fn(*args, **kwargs)
+        with _compiled():
+            return self._fn(*args, **kwargs)
 
     def _capture(self, sig, leaves, spec):
         index = len(self._cache)

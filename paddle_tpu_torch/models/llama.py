@@ -70,7 +70,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     initializer_range: float = 0.02
-    #: True checkpoints every decoder layer; "dots" is not ported yet
+    #: True checkpoints every decoder layer; "dots" keeps the outputs of
+    #: its products without batch dimensions and recomputes the rest
     recompute: bool | str = False
     #: > 0 selects the mixture-of-experts FFN (LlamaMoEMLP)
     moe_num_experts: int = 0

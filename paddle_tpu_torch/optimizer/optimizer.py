@@ -18,7 +18,11 @@ learning rate lives in one 0-d f32 device tensor per optimizer:
 ``step()`` writes ``get_lr()`` into it before the update, except under a
 CUDA-graph capture, where the captured update reads the tensor and the
 compiled step (:mod:`paddle_tpu_torch.jit`) refills it before each
-replay, so a schedule never needs a new capture. Every other constant
+replay, so a schedule never needs a new capture. A masked
+``GradScaler`` step sets ``_lr_mask``, a 0-d bool device flag, and the
+update then reads ``where(flag, 0, lr)``. ``multi_precision`` may be
+switched on after construction (``amp.decorate`` does), until the first
+step makes the state. Every other constant
 of an update is a device scalar made once outside any capture, and no
 update reads a value on the host. Optimizer state made under a capture
 would be refilled at every replay, so making it there raises: a compiled
@@ -69,6 +73,9 @@ class Optimizer:
             self._param_groups.append({"params": self._add_params(items)})
         self._learning_rate = self._as_lr(learning_rate)
         self._lr_tensor = None
+        # a 0-d bool device flag set by a masked GradScaler step: the
+        # update reads lr 0 where it holds
+        self._lr_mask = None
         self.regularization = weight_decay
         self._group_weight_decay = None    # set per group during step()
         self._grad_clip = grad_clip
@@ -131,13 +138,17 @@ class Optimizer:
                 raise RuntimeError(
                     "the optimizer's learning-rate tensor would be made "
                     "under a CUDA-graph capture: run one eager step first")
-            return self._lr_tensor
-        if self._lr_tensor is None:
+        elif self._lr_tensor is None:
             self._lr_tensor = torch.full((), self.get_lr(),
                                          dtype=torch.float32, device=device)
         else:
             self._lr_tensor.fill_(self.get_lr())
-        return self._lr_tensor
+        if self._lr_mask is None:
+            return self._lr_tensor
+        # a device select, so the flag is never read on the host
+        return torch.where(self._lr_mask,
+                           self._const(0.0, torch.float32, device),
+                           self._lr_tensor)
 
     def _const(self, value, dtype, device):
         """``value`` as a 0-d ``dtype`` tensor on ``device``, made once

@@ -135,9 +135,18 @@ def test_sdpa_matches_reference(s):
 
 
 def test_sdpa_dropout_and_flash_api():
+    """Dropout on: the plain composition, no flash call (as the reference
+    takes its composition); the reference's ``flash_attention`` API."""
     q = torch.zeros(1, 128, 2, 16)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    calls = []
+    orig = FT.flash_attention_fwd_ref
+    FT.flash_attention_fwd_ref = lambda *a, **k: calls.append(1) or orig(
+        *a, **k)
+    try:
+        out = F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    finally:
+        FT.flash_attention_fwd_ref = orig
+    assert not calls and out.shape == q.shape
     out, soft = F.flash_attention(q, q, q, causal=True)
     assert soft is None and out.shape == q.shape
     # not training: dropout is inert, as in the reference

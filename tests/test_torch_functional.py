@@ -173,3 +173,92 @@ def test_page_allocator_batch_views_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             alloc.batch_views([5, 6])
+
+
+# -- attention dropout -------------------------------------------------------
+# The dropout mask for a given key is the reference's bit for bit; the
+# dropped attention's output within f32 grade (1e-6) of the reference's
+# composition on the same key.
+
+def _dropout_inputs(b=2, s=16, h=4, hk=2, d=8, seed=11):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, s, h, d).astype(np.float32),
+            rng.randn(b, s, hk, d).astype(np.float32),
+            rng.randn(b, s, hk, d).astype(np.float32))
+
+
+@pytest.mark.parametrize("p,seed", [(0.1, 0), (0.5, 1234), (0.9, 2 ** 31 - 5)])
+def test_dropout_mask_is_the_references_bernoulli(p, seed):
+    import jax
+    from paddle_tpu_torch.nn.functional import attention as FA
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+    k0, k1 = (int(w) for w in np.asarray(jax.random.key_data(key)))
+    shape = (2, 4, 33, 40)
+    want = np.asarray(jax.random.bernoulli(key, 1.0 - p, shape))
+    got = FA.dropout_keep_mask((k0, k1), shape, p, torch.device("cpu"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # chunking the counters changes nothing
+    saved = FA._MASK_CHUNK
+    FA._MASK_CHUNK = 1000
+    try:
+        again = FA.dropout_keep_mask((torch.tensor(k0), torch.tensor(k1)),
+                                     shape, p, torch.device("cpu"))
+    finally:
+        FA._MASK_CHUNK = saved
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_dropout_attention_matches_reference(causal):
+    import jax
+    from paddle_tpu.nn.functional import attention as JA
+    from paddle_tpu_torch.nn.functional import attention as FA
+    q, k, v = _dropout_inputs()
+    key = jax.random.PRNGKey(77)
+    kd = tuple(int(w) for w in np.asarray(jax.random.key_data(key)))
+    want = np.asarray(JA._naive_attention(q, k, v, None, 0.25, causal, key))
+    got = FA._naive_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              None, causal, dropout_p=0.25, key=kd)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_sdpa_dropout_takes_the_plain_path_and_the_ports_generator():
+    """With dropout on, ``scaled_dot_product_attention`` runs the plain
+    composition (no flash call) under a key drawn from torch's generator
+    (stated difference: the reference draws its own global stream), so
+    ``torch.manual_seed`` repeats it; ``training=False`` drops nothing."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.functional import attention as FA
+    from paddle_tpu_torch.ops import flash_attention as FL
+    q, k, v = (torch.from_numpy(a) for a in _dropout_inputs(s=128, d=16))
+    flash_calls = []
+    saved = FL.flash_attention
+
+    def spy(*a, **kw):
+        flash_calls.append(1)
+        return saved(*a, **kw)
+    FA.fa.flash_attention = spy
+    try:
+        torch.manual_seed(4)
+        a = F.scaled_dot_product_attention(q, k, v, dropout_p=0.3,
+                                           is_causal=True)
+        torch.manual_seed(4)
+        b = F.scaled_dot_product_attention(q, k, v, dropout_p=0.3,
+                                           is_causal=True)
+        assert not flash_calls and torch.equal(a, b)
+        torch.manual_seed(4)
+        kd = FA.dropout_key(q.device)
+        want = FA._naive_attention(q, k, v, None, True, dropout_p=0.3,
+                                   key=kd)
+        assert torch.equal(a, want)
+        plain = F.scaled_dot_product_attention(q, k, v, dropout_p=0.3,
+                                               is_causal=True,
+                                               training=False)
+        assert flash_calls == [1]
+        assert not torch.equal(a, plain)
+    finally:
+        FA.fa.flash_attention = saved
+    keep = FA.dropout_keep_mask(kd, (2, 4, 128, 128), 0.3, q.device)
+    share = keep.float().mean().item()
+    sigma = (0.3 * 0.7 / keep.numel()) ** 0.5
+    assert abs(share - 0.7) < 5 * sigma

@@ -59,7 +59,14 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.incubate.moe", "paddle_tpu_torch.ops.grouped_gemm",
            "paddle_tpu_torch.ops._tile_gemm",
            "paddle_tpu_torch.quant", "paddle_tpu_torch.quant.format",
-           "paddle_tpu_torch.quant.kernels", "paddle_tpu_torch.quant.layers"]
+           "paddle_tpu_torch.quant.kernels", "paddle_tpu_torch.quant.layers",
+           "paddle_tpu_torch.framework", "paddle_tpu_torch.framework.io",
+           "paddle_tpu_torch.io.dataset", "paddle_tpu_torch.io.sampler",
+           "paddle_tpu_torch.io.dataloader", "paddle_tpu_torch.metric",
+           "paddle_tpu_torch.amp.grad_scaler", "paddle_tpu_torch.hapi",
+           "paddle_tpu_torch.hapi.callbacks",
+           "paddle_tpu_torch.hapi.model_summary",
+           "paddle_tpu_torch.hapi.hub"]
 
 
 def test_import_leaves_jax_unloaded():

@@ -68,10 +68,19 @@ def test_linear_weights_are_transposed():
 
 
 def test_unported_features_raise():
-    tm = LlamaForCausalLM(tiny_llama_config(recompute="dots"), device="cpu")
-    ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tm(ids, labels=ids)
+    """``recompute="dots"``, which raised until it was ported, now trains:
+    its loss is the plain model's; an unknown policy still raises."""
+    g = torch.Generator().manual_seed(0)
+    tm = LlamaForCausalLM(tiny_llama_config(recompute="dots"), device="cpu",
+                          generator=g)
+    plain = LlamaForCausalLM(tiny_llama_config(), device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    ids = torch.randint(0, 128, (1, 8), generator=g)
+    assert tm(ids, labels=ids)[0].item() == plain(ids, labels=ids)[0].item()
+    from paddle_tpu_torch.distributed.recompute import recompute
+    with pytest.raises(ValueError, match="unknown recompute policy"):
+        recompute(plain.model.layers[0], torch.zeros(1, 4, 64),
+                  policy="offload")
 
 
 def test_default_device_is_cuda():
