@@ -122,11 +122,12 @@ package is not beside it, and when any phase fails:
    the device learning rate after each replay ``float32(scheduler())``,
    one capture; (c) the seven other optimizers on the tiny config, 3
    compiled steps against 3 eager ones each, bitwise; (d) the recipe
-   with ``--ckpt-dir`` at the 2-layer cut, again with ``--resume``, then
-   ``CheckpointManager``'s async save during steps and ``restore_latest``
-   into a model built afresh: each restored state's digest equal to the
-   saved one's (host memory and disk read first, short ones fail the
-   phase), the snapshot, write, CRC and restore times printed;
+   with ``--ckpt-dir`` at 1 layer (``CKPT_CUT``), again with
+   ``--resume``, then ``CheckpointManager``'s async save during steps and
+   ``restore_latest`` into a model built afresh: each restored state's
+   digest equal to the saved one's (host memory and disk read first,
+   short ones fail the phase), the snapshot, write, CRC and restore
+   times printed;
 19. (run after 18) training, the rest: (a) ``hapi.Model.fit`` over phase
    5's model under O2 (``amp.decorate``: bf16 parameters but the norms,
    f32 master weights and AdamW moments), the network returning the
@@ -158,6 +159,43 @@ package is not beside it, and when any phase fails:
    5), Precision, Recall and Auc on the card equal to the same metrics on
    the CPU from the same outputs, ``EarlyStopping`` stopping at the CPU
    run's epoch;
+20. (run after 19) mixture-of-experts training: (a) the recipe's entry
+   point with ``--config 8b --layers 2 --moe 8 --moe-top-k 2 --amp
+   --batch 1 --seq 2048 --steps 10`` (Llama-3-8B width with
+   Mixtral-8x7B's expert shapes, 3.95 G parameters) over a seeded int32
+   corpus, the step compiled into one CUDA graph after the eager warm-up:
+   one capture, each replay launching a layer's flash kernels once each
+   and the grouped GEMM (#6) three times forward and three times for dx,
+   one loss kernel, no plain version, finite and falling losses; the
+   step's time, tokens/s, peak memory, the grouped GEMM's instances and
+   the weight gradients' (``grouped_gemm_dw``) share of the step; (b)
+   one f32 step of the tiny config with ``--moe 4`` through the kernels
+   against the plain versions: the loss and every gradient; (c)
+   ``MoELayer`` at Mixtral width (D 4096, H 14336, E 8, gshard) on 2048
+   tokens, forward and backward, ragged against dense, the dropped
+   count equal, the ``moe_layer`` compile count 1 after two calls of one
+   token count and 2 after another;
+21. AMP debugging at the 2-layer cut of phase 5's model: the op table of
+   one O1 forward (``collect_operator_stats``, the matmul family in
+   bf16), the same forward's launches (the nodes of a CUDA graph
+   captured from it) with the collection off as before the seam was
+   first installed, the tensor checker raising
+   on an Inf injected into layer 1's input and naming the op, a compiled
+   step (``jit.to_static``, AdamW) under the checker bitwise the
+   unchecked one and reading nothing in its capture and replays,
+   ``check_numerics`` of a card tensor with 3 NaN and 2 Inf: ``(3, 2)``,
+   the counter once, one flight-recorder dump;
+22. weight quantization, the rest: (a) phase 9's cut (Llama-3-8B width, 4
+   layers, bf16) served with int8 weights on phase 4's prompts,
+   ``save_quantized``, ``load_quantized`` into a model built afresh and
+   served again: every token bitwise, #8 and #12 counted, the
+   checkpoint's bytes against bf16, the save and load seconds; (b) QAT,
+   ``convert`` and ``bridge_model`` on a stack of ``torch.nn.Linear`` 4096
+   -> 14336 -> 4096: the bridged weights bitwise the ``ConvertedLinear``'s
+   dequantized ones, the forward through #8 within #8's bound of the
+   plain forward; (c) ``fit_on_prompts`` (40 steps) and
+   ``logits_quality`` of the tiny config, float against int8: the report
+   printed, ``passes``;
 3c. (run after 3b) the mixture-of-experts and int8 kernels against their
    plain versions at Mixtral-8x7B serving shapes (hidden 4096, expert
    FFN 14336, 8 experts, top 2, block 128) for the two token counts of
@@ -264,9 +302,10 @@ package is not beside it, and when any phase fails:
    after the prefill a replay of the step's CUDA graph, its tokens bit
    for bit the same loop's run eagerly (same batch and buffer), the time
    per step of both, and one replay's launches and device time;
-13. (run after 10) shared-prefix serving: Llama-3-8B at full width and
-   depth, bf16, behind ``LlamaServingEngine(max_batch=8, page_size=16,
-   num_pages=400)``, graphed; one seeded 512-token prefix (32 pages) and
+13. (run after 10) shared-prefix serving: Llama-3-8B at full width cut
+   to 16 layers (``PREFIX_LAYERS``), bf16, behind
+   ``LlamaServingEngine(max_batch=8, page_size=16, num_pages=400)``,
+   graphed; one seeded 512-token prefix (32 pages) and
    8 prompts of it plus seeded suffixes of 16-128 tokens, 32 new tokens
    each, greedy; request 0 by ``add_request`` (cold: its pages are
    pinned when its prefill ends), then the other 7, then decoding to the
@@ -342,7 +381,7 @@ package is not beside it, and when any phase fails:
    (``CHAOS_PLAN``, ``CHAOS_GEOM``): every request completed or failed
    typed, the tier's counts ``CHAOS_STATS`` (the CPU's), nothing leaked;
 15. (run after 14b) speculative decoding: phase 13's model (Llama-3-8B at
-   full width and depth, bf16), ``max_batch=8``, page 16, phase 4's pool;
+   full width, 16 layers, bf16), ``max_batch=8``, page 16, phase 4's pool;
    8 prompts of 64-512 tokens, each a seeded 16-token block repeated (the
    prompt-lookup traffic the n-gram drafter exists for), 32 new tokens
    each, greedy; four runs: no speculation graphed, no speculation with
@@ -376,7 +415,7 @@ package is not beside it, and when any phase fails:
    pools, sidecars and ``spec_stats()`` bit for bit equal across the
    paths;
 16. (run after 15b) observability: phase 13's model (Llama-3-8B at full
-   width and depth, bf16) and traffic (8 prompts of a 512-token prefix
+   width, 16 layers, bf16) and traffic (8 prompts of a 512-token prefix
    plus 16-128-token suffixes, 32 new each, graphed) through a fresh
    engine with metrics on, the host tier on, and no warm-up of the
    smoke's own: the engine warms each cold dispatch shape itself. Held:
@@ -462,6 +501,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2691,6 +2731,10 @@ def compare_step(dev, use_amp=True):
 PRETRAIN_SAMPLES = 8
 PRETRAIN_CUT = 2
 COMPARE_STEPS, OPT_STEPS = 6, 3
+# 18d: one layer at full width (the embedding and head are 85% of the
+# 2-layer cut's parameters; one layer less trims the checkpoint's bytes
+# and the run's seconds)
+CKPT_CUT = 1
 # 18d: host memory and disk a checkpoint needs, x its bytes (the snapshot
 # in host memory beside the page cache; one committed copy on disk and
 # the next one's .tmp)
@@ -2972,7 +3016,7 @@ def host_room(dirname, nbytes):
 
 def checkpoint_resume(dev, path):
     """Phase 18d: the recipe with ``--ckpt-dir`` and again with
-    ``--resume`` (2 layers at full width), then ``CheckpointManager``'s
+    ``--resume`` (1 layer at full width), then ``CheckpointManager``'s
     async save during steps and ``restore_latest`` into a model built
     afresh; each restored state's digest equal to the saved one's."""
     import shutil
@@ -2985,14 +3029,14 @@ def checkpoint_resume(dev, path):
     from paddle_tpu_torch.examples import llama_pretrain as LP
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        model = LP.build_model("8b", PRETRAIN_CUT, dev, seed=0)
+        model = LP.build_model("8b", CKPT_CUT, dev, seed=0)
         # f32 weights and two AdamW moments
         need = 3 * sum(p.numel() * 4 for p in model.parameters())
         del model
         torch.cuda.empty_cache()
         avail, free = host_room(tmp, need)
         recipe_dir = os.path.join(tmp, "recipe")
-        res = LP.main(recipe_args(path, PRETRAIN_CUT, 2, "--ckpt-dir",
+        res = LP.main(recipe_args(path, CKPT_CUT, 2, "--ckpt-dir",
                                   recipe_dir))
         saved = recipe_digest(res["model"], res["opt"])
         line = [f"host_available={avail} disk_free={free}; recipe save: "
@@ -3001,7 +3045,7 @@ def checkpoint_resume(dev, path):
         del res
         gc.collect()
         torch.cuda.empty_cache()
-        res = LP.main(recipe_args(path, PRETRAIN_CUT, 0, "--ckpt-dir",
+        res = LP.main(recipe_args(path, CKPT_CUT, 0, "--ckpt-dir",
                                   recipe_dir, "--resume"))
         if "load_s" not in res:
             fail("18d: --resume did not load the checkpoint")
@@ -3014,7 +3058,7 @@ def checkpoint_resume(dev, path):
         shutil.rmtree(recipe_dir)
 
         def compiled_run():
-            model = LP.build_model("8b", PRETRAIN_CUT, dev, seed=3)
+            model = LP.build_model("8b", CKPT_CUT, dev, seed=3)
             opt = LP.AdamW(learning_rate=3e-4, weight_decay=0.1,
                            parameters=model.named_parameters())
 
@@ -4964,7 +5008,10 @@ def generate_phase(dev):
 
 PREFIX_TOKENS = 512                       # phase 13's shared prefix: 32 pages
 PREFIX_SUFFIXES = tuple(range(16, 129, 16))
-# pages: 838,860,800 bytes of bf16 pools at 32 layers
+# phases 13-17's model: Llama-3-8B width cut to 16 layers, which keeps
+# the whole script well inside its time limit
+PREFIX_LAYERS = 16
+# pages: 419,430,400 bytes of bf16 pools at 16 layers
 PREFIX_POOL = 400
 # phase 14a: 151 usable pages; a completed request pins 15 of them in the
 # cache, 8 prompts of 256 tokens take 128 and decode runs short
@@ -7542,6 +7589,695 @@ def serve_stack_workers(dev, model):
           flush=True)
 
 
+# ----------------------------------------------------------------------
+# phase 20: MoE training; phase 21: AMP debugging; phase 22: weight
+# quantization, the rest
+# ----------------------------------------------------------------------
+# 20a: Llama-3-8B width with the recipe's --moe 8 (Mixtral-8x7B's expert
+# shapes: 8 SwiGLU experts of 14336, top 2), cut to 2 layers: 3.95 G
+# parameters, 63.2 GB of f32 weights, gradients and AdamW moments
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+MOE_LAYERS, MOE_BATCH, MOE_STEPS = 2, 1, 10
+MOE_CORPUS_VOCAB = 8192     # ids of the 20a corpus: a marginal to learn
+MOE_TINY_EXPERTS = 4        # 20b
+MOE_LAYER_N = (2048, 1024)  # 20c: tokens of the first two calls, another
+QUANT_FIT_STEPS = 40        # 22c
+
+
+def counter_value(name, label):
+    from paddle_tpu_torch.observability import metrics as om
+    return om.counter(name, "", labelnames=("callable",)).labels(label).value
+
+
+def replay_counts(step, counter):
+    """What one replay of the compiled ``step`` adds to ``counter``."""
+    import collections
+    (_, counts, _), = step._graphs._graphs.values()
+    out = collections.Counter()
+    for c, d in counts:
+        if c is counter:
+            out.update(d)
+    return dict(out)
+
+
+@contextlib.contextmanager
+def counted_moe_plain_versions():
+    """Count the training path's plain versions and the grouped GEMM's."""
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    with counted_plain_versions() as calls, \
+            count_calls([(GG, "grouped_gemm_ref")]) as gg_calls:
+        yield calls, gg_calls
+
+
+def moe_gemm_times(dev, layers, n, d, f, e):
+    """The step's grouped products on their own, at its shapes (n tokens,
+    top 2, E experts, the dropless E * n rows, each expert 2 n / E real
+    rows), f32 as under O1, CUDA events: one #6 forward launch on x [E n,
+    D] against w [E, D, F] with its bound and its plain version's time,
+    and the weight gradients, three ``grouped_gemm_dw`` a layer (gate and
+    up: x [E n, D], g [E n, F]; down: h [E n, F], g [E n, D]). Returns
+    ``(dw ms a step, {name: ms})``."""
+    import torch
+    from paddle_tpu_torch.ops.grouped_gemm import (grouped_gemm,
+                                                   grouped_gemm_dw,
+                                                   grouped_gemm_ref)
+    gen = torch.Generator(dev).manual_seed(5)
+    gs = torch.full((e,), n * MOE_TOP_K // e, dtype=torch.int32, device=dev)
+    a = torch.randn(e * n, d, device=dev, generator=gen)
+    b = torch.randn(e * n, f, device=dev, generator=gen)
+    w = torch.randn(e, d, f, device=dev, generator=gen)
+    rows = n * MOE_TOP_K
+    t = {"gg_tile": time_ms(lambda: grouped_gemm(a, w, gs), 5, 1),
+         "gg_plain": time_ms(lambda: grouped_gemm_ref(a, w, gs), 3, 1),
+         "gg_bound": roofline(4 * (rows * d + e * d * f + e * n * f),
+                              2 * rows * d * f, F32_FLOPS)[0],
+         "dw_up": time_ms(lambda: grouped_gemm_dw(a, b, gs, torch.float32),
+                          3, 1),
+         "dw_down": time_ms(lambda: grouped_gemm_dw(b, a, gs,
+                                                    torch.float32), 3, 1)}
+    del a, b, w
+    torch.cuda.empty_cache()
+    return layers * (2 * t["dw_up"] + t["dw_down"]), t
+
+
+def moe_pretrain(dev):
+    """Phase 20a: ``llama_pretrain.main --config 8b --layers 2 --moe 8
+    --moe-top-k 2 --amp --batch 1 --seq 2048 --steps 10`` over a seeded
+    corpus: one capture, each replay launching a layer's flash kernels
+    once each and the grouped GEMM (#6) three times forward and three
+    for dx, one loss kernel a step, no plain version, finite and falling
+    losses. Returns the run's launches."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch.examples import llama_pretrain
+    from paddle_tpu_torch.ops import flash_attention as FT
+    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    layers = MOE_LAYERS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = compiles_of("llama_pretrain.step")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        path = corpus(tmp, MOE_CORPUS_VOCAB)
+        args = ["--config", "8b", "--layers", str(layers), "--moe",
+                str(MOE_EXPERTS), "--moe-top-k", str(MOE_TOP_K), "--amp",
+                "--batch", str(MOE_BATCH), "--seq", str(TRAIN_S),
+                "--steps", str(MOE_STEPS), "--data", path]
+        with counted_moe_plain_versions() as (plain_calls, gg_plain):
+            reset_launches()
+            res = llama_pretrain.main(args)
+            torch.cuda.synchronize()
+            launches = dict(FT.launches, ce=FC.launches,
+                            gg=GG.launches["grouped_gemm"])
+            instances = {k: v for k, v in GG.instance_launches.items()
+                         if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if plain_calls or gg_plain:
+        fail(f"20a: plain versions ran: {sorted(set(plain_calls + gg_plain))}")
+    step = res["step"]
+    captures = compiles_of("llama_pretrain.step") - before
+    if len(step._cache) != 1 or captures != 1:
+        fail(f"20a: {len(step._cache)} graphs, {captures} captures (want "
+             "one of each)")
+    per = dict(replay_counts(step, FT.launches),
+               ce=sum(replay_counts(step, FC.instance_launches).values()),
+               gg=replay_counts(step, GG.launches).get("grouped_gemm", 0))
+    per_inst = {k: v for k, v in replay_counts(
+        step, GG.instance_launches).items() if v}
+    want = dict(forward=layers, dq=layers, dkv=layers, ce=1, gg=6 * layers)
+    if per != want:
+        fail(f"20a: launches per replay {per} != {want}")
+    total = {k: v * (MOE_STEPS + 1) for k, v in want.items()}
+    if launches != total:
+        fail(f"20a: launches {launches} != {total} (the eager warm-up, the "
+             "capture's real step and the replays)")
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"20a: losses not finite and falling: {losses}")
+    model = res["model"]
+    cfg = model.config
+    n_params = model.num_params()
+    steady = res["step_s"][2:]
+    step_s = sum(steady) / len(steady)
+    tokens = MOE_BATCH * TRAIN_S
+    del res, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    dw, t = moe_gemm_times(dev, layers, tokens, cfg.hidden_size,
+                           cfg.moe_intermediate_size
+                           or cfg.intermediate_size, MOE_EXPERTS)
+    print(f"20a MoE recipe: layers={layers} experts={MOE_EXPERTS} "
+          f"top_k={MOE_TOP_K} params={n_params} batch={MOE_BATCH} "
+          f"seq={TRAIN_S} steps={MOE_STEPS} loss_first={losses[0]:.4f} "
+          f"loss_last={losses[-1]:.4f} step_ms={step_s * 1e3:.1f} (graphed, "
+          f"mean of steps 3-{MOE_STEPS}) tokens_per_s={tokens / step_s:.0f} "
+          f"peak_mem_gb={peak:.2f} launches_per_replay={per} "
+          f"grouped_gemm_instances_per_replay={per_inst} "
+          f"grouped_gemm_instances_run={instances} captures={captures}",
+          flush=True)
+    print(f"20a weight gradients: grouped_gemm_dw gate/up {t['dw_up']:.2f} "
+          f"ms, down {t['dw_down']:.2f} ms (f32 bmm over all "
+          f"{MOE_EXPERTS * tokens} rows); {dw:.1f} ms a step = "
+          f"{dw / (step_s * 1e3):.3f} of the step; one #6 forward at the "
+          f"step's gate shape on the f32 tile instance {t['gg_tile']:.3f} "
+          f"ms (bound {t['gg_bound']:.3f}, operations; plain "
+          f"{t['gg_plain']:.3f})", flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def plain_grouped():
+    """Route the float grouped GEMM to its plain version on the card (the
+    comparison runs only)."""
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    saved = GG._launch_float
+    GG._launch_float = GG.grouped_gemm_ref
+    try:
+        yield
+    finally:
+        GG._launch_float = saved
+
+
+def moe_compare_step(dev):
+    """Phase 20b: one step (loss and every gradient, f32) of the tiny
+    config with ``--moe 4`` through the kernels against the same step
+    through the plain versions, on the same weights and batch: the loss
+    within LOSS_REL, each gradient within GRAD_REL of its largest
+    value."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.examples.llama_pretrain import build_model
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    model = build_model("tiny", device=dev, seed=0, moe=MOE_TINY_EXPERTS,
+                        moe_top_k=MOE_TOP_K)
+    ids = np.random.RandomState(3).randint(
+        0, model.config.vocab_size, (2, 129)).astype(np.int64)
+    x = torch.from_numpy(ids[:, :-1]).to(dev)
+    y = torch.from_numpy(ids[:, 1:]).to(dev)
+    params = dict(model.named_parameters())
+
+    def step():
+        loss, _ = model(x, y)
+        loss.backward()
+        grads = {n: p.grad.clone() for n, p in params.items()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+    reset_launches()
+    loss_k, g_k = step()
+    gg = GG.launches["grouped_gemm"]
+    layers = model.config.num_hidden_layers
+    if gg != 6 * layers:
+        fail(f"20b: {gg} grouped GEMM launches, want {6 * layers}")
+    with plain_paths(), plain_grouped():
+        loss_p, g_p = step()
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    if not rel <= LOSS_REL:
+        fail(f"20b: loss {loss_k} vs plain {loss_p}")
+    worst = 0.0
+    for n in params:
+        a, b = g_k[n].float(), g_p[n].float()
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, err)
+        if not err <= GRAD_REL:
+            fail(f"20b: gradient of {n} {err:.2e} of its max from the plain "
+                 "path's")
+    print(f"20b MoE step (tiny, --moe {MOE_TINY_EXPERTS}, f32, kernels vs "
+          f"plain): loss={loss_k:.6f} plain={loss_p:.6f} rel={rel:.2e} "
+          f"worst_grad={worst:.2e} of max over {len(params)} tensors "
+          f"grouped_gemm_launches={gg}", flush=True)
+
+
+def moe_layer_phase(dev):
+    """Phase 20c: ``MoELayer`` at Mixtral width (D 4096, H 14336, E 8,
+    gshard) on 2048 tokens, forward and backward: ragged (#6, dx through
+    it) against dense within GRAD_REL of each tensor's largest value,
+    ``dropped`` equal, the ``moe_layer`` compile count 1 after two calls
+    of one token count and 2 after another. Returns #6's launches."""
+    import torch
+    from paddle_tpu_torch.incubate.moe import MoELayer
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    d, h, e = MIXTRAL["hidden_size"], MIXTRAL["intermediate_size"], 8
+    n, other = MOE_LAYER_N
+    gen = torch.Generator(dev).manual_seed(1)
+    x = torch.randn(n, d, device=dev, generator=gen)
+    cot = torch.randn(n, d, device=dev, generator=gen)
+
+    def layer(mode):
+        return MoELayer(d, h, e, gate="gshard", dispatch_mode=mode,
+                        device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+
+    def run(moe):
+        xr = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = moe(xr)
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        grads = {k: p.grad for k, p in moe.named_parameters()}
+        grads["x"] = xr.grad
+        return (out.detach(), float(moe.l_aux.detach()), int(moe.dropped),
+                grads, ms)
+    c0 = counter_value("paddle_tpu_xla_compile_total", "moe_layer")
+    ragged = layer("ragged")
+    reset_launches()
+    r = run(ragged)
+    ragged.zero_grad(set_to_none=True)
+    r2 = run(ragged)
+    gg = GG.launches["grouped_gemm"]
+    inst = {k: v for k, v in GG.instance_launches.items() if v}
+    c1 = counter_value("paddle_tpu_xla_compile_total", "moe_layer") - c0
+    with torch.no_grad():
+        ragged(x[:other])
+    c2 = counter_value("paddle_tpu_xla_compile_total", "moe_layer") - c0
+    if (c1, c2) != (1, 2):
+        fail(f"20c: moe_layer compiles {c1} after two calls of n={n}, {c2} "
+             f"after n={other} (want 1, 2)")
+    if gg != 8:
+        fail(f"20c: {gg} grouped GEMM launches over two forward and "
+             "backward calls (want 8: two products and their dx each)")
+    if not (torch.equal(r[0], r2[0]) and r[2] == r2[2]):
+        fail("20c: two ragged calls on the same input differ")
+    del ragged, r2
+    torch.cuda.empty_cache()
+    dense = layer("dense")
+    dn = run(dense)
+    del dense
+    if r[2] != dn[2]:
+        fail(f"20c: dropped {r[2]} (ragged) vs {dn[2]} (dense)")
+    errs = {}
+    for k, a, b in [("out", r[0], dn[0]), ("l_aux", torch.tensor(r[1]),
+                                           torch.tensor(dn[1]))] \
+            + [(k, r[3][k], dn[3][k]) for k in dn[3]]:
+        errs[k] = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+        if not errs[k] <= GRAD_REL:
+            fail(f"20c: {k} ragged vs dense {errs[k]:.2e} of its max")
+    print(f"20c MoELayer (D {d}, H {h}, E {e}, gshard, n={n}): ragged "
+          f"fwd+bwd {r[4]:.1f} ms, dense {dn[4]:.1f} ms (host clock, "
+          f"synchronised, first calls) dropped={r[2]} l_aux={r[1]:.6f} "
+          f"worst_rel={max(errs.values()):.2e} ({max(errs, key=errs.get)}) "
+          f"compiles={c1},{c2} grouped_gemm={inst}", flush=True)
+    return gg
+
+
+def moe_phase(dev):
+    """Phase 20: 20a-20c; returns 20a's launches plus #6's of 20c."""
+    import torch
+    t0 = time.perf_counter()
+    launches = moe_pretrain(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_compare_step(dev)
+    torch.cuda.empty_cache()
+    launches["gg"] += moe_layer_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+# a node's declaration in CUDA's DOT dump of a graph
+# (cudaGraphDebugDotPrint), its type, and a kernel's name after its ID
+GRAPH_NODE = re.compile(r'^"graph_\d+_node_\d+"\s*\[', re.M)
+GRAPH_NODE_TYPE = re.compile(
+    r"\b(KERNEL|MEMCPY|MEMSET|HOST|EMPTY|WAIT_EVENT|EVENT_RECORD|MEM_ALLOC"
+    r"|MEM_FREE|GRAPH|CONDITIONAL|BATCH_MEM_OP)\b")
+GRAPH_KERNEL_NAME = re.compile(r"\{ID \| [^|}]*\| ([^\\|{}<\s]+)")
+
+
+def captured_nodes(fn):
+    """The work one call of ``fn`` puts on the card, counted exactly: the
+    nodes of a CUDA graph captured from it (after one run on the capture
+    stream), each as (type, the kernel's name or ""), sorted. A
+    ``torch.profiler`` window can lose records (PERF.md §7); a capture
+    records every launch. The launch counters are left as they were."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch.ops import _build, _graphs
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    try:
+        # kept after the capture for the dump, where PyTorch has keep_graph
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        graph = torch.cuda.CUDAGraph()      # debug mode keeps it
+    graph.enable_debug_mode()
+    before = [dict(c) for c in _build.COUNTERS]
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            fn()
+    finally:
+        _graphs._take_back(before)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    del graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    starts = [m.start() for m in GRAPH_NODE.finditer(text)] + [len(text)]
+    nodes = []
+    for a, b in zip(starts, starts[1:]):
+        kind = GRAPH_NODE_TYPE.search(text, a, b)
+        name = GRAPH_KERNEL_NAME.search(text, a, b)
+        nodes.append((kind.group(1) if kind else "node",
+                      name.group(1) if name else ""))
+    if not nodes:
+        fail(f"captured_nodes: no node in the graph's DOT dump "
+             f"({len(text)} bytes: {text[:300]!r})")
+    return sorted(nodes)
+
+
+def node_kinds(nodes):
+    import collections
+    return dict(collections.Counter(kind for kind, _ in nodes))
+
+
+def amp_debug_phase(dev):
+    """Phase 21: AMP debugging at the 2-layer cut of phase 5's model: the
+    op table of one O1 forward (the matmul family in bf16), the same
+    forward's launches (:func:`captured_nodes`) with the collection off
+    as before the seam was first installed, the checker's raise on an injected Inf, a captured
+    step under the checker bitwise the unchecked one with no host read
+    in it, ``check_numerics`` on the card."""
+    import tempfile
+    import torch
+    from torch.utils._python_dispatch import (
+        _disable_current_modes, _get_current_dispatch_mode_stack)
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.framework import dispatch
+    from paddle_tpu_torch.observability import flight_recorder as fr
+    from paddle_tpu_torch.observability import metrics as om
+    from paddle_tpu_torch.optimizer import AdamW
+    t0 = time.perf_counter()
+    model, ids = training_model(dev, PRETRAIN_CUT)
+    x = torch.from_numpy(ids[:1, :-1]).to(dev)
+    y = torch.from_numpy(ids[:1, 1:]).to(dev)
+
+    def forward():
+        with torch.no_grad(), amp.auto_cast(dtype="bfloat16"):
+            return model(x, y)[0]
+    forward()
+    if dispatch.installed() or _get_current_dispatch_mode_stack():
+        fail("21: a dispatch mode is installed before any was asked for")
+    nodes0 = captured_nodes(forward)
+    debugging.enable_operator_stats_collection()
+    forward()
+    stats = debugging.disable_operator_stats_collection()
+    mm = stats.get("mm", {})
+    if not mm.get("bf16") or mm.get("fp32") or mm.get("fp16"):
+        fail(f"21: the O1 forward's mm row is {mm}, want bf16 only")
+    if _get_current_dispatch_mode_stack():
+        fail("21: the seam stayed installed after the collection")
+    nodes1 = captured_nodes(forward)
+    if nodes1 != nodes0:
+        fail(f"21: a forward puts {len(nodes1)} nodes {node_kinds(nodes1)} "
+             f"on the card after the collection against {len(nodes0)} "
+             f"{node_kinds(nodes0)} before")
+    print(f"21 op stats (2 layers, O1 bf16 forward): {len(stats)} ops, mm "
+          f"{mm}, sdpa {stats.get('scaled_dot_product_attention')}; the "
+          f"forward's captured graph holds the same {len(nodes0)} nodes "
+          f"{node_kinds(nodes0)} ({len(set(nodes0))} distinct) before and "
+          "after", flush=True)
+
+    def inject(mod, args):
+        with _disable_current_modes():
+            h = args[0].clone()
+            h[0, 7, 11] = float("inf")
+        return (h,) + tuple(args[1:])
+    hook = model.model.layers[1].register_forward_pre_hook(inject)
+    debugging.enable_tensor_checker()
+    try:
+        forward()
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        fail("21: an Inf in layer 1's input raised nothing under the "
+             "tensor checker")
+    finally:
+        debugging.disable_tensor_checker()
+        hook.remove()
+    if "'rms_norm'" not in raised:
+        fail(f"21: the checker's raise names another op: {raised}")
+    print(f"21 tensor checker: {raised}", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reads = []
+    check = dispatch.check_outputs
+
+    def counted_check(name, outs):
+        # a read: a floating output checked outside a compiled step
+        if not dispatch._skip_check() and any(
+                isinstance(o, torch.Tensor) and o.is_floating_point()
+                for o in outs):
+            reads.append(name)
+        return check(name, outs)
+
+    def steps(checked):
+        m, _ = training_model(dev, PRETRAIN_CUT)
+        opt = AdamW(learning_rate=3e-4, weight_decay=0.1,
+                    parameters=m.named_parameters())
+
+        def step_fn(a, b):
+            with amp.auto_cast(dtype="bfloat16"):
+                loss, _ = m(a, b)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        step = jit.to_static(step_fn, state=[m, opt], warmup="once",
+                             name="chip_smoke.checked_step")
+        small = torch.from_numpy(ids[:1, :129]).to(dev)
+        wx, wy = small[:, :-1], small[:, 1:]
+        bx, by = x[:, :512], y[:, :512]
+        if checked:
+            debugging.enable_tensor_checker()
+        try:
+            step(wx, wy)
+            n_warm = len(reads)
+            losses = [step(bx, by) for _ in range(3)]
+            torch.cuda.synchronize()
+        finally:
+            debugging.disable_tensor_checker()
+        losses = [float(v) for v in losses]
+        digest = recipe_digest(m, opt)
+        del m, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, digest, n_warm
+    dispatch.check_outputs = counted_check
+    try:
+        checked = steps(True)
+    finally:
+        dispatch.check_outputs = check
+    compiled_reads = len(reads) - checked[2]
+    plain = steps(False)
+    if checked[:2] != plain[:2]:
+        fail(f"21: the compiled step under the checker {checked[0]} is not "
+             f"bitwise the unchecked one {plain[0]}")
+    if not checked[2] or compiled_reads:
+        fail(f"21: the checker read {checked[2]} outputs in the eager "
+             f"warm-up and {compiled_reads} in the compiled steps (want "
+             "some, then none)")
+    print(f"21 checker over a compiled step: eager warm-up {checked[2]} "
+          f"outputs read, the capture call and 2 replays 0; losses "
+          f"{checked[0]} bitwise the unchecked run's, every parameter and "
+          "moment too", flush=True)
+
+    t = torch.arange(64, dtype=torch.float32, device=dev)
+    t[[1, 5, 9]] = float("nan")
+    t[[2, 7]] = float("inf")
+    fam = om.counter("paddle_tpu_nan_inf_detected_total", "",
+                     labelnames=("op", "var"))
+    c0 = fam.labels("chip_smoke", "t").value
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fr_") as tmp:
+        fr.install(log_dir=tmp)
+        try:
+            got = debugging.check_numerics(t, "chip_smoke", "t")
+        finally:
+            fr.uninstall()
+        dumps = [p for p in os.listdir(tmp)
+                 if os.path.isdir(os.path.join(tmp, p))]
+    if got != (3, 2) or fam.labels("chip_smoke", "t").value != c0 + 1 \
+            or len(dumps) != 1:
+        fail(f"21: check_numerics gave {got}, the counter "
+             f"{fam.labels('chip_smoke', 't').value - c0}, {len(dumps)} "
+             "flight-recorder dumps (want (3, 2), 1, 1)")
+    print(f"21 check_numerics: {got} on the card, counter +1, one "
+          "flight-recorder dump", flush=True)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def quant_ckpt_phase(dev):
+    """Phase 22a: phase 9's cut (Llama-3-8B width, 4 layers, bf16) served
+    with int8 weights, ``save_quantized``, ``load_quantized`` into a model
+    built afresh and served again on phase 4's prompts: every token
+    bitwise the first engine's, #8 and #12 launches counted. Returns
+    ``(#12 launches, #8 launches)``."""
+    import shutil
+    import tempfile
+    import torch
+    from paddle_tpu_torch.quant import (load_quantized, save_quantized,
+                                        serving_weight_bytes)
+    layers = LADDER_LAYERS
+    cfg, model = llama_model(dev, layers)
+    prompts = serving_prompts(cfg.vocab_size)
+    bf16_bytes = serving_weight_bytes(model)[0]
+
+    def served(m, label):
+        engine = serving_engine(m, weight_dtype="int8")
+        with tick_taps(engine) as taps, finite_taps(m, taps):
+            warm_up(engine, prompts)
+            run = served_run(engine, prompts, label, "fused_rope", layers,
+                             taps)
+        del engine
+        torch.cuda.empty_cache()
+        return run
+    a = served(model, "22a before save")
+    root = tempfile.mkdtemp(prefix="chip_smoke_qckpt_")
+    try:
+        host_room(root, bf16_bytes)
+        t0 = time.perf_counter()
+        step_dir = save_quantized(model, root)
+        save_s = time.perf_counter() - t0
+        ckpt = dir_bytes(step_dir)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, fresh = llama_model(dev, layers)
+        t0 = time.perf_counter()
+        if load_quantized(fresh, root) != 0:
+            fail("22a: load_quantized found no committed step")
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    b = served(fresh, "22a after load")
+    del fresh
+    if a[1] != b[1]:
+        n_eq = sum(p == q for o, ob in zip(a[1], b[1]) for p, q in zip(o, ob))
+        fail(f"22a: {n_eq} of {len(prompts) * NEW} tokens equal after "
+             "load_quantized (want all)")
+    dq = sum(a[7].values())
+    if dq != sum(b[7].values()) or not dq:
+        fail(f"22a: dequant matmul launches {a[7]} then {b[7]}")
+    print(f"22a quantized checkpoint (llama3_8b width, {layers} layers): "
+          f"{ckpt} bytes against {bf16_bytes} in bf16 "
+          f"({ckpt / bf16_bytes:.3f}), save_s={save_s:.2f} "
+          f"load_s={load_s:.2f}; tokens bitwise over "
+          f"{len(prompts) * NEW}; dequant launches {a[7]} a run; "
+          f"tokens_per_s={len(prompts) * NEW / a[2]:.1f} before, "
+          f"{len(prompts) * NEW / b[2]:.1f} after", flush=True)
+    return a[3] + b[3], dq + sum(b[7].values())
+
+
+def qat_bridge_phase(dev):
+    """Phase 22b: QAT, ``convert`` and ``bridge_model`` on a stack of
+    ``torch.nn.Linear`` 4096 -> 14336 -> 4096 on the card: the bridged
+    weights dequantize bitwise to the ``ConvertedLinear``'s, and the
+    forward through #8 is within #8's bound of the plain forward.
+    Returns #8's launches."""
+    import torch
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.quant import bridge_model, dequantize_weight
+    from paddle_tpu_torch.quant import kernels as QK
+    d, f = MIXTRAL["hidden_size"], MIXTRAL["intermediate_size"]
+    gen = torch.Generator(dev).manual_seed(2)
+    stack = torch.nn.Sequential(torch.nn.Linear(d, f, device=dev),
+                                torch.nn.Linear(f, d, device=dev))
+    with torch.no_grad():
+        for p in stack.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn(64, d, device=dev, generator=gen)
+    qat = Q.QAT(Q.QuantConfig()).quantize(stack)
+    qat(x).pow(2).mean().backward()
+    if not all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in qat.parameters()):
+        fail("22b: the QAT stack's straight-through gradients are missing "
+             "or not finite")
+    conv = Q.QAT(Q.QuantConfig()).convert(qat)
+    with torch.no_grad():
+        src = [c.weight_int8.float() * (c.weight_scale / 127.0)
+               for c in conv]
+        plain = conv(x)
+    if bridge_model(conv) != 2:
+        fail("22b: bridge_model swapped another count than 2 layers")
+    for i, m in enumerate(conv):
+        deq = dequantize_weight(m.weight_int8, m.weight_scale,
+                                m.weight_block)
+        if not torch.equal(deq, src[i]):
+            fail(f"22b: layer {i}'s bridged weight is not bitwise the "
+                 "ConvertedLinear's")
+    with count_calls([(QK, "dequant_matmul_ref")]) as plain_calls, \
+            torch.no_grad():
+        reset_launches()
+        got = conv(x)
+        torch.cuda.synchronize()
+        inst = {k: v for k, v in QK.instance_launches.items() if v}
+    if plain_calls or sum(inst.values()) != 2:
+        fail(f"22b: dequant launches {inst}, plain calls {plain_calls}")
+    err = check_close("22b bridged stack vs ConvertedLinear", got, plain)
+    print(f"22b QAT -> convert -> bridge ({d} -> {f} -> {d}, f32 x of 64 "
+          f"rows): bridged weights bitwise, out max_abs_err={err:.3e} "
+          f"(#8's bound), dequant instances {inst}", flush=True)
+    return 2
+
+
+def quality_phase(dev):
+    """Phase 22c: ``fit_on_prompts`` (40 steps) and ``logits_quality`` of
+    the tiny config, float against int8, on the card: ``passes``."""
+    import copy
+    import torch
+    from paddle_tpu_torch.examples.llama_pretrain import build_model
+    from paddle_tpu_torch.quant import kernels as QK
+    from paddle_tpu_torch.quant import quality, quantize_model
+    model = build_model("tiny", device=dev, seed=0)
+    loss = quality.fit_on_prompts(model, steps=QUANT_FIT_STEPS)
+    model.eval()
+    q = quantize_model(copy.deepcopy(model))
+    with count_calls([(QK, "dequant_matmul_ref")]) as plain_calls:
+        reset_launches()
+        report = quality.logits_quality(model, q)
+        dq = QK.launches
+    if plain_calls or not dq:
+        fail(f"22c: dequant launches {dq}, plain calls {plain_calls}")
+    print(f"22c quality gate (tiny, fit {QUANT_FIT_STEPS} steps to loss "
+          f"{loss:.4f}): {report}", flush=True)
+    if not report["passes"]:
+        fail(f"22c: the int8 model fails the quality gate: {report}")
+    return dq
+
+
+def quant_phase(dev):
+    """Phase 22: 22a-22c; returns (#12 launches, #8 launches)."""
+    import torch
+    t0 = time.perf_counter()
+    rpa_launches, dq = quant_ckpt_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dq += qat_bridge_phase(dev)
+    torch.cuda.empty_cache()
+    dq += quality_phase(dev)
+    torch.cuda.empty_cache()
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rpa_launches, dq
+
+
 def check_capture_failure(dev):
     """A step that reads the device on the host cannot be captured: the
     capture helper raises what the capture raised (no phase catches it
@@ -7635,7 +8371,7 @@ def main():
     torch.cuda.empty_cache()
     paged["launches"] = decode_cache(dev)           # phase 10
     torch.cuda.empty_cache()
-    _, model = llama_model(dev)                     # phases 13-15b
+    _, model = llama_model(dev, PREFIX_LAYERS)      # phases 13-15b
     entry["launches"] += serve_prefix(dev, model)   # phase 13 (+ the COW)
     kv8_launches += serve_prefix(dev, model, "int8")   # phase 13b
     torch.cuda.empty_cache()
@@ -7685,19 +8421,29 @@ def main():
     recipe, o1_step_s = pretrain_phase(dev, eager_step_s)      # phase 18
     torch.cuda.empty_cache()
     fit = fit_phase(dev, o1_step_s)                 # phase 19
+    torch.cuda.empty_cache()
+    moe_train = moe_phase(dev)                      # phase 20
+    torch.cuda.empty_cache()
+    amp_debug_phase(dev)                            # phase 21
+    torch.cuda.empty_cache()
+    quant_rpa, quant_dq = quant_phase(dev)          # phase 22
+    entry["launches"] += quant_rpa
     for e, key in zip(training_entries, ("forward", "dq", "dkv", "ce")):
-        e["launches"] = launches[key] + recipe[key] + fit[key]
+        e["launches"] = launches[key] + recipe[key] + fit[key] \
+            + moe_train[key]
     # phase 17 runs after every phase that counts profiler records: its
     # /debug/profile window opens on a server thread
     torch.cuda.empty_cache()
     t17 = time.perf_counter()
-    _, model = llama_model(dev)                     # phase 13's model again
+    _, model = llama_model(dev, PREFIX_LAYERS)      # phase 13's model again
     entry["launches"] += serve_stack(dev, model)    # phase 17a
     torch.cuda.empty_cache()
     serve_stack_workers(dev, model)                 # phase 17b
     del model
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+    moe_entries[0]["launches"] += moe_train["gg"]
+    moe_entries[2]["launches"] += quant_dq
     check_capture_failure(dev)
     shutil.rmtree(cache_dir, ignore_errors=True)
     print(f"smoke_s={time.perf_counter() - t0:.1f} (build and every phase)",

@@ -205,3 +205,4 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
 
 
 amp_decorate = decorate
+from . import debugging  # noqa: F401,E402

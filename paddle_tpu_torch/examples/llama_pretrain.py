@@ -25,9 +25,16 @@ the captured step; the 8B width at a cut depth fits one 80 GB card):
         --layers 8 --batch 2 --seq 2048 --amp --steps 10 \\
         --data corpus.bin --ckpt-dir ckpt
 
+``--moe E`` selects the mixture-of-experts FFN (``LlamaMoEMLP``: E
+experts, dropless top-``--moe-top-k`` routing, the grouped GEMM kernel
+for the forward and dx inside the captured step):
+
+    python -m paddle_tpu_torch.examples.llama_pretrain --config 8b \
+        --layers 2 --moe 8 --batch 1 --seq 2048 --amp --steps 10
+
 ``--data`` is a flat binary file of int32 token ids, ``seq + 1`` a
-sample. ``--mesh``, ``--moe`` and ``--ep`` are not ported yet and raise,
-naming their ROADMAP items.
+sample. ``--mesh`` and ``--ep`` (expert parallelism needs a mesh) are
+not ported yet and raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -63,21 +70,26 @@ CONFIGS = {
 #: options of the reference recipe that wait for later slices
 _UNPORTED = {
     "mesh": "ROADMAP queue A, item 13 (distributed)",
-    "moe": "ROADMAP queue A, item 11 (MoE)",
-    "ep": "ROADMAP queue A, item 11 (MoE)",
+    "ep": "ROADMAP queue A, item 13 (distributed: --ep shards the "
+          "experts over --mesh)",
 }
 
 #: the tiny shape of the eager warm-up (the reference's ``wseq``)
 WARMUP_SEQ = 128
 
 
-def build_model(config, layers=None, device=None, seed=0, recompute=False):
-    """``CONFIGS[config]`` (depth cut to ``layers`` when given) with f32
-    weights drawn from a seeded generator on ``device`` (default
+def build_model(config, layers=None, device=None, seed=0, recompute=False,
+                moe=0, moe_top_k=2):
+    """``CONFIGS[config]`` (depth cut to ``layers`` when given; with
+    ``moe`` experts, the MoE FFN routing to ``moe_top_k`` of them) with
+    f32 weights drawn from a seeded generator on ``device`` (default
     ``cuda``)."""
     cfg = CONFIGS[config]()
     if layers:
         cfg.num_hidden_layers = layers
+    if moe:
+        cfg.moe_num_experts = moe
+        cfg.moe_top_k = moe_top_k
     cfg.recompute = recompute
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -211,8 +223,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None)
-    ap.add_argument("--moe", type=int, default=0)
-    ap.add_argument("--ep", action="store_true")
+    ap.add_argument("--moe", type=int, default=0, metavar="E",
+                    help="mixture-of-experts FFN with E experts "
+                         "(LlamaMoEMLP, dropless top-k routing)")
+    ap.add_argument("--moe-top-k", type=int, default=2)
+    ap.add_argument("--ep", action="store_true",
+                    help="expert parallelism over --mesh (not ported)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--data", default=None,
@@ -225,12 +241,13 @@ def main(argv=None):
             raise NotImplementedError(f"{flag} is not ported yet ({item})")
 
     model = build_model(args.config, args.layers, args.device, args.seed,
-                        args.recompute)
+                        args.recompute, args.moe, args.moe_top_k)
     cfg = model.config
     seq = args.seq or (16 if args.config == "tiny" else 2048)
     print(f"config={args.config} layers={cfg.num_hidden_layers} "
           f"params={model.num_params():,} device={args.device} seq={seq} "
-          f"batch={args.batch} amp={args.amp} recompute={args.recompute}",
+          f"batch={args.batch} amp={args.amp} recompute={args.recompute} "
+          f"moe={args.moe or 'dense'}",
           flush=True)
     if args.data:
         source = TokenFeed(args.data, sample_elems=seq + 1,

@@ -14,9 +14,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...framework import dispatch as _dispatch
+
 __all__ = ["swiglu", "fused_rms_norm", "fused_rotary_position_embedding"]
 
 
+@_dispatch.op("swiglu")
 def swiglu(x, y=None):
     """``silu(x) * y``; with ``y=None``, ``x`` is split in half on the
     last axis."""
@@ -25,6 +28,7 @@ def swiglu(x, y=None):
     return F.silu(x) * y
 
 
+@_dispatch.op("rms_norm")
 def rms_norm(x, weight=None, epsilon=1e-6, bias=None, dim=-1):
     """RMSNorm with f32 accumulation: ``x * rsqrt(mean(x^2) + eps)``
     cast back to ``x.dtype``, then the optional weight and bias."""
@@ -38,6 +42,7 @@ def rms_norm(x, weight=None, epsilon=1e-6, bias=None, dim=-1):
     return out
 
 
+@_dispatch.op("fused_rms_norm")
 def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
                    begin_norm_axis=-1, bias=None, residual=None):
     """``rms_norm(x + bias + residual)``; returns ``out``, or ``(out,
@@ -88,6 +93,7 @@ def _apply_rope(x, sin_e, cos_e, neox):
     return out.to(x.dtype)
 
 
+@_dispatch.op("fused_rotary_position_embedding")
 def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     position_ids=None,
                                     use_neox_rotary_style=True,

@@ -72,23 +72,38 @@ __all__ = ["to_static", "not_to_static", "ignore_module", "StaticFunction",
 
 _to_static_enabled = True
 _local = threading.local()
+_running_lock = threading.Lock()
+_running = 0        # compiled steps running, on any thread
 
 
 def in_compiled_step():
-    """True while this thread runs a compiled step's Python: the capture
-    call's real step and its capture, and on the CPU every call after the
-    warm-up (the reference's traced calls). ``amp.GradScaler`` masks an
+    """True while this thread runs a compiled call: the capture call's
+    real step and its capture, each replay with its buffer fills and
+    output copies, and on the CPU every call after the warm-up (the
+    reference's traced calls). ``amp.GradScaler`` masks an
     overflow step there instead of reading its flag on the host."""
     return getattr(_local, "depth", 0) > 0
 
 
+def compiled_steps_running():
+    """How many compiled steps run now, on any thread (the tensor
+    checker's skip: a step's backward on the card runs on the autograd
+    engine's threads, where :func:`in_compiled_step` is False)."""
+    return _running
+
+
 @contextlib.contextmanager
 def _compiled():
+    global _running
     _local.depth = getattr(_local, "depth", 0) + 1
+    with _running_lock:
+        _running += 1
     try:
         yield
     finally:
         _local.depth -= 1
+        with _running_lock:
+            _running -= 1
 
 
 def enable_to_static(flag: bool):
@@ -221,6 +236,18 @@ class StaticFunction:
                 params.append(t)
         self._params = params
 
+    def _release_graphs(self):
+        """Detach the tensors the state's modules hold as plain attributes
+        (``LlamaMoEMLP.l_aux``, ``MoELayer.l_aux``): a graph kept alive
+        there keeps the parameters' gradient-accumulation nodes of the
+        stream that made them, as a returned loss would (:func:`_detached`),
+        and a capture on another stream cannot use them."""
+        for layer in self._layers:
+            for mod in layer.modules():
+                for k, v in list(vars(mod).items()):
+                    if isinstance(v, torch.Tensor) and v.grad_fn is not None:
+                        setattr(mod, k, v.detach())
+
     def _signature(self, leaves, spec):
         shapes = tuple(
             (tuple(a.shape), str(a.dtype), str(a.device))
@@ -255,24 +282,28 @@ class StaticFunction:
             self._warm.add(sig)
             self._warmed_any = True
             self._collect_state()
+            self._release_graphs()
             self._warm.add(self._signature(leaves, spec))
             return out
         if self._graphs is None:
             self._graphs = StepGraphs(self._device(leaves),
                                       name=self._watch_name)
-        entry = self._cache.get(sig)
-        if entry is None:
-            return self._capture(sig, leaves, spec)
-        index, out_leaves, out_spec = entry
-        self._fill(index, leaves)
-        if not self._graphs.cuda:
-            return _detached(self._run(index, leaves, spec))
-        for o in self._optimizers:
-            o.refresh_lr()
-        self._graphs.replay(sig)
-        return pytree.tree_unflatten(
-            [o.clone() if isinstance(o, torch.Tensor) else o
-             for o in out_leaves], out_spec)
+        # the whole call is the compiled step, its buffer fills and output
+        # copies included: the tensor checker reads none of them
+        with _compiled():
+            entry = self._cache.get(sig)
+            if entry is None:
+                return self._capture(sig, leaves, spec)
+            index, out_leaves, out_spec = entry
+            self._fill(index, leaves)
+            if not self._graphs.cuda:
+                return _detached(self._run(index, leaves, spec))
+            for o in self._optimizers:
+                o.refresh_lr()
+            self._graphs.replay(sig)
+            return pytree.tree_unflatten(
+                [o.clone() if isinstance(o, torch.Tensor) else o
+                 for o in out_leaves], out_spec)
 
     def _buffers(self, index, leaves):
         return [self._graphs.buffer(f"{index}.{i}", a.shape, a.dtype)
@@ -314,11 +345,13 @@ class StaticFunction:
                     f"hold gradients at capture ({held[:3]}...): the step "
                     "must end with opt.clear_grad() so that backward "
                     "allocates them in the graph's pool")
+            self._release_graphs()
             torch.clear_autocast_cache()
             torch.cuda.empty_cache()
 
         self._graphs.capture(sig, step, signature=self._sig_desc(sig),
                              before_capture=before_capture)
+        self._release_graphs()
         torch.clear_autocast_cache()
         warm, static = outs
         out_leaves, out_spec = pytree.tree_flatten(_detached(static))

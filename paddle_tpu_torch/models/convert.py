@@ -1,12 +1,17 @@
-"""Fill a port model from the reference package's state.
+"""Fill a port module from the reference package's state.
 
 The reference stores a linear layer's weight as ``[in, out]``; a
-``torch.nn.Linear`` weight is ``[out, in]``. Everything else keeps its
-layout: embedding tables, norm weights, the router ``gate [D, E]`` and
-stacked expert weights ``[E, K, N]`` (parameters, not linear layers),
-and the int8 serving buffers (``weight_int8``/``weight_scale`` of a
-``WeightOnlyLinear``, ``*_proj``/``*_proj_scale`` of a quantized MoE
-FFN), which are stored in the reference layout already.
+``torch.nn.Linear`` weight is ``[out, in]``, and so is the weight of a
+``quantization.QuantedLinear`` (the QAT form keeps the torch layout).
+Everything else keeps its layout: embedding tables, norm weights, the
+router ``gate [D, E]`` and stacked expert weights ``[E, K, N]`` of the
+Llama MoE FFN, ``MoELayer``'s ``gate_weight [D, E]``, ``w1``, ``b1``,
+``w2`` and ``b2`` (parameters, not linear layers), and the int8 buffers
+(``weight_int8``/``weight_scale`` of a ``WeightOnlyLinear`` or a
+``quantization.ConvertedLinear``, ``*_proj``/``*_proj_scale`` of a
+quantized MoE FFN), which are stored in the reference layout already.
+So one loader takes a whole model, a lone ``MoELayer`` and a stack of
+QAT or converted linears alike.
 """
 
 from __future__ import annotations
@@ -26,8 +31,11 @@ def load_numpy_state(model, arrays):
     buffers stay int8) and device. Raises :class:`ValueError` on any
     missing, extra or misshapen key. A quantized reference state needs
     a port model quantized with the same block first."""
-    linear = {name + ".weight" for name, mod in model.named_modules()
-              if isinstance(mod, nn.Linear)}
+    from ..quantization import QuantedLinear
+
+    linear = {f"{name}.weight" if name else "weight"
+              for name, mod in model.named_modules()
+              if isinstance(mod, (nn.Linear, QuantedLinear))}
     targets = model.state_dict(keep_vars=True)
     missing = sorted(set(targets) - set(arrays))
     extra = sorted(set(arrays) - set(targets))

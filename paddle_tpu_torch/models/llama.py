@@ -33,6 +33,7 @@ grouped GEMMs over the stacked expert weights, float or, after
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 
@@ -41,7 +42,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..distributed.recompute import recompute
-from ..incubate.moe import top_k_routing
+from ..incubate.moe import _watched_fn_cache, group_sizes, top_k_routing
 from ..incubate.nn import functional as FI
 from ..nn import functional as F
 from ..ops._graphs import StepGraphs
@@ -215,9 +216,14 @@ class LlamaMoEMLP(nn.Module):
     grouped GEMM kernels; ``quantize_weights`` turns the stacked weights
     into int8 buffers (same names) plus f32 ``*_scale`` buffers, and the
     products into the int8 grouped GEMM. ``l_aux`` keeps the last
-    forward's load-balancing loss (the model's loss never adds it)."""
+    forward's load-balancing loss (the model's loss never adds it).
+
+    Each token count's forward is kept in a bounded LRU
+    (:meth:`build_fn`), watched under ``moe_mlp`` as in the reference."""
 
     _WEIGHTS = ("gate_proj", "up_proj", "down_proj")
+    #: bound on the per-token-count forward cache (LRU)
+    FN_CACHE_SIZE = 8
 
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
@@ -238,6 +244,8 @@ class LlamaMoEMLP(nn.Module):
         self.l_aux = None
         #: the int8 weights' block size once quantized (None: float)
         self.weight_block = None
+        self._fns: "collections.OrderedDict[int, object]" = \
+            collections.OrderedDict()
 
     @torch.no_grad()
     def reset_parameters(self, std, generator=None):
@@ -268,6 +276,7 @@ class LlamaMoEMLP(nn.Module):
             self.register_buffer(name, q)
             self.register_buffer(name + "_scale", s)
         self.weight_block = int(block)
+        self._fns.clear()
 
     def _apply(self, fn, recurse=True):
         if not self.weight_block:
@@ -292,19 +301,15 @@ class LlamaMoEMLP(nn.Module):
         """Dropless top-k routing of ``x2d [n, D]``: the outputs of
         :func:`top_k_routing` (capacity n) and the real rows of each
         expert ``[E]`` int32, all on x's device."""
-        n, e = x2d.shape[0], self.num_experts
+        n = x2d.shape[0]
         logits = router_logits(x2d, self.gate)
         routing = top_k_routing(logits, self.top_k, n, normalize=True)
-        expert_of, keep = routing[1], routing[3]
-        gs = ((expert_of.reshape(-1, 1) == torch.arange(e, device=x2d.device))
-              & keep.reshape(-1, 1)).sum(dim=0, dtype=torch.int32)
-        return routing + (gs,)
+        return routing + (group_sizes(routing[1], routing[3],
+                                      self.num_experts),)
 
-    def forward(self, x):
-        shape = x.shape
-        x2d = x.reshape(-1, shape[-1])
+    def _forward2d(self, x2d, *_weights):
         n, k = x2d.shape[0], self.top_k
-        slot_token, expert_of, pos_of, keep, weights, self.l_aux, gs = \
+        slot_token, expert_of, pos_of, keep, weights, aux, gs = \
             self.route(x2d)
         y = self._products(x2d[slot_token.clamp_min(0)], gs)   # [E*n, D]
         picked = y[expert_of * n + pos_of.clamp(0, n - 1)]     # [n, k, D]
@@ -313,7 +318,30 @@ class LlamaMoEMLP(nn.Module):
         out = wk[:, 0, None] * picked[:, 0].float()
         for j in range(1, k):
             out = out + wk[:, j, None] * picked[:, j].float()
-        return out.to(x2d.dtype).reshape(shape)
+        return out.to(x2d.dtype), aux
+
+    def _state(self):
+        """The tensors the forward reads, in the reference's argument
+        order (they key its signature)."""
+        names = ("gate",) + (self._WEIGHTS if not self.weight_block else
+                             tuple(n + s for n in self._WEIGHTS
+                                   for s in ("", "_scale")))
+        return tuple(getattr(self, n) for n in names)
+
+    def build_fn(self, n_tokens):
+        """The forward for ``n_tokens`` tokens, ``fn(x2d, gate, *weights)
+        -> (out, aux)`` (the int8 form passes each weight's scales after
+        it), watched under ``moe_mlp``; the cache keeps the most recent
+        :attr:`FN_CACHE_SIZE` token counts (LRU)."""
+        return _watched_fn_cache(self._fns, int(n_tokens),
+                                 lambda n: self._forward2d, "moe_mlp",
+                                 self.FN_CACHE_SIZE)
+
+    def forward(self, x):
+        shape = x.shape
+        x2d = x.reshape(-1, shape[-1])
+        out, self.l_aux = self.build_fn(x2d.shape[0])(x2d, *self._state())
+        return out.reshape(shape)
 
 
 def plain_attention(q, k, v):

@@ -28,6 +28,7 @@ import math
 import torch
 
 from ... import amp
+from ...framework import dispatch as _dispatch
 from ...ops import flash_attention as fa
 from ...ops import sampling as _rng
 
@@ -102,6 +103,7 @@ def dropout_key(device):
                                device=device).unbind())
 
 
+@_dispatch.op("scaled_dot_product_attention")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None):
@@ -124,6 +126,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     return _naive_attention(q, k, v, attn_mask, is_causal)
 
 
+@_dispatch.op("flash_attention")
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None,
                     rng_name="", training=True, name=None):

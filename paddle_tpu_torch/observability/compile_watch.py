@@ -49,9 +49,17 @@ CACHE=0``) is plain host code, ported as it is: the serving engine
 records the dispatch shapes it ran so that a restarted replica's
 ``prewarm()`` warms them before traffic.
 
-``watch`` and ``watched_jit`` wrap a compiled callable in the reference;
-their callers there are MoE routing and the pipeline schedule, which the
-port has not yet (ROADMAP A11, A13): both raise naming them.
+``watched_jit`` wraps a per-shape callable as the reference wraps its
+compiled functions, and ``watch`` returns a callable's
+:class:`CompileWatch`. In the port a "compile" of such a callable is the
+first call of each signature (the shapes and dtypes of its tensor
+arguments, static arguments by value), timed on the host clock; later
+calls of that signature go straight through. Its callers are the MoE
+layers' per-token-count forwards (``moe_layer``, ``moe_mlp``); the
+pipeline schedule's compiled steps come with ROADMAP item 13. A call
+while a CUDA graph is being captured or inside a compiled step is not
+counted: the capture, the reference's outer program, is counted as
+itself.
 
 Everything honours the metrics kill switch: under
 ``PADDLE_TPU_METRICS=0`` nothing is counted or registered and no memory
@@ -80,7 +88,7 @@ __all__ = [
     "COMPILE_BUCKETS", "DEFAULT_STORM_THRESHOLD",
     "enable_persistent_cache", "persistent_cache_stats",
     "SignatureRegistry", "shape_registry", "default_cache_dir",
-    "note_library", "note_build", "note_capture",
+    "note_library", "note_build", "note_capture", "describe_args",
 ]
 
 #: compile-duration buckets: 10ms (a cached library's load) .. 300s (a
@@ -441,21 +449,152 @@ def _watch(name):
 
 
 def watch(name):
-    """The reference's per-callable watch of a compiled entry point. Its
-    callers there are MoE routing and the pipeline schedule, not yet in
-    the port: ROADMAP A11 (MoE) and A13 (distributed) bring them."""
-    raise NotImplementedError(
-        "compile_watch.watch has no caller in the port yet: MoE routing "
-        "(ROADMAP A11) and the pipeline schedule (A13) bring it")
+    """The process-wide :class:`CompileWatch` for ``name`` (a no-op watch
+    under ``PADDLE_TPU_METRICS=0``, checked per call)."""
+    return _watch(name)
 
 
-def watched_jit(fun, name=None, **kwargs):
-    """The reference's watched compile wrapper. Its callers there are MoE
-    routing and the pipeline schedule, not yet in the port: ROADMAP A11
-    (MoE) and A13 (distributed) bring them."""
-    raise NotImplementedError(
-        "compile_watch.watched_jit has no caller in the port yet: MoE "
-        "routing (ROADMAP A11) and the pipeline schedule (A13) bring it")
+def _dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def _arg_key(args, kwargs=None):
+    """Hashable key of a call: the pytree structure plus ``(shape,
+    dtype)`` per tensor leaf, the type of a Python scalar (one compile a
+    type, as a traced scalar), a hashable static leaf by value. None
+    when a leaf is unhashable (the call is not watched). Tensors alone,
+    by position, take a short path: the key runs on every call."""
+    import torch
+
+    if not kwargs and all(isinstance(a, torch.Tensor) for a in args):
+        return (("~tree", f"{len(args)} tensors"),) + tuple(
+            (tuple(a.shape), a.dtype) for a in args)
+    from torch.utils import _pytree as pytree
+
+    leaves, spec = pytree.tree_flatten((args, kwargs or {}))
+    out = [("~tree", spec)]
+    for leaf in leaves:
+        shape = getattr(leaf, "shape", None)
+        dtype = getattr(leaf, "dtype", None)
+        if shape is not None and dtype is not None:
+            out.append((tuple(shape), dtype))
+        elif isinstance(leaf, (bool, int, float, complex)):
+            out.append(("~weak", type(leaf).__name__))
+        else:
+            try:
+                hash(leaf)
+            except TypeError:
+                return None
+            out.append(("~static", leaf))
+    return tuple(out)
+
+
+def _key_desc(key):
+    """Render an :func:`_arg_key` into the labeled descriptor the storm
+    diagnosis names arguments by (built only on a compile)."""
+    out = []
+    for i, (tag, val) in enumerate(key):
+        if tag == "~tree":
+            out.append(("tree", str(val)))
+        elif tag == "~weak":
+            out.append((f"arg{i - 1}", f"weak_{val}"))
+        elif tag == "~static":
+            out.append((f"arg{i - 1}", f"{type(val).__name__}={val!r}"))
+        else:
+            out.append((f"arg{i - 1}", f"{_dtype_name(val)}"
+                        f"[{','.join(str(int(s)) for s in tag)}]"))
+    return tuple(out)
+
+
+def describe_args(args, kwargs=None):
+    """Labeled signature descriptor for the storm diagnosis: ``("arg0",
+    "float32[4,8]")`` for tensors, ``("arg1", "weak_float")`` for Python
+    scalars. None when a leaf is unhashable."""
+    key = _arg_key(args, kwargs)
+    return None if key is None else _key_desc(key)
+
+
+def _static_arg_key(args, kwargs, static_nums, static_names):
+    """The key of a call with static arguments: those by value, the
+    others as :func:`_arg_key`. None when a static value is
+    unhashable."""
+    key = []
+    for i, a in enumerate(args):
+        if i in static_nums:
+            try:
+                hash(a)
+            except TypeError:
+                return None
+            key.append(("~staticval", a))
+        else:
+            sub = _arg_key((a,))
+            if sub is None:
+                return None
+            key.append(sub)
+    for k in sorted(kwargs):
+        v = kwargs[k]
+        if k in static_names:
+            try:
+                hash(v)
+            except TypeError:
+                return None
+            key.append((k, "~staticval", v))
+        else:
+            sub = _arg_key((v,))
+            if sub is None:
+                return None
+            key.append((k, sub))
+    return tuple(key)
+
+
+def _in_outer_step():
+    """A call inside a CUDA-graph capture or a compiled step: the outer
+    program is counted as itself (the reference's outer trace)."""
+    from ..jit import in_compiled_step
+    return in_compiled_step() or _capturing()
+
+
+def watched_jit(fun, name=None, **jit_kwargs):
+    """``fun`` with compile observability (the module docstring): the
+    first call of each signature is a compile of ``name`` (default: the
+    function's qualified name), counted and timed; with
+    ``static_argnums`` / ``static_argnames`` those arguments key by value.
+    Under ``PADDLE_TPU_METRICS=0``, under a capture and inside a
+    compiled step every call goes straight to ``fun``."""
+    import functools
+
+    watch_name = name or getattr(fun, "__qualname__", None) or repr(fun)
+    seen: set = set()
+    nums = jit_kwargs.get("static_argnums")
+    names = jit_kwargs.get("static_argnames")
+    static_nums = frozenset((nums,) if isinstance(nums, int)
+                            else nums or ())
+    static_names = frozenset((names,) if isinstance(names, str)
+                             else names or ())
+    has_statics = bool(static_nums or static_names)
+
+    @functools.wraps(fun)
+    def wrapper(*args, **kwargs):
+        if not enabled() or _in_outer_step():
+            return fun(*args, **kwargs)
+        if has_statics:
+            key = _static_arg_key(args, kwargs, static_nums, static_names)
+            desc = None if key is None else tuple(
+                (f"arg{i}", repr(k)) for i, k in enumerate(key))
+        else:
+            key = _arg_key(args, kwargs)
+            desc = None if key is None else _key_desc(key)
+        if key is None or key in seen:
+            return fun(*args, **kwargs)
+        seen.add(key)
+        t0 = time.perf_counter()
+        out = fun(*args, **kwargs)
+        _watch(watch_name).record_compile(time.perf_counter() - t0,
+                                          desc=desc)
+        return out
+
+    wrapper._watch_name = watch_name
+    return wrapper
 
 
 # ---------------------------------------------------------------------------

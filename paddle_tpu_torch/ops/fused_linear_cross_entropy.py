@@ -41,6 +41,7 @@ import os
 
 import torch
 
+from ..framework import dispatch as _dispatch
 from . import _build
 
 __all__ = ["fused_linear_cross_entropy", "fused_linear_cross_entropy_ref",
@@ -221,6 +222,7 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
         return dh, dw, None, None, None
 
 
+@_dispatch.op("fused_linear_cross_entropy")
 def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
                                vocab_chunk=None):
     """Mean next-token cross entropy of ``hidden @ weight^T`` against

@@ -44,6 +44,7 @@ import ctypes
 
 import torch
 
+from ..framework import dispatch as _dispatch
 from ..quant.format import dequant_blocks
 from . import _build
 from ._tile_gemm import (CLUSTER_DEPTH, INSTANCES, gemm_instance,
@@ -277,6 +278,7 @@ class _GroupedGemm(torch.autograd.Function):
         return dx, dw, None
 
 
+@_dispatch.op("grouped_gemm")
 def grouped_gemm(x, w, group_sizes):
     """``y[e*C + i] = x[e*C + i] @ w[e]`` for ``i < group_sizes[e]``,
     zeros past each expert's rows (see the module docstring).
@@ -284,6 +286,7 @@ def grouped_gemm(x, w, group_sizes):
     return _GroupedGemm.apply(x, w, group_sizes)
 
 
+@_dispatch.op("grouped_gemm_q8")
 def grouped_gemm_q8(x, w_q, scales, group_sizes, block):
     """The int8-weight grouped GEMM: ``y[e*C + i] = x[e*C + i] @ (w_q[e]
     * scales[e])`` for ``i < group_sizes[e]``, zeros elsewhere (a

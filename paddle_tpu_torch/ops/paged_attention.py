@@ -55,6 +55,7 @@ import ctypes
 
 import torch
 
+from ..framework import dispatch as _dispatch
 from . import _build
 from .ragged_paged_attention import NEG_INF, _on_cpu, _readable, _scale
 
@@ -256,6 +257,7 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, scale):
     return out if out.dtype == q.dtype else out.to(q.dtype)
 
 
+@_dispatch.op("paged_attention")
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                     scale=None):
     """Decode-step attention over the paged pool (see the module

@@ -65,6 +65,7 @@ import math
 
 import torch
 
+from ..framework import dispatch as _dispatch
 from . import _build
 
 __all__ = ["rope_tables", "supported", "fused_supported", "check_geometry",
@@ -704,6 +705,7 @@ def _on_cpu(t):
     return False
 
 
+@_dispatch.op("ragged_paged_attention")
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, kv_lens,
                            q_starts, q_lens, scale=None, k_scale=None,
                            v_scale=None):
@@ -727,6 +729,7 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, kv_lens,
                           k_scale, v_scale)
 
 
+@_dispatch.op("fused_ragged_paged_attention")
 def fused_ragged_paged_attention(q, new_k, new_v, k_pages, v_pages,
                                  block_tables, kv_lens, q_starts, q_lens,
                                  w_starts, w_flats, w_ends, dump_page,

@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from ..framework import dispatch as _dispatch
 from ..ops import _build
 from ..ops._tile_gemm import INSTANCES, cluster_splits, gemm_instance
 from .format import dequant_blocks, effective_block
@@ -120,6 +121,7 @@ def _launch(x2, q, scales, block):
     return y
 
 
+@_dispatch.op("dequant_matmul")
 def dequant_matmul(x, w_q, scales, block=None):
     """``x [..., K] @ dequant(w_q [K, N], scales [ceil(K/B), N])`` ->
     ``[..., N]`` in ``x.dtype``, f32 math. CUDA tensors launch the

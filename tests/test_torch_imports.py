@@ -1,5 +1,7 @@
 """The port stands alone: importing it loads neither jax nor the
-reference package, and no file of it names either."""
+reference package, and no file of it names either. Each ported module
+exports the reference's public names, but those that unported ROADMAP
+items bring."""
 
 import os
 import pathlib
@@ -66,7 +68,12 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.amp.grad_scaler", "paddle_tpu_torch.hapi",
            "paddle_tpu_torch.hapi.callbacks",
            "paddle_tpu_torch.hapi.model_summary",
-           "paddle_tpu_torch.hapi.hub"]
+           "paddle_tpu_torch.hapi.hub", "paddle_tpu_torch.flags",
+           "paddle_tpu_torch.framework.dispatch",
+           "paddle_tpu_torch.amp.debugging", "paddle_tpu_torch.quantization",
+           "paddle_tpu_torch.quant.bridge",
+           "paddle_tpu_torch.quant.checkpoint",
+           "paddle_tpu_torch.quant.quality", "paddle_tpu_torch.incubate"]
 
 
 def test_import_leaves_jax_unloaded():
@@ -106,3 +113,121 @@ def test_scan_covers_native_sources():
     feed) are among the files the scan above reads."""
     scanned = {p.name for p in PKG.rglob("*.cc")}
     assert {"tcp_store.cc", "data_feed.cc"} <= scanned
+
+
+#: reference names the port keeps under another name: the plain versions
+#: of the kernels are ``*_ref`` in the port (no XLA formulation there)
+RENAMED = {
+    "dequant_matmul_xla": "dequant_matmul_ref",
+    "grouped_gemm_xla": "grouped_gemm_ref",
+    "grouped_gemm_q8_xla": "grouped_gemm_q8_ref",
+    "paged_attention_xla": "paged_attention_ref",
+    "ragged_paged_attention_xla": "ragged_paged_attention_ref",
+    "fused_ragged_paged_attention_xla": "fused_ragged_paged_attention_ref",
+    "fused_linear_cross_entropy_xla": "fused_linear_cross_entropy_ref",
+}
+
+_A13 = "ROADMAP A13 (distributed)"
+#: reference names that unported items bring, by module, each with its item
+PENDING = {
+    "paddle_tpu_torch.device": ("ROADMAP A14b (device/__init__.py)", {
+        "Event", "Stream", "cuda", "current_stream", "device_count",
+        "empty_cache", "get_all_devices", "get_device",
+        "is_compiled_with_cuda", "is_compiled_with_custom_device",
+        "is_compiled_with_ipu", "is_compiled_with_rocm",
+        "is_compiled_with_xpu", "max_memory_allocated", "memory_allocated",
+        "memory_reserved", "memory_stats", "reset_max_memory_allocated",
+        "set_device", "synchronize"}),
+    "paddle_tpu_torch.distributed": (_A13, {
+        "ColumnParallelLinear", "Group", "ParallelCrossEntropy",
+        "ParallelEnv", "Partial", "Placement", "ProcessMesh", "ReduceOp",
+        "Replicate", "RowParallelLinear", "Shard", "VocabParallelEmbedding",
+        "all_gather", "all_gather_object", "all_reduce", "alltoall",
+        "barrier", "broadcast", "dtensor_from_fn", "get_group", "get_mesh",
+        "get_rank", "get_world_size", "init_mesh", "init_parallel_env",
+        "irecv", "is_initialized", "isend", "new_group", "p2p", "recv",
+        "reduce", "reduce_scatter", "reshard", "scatter", "send",
+        "set_mesh", "shard_layer", "shard_optimizer", "shard_tensor",
+        "to_partition_spec", "unshard_dtensor", "wait"}),
+    "paddle_tpu_torch.incubate.nn": ("ROADMAP A14f (incubate/nn/layer.py)", {
+        "FusedBiasDropoutResidualLayerNorm", "FusedDropoutAdd",
+        "FusedFeedForward", "FusedLinear", "FusedMultiHeadAttention",
+        "FusedTransformerEncoderLayer"}),
+    "paddle_tpu_torch.incubate.nn.functional": (
+        "ROADMAP A14b (the four fused incubate ops)", {
+            "fused_bias_act", "fused_dropout_add", "fused_layer_norm",
+            "fused_linear"}),
+    "paddle_tpu_torch.inference": ("ROADMAP A14a (the deploy path)", {
+        "Config", "Predictor", "create_predictor"}),
+    "paddle_tpu_torch.jit": ("ROADMAP A14a (the deploy path)", {
+        "TranslatedLayer"}),
+    "paddle_tpu_torch.models": (
+        "ROADMAP A13 (shard_llama, the pipeline model) and A14e (BERT / "
+        "ERNIE)", {
+            "BertConfig", "BertForSequenceClassification",
+            "BertForTokenClassification", "BertModel",
+            "ErnieForSequenceClassification", "ErnieModel",
+            "ernie_base_config", "tiny_bert_config", "shard_llama",
+            "LlamaForCausalLMPipe"}),
+    "paddle_tpu_torch.models.llama": (_A13, {"shard_llama"}),
+    "paddle_tpu_torch.nn.functional.attention": (
+        "ROADMAP A14d (sdp_kernel switches the reference's kernels by a "
+        "flag; no flag switches a port kernel off)", {"sdp_kernel"}),
+    "paddle_tpu_torch.nn.functional.loss": (
+        "ROADMAP A14d (nn/functional)", {
+            "binary_cross_entropy", "binary_cross_entropy_with_logits",
+            "cosine_embedding_loss", "ctc_loss", "edit_distance",
+            "gaussian_nll_loss", "hinge_embedding_loss", "hsigmoid_loss",
+            "huber_loss", "identity_loss", "kl_div", "l1_loss", "log_loss",
+            "margin_cross_entropy", "margin_ranking_loss", "mse_loss",
+            "multi_label_soft_margin_loss", "nll_loss", "poisson_nll_loss",
+            "rnnt_loss", "sigmoid_focal_loss", "smooth_l1_loss",
+            "softmax_with_cross_entropy", "square_error_cost",
+            "triplet_margin_loss"}),
+    "paddle_tpu_torch.ops.fused_linear_cross_entropy": (
+        "ROADMAP A14d (the reference's TPU kernel rule; the port's kernel "
+        "takes every shape, kernel_instance)", {"supported"}),
+}
+
+
+def _ported_modules():
+    """The port's modules whose reference counterpart exists (the same
+    path under ``paddle_tpu/``)."""
+    out = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(PKG)
+        if not (ROOT / "paddle_tpu" / rel).exists() and not (
+                ROOT / "paddle_tpu" / rel.with_suffix("")
+                / "__init__.py").exists():
+            continue
+        parts = ["paddle_tpu_torch"] + list(rel.with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.append(".".join(parts))
+    return out
+
+
+@pytest.mark.parametrize("module", _ported_modules())
+def test_all_matches_the_reference(module):
+    """Every name of the reference module's ``__all__`` is in the port's
+    (under its port name), but the names :data:`PENDING` lists for an
+    unported item; a listed name the port now has fails, so the list
+    shrinks as items land."""
+    import importlib
+    ref_name = "paddle_tpu" + module[len("paddle_tpu_torch"):]
+    port = importlib.import_module(module)
+    ref = importlib.import_module(ref_name)
+    ref_all = getattr(ref, "__all__", None)
+    if ref_all is None:
+        return
+    item, pending = PENDING.get(module, ("", set()))
+    port_all = set(getattr(port, "__all__", ()))
+    missing = sorted(RENAMED.get(n, n) for n in ref_all
+                     if RENAMED.get(n, n) not in port_all
+                     and n not in pending)
+    assert not missing, missing
+    for n in ref_all:
+        assert hasattr(port, RENAMED.get(n, n)) or n in pending, n
+    landed = sorted(n for n in pending if n in port_all)
+    assert not landed, f"{landed} are ported: take them off {item}"
+    assert pending <= set(ref_all)

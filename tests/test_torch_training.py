@@ -336,9 +336,57 @@ def test_recipe_main_on_cpu(tmp_path):
                                str(tmp_path)])
     assert sorted(os.listdir(tmp_path)) == ["metadata_p0.json",
                                             "shards_p0.npz"]
-    for flag in (["--mesh", "2x4"], ["--moe", "4"], ["--ep"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for flag in (["--mesh", "2x4"], ["--ep"], ["--moe", "4", "--ep"]):
+        with pytest.raises(NotImplementedError, match="item 13"):
             llama_pretrain.main(["--device", "cpu", *flag])
+
+
+def test_recipe_moe_matches_reference_recipe(monkeypatch):
+    """``--moe 4`` through ``main``: the reference recipe's three steps
+    (its model drawn after ``paddle.seed(0)``, carried across; AdamW lr
+    3e-4, weight decay 0.1; the step compiled after an eager warm-up on
+    ``[1, 17]`` ids of ``RandomState(0)``; synthetic batches of
+    ``RandomState(1)``) give the same losses within 1e-5 relative, the
+    dense recipe's tolerance."""
+    steps, batch, seq = 3, 4, 16
+    cfg = dict(num_hidden_layers=2, moe_num_experts=4, moe_top_k=2)
+    paddle.seed(0)
+    jm = JaxLlama(jax_tiny(**cfg))
+    arrays = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
+    jopt = paddle.optimizer.AdamW(learning_rate=3e-4, weight_decay=0.1,
+                                  parameters=jm.parameters())
+
+    def jstep(ids, labels):
+        loss, _ = jm(ids, labels)
+        loss.backward()
+        jopt.step()
+        jopt.clear_grad()
+        return loss
+    compiled = paddle.jit.to_static(jstep, state=[jm, jopt], warmup="once")
+
+    def split(ids):
+        ids = ids.astype(np.int64)
+        return paddle.to_tensor(ids[:, :-1]), paddle.to_tensor(ids[:, 1:])
+    compiled(*split(np.random.RandomState(0).randint(0, 128, (1, seq + 1))))
+    feed = llama_pretrain.synthetic_batches(128, batch, seq, seed=1)
+    want = [float(compiled(*split(next(feed)))) for _ in range(steps)]
+
+    built = {}
+
+    def build(config, layers=None, device=None, seed=0, recompute=False,
+              moe=0, moe_top_k=2):
+        tm = LlamaForCausalLM(tiny_llama_config(
+            num_hidden_layers=2, moe_num_experts=moe, moe_top_k=moe_top_k),
+            device=device)
+        built["model"] = tm
+        return load_numpy_state(tm, arrays)
+    monkeypatch.setattr(llama_pretrain, "build_model", build)
+    res = llama_pretrain.main(["--config", "tiny", "--device", "cpu",
+                               "--moe", "4", "--steps", str(steps),
+                               "--batch", str(batch)])
+    mlp = built["model"].model.layers[0].mlp
+    assert type(mlp).__name__ == "LlamaMoEMLP" and mlp.num_experts == 4
+    np.testing.assert_allclose(res["losses"], want, rtol=1e-5, atol=0)
 
 
 def _corpus(path, vocab=128, samples=12, seq=16, seed=4):
