@@ -196,6 +196,25 @@ package is not beside it, and when any phase fails:
    plain forward; (c) ``fit_on_prompts`` (40 steps) and
    ``logits_quality`` of the tiny config, float against int8: the report
    printed, ``passes``;
+23. (run after 22, before 17) distributed, in a child process of its own
+   (so no NCCL state is left in this one for phase 17's profiler window;
+   the child reports its launches back), in a NCCL world of one rank
+   (over a ``FileStore`` in a temp dir, destroyed at the end of the
+   phase, also when it fails): (a) every collective and p2p function of
+   ``paddle_tpu_torch.distributed`` on card tensors, with the world of
+   one's results (the reference's eager identities, zeros where p2p
+   receives nothing), ``send`` raising; the layers' own collectives (the
+   Megatron regions, which run NCCL on a group of one too) equal to the
+   identity, and the layers' NCCL all-reduce captured into a CUDA graph
+   and replayed right on new data, the graph's nodes printed (NCCL
+   enqueues no kernel for a communicator of one rank); (b) the recipe's ``--mesh 1x1`` at
+   phase 5's model cut to 2 layers, 3 steps, the step compiled into one
+   CUDA graph with its collectives: one capture, each replay launching a
+   layer's flash kernels once each and the loss kernel once on the
+   vocab shard, no plain version, the losses within 1e-4 of the same
+   seed's one-device recipe, both printed; (c) ``--mesh 1x1 --moe 8
+   --ep`` at 1 layer, 2 steps: the same holds with the grouped GEMM (#6)
+   six times a replay; each run's step time and peak memory;
 3c. (run after 3b) the mixture-of-experts and int8 kernels against their
    plain versions at Mixtral-8x7B serving shapes (hidden 4096, expert
    FFN 14336, 8 experts, top 2, block 128) for the two token counts of
@@ -8278,6 +8297,282 @@ def quant_phase(dev):
     return rpa_launches, dq
 
 
+# ----------------------------------------------------------------------
+# phase 23: distributed, part 1, in a NCCL world of one rank: the
+# collectives (23a), the recipe's --mesh 1x1 (23b: phase 5's model cut to
+# 2 layers, 3 steps) and --mesh 1x1 --moe 8 --ep (23c: 1 layer, 2 steps)
+DIST_LAYERS, DIST_STEPS = 2, 3
+DIST_MOE_LAYERS, DIST_MOE_STEPS = 1, 2
+DIST_LOSS_REL = 1e-4      # a mesh's losses against one device's, relative
+DIST_TIMEOUT_S = 120      # the world's rendezvous and collectives
+DIST_CHILD_S = 300        # the phase's process, killed past it
+DIST_CHILD_FLAG = "--dist-phase"
+
+
+@contextlib.contextmanager
+def nccl_world_of_one(dev):
+    """A NCCL world of one rank over a ``FileStore`` in a temp dir,
+    destroyed on the way out, also when the body fails."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import set_mesh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        yield
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dist_collectives(dev):
+    """Phase 23a: the collective API, p2p and the layers' regions on card
+    tensors in the world of one; an NCCL all-reduce in a CUDA graph."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.distributed as pd
+    from paddle_tpu_torch.distributed import p2p
+    from paddle_tpu_torch.distributed.plan import ParallelPlan
+    mesh = pd.ProcessMesh(np.array([[0]]), ["dp", "mp"])
+    pd.set_mesh(mesh)
+    x = torch.arange(1, 9, dtype=torch.float32, device=dev)
+    zeros = torch.zeros_like(x)
+    bad = []
+
+    def hold(name, got, want):
+        if not (got.device == x.device and torch.equal(got, want)):
+            bad.append(name)
+    for op in ("sum", "max", "min", "prod", "avg"):
+        hold(f"all_reduce {op}", pd.all_reduce(x.clone(), op=op,
+                                               group="mp"), x)
+    lst = []
+    hold("all_gather", pd.all_gather(lst, x, group="mp"), x)
+    hold("all_gather list", torch.stack(lst), x[None])
+    objs = []
+    pd.all_gather_object(objs, "rank0", group="mp")
+    if objs != ["rank0"]:
+        bad.append("all_gather_object")
+    out = torch.empty_like(x)
+    hold("reduce_scatter", pd.reduce_scatter(out, x.clone(), group="mp"), x)
+    res = []
+    hold("alltoall", pd.alltoall(res, [x], group="mp"), x[None])
+    hold("broadcast", pd.broadcast(x.clone(), src=0, group="mp"), x)
+    hold("reduce", pd.reduce(x.clone(), dst=0, group="dp"), x)
+    hold("scatter", pd.scatter(torch.empty_like(x), [x], src=0,
+                               group="mp"), x)
+    pd.barrier(group="mp")
+    pd.barrier()
+    hold("wait", pd.wait(x), x)
+    hold("shift", p2p.shift(x, "mp", offset=1, wrap=True), x)
+    hold("send_forward", p2p.send_forward(x, "mp"), zeros)
+    hold("send_backward", p2p.send_backward(x, "mp"), zeros)
+    hold("ppermute", p2p.ppermute(x, "mp", [(0, 0)]), x)
+    if (p2p.axis_rank("mp"), p2p.axis_size("mp"), pd.get_rank(),
+            pd.get_world_size()) != (0, 1, 0, 1):
+        bad.append("axis queries")
+    try:
+        pd.send(x)
+        bad.append("send did not raise")
+    except NotImplementedError:
+        pass
+    # the layers' collectives run NCCL on a group of one as on any other
+    plan = ParallelPlan(mesh, tp="mp")
+    x2 = x.reshape(2, 4)
+    hold("copy_to", plan.copy_to(x2, "mp"), x2)
+    hold("reduce_from", plan.reduce_from(x2, "mp"), x2)
+    hold("gather_from", plan.gather_from(x2, "mp", -1), x2)
+    hold("gather_sum", plan.gather_sum(x2, "mp", 0), x2)
+    hold("reduce_scatter region", plan.reduce_scatter(x2, "mp", 1), x2)
+    hold("mean_over_batch", plan.mean_over_batch(x2), x2)
+    if bad:
+        fail(f"23a: wrong on the card in a world of one: {bad}")
+    # the layers' all-reduce captured into a CUDA graph and replayed on
+    # new data (NCCL enqueues no kernel for a communicator of one rank:
+    # the nodes show what the capture holds)
+    buf = x.clone()
+    nodes = captured_nodes(lambda: plan.reduce_from(buf, "mp"))
+    graph, stream, held = torch.cuda.CUDAGraph(), torch.cuda.Stream(), {}
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        plan.reduce_from(buf, "mp")
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, stream=stream):
+        held["y"] = plan.reduce_from(buf, "mp")
+    buf.mul_(3.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(held["y"], buf):
+        fail("23a: a replay of the captured all-reduce gave "
+             f"{held['y'].tolist()} for {buf.tolist()}")
+    del graph
+    print(f"23a collectives in a NCCL world of one: all_reduce x5 ops, "
+          f"all_gather(_object), reduce_scatter, alltoall, broadcast, "
+          f"reduce, scatter, barrier, wait, shift, send_forward, "
+          f"send_backward, ppermute, axis queries, the six layer regions "
+          f"on card tensors right; send raises; the layers' all-reduce "
+          f"captured into a CUDA graph and replayed right, its nodes "
+          f"{nodes} (NCCL kernels among them: "
+          f"{sorted({n for _, n in nodes if 'nccl' in n.lower()})})",
+          flush=True)
+
+
+def dist_launches():
+    """The launches of #1-#3, #5 and #6 so far."""
+    from paddle_tpu_torch.ops import flash_attention as FT
+    from paddle_tpu_torch.ops import fused_linear_cross_entropy as FC
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    return dict(FT.launches, ce=FC.launches,
+                gg=GG.launches["grouped_gemm"])
+
+
+def mesh_run(label, base, mesh_flags, want_per, layers):
+    """The recipe at ``base`` on one device, then with ``mesh_flags``
+    (in the world of one): the mesh run counted (plain versions, launches,
+    captures), its losses held against the one-device run's. Returns its
+    launches."""
+    import torch
+    from paddle_tpu_torch.examples import llama_pretrain
+    from paddle_tpu_torch.ops import grouped_gemm as GG
+    torch.cuda.reset_peak_memory_stats()
+    single = llama_pretrain.main(base)
+    single_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    single_losses = single["losses"]
+    single_ms = 1e3 * sum(single["step_s"][1:]) / len(single["step_s"][1:])
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = compiles_of("llama_pretrain.step")
+    with counted_moe_plain_versions() as (plain_calls, gg_plain):
+        reset_launches()
+        res = llama_pretrain.main(base + mesh_flags)
+        torch.cuda.synchronize()
+        launches = dist_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if plain_calls or gg_plain:
+        fail(f"{label}: plain versions ran: "
+             f"{sorted(set(plain_calls + gg_plain))}")
+    model, step = res["model"], res["step"]
+    if model.plan is None:
+        fail(f"{label}: the model was not placed over the mesh")
+    captures = compiles_of("llama_pretrain.step") - before
+    if len(step._cache) != 1 or captures != 1:
+        fail(f"{label}: {len(step._cache)} graphs, {captures} captures "
+             "(want one of each: the step and its collectives captured)")
+    per = dict(replay_launches(step),
+               gg=replay_counts(step, GG.launches).get("grouped_gemm", 0))
+    if per != want_per:
+        fail(f"{label}: launches per replay {per} != {want_per}")
+    steps = len(res["losses"])
+    total = {k: v * (steps + 1) for k, v in want_per.items()}
+    if launches != total:
+        fail(f"{label}: launches {launches} != {total}")
+    losses = res["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, single_losses))
+    if not all(math.isfinite(v) for v in losses) or rel > DIST_LOSS_REL:
+        fail(f"{label}: mesh losses {losses} against one device's "
+             f"{single_losses} (max rel {rel:.2e} > {DIST_LOSS_REL})")
+    mesh_ms = 1e3 * sum(res["step_s"][1:]) / len(res["step_s"][1:])
+    print(f"{label} recipe {' '.join(mesh_flags)}: layers={layers} "
+          f"steps={steps} losses_mesh={[f'{v:.6f}' for v in losses]} "
+          f"losses_single={[f'{v:.6f}' for v in single_losses]} "
+          f"max_rel={rel:.2e} step_ms={mesh_ms:.1f} (graphed, steps "
+          f"2-{steps}; one device {single_ms:.1f}) peak_mem_gb={peak:.2f} "
+          f"(one device {single_peak:.2f}) "
+          f"launches_per_replay={per} captures={captures} (the step's "
+          f"NCCL collectives inside its graph)", flush=True)
+    return launches
+
+
+def dist_phase():
+    """Phase 23 in a child process (``python3 chip_smoke.py
+    --dist-phase OUT``), which runs :func:`dist_phase_child` and writes
+    its launches to ``OUT``: NCCL's state, and its destruction, stay out
+    of this process, whose phase 17 opens a profiler window. The child is
+    killed past ``DIST_CHILD_S``. Returns the launches of #1-#3 and #5
+    (``forward``, ``dq``, ``dkv``, ``ce``) and of #6 (``gg``) of the mesh
+    runs."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        out = os.path.join(tmp, "launches.json")
+        try:
+            res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  DIST_CHILD_FLAG, out],
+                                 timeout=DIST_CHILD_S)
+        except subprocess.TimeoutExpired:
+            fail(f"phase 23: its process ran past {DIST_CHILD_S} s and was "
+                 "killed")
+        if res.returncode != 0 or not os.path.exists(out):
+            fail(f"phase 23: its process exited with {res.returncode}")
+        with open(out) as f:
+            launches = json.load(f)
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s (its process "
+          "included)", flush=True)
+    return launches
+
+
+def dist_phase_child(out):
+    """The child of :func:`dist_phase`: :func:`dist_runs` on the card,
+    its launches written to ``out`` as JSON."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device (torch.cuda.is_available() is false)")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    launches = dist_runs(torch.device("cuda"))
+    with open(out, "w") as f:
+        json.dump(launches, f)
+
+
+def dist_runs(dev):
+    """23a-23c in one NCCL world of one rank; returns their launches."""
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    try:
+        path = corpus(tmp, 128256)
+        with nccl_world_of_one(dev):
+            dist_collectives(dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = recipe_args(path, DIST_LAYERS, DIST_STEPS)
+            dense = mesh_run("23b", base, ["--mesh", "1x1"],
+                             dict(forward=DIST_LAYERS, dq=DIST_LAYERS,
+                                  dkv=DIST_LAYERS, ce=1, gg=0),
+                             DIST_LAYERS)
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = ["--config", "8b", "--layers", str(DIST_MOE_LAYERS),
+                    "--moe", str(MOE_EXPERTS), "--moe-top-k",
+                    str(MOE_TOP_K), "--amp", "--batch", str(MOE_BATCH),
+                    "--seq", str(TRAIN_S), "--steps", str(DIST_MOE_STEPS),
+                    "--data", path]
+            moe = mesh_run("23c", base, ["--mesh", "1x1", "--ep"],
+                           dict(forward=DIST_MOE_LAYERS, dq=DIST_MOE_LAYERS,
+                                dkv=DIST_MOE_LAYERS, ce=1,
+                                gg=6 * DIST_MOE_LAYERS), DIST_MOE_LAYERS)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"23 in its process: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {k: dense[k] + moe[k] for k in dense}
+
+
 def check_capture_failure(dev):
     """A step that reads the device on the host cannot be captured: the
     capture helper raises what the capture raised (no phase catches it
@@ -8428,9 +8723,11 @@ def main():
     torch.cuda.empty_cache()
     quant_rpa, quant_dq = quant_phase(dev)          # phase 22
     entry["launches"] += quant_rpa
+    torch.cuda.empty_cache()
+    dist = dist_phase()                             # phase 23
     for e, key in zip(training_entries, ("forward", "dq", "dkv", "ce")):
         e["launches"] = launches[key] + recipe[key] + fit[key] \
-            + moe_train[key]
+            + moe_train[key] + dist[key]
     # phase 17 runs after every phase that counts profiler records: its
     # /debug/profile window opens on a server thread
     torch.cuda.empty_cache()
@@ -8442,7 +8739,7 @@ def main():
     del model
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
-    moe_entries[0]["launches"] += moe_train["gg"]
+    moe_entries[0]["launches"] += moe_train["gg"] + dist["gg"]
     moe_entries[2]["launches"] += quant_dq
     check_capture_failure(dev)
     shutil.rmtree(cache_dir, ignore_errors=True)
@@ -8460,4 +8757,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == DIST_CHILD_FLAG:
+        dist_phase_child(sys.argv[2])
+    else:
+        main()

@@ -17,8 +17,8 @@ reassembles each tensor from the boxes of every ``metadata_p*.json``
 under ``path`` (a checkpoint that several processes wrote loads whole)
 and copies it into the target tensor in place, so its storage, and the
 addresses a captured CUDA graph holds, stay. Placing a tensor onto a
-sharded layout (resharding across meshes) waits for ROADMAP A13 and
-raises.
+sharded layout (resharding across meshes) waits for ROADMAP A13 part 2
+and raises.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def _no_resharding(key, t):
         raise NotImplementedError(
             f"checkpoint tensor {key!r} is sharded over a device mesh: "
             "sharded checkpoints and resharding on load are not ported "
-            "yet (ROADMAP A13, distributed)")
+            "yet (ROADMAP A13 part 2, sharded checkpoints)")
 
 
 def _flatten(state_dict, prefix=""):

@@ -63,7 +63,7 @@ __all__ = ["CheckpointManager", "CheckpointCorruptError", "RESUME_DIR_ENV",
 
 #: the env var a launcher exports so relaunched workers find their
 #: checkpoint root (the reference's ``launch_elastic(resume_dir=)``,
-#: ROADMAP A13)
+#: ROADMAP A13 part 2)
 RESUME_DIR_ENV = "PADDLE_TPU_RESUME_DIR"
 
 #: the commit marker file inside a committed step directory

@@ -33,8 +33,24 @@ for the forward and dx inside the captured step):
         --layers 2 --moe 8 --batch 1 --seq 2048 --amp --steps 10
 
 ``--data`` is a flat binary file of int32 token ids, ``seq + 1`` a
-sample. ``--mesh`` and ``--ep`` (expert parallelism needs a mesh) are
-not ported yet and raise, naming their ROADMAP item.
+sample.
+
+``--mesh AxB`` places the model over a dp x mp mesh of the world's
+ranks (:func:`~paddle_tpu_torch.models.shard_llama`: tensor parallelism
+over mp), ``--mesh AxB --moe E --ep`` over dp x ep (the experts split
+over ep), ``--mesh fsdp`` shards every weight over all ranks (ZeRO-3).
+One process per rank, started by ``torchrun`` or with the reference's
+``PADDLE_TRAINER_ID`` / ``PADDLE_TRAINERS_NUM`` / ``PADDLE_MASTER`` (a
+single process is a world of one); the backend is NCCL on the card,
+gloo with ``--device cpu``. ``--batch`` is the global batch: each rank
+of the batch axes (dp, fsdp) trains on its own rows, and the logged loss
+is the global batch's. The step is compiled as on one device, its
+collectives inside the graph. A mesh's checkpoint would be sharded,
+which waits for ROADMAP A13 part 2, so ``--ckpt-dir`` under a mesh
+raises::
+
+    torchrun --nproc-per-node 4 -m paddle_tpu_torch.examples.llama_pretrain \
+        --config tiny --device cpu --mesh 2x2 --steps 8
 """
 
 from __future__ import annotations
@@ -45,18 +61,21 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from paddle_tpu_torch import amp, jit
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.distributed import checkpoint as ckpt
+from paddle_tpu_torch.distributed import ProcessMesh, init_parallel_env
 from paddle_tpu_torch.io import DevicePrefetcher, TokenFeed
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
-                                     llama3_8b_config, tiny_llama_config)
+                                     llama3_8b_config, shard_llama,
+                                     tiny_llama_config)
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer.lr import LRScheduler
 
 __all__ = ["CONFIGS", "build_model", "synthetic_batches", "train",
-           "train_state", "main"]
+           "train_state", "place_model", "main"]
 
 CONFIGS = {
     "tiny": lambda: tiny_llama_config(num_hidden_layers=2),
@@ -65,13 +84,6 @@ CONFIGS = {
         num_hidden_layers=8, num_attention_heads=16,
         num_key_value_heads=8, max_position_embeddings=4096),
     "8b": llama3_8b_config,
-}
-
-#: options of the reference recipe that wait for later slices
-_UNPORTED = {
-    "mesh": "ROADMAP queue A, item 13 (distributed)",
-    "ep": "ROADMAP queue A, item 13 (distributed: --ep shards the "
-          "experts over --mesh)",
 }
 
 #: the tiny shape of the eager warm-up (the reference's ``wseq``)
@@ -110,6 +122,49 @@ def _split(ids):
             np.ascontiguousarray(ids[:, 1:]))
 
 
+def place_model(model, mesh_arg, ep=False):
+    """The reference recipe's placements: ``"fsdp"`` -> a 1-D fsdp mesh
+    over the world; ``"AxB"`` -> a dp x mp mesh (tensor parallelism), or
+    with ``ep`` a dp x ep mesh (the experts split over ep). Returns the
+    mesh."""
+    world = dist.get_world_size()
+    if mesh_arg == "fsdp":
+        mesh = ProcessMesh(np.arange(world), dim_names=["fsdp"])
+        shard_llama(model, mesh, tp_axis=None, fsdp_axis="fsdp")
+        return mesh
+    try:
+        dp, mp = (int(v) for v in mesh_arg.split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh takes AxB or fsdp, got {mesh_arg!r}") \
+            from None
+    if dp * mp != world:
+        raise ValueError(f"--mesh {mesh_arg} needs {dp * mp} ranks; the "
+                         f"world has {world}")
+    second = "ep" if ep else "mp"
+    mesh = ProcessMesh(np.arange(dp * mp).reshape(dp, mp),
+                       dim_names=["dp", second])
+    if ep:
+        shard_llama(model, mesh, tp_axis=None, ep_axis="ep")
+    else:
+        shard_llama(model, mesh, tp_axis="mp")
+    return mesh
+
+
+def _rank_rows(transform, plan, batch):
+    """``transform`` then this rank's rows of the global batch (the batch
+    axes' ranks take consecutive blocks, in mesh order)."""
+    index, count = plan.batch_slice()
+    if batch % count:
+        raise ValueError(f"--batch {batch} does not split over the "
+                         f"{count} ranks of the batch axes")
+    per = batch // count
+
+    def rows(ids):
+        return tuple(np.ascontiguousarray(a[index * per:(index + 1) * per])
+                     for a in transform(ids))
+    return rows
+
+
 def train_state(model, opt):
     """The checkpointed state: the model's and the optimizer's."""
     return {"model": model.state_dict(), "opt": opt.state_dict()}
@@ -130,7 +185,9 @@ def train(model, steps, batch, seq, *, lr=3e-4, weight_decay=0.1,
     from ``ckpt_dir`` (when it holds a checkpoint), then the loop, then
     the state saved to ``ckpt_dir`` (unless a resumed run took no step).
     ``compiled=False`` runs every step eagerly and neither warms up nor
-    touches a checkpoint.
+    touches a checkpoint. A model placed over a mesh (``model.plan``)
+    trains each rank on its own rows of every batch (the warm-up's one
+    row runs on every rank) and reports the global batch's loss.
 
     Returns ``{"losses", "step_s", "stall_s", "wall_s", "model", "opt",
     "step", "feed"}`` plus, when it saved or loaded, ``"snapshot_s"``,
@@ -143,6 +200,12 @@ def train(model, steps, batch, seq, *, lr=3e-4, weight_decay=0.1,
     if source is None:
         source = synthetic_batches(model.config.vocab_size, batch, seq)
     flops_step = model.flops_per_token(seq) * batch * seq
+    plan = getattr(model, "plan", None)
+    if plan is not None and ckpt_dir:
+        raise NotImplementedError(
+            "--ckpt-dir under a mesh: sharded checkpoints and resharding "
+            "on load are not ported yet (ROADMAP A13 part 2)")
+    transform = _split if plan is None else _rank_rows(_split, plan, batch)
 
     def step_fn(ids, labels):
         with amp.auto_cast(enable=use_amp, dtype="bfloat16"):
@@ -150,7 +213,9 @@ def train(model, steps, batch, seq, *, lr=3e-4, weight_decay=0.1,
         loss.backward()
         opt.step()
         opt.clear_grad()
-        return loss
+        # a placed model's loss is this rank's term of the global batch's
+        # mean: their mean over the batch axes is that mean
+        return loss if plan is None else plan.mean_over_batch(loss)
 
     sched = opt._learning_rate if isinstance(
         opt._learning_rate, LRScheduler) else None
@@ -175,7 +240,7 @@ def train(model, steps, batch, seq, *, lr=3e-4, weight_decay=0.1,
     res["step"] = step
 
     losses, times = [], []
-    with DevicePrefetcher(source, transform=_split, device=device) as feed:
+    with DevicePrefetcher(source, transform=transform, device=device) as feed:
         feed.mark()
         last = time.perf_counter()
         for i in range(steps):
@@ -222,32 +287,49 @@ def main(argv=None):
                     help="checkpoint every decoder layer")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="AxB = a dp x mp mesh of the world's ranks; "
+                         "'fsdp' = every weight sharded over all ranks")
     ap.add_argument("--moe", type=int, default=0, metavar="E",
                     help="mixture-of-experts FFN with E experts "
                          "(LlamaMoEMLP, dropless top-k routing)")
     ap.add_argument("--moe-top-k", type=int, default=2)
     ap.add_argument("--ep", action="store_true",
-                    help="expert parallelism over --mesh (not ported)")
+                    help="with --mesh AxB and --moe: the second axis is "
+                         "'ep', the stacked experts split over it")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--data", default=None,
                     help="flat binary int32 token file (io.TokenFeed, "
                          "C++ prefetch); default: synthetic random ids")
     args = ap.parse_args(argv)
-    for opt, item in _UNPORTED.items():
-        if getattr(args, opt):
-            flag = "--" + opt.replace("_", "-")
-            raise NotImplementedError(f"{flag} is not ported yet ({item})")
+    if args.ep and not args.moe:
+        ap.error("--ep needs --moe (expert weights to shard)")
+    if args.ep and (args.mesh is None or args.mesh == "fsdp"):
+        ap.error("--ep needs --mesh AxB (its second axis becomes ep)")
+    started = False
+    if args.mesh:
+        started = not dist.is_initialized()
+        init_parallel_env(device=args.device)
+    try:
+        return _run(args)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
+
+def _run(args):
     model = build_model(args.config, args.layers, args.device, args.seed,
                         args.recompute, args.moe, args.moe_top_k)
+    if args.mesh:
+        place_model(model, args.mesh, args.ep)
     cfg = model.config
     seq = args.seq or (16 if args.config == "tiny" else 2048)
     print(f"config={args.config} layers={cfg.num_hidden_layers} "
           f"params={model.num_params():,} device={args.device} seq={seq} "
           f"batch={args.batch} amp={args.amp} recompute={args.recompute} "
-          f"moe={args.moe or 'dense'}",
+          f"moe={args.moe or 'dense'} "
+          f"mesh={args.mesh or 'single'}{'(ep)' if args.ep else ''}",
           flush=True)
     if args.data:
         source = TokenFeed(args.data, sample_elems=seq + 1,

@@ -11,11 +11,13 @@ The port registers the reference's flags under the same names and
 defaults. It reads those whose readers it has ported:
 
 - ``check_nan_inf``: the tensor checker of
-  :mod:`paddle_tpu_torch.amp.debugging` (``enable_tensor_checker``).
+  :mod:`paddle_tpu_torch.amp.debugging` (``enable_tensor_checker``);
+- ``comm_timeout_seconds``: the bound that
+  :func:`paddle_tpu_torch.distributed.init_parallel_env` gives the
+  rendezvous and every collective.
 
 The rest are accepted, stored and returned, and have no effect in the
-port: ``benchmark``, ``low_precision_op_list``, ``comm_timeout_seconds``
-(the collectives come with ROADMAP item 13), the compat labels
+port: ``benchmark``, ``low_precision_op_list``, the compat labels
 ``eager_delete_tensor_gb`` and ``allocator_strategy``, and
 ``use_pallas_kernels``: every hand-written kernel of the port runs on a
 CUDA tensor, and no flag switches one off for its plain version.
@@ -123,8 +125,8 @@ define_flag("use_pallas_kernels", True,
             "Compat: no effect in the port (no flag switches a hand-written "
             "kernel off for its plain version).")
 define_flag("comm_timeout_seconds", 1800,
-            "Collective watchdog timeout; no effect until the collectives "
-            "are ported.")
+            "Collective timeout: bounds init_parallel_env's rendezvous "
+            "and every collective of its world.")
 define_flag("eager_delete_tensor_gb", 0.0, "Compat: no effect in the port.")
 define_flag("allocator_strategy", "auto_growth",
             "Compat: allocator strategy label (no effect in the port).")

@@ -17,7 +17,10 @@ the fused cross-entropy, the grouped GEMMs, the dequant matmul, the
 paged and ragged attention) and the fused incubate ops are marked with
 :func:`op`: while the seam is installed such a call is one op under the
 reference's name, its outputs observed and checked, and the aten ops
-inside it are not seen. Without the seam the mark costs one global read.
+inside it are not seen. Without the seam the mark costs one global read
+and a look at each positional argument's type: a ``DTensor`` is refused
+(the kernels have no sharding rule; a placed layer takes them its local
+shards on purpose).
 """
 
 from __future__ import annotations
@@ -134,12 +137,22 @@ def sync():
     return _seam is not None
 
 
+def _refuse_dtensor(name):
+    raise TypeError(
+        f"{name} takes plain tensors, not a DTensor: the port's ops have "
+        "no sharding rule, so a placed layer runs them on its local shards "
+        "(DTensor.to_local(), see paddle_tpu_torch.distributed.plan)")
+
+
 def op(name):
     """Mark a function as one op ``name`` of the seam (module
     docstring)."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
+            for a in args:
+                if type(a).__name__ == "DTensor":
+                    _refuse_dtensor(name)
             if _seam is None or _seam_thread != threading.get_ident():
                 return fn(*args, **kwargs)
             depth = getattr(_local, "depth", 0)

@@ -27,8 +27,17 @@ recompile-storm detector as they do in the reference.
 Routing stays on the logits' device: no ``.item()`` and no boolean
 indexing. The dropped-token metrics read one count to the host, and only
 with metrics on, outside a CUDA-graph capture and outside a compiled
-step. Expert parallelism (``mesh=`` / ``ep_axis=``) comes with ROADMAP
-item 13 and raises until then.
+step.
+
+Expert parallelism (``mesh=`` / ``ep_axis=``): the stacked expert
+weights and biases are placed ``Shard(0)`` over ``ep_axis`` (rank ``r``
+holds experts ``[r E/ep, (r + 1) E/ep)``) and the router is replicated.
+Every rank routes every token, as in the reference, so ``l_aux`` and
+``dropped`` are the reference's values; each rank runs its experts'
+part of either dispatch (in the ragged one, the grouped GEMM kernel over
+its experts' row groups) and one ``all_reduce`` over the ep group sums
+the ranks' outputs. The reference demotes a sharded expert stack to its
+XLA formulation; the port keeps its kernel on each rank's shard.
 """
 
 from __future__ import annotations
@@ -222,8 +231,10 @@ class MoELayer(nn.Module):
     drawn from ``generator`` (or torch's default one) on ``device``
     (default: the card). The load-balancing loss of the last forward is
     ``self.l_aux``: add ``moe.l_aux * coeff`` to the training loss, as the
-    reference's examples do. ``mesh=`` (expert parallelism) raises until
-    ROADMAP item 13."""
+    reference's examples do. ``mesh=`` (a
+    :class:`~paddle_tpu_torch.distributed.ProcessMesh` of the started
+    world) places the experts over ``ep_axis`` (module docstring); its
+    other axes split the batch."""
 
     #: bound on the per-token-count forward cache (LRU)
     FN_CACHE_SIZE = 8
@@ -235,11 +246,19 @@ class MoELayer(nn.Module):
         super().__init__()
         if dispatch_mode not in ("ragged", "dense"):
             raise ValueError("dispatch_mode must be 'ragged' or 'dense'")
+        plan = None
         if mesh is not None:
-            raise NotImplementedError(
-                "MoELayer(mesh=, ep_axis=) is not ported yet: expert "
-                "parallelism comes with ROADMAP queue A, item 13 "
-                "(distributed)")
+            from ..distributed import ProcessMesh
+            from ..distributed.plan import ParallelPlan
+            if not isinstance(mesh, ProcessMesh):
+                raise TypeError("mesh must be a ProcessMesh")
+            plan = ParallelPlan(mesh, ep=ep_axis)
+            if num_experts % plan.size(ep_axis):
+                raise ValueError(
+                    f"{num_experts} experts do not split over "
+                    f"{plan.size(ep_axis)} ranks of {ep_axis!r}")
+            if device is None:
+                device = plan.device_mesh.device_type
         from ..device import resolve_device
 
         self.dispatch_mode = dispatch_mode
@@ -257,8 +276,9 @@ class MoELayer(nn.Module):
             fresh.normalize = gate.normalize
             gate = fresh
         self.gate = gate
-        self.mesh = None
+        self.mesh = mesh
         self.ep_axis = ep_axis
+        self.plan = plan
         dev = resolve_device(device)
 
         def init(shape, scale):
@@ -272,6 +292,14 @@ class MoELayer(nn.Module):
         self.b1 = nn.Parameter(torch.zeros((e, d_hidden), device=dev))
         self.w2 = init((e, d_hidden, d_model), 1.0 / math.sqrt(d_hidden))
         self.b2 = nn.Parameter(torch.zeros((e, d_model), device=dev))
+        if plan is not None:
+            from ..distributed import Replicate, Shard, shard_tensor
+            place = [Replicate()] * mesh.ndim
+            self.gate_weight = shard_tensor(self.gate_weight, mesh, place)
+            place[mesh.dim_names.index(ep_axis)] = Shard(0)
+            for attr in ("w1", "b1", "w2", "b2"):
+                setattr(self, attr,
+                        shard_tensor(getattr(self, attr), mesh, place))
         self.l_aux = None
         #: the last forward's dropped token choices (a device scalar)
         self.dropped = None
@@ -283,6 +311,21 @@ class MoELayer(nn.Module):
         cap = self.capacity(n_tokens)
         e = self.num_experts
         normalize = self.gate.normalize
+        plan, ep = self.plan, self.ep_axis
+        # this rank's experts [e0, e0 + el) (all of them unplaced); the
+        # input's and the combine weights' gradients sum over ep, and the
+        # outputs' terms are summed over ep
+        el = e if plan is None else e // plan.size(ep)
+        e0 = 0 if plan is None else plan.rank(ep) * el
+
+        def local(*ts):
+            return ts if plan is None else tuple(plan.local(t) for t in ts)
+
+        def to_ep(t):
+            return t if plan is None else plan.copy_to(t, ep)
+
+        def from_ep(t):
+            return t if plan is None else plan.reduce_from(t, ep)
 
         def expert_ffn(dispatched, w1, b1, w2, b2):
             h = _gelu(torch.einsum("ecd,edh->ech", dispatched, w1)
@@ -291,38 +334,43 @@ class MoELayer(nn.Module):
 
         def fn_dense(x2d, wg, w1, b1, w2, b2):
             n = x2d.shape[0]
+            wg, w1, b1, w2, b2 = local(wg, w1, b1, w2, b2)
             logits = torch.matmul(x2d.float(), wg)
             dispatch, combine, aux = top_k_gating(logits, k, cap, normalize)
-            dispatch = dispatch.to(x2d.dtype)
-            combine = combine.to(x2d.dtype)
-            dispatched = torch.einsum("nec,nd->ecd", dispatch, x2d)
-            eo = expert_ffn(dispatched, w1, b1, w2, b2)
-            out = torch.einsum("nec,ecd->nd", combine, eo)
             dropped = torch.round(n * k - dispatch.float().sum()) \
                 .to(torch.int32)
+            dispatch = dispatch[:, e0:e0 + el].to(x2d.dtype)
+            combine = to_ep(combine)[:, e0:e0 + el].to(x2d.dtype)
+            dispatched = torch.einsum("nec,nd->ecd", dispatch, to_ep(x2d))
+            eo = expert_ffn(dispatched, w1, b1, w2, b2)
+            out = from_ep(torch.einsum("nec,ecd->nd", combine, eo))
             return out, aux, dropped
 
         def fn_ragged(x2d, wg, w1, b1, w2, b2):
             n = x2d.shape[0]
+            wg, w1, b1, w2, b2 = local(wg, w1, b1, w2, b2)
             logits = torch.matmul(x2d.float(), wg)
             slot_token, expert_of, pos_of, keep, weights, aux = \
                 top_k_routing(logits, k, cap, normalize)
             # one gather lays tokens out expert-contiguous (expert e owns
             # rows [e*cap, e*cap + gs[e])); the grouped GEMM gives zeros
             # past each expert's rows, so the gather needs no mask
-            gs = group_sizes(expert_of, keep, e)
-            gathered = x2d[slot_token.clamp_min(0)]           # [E*cap, D]
+            gs = group_sizes(expert_of, keep, e)[e0:e0 + el]
+            rows = slot_token[e0 * cap:(e0 + el) * cap]
+            gathered = to_ep(x2d)[rows.clamp_min(0)]          # [el*cap, D]
             y1 = grouped_gemm(gathered, w1, gs)
-            h = _gelu(y1.reshape(e, cap, -1) + b1[:, None, :]) \
-                .reshape(e * cap, -1)
-            eo = grouped_gemm(h, w2, gs).reshape(e, cap, -1) \
+            h = _gelu(y1.reshape(el, cap, -1) + b1[:, None, :]) \
+                .reshape(el * cap, -1)
+            eo = grouped_gemm(h, w2, gs).reshape(el, cap, -1) \
                 + b2[:, None, :]
             # the combine, one gather back: token n reads its k slots
-            flat_eo = eo.reshape(e * cap, -1)
-            idx = expert_of * cap + pos_of.clamp(0, cap - 1)   # [N, k]
+            flat_eo = eo.reshape(el * cap, -1)
+            mine = (expert_of >= e0) & (expert_of < e0 + el)
+            idx = (expert_of - e0).clamp(0, el - 1) * cap \
+                + pos_of.clamp(0, cap - 1)                     # [N, k]
             picked = flat_eo[idx]                              # [N, k, D]
-            w = (weights * keep).to(x2d.dtype)
-            out = torch.einsum("nk,nkd->nd", w, picked)
+            w = (to_ep(weights) * keep * mine).to(x2d.dtype)
+            out = from_ep(torch.einsum("nk,nkd->nd", w, picked))
             dropped = (n * k - keep.sum()).to(torch.int32)
             return out, aux, dropped
 

@@ -11,7 +11,9 @@ Llama MoE FFN, ``MoELayer``'s ``gate_weight [D, E]``, ``w1``, ``b1``,
 ``quantization.ConvertedLinear``, ``*_proj``/``*_proj_scale`` of a
 quantized MoE FFN), which are stored in the reference layout already.
 So one loader takes a whole model, a lone ``MoELayer`` and a stack of
-QAT or converted linears alike.
+QAT or converted linears alike. A model placed over a mesh
+(``shard_llama``, the tensor-parallel layers) takes the same global
+arrays: each rank copies its own shard.
 """
 
 from __future__ import annotations
@@ -31,11 +33,12 @@ def load_numpy_state(model, arrays):
     buffers stay int8) and device. Raises :class:`ValueError` on any
     missing, extra or misshapen key. A quantized reference state needs
     a port model quantized with the same block first."""
+    from ..distributed.mp_layers import ShardedLinear
     from ..quantization import QuantedLinear
 
     linear = {f"{name}.weight" if name else "weight"
               for name, mod in model.named_modules()
-              if isinstance(mod, (nn.Linear, QuantedLinear))}
+              if isinstance(mod, (nn.Linear, QuantedLinear, ShardedLinear))}
     targets = model.state_dict(keep_vars=True)
     missing = sorted(set(targets) - set(arrays))
     extra = sorted(set(arrays) - set(targets))
@@ -51,5 +54,13 @@ def load_numpy_state(model, arrays):
             raise ValueError(
                 f"{name}: got shape {tuple(np.asarray(arrays[name]).shape)}"
                 f", expected {want}")
-        t.copy_(torch.from_numpy(np.array(a)).to(t.dtype))
+        src = torch.from_numpy(np.array(a)).to(t.dtype)
+        if type(t).__name__ == "DTensor":
+            # a placed tensor takes this rank's shard of the global array
+            from torch.distributed.tensor import distribute_tensor
+            src = distribute_tensor(src.to(t.device), t.device_mesh,
+                                    t.placements, src_data_rank=None)
+            t.to_local().copy_(src.to_local())
+        else:
+            t.copy_(src)
     return model

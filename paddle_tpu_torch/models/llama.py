@@ -29,6 +29,12 @@ compiles its step once per shape, and replayed each step.
 (:class:`LlamaMoEMLP`, Mixtral-style): dropless top-k routing and three
 grouped GEMMs over the stacked expert weights, float or, after
 ``quantize_weights``, int8 with per-block scales.
+
+:func:`shard_llama` places the weights over a mesh (tensor, fsdp and
+expert parallelism) and the forward then runs on each rank's shards with
+the Megatron collectives written out (:mod:`paddle_tpu_torch.distributed
+.plan`): the flash kernels on the rank's own heads, the loss kernel on
+its vocab shard, the grouped GEMM on its experts.
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ from ..quant.layers import keep_f32
 __all__ = ["LlamaConfig", "LlamaMLP", "LlamaMoEMLP", "LlamaAttention",
            "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "RMSNorm", "llama3_8b_config",
-           "tiny_llama_config"]
+           "tiny_llama_config", "shard_llama"]
 
 
 @dataclasses.dataclass
@@ -105,13 +111,18 @@ def tiny_llama_config(**kw):
 class RMSNorm(nn.Module):
     """RMS normalisation, weight only, f32 accumulation."""
 
+    #: the :class:`~paddle_tpu_torch.distributed.plan.ParallelPlan` of a
+    #: placed weight (set by :func:`shard_llama`)
+    plan = None
+
     def __init__(self, hidden_size, epsilon=1e-6, **factory):
         super().__init__()
         self.epsilon = epsilon
         self.weight = nn.Parameter(torch.ones(hidden_size, **factory))
 
     def forward(self, x):
-        return FI.rms_norm(x, self.weight, self.epsilon)
+        w = self.weight if self.plan is None else self.plan.local(self.weight)
+        return FI.rms_norm(x, w, self.epsilon)
 
 
 def _check_cache_room(start, s, max_len):
@@ -219,9 +230,20 @@ class LlamaMoEMLP(nn.Module):
     forward's load-balancing loss (the model's loss never adds it).
 
     Each token count's forward is kept in a bounded LRU
-    (:meth:`build_fn`), watched under ``moe_mlp`` as in the reference."""
+    (:meth:`build_fn`), watched under ``moe_mlp`` as in the reference.
+
+    Placed by :func:`shard_llama` (``plan``), every rank routes every
+    token with the replicated router; with ``ep`` rank ``r`` holds experts
+    ``[r E/ep, (r + 1) E/ep)`` and runs the grouped GEMM kernel over those
+    experts' row groups only, with ``tp`` each expert's FFN width is
+    split, and one ``all_reduce`` sums the ranks' partial outputs
+    (:meth:`_forward2d`). The reference demotes a sharded expert
+    stack to its XLA formulation, as GSPMD cannot partition its kernel;
+    the port keeps the kernel on each rank's shard."""
 
     _WEIGHTS = ("gate_proj", "up_proj", "down_proj")
+    #: set by :func:`shard_llama`
+    plan = None
     #: bound on the per-token-count forward cache (LRU)
     FN_CACHE_SIZE = 8
 
@@ -284,12 +306,19 @@ class LlamaMoEMLP(nn.Module):
         return keep_f32(self, fn, recurse,
                         tuple(n + "_scale" for n in self._WEIGHTS))
 
+    def _local(self, t):
+        """``t``'s compute view on this rank (itself unplaced)."""
+        return t if self.plan is None else self.plan.local(t)
+
     def _products(self, x, gs):
-        """The three grouped GEMMs with SwiGLU between them."""
+        """The three grouped GEMMs with SwiGLU between them, over this
+        rank's experts."""
         if not self.weight_block:
-            g = grouped_gemm(x, self.gate_proj, gs)
-            u = grouped_gemm(x, self.up_proj, gs)
-            return grouped_gemm(FI.swiglu(g, u), self.down_proj, gs)
+            wg, wu, wd = (self._local(getattr(self, n))
+                          for n in self._WEIGHTS)
+            g = grouped_gemm(x, wg, gs)
+            u = grouped_gemm(x, wu, gs)
+            return grouped_gemm(FI.swiglu(g, u), wd, gs)
         bg = min(self.weight_block, self.d_model)   # gate/up: K = d_model
         bd = min(self.weight_block, self.d_ff)      # down: K = d_ff
         g = grouped_gemm_q8(x, self.gate_proj, self.gate_proj_scale, gs, bg)
@@ -302,22 +331,43 @@ class LlamaMoEMLP(nn.Module):
         :func:`top_k_routing` (capacity n) and the real rows of each
         expert ``[E]`` int32, all on x's device."""
         n = x2d.shape[0]
-        logits = router_logits(x2d, self.gate)
+        logits = router_logits(x2d, self._local(self.gate))
         routing = top_k_routing(logits, self.top_k, n, normalize=True)
         return routing + (group_sizes(routing[1], routing[3],
                                       self.num_experts),)
 
     def _forward2d(self, x2d, *_weights):
-        n, k = x2d.shape[0], self.top_k
+        """Route every token, run this rank's experts' rows (all experts
+        unplaced) through the three grouped GEMMs, and combine each
+        token's terms in one fixed order. Placed, the input's and the
+        routing weights' gradients and the output are summed over the tp
+        and ep groups (class docstring)."""
+        plan, n, k = self.plan, x2d.shape[0], self.top_k
+        e = self.num_experts
         slot_token, expert_of, pos_of, keep, weights, aux, gs = \
             self.route(x2d)
-        y = self._products(x2d[slot_token.clamp_min(0)], gs)   # [E*n, D]
+        el, e0, axes = e, 0, ()
+        if plan is not None:
+            el = e // plan.size(plan.ep)
+            e0 = plan.rank(plan.ep) * el
+            axes = tuple(a for a in (plan.tp, plan.ep) if a is not None)
+        for a in axes:
+            x2d = plan.copy_to(x2d, a)
+            weights = plan.copy_to(weights, a)
+        if el < e:      # this rank's experts' rows and terms only
+            gs = gs[e0:e0 + el]
+            slot_token = slot_token[e0 * n:(e0 + el) * n]
+            keep = keep & (expert_of >= e0) & (expert_of < e0 + el)
+            expert_of = (expert_of - e0).clamp(0, el - 1)
+        y = self._products(x2d[slot_token.clamp_min(0)], gs)   # [el*n, D]
         picked = y[expert_of * n + pos_of.clamp(0, n - 1)]     # [n, k, D]
         wk = (weights * keep).to(x2d.dtype).float()
         # the combine, one fixed order per token
         out = wk[:, 0, None] * picked[:, 0].float()
         for j in range(1, k):
             out = out + wk[:, j, None] * picked[:, j].float()
+        for a in axes:
+            out = plan.reduce_from(out, a)
         return out.to(x2d.dtype), aux
 
     def _state(self):
@@ -500,6 +550,10 @@ class LlamaForCausalLM(nn.Module):
     initializer_range)`` drawn from ``generator`` (a
     :class:`torch.Generator` on that device), RMSNorm weights to ones."""
 
+    #: the :class:`~paddle_tpu_torch.distributed.plan.ParallelPlan` of a
+    #: model placed by :func:`shard_llama`
+    plan = None
+
     def __init__(self, config: LlamaConfig, device=None,
                  dtype=torch.float32, generator=None):
         super().__init__()
@@ -528,7 +582,12 @@ class LlamaForCausalLM(nn.Module):
     def _logits(self, hidden):
         if self.lm_head is not None:
             return self.lm_head(hidden)
-        return torch.matmul(hidden, self.model.embed_tokens.weight.t())
+        w = self.model.embed_tokens.weight
+        if self.plan is not None:
+            plan = self.plan
+            y = F.linear(plan.copy_to(hidden, plan.tp), plan.local(w))
+            return plan.gather_from(y, plan.tp, -1)
+        return torch.matmul(hidden, w.t())
 
     def _fused_ce_enabled(self):
         """The fused linear cross-entropy is the default loss path;
@@ -541,6 +600,10 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, labels=None, position_ids=None):
         hidden = self.model(input_ids, position_ids)
         if labels is not None and self._fused_ce_enabled():
+            if self.plan is not None:
+                # this rank's rows; the vocab shards merged over tp
+                return self.plan.loss(hidden, self.lm_head.weight,
+                                      labels), None
             loss = fused_linear_cross_entropy(
                 hidden, self.lm_head.weight, labels, ignore_index=-100)
             return loss, None
@@ -712,7 +775,10 @@ class LlamaForCausalLM(nn.Module):
         per layer, in the embedding's dtype and on its device."""
         cfg = self.config
         w = self.model.embed_tokens.weight
-        shape = (batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        # the attention's own head count: a tp rank's share when placed
+        hk = self.model.layers[0].self_attn.num_kv_heads \
+            if cfg.num_hidden_layers else cfg.num_key_value_heads
+        shape = (batch, max_len, hk, cfg.head_dim)
         return [(torch.zeros(shape, dtype=w.dtype, device=w.device),
                  torch.zeros(shape, dtype=w.dtype, device=w.device))
                 for _ in range(cfg.num_hidden_layers)]
@@ -728,3 +794,122 @@ class LlamaForCausalLM(nn.Module):
             n -= cfg.vocab_size * cfg.hidden_size
         attn = 12 * cfg.num_hidden_layers * cfg.hidden_size * seq_len
         return 6 * n + attn
+
+
+def shard_llama(model: LlamaForCausalLM, mesh, tp_axis="mp", fsdp_axis=None,
+                ep_axis=None):
+    """Place a :class:`LlamaForCausalLM`'s weights over ``mesh`` (a
+    :class:`~paddle_tpu_torch.distributed.ProcessMesh` of the started
+    world) with the reference's placements, and make its forward run on
+    each rank's shards:
+
+    - attention q/k/v and the MLP's gate/up: column-parallel over
+      ``tp_axis`` (each rank holds ``h / tp`` query and ``hk / tp`` kv
+      heads, and the flash kernels run on those); o and down:
+      row-parallel (the output summed over tp);
+    - the embedding and the lm head: vocab-parallel; the loss kernel runs
+      on each rank's vocab shard and the shards merge exactly;
+    - ``fsdp_axis`` shards each matrix's other dimension (norms on it
+      alone), gathered before use, the gradient reduce-scattered: ZeRO-3;
+    - ``ep_axis`` (MoE models) shards the stacked ``[E, ...]`` expert
+      weights on the expert dim; the router stays replicated.
+
+    Every other mesh axis splits the batch (dp): each rank's loss is the
+    mean over its own rows and each gradient is averaged over those axes
+    once. A ``torch.nn.Linear`` weight is ``[out, in]`` where the
+    reference's is ``[in, out]``, so each linear weight's tp and fsdp
+    dims are the reference's swapped. The layers keep their parameter
+    names (``state_dict`` keys and global shapes are the unplaced
+    model's); build the optimizer after this call. A tp that does not
+    divide the kv heads is refused, as the reference's placement would
+    fail; so is any other dimension that a degree does not divide, and a
+    quantized model."""
+    from ..distributed import Replicate, Shard, shard_tensor
+    from ..distributed.mp_layers import ShardedEmbedding, ShardedLinear
+    from ..distributed.plan import ParallelPlan
+
+    cfg = model.config
+    if ep_axis and not cfg.moe_num_experts:
+        raise ValueError(
+            "ep_axis shards stacked expert weights, but this config has "
+            "moe_num_experts == 0 (dense FFN) — nothing to shard")
+    if model.plan is not None:
+        raise ValueError("this model is placed over a mesh already")
+    for axis in (tp_axis, fsdp_axis, ep_axis):
+        if axis is not None and axis not in mesh.dim_names:
+            raise ValueError(f"mesh {mesh} has no axis {axis!r}")
+    tp, fs, ep = (1 if a is None else mesh.get_dim_size(a)
+                  for a in (tp_axis, fsdp_axis, ep_axis))
+    ffn = (cfg.moe_intermediate_size or cfg.intermediate_size) \
+        if cfg.moe_num_experts else cfg.intermediate_size
+    need = [("num_key_value_heads", cfg.num_key_value_heads, tp),
+            ("num_attention_heads", cfg.num_attention_heads, tp),
+            ("vocab_size", cfg.vocab_size, tp),
+            ("the FFN width", ffn, tp),
+            ("hidden_size", cfg.hidden_size, fs)]
+    if cfg.moe_num_experts:
+        need.append(("moe_num_experts", cfg.moe_num_experts, ep))
+    for what, n, degree in need:
+        if n % degree:
+            raise ValueError(f"{what} = {n} does not split over {degree} "
+                             "ranks")
+    plan = ParallelPlan(mesh, tp=tp_axis, ep=ep_axis, fsdp=fsdp_axis)
+    names = mesh.dim_names
+    tp_dim = names.index(tp_axis) if tp_axis else None
+    fs_dim = names.index(fsdp_axis) if fsdp_axis else None
+    ep_dim = names.index(ep_axis) if ep_axis else None
+
+    def place(t, tp_tensor_dim, fsdp_tensor_dim, ep_tensor_dim=None):
+        p = [Replicate()] * mesh.ndim
+        if tp_dim is not None and tp_tensor_dim is not None:
+            p[tp_dim] = Shard(tp_tensor_dim)
+        if fs_dim is not None and fsdp_tensor_dim is not None:
+            p[fs_dim] = Shard(fsdp_tensor_dim)
+        if ep_dim is not None and ep_tensor_dim is not None:
+            p[ep_dim] = Shard(ep_tensor_dim)
+        return shard_tensor(t, mesh, p)
+
+    def linear(lin, style, gather_output=False):
+        # [out, in]: column splits out (dim 0) over tp, fsdp the other
+        dims = (0, 1) if style == "column" else (1, 0)
+        return ShardedLinear(place(lin.weight, *dims), plan, style,
+                             gather_output=gather_output)
+
+    def norm(mod):
+        mod.weight = place(mod.weight, None, 0)
+        mod.plan = plan
+
+    m = model.model
+    m.embed_tokens = ShardedEmbedding(place(m.embed_tokens.weight, 0, 1),
+                                      plan)
+    if model.lm_head is not None:
+        model.lm_head = linear(model.lm_head, "column", gather_output=True)
+    for layer in m.layers:
+        a, mlp = layer.self_attn, layer.mlp
+        a.q_proj = linear(a.q_proj, "column")
+        a.k_proj = linear(a.k_proj, "column")
+        a.v_proj = linear(a.v_proj, "column")
+        a.o_proj = linear(a.o_proj, "row")
+        a.num_heads = cfg.num_attention_heads // tp
+        a.num_kv_heads = cfg.num_key_value_heads // tp
+        if isinstance(mlp, LlamaMoEMLP):
+            if mlp.weight_block:
+                raise ValueError("shard_llama places float weights; "
+                                 "quantize after training")
+            # stacked [E, in, out] (the reference's layout): tp splits the
+            # FFN width, fsdp the model width, ep the experts
+            mlp.gate = place(mlp.gate, None, 0)
+            mlp.gate_proj = place(mlp.gate_proj, 2, 1, 0)
+            mlp.up_proj = place(mlp.up_proj, 2, 1, 0)
+            mlp.down_proj = place(mlp.down_proj, 1, 2, 0)
+            mlp.plan = plan
+            mlp._fns.clear()
+        else:
+            mlp.gate_proj = linear(mlp.gate_proj, "column")
+            mlp.up_proj = linear(mlp.up_proj, "column")
+            mlp.down_proj = linear(mlp.down_proj, "row")
+        norm(layer.input_layernorm)
+        norm(layer.post_attention_layernorm)
+    norm(m.norm)
+    model.plan = plan
+    return model

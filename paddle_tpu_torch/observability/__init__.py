@@ -14,8 +14,8 @@ EWMA perf sentinel, the on-demand ``torch.profiler`` capture behind
 ``/debug/profile``). ``PADDLE_TPU_METRICS=0`` turns the whole layer into
 no-ops. README's port section lists the metric names.
 
-Deferred, each raising with its ROADMAP item: ``watch`` / ``watched_jit``
-(A11, A13).
+``watch`` / ``watched_jit`` serve the MoE forwards (A11); the pipeline
+schedule's compiled steps come with A13 part 2.
 """
 
 from . import (  # noqa: F401

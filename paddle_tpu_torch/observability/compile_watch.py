@@ -56,7 +56,7 @@ first call of each signature (the shapes and dtypes of its tensor
 arguments, static arguments by value), timed on the host clock; later
 calls of that signature go straight through. Its callers are the MoE
 layers' per-token-count forwards (``moe_layer``, ``moe_mlp``); the
-pipeline schedule's compiled steps come with ROADMAP item 13. A call
+pipeline schedule's compiled steps come with ROADMAP item 13 (part 2). A call
 while a CUDA graph is being captured or inside a compiled step is not
 counted: the capture, the reference's outer program, is counted as
 itself.

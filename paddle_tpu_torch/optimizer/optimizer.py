@@ -22,7 +22,8 @@ replay, so a schedule never needs a new capture. A masked
 ``GradScaler`` step sets ``_lr_mask``, a 0-d bool device flag, and the
 update then reads ``where(flag, 0, lr)``. ``multi_precision`` may be
 switched on after construction (``amp.decorate`` does), until the first
-step makes the state. Every other constant
+step makes the state. The state of a parameter placed over a mesh (a
+``DTensor``) takes the parameter's layout. Every other constant
 of an update is a device scalar made once outside any capture, and no
 update reads a value on the host. Optimizer state made under a capture
 would be refilled at every replay, so making it there raises: a compiled
@@ -40,6 +41,19 @@ from . import lr as lr_mod
 __all__ = ["Optimizer"]
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
+def _full(param, shape, fill_value, dtype):
+    """A state tensor of ``shape`` for ``param``: one of the parameter's
+    shape and a placed (``DTensor``) parameter's layout, so the update
+    runs shard by shard; any other shape a plain tensor on its device."""
+    if type(param).__name__ == "DTensor" and \
+            tuple(shape) == tuple(param.shape):
+        from torch.distributed.tensor import full
+        return full(shape, fill_value, dtype=dtype,
+                    device_mesh=param.device_mesh,
+                    placements=param.placements)
+    return torch.full(shape, fill_value, dtype=dtype, device=param.device)
 
 
 def _capturing(device):
@@ -180,8 +194,8 @@ class Optimizer:
             if self._multi_precision and param.dtype in _LOW_PRECISION \
                     and dtype is None:
                 dt = torch.float32
-            per[id(param)] = self._new_state(param, lambda: torch.full(
-                shape, fill_value, dtype=dt, device=param.device))
+            per[id(param)] = self._new_state(
+                param, lambda: _full(param, shape, fill_value, dt))
         return per[id(param)]
 
     def _get_accumulator(self, name, param):

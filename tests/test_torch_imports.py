@@ -73,7 +73,17 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.amp.debugging", "paddle_tpu_torch.quantization",
            "paddle_tpu_torch.quant.bridge",
            "paddle_tpu_torch.quant.checkpoint",
-           "paddle_tpu_torch.quant.quality", "paddle_tpu_torch.incubate"]
+           "paddle_tpu_torch.quant.quality", "paddle_tpu_torch.incubate",
+           "paddle_tpu_torch.distributed.env",
+           "paddle_tpu_torch.distributed.collective",
+           "paddle_tpu_torch.distributed.p2p",
+           "paddle_tpu_torch.distributed.process_mesh",
+           "paddle_tpu_torch.distributed.placement",
+           "paddle_tpu_torch.distributed.api",
+           "paddle_tpu_torch.distributed.plan",
+           "paddle_tpu_torch.distributed.parallel",
+           "paddle_tpu_torch.distributed.mp_layers",
+           "paddle_tpu_torch.distributed.fleet"]
 
 
 def test_import_leaves_jax_unloaded():
@@ -116,8 +126,11 @@ def test_scan_covers_native_sources():
 
 
 #: reference names the port keeps under another name: the plain versions
-#: of the kernels are ``*_ref`` in the port (no XLA formulation there)
+#: of the kernels are ``*_ref`` in the port (no XLA formulation there), and
+#: a mesh's ``to_jax_mesh`` is ``ProcessMesh.to_device_mesh`` (a torch
+#: ``DeviceMesh``)
 RENAMED = {
+    "to_jax_mesh": "to_device_mesh",
     "dequant_matmul_xla": "dequant_matmul_ref",
     "grouped_gemm_xla": "grouped_gemm_ref",
     "grouped_gemm_q8_xla": "grouped_gemm_q8_ref",
@@ -127,7 +140,6 @@ RENAMED = {
     "fused_linear_cross_entropy_xla": "fused_linear_cross_entropy_ref",
 }
 
-_A13 = "ROADMAP A13 (distributed)"
 #: reference names that unported items bring, by module, each with its item
 PENDING = {
     "paddle_tpu_torch.device": ("ROADMAP A14b (device/__init__.py)", {
@@ -138,17 +150,6 @@ PENDING = {
         "is_compiled_with_xpu", "max_memory_allocated", "memory_allocated",
         "memory_reserved", "memory_stats", "reset_max_memory_allocated",
         "set_device", "synchronize"}),
-    "paddle_tpu_torch.distributed": (_A13, {
-        "ColumnParallelLinear", "Group", "ParallelCrossEntropy",
-        "ParallelEnv", "Partial", "Placement", "ProcessMesh", "ReduceOp",
-        "Replicate", "RowParallelLinear", "Shard", "VocabParallelEmbedding",
-        "all_gather", "all_gather_object", "all_reduce", "alltoall",
-        "barrier", "broadcast", "dtensor_from_fn", "get_group", "get_mesh",
-        "get_rank", "get_world_size", "init_mesh", "init_parallel_env",
-        "irecv", "is_initialized", "isend", "new_group", "p2p", "recv",
-        "reduce", "reduce_scatter", "reshard", "scatter", "send",
-        "set_mesh", "shard_layer", "shard_optimizer", "shard_tensor",
-        "to_partition_spec", "unshard_dtensor", "wait"}),
     "paddle_tpu_torch.incubate.nn": ("ROADMAP A14f (incubate/nn/layer.py)", {
         "FusedBiasDropoutResidualLayerNorm", "FusedDropoutAdd",
         "FusedFeedForward", "FusedLinear", "FusedMultiHeadAttention",
@@ -162,14 +163,13 @@ PENDING = {
     "paddle_tpu_torch.jit": ("ROADMAP A14a (the deploy path)", {
         "TranslatedLayer"}),
     "paddle_tpu_torch.models": (
-        "ROADMAP A13 (shard_llama, the pipeline model) and A14e (BERT / "
+        "ROADMAP A13 part 2 (the pipeline model) and A14e (BERT / "
         "ERNIE)", {
             "BertConfig", "BertForSequenceClassification",
             "BertForTokenClassification", "BertModel",
             "ErnieForSequenceClassification", "ErnieModel",
-            "ernie_base_config", "tiny_bert_config", "shard_llama",
+            "ernie_base_config", "tiny_bert_config",
             "LlamaForCausalLMPipe"}),
-    "paddle_tpu_torch.models.llama": (_A13, {"shard_llama"}),
     "paddle_tpu_torch.nn.functional.attention": (
         "ROADMAP A14d (sdp_kernel switches the reference's kernels by a "
         "flag; no flag switches a port kernel off)", {"sdp_kernel"}),

@@ -138,7 +138,10 @@ def test_ragged_equals_dense_in_the_port():
 
 
 def test_mesh_raises_naming_item_13():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """Expert parallelism (item 13) is ported: ``mesh=`` takes a
+    ``ProcessMesh`` (``tests/test_torch_distributed.py`` runs it) and
+    refuses anything else."""
+    with pytest.raises(TypeError, match="ProcessMesh"):
         tmoe.MoELayer(D, H, E, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="dispatch_mode"):
         tmoe.MoELayer(D, H, E, dispatch_mode="sparse", device="cpu")

@@ -336,8 +336,12 @@ def test_recipe_main_on_cpu(tmp_path):
                                str(tmp_path)])
     assert sorted(os.listdir(tmp_path)) == ["metadata_p0.json",
                                             "shards_p0.npz"]
-    for flag in (["--mesh", "2x4"], ["--ep"], ["--moe", "4", "--ep"]):
-        with pytest.raises(NotImplementedError, match="item 13"):
+    # --mesh and --ep are ported: a 2x4 mesh needs 8 ranks (a single
+    # process is a world of one), --ep needs --moe and a mesh
+    with pytest.raises(ValueError, match="needs 8 ranks"):
+        llama_pretrain.main(["--device", "cpu", "--mesh", "2x4"])
+    for flag in (["--ep"], ["--moe", "4", "--ep"]):
+        with pytest.raises(SystemExit):
             llama_pretrain.main(["--device", "cpu", *flag])
 
 
